@@ -2,21 +2,29 @@
 """Smoke run of the PyTorch port on one NVIDIA H100: ``python3 chip_smoke.py``.
 
 Phases (each prints its own lines; any failure exits non-zero):
-  1. the card's name and power limit; build every CUDA kernel from csrc/.
+  1. the card's name and power limit; build every CUDA kernel from csrc/
+     (qmm_q4_0.cu, qmm_int8.cu, flash_prefill.cu, one nvcc each, in parallel).
   2. kernel checks at LLaMA-7B shapes: each kernel against its plain PyTorch
      version on the same inputs, with times (kernel, plain, one PyTorch
-     library call) and the least time the card could take (bound).
-  3. end to end: synthetic LLaMA-7B q4_0 (32 layers, full width) built on the
-     card; a Context prefill of 512 tokens and 64 greedy decode steps through
-     generate, with the kernels' launch counts; a 2-layer model at the same
-     width held against the plain versions on the CPU; the bench.py
-     instruments (prefill-512 ms, median decode ms/token at kv_window 256).
-  4. the `main` CLI answers three prompts from a GGJT q4_0 file at 7B width
-     (2 layers, 32000-entry vocab) written by the port's own GGJTWriter.
+     library call) and the least time the card could take (bound): K1, K2
+     and K3 on q4_0 weights, K5 on q4_K, K6 on q6_K and K6b on q5_K weights.
+  3. end to end, one path after another, the launch counts set to 0 just
+     before each and read just after: synthetic LLaMA-7B q4_0 and LLaMA-7B
+     Q4_K_M (32 layers, full width) built on the card, each a Context prefill
+     of 512 tokens and 64 greedy decode steps through generate, then the
+     bench.py instruments (prefill-512 ms, median decode ms/token at
+     kv_window 256) and a profiled decode step; LLaMA-7B Q5_K_M (the path
+     of K6b), a 128-token prefill and 16 decode steps.  2-layer models at
+     the same width (q4_0, Q4_K_M) held against the plain versions on the
+     CPU.
+  4. the `main` CLI answers prompts from GGJT files at 7B width (2 layers,
+     32000-entry vocab) written by the port's own GGJTWriter: q4_0, and
+     Q4_K_M from random k-quant blocks.
   5. a JSON line of per-kernel numbers, then the contract line
      {"ok": true, "device": {...}}.
-Run without CUDA, or without the port beside it, it exits non-zero and prints
-no result.
+``--phases kernels,e2e,cli`` runs a subset (for debugging: a subset prints
+no result lines; with no arguments every phase runs).  Run without CUDA, or
+without the port beside it, it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -37,6 +45,23 @@ PEAK_F32 = 67e12  # f32 outside the tensor cores
 # gate/up, FFN down, output head
 SHAPES = [("wqkv", 12288, 4096), ("wo", 4096, 4096), ("w_gateup", 22016, 4096),
           ("w_down", 4096, 11008), ("output", 32000, 4096)]
+# each matmul kernel (by its launch-count name): its wrapper in ops/qmm.py,
+# the format of its weights and its 7B shapes.  K1 and K2 run all five q4_0
+# shapes; in Q4_K_M, K5 (q4_K) runs wqkv, wo, gate/up and w2 of the q4_K
+# layers and wq, wk, wo, gate/up of the others (the 4096x4096 row stands for
+# wq, wk and wo), K6 (q6_K) runs wv and w2 of half the layers and the head;
+# K6b (q5_K) is checked on one shape
+KERNEL_SHAPES = {
+    "qmm_q4_0": ("qmm_packed", "Q4_0", SHAPES),
+    "qmm_q4_0_kfold": ("qmm_packed_kfold", "Q4_0", SHAPES),
+    "qmm_packed_bias": ("qmm_packed_bias", "Q4_K", SHAPES[:4]),
+    "qmm_int8": ("qmm_int8", "Q6_K", [("wv", 4096, 4096), ("w_down", 4096, 11008),
+                                      ("output", 32000, 4096)]),
+    "qmm_int8_bias": ("qmm_int8_bias", "Q5_K", [("wo", 4096, 4096)]),
+}
+# (packed, group size, bias planes) of each format's device layout
+FORMATS = {"Q4_0": (True, 32, False), "Q4_K": (True, 32, True),
+           "Q6_K": (False, 16, False), "Q5_K": (False, 32, True)}
 
 
 def fail(msg: str) -> int:
@@ -83,17 +108,22 @@ class Timer:
         return total / reps
 
 
-def qmm_bytes(b, n, k):
-    """Bytes x [b, k] @ q4_0 W [k, n] must move: x read once, the K/2 packed
-    rows and 2 x K/64 f32 scale rows the kernels read (not the padding up to
-    K2P), the f32 output written once."""
-    return 4 * b * k + (k // 2) * n + 2 * (k // 64) * n * 4 + 4 * b * n
+def qmm_bytes(b, n, k, fmt="Q4_0"):
+    """Bytes x [b, k] @ W [k, n] in format fmt must move: x read once; the
+    weight's levels (K/2 packed rows or K int8 rows, not the padding up to
+    K2P), its K/g f32 scale rows and, for an affine format, as many f32 bias
+    rows; the f32 output written once."""
+    packed, g, bias = FORMATS[fmt]
+    levels = (k // 2) * n if packed else k * n
+    planes = (k // g) * n * 4 * (2 if bias else 1)
+    return 4 * b * k + levels + planes + 4 * b * n
 
 
-def qmm_bound(b, n, k):
+def qmm_bound(b, n, k, fmt="Q4_0"):
     """(least ms, what bounds it) for x [b, k] @ W: qmm_bytes at the memory
     rate against 2*b*n*k operations at the bf16 peak."""
-    t_bytes, t_ops = qmm_bytes(b, n, k) / HBM_BYTES_PER_S, 2 * b * n * k / PEAK_BF16
+    t_bytes = qmm_bytes(b, n, k, fmt) / HBM_BYTES_PER_S
+    t_ops = 2 * b * n * k / PEAK_BF16
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -107,58 +137,70 @@ def flash_bound(b, t, h, g, d):
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def path_bounds(n_layer=32, t=512):
-    """Least device time of the 7B main path's kernels, from SHAPES: one
-    decode token (K2 over every layer matmul and the head at b=1) and one
-    t-token prefill (K1 over every layer matmul at b=t, K2 for the head at
-    b=1, K3 in every layer)."""
-    layer = SHAPES[:4]
-    dec_bytes = n_layer * sum(qmm_bytes(1, n, k) for _, n, k in layer) \
-        + qmm_bytes(1, *SHAPES[4][1:])
-    dec_ms = n_layer * sum(qmm_bound(1, n, k)[0] for _, n, k in layer) \
-        + qmm_bound(1, *SHAPES[4][1:])[0]
-    pre_ms = n_layer * sum(qmm_bound(t, n, k)[0] for _, n, k in layer) \
-        + qmm_bound(1, *SHAPES[4][1:])[0] + n_layer * flash_bound(1, t, 32, 32, 128)[0]
-    wt_bytes = dec_bytes - n_layer * sum(4 * (k + n) for _, n, k in layer) \
-        - 4 * sum(SHAPES[4][1:])
-    print(f"bound: decode token {dec_bytes} bytes through K2 ({wt_bytes} of "
-          f"them packed weights and scales), {dec_ms:.4f} ms; "
-          f"prefill-{t} {pre_ms:.4f} ms (K1 + K2 head + K3)", flush=True)
+def model_bounds(label, params, n_layer, t=512):
+    """The decode and prefill-t bounds of a model's matmuls, from its own
+    weights: every layer matmul and the head at b=1 per decode token; the
+    layer matmuls at b=t, the head at b=1 and K3 in every layer for one
+    prefill.  Returns the decode bound in ms."""
+    from llama_cpp_q_4_0_tpu_torch.ops.qtensor import QTensor
+
+    def mm(w):
+        return (w.qtype.name, w.n_out, w.n_in)
+
+    layer = [mm(getattr(blk, f)) for blk in params.blocks
+             for f in ("wqkv", "wq", "wk", "wv", "wo", "w_gateup", "w_gate",
+                       "w_up", "w_down") if isinstance(getattr(blk, f), QTensor)]
+    head = mm(params.output)
+    dec_bytes = sum(qmm_bytes(1, n, k, f) for f, n, k in layer + [head])
+    dec_ms = sum(qmm_bound(1, n, k, f)[0] for f, n, k in layer + [head])
+    pre_ms = (sum(qmm_bound(t, n, k, f)[0] for f, n, k in layer)
+              + qmm_bound(1, *head[1:], head[0])[0]
+              + n_layer * flash_bound(1, t, 32, 32, 128)[0])
+    print(f"bound: {label} decode token {dec_bytes} bytes through "
+          f"{len(layer) + 1} matmuls, {dec_ms:.4f} ms; prefill-{t} "
+          f"{pre_ms:.4f} ms", flush=True)
+    return dec_ms
 
 
-def check_qmm(torch, timer, b: int, kfold: bool, rec: dict):
+def check_qmm(torch, timer, name: str, b: int, rec: dict | None):
+    """A matmul kernel at its 7B shapes (KERNEL_SHAPES) against its plain
+    version, on synthetic weights of its format, at b rows; the error, times
+    and bounds summed over the shapes go into rec."""
     from llama_cpp_q_4_0_tpu_torch.ops import qmm
+    from llama_cpp_q_4_0_tpu_torch.quant.types import GGMLType
     from llama_cpp_q_4_0_tpu_torch.synth import synth_qtensor
 
-    kern = qmm.qmm_packed_kfold if kfold else qmm.qmm_packed
-    plain = qmm.qmm_packed_kfold_plain if kfold else qmm.qmm_packed_plain
-    name = "qmm_q4_0_kfold" if kfold else "qmm_q4_0"
+    wrapper, fmt, shapes = KERNEL_SHAPES[name]
     gen = torch.Generator(device="cuda")
-    gen.manual_seed(b)
+    gen.manual_seed(100 + b)
     ok = True
-    for label, n, k in SHAPES:
-        w = synth_qtensor(gen, n, k, "cuda")
+
+    def call(fn, x, w):
+        planes = [w.gscale_t] + ([w.gbias_t] if w.gbias_t is not None else [])
+        kw = {"gsize": w.gsize}
+        if w.packed:
+            kw["zero"] = w.pack_zero
+        return fn(x, w.levels_t, *planes, **kw)
+
+    kern, plain = getattr(qmm, wrapper), getattr(qmm, wrapper + "_plain")
+    for label, n, k in shapes:
+        w = synth_qtensor(gen, n, k, "cuda", GGMLType[fmt])
         x = torch.randn((b, k), generator=gen, device="cuda")
-        got = kern(x, w.levels_t, w.gscale_t)
-        ref = plain(x, w.levels_t, w.gscale_t)
+        got, ref = call(kern, x, w), call(plain, x, w)
         torch.cuda.synchronize()
         err = (got - ref).abs().max().item()
-        scale = ref.abs().max().item()
-        # f32 accumulation-order noise over up to 11008 bf16 products (the
-        # tensor cores and the CPU-style matmul sum in different orders)
-        tol = 1e-3 * scale
+        tol = 1e-3 * ref.abs().max().item()  # as K1/K2: f32 summation order
         good = bool(torch.isfinite(got).all()) and err <= tol
         ok &= good
         deq = w.dequantize_t(torch.bfloat16)
         xb = x.to(torch.bfloat16)
-        k_ms = timer.ms(lambda: kern(x, w.levels_t, w.gscale_t))
-        p_ms = timer.ms(lambda: plain(x, w.levels_t, w.gscale_t), reps=3)
+        k_ms = timer.ms(lambda: call(kern, x, w))
+        p_ms = timer.ms(lambda: call(plain, x, w), reps=3)
         l_ms = timer.ms(lambda: torch.matmul(xb, deq))
-        bnd, by = qmm_bound(b, n, k)
-        print(f"kernel {name} {label} b={b} N={n} K={k}: max_abs_err={err:.3e} "
+        bnd, by = qmm_bound(b, n, k, fmt)
+        print(f"kernel {name} {fmt} {label} b={b} N={n} K={k}: max_abs_err={err:.3e} "
               f"(tol {tol:.3e}) kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
-              f"library_ms={l_ms:.4f} bound_ms={bnd:.4f} "
-              f"bound_by={by} "
+              f"library_ms={l_ms:.4f} bound_ms={bnd:.4f} bound_by={by} "
               f"{'ok' if good else 'MISMATCH'}", flush=True)
         if rec is not None:
             rec["max_abs_err"] = max(rec.get("max_abs_err", 0.0), err)
@@ -219,8 +261,27 @@ def check_flash(torch, timer, rec: dict):
     return good
 
 
-def end_to_end(torch, counters):
-    """Full-depth 7B: Context prefill 512 + 64 greedy decode steps."""
+def _zero(counters):
+    for c in counters:
+        for key in c:
+            c[key] = 0
+
+
+def _read(counters):
+    return {k: v for c in counters for k, v in c.items()}
+
+
+# the kernels each synthetic path must launch
+PATH_KERNELS = {"q4_0": ("qmm_q4_0", "qmm_q4_0_kfold", "flash_prefill"),
+                "q4_K_M": ("qmm_packed_bias", "qmm_int8", "flash_prefill"),
+                "q5_K_M": ("qmm_int8_bias", "qmm_int8", "flash_prefill")}
+
+
+def end_to_end(torch, counters, ftype="q4_0", n_prompt=512, n_decode=64):
+    """Full-depth 7B in file type ftype: a Context prefill of n_prompt tokens
+    and n_decode greedy decode steps through generate, the launch counts set
+    to 0 just before and read just after; then one more decode step counted
+    alone (the launches per token)."""
     import numpy as np
 
     from llama_cpp_q_4_0_tpu_torch.runtime.context import Context, Timings
@@ -230,40 +291,45 @@ def end_to_end(torch, counters):
     from llama_cpp_q_4_0_tpu_torch.synth import build_llama
 
     t0 = time.perf_counter()
-    cfg, params = build_llama(device="cuda", seed=0)
+    cfg, params = build_llama(device="cuda", seed=0, ftype=ftype)
     torch.cuda.synchronize()
-    print(f"e2e: synthetic LLaMA-7B q4_0 built on the card in "
+    print(f"e2e: synthetic LLaMA-7B {ftype} built on the card in "
           f"{time.perf_counter() - t0:.1f} s (n_layer={cfg.n_layer} "
-          f"n_embd={cfg.n_embd} n_ff={cfg.n_ff} n_vocab={cfg.n_vocab})",
+          f"n_embd={cfg.n_embd} n_ff={cfg.n_ff} n_vocab={cfg.n_vocab}; "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card)",
           flush=True)
     rng = np.random.default_rng(0)
-    prompt = [1] + rng.integers(3, cfg.n_vocab, 511).tolist()
+    prompt = [1] + rng.integers(3, cfg.n_vocab, n_prompt - 1).tolist()
     ctx = Context(cfg, params, n_ctx=2048, device="cuda")
     ctx.eval(prompt)  # warm-up (allocator, library handles)
     ctx.reset()
     ctx.timings = Timings()
 
-    for c in counters:
-        for key in c:
-            c[key] = 0
-    gp = GenerateParams(n_predict=64, ignore_eos=True,
+    _zero(counters)
+    gp = GenerateParams(n_predict=n_decode, ignore_eos=True,
                         sampling=SamplingParams(temp=0.0))
     toks = list(generate(ctx, prompt, gp))
     torch.cuda.synchronize()
-    launches = {k: v for c in counters for k, v in c.items()}
+    launches = _read(counters)
     tm = ctx.timings
     finite = bool(np.isfinite(ctx.logits).all())
-    print(f"e2e: Context prefill {tm.n_prompt} tokens {tm.t_prompt_ms:.2f} ms; "
-          f"{tm.n_eval} decode evals {tm.t_eval_ms / max(1, tm.n_eval):.3f} "
-          f"ms/token (host clock, kv_window 1024); {len(toks)} tokens; "
-          f"logits finite={finite}", flush=True)
-    print(f"e2e: launches on the main path {json.dumps(launches)}", flush=True)
-    ok = finite and len(toks) == 64 and all(v > 0 for v in launches.values())
+    _zero(counters)
+    ctx.eval([[toks[-1]]])
+    torch.cuda.synchronize()
+    per_token = {k: v for k, v in _read(counters).items() if v}
+    print(f"e2e: {ftype} Context prefill {tm.n_prompt} tokens "
+          f"{tm.t_prompt_ms:.2f} ms; {tm.n_eval} decode evals "
+          f"{tm.t_eval_ms / max(1, tm.n_eval):.3f} ms/token (host clock); "
+          f"{len(toks)} tokens; logits finite={finite}", flush=True)
+    print(f"e2e: {ftype} launches on the main path {json.dumps(launches)}; "
+          f"per decode token {json.dumps(per_token)}", flush=True)
+    ok = finite and len(toks) == n_decode and all(
+        launches[k] > 0 for k in PATH_KERNELS[ftype])
     del ctx
-    return ok, launches, cfg, params
+    return ok, launches, per_token, cfg, params
 
 
-def bench_instruments(torch, cfg, params):
+def bench_instruments(torch, cfg, params, label="q4_0"):
     """bench.py's instruments: prefill-512 (groups of 4, median of 5) and
     decode ms/token at kv_window 256 (median of 5 passes of 64 tokens)."""
     from llama_cpp_q_4_0_tpu_torch.models import transformer
@@ -294,9 +360,9 @@ def bench_instruments(torch, cfg, params):
                                          last_only=True, kv_window=256)
         logits.cpu()
         dec.append((time.perf_counter() - t0) / 64 * 1e3)
-    print(f"bench: prefill_512_ms median={statistics.median(pre):.3f} "
+    print(f"bench: {label} prefill_512_ms median={statistics.median(pre):.3f} "
           f"min={min(pre):.3f} runs={[round(v, 3) for v in pre]}", flush=True)
-    print(f"bench: decode_ms_per_token (kv_window 256) "
+    print(f"bench: {label} decode_ms_per_token (kv_window 256) "
           f"median={statistics.median(dec):.3f} min={min(dec):.3f} "
           f"runs={[round(v, 3) for v in dec]}", flush=True)
     trace_decode(torch, cfg, params, ck, cv, statistics.median(dec))
@@ -339,16 +405,17 @@ def trace_decode(torch, cfg, params, ck, cv, step_ms: float):
         print(f"trace:   {ms:8.4f} ms/step  x{n:<4d} {key[:90]}", flush=True)
 
 
-def two_layer_vs_cpu(torch) -> bool:
-    """7B width, 2 layers: prefill 128 (prefill kernel, flash, kfold head) and
-    one decode step (kfold) on the card against the plain versions on the
-    CPU from the same weights."""
+def two_layer_vs_cpu(torch, ftype="q4_0") -> bool:
+    """7B width, 2 layers: prefill 128 (prefill kernels, flash, decode-form
+    head) and one decode step on the card against the plain versions on the
+    CPU from the same weights.  In Q4_K_M layer 1 takes q6_K for wv and w2
+    (use_more_bits(1, 2)), so K5 and K6 both run."""
     import numpy as np
 
     from llama_cpp_q_4_0_tpu_torch.runtime.context import Context
     from llama_cpp_q_4_0_tpu_torch.synth import build_llama
 
-    cfg, params = build_llama(n_layer=2, device="cuda", seed=1)
+    cfg, params = build_llama(n_layer=2, device="cuda", seed=1, ftype=ftype)
     cpu = _params_to(params, "cpu")
     prompt = [1] + np.random.default_rng(1).integers(3, 32000, 127).tolist()
     ok = True
@@ -365,7 +432,7 @@ def two_layer_vs_cpu(torch) -> bool:
         tol = 2e-2 * float(np.abs(r).max())
         good = err <= tol and np.isfinite(g).all()
         ok &= bool(good)
-        print(f"e2e: 2-layer 7B-width {label} card vs CPU plain: max_abs_err="
+        print(f"e2e: 2-layer 7B-width {ftype} {label} card vs CPU plain: max_abs_err="
               f"{err:.3e} (tol {tol:.3e}) {'ok' if good else 'MISMATCH'}",
               flush=True)
     return ok
@@ -389,23 +456,44 @@ def _params_to(params, device):
         out_norm_w=mv(params.out_norm_w), output=mv(params.output))
 
 
-def write_ggjt_7b_width(path: str):
-    """GGJT q4_0 file at 7B width, 2 layers: random block bytes with small
-    fp16 scales, f32 norms of one, a 32000-entry vocab."""
+def write_ggjt_7b_width(path: str, ftype: str = "q4_0", n_vocab=32000, e=4096,
+                        n_ff=11008, n_head=32):
+    """GGJT file at 7B width, 2 layers: random block bytes with small finite
+    fp16 scales, f32 norms of one, a 32000-entry vocab.  q4_0: every 2-D
+    weight q4_0.  Q4_K_M: q4_K blocks, q6_K for the output head and for wv
+    and w2 of layer 1 (use_more_bits(1, 2))."""
     import numpy as np
 
     from llama_cpp_q_4_0_tpu_torch.formats.ggjt import GGJTWriter
-    from llama_cpp_q_4_0_tpu_torch.quant.types import (BLOCK_Q4_0, GGMLType,
+    from llama_cpp_q_4_0_tpu_torch.quant.types import (BLOCK_Q4_0, BLOCK_Q4_K,
+                                                       BLOCK_Q6_K, GGMLType,
                                                        LlamaFType)
 
-    n_vocab, e, n_ff, n_layer = 32000, 4096, 11008, 2
+    n_layer = 2
     rng = np.random.default_rng(3)
+    kq = ftype == "Q4_K_M"
+
+    def q4_k(n, k):
+        blk = np.empty(n * k // 256, BLOCK_Q4_K)
+        blk["d"] = rng.uniform(0.5e-4, 1.5e-4, blk.shape).astype(np.float16)
+        blk["dmin"] = rng.uniform(0.5e-4, 1.5e-4, blk.shape).astype(np.float16)
+        blk["scales"] = rng.integers(0, 256, (blk.shape[0], 12), dtype=np.uint8)
+        blk["qs"] = rng.integers(0, 256, (blk.shape[0], 128), dtype=np.uint8)
+        return blk
+
+    def q6_k(n, k):
+        blk = np.empty(n * k // 256, BLOCK_Q6_K)
+        blk["d"] = rng.uniform(2.5e-5, 7.5e-5, blk.shape).astype(np.float16)
+        blk["scales"] = rng.integers(1, 64, (blk.shape[0], 16), dtype=np.int8)
+        blk["ql"] = rng.integers(0, 256, (blk.shape[0], 128), dtype=np.uint8)
+        blk["qh"] = rng.integers(0, 256, (blk.shape[0], 64), dtype=np.uint8)
+        return blk
     vocab = [(b"<unk>", 0.0), (b"<s>", 0.0), (b"</s>", 0.0)]
     vocab += [(bytes([i]) if 32 <= i < 127 else f"<0x{i:02X}>".encode(), 0.0)
               for i in range(256)]
     vocab += [(f" tok{i}".encode(), -float(i)) for i in range(len(vocab), n_vocab)]
-    hp = {"n_vocab": n_vocab, "n_embd": e, "n_mult": 256, "n_head": 32,
-          "n_layer": n_layer, "n_rot": 128}
+    hp = {"n_vocab": n_vocab, "n_embd": e, "n_mult": 256, "n_head": n_head,
+          "n_layer": n_layer, "n_rot": e // n_head}
 
     def q4(n, k):
         blk = np.empty(n * k // 32, BLOCK_Q4_0)
@@ -413,9 +501,16 @@ def write_ggjt_7b_width(path: str):
         blk["qs"] = rng.integers(0, 256, (blk.shape[0], 16), dtype=np.uint8)
         return blk
 
-    with GGJTWriter(path, "llama", hp, int(LlamaFType.MOSTLY_Q4_0), vocab) as w:
+    file_type = LlamaFType.MOSTLY_Q4_K_M if kq else LlamaFType.MOSTLY_Q4_0
+    with GGJTWriter(path, "llama", hp, int(file_type), vocab) as w:
         def emit(name, n, k):
-            w.write_tensor(name, GGMLType.Q4_0, (k, n), q4(n, k))
+            if not kq:
+                w.write_tensor(name, GGMLType.Q4_0, (k, n), q4(n, k))
+            elif name == "output.weight" or name in (
+                    "layers.1.attention.wv.weight", "layers.1.feed_forward.w2.weight"):
+                w.write_tensor(name, GGMLType.Q6_K, (k, n), q6_k(n, k))
+            else:
+                w.write_tensor(name, GGMLType.Q4_K, (k, n), q4_k(n, k))
 
         def ones(name):
             w.write_tensor(name, GGMLType.F32, (e,), np.ones(e, np.float32))
@@ -434,31 +529,44 @@ def write_ggjt_7b_width(path: str):
             emit(p + "feed_forward.w3.weight", n_ff, e)
 
 
-def cli_phase() -> bool:
+def cli_phase(ftype: str, prompts) -> bool:
+    """`main` on a 2-layer 7B-width GGJT file of ftype; each run's stderr
+    (the load line with the ftype, the load time, the timings) passes
+    through to this script's stderr."""
     from llama_cpp_q_4_0_tpu_torch.cli import main as main_cli
     from llama_cpp_q_4_0_tpu_torch.kernels.build import BUILD_DIR
 
     tmp = os.path.join(BUILD_DIR, "smoke")
     os.makedirs(tmp, exist_ok=True)
-    path = os.path.join(tmp, "llama7b-width-2layer-q4_0.ggjt")
+    path = os.path.join(tmp, f"llama7b-width-2layer-{ftype}.ggjt")
     try:
         t0 = time.perf_counter()
-        write_ggjt_7b_width(path)
+        write_ggjt_7b_width(path, ftype)
         print(f"cli: wrote {path} ({os.path.getsize(path) / 2**20:.1f} MiB) in "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
         ok = True
-        for prompt in ("Hello", "The capital of France is", "Once upon a time"):
-            print(f"cli: main -p {prompt!r}: ", end="", flush=True)
+        for prompt in prompts:
+            t0 = time.perf_counter()
+            print(f"cli: {ftype} main -p {prompt!r}: ", end="", flush=True)
             rc = main_cli.main(["-m", path, "-p", prompt, "-n", "16",
                                 "--temp", "0", "-c", "256", "--device", "cuda"])
-            print(flush=True)
+            print(f"\ncli: {ftype} main rc={rc} in {time.perf_counter() - t0:.1f} s "
+                  "(load time: the stderr report)", flush=True)
             ok &= rc == 0
         return ok
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--phases", default="kernels,e2e,cli",
+                    help="comma-separated subset of kernels,e2e,cli; the "
+                         "result lines print only for the full run")
+    phases = set(ap.parse_args(argv).phases.split(","))
+    full = phases == {"kernels", "e2e", "cli"}
     try:
         import torch
     except ImportError:
@@ -484,42 +592,87 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"build: {name}: {line.strip()}", flush=True)
 
-    path_bounds()
-    timer = Timer(torch)
-    recs = {"qmm_q4_0": {}, "qmm_q4_0_kfold": {}, "flash_prefill": {}}
-    ok = check_qmm(torch, timer, 512, False, recs["qmm_q4_0"])
-    ok &= check_qmm(torch, timer, 1, True, recs["qmm_q4_0_kfold"])
-    ok &= check_qmm(torch, timer, 8, True, None)
-    ok &= check_flash(torch, timer, recs["flash_prefill"])
-    if not ok:
-        return fail("a kernel disagrees with its plain version")
-    del timer
-    torch.cuda.empty_cache()
+    recs = {k: {} for k in ("qmm_q4_0", "qmm_q4_0_kfold", "flash_prefill",
+                            "qmm_packed_bias", "qmm_int8", "qmm_int8_bias")}
+    if "kernels" in phases:
+        timer = Timer(torch)
+        # K1 runs above 32 rows, K2 at 32 or fewer; K5, K6 and K6b at both
+        ok = check_qmm(torch, timer, "qmm_q4_0", 512, recs["qmm_q4_0"])
+        ok &= check_qmm(torch, timer, "qmm_q4_0_kfold", 1, recs["qmm_q4_0_kfold"])
+        ok &= check_qmm(torch, timer, "qmm_q4_0_kfold", 8, None)
+        ok &= check_flash(torch, timer, recs["flash_prefill"])
+        for name in ("qmm_packed_bias", "qmm_int8", "qmm_int8_bias"):
+            big = {}
+            ok &= check_qmm(torch, timer, name, 1, recs[name])
+            ok &= check_qmm(torch, timer, name, 512, big)
+            recs[name]["max_abs_err"] = max(recs[name]["max_abs_err"],
+                                            big["max_abs_err"])
+        if not ok:
+            return fail("a kernel disagrees with its plain version")
+        del timer
+        torch.cuda.empty_cache()
 
-    e2e_ok, launches, cfg, params = end_to_end(torch, [qmm.launches, fp.launches])
-    if not e2e_ok:
-        return fail("end-to-end run: non-finite logits or a kernel never launched")
-    bench_instruments(torch, cfg, params)
-    del params
-    torch.cuda.empty_cache()
-    if not two_layer_vs_cpu(torch):
-        return fail("2-layer model on the card disagrees with the CPU plain path")
-    torch.cuda.empty_cache()
-    if not cli_phase():
-        return fail("the main CLI failed")
+    counters = [qmm.launches, fp.launches]
+    launches = {}
+    if "e2e" in phases:
+        for ftype in ("q4_0", "q4_K_M"):
+            ok, path_launches, per_token, cfg, params = end_to_end(
+                torch, counters, ftype)
+            if not ok:
+                return fail(f"{ftype} end-to-end run: non-finite logits or a "
+                            "kernel of the path never launched")
+            for k in PATH_KERNELS[ftype]:
+                launches.setdefault(k, path_launches[k])
+            if ftype == "q4_K_M":
+                want = {"qmm_packed_bias": 128, "qmm_int8": 33}
+                if per_token != want:
+                    return fail(f"Q4_K_M decode launches {per_token} != {want}")
+            model_bounds(f"LLaMA-7B {ftype}", params, cfg.n_layer)
+            bench_instruments(torch, cfg, params, ftype)
+            del params
+            torch.cuda.empty_cache()
+        # the path of K6b: Q5_K_M (q5_K everywhere but the q6_K head, wv, w2)
+        ok, path_launches, _, cfg, params = end_to_end(
+            torch, counters, "q5_K_M", n_prompt=128, n_decode=16)
+        if not ok:
+            return fail("q5_K_M end-to-end run: non-finite logits or a kernel "
+                        "of the path never launched")
+        launches["qmm_int8_bias"] = path_launches["qmm_int8_bias"]
+        del params
+        torch.cuda.empty_cache()
+        for ftype in ("q4_0", "q4_K_M"):
+            if not two_layer_vs_cpu(torch, ftype):
+                return fail(f"2-layer {ftype} model on the card disagrees with "
+                            "the CPU plain path")
+            torch.cuda.empty_cache()
+    if "cli" in phases:
+        if not cli_phase("q4_0", ("Hello", "The capital of France is",
+                                  "Once upon a time")):
+            return fail("the main CLI failed on the q4_0 file")
+        if not cli_phase("Q4_K_M", ("Hello", "Once upon a time")):
+            return fail("the main CLI failed on the Q4_K_M file")
+    if not full:
+        print("partial run: no result lines", flush=True)
+        return 0
 
     meta = {
-        "qmm_q4_0": ("cuda", "llama_cpp_q_4_0_tpu_torch/csrc/qmm_q4_0.cu",
+        "qmm_q4_0": ("llama_cpp_q_4_0_tpu_torch/csrc/qmm_q4_0.cu",
                      "llama_cpp_q_4_0_tpu/ops/pallas/qmm.py:107"),
-        "qmm_q4_0_kfold": ("cuda", "llama_cpp_q_4_0_tpu_torch/csrc/qmm_q4_0.cu",
+        "qmm_q4_0_kfold": ("llama_cpp_q_4_0_tpu_torch/csrc/qmm_q4_0.cu",
                            "llama_cpp_q_4_0_tpu/ops/pallas/qmm.py:169"),
-        "flash_prefill": ("cuda", "llama_cpp_q_4_0_tpu_torch/csrc/flash_prefill.cu",
+        "flash_prefill": ("llama_cpp_q_4_0_tpu_torch/csrc/flash_prefill.cu",
                           "llama_cpp_q_4_0_tpu/ops/layers.py:175"),
+        "qmm_packed_bias": ("llama_cpp_q_4_0_tpu_torch/csrc/qmm_q4_0.cu",
+                            "llama_cpp_q_4_0_tpu/ops/pallas/qmm.py:218"),
+        "qmm_int8": ("llama_cpp_q_4_0_tpu_torch/csrc/qmm_int8.cu",
+                     "llama_cpp_q_4_0_tpu/ops/pallas/qmm.py:66"),
+        "qmm_int8_bias": ("llama_cpp_q_4_0_tpu_torch/csrc/qmm_int8.cu",
+                          "llama_cpp_q_4_0_tpu/ops/pallas/qmm.py:83"),
     }
     kernels = []
-    for name, (route, src, repl) in meta.items():
+    for name, (src, repl) in meta.items():
         r = recs[name]
-        kernels.append({"name": name, "route": route, "source": src,
+        kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": repl, "launches": launches[name],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

@@ -12,11 +12,20 @@ import torch
 from ..formats.ggjt import detect_arch, read_ggjt
 from ..models.config import ModelConfig
 from ..models.loading import config_from_ggjt, load_transformer
+from ..quant.types import LlamaFType
 from ..runtime.context import Context
 from ..runtime.tokenizer import Tokenizer, Vocab
 
 CACHE_TYPES = {"bf16": torch.bfloat16, "f32": torch.float32,
                "f16": torch.float16, "q8": torch.int8}
+
+
+def ftype_name(ftype: int) -> str:
+    """llama_ftype as its enum name (MOSTLY_Q4_K_M), or the bare number."""
+    try:
+        return LlamaFType(ftype).name
+    except ValueError:
+        return str(ftype)
 
 
 def add_model_args(p: argparse.ArgumentParser):
@@ -52,7 +61,8 @@ def load_model(args) -> LoadedModel:
                   cache_dtype=CACHE_TYPES[args.cache_type], device=args.device)
     t_load = (time.perf_counter() - t0) * 1e3
     ctx.timings.t_load_ms = t_load
-    print(f"{arch}: loaded {args.model} | n_vocab={cfg.n_vocab} "
+    print(f"{arch}: loaded {args.model} | ftype={ftype_name(gf.ftype)} "
+          f"n_vocab={cfg.n_vocab} "
           f"n_embd={cfg.n_embd} n_layer={cfg.n_layer} n_ctx={args.n_ctx} "
           f"device={ctx.device}", file=sys.stderr)
     return LoadedModel(cfg, ctx, tokenizer, t_load)

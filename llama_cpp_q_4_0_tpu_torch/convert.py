@@ -8,8 +8,9 @@ the JAX package).  The structure mirrors TransformerParams:
    "out_norm_w": leaf, "out_norm_b": leaf, "output": leaf}
 
 where a leaf is None, a numpy array (a dense weight), or a dict describing a
-packed QTensor: {"levels_t", "gscale_t", "gbias_t", "gsize", "qtype", "shape",
-"pack_zero"} with the arrays as numpy.
+QTensor in either form: {"levels_t", "gscale_t", "gbias_t", "gsize",
+"qtype", "shape", "pack_zero"} with the arrays as numpy (``gbias_t`` None for
+a symmetric format, ``pack_zero`` None for unpacked int8 levels).
 """
 
 from __future__ import annotations
@@ -27,17 +28,19 @@ def _leaf(v, device: torch.device):
     if v is None:
         return None
     if isinstance(v, dict):
-        if v.get("gbias_t") is not None or v.get("pack_zero") is None:
-            raise NotImplementedError("only packed formats without a group "
-                                      "bias (q4_0) are ported")
-        if GGMLType(int(v["qtype"])) != GGMLType.Q4_0:
-            raise NotImplementedError(f"{GGMLType(int(v['qtype'])).name}")
+        pz = v.get("pack_zero")
+        gb = v.get("gbias_t")
+
+        def put(a, dt):
+            return torch.from_numpy(np.array(a, dt)).to(device)
+
         return QTensor(
-            levels_t=torch.from_numpy(np.array(v["levels_t"], np.uint8)).to(device),
-            gscale_t=torch.from_numpy(np.array(v["gscale_t"], np.float32)).to(device),
-            gsize=int(v["gsize"]), qtype=GGMLType.Q4_0,
+            levels_t=put(v["levels_t"], np.int8 if pz is None else np.uint8),
+            gscale_t=put(v["gscale_t"], np.float32),
+            gbias_t=None if gb is None else put(gb, np.float32),
+            gsize=int(v["gsize"]), qtype=GGMLType(int(v["qtype"])),
             shape=tuple(int(s) for s in v["shape"]),
-            pack_zero=int(v["pack_zero"]))
+            pack_zero=None if pz is None else int(pz))
     arr = np.asarray(v)
     if arr.dtype.kind == "V" or arr.dtype.name == "bfloat16":
         # ml_dtypes bfloat16 has no torch counterpart in from_numpy

@@ -23,7 +23,7 @@ from pathlib import Path
 
 import numpy as np
 
-from ..quant.types import GGMLType, row_size_bytes
+from ..quant.types import K_QUANTS, GGMLType, row_size_bytes, type_traits
 
 MAGIC_GGML = 0x67676D6C  # 'ggml' — legacy, unversioned, no vocab scores
 MAGIC_GGMF = 0x67676D66  # 'ggmf' v1
@@ -72,6 +72,15 @@ class GGJTFile:
         """Zero-copy uint8 view of a tensor's raw block data."""
         t = self.tensors[name]
         return self._mmap[t.file_off: t.file_off + t.size]
+
+    def tensor_blocks(self, name: str) -> np.ndarray:
+        """Structured block-dtype view of a quantized tensor (zero-copy)."""
+        t = self.tensors[name]
+        dt = type_traits(t.qtype).block_dtype
+        if dt is None:
+            raise NotImplementedError(f"{name}: {t.qtype.name} blocks are not "
+                                      "read by the port")
+        return self.tensor_bytes(name).view(dt)
 
     def tensor_f32(self, name: str) -> np.ndarray:
         """A float (f32 or f16) tensor as float32, in numpy shape."""
@@ -124,27 +133,41 @@ def read_ggjt(path: str | Path, arch: str = "llama") -> GGJTFile:
 
         file_size = Path(path).stat().st_size
         tensors: dict[str, TensorEntry] = {}
-        while f.tell() < file_size:
-            hdr = f.read(12)
-            if len(hdr) < 12:
-                raise ValueError("truncated tensor header")
-            n_dims, name_len, ttype = struct.unpack("<3I", hdr)
-            if not (1 <= n_dims <= 4) or name_len > 4096:
-                raise ValueError("implausible tensor header")
-            ne = struct.unpack(f"<{n_dims}I", f.read(4 * n_dims))
-            name = f.read(name_len).decode("utf-8")
-            qtype = GGMLType(ttype)
-            if file_version >= FILE_VERSION_GGJT_V1:
-                f.seek(-f.tell() & 31, 1)  # align to 32
-            size = row_size_bytes(qtype, int(np.prod(ne)))
-            off = f.tell()
-            tensors[name] = TensorEntry(name, qtype, tuple(ne), off, size)
-            f.seek(size, 1)
-        if f.tell() != file_size:
-            raise ValueError("tensor data overruns file")
+        try:
+            _read_tensors(f, file_version, file_size, tensors)
+        except (ValueError, struct.error, UnicodeDecodeError) as e:
+            # the container carries no QK_K marker: 64-element k-quant
+            # super-blocks have other byte sizes and derail the offsets
+            if any(t.qtype in K_QUANTS for t in tensors.values()):
+                raise NotImplementedError(
+                    f"{path}: its k-quant tensors do not parse as QK_K=256 "
+                    f"blocks ({e}); files written with 64-element super-blocks "
+                    "(GGML_QKK_64) are not ported") from e
+            raise
 
     mm = np.memmap(path, dtype=np.uint8, mode="r")
     return GGJTFile(path, file_version, arch, hparams, ftype, vocab, tensors, mm)
+
+
+def _read_tensors(f, file_version: int, file_size: int, tensors: dict):
+    while f.tell() < file_size:
+        hdr = f.read(12)
+        if len(hdr) < 12:
+            raise ValueError("truncated tensor header")
+        n_dims, name_len, ttype = struct.unpack("<3I", hdr)
+        if not (1 <= n_dims <= 4) or name_len > 4096:
+            raise ValueError("implausible tensor header")
+        ne = struct.unpack(f"<{n_dims}I", f.read(4 * n_dims))
+        name = f.read(name_len).decode("utf-8")
+        qtype = GGMLType(ttype)
+        if file_version >= FILE_VERSION_GGJT_V1:
+            f.seek(-f.tell() & 31, 1)  # align to 32
+        size = row_size_bytes(qtype, int(np.prod(ne)))
+        off = f.tell()
+        tensors[name] = TensorEntry(name, qtype, tuple(ne), off, size)
+        f.seek(size, 1)
+    if f.tell() != file_size:
+        raise ValueError("tensor data overruns file")
 
 
 def detect_arch(path: str | Path) -> str:

@@ -21,8 +21,11 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUILD_DIR = os.path.join(_PKG, "build")
 SOURCES = {
     "qmm_q4_0": os.path.join(_PKG, "csrc", "qmm_q4_0.cu"),
+    "qmm_int8": os.path.join(_PKG, "csrc", "qmm_int8.cu"),
     "flash_prefill": os.path.join(_PKG, "csrc", "flash_prefill.cu"),
 }
+# headers the sources include: a change to one rebuilds every source
+HEADERS = [os.path.join(_PKG, "csrc", "qmm_common.cuh")]
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -46,7 +49,8 @@ def _so_path(name: str) -> str:
 def _stale(name: str) -> bool:
     so = _so_path(name)
     return (not os.path.exists(so)
-            or os.path.getmtime(so) < os.path.getmtime(SOURCES[name]))
+            or os.path.getmtime(so) < max(os.path.getmtime(p)
+                                          for p in [SOURCES[name], *HEADERS]))
 
 
 def build_all(names=None) -> dict[str, float]:

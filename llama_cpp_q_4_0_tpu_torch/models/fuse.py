@@ -2,8 +2,10 @@
 
 wq/wk/wv share their input and reduce dim, and so do SwiGLU's gate and up:
 one matmul each saves kernel launches per layer, which is what a decode step
-pays for.  Packed weights fuse by concatenating along the output (N) columns
-of the K-major arrays; the forward slices the fused output."""
+pays for.  Quantized weights of one format fuse by concatenating along the
+output (N) columns of the K-major arrays (levels, scale and bias planes); the
+forward slices the fused output.  Weights of mixed formats (a k-quant mix
+that gives wv more bits than wq and wk) stay separate."""
 
 from __future__ import annotations
 
@@ -26,9 +28,12 @@ def _concat_n(ws: list):
                    and w.pack_zero == w0.pack_zero and w.shape[1] == w0.shape[1]
                    and w.levels_t.shape[0] == w0.levels_t.shape[0] for w in ws):
             return None
+        axis_s = 2 if w0.packed else 1
         return QTensor(
             levels_t=torch.cat([w.levels_t for w in ws], dim=1),
-            gscale_t=torch.cat([w.gscale_t for w in ws], dim=2),
+            gscale_t=torch.cat([w.gscale_t for w in ws], dim=axis_s),
+            gbias_t=None if w0.gbias_t is None else torch.cat(
+                [w.gbias_t for w in ws], dim=axis_s),
             gsize=w0.gsize, qtype=w0.qtype,
             shape=(sum(w.shape[0] for w in ws), w0.shape[1]),
             pack_zero=w0.pack_zero,

@@ -1,6 +1,9 @@
-"""GGJT file -> device parameters for LLaMA-family q4_0 models.
+"""GGJT file -> device parameters for LLaMA models.
 
-llama's wq/wk stay in their on-disk permuted layout because rope(neox=False)
+q4_0 weights take the direct repack of ``quant/q4_0.py``; every other
+quantized type (q4_1, q5_0, q5_1, q8_0, q2_K..q6_K) goes through the planar
+repack and ``QTensor.from_planar``, as in the JAX package's loader.  llama's
+wq/wk stay in their on-disk permuted layout because rope(neox=False)
 implements the matching adjacent-pair rotation."""
 
 from __future__ import annotations
@@ -10,6 +13,7 @@ import torch
 from .. import resolve_device
 from ..formats.ggjt import GGJTFile
 from ..ops.qtensor import QTensor
+from ..quant.pack import PLANAR_TYPES, pack_planar
 from ..quant.q4_0 import PACK_ZERO, pack_q4_0
 from ..quant.types import GGMLType
 from .config import ModelConfig
@@ -18,7 +22,7 @@ from .transformer import Block, TransformerParams
 
 def load_tensor(gf: GGJTFile, name: str, device: torch.device,
                 dense_dtype=torch.bfloat16):
-    """2-D q4_0 -> QTensor; 2-D float -> dense tensor; 1-D -> f32 tensor."""
+    """2-D quantized -> QTensor; 2-D float -> dense tensor; 1-D -> f32 tensor."""
     t = gf.tensors[name]
     if t.qtype in (GGMLType.F32, GGMLType.F16):
         arr = torch.from_numpy(gf.tensor_f32(name))
@@ -31,7 +35,18 @@ def load_tensor(gf: GGJTFile, name: str, device: torch.device,
                        gscale_t=torch.from_numpy(scales).to(device),
                        gsize=32, qtype=GGMLType.Q4_0, shape=(n, k),
                        pack_zero=PACK_ZERO)
-    raise NotImplementedError(f"{name}: {t.qtype.name} weights are not ported yet")
+    if len(t.shape) != 2 or t.qtype not in PLANAR_TYPES:
+        raise NotImplementedError(f"{name}: {len(t.shape)}-D {t.qtype.name} "
+                                  "tensors are not ported")
+    qt = QTensor.from_planar(pack_planar(gf.tensor_blocks(name), t.qtype, t.shape),
+                             device)
+    if qt.packed and qt.gbias_t is None and (qt.pack_zero, qt.gsize) != (8, 32):
+        # symmetric nibbles go to K1/K2, which take q4_0's packing alone
+        raise NotImplementedError(
+            f"{name}: {t.qtype.name} packs with zero {qt.pack_zero} and "
+            f"{qt.gsize}-groups; the packed kernels without a bias take only "
+            "zero 8 and 32-groups (q4_0)")
+    return qt
 
 
 def config_from_ggjt(gf: GGJTFile, n_ctx: int = 2048, **kw) -> ModelConfig:

@@ -18,6 +18,7 @@ from typing import Any
 
 import torch
 
+from .. import resolve_device
 from ..ops.kvcache import QuantKV, quantize_kv
 from ..ops.layers import attention, rms_norm, rope, silu
 from ..ops.qmatmul import q_matmul
@@ -170,9 +171,11 @@ def forward(cfg: ModelConfig, params: TransformerParams, tokens: torch.Tensor,
 
 
 def init_cache(cfg: ModelConfig, batch: int, n_ctx: int | None = None,
-               dtype=torch.bfloat16, device="cpu"):
-    """Preallocated per-layer KV buffers; dtype torch.int8 selects the
+               dtype=torch.bfloat16, device=None):
+    """Preallocated per-layer KV buffers on ``device`` (default cuda; raises
+    without CUDA unless device="cpu"); dtype torch.int8 selects the
     scaled-int8 QuantKV layout, any float dtype a plain cast cache."""
+    device = resolve_device(device)
     s = n_ctx or cfg.n_ctx
     shape = (batch, s, cfg.kv_heads, cfg.head_dim)
 

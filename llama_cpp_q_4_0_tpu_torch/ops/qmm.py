@@ -1,13 +1,25 @@
-"""Packed q4_0 matmul kernels (csrc/qmm_q4_0.cu) and their plain versions.
+"""Quantized matmul kernels (csrc/qmm_q4_0.cu, csrc/qmm_int8.cu) and their
+plain versions.
 
-``qmm_packed`` replaces ``_qmm_packed_kernel`` and ``qmm_packed_kfold``
-replaces ``_qmm_packed_kfold_kernel`` of the JAX package's
-``ops/pallas/qmm.py`` (``qmm_packed`` and ``qmm_packed(kfold=True)``).  Both
-compute ``x [B, K] @ dequant(W) -> f32 [B, N]`` from the split-half layout of
-``ops/qtensor.py``: ``packed`` uint8 ``[K2P, N]`` (low nibble row r, high
-nibble row r + K/2) and ``scales`` f32 ``[2, K2P/32, N]``.  Dequantized
-weights are rounded to bf16 before the product and x is cast to bf16; the
-products accumulate in f32.
+Each computes ``x [B, K] @ dequant(W) -> f32 [B, N]`` from one layout of
+``ops/qtensor.py``.  Dequantized weights are rounded to bf16 before the
+product and x is cast to bf16; the products accumulate in f32.  An affine
+bias enters as the full-K seed ``xg . gbias``, with ``xg`` the f32 sums of
+un-rounded x over each group.  The JAX package's ``ops/pallas/qmm.py``
+kernels they replace:
+
+  qmm_packed        K1  ``_qmm_packed_kernel``        packed, no bias (q4_0)
+  qmm_packed_kfold  K2  ``_qmm_packed_kfold_kernel``  same, zero folded, B <= 32
+  qmm_packed_bias   K5  ``_qmm_packed_bias_kernel``   packed affine (q4_K,
+                                                       q4_1, q2_K)
+  qmm_int8          K6  ``_qmm_kernel``               unpacked int8 levels
+                                                       (q5_0, q8_0, q6_K)
+  qmm_int8_bias     K6b ``_qmm_bias_kernel``          same with a bias
+                                                       (q5_1, q5_K)
+
+Packed: ``packed`` uint8 ``[K2P, N]`` (low nibble row r, high nibble row
+r + K/2, each level + zero), planes f32 ``[2, K2P/g, N]``.  Unpacked:
+``levels`` int8 ``[K, N]``, planes f32 ``[K/g, N]``.
 
 For a CPU tensor each wrapper runs the plain PyTorch version; for a CUDA
 tensor it launches the kernel or raises.  ``launches`` counts the kernel
@@ -20,9 +32,8 @@ import ctypes
 
 import torch
 
-GSIZE = 32
-ZERO = 8
-launches = {"qmm_q4_0": 0, "qmm_q4_0_kfold": 0}
+launches = {"qmm_q4_0": 0, "qmm_q4_0_kfold": 0, "qmm_packed_bias": 0,
+            "qmm_int8": 0, "qmm_int8_bias": 0}
 
 
 def bf16_f32(t: torch.Tensor) -> torch.Tensor:
@@ -31,128 +42,268 @@ def bf16_f32(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.bfloat16).to(torch.float32)
 
 
-def _planes(packed: torch.Tensor, k2: int):
-    p = packed[:k2].to(torch.int32)
-    return p & 0xF, p >> 4
+def _q4_0_only(zero: int, gsize: int):
+    """K1 and K2 are built for q4_0's (zero 8, 32-groups) alone."""
+    if (zero, gsize) != (8, 32):
+        raise NotImplementedError(
+            f"the q4_0 kernels take pack zero 8 and 32-groups, not zero {zero} "
+            f"and {gsize}-groups (q3_K and other symmetric packings are not "
+            "ported)")
 
 
-def qmm_packed_plain(x: torch.Tensor, packed: torch.Tensor,
-                     scales: torch.Tensor) -> torch.Tensor:
-    """Plain version of the prefill kernel: w = bf16((nibble - 8) * d)."""
+def _group_sums(x: torch.Tensor, gsize: int) -> torch.Tensor:
+    """f32 sums of x [B, K'] over each gsize-group: [B, K'/gsize]."""
     b, k = x.shape
+    return x.reshape(b, k // gsize, gsize).sum(-1)
+
+
+def _packed_weights(packed: torch.Tensor, scales: torch.Tensor, k: int,
+                    gsize: int, sub: int):
+    """bf16-rounded low and high panels, w = bf16((nibble - sub) * d)."""
     k2, n = k // 2, packed.shape[1]
-    g2 = k2 // GSIZE
-    lo, hi = _planes(packed, k2)
-    wlo = ((lo - ZERO).float().reshape(g2, GSIZE, n)
-           * scales[0, :g2, None, :]).reshape(k2, n)
-    whi = ((hi - ZERO).float().reshape(g2, GSIZE, n)
-           * scales[1, :g2, None, :]).reshape(k2, n)
+    g2 = k2 // gsize
+    p = packed[:k2].to(torch.int32)
+    out = []
+    for plane, nib in enumerate((p & 0xF, p >> 4)):
+        w = (nib - sub).float().reshape(g2, gsize, n) * scales[plane, :g2, None, :]
+        out.append(bf16_f32(w.reshape(k2, n)))
+    return out
+
+
+def qmm_packed_plain(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
+                     *, zero: int = 8, gsize: int = 32) -> torch.Tensor:
+    """Plain version of K1: w = bf16((nibble - 8) * d)."""
+    _q4_0_only(zero, gsize)
+    k2 = x.shape[1] // 2
+    wlo, whi = _packed_weights(packed, scales, x.shape[1], gsize, zero)
     xb = bf16_f32(x.float())
-    return xb[:, :k2] @ bf16_f32(wlo) + xb[:, k2:] @ bf16_f32(whi)
+    return xb[:, :k2] @ wlo + xb[:, k2:] @ whi
 
 
 def qmm_packed_kfold_plain(x: torch.Tensor, packed: torch.Tensor,
-                           scales: torch.Tensor) -> torch.Tensor:
-    """Plain version of the decode kernel: w = bf16(nibble * d) with no
-    subtract, plus -8 * (xg_lo @ d_lo + xg_hi @ d_hi) where xg holds the f32
-    sums of x over each 32-group."""
-    b, k = x.shape
-    k2, n = k // 2, packed.shape[1]
-    g2 = k2 // GSIZE
-    lo, hi = _planes(packed, k2)
-    slo, shi = scales[0, :g2], scales[1, :g2]
-    wlo = (lo.float().reshape(g2, GSIZE, n) * slo[:, None, :]).reshape(k2, n)
-    whi = (hi.float().reshape(g2, GSIZE, n) * shi[:, None, :]).reshape(k2, n)
+                           scales: torch.Tensor, *, zero: int = 8,
+                           gsize: int = 32) -> torch.Tensor:
+    """Plain version of K2: w = bf16(nibble * d) with no subtract, plus
+    -8 * (xg_lo @ d_lo + xg_hi @ d_hi) where xg holds the f32 sums of x over
+    each 32-group."""
+    _q4_0_only(zero, gsize)
+    k2 = x.shape[1] // 2
+    g2 = k2 // gsize
+    wlo, whi = _packed_weights(packed, scales, x.shape[1], gsize, 0)
     xf = x.float()
     xb = bf16_f32(xf)
-    acc = xb[:, :k2] @ bf16_f32(wlo) + xb[:, k2:] @ bf16_f32(whi)
-    xg_lo = xf[:, :k2].reshape(b, g2, GSIZE).sum(-1)
-    xg_hi = xf[:, k2:].reshape(b, g2, GSIZE).sum(-1)
-    return acc + float(-ZERO) * (xg_lo @ slo + xg_hi @ shi)
+    acc = xb[:, :k2] @ wlo + xb[:, k2:] @ whi
+    return acc + float(-zero) * (_group_sums(xf[:, :k2], gsize) @ scales[0, :g2]
+                                 + _group_sums(xf[:, k2:], gsize) @ scales[1, :g2])
 
 
-def _check(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor):
-    if x.dim() != 2 or packed.dim() != 2 or scales.dim() != 3:
-        raise ValueError(f"bad ranks: x {tuple(x.shape)}, packed "
-                         f"{tuple(packed.shape)}, scales {tuple(scales.shape)}")
+def qmm_packed_bias_plain(x: torch.Tensor, packed: torch.Tensor,
+                          scales: torch.Tensor, gbias: torch.Tensor, *, zero: int,
+                          gsize: int) -> torch.Tensor:
+    """Plain version of K5: the seed xg_lo @ b_lo + xg_hi @ b_hi, plus the
+    bf16 products with w = bf16((nibble - zero) * d)."""
+    k2 = x.shape[1] // 2
+    g2 = k2 // gsize
+    wlo, whi = _packed_weights(packed, scales, x.shape[1], gsize, zero)
+    xf = x.float()
+    xb = bf16_f32(xf)
+    seed = (_group_sums(xf[:, :k2], gsize) @ gbias[0, :g2]
+            + _group_sums(xf[:, k2:], gsize) @ gbias[1, :g2])
+    return seed + (xb[:, :k2] @ wlo + xb[:, k2:] @ whi)
+
+
+def _int8_weights(levels: torch.Tensor, scales: torch.Tensor, gsize: int):
+    k, n = levels.shape
+    w = levels.float().reshape(k // gsize, gsize, n) * scales[:, None, :]
+    return bf16_f32(w.reshape(k, n))
+
+
+def qmm_int8_plain(x: torch.Tensor, levels: torch.Tensor, scales: torch.Tensor,
+                   *, gsize: int) -> torch.Tensor:
+    """Plain version of K6: bf16(x) @ bf16(level * d)."""
+    return bf16_f32(x.float()) @ _int8_weights(levels, scales, gsize)
+
+
+def qmm_int8_bias_plain(x: torch.Tensor, levels: torch.Tensor,
+                        scales: torch.Tensor, gbias: torch.Tensor, *,
+                        gsize: int) -> torch.Tensor:
+    """Plain version of K6b: the seed xg @ gbias, plus K6's product."""
+    xf = x.float()
+    seed = _group_sums(xf, gsize) @ gbias
+    return seed + bf16_f32(xf) @ _int8_weights(levels, scales, gsize)
+
+
+def _check(x: torch.Tensor, w: torch.Tensor, planes: list, *, packed: bool,
+           gsize: int):
+    """Shapes, dtypes and devices of one call; on CUDA also what the kernels
+    take (contiguous, 16-byte aligned, K % 64 == 0, N % 16 == 0, B > 0)."""
+    if gsize not in (16, 32):
+        raise NotImplementedError(f"{gsize}-groups: the kernels take 16 and 32")
+    if x.dim() != 2 or w.dim() != 2:
+        raise ValueError(f"bad ranks: x {tuple(x.shape)}, weight {tuple(w.shape)}")
     b, k = x.shape
-    k2p, n = packed.shape
-    if k % (2 * GSIZE) or k // 2 > k2p or k2p % GSIZE:
-        raise ValueError(f"K={k} does not fit packed rows {k2p}")
-    if tuple(scales.shape) != (2, k2p // GSIZE, n):
-        raise ValueError(f"scales {tuple(scales.shape)} != (2, {k2p // GSIZE}, {n})")
-    if x.dtype != torch.float32 or packed.dtype != torch.uint8 \
-            or scales.dtype != torch.float32:
-        raise TypeError(f"dtypes {x.dtype}, {packed.dtype}, {scales.dtype}; "
-                        "want float32, uint8, float32")
-    if not (x.device == packed.device == scales.device):
-        raise ValueError("x, packed and scales lie on different devices")
+    rows, n = w.shape
+    if packed:
+        if k % (2 * gsize) or k // 2 > rows or rows % gsize:
+            raise ValueError(f"K={k} does not fit packed rows {rows}")
+        want = (2, rows // gsize, n)
+    else:
+        if k != rows or k % gsize:
+            raise ValueError(f"K={k} does not match levels rows {rows}")
+        want = (rows // gsize, n)
+    for p in planes:
+        if tuple(p.shape) != want:
+            raise ValueError(f"plane {tuple(p.shape)} != {want}")
+    if x.dtype != torch.float32 or w.dtype != (torch.uint8 if packed else torch.int8) \
+            or any(p.dtype != torch.float32 for p in planes):
+        raise TypeError(f"dtypes {x.dtype}, {w.dtype}, {[p.dtype for p in planes]}; "
+                        f"want float32, {'uint8' if packed else 'int8'}, float32")
+    if any(t.device != x.device for t in (w, *planes)):
+        raise ValueError("x, the weight and its planes lie on different devices")
     if x.device.type == "cuda":
-        if not (x.is_contiguous() and packed.is_contiguous()
-                and scales.is_contiguous()):
-            raise ValueError("the CUDA kernel takes contiguous tensors")
-        if n % 16 or b == 0:
-            raise ValueError(f"the CUDA kernel takes N % 16 == 0 and B > 0 "
-                             f"(N={n}, B={b})")
-        if packed.data_ptr() % 16 or scales.data_ptr() % 16:
-            raise ValueError("the CUDA kernel takes 16-byte aligned weights")
+        if not all(t.is_contiguous() for t in (x, w, *planes)):
+            raise ValueError("the CUDA kernels take contiguous tensors")
+        if n % 16 or b == 0 or k % 64:
+            raise ValueError(f"the CUDA kernels take N % 16 == 0, K % 64 == 0 "
+                             f"and B > 0 (N={n}, K={k}, B={b})")
+        if any(t.data_ptr() % 16 for t in (x, w, *planes)):
+            raise ValueError("the CUDA kernels take 16-byte aligned tensors")
     elif x.device.type != "cpu":
         raise ValueError(f"unsupported device {x.device}")
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "qmm_q4_0": ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
-    "qmm_q4_0_kfold": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
-    "qmm_q4_0_kfold_splits": ([_I], _I),
+    "qmm_q4_0": {
+        "qmm_q4_0": ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
+        "qmm_q4_0_kfold": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
+        "qmm_packed_bias": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P], _I),
+        "qmm_packed_splits": ([_I], _I),
+    },
+    "qmm_int8": {
+        "qmm_int8": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
+        "qmm_int8_splits": ([_I], _I),
+    },
 }
+GEMV_MAX_ROWS = 32  # rows the kernels take in their decode (split-K) form
 
 
-def _lib():
+def _lib(source: str):
     from ..kernels import build
 
-    return build.load("qmm_q4_0", _SIGNATURES)
+    return build.load(source, _SIGNATURES[source])
 
 
-def _raise_on(err: int, name: str):
+def _stream(x: torch.Tensor) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def _launched(err: int, name: str):
     if err:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    launches[name] += 1
 
 
-def qmm_packed(x: torch.Tensor, packed: torch.Tensor,
-               scales: torch.Tensor) -> torch.Tensor:
-    """Prefill form (more than 32 rows): f32 [B, N]."""
-    _check(x, packed, scales)
+def _scratch(lib, splits_fn: str, x: torch.Tensor, n: int, gsize: int,
+             bias: bool) -> torch.Tensor | None:
+    """The kernel's f32 scratch: the decode form's partial sums of its K
+    splits, [splits, B, N]; the prefill form's group sums of x for the bias
+    seed, [B, K/gsize]; None when neither is needed."""
+    b, k = x.shape
+    if b <= GEMV_MAX_ROWS:
+        shape = (getattr(lib, splits_fn)(k), b, n)
+    elif bias:
+        shape = (b, k // gsize)
+    else:
+        return None
+    return torch.empty(shape, dtype=torch.float32, device=x.device)
+
+
+def _ptr(t: torch.Tensor | None):
+    return None if t is None else t.data_ptr()
+
+
+def qmm_packed(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor, *,
+               zero: int = 8, gsize: int = 32) -> torch.Tensor:
+    """K1, the prefill form (more than 32 rows): f32 [B, N]."""
+    _q4_0_only(zero, gsize)
+    _check(x, packed, [scales], packed=True, gsize=gsize)
     if x.device.type == "cpu":
-        return qmm_packed_plain(x, packed, scales)
+        return qmm_packed_plain(x, packed, scales, zero=zero, gsize=gsize)
     b, k = x.shape
     k2p, n = packed.shape
     out = torch.empty((b, n), dtype=torch.float32, device=x.device)
-    lib = _lib()
-    err = lib.qmm_q4_0(x.data_ptr(), packed.data_ptr(), scales.data_ptr(),
-                       out.data_ptr(), b, k, n, k2p // GSIZE,
-                       torch.cuda.current_stream(x.device).cuda_stream)
-    _raise_on(err, "qmm_q4_0")
-    launches["qmm_q4_0"] += 1
+    err = _lib("qmm_q4_0").qmm_q4_0(x.data_ptr(), packed.data_ptr(), scales.data_ptr(),
+                                    out.data_ptr(), b, k, n, k2p // gsize, _stream(x))
+    _launched(err, "qmm_q4_0")
     return out
 
 
-def qmm_packed_kfold(x: torch.Tensor, packed: torch.Tensor,
-                     scales: torch.Tensor) -> torch.Tensor:
-    """Decode form (32 rows or fewer), zero point folded: f32 [B, N]."""
-    _check(x, packed, scales)
+def qmm_packed_kfold(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor, *,
+                     zero: int = 8, gsize: int = 32) -> torch.Tensor:
+    """K2, the decode form (32 rows or fewer), zero point folded: f32 [B, N]."""
+    _q4_0_only(zero, gsize)
+    _check(x, packed, [scales], packed=True, gsize=gsize)
     if x.device.type == "cpu":
-        return qmm_packed_kfold_plain(x, packed, scales)
+        return qmm_packed_kfold_plain(x, packed, scales, zero=zero, gsize=gsize)
     b, k = x.shape
     k2p, n = packed.shape
-    lib = _lib()
-    partial = torch.empty((lib.qmm_q4_0_kfold_splits(k), b, n),
-                          dtype=torch.float32, device=x.device)
+    if b > GEMV_MAX_ROWS:
+        raise ValueError(f"the kfold kernel takes at most {GEMV_MAX_ROWS} rows, not {b}")
+    lib = _lib("qmm_q4_0")
+    partial = _scratch(lib, "qmm_packed_splits", x, n, gsize, False)
     out = torch.empty((b, n), dtype=torch.float32, device=x.device)
     err = lib.qmm_q4_0_kfold(x.data_ptr(), packed.data_ptr(), scales.data_ptr(),
                              partial.data_ptr(), out.data_ptr(), b, k, n,
-                             k2p // GSIZE,
-                             torch.cuda.current_stream(x.device).cuda_stream)
-    _raise_on(err, "qmm_q4_0_kfold")
-    launches["qmm_q4_0_kfold"] += 1
+                             k2p // gsize, _stream(x))
+    _launched(err, "qmm_q4_0_kfold")
     return out
+
+
+def qmm_packed_bias(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
+                    gbias: torch.Tensor, *, zero: int, gsize: int) -> torch.Tensor:
+    """K5, the packed affine matmul at any row count: f32 [B, N]."""
+    _check(x, packed, [scales, gbias], packed=True, gsize=gsize)
+    if x.device.type == "cpu":
+        return qmm_packed_bias_plain(x, packed, scales, gbias, zero=zero, gsize=gsize)
+    b, k = x.shape
+    k2p, n = packed.shape
+    lib = _lib("qmm_q4_0")
+    scratch = _scratch(lib, "qmm_packed_splits", x, n, gsize, True)
+    out = torch.empty((b, n), dtype=torch.float32, device=x.device)
+    err = lib.qmm_packed_bias(x.data_ptr(), packed.data_ptr(), scales.data_ptr(),
+                              gbias.data_ptr(), _ptr(scratch), out.data_ptr(),
+                              b, k, n, k2p // gsize, zero, gsize, _stream(x))
+    _launched(err, "qmm_packed_bias")
+    return out
+
+
+def _int8(x, levels, scales, gbias, gsize, name):
+    b, k = x.shape
+    n = levels.shape[1]
+    lib = _lib("qmm_int8")
+    scratch = _scratch(lib, "qmm_int8_splits", x, n, gsize, gbias is not None)
+    out = torch.empty((b, n), dtype=torch.float32, device=x.device)
+    err = lib.qmm_int8(x.data_ptr(), levels.data_ptr(), scales.data_ptr(),
+                       _ptr(gbias), _ptr(scratch), out.data_ptr(), b, k, n, gsize,
+                       _stream(x))
+    _launched(err, name)
+    return out
+
+
+def qmm_int8(x: torch.Tensor, levels: torch.Tensor, scales: torch.Tensor, *,
+             gsize: int) -> torch.Tensor:
+    """K6, unpacked int8 levels at any row count: f32 [B, N]."""
+    _check(x, levels, [scales], packed=False, gsize=gsize)
+    if x.device.type == "cpu":
+        return qmm_int8_plain(x, levels, scales, gsize=gsize)
+    return _int8(x, levels, scales, None, gsize, "qmm_int8")
+
+
+def qmm_int8_bias(x: torch.Tensor, levels: torch.Tensor, scales: torch.Tensor,
+                  gbias: torch.Tensor, *, gsize: int) -> torch.Tensor:
+    """K6b, unpacked int8 levels with the affine bias seed: f32 [B, N]."""
+    _check(x, levels, [scales, gbias], packed=False, gsize=gsize)
+    if x.device.type == "cpu":
+        return qmm_int8_bias_plain(x, levels, scales, gbias, gsize=gsize)
+    return _int8(x, levels, scales, gbias, gsize, "qmm_int8_bias")

@@ -1,10 +1,18 @@
-"""Synthetic q4_0 LLaMA weights built on the device from a torch.Generator.
+"""Synthetic LLaMA weights built on the device from a torch.Generator.
 
-Random packed nibbles and group scales in [0.005, 0.015), in the loader's
-split-half layout (padding rows and scales zero), with fused projections —
-the weights the JAX package's bench.py builds.  Decode reads every weight
-byte once per token whatever its value, so the timing matches a real
-checkpoint of the same shapes.
+Random levels and group scales (and, for the affine k-quants, group biases)
+in the loader's layouts: padding rows and planes zero, projections fused
+where the formats allow.  Decode reads every weight byte once per token
+whatever its value, so the timing matches a real checkpoint of the same
+shapes and formats.
+
+``ftype`` picks the file type's mix of formats, as the JAX package's
+``formats/quantize.py`` assigns them:
+
+  q4_0    every 2-D weight q4_0 (the weights bench.py builds);
+  q4_K_M  q4_K everywhere, q6_K for the output head and for wv and w2 in
+          the layers ``use_more_bits`` picks (half of them);
+  q5_K_M  the same with q5_K in place of q4_K.
 """
 
 from __future__ import annotations
@@ -21,23 +29,68 @@ from .ops.qtensor import QTensor
 from .quant.q4_0 import PACK_ZERO, k2_padded
 from .quant.types import GGMLType
 
+FTYPES = {"q4_0": GGMLType.Q4_0, "q4_K_M": GGMLType.Q4_K, "q5_K_M": GGMLType.Q5_K}
 
-def synth_qtensor(gen: torch.Generator, n: int, k: int, device) -> QTensor:
+
+def use_more_bits(i_layer: int, num_layers: int) -> bool:
+    """The layers whose wv and w2 a _M k-quant mix stores in q6_K."""
+    return (i_layer < num_layers // 8 or i_layer >= 7 * num_layers // 8
+            or (i_layer - num_layers // 8) % 3 == 2)
+
+
+def _uniform(gen, shape, lo, hi, device):
+    return lo + (hi - lo) * torch.rand(shape, generator=gen, device=device)
+
+
+def _packed(gen, n, k, qtype, zero, gsize, bias, device) -> QTensor:
     k2, k2p = k // 2, k2_padded(k)
     packed = torch.zeros((k2p, n), dtype=torch.uint8, device=device)
     packed[:k2] = torch.randint(0, 256, (k2, n), generator=gen, device=device,
                                 dtype=torch.uint8)
-    scales = torch.zeros((2, k2p // 32, n), dtype=torch.float32, device=device)
-    scales[:, :k2 // 32] = 0.005 + 0.01 * torch.rand(
-        (2, k2 // 32, n), generator=gen, device=device)
-    return QTensor(levels_t=packed, gscale_t=scales, gsize=32,
-                   qtype=GGMLType.Q4_0, shape=(n, k), pack_zero=PACK_ZERO)
+    g2 = k2 // gsize
+
+    def plane(lo, hi):
+        p = torch.zeros((2, k2p // gsize, n), dtype=torch.float32, device=device)
+        p[:, :g2] = _uniform(gen, (2, g2, n), lo, hi, device)
+        return p
+
+    return QTensor(levels_t=packed, gscale_t=plane(0.005, 0.015), gsize=gsize,
+                   qtype=qtype, shape=(n, k), pack_zero=zero,
+                   gbias_t=plane(-0.08, 0.0) if bias else None)
+
+
+def _unpacked(gen, n, k, qtype, lo, hi, gsize, scale, bias, device) -> QTensor:
+    levels = torch.randint(lo, hi + 1, (k, n), generator=gen, device=device,
+                           dtype=torch.int8)
+    g = k // gsize
+    return QTensor(levels_t=levels, gscale_t=_uniform(gen, (g, n), *scale, device),
+                   gsize=gsize, qtype=qtype, shape=(n, k),
+                   gbias_t=_uniform(gen, (g, n), -0.08, 0.0, device) if bias else None)
+
+
+def synth_qtensor(gen: torch.Generator, n: int, k: int, device,
+                  qtype: GGMLType = GGMLType.Q4_0) -> QTensor:
+    """One random [N, K] weight in the device layout of ``qtype``."""
+    if qtype == GGMLType.Q4_0:
+        return _packed(gen, n, k, qtype, PACK_ZERO, 32, False, device)
+    if qtype == GGMLType.Q4_K:
+        return _packed(gen, n, k, qtype, 0, 32, True, device)
+    if qtype == GGMLType.Q5_K:
+        return _unpacked(gen, n, k, qtype, 0, 31, 32, (0.0025, 0.0075), True, device)
+    if qtype == GGMLType.Q6_K:
+        return _unpacked(gen, n, k, qtype, -32, 31, 16, (0.0005, 0.0015), False, device)
+    raise NotImplementedError(f"no synthetic {qtype.name} weights")
 
 
 def build_llama(n_layer: int = 32, n_embd: int = 4096, n_head: int = 32,
                 n_ff: int = 11008, n_vocab: int = 32000, n_ctx: int = 2048,
-                *, device=None, seed: int = 0):
-    """(cfg, params) of a q4_0 LLaMA at the given widths (default 7B)."""
+                *, device=None, seed: int = 0, ftype: str = "q4_0"):
+    """(cfg, params) of a LLaMA at the given widths (default 7B) in the file
+    type ``ftype`` (see the module docstring)."""
+    if ftype not in FTYPES:
+        raise NotImplementedError(f"no synthetic {ftype} mix")
+    base = FTYPES[ftype]
+    more = GGMLType.Q6_K if ftype.endswith("_K_M") else base
     dev = resolve_device(device)
     cfg = ModelConfig.llama(n_vocab=n_vocab, n_embd=n_embd, n_mult=256,
                             n_head=n_head, n_layer=n_layer,
@@ -47,18 +100,20 @@ def build_llama(n_layer: int = 32, n_embd: int = 4096, n_head: int = 32,
     gen.manual_seed(seed)
     e = n_embd
 
-    def q(n, k):
-        return synth_qtensor(gen, n, k, dev)
+    def q(n, k, qtype=base):
+        return synth_qtensor(gen, n, k, dev, qtype)
 
     def ones():
         return torch.ones((e,), dtype=torch.float32, device=dev)
 
-    blocks = tuple(
-        Block(attn_norm_w=ones(), wq=q(e, e), wk=q(e, e), wv=q(e, e),
-              wo=q(e, e), ffn_norm_w=ones(), w_gate=q(n_ff, e), w_up=q(n_ff, e),
-              w_down=q(e, n_ff))
-        for _ in range(n_layer))
+    def block(i):
+        wide = more if use_more_bits(i, n_layer) else base
+        return Block(attn_norm_w=ones(), wq=q(e, e), wk=q(e, e), wv=q(e, e, wide),
+                     wo=q(e, e), ffn_norm_w=ones(), w_gate=q(n_ff, e),
+                     w_up=q(n_ff, e), w_down=q(e, n_ff, wide))
+
+    blocks = tuple(block(i) for i in range(n_layer))
     params = TransformerParams(tok_embeddings=q(n_vocab, e), blocks=blocks,
                                out_norm_w=ones(), out_norm_b=None,
-                               output=q(n_vocab, e))
+                               output=q(n_vocab, e, more))
     return cfg, fuse_projections(cfg, params)

@@ -57,3 +57,38 @@ def test_main_without_cuda_raises(model_path):
     else:
         assert r.returncode != 0
         assert b"CUDA is not available" in r.stderr
+
+
+@pytest.fixture(scope="module")
+def q4_k_m_path(tmp_path_factory):
+    """The tiny LLaMA (n_embd 256, 2 layers) quantized to MOSTLY_Q4_K_M by the
+    JAX package: q4_K (packed, affine) and q6_K (int8) tensors."""
+    from llama_cpp_q_4_0_tpu.formats.quantize import QuantizeParams, quantize_model
+    from llama_cpp_q_4_0_tpu.quant.types import GGMLType, LlamaFType
+
+    d = tmp_path_factory.mktemp("cli_kq")
+    make_llama_ggjt(str(d / "f32.ggjt"), n_embd=256, n_mult=256, n_head=2,
+                    n_vocab=512, n_layer=2, qtype=GGMLType.F32)
+    p = str(d / "q4_k_m.ggjt")
+    quantize_model(str(d / "f32.ggjt"), p,
+                   QuantizeParams(ftype=LlamaFType.MOSTLY_Q4_K_M),
+                   progress=lambda *a: None)
+    return p
+
+
+@pytest.mark.parametrize("prompt", ["hello", "the quick brown fox"])
+def test_main_q4_k_m_prints_the_jax_text(q4_k_m_path, prompt, capsysbinary):
+    """A k-quant file through `main --device cpu`: the load line names its
+    ftype, and the text equals the JAX package's `main` for 4 greedy tokens
+    (no kfold on this file: both run the same bf16 arithmetic)."""
+    import llama_cpp_q_4_0_tpu.cli.main as jax_main
+
+    args = ["-m", q4_k_m_path, "-p", prompt, "-n", "4", "-c", "64", "-s", "1",
+            "--temp", "0"]
+    assert jax_main.main(args) == 0
+    want = capsysbinary.readouterr().out
+    r = _port_main([*args, "--device", "cpu"])
+    assert r.returncode == 0, r.stderr.decode()
+    assert b"ftype=MOSTLY_Q4_K_M" in r.stderr
+    assert r.stdout == want
+    assert r.stdout.startswith(prompt.encode()) and len(r.stdout) > len(prompt)

@@ -171,3 +171,141 @@ def test_other_families_raise(tmp_path):
     make_gptneox_ggjt(p)
     with pytest.raises(NotImplementedError):
         config_from_ggjt(read_ggjt(p, "gptneox"))
+
+
+# ------------------------------------------------------------ k-quant files
+
+KQ_FTYPES = ["MOSTLY_Q4_K_M", "MOSTLY_Q5_K_M"]
+
+
+@pytest.fixture(scope="module")
+def kquant_paths(tmp_path_factory):
+    """A tiny LLaMA written in F32 and quantized by the JAX package's
+    quantize_model: k-quants need row widths that are multiples of 256, so
+    n_embd 256 and n_ff 768; with 2 layers, layer 1 takes q6_K for wv and w2
+    (use_more_bits), so packed/affine and int8 layouts both appear."""
+    from llama_cpp_q_4_0_tpu.formats.quantize import QuantizeParams, quantize_model
+    from llama_cpp_q_4_0_tpu.quant.types import GGMLType as JaxGGMLType, LlamaFType
+
+    d = tmp_path_factory.mktemp("kq")
+    f32 = str(d / "f32.ggjt")
+    make_llama_ggjt(f32, n_embd=256, n_mult=256, n_head=2, n_vocab=512,
+                    n_layer=2, qtype=JaxGGMLType.F32)
+    out = {}
+    for ft in KQ_FTYPES:
+        out[ft] = str(d / f"{ft}.ggjt")
+        quantize_model(f32, out[ft], QuantizeParams(ftype=LlamaFType[ft]),
+                       progress=lambda *a: None)
+    return out
+
+
+@pytest.mark.parametrize("ftype", KQ_FTYPES)
+def test_kquant_layouts_and_loader_match_jax(kquant_paths, ftype):
+    """The file holds the _M mix (q6_K output, q6_K wv/w2 in layer 1) and
+    the port loads every tensor to JAX's arrays, byte for byte."""
+    path = kquant_paths[ftype]
+    gf = read_ggjt(path)
+    want = "Q4_K" if ftype == "MOSTLY_Q4_K_M" else "Q5_K"
+    types = {n: t.qtype.name for n, t in gf.tensors.items() if len(t.shape) == 2}
+    assert types["output.weight"] == "Q6_K"
+    assert types["layers.1.attention.wv.weight"] == "Q6_K"
+    assert types["layers.1.feed_forward.w2.weight"] == "Q6_K"
+    assert types["layers.0.attention.wv.weight"] == want
+    assert types["tok_embeddings.weight"] == want
+    jgf = jax_read_ggjt(path)
+    jp = jax_load(jgf, jax_config(jgf, n_ctx=64), fuse=False)
+    tp = load_transformer(gf, config_from_ggjt(gf, n_ctx=64), device="cpu",
+                          fuse=False)
+    jt, tt = _to_numpy_tree(jp), _to_numpy_tree_port(tp)
+    leaves = [("tok_embeddings", jt["tok_embeddings"], tt["tok_embeddings"]),
+              ("output", jt["output"], tt["output"])]
+    for i, (jb, tb) in enumerate(zip(jt["blocks"], tt["blocks"])):
+        leaves += [(f"{i}.{k}", jb[k], tb[k]) for k in jb if jb[k] is not None]
+    for name, a, b in leaves:
+        if isinstance(a, dict):
+            assert a["pack_zero"] == b["pack_zero"] and a["gsize"] == b["gsize"], name
+            for key in ("levels_t", "gscale_t", "gbias_t"):
+                if a[key] is None:
+                    assert b[key] is None, (name, key)
+                else:
+                    np.testing.assert_array_equal(a[key], b[key], err_msg=name)
+        else:
+            np.testing.assert_array_equal(np.asarray(a, np.float32),
+                                          np.asarray(b, np.float32), err_msg=name)
+
+
+def _to_numpy_tree_port(params):
+    from llama_cpp_q_4_0_tpu_torch.ops.qtensor import QTensor
+
+    def leaf(v):
+        if v is None:
+            return None
+        if isinstance(v, QTensor):
+            return {"levels_t": v.levels_t.numpy(), "gscale_t": v.gscale_t.numpy(),
+                    "gbias_t": None if v.gbias_t is None else v.gbias_t.numpy(),
+                    "gsize": v.gsize, "pack_zero": v.pack_zero}
+        return v.float().numpy()
+
+    return {"tok_embeddings": leaf(params.tok_embeddings),
+            "output": leaf(params.output),
+            "blocks": [{f.name: leaf(getattr(b, f.name))
+                        for f in dataclasses.fields(b)} for b in params.blocks]}
+
+
+@pytest.mark.parametrize("ftype", KQ_FTYPES)
+def test_kquant_f32_mode_matches_jax(kquant_paths, ftype):
+    """compute_dtype float32 with an f32 cache on the k-quant mix: logits
+    within 1e-4 and 24 identical greedy tokens, as for q4_0."""
+    path = kquant_paths[ftype]
+    jcfg, jp = _jax(path, "float32", 128)
+    tcfg, tp = _port(path, "float32", 128)
+    seq = [PROMPT, [3], [100], [200]]
+    jl = _steps(JaxContext(jcfg, jp, n_ctx=128, cache_dtype=jnp.float32), seq)
+    tl = _steps(Context(tcfg, tp, n_ctx=128, cache_dtype=torch.float32,
+                        device="cpu"), seq)
+    for a, b in zip(jl, tl):
+        np.testing.assert_allclose(b, a, rtol=0, atol=1e-4)
+    jt = list(jax_generate(JaxContext(jcfg, jp, n_ctx=128, cache_dtype=jnp.float32),
+                           PROMPT, JaxGenerateParams(
+                               sampling=JaxSampling(temp=0.0), **_greedy(24))))
+    tt = list(generate(Context(tcfg, tp, n_ctx=128, cache_dtype=torch.float32,
+                               device="cpu"),
+                       PROMPT, GenerateParams(sampling=SamplingParams(temp=0.0),
+                                              **_greedy(24))))
+    assert tt == jt and len(tt) == 24
+
+
+@pytest.mark.parametrize("ftype", KQ_FTYPES)
+def test_kquant_default_mode_matches_jax(kquant_paths, ftype):
+    """bf16 compute with a bf16 cache.  No tensor of this file takes kfold
+    (every packed one has a bias), so both packages run the same arithmetic:
+    bf16(level * d) products, f32 sums, the f32 bias seed; single matmuls
+    agree to 1e-6 of their scale.  Only f32 summation order differs, and it
+    flips the bf16 rounding of some activations by one ulp.  On this file
+    that class alone moves the logits by up to 1.4e-2 of their scale (the
+    port against itself with its embeddings scaled by 1 + 1e-7 noise), so
+    the limit is 2e-2: the one-ulp class, below kfold's 3e-2 drift."""
+    path = kquant_paths[ftype]
+    jcfg, jp = _jax(path, "bfloat16", 128)
+    tcfg, tp = _port(path, "bfloat16", 128)
+    seq = [PROMPT, [3], [100]]
+    jl = _steps(JaxContext(jcfg, jp, n_ctx=128), seq)
+    tl = _steps(Context(tcfg, tp, n_ctx=128, device="cpu"), seq)
+    for a, b in zip(jl, tl):
+        assert np.isfinite(b).all()
+        assert np.abs(b - a).max() <= 2e-2 * np.abs(a).max()
+
+
+def test_kquant_params_from_numpy(kquant_paths):
+    """The JAX package's fused k-quant params (packed with biases, int8,
+    mixed-format blocks left unfused) handed over as numpy give the port's
+    own loader's logits exactly."""
+    path = kquant_paths["MOSTLY_Q4_K_M"]
+    _, jp = _jax(path, "bfloat16", 64)
+    cfg, tp = _port(path, "bfloat16", 64)
+    assert tp.blocks[1].wqkv is None and tp.blocks[0].wqkv is not None
+    conv = params_from_numpy(_to_numpy_tree(jp), device="cpu")
+    a = _steps(Context(cfg, tp, n_ctx=64, device="cpu"), [PROMPT, [3]])
+    b = _steps(Context(cfg, conv, n_ctx=64, device="cpu"), [PROMPT, [3]])
+    for x, y in zip(a, b):
+        np.testing.assert_array_equal(x, y)
