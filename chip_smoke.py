@@ -7,7 +7,8 @@ Phases (each prints its own lines; any failure exits non-zero):
   2. kernel checks at LLaMA-7B shapes: each kernel against its plain PyTorch
      version on the same inputs, with times (kernel, plain, one PyTorch
      library call) and the least time the card could take (bound): K1, K2
-     and K3 on q4_0 weights, K5 on q4_K, K6 on q6_K and K6b on q5_K weights.
+     and K3 on q4_0 weights, K5 on q4_K, K6 on q6_K and K6b on q5_K weights;
+     for agreement only, K5 on q2_K (16-groups) and K6 on q8_0 (32-groups).
   3. end to end, one path after another, the launch counts set to 0 just
      before each and read just after: synthetic LLaMA-7B q4_0 and LLaMA-7B
      Q4_K_M (32 layers, full width) built on the card, each a Context prefill
@@ -59,9 +60,14 @@ KERNEL_SHAPES = {
                                       ("output", 32000, 4096)]),
     "qmm_int8_bias": ("qmm_int8_bias", "Q5_K", [("wo", 4096, 4096)]),
 }
+# the kernels' other compiled forms, checked for agreement only (not timed):
+# K5 on 16-groups (q2_K), K6 on 32-groups (q5_0, q8_0)
+OTHER_FORMS = {"qmm_packed_bias": ("Q2_K", [("wo", 4096, 4096)]),
+               "qmm_int8": ("Q8_0", [("wo", 4096, 4096)])}
 # (packed, group size, bias planes) of each format's device layout
 FORMATS = {"Q4_0": (True, 32, False), "Q4_K": (True, 32, True),
-           "Q6_K": (False, 16, False), "Q5_K": (False, 32, True)}
+           "Q2_K": (True, 16, True), "Q6_K": (False, 16, False),
+           "Q8_0": (False, 32, False), "Q5_K": (False, 32, True)}
 
 
 def fail(msg: str) -> int:
@@ -162,15 +168,20 @@ def model_bounds(label, params, n_layer, t=512):
     return dec_ms
 
 
-def check_qmm(torch, timer, name: str, b: int, rec: dict | None):
+def check_qmm(torch, timer, name: str, b: int, rec: dict | None,
+              other_form: bool = False):
     """A matmul kernel at its 7B shapes (KERNEL_SHAPES) against its plain
     version, on synthetic weights of its format, at b rows; the error, times
-    and bounds summed over the shapes go into rec."""
+    and bounds summed over the shapes go into rec.  other_form: the format
+    and shape of OTHER_FORMS instead, agreement only (its error goes into
+    rec, no times)."""
     from llama_cpp_q_4_0_tpu_torch.ops import qmm
     from llama_cpp_q_4_0_tpu_torch.quant.types import GGMLType
     from llama_cpp_q_4_0_tpu_torch.synth import synth_qtensor
 
     wrapper, fmt, shapes = KERNEL_SHAPES[name]
+    if other_form:
+        fmt, shapes = OTHER_FORMS[name]
     gen = torch.Generator(device="cuda")
     gen.manual_seed(100 + b)
     ok = True
@@ -192,6 +203,13 @@ def check_qmm(torch, timer, name: str, b: int, rec: dict | None):
         tol = 1e-3 * ref.abs().max().item()  # as K1/K2: f32 summation order
         good = bool(torch.isfinite(got).all()) and err <= tol
         ok &= good
+        if other_form:
+            print(f"kernel {name} {fmt} {label} b={b} N={n} K={k} (g={w.gsize}): "
+                  f"max_abs_err={err:.3e} (tol {tol:.3e}) "
+                  f"{'ok' if good else 'MISMATCH'}", flush=True)
+            if rec is not None:
+                rec["max_abs_err"] = max(rec.get("max_abs_err", 0.0), err)
+            continue
         deq = w.dequantize_t(torch.bfloat16)
         xb = x.to(torch.bfloat16)
         k_ms = timer.ms(lambda: call(kern, x, w))
@@ -456,8 +474,7 @@ def _params_to(params, device):
         out_norm_w=mv(params.out_norm_w), output=mv(params.output))
 
 
-def write_ggjt_7b_width(path: str, ftype: str = "q4_0", n_vocab=32000, e=4096,
-                        n_ff=11008, n_head=32):
+def write_ggjt_7b_width(path: str, ftype: str = "q4_0"):
     """GGJT file at 7B width, 2 layers: random block bytes with small finite
     fp16 scales, f32 norms of one, a 32000-entry vocab.  q4_0: every 2-D
     weight q4_0.  Q4_K_M: q4_K blocks, q6_K for the output head and for wv
@@ -469,7 +486,7 @@ def write_ggjt_7b_width(path: str, ftype: str = "q4_0", n_vocab=32000, e=4096,
                                                        BLOCK_Q6_K, GGMLType,
                                                        LlamaFType)
 
-    n_layer = 2
+    n_vocab, e, n_ff, n_head, n_layer = 32000, 4096, 11008, 32, 2
     rng = np.random.default_rng(3)
     kq = ftype == "Q4_K_M"
 
@@ -607,6 +624,10 @@ def main(argv=None) -> int:
             ok &= check_qmm(torch, timer, name, 512, big)
             recs[name]["max_abs_err"] = max(recs[name]["max_abs_err"],
                                             big["max_abs_err"])
+            if name in OTHER_FORMS:
+                for b in (1, 512):
+                    ok &= check_qmm(torch, timer, name, b, recs[name],
+                                    other_form=True)
         if not ok:
             return fail("a kernel disagrees with its plain version")
         del timer

@@ -49,152 +49,18 @@ using namespace qmm;
 namespace {
 
 // ----------------------------------------------------------------- prefill
-// K1, q4_0 (zero 8, 32-groups): one 32-row group per step.  Kept apart from
-// the affine tile kernel below, whose shared helpers and per-thread group
-// index cost K1 6% at the 7B shapes (same card, same call).
-constexpr int K1_GS = 32;
-constexpr int K1_BM = 128;
-constexpr int K1_BN = 128;
-constexpr int K1_THREADS = 256;        // 8 warps: 2 along M x 4 along N
-constexpr int K1_AP = 64 + 8;          // padded row stride (elements) of the x tile
-constexpr int K1_WP = K1_BN + 8;       // padded row stride of the weight tile
-
-__global__ void __launch_bounds__(K1_THREADS, 2)
-qmm_q4_0_kernel(const float* __restrict__ x, const uint8_t* __restrict__ packed,
-                const float* __restrict__ scales, float* __restrict__ out,
-                int B, int K, int N, int G2P) {
-  // x tile [BM][64] bf16: cols 0..31 the low panel, 32..63 the high panel;
-  // weight tile [64][BN] bf16: rows 0..31 low nibbles, 32..63 high nibbles
-  __shared__ __align__(128) __nv_bfloat16 As[K1_BM * K1_AP];
-  __shared__ __align__(128) __nv_bfloat16 Ws[64 * K1_WP];
-
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int m0 = blockIdx.y * K1_BM;
-  const int n0 = blockIdx.x * K1_BN;
-  const int k2 = K / 2;
-  const int G2 = k2 / K1_GS;
-  const int wm = (warp / 4) * 64;
-  const int wn = (warp % 4) * 32;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][2];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-  const int w_row = tid / 8;          // packed row inside the group
-  const int w_col = (tid % 8) * 16;   // 16-column chunk inside the tile
-  const int w_gn = n0 + w_col;
-
-  for (int g = 0; g < G2; ++g) {
-    const int r0 = g * K1_GS;
-    // x: 128 rows x 16 float4 (8 per panel), 8 float4 per thread
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int idx = tid + i * K1_THREADS;
-      const int m = idx / 16;
-      const int c4 = idx % 16;
-      const int gm = m0 + m;
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (gm < B) {
-        const int col = c4 < 8 ? r0 + c4 * 4 : k2 + r0 + (c4 - 8) * 4;
-        v = *reinterpret_cast<const float4*>(x + (size_t)gm * K + col);
-      }
-      __nv_bfloat162* dst =
-          reinterpret_cast<__nv_bfloat162*>(As + m * K1_AP + c4 * 4);
-      dst[0] = __floats2bfloat162_rn(v.x, v.y);
-      dst[1] = __floats2bfloat162_rn(v.z, v.w);
-    }
-    // weights: 32 packed rows x 128 columns, 16 bytes per thread
-    {
-      uint4 pk = make_uint4(0u, 0u, 0u, 0u);
-      float slo[16], shi[16];
-#pragma unroll
-      for (int j = 0; j < 16; ++j) slo[j] = shi[j] = 0.0f;
-      if (w_gn < N) {
-        pk = *reinterpret_cast<const uint4*>(packed + (size_t)(r0 + w_row) * N + w_gn);
-        const float4* pl = reinterpret_cast<const float4*>(scales + (size_t)g * N + w_gn);
-        const float4* ph =
-            reinterpret_cast<const float4*>(scales + ((size_t)G2P + g) * N + w_gn);
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const float4 a = pl[q], b = ph[q];
-          slo[4 * q] = a.x; slo[4 * q + 1] = a.y; slo[4 * q + 2] = a.z; slo[4 * q + 3] = a.w;
-          shi[4 * q] = b.x; shi[4 * q + 1] = b.y; shi[4 * q + 2] = b.z; shi[4 * q + 3] = b.w;
-        }
-      }
-      const unsigned words[4] = {pk.x, pk.y, pk.z, pk.w};
-      __nv_bfloat162* dlo = reinterpret_cast<__nv_bfloat162*>(Ws + w_row * K1_WP + w_col);
-      __nv_bfloat162* dhi =
-          reinterpret_cast<__nv_bfloat162*>(Ws + (32 + w_row) * K1_WP + w_col);
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const unsigned lo = words[q] & 0x0F0F0F0Fu;
-        const unsigned hi = (words[q] >> 4) & 0x0F0F0F0Fu;
-#pragma unroll
-        for (int j = 0; j < 4; j += 2) {
-          const int c = 4 * q + j;
-          dlo[c / 2] = __floats2bfloat162_rn((byte_to_float(lo, j) - 8.0f) * slo[c],
-                                             (byte_to_float(lo, j + 1) - 8.0f) * slo[c + 1]);
-          dhi[c / 2] = __floats2bfloat162_rn((byte_to_float(hi, j) - 8.0f) * shi[c],
-                                             (byte_to_float(hi, j + 1) - 8.0f) * shi[c + 1]);
-        }
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < 64; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a[4];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b[2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        wmma::load_matrix_sync(a[i], As + (wm + 16 * i) * K1_AP + kk, K1_AP);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(b[j], Ws + kk * K1_WP + wn + 16 * j, K1_WP);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-  // epilogue: whole 16x16 fragments straight to memory; ragged ones through
-  // a per-warp 16x16 staging tile in the (now free) x tile
-  float* stage = reinterpret_cast<float*>(As) + warp * 256;
-  const int lane = tid % 32;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int m = m0 + wm + 16 * i;
-      const int n = n0 + wn + 16 * j;
-      if (m >= B || n >= N) continue;  // warp-uniform
-      if (m + 16 <= B) {
-        wmma::store_matrix_sync(out + (size_t)m * N + n, acc[i][j], N,
-                                wmma::mem_row_major);
-      } else {
-        wmma::store_matrix_sync(stage, acc[i][j], 16, wmma::mem_row_major);
-        __syncwarp();
-        for (int e = lane; e < 256; e += 32) {
-          const int mm = m + e / 16;
-          if (mm < B) out[(size_t)mm * N + n + e % 16] = stage[e];
-        }
-        __syncwarp();
-      }
-    }
-}
-
-
-// K5's prefill form: K1's tile with a runtime zero and 16- or 32-groups
-// (the row's group scale sits in row r0 / GS + w_row / GS of each plane)
-template <int GS>
+// One 32-row packed step per iteration.  Q4_0 (K1): zero 8 at compile time;
+// else (K5) the runtime zero.  A 32-group is uniform across the block (row
+// r0 / 32 of each plane); a 16-group's row is r0 / 16 + w_row / 16.  The
+// counted step loop and the interleaved low/high scale loads matter: with
+// an `r0 += 32` loop and one plane loaded after the other, the same body
+// ran K1 3% slower on the 7B shapes.
+template <int GS, bool Q4_0>
 __global__ void __launch_bounds__(TILE_THREADS, 2)
 qmm_packed_tile_kernel(const float* __restrict__ x, const uint8_t* __restrict__ packed,
                        const float* __restrict__ scales, float* __restrict__ out,
-                       int B, int K, int N, int G2P, float zero) {
+                       int B, int K, int N, int G2P, float zero_arg) {
+  const float zero = Q4_0 ? 8.0f : zero_arg;
   // x tile [TM][64] bf16: cols 0..31 the low panel, 32..63 the high panel;
   // weight tile [64][TN] bf16: rows 0..31 low nibbles, 32..63 high nibbles
   __shared__ __align__(128) __nv_bfloat16 As[TM * AP];
@@ -215,7 +81,9 @@ qmm_packed_tile_kernel(const float* __restrict__ x, const uint8_t* __restrict__ 
   const int w_col = (tid % 8) * 16;   // 16-column chunk inside the tile
   const int w_gn = n0 + w_col;
 
-  for (int r0 = 0; r0 < k2; r0 += 32) {
+  const int n_steps = k2 / 32;
+  for (int gi = 0; gi < n_steps; ++gi) {
+    const int r0 = gi * 32;
     // x: TM rows x 16 float4 (8 per panel), 8 float4 per thread
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
@@ -232,10 +100,17 @@ qmm_packed_tile_kernel(const float* __restrict__ x, const uint8_t* __restrict__ 
 #pragma unroll
       for (int j = 0; j < 16; ++j) slo[j] = shi[j] = 0.0f;
       if (w_gn < N) {
-        const int g = r0 / GS + w_row / GS;
+        const int g = GS == 32 ? r0 / 32 : r0 / GS + w_row / GS;
         pk = *reinterpret_cast<const uint4*>(packed + (size_t)(r0 + w_row) * N + w_gn);
-        load16(scales + (size_t)g * N + w_gn, slo);
-        load16(scales + ((size_t)G2P + g) * N + w_gn, shi);
+        const float4* pl = reinterpret_cast<const float4*>(scales + (size_t)g * N + w_gn);
+        const float4* ph =
+            reinterpret_cast<const float4*>(scales + ((size_t)G2P + g) * N + w_gn);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const float4 a = pl[q], b = ph[q];
+          slo[4 * q] = a.x; slo[4 * q + 1] = a.y; slo[4 * q + 2] = a.z; slo[4 * q + 3] = a.w;
+          shi[4 * q] = b.x; shi[4 * q + 1] = b.y; shi[4 * q + 2] = b.z; shi[4 * q + 3] = b.w;
+        }
       }
       const unsigned words[4] = {pk.x, pk.y, pk.z, pk.w};
       __nv_bfloat162* dlo = reinterpret_cast<__nv_bfloat162*>(Ws + w_row * WP + w_col);
@@ -400,13 +275,13 @@ cudaError_t launch_gemv(const float* x, const uint8_t* packed, const float* scal
   return gemv_reduce(partial, out, n_split, B * N, st);
 }
 
-template <int GS>
+template <int GS, bool Q4_0>
 cudaError_t launch_tile(const float* x, const uint8_t* packed, const float* scales,
                         float* out, int B, int K, int N, int G2P, float zero,
                         cudaStream_t st) {
   dim3 grid((N + TN - 1) / TN, (B + TM - 1) / TM);
-  qmm_packed_tile_kernel<GS><<<grid, TILE_THREADS, 0, st>>>(x, packed, scales, out,
-                                                            B, K, N, G2P, zero);
+  qmm_packed_tile_kernel<GS, Q4_0><<<grid, TILE_THREADS, 0, st>>>(
+      x, packed, scales, out, B, K, N, G2P, zero);
   return cudaGetLastError();
 }
 
@@ -420,11 +295,9 @@ int qmm_packed_splits(int K) { return gemv_splits(K / 2 / 32); }
 
 int qmm_q4_0(const void* x, const void* packed, const void* scales, void* out,
              int B, int K, int N, int G2P, void* stream) {
-  dim3 grid((N + K1_BN - 1) / K1_BN, (B + K1_BM - 1) / K1_BM);
-  qmm_q4_0_kernel<<<grid, K1_THREADS, 0, (cudaStream_t)stream>>>(
-      (const float*)x, (const uint8_t*)packed, (const float*)scales, (float*)out,
-      B, K, N, G2P);
-  return (int)cudaGetLastError();
+  return (int)launch_tile<32, true>((const float*)x, (const uint8_t*)packed,
+                                    (const float*)scales, (float*)out, B, K, N, G2P,
+                                    8.0f, (cudaStream_t)stream);
 }
 
 int qmm_q4_0_kfold(const void* x, const void* packed, const void* scales,
@@ -455,8 +328,8 @@ int qmm_packed_bias(const void* x, const void* packed, const void* scales,
         ? launch_gemv<32, false>(xf, pk, sc, bi, (float*)scratch, o, B, K, N, G2P, z, st)
         : launch_gemv<16, false>(xf, pk, sc, bi, (float*)scratch, o, B, K, N, G2P, z, st));
   }
-  cudaError_t err = gsize == 32 ? launch_tile<32>(xf, pk, sc, o, B, K, N, G2P, z, st)
-                                : launch_tile<16>(xf, pk, sc, o, B, K, N, G2P, z, st);
+  cudaError_t err = gsize == 32 ? launch_tile<32, false>(xf, pk, sc, o, B, K, N, G2P, z, st)
+                                : launch_tile<16, false>(xf, pk, sc, o, B, K, N, G2P, z, st);
   if (err != cudaSuccess) return (int)err;
   return (int)bias_seed(xf, bi, o, (float*)scratch, B, K, N, gsize, K / 2 / gsize,
                         G2P, st);

@@ -33,6 +33,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .. import resolve_device
 from ..quant.pack import PlanarQuant
 from ..quant.types import GGMLType
 
@@ -64,12 +65,13 @@ class QTensor:
         return self.levels_t.device
 
     @staticmethod
-    def from_planar(p: PlanarQuant, device="cpu", pack: bool = True) -> "QTensor":
+    def from_planar(p: PlanarQuant, device=None) -> "QTensor":
         """Device layout of a planar weight, byte for byte the JAX package's
         ``QTensor.from_planar``: packed when each half panel holds whole groups
         and the levels span at most 16 values, with pack_zero = -min(level).
-        The transposes and the packing run on ``device`` (integer ops, so
-        exact on either)."""
+        The transposes and the packing run on ``device`` (cuda unless named;
+        integer ops, so exact on either)."""
+        device = resolve_device(device)
 
         def put_t(a):  # [N, X] host array -> contiguous [X, N] on the device
             return torch.from_numpy(np.ascontiguousarray(a)).to(device).T.contiguous()
@@ -78,7 +80,7 @@ class QTensor:
         gb = put_t(p.gbias) if p.gbias is not None else None
         k, n = lv.shape
         pack_zero = None
-        if pack and k % 2 == 0 and (k // 2) % p.gsize == 0:
+        if k % 2 == 0 and (k // 2) % p.gsize == 0:
             lo, hi = int(lv.min()), int(lv.max())
             if hi - lo <= 15:
                 pack_zero = -lo

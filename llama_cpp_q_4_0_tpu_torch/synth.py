@@ -75,6 +75,10 @@ def synth_qtensor(gen: torch.Generator, n: int, k: int, device,
         return _packed(gen, n, k, qtype, PACK_ZERO, 32, False, device)
     if qtype == GGMLType.Q4_K:
         return _packed(gen, n, k, qtype, 0, 32, True, device)
+    if qtype == GGMLType.Q2_K:
+        return _packed(gen, n, k, qtype, 0, 16, True, device)
+    if qtype == GGMLType.Q8_0:
+        return _unpacked(gen, n, k, qtype, -127, 127, 32, (0.0005, 0.0015), False, device)
     if qtype == GGMLType.Q5_K:
         return _unpacked(gen, n, k, qtype, 0, 31, 32, (0.0025, 0.0075), True, device)
     if qtype == GGMLType.Q6_K:

@@ -220,7 +220,8 @@ def _layouts(n, k, seed):
         blocks = quantize(w, JaxGGMLType[name])
         mine = np.frombuffer(blocks.tobytes(),
                              dtype=type_traits(GGMLType[name]).block_dtype)
-        out[name] = (QTensor.from_planar(pack_planar(mine, GGMLType[name], (n, k))),
+        out[name] = (QTensor.from_planar(pack_planar(mine, GGMLType[name], (n, k)),
+                                         device="cpu"),
                      JaxQTensor.from_planar(jax_pack_planar(
                          blocks, JaxGGMLType[name], (n, k))))
     return out
@@ -300,23 +301,26 @@ def test_q3_k_file_raises_at_load(tmp_path):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("b", [1, 8, 33, 512])
-def test_affine_and_int8_kernels_match_plain_on_card(b):
+@pytest.mark.parametrize("gsize", [16, 32])
+def test_affine_and_int8_kernels_match_plain_on_card(b, gsize):
     """On the card: K5, K6 and K6b against their plain versions at a 7B
-    shape (f32 summation-order noise, as K1/K2's check)."""
+    shape, on 16-groups (q2_K; q6_K) and 32-groups (q4_K, q4_1; q5_0, q8_0,
+    q5_K), f32 summation-order noise as K1/K2's check."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     n, k = 4096, 11008
     t = lambda a: torch.from_numpy(a).cuda()  # noqa: E731
     x = t(_x(b, k, seed=b))
-    packed, scales, bias = _packed_affine(n, k, 32, 0, seed=b)
-    levels, iscales, ibias = _int8_weight(n, k, 16, seed=b)
+    packed, scales, bias = _packed_affine(n, k, gsize, 0, seed=b)
+    levels, iscales, ibias = _int8_weight(n, k, gsize, seed=b)
     pairs = [
-        (qmm.qmm_packed_bias(x, t(packed), t(scales), t(bias), zero=0, gsize=32),
-         qmm.qmm_packed_bias_plain(x, t(packed), t(scales), t(bias), zero=0, gsize=32)),
-        (qmm.qmm_int8(x, t(levels), t(iscales), gsize=16),
-         qmm.qmm_int8_plain(x, t(levels), t(iscales), gsize=16)),
-        (qmm.qmm_int8_bias(x, t(levels), t(iscales), t(ibias), gsize=16),
-         qmm.qmm_int8_bias_plain(x, t(levels), t(iscales), t(ibias), gsize=16)),
+        (qmm.qmm_packed_bias(x, t(packed), t(scales), t(bias), zero=0, gsize=gsize),
+         qmm.qmm_packed_bias_plain(x, t(packed), t(scales), t(bias), zero=0,
+                                   gsize=gsize)),
+        (qmm.qmm_int8(x, t(levels), t(iscales), gsize=gsize),
+         qmm.qmm_int8_plain(x, t(levels), t(iscales), gsize=gsize)),
+        (qmm.qmm_int8_bias(x, t(levels), t(iscales), t(ibias), gsize=gsize),
+         qmm.qmm_int8_bias_plain(x, t(levels), t(iscales), t(ibias), gsize=gsize)),
     ]
     torch.cuda.synchronize()
     for got, want in pairs:

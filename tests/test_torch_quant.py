@@ -53,7 +53,7 @@ def test_repack_equals_jax(name, n, k):
     if p.gbias is not None:
         _same(jp.gbias, p.gbias, "gbias")
     jq = JaxQTensor.from_planar(jp)
-    q = QTensor.from_planar(p)
+    q = QTensor.from_planar(p, device="cpu")
     assert q.pack_zero == jq.pack_zero and q.gsize == jq.gsize
     _same(jq.levels_t, q.levels_t.numpy(), "levels_t")
     _same(jq.gscale_t, q.gscale_t.numpy(), "gscale_t")
