@@ -7,6 +7,8 @@ import sys
 
 TOOLS = {
     "main": ("generate text (examples/main)", "main"),
+    "benchmark-matmult": ("quantized vs dense matmul, vdot, HBM read stream",
+                          "benchmark"),
 }
 
 

@@ -23,6 +23,9 @@ SOURCES = {
     "qmm_q4_0": os.path.join(_PKG, "csrc", "qmm_q4_0.cu"),
     "qmm_int8": os.path.join(_PKG, "csrc", "qmm_int8.cu"),
     "flash_prefill": os.path.join(_PKG, "csrc", "flash_prefill.cu"),
+    "qmm_q8x": os.path.join(_PKG, "csrc", "qmm_q8x.cu"),
+    "mha_decode": os.path.join(_PKG, "csrc", "mha_decode.cu"),
+    "stream": os.path.join(_PKG, "csrc", "stream.cu"),
 }
 # headers the sources include: a change to one rebuilds every source
 HEADERS = [os.path.join(_PKG, "csrc", "qmm_common.cuh")]

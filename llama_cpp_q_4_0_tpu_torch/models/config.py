@@ -24,7 +24,9 @@ class ModelConfig:
     rope_neox: bool = False  # half-split pairs (mode 2) vs adjacent pairs
     rope_base: float = 10000.0
     norm_eps: float = 1e-6
-    compute_dtype: str = "bfloat16"  # matmul input dtype: bfloat16 | float32
+    # matmul arithmetic: bfloat16 | float32 | ref_int8 (the reference's
+    # q8-activation integer dots, ops/qmatmul.py q_matmul_ref_int8)
+    compute_dtype: str = "bfloat16"
 
     @property
     def head_dim(self) -> int:

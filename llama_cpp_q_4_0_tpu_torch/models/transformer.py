@@ -21,7 +21,7 @@ import torch
 from .. import resolve_device
 from ..ops.kvcache import QuantKV, quantize_kv
 from ..ops.layers import attention, rms_norm, rope, silu
-from ..ops.qmatmul import q_matmul
+from ..ops.qmatmul import q_matmul, q_matmul_ref_int8
 from ..ops.qtensor import QTensor
 from .config import ModelConfig
 
@@ -59,6 +59,8 @@ def _compute_dtype(cfg: ModelConfig):
 
 
 def _mm(x, w, cfg: ModelConfig):
+    if cfg.compute_dtype == "ref_int8":
+        return q_matmul_ref_int8(x, w)
     return q_matmul(x, w, compute_dtype=_compute_dtype(cfg))
 
 

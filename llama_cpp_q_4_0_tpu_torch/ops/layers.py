@@ -7,9 +7,12 @@ x[2i+1]) — LLaMA's ggml layout — and ``neox=True`` rotates half-split pairs
 
 from __future__ import annotations
 
+import os
+
 import torch
 
 from .kvcache import QuantKV
+from .mha_decode import mha_decode
 from .qmm import bf16_f32
 
 
@@ -59,6 +62,20 @@ def use_flash_prefill(t: int, hd: int, device: torch.device) -> bool:
             and hd % 128 == 0)
 
 
+def use_fused_decode(rep: int, t: int, s: int, hd: int, device: torch.device) -> bool:
+    """The JAX package's ``_use_fused_decode`` rule for the decode attention
+    kernel: ``FUSED_ATTN`` set, on the card, at most ``FUSED_MAX_T`` (default
+    8) query tokens, head widths that are multiples of 64 and windows of at
+    least 128 slots that are multiples of 256 (or of themselves below 256).
+    The kernel's wrapper raises for a head width it is not compiled for and
+    above 16 query tokens.  ``rep`` does not enter, as in the JAX rule."""
+    if not os.environ.get("FUSED_ATTN"):
+        return False
+    max_t = int(os.environ.get("FUSED_MAX_T", "8"))
+    return (device.type == "cuda" and t <= max_t and hd % 64 == 0
+            and s % min(256, s) == 0 and s >= 128)
+
+
 def attention(q: torch.Tensor, k_cache, v_cache, q_positions: torch.Tensor,
               kv_mask: torch.Tensor, scale: float) -> torch.Tensor:
     """Causal attention over a preallocated KV buffer.
@@ -71,7 +88,9 @@ def attention(q: torch.Tensor, k_cache, v_cache, q_positions: torch.Tensor,
     (q, the stored K/V and the probabilities) to f32-accumulated products, and
     an f32 cache keeps the exact f32 chain.  QuantKV scales multiply the
     scores (K) and the probabilities (V); query heads are grouped onto their
-    KV head (GQA/MQA) without repeating the cache."""
+    KV head (GQA/MQA) without repeating the cache.  Where ``use_fused_decode``
+    holds, the decode attention kernel (ops/mha_decode.py) computes the f32
+    chain on the stored values instead."""
 
     def split(c):
         if isinstance(c, QuantKV):
@@ -85,6 +104,9 @@ def attention(q: torch.Tensor, k_cache, v_cache, q_positions: torch.Tensor,
     if n_head % n_kv:
         raise ValueError(f"{n_head} query heads over {n_kv} kv heads")
     rep = n_head // n_kv
+    if use_fused_decode(rep, t, s, hd, q.device):
+        return mha_decode(q.float().contiguous(), kd, ks, vd, vs, q_positions,
+                          kv_mask, scale)
     low = kd.dtype != torch.float32  # storage-dtype (bf16 operand) path
     rnd = bf16_f32 if low else (lambda a: a)
     qg = rnd(q.float()).reshape(b, t, n_kv, rep, hd)

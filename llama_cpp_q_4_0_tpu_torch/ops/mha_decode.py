@@ -1,0 +1,137 @@
+"""Decode / verify attention over the KV cache (csrc/mha_decode.cu) and its
+plain version.
+
+Replaces the JAX package's ``ops/pallas/attention.py::mha_decode``, which
+``ops/layers.py::attention`` calls under ``FUSED_ATTN`` for small T.  It
+computes the f32 chain on the stored cache values (q not rounded): scores
+``(q . k) * scale`` times K's scale, ``NEG`` where a slot is masked or after
+the row's position, the softmax numerator zeroed there, V's scale on the
+probabilities, and ``acc / max(l, 1e-30)``, so a row with no valid slot
+gives 0.  The default ``attention`` rounds q and the probabilities to bf16 on
+a bf16 or int8 cache; this function never does.
+
+For a CPU tensor the wrapper runs the plain version; for a CUDA tensor it
+launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+NEG = -1e30
+HEAD_DIMS = (64, 128, 256)  # the head widths the kernel is compiled for
+MAX_T = 16
+KV_TYPES = {torch.int8: 0, torch.bfloat16: 1, torch.float16: 2, torch.float32: 3}
+launches = {"mha_decode": 0}
+
+
+def mha_decode_plain(q: torch.Tensor, kd: torch.Tensor, ks: torch.Tensor | None,
+                     vd: torch.Tensor, vs: torch.Tensor | None,
+                     q_positions: torch.Tensor, kv_mask: torch.Tensor,
+                     scale: float) -> torch.Tensor:
+    """q [B,T,H,D]; kd/vd [B,S,G,D] (ks/vs [B,S,G] f32 for an int8 cache,
+    else None); q_positions [B,T]; kv_mask [B,S] bool -> f32 [B,T,H,D]."""
+    b, t, h, d = q.shape
+    s, g = kd.shape[1], kd.shape[2]
+    qg = q.float().reshape(b, t, g, h // g, d)
+    scores = torch.einsum("btgrd,bsgd->bgrts", qg, kd.float()) * scale
+    if ks is not None:
+        scores = scores * ks.permute(0, 2, 1)[:, :, None, None, :]
+    slot = torch.arange(s, device=q.device)
+    valid = (kv_mask[:, None, None, None, :]
+             & (slot <= q_positions[:, None, None, :, None]))
+    scores = torch.where(valid, scores, torch.full((), NEG, device=q.device))
+    m = scores.amax(dim=-1, keepdim=True)
+    p = torch.where(valid, torch.exp(scores - m), torch.zeros((), device=q.device))
+    l = p.sum(dim=-1)
+    if vs is not None:
+        p = p * vs.permute(0, 2, 1)[:, :, None, None, :]
+    acc = torch.einsum("bgrts,bsgd->btgrd", p, vd.float())
+    out = acc / torch.clamp(l, min=1e-30).permute(0, 3, 1, 2)[..., None]
+    return out.reshape(b, t, h, d)
+
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_SIGNATURES = {
+    "mha_decode": ([_P, _P, _P, _P, _P, _P, _L, _P, _L, _P, _P, _P, _I, _I, _I, _I,
+                    _I, _I, _L, _L, _I, ctypes.c_float, _P], _I),
+    "mha_decode_chunks": ([_I], _I),
+}
+
+
+def _check_cuda(q, kd, ks, vd, vs, q_positions, kv_mask):
+    """What the kernel takes: a contiguous f32 q; K/V of one stored type,
+    contiguous inside a batch row and sharing their batch stride; f32 scales
+    laid out the same way; int64 positions and a bool mask with unit stride
+    along T and S; 16-byte aligned K/V."""
+    b, t, h, d = q.shape
+    s, g = kd.shape[1], kd.shape[2]
+    if d not in HEAD_DIMS:
+        raise ValueError(f"the CUDA kernel takes head_dim in {HEAD_DIMS}, not {d}")
+    if t > MAX_T:
+        raise ValueError(f"the CUDA kernel takes at most {MAX_T} query tokens, not {t}")
+    if q.dtype != torch.float32 or not q.is_contiguous():
+        raise ValueError("the CUDA kernel takes a contiguous f32 q")
+    if kd.dtype not in KV_TYPES or vd.dtype != kd.dtype:
+        raise TypeError(f"K/V dtypes {kd.dtype}, {vd.dtype}")
+    for a in (kd, vd):
+        if a.stride()[1:] != (g * d, d, 1) or a.stride(0) != kd.stride(0):
+            raise ValueError("K/V must be contiguous inside a batch row, with one "
+                             "batch stride")
+        if a.data_ptr() % 16:
+            raise ValueError("the CUDA kernel takes 16-byte aligned K/V")
+    if (ks is None) != (kd.dtype != torch.int8) or (vs is None) != (ks is None):
+        raise ValueError("an int8 cache needs its K and V scales, a float one none")
+    if ks is not None:
+        for a in (ks, vs):
+            if (a.dtype != torch.float32 or a.shape != kd.shape[:3]
+                    or a.stride()[1:] != (g, 1) or a.stride(0) != ks.stride(0)):
+                raise ValueError("scales must be f32 [B, S, G], contiguous inside a "
+                                 "batch row, with one batch stride")
+    if q_positions.dtype != torch.int64 or (t > 1 and q_positions.stride(1) != 1):
+        raise ValueError("q_positions must be int64 with a unit stride along T")
+    if kv_mask.dtype != torch.bool or kv_mask.stride(1) != 1:
+        raise ValueError("kv_mask must be bool with a unit stride along S")
+
+
+def mha_decode(q: torch.Tensor, kd: torch.Tensor, ks: torch.Tensor | None,
+               vd: torch.Tensor, vs: torch.Tensor | None, q_positions: torch.Tensor,
+               kv_mask: torch.Tensor, scale: float) -> torch.Tensor:
+    """Attention of T <= 16 query tokens over the cache window -> f32
+    [B, T, H, D].  The window may be a strided ``cache[:, :w]`` view: the
+    kernel takes its batch stride and copies nothing."""
+    b, t, h, d = q.shape
+    s, g = kd.shape[1], kd.shape[2]
+    if kd.shape != vd.shape or kd.shape[0] != b or kd.shape[3] != d or h % g:
+        raise ValueError(f"K/V {tuple(kd.shape)} do not match q {tuple(q.shape)}")
+    if tuple(q_positions.shape) != (b, t) or tuple(kv_mask.shape) != (b, s):
+        raise ValueError("q_positions must be [B, T] and kv_mask [B, S]")
+    tensors = [q, kd, vd, q_positions, kv_mask] + [a for a in (ks, vs) if a is not None]
+    if any(a.device != q.device for a in tensors):
+        raise ValueError("the inputs lie on different devices")
+    if q.device.type == "cpu":
+        return mha_decode_plain(q, kd, ks, vd, vs, q_positions, kv_mask, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    _check_cuda(q, kd, ks, vd, vs, q_positions, kv_mask)
+    from ..kernels import build
+
+    lib = build.load("mha_decode", _SIGNATURES)
+    rows = b * g * lib.mha_decode_chunks(s) * t * (h // g)
+    opart = torch.empty((rows, d), dtype=torch.float32, device=q.device)
+    mlpart = torch.empty((rows, 2), dtype=torch.float32, device=q.device)
+    out = torch.empty_like(q)
+    err = lib.mha_decode(
+        q.data_ptr(), kd.data_ptr(), None if ks is None else ks.data_ptr(),
+        vd.data_ptr(), None if vs is None else vs.data_ptr(),
+        q_positions.data_ptr(), q_positions.stride(0), kv_mask.data_ptr(),
+        kv_mask.stride(0), opart.data_ptr(), mlpart.data_ptr(), out.data_ptr(),
+        b, t, h, g, s, d, kd.stride(0), 0 if ks is None else ks.stride(0),
+        KV_TYPES[kd.dtype], float(scale),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"mha_decode launch failed: CUDA error {err}")
+    launches["mha_decode"] += 1
+    return out

@@ -1,5 +1,5 @@
-"""Quantized matmul kernels (csrc/qmm_q4_0.cu, csrc/qmm_int8.cu) and their
-plain versions.
+"""Quantized matmul kernels (csrc/qmm_q4_0.cu, csrc/qmm_int8.cu,
+csrc/qmm_q8x.cu) and their plain versions.
 
 Each computes ``x [B, K] @ dequant(W) -> f32 [B, N]`` from one layout of
 ``ops/qtensor.py``.  Dequantized weights are rounded to bf16 before the
@@ -16,6 +16,12 @@ kernels they replace:
                                                        (q5_0, q8_0, q6_K)
   qmm_int8_bias     K6b ``_qmm_bias_kernel``          same with a bias
                                                        (q5_1, q5_K)
+  qmm_packed_q8x    K7  ``_qmm_packed_q8x_kernel``    q4_0 with int8
+                                                       activations
+
+K7 is the other arithmetic: x is quantized per 32-group as the reference's
+q8_0 (``quantize_q8x``) and each group dot is an exact integer product,
+scaled into f32 as ``dot * d_x * d_w``.
 
 Packed: ``packed`` uint8 ``[K2P, N]`` (low nibble row r, high nibble row
 r + K/2, each level + zero), planes f32 ``[2, K2P/g, N]``.  Unpacked:
@@ -33,7 +39,7 @@ import ctypes
 import torch
 
 launches = {"qmm_q4_0": 0, "qmm_q4_0_kfold": 0, "qmm_packed_bias": 0,
-            "qmm_int8": 0, "qmm_int8_bias": 0}
+            "qmm_int8": 0, "qmm_int8_bias": 0, "qmm_q8x": 0}
 
 
 def bf16_f32(t: torch.Tensor) -> torch.Tensor:
@@ -133,6 +139,61 @@ def qmm_int8_bias_plain(x: torch.Tensor, levels: torch.Tensor,
     return seed + bf16_f32(xf) @ _int8_weights(levels, scales, gsize)
 
 
+def roundf(v: torch.Tensor) -> torch.Tensor:
+    """C roundf (ties away from zero) in f32: torch.round rounds ties to even,
+    and trunc(v + .5) mis-rounds the float just below a tie, so the ties are
+    found exactly and moved away from zero."""
+    t = torch.trunc(v)
+    return torch.where((v - t).abs() == 0.5, t + torch.sign(v), torch.round(v))
+
+
+def ieee_div(a, b) -> torch.Tensor:
+    """a / b in correctly rounded f32 on every device, for a tensor and a
+    Python number on either side: PyTorch's CUDA kernels multiply by the
+    reciprocal when one side is a Python scalar, which is off by an ulp for
+    some values (the reference divides)."""
+    if not isinstance(a, torch.Tensor):
+        a = torch.full_like(b, a)
+    if not isinstance(b, torch.Tensor):
+        b = torch.full_like(a, b)
+    return a / b
+
+
+def quantize_q8x_plain(x: torch.Tensor, gsize: int = 32):
+    """The JAX ``_quantize_q8x`` (quantize_row_q8_0): per gsize-group of x
+    [B, K], d = amax/127, q = roundf(x * (1/d)) in f32, d then rounded
+    through fp16.  Returns (xq int8 [B, K], d f32 [B, K/gsize]) in logical
+    order (the low panel's groups, then the high panel's)."""
+    b, k = x.shape
+    xf = x.float().reshape(b, k // gsize, gsize)
+    dq = ieee_div(xf.abs().amax(dim=-1), 127.0)
+    idq = torch.where(dq > 0, ieee_div(1.0, dq), torch.zeros_like(dq))
+    xq = roundf(xf * idq[..., None]).to(torch.int8).reshape(b, k)
+    return xq, dq.to(torch.float16).float()
+
+
+def qmm_packed_q8x_plain(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
+                         *, zero: int = 8, gsize: int = 32) -> torch.Tensor:
+    """Plain version of K7: per group g (the low panel's, then the high
+    panel's), acc += (float)(xq_g . level_g) * d_x * d_w, the group dots
+    exact in f32 (|xq| <= 127, |level| <= 8, 32 terms)."""
+    _q4_0_only(zero, gsize)
+    b, k = x.shape
+    k2, n = k // 2, packed.shape[1]
+    g2 = k2 // gsize
+    xq, d = quantize_q8x_plain(x, gsize)
+    xq = xq.float().reshape(b, 2, g2, gsize)
+    d = d.reshape(b, 2, g2)
+    p = packed[:k2].to(torch.int32)
+    lv = torch.stack([(p & 0xF) - zero, (p >> 4) - zero]).float().reshape(2, g2, gsize, n)
+    acc = torch.zeros((b, n), dtype=torch.float32, device=x.device)
+    for g in range(g2):
+        for h in range(2):
+            dot = xq[:, h, g] @ lv[h, g]
+            acc = acc + dot * d[:, h, g, None] * scales[h, g]
+    return acc
+
+
 def _check(x: torch.Tensor, w: torch.Tensor, planes: list, *, packed: bool,
            gsize: int):
     """Shapes, dtypes and devices of one call; on CUDA also what the kernels
@@ -183,6 +244,11 @@ _SIGNATURES = {
     "qmm_int8": {
         "qmm_int8": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
         "qmm_int8_splits": ([_I], _I),
+    },
+    "qmm_q8x": {
+        "qmm_q8x": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
+        "q8x_quantize": ([_P, _P, _P, _I, _I, _P], _I),
+        "qmm_q8x_splits": ([_I], _I),
     },
 }
 GEMV_MAX_ROWS = 32  # rows the kernels take in their decode (split-K) form
@@ -307,3 +373,46 @@ def qmm_int8_bias(x: torch.Tensor, levels: torch.Tensor, scales: torch.Tensor,
     if x.device.type == "cpu":
         return qmm_int8_bias_plain(x, levels, scales, gbias, gsize=gsize)
     return _int8(x, levels, scales, gbias, gsize, "qmm_int8_bias")
+
+
+def quantize_q8x(x: torch.Tensor, gsize: int = 32):
+    """K7's activation quantizer alone (its first pass): (xq int8 [B, K],
+    d f32 [B, K/32]), bit-identical to ``quantize_q8x_plain``."""
+    _q4_0_only(8, gsize)
+    if x.dim() != 2 or x.dtype != torch.float32 or x.shape[1] % 64:
+        raise ValueError(f"x must be f32 [B, K] with K % 64 == 0, not "
+                         f"{x.dtype} {tuple(x.shape)}")
+    if x.device.type == "cpu":
+        return quantize_q8x_plain(x, gsize)
+    if not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError("the CUDA kernel takes a contiguous, 16-byte aligned x")
+    b, k = x.shape
+    xq = torch.empty((b, k), dtype=torch.int8, device=x.device)
+    d = torch.empty((b, k // gsize), dtype=torch.float32, device=x.device)
+    err = _lib("qmm_q8x").q8x_quantize(x.data_ptr(), xq.data_ptr(), d.data_ptr(),
+                                        b, k, _stream(x))
+    if err:
+        raise RuntimeError(f"q8x_quantize launch failed: CUDA error {err}")
+    return xq, d
+
+
+def qmm_packed_q8x(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor, *,
+                   zero: int = 8, gsize: int = 32) -> torch.Tensor:
+    """K7 at any row count (a split-K GEMV at 32 rows or fewer, an int8
+    tensor-core tile above): f32 [B, N]."""
+    _q4_0_only(zero, gsize)
+    _check(x, packed, [scales], packed=True, gsize=gsize)
+    if x.device.type == "cpu":
+        return qmm_packed_q8x_plain(x, packed, scales, zero=zero, gsize=gsize)
+    b, k = x.shape
+    k2p, n = packed.shape
+    lib = _lib("qmm_q8x")
+    xq = torch.empty((b, k), dtype=torch.int8, device=x.device)
+    d = torch.empty((b, k // gsize), dtype=torch.float32, device=x.device)
+    partial = _scratch(lib, "qmm_q8x_splits", x, n, gsize, False)
+    out = torch.empty((b, n), dtype=torch.float32, device=x.device)
+    err = lib.qmm_q8x(x.data_ptr(), packed.data_ptr(), scales.data_ptr(),
+                      xq.data_ptr(), d.data_ptr(), _ptr(partial), out.data_ptr(),
+                      b, k, n, k2p // gsize, _stream(x))
+    _launched(err, "qmm_q8x")
+    return out

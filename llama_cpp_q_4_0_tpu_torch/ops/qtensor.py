@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..quant.pack import PlanarQuant
+from ..quant.pack import PlanarQuant, quantize_planar
 from ..quant.types import GGMLType
 
 
@@ -101,6 +101,13 @@ class QTensor:
                 gb = planes(gb) if gb is not None else None
         return QTensor(levels_t=lv, gscale_t=gs, gsize=p.gsize, qtype=p.qtype,
                        shape=tuple(p.shape), pack_zero=pack_zero, gbias_t=gb)
+
+    @staticmethod
+    def quantize(w: np.ndarray, qtype: GGMLType, device=None) -> "QTensor":
+        """A float32 [N, K] weight quantized to qtype and laid out on
+        ``device`` (cuda unless named), as the JAX ``QTensor.quantize``."""
+        return QTensor.from_planar(quantize_planar(np.asarray(w, np.float32), qtype),
+                                   device=device)
 
     def to(self, device) -> "QTensor":
         return dataclasses.replace(

@@ -8,8 +8,8 @@ so that W[n, k] = levels[n, k] * gscale[n, k // gsize] + gbias[n, k // gsize].
 Scale products (d * sc, -(dmin * m)) are taken in float32 as the reference
 dequantizers take them.  Array for array the same as the JAX package's
 ``quant/pack.py`` (QK_K = 256 formats), with each planner working on all
-blocks at once.  ``ops/qtensor.py`` turns a PlanarQuant into the device
-layout.
+blocks at once.  ``quantize_planar`` quantizes a float32 weight first.
+``ops/qtensor.py`` turns a PlanarQuant into the device layout.
 """
 
 from __future__ import annotations
@@ -170,3 +170,11 @@ def pack_planar(blocks: np.ndarray, qtype: GGMLType,
         gbias = np.ascontiguousarray(gbias_b.reshape(n, groups), dtype=F32)
     return PlanarQuant(qtype, (n, k), gsize,
                        np.ascontiguousarray(levels.reshape(n, k)), gscale, gbias)
+
+
+def quantize_planar(w: np.ndarray, qtype: GGMLType) -> PlanarQuant:
+    """float32 [N, K] weight -> blocks of qtype -> planar layout."""
+    from .registry import quantize
+
+    n, k = w.shape
+    return pack_planar(quantize(w, qtype), qtype, (n, k))

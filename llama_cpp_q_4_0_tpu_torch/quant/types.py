@@ -4,7 +4,8 @@
 Every type keeps its block byte size so a model file can be walked whatever it
 holds.  The block layouts (numpy structured dtypes, byte-compatible with the C
 structs) are those of the formats the port loads: q4_0, q4_1, q5_0, q5_1,
-q8_0 and the k-quants q2_K..q6_K in their default QK_K = 256 build.  Files
+q8_0 and the k-quants q2_K..q6_K in their default QK_K = 256 build, plus
+the activation formats q8_1 and q8_K that the quantizers write.  Files
 written with 64-element k-quant super-blocks (GGML_QKK_64) are not read.
 """
 
@@ -50,6 +51,7 @@ BLOCK_Q5_0 = np.dtype([("d", "<f2"), ("qh", "u1", (4,)), ("qs", "u1", (16,))])
 BLOCK_Q5_1 = np.dtype([("d", "<f2"), ("m", "<f2"), ("qh", "u1", (4,)),
                        ("qs", "u1", (16,))])
 BLOCK_Q8_0 = np.dtype([("d", "<f2"), ("qs", "i1", (32,))])
+BLOCK_Q8_1 = np.dtype([("d", "<f4"), ("s", "<f4"), ("qs", "i1", (32,))])
 BLOCK_Q2_K = np.dtype([("scales", "u1", (QK_K // 16,)), ("qs", "u1", (QK_K // 4,)),
                        ("d", "<f2"), ("dmin", "<f2")])
 BLOCK_Q3_K = np.dtype([("hmask", "u1", (QK_K // 8,)), ("qs", "u1", (QK_K // 4,)),
@@ -61,6 +63,8 @@ BLOCK_Q5_K = np.dtype([("d", "<f2"), ("dmin", "<f2"),
                        ("qs", "u1", (QK_K // 2,))])
 BLOCK_Q6_K = np.dtype([("ql", "u1", (QK_K // 2,)), ("qh", "u1", (QK_K // 4,)),
                        ("scales", "i1", (QK_K // 16,)), ("d", "<f2")])
+BLOCK_Q8_K = np.dtype([("d", "<f4"), ("qs", "i1", (QK_K,)),
+                       ("bsums", "<i2", (QK_K // 16,))])
 
 
 @dataclass(frozen=True)
@@ -79,13 +83,13 @@ TYPE_TRAITS: dict[GGMLType, TypeTraits] = {
     GGMLType.Q5_0: TypeTraits("q5_0", 32, 22, BLOCK_Q5_0),
     GGMLType.Q5_1: TypeTraits("q5_1", 32, 24, BLOCK_Q5_1),
     GGMLType.Q8_0: TypeTraits("q8_0", 32, 34, BLOCK_Q8_0),
-    GGMLType.Q8_1: TypeTraits("q8_1", 32, 40),
+    GGMLType.Q8_1: TypeTraits("q8_1", 32, 40, BLOCK_Q8_1),
     GGMLType.Q2_K: TypeTraits("q2_K", 256, 84, BLOCK_Q2_K),
     GGMLType.Q3_K: TypeTraits("q3_K", 256, 110, BLOCK_Q3_K),
     GGMLType.Q4_K: TypeTraits("q4_K", 256, 144, BLOCK_Q4_K),
     GGMLType.Q5_K: TypeTraits("q5_K", 256, 176, BLOCK_Q5_K),
     GGMLType.Q6_K: TypeTraits("q6_K", 256, 210, BLOCK_Q6_K),
-    GGMLType.Q8_K: TypeTraits("q8_K", 256, 292),
+    GGMLType.Q8_K: TypeTraits("q8_K", 256, 292, BLOCK_Q8_K),
     GGMLType.I8: TypeTraits("i8", 1, 1),
     GGMLType.I16: TypeTraits("i16", 1, 2),
     GGMLType.I32: TypeTraits("i32", 1, 4),

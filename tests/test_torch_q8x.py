@@ -1,0 +1,311 @@
+"""The int8-activation q4_0 path: the activation quantizer, K7's plain
+version and ``q_matmul_ref_int8`` against the JAX package, the ``QMM_Q8X``
+routing, and the model in ``ref_int8`` and in the int8 configuration (CPU)."""
+
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from llama_cpp_q_4_0_tpu.formats.fixtures import make_llama_ggjt
+from llama_cpp_q_4_0_tpu.formats.ggjt import read_ggjt as jax_read_ggjt
+from llama_cpp_q_4_0_tpu.models.loading import (
+    config_from_ggjt as jax_config, load_transformer as jax_load)
+from llama_cpp_q_4_0_tpu.ops.pallas.qmm import _quantize_q8x
+from llama_cpp_q_4_0_tpu.ops.pallas.qmm import qmm_packed_q8x as jax_q8x
+from llama_cpp_q_4_0_tpu.ops.qmatmul import q_matmul_ref_int8 as jax_ref_int8
+from llama_cpp_q_4_0_tpu.ops.qtensor import QTensor as JaxQTensor
+from llama_cpp_q_4_0_tpu.quant.blockq import _int_nibbles, f16_to_f32, quantize_q8_0
+from llama_cpp_q_4_0_tpu.quant.registry import QUANT_FNS, quantize_bytes
+from llama_cpp_q_4_0_tpu.quant.types import GGMLType as JaxGGMLType
+from llama_cpp_q_4_0_tpu.runtime.context import Context as JaxContext
+from llama_cpp_q_4_0_tpu.runtime.generate import (
+    GenerateParams as JaxGenerateParams, generate as jax_generate)
+from llama_cpp_q_4_0_tpu.runtime.sampling import SamplingParams as JaxSampling
+from llama_cpp_q_4_0_tpu_torch.formats.ggjt import read_ggjt
+from llama_cpp_q_4_0_tpu_torch.models.loading import config_from_ggjt, load_transformer
+from llama_cpp_q_4_0_tpu_torch.ops import qmatmul, qmm
+from llama_cpp_q_4_0_tpu_torch.ops.qtensor import QTensor
+from llama_cpp_q_4_0_tpu_torch.quant.q4_0 import pack_q4_0
+from llama_cpp_q_4_0_tpu_torch.quant.types import GGMLType
+from llama_cpp_q_4_0_tpu_torch.runtime.context import Context
+from llama_cpp_q_4_0_tpu_torch.runtime.generate import GenerateParams, generate
+from llama_cpp_q_4_0_tpu_torch.runtime.sampling import SamplingParams
+
+# small shapes: one intra-op thread keeps the suite's parallel workers from
+# oversubscribing the cores
+torch.set_num_threads(1)
+
+
+def _weight(n, k, seed):
+    rng = np.random.default_rng(seed)
+    w = (rng.standard_normal((n, k)) * 0.05).astype(np.float32)
+    packed, scales = pack_q4_0(quantize_bytes(w, JaxGGMLType.Q4_0), n, k)
+    return w, packed, scales
+
+
+def _x(b, k, seed):
+    return (np.random.default_rng(seed).standard_normal((b, k)) * 0.5).astype(np.float32)
+
+
+def _tie_rows(k):
+    """Row 0: a group whose amax is 127, so d = 1 and x/d = x lands exactly
+    on the ties 2.5, -3.5, 0.5 (roundf: 3, -4, 1; round-half-even: 2, -4, 0),
+    and a group of zeros (d = 0, q = 0)."""
+    x = _x(3, k, seed=5)
+    x[0, :32] = 0.25
+    x[0, :4] = [127.0, 2.5, -3.5, 0.5]
+    x[1, 32:64] = 0.0
+    return x
+
+
+@pytest.mark.parametrize("k", [256, 1024, 704])
+def test_quantize_q8x_exact(k):
+    """xq and d equal the JAX ``_quantize_q8x`` bit for bit, its split-half
+    planes rearranged into the logical [B, K] and [B, K/32] order."""
+    x = _tie_rows(k)
+    k2p = -(-(k // 2) // 256) * 256
+    g2 = k // 64
+    lo, hi, slo, shi = (np.asarray(a) for a in _quantize_q8x(jnp.asarray(x), 32, k2p))
+    want_q = np.concatenate([lo[:g2], hi[:g2]], 0).transpose(2, 0, 1).reshape(3, k)
+    want_d = np.concatenate([slo[:, :g2], shi[:, :g2]], 1)
+    xq, d = qmm.quantize_q8x(torch.from_numpy(x))
+    np.testing.assert_array_equal(xq.numpy(), want_q)
+    np.testing.assert_array_equal(d.numpy().view(np.uint32), want_d.view(np.uint32))
+    assert xq[0, 1] == 3 and xq[0, 2] == -4 and xq[0, 3] == 1  # ties away from 0
+    assert (xq[1, 32:64] == 0).all() and d[1, 1] == 0
+
+
+def _ref64(w, x):
+    """The reference's quantize_row_q8_0 + vec_dot_q4_0_q8_0 in float64
+    (tests/test_qmatmul.py): associativity-free."""
+    n, k = w.shape
+    b = x.shape[0]
+    wb = QUANT_FNS[JaxGGMLType.Q4_0].quantize_row(w)
+    qlv = _int_nibbles(wb.reshape(-1), 8).reshape(n, k // 32, 32)
+    wd = f16_to_f32(wb["d"]).reshape(n, k // 32)
+    yb = quantize_q8_0(x)
+    xqv = yb["qs"].astype(np.int64).reshape(b, k // 32, 32)
+    xd = f16_to_f32(yb["d"]).reshape(b, k // 32)
+    sumi = np.einsum("bgk,ngk->bgn", xqv, qlv.astype(np.int64))
+    return np.einsum("bgn,bg,ng->bn", sumi.astype(np.float64), xd.astype(np.float64),
+                     wd.astype(np.float64))
+
+
+@pytest.mark.parametrize("b", [1, 4, 8, 128])
+def test_q8x_plain_matches_pallas_interpret(b):
+    """K7's plain version against the JAX kernel in interpret mode and the
+    float64 reference: the integer dots are exact on every side, so only f32
+    summation order differs (2e-5 relative and absolute, the JAX test's)."""
+    n, k = 256, 1024
+    w, packed, scales = _weight(n, k, seed=b)
+    x = _x(b, k, seed=100 + b)
+    want = np.asarray(jax_q8x(jnp.asarray(x), jnp.asarray(packed), jnp.asarray(scales),
+                              gsize=32, zero=8, block_n=128, block_k=256,
+                              interpret=True))
+    got = qmm.qmm_packed_q8x(torch.from_numpy(x), torch.from_numpy(packed),
+                             torch.from_numpy(scales)).numpy()
+    assert got.shape == (b, n)
+    np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(got, _ref64(w, x), rtol=2e-5, atol=2e-5)
+
+
+def test_q8x_wrappers_take_the_plain_version_on_cpu():
+    _, packed, scales = _weight(128, 256, seed=1)
+    x = torch.from_numpy(_x(3, 256, seed=2))
+    p, s = torch.from_numpy(packed), torch.from_numpy(scales)
+    before = dict(qmm.launches)
+    assert torch.equal(qmm.qmm_packed_q8x(x, p, s), qmm.qmm_packed_q8x_plain(x, p, s))
+    assert qmm.launches == before
+    with pytest.raises(NotImplementedError):
+        qmm.qmm_packed_q8x(x, p, s, zero=4, gsize=16)
+
+
+@pytest.mark.parametrize("name", ["Q4_0", "Q4_1", "Q8_0", "Q4_K", "Q6_K"])
+def test_q_matmul_ref_int8_matches_jax(name):
+    """q8_0 activations for the 32-group symmetric formats, q8_1 for the
+    affine ones and q8_K for the k-quants: integer dots and the same f32
+    rescale on both sides, 1e-6 (the JAX test's own limit)."""
+    n, k, b = 64, 512, 4
+    rng = np.random.default_rng(len(name))
+    w = (rng.standard_normal((n, k)) * 0.05).astype(np.float32)
+    x = (rng.standard_normal((2, b, k)) * 0.5).astype(np.float32)
+    want = np.asarray(jax_ref_int8(jnp.asarray(x),
+                                   JaxQTensor.quantize(w, JaxGGMLType[name])))
+    got = qmatmul.q_matmul_ref_int8(torch.from_numpy(x),
+                                    QTensor.quantize(w, GGMLType[name], device="cpu"))
+    assert got.shape == (2, b, n)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
+
+
+def _qtensor(n, k, packed, scales):
+    return QTensor(levels_t=torch.from_numpy(packed), gscale_t=torch.from_numpy(scales),
+                   gsize=32, qtype=GGMLType.Q4_0, shape=(n, k), pack_zero=8)
+
+
+def _routes(monkeypatch):
+    calls = []
+    for name in ("qmm_packed", "qmm_packed_kfold", "qmm_packed_q8x", "qmm_packed_bias",
+                 "qmm_int8", "qmm_int8_bias"):
+        orig = getattr(qmatmul, name)
+        monkeypatch.setattr(qmatmul, name,
+                            lambda *a, _n=name, _o=orig, **kw: calls.append(_n)
+                            or _o(*a, **kw))
+    return calls
+
+
+@pytest.mark.parametrize("env,b,route", [
+    (None, 1, "qmm_packed_kfold"), (None, 64, "qmm_packed"),
+    ("1", 1, "qmm_packed_q8x"), ("1", 32, "qmm_packed_q8x"),
+    ("1", 128, "qmm_packed_q8x"), ("1", 129, "qmm_packed"),
+    ("bf16", 8, "qmm_packed_q8x"), ("512", 200, "qmm_packed_q8x")])
+def test_q8x_routing(monkeypatch, env, b, route):
+    """With QMM_Q8X set, a q4_0 call of at most QMM_Q8X_MAX_B rows (128
+    unless set; the "512" case sets it to 512) takes K7, decode included;
+    above the cap K1; without the variable today's routes hold."""
+    monkeypatch.delenv("QMM_Q8X", raising=False)
+    monkeypatch.delenv("QMM_Q8X_MAX_B", raising=False)
+    if env == "512":
+        monkeypatch.setenv("QMM_Q8X", "1")
+        monkeypatch.setenv("QMM_Q8X_MAX_B", "512")
+    elif env:
+        monkeypatch.setenv("QMM_Q8X", env)
+    _, packed, scales = _weight(128, 256, seed=b)
+    w = _qtensor(128, 256, packed, scales)
+    calls = _routes(monkeypatch)
+    x = torch.from_numpy(_x(b, 256, seed=1))
+    out = qmatmul.q_matmul(x, w)
+    assert calls == [route] and out.shape == (b, 128)
+    calls.clear()
+    qmatmul.q_matmul(x, w, compute_dtype=torch.float32)
+    assert calls == []
+
+
+@pytest.mark.parametrize("name,route", [("Q4_K", "qmm_packed_bias"),
+                                        ("Q8_0", "qmm_int8"), ("Q5_K", "qmm_int8_bias")])
+def test_q8x_leaves_biased_and_unpacked_weights(monkeypatch, name, route):
+    monkeypatch.setenv("QMM_Q8X", "1")
+    w = (np.random.default_rng(0).standard_normal((64, 256)) * 0.05).astype(np.float32)
+    qt = QTensor.quantize(w, GGMLType[name], device="cpu")
+    calls = _routes(monkeypatch)
+    qmatmul.q_matmul(torch.from_numpy(_x(2, 256, seed=3)), qt)
+    assert calls == [route]
+
+
+@pytest.fixture(scope="module")
+def path(tmp_path_factory):
+    p = str(tmp_path_factory.mktemp("m") / "llama.ggjt")
+    make_llama_ggjt(p)
+    return p
+
+
+PROMPT = [1, 5, 10, 42, 7, 9]
+
+
+def _steps(ctx, seq):
+    return [ctx.eval(np.asarray([toks])) for toks in seq]
+
+
+def _port(path, mode):
+    gf = read_ggjt(path)
+    cfg = dataclasses.replace(config_from_ggjt(gf, n_ctx=256), compute_dtype=mode)
+    return cfg, load_transformer(gf, cfg, device="cpu")
+
+
+@pytest.mark.parametrize("qtype", ["Q8_0", "Q4_1"])
+def test_ref_int8_model_matches_jax(tmp_path, qtype):
+    """compute_dtype="ref_int8" with an f32 cache: both packages quantize the
+    activations and take exact integer dots; logits within 1e-4 of their
+    scale, and the same 16 greedy tokens.  Not on the q4_0 fixture: there a
+    token's rms-normed q4_0 embedding group puts every level of +-4 exactly
+    on a q8 tie (x/d = 127 * 4/8 = 63.5), so the last ulp of rms_norm's
+    rsqrt, which differs between XLA and PyTorch, decides the rounding
+    (test_ref_int8_q4_0_ties_follow_rms_norm_ulps)."""
+    path = str(tmp_path / f"{qtype}.ggjt")
+    make_llama_ggjt(path, qtype=JaxGGMLType[qtype])
+    gf = jax_read_ggjt(path)
+    jcfg = dataclasses.replace(jax_config(gf, n_ctx=256), compute_dtype="ref_int8")
+    jp = jax_load(gf, jcfg)
+    tcfg, tp = _port(path, "ref_int8")
+    seq = [PROMPT, [3], [100], [200]]
+    jl = _steps(JaxContext(jcfg, jp, n_ctx=256, cache_dtype=jnp.float32), seq)
+    tl = _steps(Context(tcfg, tp, n_ctx=256, cache_dtype=torch.float32, device="cpu"), seq)
+    for a, b in zip(jl, tl):
+        assert np.abs(b - a).max() <= 1e-4 * np.abs(a).max()
+    jt = list(jax_generate(JaxContext(jcfg, jp, n_ctx=256, cache_dtype=jnp.float32),
+                           PROMPT, JaxGenerateParams(sampling=JaxSampling(temp=0.0),
+                                                     n_predict=16, ignore_eos=True)))
+    tt = list(generate(Context(tcfg, tp, n_ctx=256, cache_dtype=torch.float32,
+                               device="cpu"),
+                       PROMPT, GenerateParams(sampling=SamplingParams(temp=0.0),
+                                              n_predict=16, ignore_eos=True)))
+    assert tt == jt and len(tt) == 16
+
+
+def test_ref_int8_q4_0_ties_follow_rms_norm_ulps(path):
+    """Why the cross-package ref_int8 test avoids q4_0 embeddings: for token
+    100 of the q4_0 fixture, the first matmul's q8 input (the rms-normed
+    embedding row) holds exact ties, and the port's and JAX's rms_norm,
+    which agree to 1e-6, round some of them apart."""
+    from llama_cpp_q_4_0_tpu.ops import layers as jl
+    from llama_cpp_q_4_0_tpu.ops import qmatmul as jq
+    from llama_cpp_q_4_0_tpu_torch.ops import layers as tl
+
+    cfg, tp = _port(path, "ref_int8")
+    e = tp.tok_embeddings.rows(torch.tensor([[100]]))[0]
+    w = tp.blocks[0].attn_norm_w
+    xt = tl.rms_norm(e, w, cfg.norm_eps)
+    xj = np.asarray(jl.rms_norm(jnp.asarray(e.numpy()), jnp.asarray(w.numpy()),
+                                cfg.norm_eps))
+    np.testing.assert_allclose(xt.numpy(), xj, rtol=1e-6, atol=0)
+    qt, _ = qmatmul._quantize_row_q8_0(xt, 32, f16_d=True)
+    qj, _ = jq._quantize_row_q8_0(jnp.asarray(xj), 32, True)
+    qj = np.asarray(qj).reshape(qt.shape)
+    lv = tp.tok_embeddings.rows(torch.tensor([[100]]))[0] / tp.tok_embeddings.gscale_full()[
+        :, 100].repeat_interleave(32)
+    ties = (lv.abs() == 4).numpy().reshape(qt.shape)  # x/d lands on +-63.5
+    flips = qt.numpy() != qj
+    assert flips.any() and (flips <= ties).all()
+    # fed the same input, the two quantizers agree exactly
+    qj_same, _ = jq._quantize_row_q8_0(jnp.asarray(xt.numpy()), 32, True)
+    np.testing.assert_array_equal(qt.numpy(), np.asarray(qj_same).reshape(qt.shape))
+
+
+def test_q8x_model_equals_ref_int8(path, monkeypatch):
+    """bf16 compute with QMM_Q8X=1 sends every q4_0 matmul of a prompt of at
+    most 128 tokens (and every decode step) through K7, whose arithmetic is
+    ref_int8's in another summation order: logits within 1e-4 of their
+    scale (measured on this fixture: 0, bit-identical logits)."""
+    monkeypatch.setenv("QMM_Q8X", "1")
+    rng = np.random.default_rng(4)
+    seq = [PROMPT, [3], rng.integers(3, 500, 100).tolist(), [7]]
+    ref = _steps(Context(*_port(path, "ref_int8"), n_ctx=256, cache_dtype=torch.float32,
+                         device="cpu"), seq)
+    before = qmm.launches["qmm_q8x"]
+    calls = _routes(monkeypatch)
+    got = _steps(Context(*_port(path, "bfloat16"), n_ctx=256, cache_dtype=torch.float32,
+                         device="cpu"), seq)
+    assert set(calls) == {"qmm_packed_q8x"}
+    assert qmm.launches["qmm_q8x"] == before  # the plain version on the CPU
+    drift = max(float(np.abs(b - a).max() / np.abs(a).max()) for a, b in zip(ref, got))
+    assert drift <= 1e-4, drift
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [1, 8, 33, 128])
+def test_q8x_kernel_matches_plain_on_card(b):
+    """On the card: the quantizer bit for bit, the matmul within 1e-4 of the
+    output scale (f32 summation order only)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    _, packed, scales = _weight(4096, 11008, seed=b)
+    x = torch.from_numpy(_x(b, 11008, seed=b)).cuda()
+    p, s = torch.from_numpy(packed).cuda(), torch.from_numpy(scales).cuda()
+    xq, d = qmm.quantize_q8x(x)
+    pq, pd = qmm.quantize_q8x_plain(x)
+    got, want = qmm.qmm_packed_q8x(x, p, s), qmm.qmm_packed_q8x_plain(x, p, s)
+    torch.cuda.synchronize()
+    assert torch.equal(xq, pq) and torch.equal(d, pd)
+    assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()

@@ -1,5 +1,6 @@
-"""The port's planar repack (quant/pack.py) and QTensor.from_planar against
-the JAX package's, format by format (CPU)."""
+"""The port's quantizers (quant/registry.py), planar repack (quant/pack.py),
+QTensor.from_planar and QTensor.quantize against the JAX package's, format
+by format (CPU)."""
 
 import numpy as np
 import pytest
@@ -8,6 +9,7 @@ import torch
 from llama_cpp_q_4_0_tpu.ops.qtensor import QTensor as JaxQTensor
 from llama_cpp_q_4_0_tpu.quant.pack import pack_planar as jax_pack_planar
 from llama_cpp_q_4_0_tpu.quant.registry import quantize
+from llama_cpp_q_4_0_tpu_torch.quant.registry import quantize as port_quantize
 from llama_cpp_q_4_0_tpu.quant.types import GGMLType as JaxGGMLType
 from llama_cpp_q_4_0_tpu_torch.formats.ggjt import read_ggjt
 from llama_cpp_q_4_0_tpu_torch.ops.qtensor import QTensor
@@ -78,3 +80,44 @@ def test_qkk64_file_raises(tmp_path):
                     qtype=JaxGGMLType.Q4_K, qk_k=64)
     with pytest.raises(NotImplementedError, match="QKK_64"):
         read_ggjt(path)
+
+
+QUANTIZED = FORMATS + ["Q8_1", "Q8_K"]
+
+
+def _rows(n, k, seed):
+    """Weights with the corner cases of the scalar loops: a row of zeros, a
+    row whose blocks hold one repeated value, and one repeated magnitude with
+    both signs (signed-absmax ties, first occurrence wins)."""
+    rng = np.random.default_rng(seed)
+    w = (rng.standard_normal((n, k)) * 0.05).astype(np.float32)
+    w[1] = 0.0
+    w[2] = 0.25
+    w[3, ::2], w[3, 1::2] = 0.5, -0.5
+    return w
+
+
+@pytest.mark.parametrize("name", QUANTIZED)
+@pytest.mark.parametrize("k", [256, 768])
+def test_quantize_bytes_equal_jax(name, k):
+    """The port's quantize(x, t) writes the JAX quantizer's blocks byte for
+    byte, for rows of 256 * k elements."""
+    w = _rows(6, k, seed=k + len(name))
+    want = quantize(w, JaxGGMLType[name])
+    got = port_quantize(w, GGMLType[name])
+    assert got.dtype.itemsize == want.dtype.itemsize and got.shape == want.shape
+    assert got.tobytes() == want.tobytes()
+
+
+@pytest.mark.parametrize("name", FORMATS)
+def test_qtensor_quantize_equals_jax(name):
+    """QTensor.quantize gives the JAX QTensor.quantize planes exactly."""
+    w = _rows(32, 512, seed=len(name))
+    jq = JaxQTensor.quantize(w, JaxGGMLType[name])
+    q = QTensor.quantize(w, GGMLType[name], device="cpu")
+    assert q.pack_zero == jq.pack_zero and q.gsize == jq.gsize and q.shape == tuple(jq.shape)
+    _same(jq.levels_t, q.levels_t.numpy(), "levels_t")
+    _same(jq.gscale_t, q.gscale_t.numpy(), "gscale_t")
+    assert (q.gbias_t is None) == (jq.gbias_t is None)
+    if q.gbias_t is not None:
+        _same(jq.gbias_t, q.gbias_t.numpy(), "gbias_t")
