@@ -4,12 +4,18 @@
 Phases (each prints its own lines; any failure exits non-zero):
   1. the card's name and power limit; build every CUDA kernel from csrc/
      (qmm_q4_0.cu, qmm_int8.cu, flash_prefill.cu, qmm_q8x.cu, mha_decode.cu,
-     stream.cu, one nvcc each, in parallel).
+     stream.cu, one nvcc each, in parallel; qmm_q4_0.cu and qmm_int8.cu
+     include the prefill tile, qmm_tile.cuh).
   2. kernel checks at LLaMA-7B shapes: each kernel against its plain PyTorch
      version on the same inputs, with times (kernel, plain, one PyTorch
-     library call) and the least time the card could take (bound): K1, K2
-     and K3 on q4_0 weights, K5 on q4_K, K6 on q6_K and K6b on q5_K weights;
-     for agreement only, K5 on q2_K (16-groups) and K6 on q8_0 (32-groups).
+     library call) and the least time the card could take (bound): K2 and
+     K3 on q4_0 weights; the prefill tile (K1 on q4_0, K5 on q4_K, K6 on
+     q6_K, K6b on q5_K) timed at b=128 and 512 and checked at b=33, 64 and
+     2048, two launches bit-identical; K5, K6, K6b's decode form at b=1;
+     for agreement only, K5 on q2_K (16-groups) and K6 on q8_0 (32-groups)
+     at b=1, 33, 64, 512, 2048; the fused affine seed of K5 and K6b alone
+     against an f64 seed; ptxas's registers, shared memory and spills of the
+     tile's kernels.
      K7 (int8 activations) on the q4_0 shapes at b=1, 128 and 512, its
      quantizer bit for bit; K4 (decode attention) at T=1 and 8 over windows
      of 256 and 2048 on int8 and bf16 caches, and for agreement on an f32
@@ -189,12 +195,13 @@ def model_bounds(label, params, n_layer, t=512):
 
 
 def check_qmm(torch, timer, name: str, b: int, rec: dict | None,
-              other_form: bool = False):
+              other_form: bool = False, time_it: bool = True):
     """A matmul kernel at its 7B shapes (KERNEL_SHAPES) against its plain
-    version, on synthetic weights of its format, at b rows; the error, times
-    and bounds summed over the shapes go into rec.  other_form: the format
-    and shape of OTHER_FORMS instead, agreement only (its error goes into
-    rec, no times)."""
+    version, on synthetic weights of its format, at b rows; two launches on
+    the same inputs must give bit-identical outputs.  The error, times and
+    bounds summed over the shapes go into rec, and the sums print on a line
+    of their own.  other_form: the format and shape of OTHER_FORMS instead;
+    time_it False: agreement only (the error goes into rec, no times)."""
     from llama_cpp_q_4_0_tpu_torch.ops import qmm
     from llama_cpp_q_4_0_tpu_torch.quant.types import GGMLType
     from llama_cpp_q_4_0_tpu_torch.synth import synth_qtensor
@@ -202,9 +209,11 @@ def check_qmm(torch, timer, name: str, b: int, rec: dict | None,
     wrapper, fmt, shapes = KERNEL_SHAPES[name]
     if other_form:
         fmt, shapes = OTHER_FORMS[name]
+        time_it = False
     gen = torch.Generator(device="cuda")
     gen.manual_seed(100 + b)
     ok = True
+    sums = {}
 
     def call(fn, x, w):
         planes = [w.gscale_t] + ([w.gbias_t] if w.gbias_t is not None else [])
@@ -217,18 +226,21 @@ def check_qmm(torch, timer, name: str, b: int, rec: dict | None,
     for label, n, k in shapes:
         w = synth_qtensor(gen, n, k, "cuda", GGMLType[fmt])
         x = torch.randn((b, k), generator=gen, device="cuda")
-        got, ref = call(kern, x, w), call(plain, x, w)
+        got, again, ref = call(kern, x, w), call(kern, x, w), call(plain, x, w)
         torch.cuda.synchronize()
         err = (got - ref).abs().max().item()
         tol = QMM_TOL.get(name, 1e-3) * ref.abs().max().item()
-        good = bool(torch.isfinite(got).all()) and err <= tol
+        same = torch.equal(got, again)
+        good = bool(torch.isfinite(got).all()) and err <= tol and same
         ok &= good
-        if other_form:
-            print(f"kernel {name} {fmt} {label} b={b} N={n} K={k} (g={w.gsize}): "
-                  f"max_abs_err={err:.3e} (tol {tol:.3e}) "
-                  f"{'ok' if good else 'MISMATCH'}", flush=True)
-            if rec is not None:
-                rec["max_abs_err"] = max(rec.get("max_abs_err", 0.0), err)
+        head = (f"kernel {name} {fmt} {label} b={b} N={n} K={k}"
+                f"{f' (g={w.gsize})' if other_form else ''}: max_abs_err={err:.3e} "
+                f"(tol {tol:.3e}) bit-identical={same}")
+        if rec is not None:
+            rec["max_abs_err"] = max(rec.get("max_abs_err", 0.0), err)
+        if not time_it:
+            print(f"{head} {'ok' if good else 'MISMATCH'}", flush=True)
+            del w, x, got, again, ref
             continue
         deq = w.dequantize_t(torch.bfloat16)
         xb = x.to(torch.bfloat16)
@@ -236,18 +248,93 @@ def check_qmm(torch, timer, name: str, b: int, rec: dict | None,
         p_ms = timer.ms(lambda: call(plain, x, w), reps=3)
         l_ms = timer.ms(lambda: torch.matmul(xb, deq))
         bnd, by = qmm_bound(b, n, k, fmt, QMM_PEAK.get(name, PEAK_BF16))
-        print(f"kernel {name} {fmt} {label} b={b} N={n} K={k}: max_abs_err={err:.3e} "
-              f"(tol {tol:.3e}) kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
-              f"library_ms={l_ms:.4f} bound_ms={bnd:.4f} bound_by={by} "
-              f"{'ok' if good else 'MISMATCH'}", flush=True)
+        print(f"{head} kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} library_ms={l_ms:.4f} "
+              f"bound_ms={bnd:.4f} bound_by={by} {'ok' if good else 'MISMATCH'}", flush=True)
+        for key, v in (("ms", k_ms), ("plain_ms", p_ms), ("library_ms", l_ms),
+                       ("bound_ms", bnd)):
+            sums[key] = sums.get(key, 0.0) + v
+        sums["bound_by"] = by
+        del w, x, got, again, ref, deq, xb
+    if sums:
+        print(f"kernel {name} {fmt} b={b} sum over {len(shapes)} shapes: "
+              f"kernel_ms={sums['ms']:.4f} plain_ms={sums['plain_ms']:.4f} "
+              f"library_ms={sums['library_ms']:.4f} bound_ms={sums['bound_ms']:.4f}",
+              flush=True)
         if rec is not None:
-            rec["max_abs_err"] = max(rec.get("max_abs_err", 0.0), err)
-            for key, v in (("ms", k_ms), ("plain_ms", p_ms),
-                           ("library_ms", l_ms), ("bound_ms", bnd)):
-                rec[key] = rec.get(key, 0.0) + v
-            rec["bound_by"] = by
-        del w, x, got, ref, deq, xb
+            rec.update(sums)
     return ok
+
+
+def check_seed(torch) -> bool:
+    """The fused affine seed alone, against an f64 seed: with every scale 0
+    the weight products vanish (bf16(level * 0) = 0), so K5 and K6b return
+    the seed xg . gbias they computed on the tensor cores from bf16 hi/lo
+    parts.  One q4_K and one q5_K 7B shape, at b=33 (K split) and b=512;
+    limit 1e-3 of the seed's scale, as every kernel check."""
+    import dataclasses
+
+    from llama_cpp_q_4_0_tpu_torch.ops import qmm
+    from llama_cpp_q_4_0_tpu_torch.quant.types import GGMLType
+    from llama_cpp_q_4_0_tpu_torch.synth import synth_qtensor
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(17)
+    ok = True
+    for name, fmt, n, k in (("qmm_packed_bias", "Q4_K", 4096, 11008),
+                            ("qmm_int8_bias", "Q5_K", 4096, 4096)):
+        w = synth_qtensor(gen, n, k, "cuda", GGMLType[fmt])
+        w = dataclasses.replace(w, gscale_t=torch.zeros_like(w.gscale_t))
+        for b in (33, 512):
+            x = torch.randn((b, k), generator=gen, device="cuda")
+            kw = {"gsize": w.gsize, **({"zero": w.pack_zero} if w.packed else {})}
+            got = getattr(qmm, name)(x, w.levels_t, w.gscale_t, w.gbias_t, **kw)
+            xd, bd = x.double(), w.gbias_t.double()
+            if w.packed:
+                k2, g2 = k // 2, k // 2 // w.gsize
+                ref = (xd[:, :k2].reshape(b, g2, -1).sum(-1) @ bd[0, :g2]
+                       + xd[:, k2:].reshape(b, g2, -1).sum(-1) @ bd[1, :g2])
+            else:
+                ref = xd.reshape(b, k // w.gsize, -1).sum(-1) @ bd
+            torch.cuda.synchronize()
+            err = (got.double() - ref).abs().max().item()
+            scale = ref.abs().max().item()
+            good = bool(torch.isfinite(got).all()) and err <= 1e-3 * scale
+            ok &= good
+            print(f"kernel {name} fused seed {fmt} b={b} N={n} K={k} (g={w.gsize}): "
+                  f"max_abs_err vs f64 seed={err:.3e} ({err / scale:.2e} of the seed's "
+                  f"scale {scale:.3e}) {'ok' if good else 'MISMATCH'}", flush=True)
+    return ok
+
+
+def ptxas_report(build) -> None:
+    """ptxas's registers, shared memory and spills of every function of the
+    prefill tile (tile_kernel, prep_kernel, gemv_reduce_kernel) and its
+    warnings, one line each."""
+    import re
+
+    for lib, log in build.build_log.items():
+        fn, props = None, {}
+        for line in log.splitlines():
+            m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", line)
+            if m:
+                fn = m.group(1)
+            if "warning" in line.lower():
+                print(f"build: {lib}: {line.strip()}", flush=True)
+            if fn and fn.startswith("_ZN3qmm4tile") and ("spill" in line or "registers" in line):
+                props.setdefault(fn, []).append(line.split(":", 1)[-1].strip())
+        for fn, lines in props.items():
+            m = re.search(r"tile_kernelILi(\d+)E.*?(PackedDeq|Int8Deq)ILi(\d+)E(?:Lb(\d))?", fn)
+            if m:
+                flag = f", {'true' if m.group(4) == '1' else 'false'}" if m.group(4) else ""
+                fn = f"tile_kernel<{m.group(1)}, {m.group(2)}<{m.group(3)}{flag}>>"
+            elif "prep_kernel" in fn:
+                fn = "prep_kernel"
+            print(f"build: {lib} {fn}: {'; '.join(dict.fromkeys(lines))}", flush=True)
+    from llama_cpp_q_4_0_tpu_torch.ops import qmm
+
+    lib = qmm._lib("qmm_q4_0")
+    print("build: tile_kernel dynamic shared memory (bytes): " + ", ".join(
+        f"bm={bm} {lib.qmm_tile_smem(bm)}" for bm in qmm.TILE_ROWS), flush=True)
 
 
 def check_flash(torch, timer, rec: dict):
@@ -896,31 +983,36 @@ def main(argv=None) -> int:
     secs = build.build_all()
     print(f"build: {json.dumps({k: round(v, 2) for k, v in secs.items()})} "
           f"total {time.perf_counter() - t0:.2f} s", flush=True)
-    for name, log in build.build_log.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"build: {name}: {line.strip()}", flush=True)
+    ptxas_report(build)
 
     recs = {k: {} for k in ("qmm_q4_0", "qmm_q4_0_kfold", "flash_prefill",
                             "qmm_packed_bias", "qmm_int8", "qmm_int8_bias",
                             "qmm_q8x", "mha_decode", "hbm_stream")}
     if "kernels" in phases:
         timer = Timer(torch)
-        # K1 runs above 32 rows, K2 at 32 or fewer; K5, K6 and K6b at both
-        ok = check_qmm(torch, timer, "qmm_q4_0", 512, recs["qmm_q4_0"])
-        ok &= check_qmm(torch, timer, "qmm_q4_0_kfold", 1, recs["qmm_q4_0_kfold"])
+        # K1 runs above 32 rows, K2 at 32 or fewer; K5, K6 and K6b at both.
+        # The prefill tile (K1, K5, K6, K6b) is timed at b=128 and 512 and
+        # checked at b=33 (the ragged row), 64 and 2048 (the smallest and
+        # largest prefill buckets), on both group sizes (OTHER_FORMS)
+        ok = check_qmm(torch, timer, "qmm_q4_0_kfold", 1, recs["qmm_q4_0_kfold"])
         ok &= check_qmm(torch, timer, "qmm_q4_0_kfold", 8, None)
         ok &= check_flash(torch, timer, recs["flash_prefill"])
-        for name in ("qmm_packed_bias", "qmm_int8", "qmm_int8_bias"):
-            big = {}
-            ok &= check_qmm(torch, timer, name, 1, recs[name])
-            ok &= check_qmm(torch, timer, name, 512, big)
-            recs[name]["max_abs_err"] = max(recs[name]["max_abs_err"],
-                                            big["max_abs_err"])
+        for name in ("qmm_q4_0", "qmm_packed_bias", "qmm_int8", "qmm_int8_bias"):
+            if name != "qmm_q4_0":
+                ok &= check_qmm(torch, timer, name, 1, recs[name])
+            for b in (128, 512):  # the JSON line keeps the b=512 sums
+                big = {}
+                ok &= check_qmm(torch, timer, name, b, big)
+                err = max(recs[name].get("max_abs_err", 0.0), big["max_abs_err"])
+                if b == 512:
+                    recs[name].update(big)
+                recs[name]["max_abs_err"] = err
+            for b in (33, 64, 2048):
+                ok &= check_qmm(torch, timer, name, b, recs[name], time_it=False)
             if name in OTHER_FORMS:
-                for b in (1, 512):
-                    ok &= check_qmm(torch, timer, name, b, recs[name],
-                                    other_form=True)
+                for b in (1, 33, 64, 512, 2048):
+                    ok &= check_qmm(torch, timer, name, b, recs[name], other_form=True)
+        ok &= check_seed(torch)
         # K7: b=1 (decode; beside K2 above), b=128 (the cap; beside K1 at
         # b=128) and b=512 (only under QMM_Q8X_MAX_B=512; beside K1 above)
         ok &= check_q8x_quantizer(torch)
@@ -930,7 +1022,6 @@ def main(argv=None) -> int:
             ok &= check_qmm(torch, timer, "qmm_q8x", b, big)
             recs["qmm_q8x"]["max_abs_err"] = max(recs["qmm_q8x"]["max_abs_err"],
                                                  big["max_abs_err"])
-        ok &= check_qmm(torch, timer, "qmm_q4_0", 128, None)
         ok &= check_mha(torch, timer, recs["mha_decode"])
         ok &= check_stream(torch, timer, recs["hbm_stream"])
         if not ok:

@@ -17,11 +17,12 @@
 // is the full-K seed xg . gbias with xg the f32 group sums of un-rounded x.
 //
 // What bounds each form on an H100, and what the design does about it:
-//  * Prefill (more than 32 rows) is bound by tensor-core operations.  The
-//    tile kernel is the packed prefill kernel's (qmm_q4_0.cu) with 64
-//    consecutive K rows per step: the x tile and the dequantized 64x128
-//    weight tile sit in shared memory as bf16 and 8 warps run WMMA bf16
-//    16x16x16 products into f32 fragments; bias_seed_kernel adds the seed.
+//  * Prefill (more than 32 rows) is bound by tensor-core operations: it runs
+//    the shared Hopper tile of qmm_tile.cuh (TMA rings, dequantizing
+//    warpgroups, wgmma consumers, a persistent loop over M, N and K splits)
+//    with Int8Deq below as its layout policy, 64 consecutive K rows per
+//    step; the bias seed runs as extra K steps of the same mainloop on bf16
+//    hi/lo parts of xg and gbias, so no pass after the tile touches out.
 //  * Decode (32 rows or fewer) is bound by the bytes of the levels and
 //    planes: 8 bits per weight, twice the packed formats'.  Each thread
 //    streams 8 consecutive columns (8-byte loads), each warp a 32-row step,
@@ -31,71 +32,50 @@
 //  * Levels become floats by flipping the sign bit and a byte permute into
 //    the mantissa of 2^23 (sbyte_to_float), not through the int-to-float unit.
 #include "qmm_common.cuh"
+#include "qmm_tile.cuh"
 
 using namespace qmm;
 
 namespace {
 
 // ----------------------------------------------------------------- prefill
+// The tile's policy for int8 levels (qmm_tile.cuh): a step is 64 level rows
+// and their 64/GS scale rows; thread t writes columns c .. c+8 of rows
+// r0 + 8p as bf16(level * d).
 template <int GS>
-__global__ void __launch_bounds__(TILE_THREADS, 2)
-qmm_int8_tile_kernel(const float* __restrict__ x, const int8_t* __restrict__ levels,
-                     const float* __restrict__ scales, float* __restrict__ out,
-                     int B, int K, int N) {
-  __shared__ __align__(128) __nv_bfloat16 As[TM * AP];
-  __shared__ __align__(128) __nv_bfloat16 Ws[TK * WP];
+struct Int8Deq {
+  static constexpr int PERM = 0;
+  static constexpr int W_ROWS = 64;
+  static constexpr int S_ROWS = 64 / GS;
+  static constexpr uint32_t MAIN_BYTES = 64 * tile::TN + S_ROWS * tile::TN * 4;
 
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int m0 = blockIdx.y * TM;
-  const int n0 = blockIdx.x * TN;
-  const int wm = (warp / 4) * 64;
-  const int wn = (warp % 4) * 32;
-
-  AccFrag acc[4][2];
-  tile_zero(acc);
-
-  const int w_row = tid / 8;          // K row inside the step (and + 32)
-  const int w_col = (tid % 8) * 16;   // 16-column chunk inside the tile
-  const int w_gn = n0 + w_col;
-
-  for (int k0 = 0; k0 < K; k0 += TK) {
-    // x: TM rows x 16 float4, 8 float4 per thread
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int idx = tid + i * TILE_THREADS;
-      stage_x4(x, As, B, K, m0, idx / 16, idx % 16, k0 + (idx % 16) * 4);
-    }
-    // weights: 64 rows x 128 columns, two rows of 16 bytes per thread
-#pragma unroll
-    for (int p = 0; p < 2; ++p) {
-      const int row = w_row + 32 * p;
-      uint4 lv = make_uint4(0u, 0u, 0u, 0u);
-      float s[16];
-#pragma unroll
-      for (int j = 0; j < 16; ++j) s[j] = 0.0f;
-      if (w_gn < N) {
-        const size_t g = (size_t)(k0 + row) / GS;
-        lv = *reinterpret_cast<const uint4*>(levels + (size_t)(k0 + row) * N + w_gn);
-        load16(scales + g * N + w_gn, s);
-      }
-      const unsigned words[4] = {lv.x, lv.y, lv.z, lv.w};
-      __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(Ws + row * WP + w_col);
-#pragma unroll
-      for (int q = 0; q < 4; ++q)
-#pragma unroll
-        for (int j = 0; j < 4; j += 2) {
-          const int c = 4 * q + j;
-          dst[c / 2] = __floats2bfloat162_rn(sbyte_to_float(words[q], j) * s[c],
-                                             sbyte_to_float(words[q], j + 1) * s[c + 1]);
-        }
-    }
-    __syncthreads();
-    tile_mma(As, Ws, wm, wn, acc);
-    __syncthreads();
+  __device__ static void load(uint32_t raw, const CUtensorMap* w, const CUtensorMap* s, int v,
+                              int n0, uint32_t bar) {
+    tile::tma_load(raw, w, n0, 64 * v, bar);
+    tile::tma_load(raw + tile::SCALE_OFF, s, n0, S_ROWS * v, bar);
   }
-  tile_store(out, acc, B, N, m0, n0, wm, wn, reinterpret_cast<float*>(As) + warp * 256);
-}
+
+  __device__ static void dequant(const uint8_t* __restrict__ raw, uint8_t* __restrict__ bs,
+                                 int t, float) {
+    const int c = (t & 15) * 8, r0 = t >> 4;
+    const float* sc = reinterpret_cast<const float*>(raw + tile::SCALE_OFF);
+    float s[S_ROWS][8];
+#pragma unroll
+    for (int g = 0; g < S_ROWS; ++g) load8(sc + g * tile::TN + c, s[g]);
+#pragma unroll
+    for (int p = 0; p < 8; ++p) {
+      const int k = r0 + 8 * p, g = 8 * p / GS;
+      const uint2 lv = *reinterpret_cast<const uint2*>(raw + k * tile::TN + c);
+      float f[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        f[e] = sbyte_to_float(e < 4 ? lv.x : lv.y, e % 4) * s[g][e];
+      *reinterpret_cast<uint4*>(bs + tile::b_off(k, c)) =
+          make_uint4(tile::pack_bf16(f[0], f[1]), tile::pack_bf16(f[2], f[3]),
+                     tile::pack_bf16(f[4], f[5]), tile::pack_bf16(f[6], f[7]));
+    }
+  }
+};
 
 // ------------------------------------------------------------------ decode
 template <int NB, int GS, bool BIAS>
@@ -199,18 +179,16 @@ cudaError_t launch_gemv(const float* x, const int8_t* levels, const float* scale
   return gemv_reduce(partial, out, n_split, B * N, st);
 }
 
+// scratch: the decode form's partial sums (B <= 32) or the tile's (splits > 1)
 template <int GS>
 cudaError_t launch_int8(const float* x, const int8_t* levels, const float* scales,
-                        const float* bias, float* scratch, float* out, int B, int K,
-                        int N, cudaStream_t st) {
+                        const float* bias, float* scratch, void* xa, float* out, int B, int K,
+                        int N, int bm, int splits, int ka, cudaStream_t st) {
   if (B <= 32)
     return bias ? launch_gemv<GS, true>(x, levels, scales, bias, scratch, out, B, K, N, st)
                 : launch_gemv<GS, false>(x, levels, scales, bias, scratch, out, B, K, N, st);
-  dim3 grid((N + TN - 1) / TN, (B + TM - 1) / TM);
-  qmm_int8_tile_kernel<GS><<<grid, TILE_THREADS, 0, st>>>(x, levels, scales, out, B, K, N);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || !bias) return err;
-  return bias_seed(x, bias, out, scratch, B, K, N, GS, K / GS, 0, st);
+  return tile::launch<Int8Deq<GS>>(x, levels, K, scales, K / GS, bias, (__nv_bfloat16*)xa,
+                                   scratch, out, B, K, N, 1, GS, 0, 0.0f, bm, splits, ka, st);
 }
 
 }  // namespace
@@ -221,20 +199,25 @@ extern "C" {
 // partial sums of [splits, B, N] f32 for it.
 int qmm_int8_splits(int K) { return gemv_splits(K / 32); }
 
-// bias NULL: _qmm_kernel; else _qmm_bias_kernel.  scratch: at B <= 32 the
-// K splits' partial sums (qmm_int8_splits(K) x B x N floats); above, with a
-// bias, the group sums (B x K/gsize floats); else unused.
+// bias NULL: _qmm_kernel; else _qmm_bias_kernel.  At B <= 32 scratch holds
+// the K splits' partial sums (qmm_int8_splits(K) x B x N floats) and xa is
+// unused; above, the prefill tile with the seed fused: xa bf16 [B, ka],
+// scratch f32 [splits, B, N] when splits > 1 (bm, splits and ka from
+// ops/qmm.py::tile_plan).
 int qmm_int8(const void* x, const void* levels, const void* scales, const void* bias,
-             void* scratch, void* out, int B, int K, int N, int gsize, void* stream) {
+             void* scratch, void* xa, void* out, int B, int K, int N, int gsize, int bm,
+             int splits, int ka, void* stream) {
   const float* xf = (const float*)x;
   const int8_t* lv = (const int8_t*)levels;
   const float* sc = (const float*)scales;
   const float* bi = (const float*)bias;
   const cudaStream_t st = (cudaStream_t)stream;
   if (gsize == 32)
-    return (int)launch_int8<32>(xf, lv, sc, bi, (float*)scratch, (float*)out, B, K, N, st);
+    return (int)launch_int8<32>(xf, lv, sc, bi, (float*)scratch, xa, (float*)out, B, K, N, bm,
+                                splits, ka, st);
   if (gsize == 16)
-    return (int)launch_int8<16>(xf, lv, sc, bi, (float*)scratch, (float*)out, B, K, N, st);
+    return (int)launch_int8<16>(xf, lv, sc, bi, (float*)scratch, xa, (float*)out, B, K, N, bm,
+                                splits, ka, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -17,16 +17,15 @@
 //
 // What bounds each form on an H100, and what the design does about it:
 //  * The prefill form (qmm_q4_0; qmm_packed_bias above 32 rows) is bound by
-//    tensor-core operations.  A block owns a 128x128 output tile (8 warps,
-//    64x32 each).  Per 32-row packed step it stages 64 logical K rows (both
-//    panels) of x as bf16 and the dequantized 64x128 weight tile in shared
-//    memory, rounded exactly as the TPU kernel rounds (bf16((nib - zero) * d)),
-//    then runs bf16 WMMA 16x16x16 products into f32 accumulators.  The TPU's
-//    sequential K grid axis becomes the step loop inside the block.  The
-//    affine bias is the TPU kernel's full-K seed xg_lo.gbias_lo +
-//    xg_hi.gbias_hi (xg the f32 group sums of x), added by bias_seed_kernel
-//    after the tile kernel.  No wgmma, TMA or pipelining yet: two blocks per
-//    SM hide each other's loads.
+//    tensor-core operations: it runs the shared Hopper tile of qmm_tile.cuh
+//    (TMA rings, dequantizing warpgroups, wgmma consumers, a persistent loop
+//    over M, N and K splits).  PackedDeq below is its layout policy: each
+//    32-row packed step gives 64 logical K rows, the low nibbles then the
+//    high nibbles, rounded exactly as the TPU kernel rounds
+//    (bf16((nib - zero) * d)); prep_kernel puts x's two panels in the same
+//    order.  The affine bias is the TPU kernel's full-K seed xg_lo.gbias_lo
+//    + xg_hi.gbias_hi (xg the f32 group sums of x), run as extra K steps of
+//    the same tensor-core mainloop on bf16 hi/lo parts of xg and gbias.
 //  * The decode form (qmm_q4_0_kfold; qmm_packed_bias at 32 rows or fewer) is
 //    bound by the bytes of the packed weight and its planes, read once per
 //    token.  Each thread streams 8 consecutive columns (8-byte loads; a warp
@@ -43,99 +42,65 @@
 //    fraction of the FMA rate and would otherwise bound the decode form
 //    before the memory does (two conversions per weight byte).
 #include "qmm_common.cuh"
+#include "qmm_tile.cuh"
 
 using namespace qmm;
 
 namespace {
 
 // ----------------------------------------------------------------- prefill
-// One 32-row packed step per iteration.  Q4_0 (K1): zero 8 at compile time;
-// else (K5) the runtime zero.  A 32-group is uniform across the block (row
-// r0 / 32 of each plane); a 16-group's row is r0 / 16 + w_row / 16.  The
-// counted step loop and the interleaved low/high scale loads matter: with
-// an `r0 += 32` loop and one plane loaded after the other, the same body
-// ran K1 3% slower on the 7B shapes.
+// The tile's policy for the packed layout (qmm_tile.cuh): a step is 32
+// packed rows, whose low nibbles give B rows 0..31 and high nibbles B rows
+// 32..63 (x is permuted to match by prep_kernel), with S_ROWS scale rows of
+// each plane (two copies a step).  Q4_0 (K1): the pack zero 8 at compile time; else (K5) the
+// runtime zero.
 template <int GS, bool Q4_0>
-__global__ void __launch_bounds__(TILE_THREADS, 2)
-qmm_packed_tile_kernel(const float* __restrict__ x, const uint8_t* __restrict__ packed,
-                       const float* __restrict__ scales, float* __restrict__ out,
-                       int B, int K, int N, int G2P, float zero_arg) {
-  const float zero = Q4_0 ? 8.0f : zero_arg;
-  // x tile [TM][64] bf16: cols 0..31 the low panel, 32..63 the high panel;
-  // weight tile [64][TN] bf16: rows 0..31 low nibbles, 32..63 high nibbles
-  __shared__ __align__(128) __nv_bfloat16 As[TM * AP];
-  __shared__ __align__(128) __nv_bfloat16 Ws[TK * WP];
+struct PackedDeq {
+  static constexpr int PERM = 1;
+  static constexpr int W_ROWS = 32;
+  static constexpr int S_ROWS = 32 / GS;
+  static constexpr uint32_t MAIN_BYTES = 32 * tile::TN + 2 * S_ROWS * tile::TN * 4;
 
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int m0 = blockIdx.y * TM;
-  const int n0 = blockIdx.x * TN;
-  const int k2 = K / 2;
-  const int wm = (warp / 4) * 64;
-  const int wn = (warp % 4) * 32;
-
-  AccFrag acc[4][2];
-  tile_zero(acc);
-
-  const int w_row = tid / 8;          // packed row inside the step
-  const int w_col = (tid % 8) * 16;   // 16-column chunk inside the tile
-  const int w_gn = n0 + w_col;
-
-  const int n_steps = k2 / 32;
-  for (int gi = 0; gi < n_steps; ++gi) {
-    const int r0 = gi * 32;
-    // x: TM rows x 16 float4 (8 per panel), 8 float4 per thread
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int idx = tid + i * TILE_THREADS;
-      const int m = idx / 16;
-      const int c4 = idx % 16;
-      stage_x4(x, As, B, K, m0, m, c4,
-               c4 < 8 ? r0 + c4 * 4 : k2 + r0 + (c4 - 8) * 4);
-    }
-    // weights: 32 packed rows x 128 columns, 16 bytes per thread
-    {
-      uint4 pk = make_uint4(0u, 0u, 0u, 0u);
-      float slo[16], shi[16];
-#pragma unroll
-      for (int j = 0; j < 16; ++j) slo[j] = shi[j] = 0.0f;
-      if (w_gn < N) {
-        const int g = GS == 32 ? r0 / 32 : r0 / GS + w_row / GS;
-        pk = *reinterpret_cast<const uint4*>(packed + (size_t)(r0 + w_row) * N + w_gn);
-        const float4* pl = reinterpret_cast<const float4*>(scales + (size_t)g * N + w_gn);
-        const float4* ph =
-            reinterpret_cast<const float4*>(scales + ((size_t)G2P + g) * N + w_gn);
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const float4 a = pl[q], b = ph[q];
-          slo[4 * q] = a.x; slo[4 * q + 1] = a.y; slo[4 * q + 2] = a.z; slo[4 * q + 3] = a.w;
-          shi[4 * q] = b.x; shi[4 * q + 1] = b.y; shi[4 * q + 2] = b.z; shi[4 * q + 3] = b.w;
-        }
-      }
-      const unsigned words[4] = {pk.x, pk.y, pk.z, pk.w};
-      __nv_bfloat162* dlo = reinterpret_cast<__nv_bfloat162*>(Ws + w_row * WP + w_col);
-      __nv_bfloat162* dhi = reinterpret_cast<__nv_bfloat162*>(Ws + (32 + w_row) * WP + w_col);
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const unsigned lo = words[q] & 0x0F0F0F0Fu;
-        const unsigned hi = (words[q] >> 4) & 0x0F0F0F0Fu;
-#pragma unroll
-        for (int j = 0; j < 4; j += 2) {
-          const int c = 4 * q + j;
-          dlo[c / 2] = __floats2bfloat162_rn((byte_to_float(lo, j) - zero) * slo[c],
-                                             (byte_to_float(lo, j + 1) - zero) * slo[c + 1]);
-          dhi[c / 2] = __floats2bfloat162_rn((byte_to_float(hi, j) - zero) * shi[c],
-                                             (byte_to_float(hi, j + 1) - zero) * shi[c + 1]);
-        }
-      }
-    }
-    __syncthreads();
-    tile_mma(As, Ws, wm, wn, acc);
-    __syncthreads();
+  // s: the scales as a 3-D map [2, G2P, N], one box for both planes' rows
+  __device__ static void load(uint32_t raw, const CUtensorMap* w, const CUtensorMap* s, int v,
+                              int n0, uint32_t bar) {
+    tile::tma_load(raw, w, n0, 32 * v, bar);
+    tile::tma_load3(raw + tile::SCALE_OFF, s, n0, S_ROWS * v, 0, bar);
   }
-  // the x tile is free now: per-warp staging for ragged fragments
-  tile_store(out, acc, B, N, m0, n0, wm, wn, reinterpret_cast<float*>(As) + warp * 256);
-}
+
+  // thread t: columns c .. c+8, packed rows r0 + 8p; a nibble becomes
+  // (nibble - zero) exactly as the low mantissa bits of 2^23 minus 2^23 + zero
+  __device__ static void dequant(const uint8_t* __restrict__ raw, uint8_t* __restrict__ bs,
+                                 int t, float zero_arg) {
+    const float off = 8388608.0f + (Q4_0 ? 8.0f : zero_arg);
+    const int c = (t & 15) * 8, r0 = t >> 4;
+    const float* sc = reinterpret_cast<const float*>(raw + tile::SCALE_OFF);
+    float sl[S_ROWS][8], sh[S_ROWS][8];
+#pragma unroll
+    for (int g = 0; g < S_ROWS; ++g) {
+      load8(sc + g * tile::TN + c, sl[g]);
+      load8(sc + (S_ROWS + g) * tile::TN + c, sh[g]);
+    }
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      const int r = r0 + 8 * p, g = 8 * p / GS;
+      const uint2 pk = *reinterpret_cast<const uint2*>(raw + r * tile::TN + c);
+      const unsigned w[4] = {pk.x & 0x0F0F0F0Fu, pk.y & 0x0F0F0F0Fu,
+                             (pk.x >> 4) & 0x0F0F0F0Fu, (pk.y >> 4) & 0x0F0F0F0Fu};
+      float f[16];
+#pragma unroll
+      for (int e = 0; e < 16; ++e)
+        f[e] = (__int_as_float(__byte_perm(w[e / 4], 0x4B000000u, 0x7540 + e % 4)) - off) *
+               (e < 8 ? sl[g][e] : sh[g][e - 8]);
+      *reinterpret_cast<uint4*>(bs + tile::b_off(r, c)) =
+          make_uint4(tile::pack_bf16(f[0], f[1]), tile::pack_bf16(f[2], f[3]),
+                     tile::pack_bf16(f[4], f[5]), tile::pack_bf16(f[6], f[7]));
+      *reinterpret_cast<uint4*>(bs + tile::b_off(32 + r, c)) =
+          make_uint4(tile::pack_bf16(f[8], f[9]), tile::pack_bf16(f[10], f[11]),
+                     tile::pack_bf16(f[12], f[13]), tile::pack_bf16(f[14], f[15]));
+    }
+  }
+};
 
 // ------------------------------------------------------------------ decode
 // FOLD: the kfold form (bf16(nib * d), seed -zero * xg.d); else the affine
@@ -275,14 +240,15 @@ cudaError_t launch_gemv(const float* x, const uint8_t* packed, const float* scal
   return gemv_reduce(partial, out, n_split, B * N, st);
 }
 
+// packed [K2P = G2P * GS, N], scales and bias [2 * G2P, N]
 template <int GS, bool Q4_0>
 cudaError_t launch_tile(const float* x, const uint8_t* packed, const float* scales,
-                        float* out, int B, int K, int N, int G2P, float zero,
+                        const float* bias, void* xa, float* partial, float* out, int B, int K,
+                        int N, int G2P, float zero, int bm, int splits, int ka,
                         cudaStream_t st) {
-  dim3 grid((N + TN - 1) / TN, (B + TM - 1) / TM);
-  qmm_packed_tile_kernel<GS, Q4_0><<<grid, TILE_THREADS, 0, st>>>(
-      x, packed, scales, out, B, K, N, G2P, zero);
-  return cudaGetLastError();
+  return tile::launch<PackedDeq<GS, Q4_0>>(x, packed, G2P * GS, scales, 2 * G2P, bias,
+                                           (__nv_bfloat16*)xa, partial, out, B, K, N, 2, GS,
+                                           G2P, zero, bm, splits, ka, st);
 }
 
 }  // namespace
@@ -293,11 +259,22 @@ extern "C" {
 // allocates partial sums of [splits, B, N] f32.
 int qmm_packed_splits(int K) { return gemv_splits(K / 2 / 32); }
 
-int qmm_q4_0(const void* x, const void* packed, const void* scales, void* out,
-             int B, int K, int N, int G2P, void* stream) {
+// Dynamic shared memory of the prefill tile at bm rows per unit (bytes), for
+// reports: ptxas sees only static shared memory.
+int qmm_tile_smem(int bm) {
+  return bm == 64 ? tile::Shape<64>::SMEM : bm == 128 ? tile::Shape<128>::SMEM
+                                          : bm == 256 ? tile::Shape<256>::SMEM : 0;
+}
+
+// The prefill tile (B > 32): xa is bf16 scratch [B, ka], partial f32
+// [splits, B, N] when splits > 1; bm, splits and ka from ops/qmm.py::tile_plan.
+int qmm_q4_0(const void* x, const void* packed, const void* scales, void* xa, void* partial,
+             void* out, int B, int K, int N, int G2P, int bm, int splits, int ka,
+             void* stream) {
   return (int)launch_tile<32, true>((const float*)x, (const uint8_t*)packed,
-                                    (const float*)scales, (float*)out, B, K, N, G2P,
-                                    8.0f, (cudaStream_t)stream);
+                                    (const float*)scales, nullptr, xa, (float*)partial,
+                                    (float*)out, B, K, N, G2P, 8.0f, bm, splits, ka,
+                                    (cudaStream_t)stream);
 }
 
 int qmm_q4_0_kfold(const void* x, const void* packed, const void* scales,
@@ -310,29 +287,31 @@ int qmm_q4_0_kfold(const void* x, const void* packed, const void* scales,
 }
 
 // The affine form: the decode shape at B <= 32 (scratch holds the K splits'
-// partial sums, qmm_packed_splits(K) x B x N floats), else the prefill tile
-// plus the full-K bias seed (scratch holds the group sums, B x K/gsize).
+// partial sums, qmm_packed_splits(K) x B x N floats, xa unused), else the
+// prefill tile with the seed fused (scratch: its partial sums when
+// splits > 1; xa, bm, splits, ka as for qmm_q4_0).
 int qmm_packed_bias(const void* x, const void* packed, const void* scales,
-                    const void* bias, void* scratch, void* out, int B, int K, int N,
-                    int G2P, int zero, int gsize, void* stream) {
+                    const void* bias, void* scratch, void* xa, void* out, int B, int K,
+                    int N, int G2P, int zero, int gsize, int bm, int splits, int ka,
+                    void* stream) {
   const float* xf = (const float*)x;
   const uint8_t* pk = (const uint8_t*)packed;
   const float* sc = (const float*)scales;
   const float* bi = (const float*)bias;
   float* o = (float*)out;
+  float* part = (float*)scratch;
   const cudaStream_t st = (cudaStream_t)stream;
   const float z = (float)zero;
   if (gsize != 16 && gsize != 32) return (int)cudaErrorInvalidValue;
   if (B <= 32) {
     return (int)(gsize == 32
-        ? launch_gemv<32, false>(xf, pk, sc, bi, (float*)scratch, o, B, K, N, G2P, z, st)
-        : launch_gemv<16, false>(xf, pk, sc, bi, (float*)scratch, o, B, K, N, G2P, z, st));
+        ? launch_gemv<32, false>(xf, pk, sc, bi, part, o, B, K, N, G2P, z, st)
+        : launch_gemv<16, false>(xf, pk, sc, bi, part, o, B, K, N, G2P, z, st));
   }
-  cudaError_t err = gsize == 32 ? launch_tile<32, false>(xf, pk, sc, o, B, K, N, G2P, z, st)
-                                : launch_tile<16, false>(xf, pk, sc, o, B, K, N, G2P, z, st);
-  if (err != cudaSuccess) return (int)err;
-  return (int)bias_seed(xf, bi, o, (float*)scratch, B, K, N, gsize, K / 2 / gsize,
-                        G2P, st);
+  return (int)(gsize == 32
+      ? launch_tile<32, false>(xf, pk, sc, bi, xa, part, o, B, K, N, G2P, z, bm, splits, ka, st)
+      : launch_tile<16, false>(xf, pk, sc, bi, xa, part, o, B, K, N, G2P, z, bm, splits, ka,
+                               st));
 }
 
 }  // extern "C"

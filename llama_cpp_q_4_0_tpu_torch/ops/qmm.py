@@ -35,6 +35,8 @@ launches of each wrapper.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 
 import torch
 
@@ -236,13 +238,15 @@ def _check(x: torch.Tensor, w: torch.Tensor, planes: list, *, packed: bool,
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "qmm_q4_0": {
-        "qmm_q4_0": ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
+        "qmm_q4_0": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P], _I),
         "qmm_q4_0_kfold": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
-        "qmm_packed_bias": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P], _I),
+        "qmm_packed_bias": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                             _I, _P], _I),
         "qmm_packed_splits": ([_I], _I),
+        "qmm_tile_smem": ([_I], _I),
     },
     "qmm_int8": {
-        "qmm_int8": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
+        "qmm_int8": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P], _I),
         "qmm_int8_splits": ([_I], _I),
     },
     "qmm_q8x": {
@@ -270,19 +274,94 @@ def _launched(err: int, name: str):
     launches[name] += 1
 
 
-def _scratch(lib, splits_fn: str, x: torch.Tensor, n: int, gsize: int,
-             bias: bool) -> torch.Tensor | None:
-    """The kernel's f32 scratch: the decode form's partial sums of its K
-    splits, [splits, B, N]; the prefill form's group sums of x for the bias
-    seed, [B, K/gsize]; None when neither is needed."""
+def _scratch(lib, splits_fn: str, x: torch.Tensor, n: int) -> torch.Tensor | None:
+    """The decode form's f32 partial sums of its K splits, [splits, B, N];
+    None above GEMV_MAX_ROWS rows."""
     b, k = x.shape
-    if b <= GEMV_MAX_ROWS:
-        shape = (getattr(lib, splits_fn)(k), b, n)
-    elif bias:
-        shape = (b, k // gsize)
-    else:
+    if b > GEMV_MAX_ROWS:
         return None
-    return torch.empty(shape, dtype=torch.float32, device=x.device)
+    return torch.empty((getattr(lib, splits_fn)(k), b, n), dtype=torch.float32,
+                       device=x.device)
+
+
+# The prefill tile (csrc/qmm_tile.cuh): TILE_N output columns and one of
+# TILE_ROWS rows per unit, TILE_STEP_K logical K rows per pipeline step, and
+# for an affine weight one extra step per SEED_GROUPS groups of each plane.
+TILE_N = 128
+TILE_ROWS = (64, 128, 256)
+TILE_STEP_K = 64
+SEED_GROUPS = 16
+
+
+@dataclasses.dataclass(frozen=True)
+class TilePlan:
+    """One tile call: rows per unit (bm), K splits, pipeline steps per unit
+    before the split, and ka, the columns of the bf16 x scratch (K, then
+    the seed's hi/lo group sums)."""
+    bm: int
+    splits: int
+    steps: int
+    ka: int
+
+
+# Relative time of one pipeline step at each unit height, and the cost model's
+# other constants, fitted to a sweep of every (rows per unit, splits) at the
+# 7B shapes and 64, 128 and 512 rows (q4_0 and q6_K, H100 80GB HBM3 at
+# 700 W) so that its plans come close to the fastest measured ones.
+TILE_STEP_COST = {64: 0.7, 128: 1.0, 256: 1.45}
+TILE_FILL_STEPS = 2  # a unit's pipeline fill and epilogue, in steps
+TILE_SPLITS = (1, 2, 4)
+TILE_REDUCE_COST = 1e-6  # per byte the split-K reduce moves (reads splits, writes 1)
+
+
+def tile_plan(b: int, k: int, n: int, gsize: int, *, packed: bool, bias: bool,
+              sms: int) -> TilePlan:
+    """Rows per unit and K splits of a tile call.  The persistent loop gives
+    each of the sms blocks ceil(units / sms) units; a block's time is its
+    steps times the step cost of its unit height, plus the fill, plus the
+    reduce pass's bytes when K is split.  Heights of which half or more would
+    be padding are not tried; K splits keep at least 4 steps each."""
+    planes = 2 if packed else 1
+    groups = k // planes // gsize
+    seed = planes * -(-groups // SEED_GROUPS) if bias else 0
+    steps = k // TILE_STEP_K + seed
+    n_tiles = -(-n // TILE_N)
+    best = None
+    for bm in TILE_ROWS:
+        if bm > 64 and bm // 2 >= b:
+            break
+        units = -(-b // bm) * n_tiles
+        for splits in TILE_SPLITS:
+            if splits > 1 and splits * 4 > steps:
+                break
+            cost = ((-(-units * splits // sms) * steps / splits + TILE_FILL_STEPS)
+                    * TILE_STEP_COST[bm])
+            if splits > 1:
+                cost += TILE_REDUCE_COST * (splits + 1) * b * n * 4
+            if best is None or cost < best[0]:
+                best = (cost, bm, splits)
+    _, bm, splits = best
+    return TilePlan(bm, splits, steps, k + TILE_STEP_K * seed)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _tile_scratch(x: torch.Tensor, n: int, gsize: int, *, packed: bool,
+                  bias: bool):
+    """(plan, xa bf16 [B, ka], partial f32 [splits, B, N] or None)."""
+    b, k = x.shape
+    plan = tile_plan(b, k, n, gsize, packed=packed, bias=bias,
+                     sms=_sm_count(x.device.index or 0))
+    xa = torch.empty((b, plan.ka), dtype=torch.bfloat16, device=x.device)
+    partial = (torch.empty((plan.splits, b, n), dtype=torch.float32, device=x.device)
+               if plan.splits > 1 else None)
+    return plan, xa, partial
+
+
+_NO_TILE = TilePlan(0, 0, 0, 0)  # the decode form takes no plan
 
 
 def _ptr(t: torch.Tensor | None):
@@ -298,9 +377,11 @@ def qmm_packed(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor, *,
         return qmm_packed_plain(x, packed, scales, zero=zero, gsize=gsize)
     b, k = x.shape
     k2p, n = packed.shape
+    plan, xa, partial = _tile_scratch(x, n, gsize, packed=True, bias=False)
     out = torch.empty((b, n), dtype=torch.float32, device=x.device)
     err = _lib("qmm_q4_0").qmm_q4_0(x.data_ptr(), packed.data_ptr(), scales.data_ptr(),
-                                    out.data_ptr(), b, k, n, k2p // gsize, _stream(x))
+                                    xa.data_ptr(), _ptr(partial), out.data_ptr(), b, k, n,
+                                    k2p // gsize, plan.bm, plan.splits, plan.ka, _stream(x))
     _launched(err, "qmm_q4_0")
     return out
 
@@ -317,7 +398,7 @@ def qmm_packed_kfold(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor
     if b > GEMV_MAX_ROWS:
         raise ValueError(f"the kfold kernel takes at most {GEMV_MAX_ROWS} rows, not {b}")
     lib = _lib("qmm_q4_0")
-    partial = _scratch(lib, "qmm_packed_splits", x, n, gsize, False)
+    partial = _scratch(lib, "qmm_packed_splits", x, n)
     out = torch.empty((b, n), dtype=torch.float32, device=x.device)
     err = lib.qmm_q4_0_kfold(x.data_ptr(), packed.data_ptr(), scales.data_ptr(),
                              partial.data_ptr(), out.data_ptr(), b, k, n,
@@ -335,11 +416,14 @@ def qmm_packed_bias(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
     b, k = x.shape
     k2p, n = packed.shape
     lib = _lib("qmm_q4_0")
-    scratch = _scratch(lib, "qmm_packed_splits", x, n, gsize, True)
+    scratch, xa, plan = _scratch(lib, "qmm_packed_splits", x, n), None, _NO_TILE
+    if scratch is None:
+        plan, xa, scratch = _tile_scratch(x, n, gsize, packed=True, bias=True)
     out = torch.empty((b, n), dtype=torch.float32, device=x.device)
     err = lib.qmm_packed_bias(x.data_ptr(), packed.data_ptr(), scales.data_ptr(),
-                              gbias.data_ptr(), _ptr(scratch), out.data_ptr(),
-                              b, k, n, k2p // gsize, zero, gsize, _stream(x))
+                              gbias.data_ptr(), _ptr(scratch), _ptr(xa), out.data_ptr(),
+                              b, k, n, k2p // gsize, zero, gsize, plan.bm, plan.splits,
+                              plan.ka, _stream(x))
     _launched(err, "qmm_packed_bias")
     return out
 
@@ -348,11 +432,14 @@ def _int8(x, levels, scales, gbias, gsize, name):
     b, k = x.shape
     n = levels.shape[1]
     lib = _lib("qmm_int8")
-    scratch = _scratch(lib, "qmm_int8_splits", x, n, gsize, gbias is not None)
+    scratch, xa, plan = _scratch(lib, "qmm_int8_splits", x, n), None, _NO_TILE
+    if scratch is None:
+        plan, xa, scratch = _tile_scratch(x, n, gsize, packed=False,
+                                          bias=gbias is not None)
     out = torch.empty((b, n), dtype=torch.float32, device=x.device)
     err = lib.qmm_int8(x.data_ptr(), levels.data_ptr(), scales.data_ptr(),
-                       _ptr(gbias), _ptr(scratch), out.data_ptr(), b, k, n, gsize,
-                       _stream(x))
+                       _ptr(gbias), _ptr(scratch), _ptr(xa), out.data_ptr(), b, k, n,
+                       gsize, plan.bm, plan.splits, plan.ka, _stream(x))
     _launched(err, name)
     return out
 
@@ -409,7 +496,7 @@ def qmm_packed_q8x(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor, 
     lib = _lib("qmm_q8x")
     xq = torch.empty((b, k), dtype=torch.int8, device=x.device)
     d = torch.empty((b, k // gsize), dtype=torch.float32, device=x.device)
-    partial = _scratch(lib, "qmm_q8x_splits", x, n, gsize, False)
+    partial = _scratch(lib, "qmm_q8x_splits", x, n)
     out = torch.empty((b, n), dtype=torch.float32, device=x.device)
     err = lib.qmm_q8x(x.data_ptr(), packed.data_ptr(), scales.data_ptr(),
                       xq.data_ptr(), d.data_ptr(), _ptr(partial), out.data_ptr(),

@@ -104,10 +104,12 @@ def test_routing_by_row_count(monkeypatch, b, kfold):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("b", [1, 8, 32, 33, 512])
+@pytest.mark.parametrize("b", [1, 8, 32, 33, 64, 200, 512, 2048])
 def test_kernels_match_plain_on_card(b):
     """On the card: each kernel against its plain version (f32 summation-order
-    noise; tensor-core accumulation differs from the f32 matmul)."""
+    noise; tensor-core accumulation differs from the f32 matmul), K = 11008
+    (172 steps of the prefill tile, split unevenly where the plan splits);
+    the prefill tile's two launches bit-identical."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     packed, scales = _weight(4096, 11008, seed=b)
@@ -115,9 +117,10 @@ def test_kernels_match_plain_on_card(b):
     p, s = torch.from_numpy(packed).cuda(), torch.from_numpy(scales).cuda()
     kern, plain = ((qmm.qmm_packed_kfold, qmm.qmm_packed_kfold_plain)
                    if b <= 32 else (qmm.qmm_packed, qmm.qmm_packed_plain))
-    got, want = kern(x, p, s), plain(x, p, s)
+    got, again, want = kern(x, p, s), kern(x, p, s), plain(x, p, s)
     torch.cuda.synchronize()
     assert (got - want).abs().max().item() <= 1e-3 * want.abs().max().item()
+    assert torch.equal(got, again)
 
 
 # ---------------------------------------------------------------- K5, K6, K6b
@@ -300,28 +303,87 @@ def test_q3_k_file_raises_at_load(tmp_path):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("b", [1, 8, 33, 512])
+@pytest.mark.parametrize("b", [1, 8, 33, 64, 200, 512, 2048])
 @pytest.mark.parametrize("gsize", [16, 32])
-def test_affine_and_int8_kernels_match_plain_on_card(b, gsize):
+@pytest.mark.parametrize("zero", [0, 8])
+def test_affine_and_int8_kernels_match_plain_on_card(b, gsize, zero):
     """On the card: K5, K6 and K6b against their plain versions at a 7B
     shape, on 16-groups (q2_K; q6_K) and 32-groups (q4_K, q4_1; q5_0, q8_0,
-    q5_K), f32 summation-order noise as K1/K2's check."""
+    q5_K), K5 with pack zero 0 and 8, f32 summation-order noise as K1/K2's
+    check; above 32 rows two launches bit-identical (the fused seed and the
+    K splits add in a fixed order)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     n, k = 4096, 11008
     t = lambda a: torch.from_numpy(a).cuda()  # noqa: E731
     x = t(_x(b, k, seed=b))
-    packed, scales, bias = _packed_affine(n, k, gsize, 0, seed=b)
+    packed, scales, bias = _packed_affine(n, k, gsize, zero, seed=b)
     levels, iscales, ibias = _int8_weight(n, k, gsize, seed=b)
-    pairs = [
-        (qmm.qmm_packed_bias(x, t(packed), t(scales), t(bias), zero=0, gsize=gsize),
-         qmm.qmm_packed_bias_plain(x, t(packed), t(scales), t(bias), zero=0,
+    calls = [
+        (lambda: qmm.qmm_packed_bias(x, t(packed), t(scales), t(bias), zero=zero,
+                                     gsize=gsize),
+         qmm.qmm_packed_bias_plain(x, t(packed), t(scales), t(bias), zero=zero,
                                    gsize=gsize)),
-        (qmm.qmm_int8(x, t(levels), t(iscales), gsize=gsize),
+        (lambda: qmm.qmm_int8(x, t(levels), t(iscales), gsize=gsize),
          qmm.qmm_int8_plain(x, t(levels), t(iscales), gsize=gsize)),
-        (qmm.qmm_int8_bias(x, t(levels), t(iscales), t(ibias), gsize=gsize),
+        (lambda: qmm.qmm_int8_bias(x, t(levels), t(iscales), t(ibias), gsize=gsize),
          qmm.qmm_int8_bias_plain(x, t(levels), t(iscales), t(ibias), gsize=gsize)),
     ]
-    torch.cuda.synchronize()
-    for got, want in pairs:
+    for kern, want in calls:
+        got, again = kern(), kern()
+        torch.cuda.synchronize()
         assert (got - want).abs().max().item() <= 1e-3 * want.abs().max().item()
+        if b > qmm.GEMV_MAX_ROWS:
+            assert torch.equal(got, again)
+
+
+# ------------------------------------------------- the prefill tile's plan
+
+SHAPES_7B = [(12288, 4096), (4096, 4096), (22016, 4096), (4096, 11008),
+             (32000, 4096)]
+
+
+@pytest.mark.parametrize("b", [33, 64, 128, 200, 512, 2048])
+@pytest.mark.parametrize("n,k", SHAPES_7B)
+@pytest.mark.parametrize("packed,bias,gsize", [(True, False, 32), (True, True, 32),
+                                               (True, True, 16), (False, False, 16),
+                                               (False, True, 32)])
+def test_tile_plan_is_well_formed(b, n, k, packed, bias, gsize):
+    """The plan of every 7B shape and prefill row count: a compiled unit
+    height that is not mostly padding, K splits of at least 4 steps, and the
+    step count and bf16 scratch width the kernel checks against (K/64 main
+    steps plus one seed step per 16 groups of each plane)."""
+    plan = qmm.tile_plan(b, k, n, gsize, packed=packed, bias=bias, sms=132)
+    planes = 2 if packed else 1
+    seed = planes * -(-(k // planes // gsize) // 16) if bias else 0
+    assert plan.steps == k // 64 + seed
+    assert plan.ka == k + 64 * seed
+    assert plan.bm in qmm.TILE_ROWS and (plan.bm == 64 or plan.bm // 2 < b)
+    assert plan.splits in qmm.TILE_SPLITS
+    assert plan.splits == 1 or plan.steps // plan.splits >= 4
+
+
+@pytest.mark.parametrize("b,n,k,want", [
+    (512, 32000, 4096, (256, 1)), (512, 4096, 11008, (256, 2)),
+    (512, 4096, 4096, (128, 1)), (128, 4096, 4096, (128, 4)),
+    (128, 12288, 4096, (128, 1)), (64, 4096, 11008, (64, 4)),
+    (2048, 4096, 4096, (256, 1))])
+def test_tile_plan_picks_the_measured_best(b, n, k, want):
+    """Plans the cost model picks where the sweep that fitted it measured
+    them fastest (q4_0, H100 80GB HBM3 at 700 W)."""
+    plan = qmm.tile_plan(b, k, n, 32, packed=True, bias=False, sms=132)
+    assert (plan.bm, plan.splits) == want
+
+
+def test_tile_scratch_matches_the_plan(monkeypatch):
+    """The wrapper's scratch for a tile call: bf16 x of the plan's width and
+    partial sums only when K is split (on the CPU the wrappers never build
+    it; the shapes are the ones a CUDA call would get)."""
+    monkeypatch.setattr(qmm, "_sm_count", lambda index: 132)
+    x = torch.zeros((128, 4096))
+    plan, xa, partial = qmm._tile_scratch(x, 4096, 32, packed=False, bias=True)
+    assert xa.dtype == torch.bfloat16 and tuple(xa.shape) == (128, plan.ka)
+    assert plan.ka == 4096 + 64 * 8
+    assert (partial is None) == (plan.splits == 1)
+    if partial is not None:
+        assert tuple(partial.shape) == (plan.splits, 128, 4096)
