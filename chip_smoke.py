@@ -15,9 +15,14 @@ Phases (each prints its own lines; any failure exits non-zero):
      for agreement only, K5 on q2_K (16-groups) and K6 on q8_0 (32-groups)
      at b=1, 33, 64, 512, 2048; the fused affine seed of K5 and K6b alone
      against an f64 seed; ptxas's registers, shared memory and spills of the
-     tile's kernels.
-     K7 (int8 activations) on the q4_0 shapes at b=1, 128 and 512, its
-     quantizer bit for bit; K4 (decode attention) at T=1 and 8 over windows
+     tile's kernels (K7's q8 mode included) and of K3.
+     K3 (3xTF32 on the tensor cores) timed at T=512 and 2048 and checked at
+     T=128, 512, 2048, with GQA and at head width 256, two launches
+     bit-identical.  K7 (int8 activations) on the q4_0 shapes: its decode
+     form at b=1, its tile (the shared tile's q8 mode) timed at b=128 and 512
+     and checked at b=33, 64 and 2048, two launches bit-identical; its
+     quantizer bit for bit; the q8 KV cache's quantize_kv on the card
+     against the CPU bit for bit.  K4 (decode attention) at T=1 and 8 over windows
      of 256 and 2048 on int8 and bf16 caches, and for agreement on an f32
      cache, GQA, head widths 64 and 256, a strided B=2 window with an empty
      row; K8 (read stream) over 2 GiB of ones, its checksum exact.
@@ -32,7 +37,9 @@ Phases (each prints its own lines; any failure exits non-zero):
      CPU.  7B q4_0 in the int8 configuration (QMM_Q8X=1, FUSED_ATTN=1, q8
      cache): the same prefill and decode, 129 K7 and 32 K4 launches per
      token checked, decode ms/token at windows 256 and 2048 with each switch
-     on and off; a 2-layer model in that configuration against the CPU.
+     on and off, and prefill-128 ms (median of 5 groups of 4; the launches of
+     one call printed: 128 K7 tile launches + 1 head, 32 K3); a 2-layer model
+     in that configuration against the CPU.
   4. the `main` CLI answers prompts from GGJT files at 7B width (2 layers,
      32000-entry vocab) written by the port's own GGJTWriter: q4_0 (also in
      the int8 configuration), and Q4_K_M from random k-quant blocks;
@@ -41,7 +48,11 @@ Phases (each prints its own lines; any failure exits non-zero):
   5. a JSON line of per-kernel numbers, then the contract line
      {"ok": true, "device": {...}}.
 ``--phases kernels,e2e,cli`` runs a subset (for debugging: a subset prints
-no result lines; with no arguments every phase runs).  Run without CUDA, or
+no result lines; with no arguments every phase runs).  Two phases run only
+when named: ``sass`` (instruction counts of K7's and K3's kernels), ``k7k3``
+(K3's and K7's tile checks and times alone) and ``int8prefill`` (the int8
+configuration's prefill-128 instrument); a copy of this script placed beside
+an older checkout's package measures that one.  Run without CUDA, or
 without the port beside it, it exits non-zero and prints no result.
 """
 
@@ -59,6 +70,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 PEAK_BF16 = 989e12  # dense tensor-core bf16
 PEAK_F32 = 67e12  # f32 outside the tensor cores
+PEAK_TF32 = 494.7e12  # dense tensor-core TF32
 PEAK_INT8 = 1979e12  # dense tensor-core int8
 # (name, N, K) of the 7B matmuls: fused QKV, attention output, fused
 # gate/up, FFN down, output head
@@ -160,12 +172,13 @@ def qmm_bound(b, n, k, fmt="Q4_0", peak=PEAK_BF16):
 
 
 def flash_bound(b, t, h, g, d):
-    """(least ms, what bounds it) for causal attention over T tokens: q, k, v
-    read once and out written once, against the 4*D multiply-add operations of
-    each of the T(T+1)/2 causal (query, key) pairs at the f32 peak."""
+    """(least ms, what bounds it) for causal attention over T tokens by K3's
+    route, 3xTF32 on the tensor cores: q, k, v read once and out written once,
+    against three TF32 products of the 4*D operations of each of the
+    T(T+1)/2 causal (query, key) pairs at the TF32 peak."""
     nbytes = 4 * b * t * d * (2 * h + 2 * g)
-    ops = 4 * d * b * h * t * (t + 1) // 2
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_F32
+    ops = 3 * 4 * d * b * h * t * (t + 1) // 2
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_TF32
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -308,8 +321,8 @@ def check_seed(torch) -> bool:
 
 def ptxas_report(build) -> None:
     """ptxas's registers, shared memory and spills of every function of the
-    prefill tile (tile_kernel, prep_kernel, gemv_reduce_kernel) and its
-    warnings, one line each."""
+    prefill tile (tile_kernel in each mode, prep_kernel, gemv_reduce_kernel)
+    and of K3 (flash_prefill_kernel), and the warnings, one line each."""
     import re
 
     for lib, log in build.build_log.items():
@@ -320,70 +333,133 @@ def ptxas_report(build) -> None:
                 fn = m.group(1)
             if "warning" in line.lower():
                 print(f"build: {lib}: {line.strip()}", flush=True)
-            if fn and fn.startswith("_ZN3qmm4tile") and ("spill" in line or "registers" in line):
+            if fn and (fn.startswith("_ZN3qmm4tile") or "flash_prefill_kernel" in fn) and (
+                    "spill" in line or "registers" in line):
                 props.setdefault(fn, []).append(line.split(":", 1)[-1].strip())
         for fn, lines in props.items():
             m = re.search(r"tile_kernelILi(\d+)E.*?(PackedDeq|Int8Deq)ILi(\d+)E(?:Lb(\d))?", fn)
+            mq = re.search(r"tile_kernelILi(\d+)E.*?Q8Deq", fn)
+            mf = re.search(r"flash_prefill_kernelILi(\d+)E", fn)
             if m:
                 flag = f", {'true' if m.group(4) == '1' else 'false'}" if m.group(4) else ""
                 fn = f"tile_kernel<{m.group(1)}, {m.group(2)}<{m.group(3)}{flag}>>"
+            elif mq:
+                fn = f"tile_kernel<{mq.group(1)}, Q8Deq> (K7)"
+            elif mf:
+                fn = f"flash_prefill_kernel<{mf.group(1)}> (K3)"
             elif "prep_kernel" in fn:
                 fn = "prep_kernel"
             print(f"build: {lib} {fn}: {'; '.join(dict.fromkeys(lines))}", flush=True)
+    from llama_cpp_q_4_0_tpu_torch.ops import flash_prefill as fp
     from llama_cpp_q_4_0_tpu_torch.ops import qmm
 
-    lib = qmm._lib("qmm_q4_0")
+    lib, q8 = qmm._lib("qmm_q4_0"), qmm._lib("qmm_q8x")
     print("build: tile_kernel dynamic shared memory (bytes): " + ", ".join(
-        f"bm={bm} {lib.qmm_tile_smem(bm)}" for bm in qmm.TILE_ROWS), flush=True)
+        f"bm={bm} {lib.qmm_tile_smem(bm)}" for bm in qmm.TILE_ROWS) + "; q8 mode " + ", ".join(
+        f"bm={bm} {q8.qmm_q8x_tile_smem(bm)}" for bm in qmm.TILE_ROWS_Q8), flush=True)
+    fl = build.load("flash_prefill", fp._SIGNATURES)
+    print("build: flash_prefill_kernel dynamic shared memory (bytes): " + ", ".join(
+        f"D={d} {fl.flash_prefill_smem(d)}" for d in fp.HEAD_DIMS), flush=True)
+
+
+def sass_counts(build) -> None:
+    """Instruction counts in the SASS (cuobjdump -sass) of K7's and K3's
+    kernels as built from this checkout: tensor-core ops (IMMA, HGMMA),
+    int-to-float conversions (I2F*), FMUL and FFMA, one line per kernel."""
+    cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    for lib in ("qmm_q8x", "flash_prefill"):
+        sass = subprocess.run([cuobjdump, "-sass", build._so_path(lib)], capture_output=True,
+                              text=True, timeout=300).stdout
+        fn, counts = None, {}
+        for line in sass.splitlines():
+            if "Function :" in line:
+                fn = line.split("Function :")[1].strip()
+                counts[fn] = dict.fromkeys(("IMMA", "HGMMA", "I2F", "FMUL", "FFMA"), 0)
+                continue
+            op = line.split("*/", 1)[-1].strip().split(" ")[0].split(".")[0] if fn else ""
+            if op.startswith("@"):
+                op = line.split("*/", 1)[-1].split()[1].split(".")[0]
+            key = "I2F" if op.startswith("I2F") else op
+            if fn and key in counts[fn]:
+                counts[fn][key] += 1
+        for fn, c in counts.items():
+            if c["IMMA"] or c["HGMMA"]:
+                print(f"sass: {lib} {fn[:90]}: {json.dumps(c)}", flush=True)
 
 
 def check_flash(torch, timer, rec: dict):
+    """K3 against its f32 plain version (limit 1e-4 of the output scale: the
+    3xTF32 products carry ~2^-21 relative error, the rest is f32 order), two
+    launches bit-identical: timed at T=512 (rec) and 2048 (B=1, H=32, D=128),
+    checked at T=128, with GQA 32/8 and at head width 256 (T=200: the ragged
+    edge)."""
     import torch.nn.functional as F
 
     from llama_cpp_q_4_0_tpu_torch.ops.flash_prefill import (
         flash_prefill, flash_prefill_plain)
 
-    b, t, h, d = 1, 512, 32, 128
     gen = torch.Generator(device="cuda")
     gen.manual_seed(7)
-    q, k, v = (torch.randn((b, t, h, d), generator=gen, device="cuda")
-               for _ in range(3))
-    scale = d ** -0.5
-    got = flash_prefill(q, k, v, scale)
-    ref = flash_prefill_plain(q, k, v, scale)
-    torch.cuda.synchronize()
-    err = (got - ref).abs().max().item()
-    tol = 1e-4 * ref.abs().max().item()  # f32 operands, f32 sums: order noise
-    good = bool(torch.isfinite(got).all()) and err <= tol
-    qh, kh, vh = (a.transpose(1, 2).contiguous() for a in (q, k, v))
-    k_ms = timer.ms(lambda: flash_prefill(q, k, v, scale))
-    p_ms = timer.ms(lambda: flash_prefill_plain(q, k, v, scale), reps=3)
-    l_ms = timer.ms(lambda: F.scaled_dot_product_attention(
-        qh, kh, vh, is_causal=True, scale=scale))
-    bnd, by = flash_bound(b, t, h, h, d)
-    print(f"kernel flash_prefill B={b} T={t} H={h} D={d}: max_abs_err={err:.3e} "
-          f"(tol {tol:.3e}) kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
-          f"library_ms={l_ms:.4f} bound_ms={bnd:.4f} bound_by={by} "
-          f"{'ok' if good else 'MISMATCH'}", flush=True)
-    rec.update(max_abs_err=err, ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
-               bound_ms=bnd, bound_by=by)
-    # correctness only: grouped KV heads, and the other compiled head width
-    for b, t, h, g, d in ((1, 512, 32, 8, 128), (2, 256, 16, 4, 256)):
+    good = True
+    for b, t, h, g, d, time_it in ((1, 512, 32, 32, 128, True), (1, 2048, 32, 32, 128, True),
+                                   (1, 128, 32, 32, 128, False), (1, 512, 32, 8, 128, False),
+                                   (1, 2048, 32, 8, 128, False), (2, 256, 16, 4, 256, False),
+                                   (1, 200, 16, 16, 256, False)):
         q = torch.randn((b, t, h, d), generator=gen, device="cuda")
-        k, v = (torch.randn((b, t, g, d), generator=gen, device="cuda")
-                for _ in range(2))
-        got = flash_prefill(q, k, v, d ** -0.5)
-        ref = flash_prefill_plain(q, k, v, d ** -0.5)
+        k, v = (torch.randn((b, t, g, d), generator=gen, device="cuda") for _ in range(2))
+        scale = d ** -0.5
+        got, again = flash_prefill(q, k, v, scale), flash_prefill(q, k, v, scale)
+        ref = flash_prefill_plain(q, k, v, scale)
         torch.cuda.synchronize()
-        e = (got - ref).abs().max().item()
-        lim = 1e-4 * ref.abs().max().item()
-        ok = bool(torch.isfinite(got).all()) and e <= lim
+        err = (got - ref).abs().max().item()
+        tol = 1e-4 * ref.abs().max().item()
+        same = torch.equal(got, again)
+        ok = bool(torch.isfinite(got).all()) and err <= tol and same
         good &= ok
-        rec["max_abs_err"] = max(rec["max_abs_err"], e)
-        print(f"kernel flash_prefill B={b} T={t} H={h} G={g} D={d}: "
-              f"max_abs_err={e:.3e} (tol {lim:.3e}) {'ok' if ok else 'MISMATCH'}",
-              flush=True)
+        rec["max_abs_err"] = max(rec.get("max_abs_err", 0.0), err)
+        head = (f"kernel flash_prefill B={b} T={t} H={h} G={g} D={d}: max_abs_err={err:.3e} "
+                f"(tol {tol:.3e}) bit-identical={same}")
+        if not time_it:
+            print(f"{head} {'ok' if ok else 'MISMATCH'}", flush=True)
+            continue
+        qh, kh, vh = (a.transpose(1, 2).contiguous() for a in (q, k, v))
+        k_ms = timer.ms(lambda: flash_prefill(q, k, v, scale))
+        p_ms = timer.ms(lambda: flash_prefill_plain(q, k, v, scale), reps=3)
+        l_ms = timer.ms(lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, is_causal=True, scale=scale))
+        bnd, by = flash_bound(b, t, h, g, d)
+        print(f"{head} kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} library_ms={l_ms:.4f} "
+              f"bound_ms={bnd:.4f} bound_by={by} (3xTF32 tensor cores) "
+              f"{'ok' if ok else 'MISMATCH'}", flush=True)
+        if t == 512:
+            rec.update(ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=bnd, bound_by=by)
+        del qh, kh, vh
     return good
+
+
+def check_quantize_kv(torch) -> bool:
+    """The q8 KV cache's quantize_kv on the card against the CPU, bit for bit,
+    on K vectors of the 7B layout whose amax makes a reciprocal multiply by
+    1/127 an ulp off the correctly rounded division."""
+    import numpy as np
+
+    from llama_cpp_q_4_0_tpu_torch.ops.kvcache import quantize_kv
+
+    rng = np.random.default_rng(19)
+    amax = rng.uniform(0.0, 10.0, 600000).astype(np.float32)
+    amax = amax[amax * np.float32(1 / 127) != amax / np.float32(127)][:32 * 512]
+    v = rng.uniform(-0.9, 0.9, (1, 512, 32, 128)).astype(np.float32) * amax.reshape(
+        1, 512, 32, 1)
+    v[..., 5] = amax.reshape(1, 512, 32)
+    cpu = torch.from_numpy(v)
+    (cq, cs), (gq, gs) = quantize_kv(cpu), quantize_kv(cpu.cuda())
+    torch.cuda.synchronize()
+    same = torch.equal(gq.cpu(), cq) and torch.equal(gs.cpu().view(torch.int32),
+                                                     cs.view(torch.int32))
+    recip = bool((cs != torch.from_numpy(amax.reshape(1, 512, 32) * np.float32(1 / 127))).all())
+    print(f"kernel quantize_kv (q8 KV cache) 1x512x32x128 card vs CPU: bit-identical={same} "
+          f"(a reciprocal multiply differs in every scale: {recip})", flush=True)
+    return same and recip
 
 
 def check_q8x_quantizer(torch) -> bool:
@@ -697,9 +773,67 @@ def int8_instruments(torch, cfg, params):
             print(f"bench: q4_0 q8-cache decode_ms_per_token (kv_window {window}, n_past "
                   f"{n_past}, {label}) median={med:.3f} runs={[round(v, 3) for v in runs]}",
                   flush=True)
+    int8_prefill_128(torch, cfg, params, ck, cv)
     with env(**INT8):
         med, _ = decode_ms(torch, cfg, params, ck, cv, 65, 256)
         trace_decode(torch, cfg, params, ck, cv, med)
+
+
+def int8_prefill_128(torch, cfg, params, ck, cv, counters=None):
+    """7B q4_0 in the int8 configuration (QMM_Q8X=1, FUSED_ATTN=1, q8 cache):
+    prefill-128 ms (one 128-token forward, groups of 4, median of 5; host
+    clock, synchronised) and the device-busy time of one call (the sum of its
+    kernel times under torch.profiler, and the shares of all K7's passes and
+    of K3).  Its
+    matmuls of 128 rows take K7's tile and its attention K3; the launches of
+    one call are printed (128 K7 tile launches + 1 for the head's last row,
+    32 K3).  Printed, not gated."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from llama_cpp_q_4_0_tpu_torch.models import transformer
+    from llama_cpp_q_4_0_tpu_torch.ops import flash_prefill as fp
+    from llama_cpp_q_4_0_tpu_torch.ops import qmm
+
+    counters = counters or [qmm.launches, fp.launches]
+    toks = torch.zeros((1, 128), dtype=torch.int64, device="cuda")
+
+    def call():
+        transformer.forward(cfg, params, toks, 0, ck, cv, last_only=True, kv_window=128,
+                            attention_fn=fp.flash_prefill)
+
+    with env(**INT8):
+        call()
+        torch.cuda.synchronize()
+        _zero(counters)
+        call()
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in _read(counters).items() if v}
+        runs = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            for _ in range(4):
+                call()
+            torch.cuda.synchronize()
+            runs.append((time.perf_counter() - t0) / 4 * 1e3)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+    busy = {"all": 0.0, "K7": 0.0, "K3": 0.0}
+    for ev in prof.key_averages():
+        if getattr(ev, "device_type", None) != DeviceType.CUDA:
+            continue
+        dev = getattr(ev, "self_device_time_total", None)
+        dev = (getattr(ev, "self_cuda_time_total", 0) if dev is None else dev) / 1e3
+        busy["all"] += dev
+        if any(n in ev.key for n in ("Q8Deq", "q8x_", "gemv_reduce")):
+            busy["K7"] += dev  # every K7 pass: quantizer or prep, tile or GEMV, reduce
+        elif "flash_prefill" in ev.key:
+            busy["K3"] += dev
+    print(f"bench: q4_0 int8-config prefill_128_ms median={statistics.median(runs):.3f} "
+          f"min={min(runs):.3f} runs={[round(v, 3) for v in runs]}; device busy of one call "
+          f"{busy['all']:.3f} ms (K7 {busy['K7']:.3f}, K3 {busy['K3']:.3f}); "
+          f"launches of one call {json.dumps(launched)}", flush=True)
 
 
 def trace_decode(torch, cfg, params, ck, cv, step_ms: float):
@@ -957,8 +1091,9 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default="kernels,e2e,cli",
-                    help="comma-separated subset of kernels,e2e,cli; the "
-                         "result lines print only for the full run")
+                    help="comma-separated subset of kernels,e2e,cli,sass,"
+                         "k7k3,int8prefill; the result lines print only for "
+                         "the default kernels,e2e,cli")
     phases = set(ap.parse_args(argv).phases.split(","))
     full = phases == {"kernels", "e2e", "cli"}
     try:
@@ -983,7 +1118,26 @@ def main(argv=None) -> int:
     secs = build.build_all()
     print(f"build: {json.dumps({k: round(v, 2) for k, v in secs.items()})} "
           f"total {time.perf_counter() - t0:.2f} s", flush=True)
-    ptxas_report(build)
+    if "kernels" in phases:
+        ptxas_report(build)
+    if "sass" in phases:
+        sass_counts(build)
+    if "k7k3" in phases:
+        timer = Timer(torch)
+        ok = check_flash(torch, timer, {})
+        for b in (128, 512):
+            ok &= check_qmm(torch, timer, "qmm_q8x", b, {})
+        if not ok:
+            return fail("K7 or K3 disagrees with its plain version")
+        del timer
+    if "int8prefill" in phases:
+        from llama_cpp_q_4_0_tpu_torch.models import transformer
+        from llama_cpp_q_4_0_tpu_torch.synth import build_llama
+
+        cfg, params = build_llama(device="cuda", seed=0, ftype="q4_0")
+        ck, cv = transformer.init_cache(cfg, 1, cfg.n_ctx, dtype=torch.int8, device="cuda")
+        int8_prefill_128(torch, cfg, params, ck, cv)
+        del params, ck, cv
 
     recs = {k: {} for k in ("qmm_q4_0", "qmm_q4_0_kfold", "flash_prefill",
                             "qmm_packed_bias", "qmm_int8", "qmm_int8_bias",
@@ -1013,15 +1167,19 @@ def main(argv=None) -> int:
                 for b in (1, 33, 64, 512, 2048):
                     ok &= check_qmm(torch, timer, name, b, recs[name], other_form=True)
         ok &= check_seed(torch)
-        # K7: b=1 (decode; beside K2 above), b=128 (the cap; beside K1 at
-        # b=128) and b=512 (only under QMM_Q8X_MAX_B=512; beside K1 above)
+        # K7: b=1 (decode; beside K2 above), its tile timed at b=128 (the
+        # cap; beside K1 at b=128) and b=512 (under QMM_Q8X_MAX_B=512; beside
+        # K1 above) and checked at b=33, 64 and 2048
         ok &= check_q8x_quantizer(torch)
+        ok &= check_quantize_kv(torch)
         ok &= check_qmm(torch, timer, "qmm_q8x", 1, recs["qmm_q8x"])
         for b in (128, 512):
             big = {}
             ok &= check_qmm(torch, timer, "qmm_q8x", b, big)
             recs["qmm_q8x"]["max_abs_err"] = max(recs["qmm_q8x"]["max_abs_err"],
                                                  big["max_abs_err"])
+        for b in (33, 64, 2048):
+            ok &= check_qmm(torch, timer, "qmm_q8x", b, recs["qmm_q8x"], time_it=False)
         ok &= check_mha(torch, timer, recs["mha_decode"])
         ok &= check_stream(torch, timer, recs["hbm_stream"])
         if not ok:

@@ -44,6 +44,7 @@ namespace {
 // r0 + 8p as bf16(level * d).
 template <int GS>
 struct Int8Deq {
+  static constexpr bool Q8 = false;
   static constexpr int PERM = 0;
   static constexpr int W_ROWS = 64;
   static constexpr int S_ROWS = 64 / GS;

@@ -56,6 +56,7 @@ namespace {
 // runtime zero.
 template <int GS, bool Q4_0>
 struct PackedDeq {
+  static constexpr bool Q8 = false;
   static constexpr int PERM = 1;
   static constexpr int W_ROWS = 32;
   static constexpr int S_ROWS = 32 / GS;

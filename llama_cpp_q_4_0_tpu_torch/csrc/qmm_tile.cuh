@@ -1,6 +1,7 @@
 // The prefill tile of the quantized matmuls (more than 32 rows) for Hopper
 // (sm_90a), shared by qmm_q4_0.cu (K1, K5: packed nibbles) and qmm_int8.cu
-// (K6, K6b: unpacked int8 levels).  out[B, N] = x[B, K] @ dequant(W) (+ the
+// (K6, K6b: unpacked int8 levels), and in its q8 mode by qmm_q8x.cu (K7:
+// q4_0 with int8 activations).  out[B, N] = x[B, K] @ dequant(W) (+ the
 // affine seed xg . gbias).
 //
 // What bounds it on an H100: by its operations the tile is bound by the
@@ -33,21 +34,41 @@
 //    SMs at every shape (ops/qmm.py::tile_plan picks the unit height and the
 //    splits); K splits write partial sums that gemv_reduce adds in a fixed
 //    order (bit-identical from run to run, no atomics).
+// The q8 mode (Deq::Q8, K7) keeps the rings, the producer, the dequantizers,
+// the persistent loop and the split-K reduce, and changes three things:
+//  * the prep pass is the q8_0 quantizer: xa holds the integer levels xq as
+//    bf16 (exact, |xq| <= 127) in the same nibble order, and dx the fp16-
+//    rounded d of every (row, group), a step's low group then its high one;
+//  * the dequantizers write bf16(nib - 8), exact with no scale, and copy the
+//    step's two d_w rows beside the B tile;
+//  * the consumers take a step as its two 32-groups: two wgmma k16 into a
+//    fresh D per group give each group's integer dot exactly (products below
+//    2^10, sums below 2^15, all exact in f32 in any order), then
+//    acc = fma(D, d_x * d_w, acc), an FMUL and an FFMA per term with no
+//    int-to-float conversion.  That epilogue, not the tensor cores, bounds
+//    the mode (64 group terms a clock per SM either way), so int8 wgmma,
+//    whose s32 results would add a conversion per term, would not be faster.
+//    One m64 tile per consumer warpgroup: with one warpgroup (64 rows) two D
+//    sets keep the next group's wgmma in flight while the last one is
+//    scaled; with two (128 rows) one D set each, and the warpgroups take
+//    turns on the tensor cores.
 // On an H100 80GB HBM3 at 700 W the tile reaches 26-46% of its bound at 512
 // rows (chip_smoke.py): the consumers spend most of a step waiting for the
 // x tile, whose TMA copies take far longer to land than the L2 round trip
 // (PERF.md, PR 4).
 #pragma once
 
-#include <cuda.h>  // CUtensorMap; the driver is reached through the runtime's entry point
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
 #include "qmm_common.cuh"
 
 namespace qmm {
 namespace tile {
+
+using namespace ::hopper;
 
 constexpr int TN = 128;          // output columns of a unit
 constexpr int STEP = 64;         // logical K rows per pipeline step
@@ -55,6 +76,7 @@ constexpr int SEED_G = 16;       // groups per seed step
 constexpr int RAW_BYTES = 10240; // weight bytes + scale rows, or 16 bias rows
 constexpr int SCALE_OFF = 8192;  // scale rows inside a raw slot
 constexpr int B_BYTES = STEP * TN * 2;
+constexpr int DW_BYTES = 2 * TN * 4;  // q8 mode: a step's two d_w rows after its B tile
 constexpr int B_SLOTS = 4;
 constexpr int PREP_THREADS = 256;
 
@@ -69,22 +91,26 @@ constexpr int PREP_THREADS = 256;
 // rounded down to a multiple of 8), and setmaxnreg.inc only takes what the
 // block's own warpgroups gave back, so the counts below fit that budget:
 // 128*240 + 256*120 + 128*24 of 128 each for 512 threads (BM 64, 128),
-// 256*160 + 256*64 + 128*24 of 96 each for 640 threads (BM 256).
-template <int BM>
+// 256*160 + 256*64 + 128*24 of 96 each for 640 threads (BM 256; q8 BM 128).
+// The q8 mode (Q8) has one m64 tile per consumer warpgroup.
+template <int BM, bool Q8 = false>
 struct Shape {
-  static constexpr int NC = BM == 256 ? 2 : 1;
+  static constexpr int NC = Q8 ? BM / 64 : BM == 256 ? 2 : 1;
   static constexpr int MT = BM / (64 * NC);
   static constexpr int ND = 2;
   static constexpr int A_STAGES = BM == 64 ? 8 : BM == 128 ? 6 : 3;
   static constexpr int R_STAGES = BM == 64 ? 8 : BM == 128 ? 6 : 4;
   static constexpr int A_BYTES = BM * 128;
+  static constexpr int B_SLOT = B_BYTES + (Q8 ? DW_BYTES : 0);
   static constexpr int THREADS = (NC + ND + 1) * 128;
-  static constexpr int BAR_OFF = A_STAGES * A_BYTES + R_STAGES * RAW_BYTES + B_SLOTS * B_BYTES;
+  static constexpr int BAR_OFF = A_STAGES * A_BYTES + R_STAGES * RAW_BYTES + B_SLOTS * B_SLOT;
   static constexpr int SMEM = BAR_OFF + 1024 + 1024;  // barriers, alignment slack
   static constexpr int REG_C = NC == 2 ? 160 : 240;
   static constexpr int REG_D = NC == 2 ? 64 : 120;
   static constexpr int REG_P = 24;
   static_assert(R_STAGES % ND == 0 && B_SLOTS % ND == 0, "ring ownership");
+  static_assert(!Q8 || MT == 1, "q8 mode: one m64 tile per consumer warpgroup");
+  static_assert(B_SLOT % 1024 == 0, "B tiles 1024-byte aligned (128-byte swizzle)");
   static_assert(SMEM <= 232448, "shared memory");
 };
 
@@ -97,80 +123,11 @@ struct Params {
   int chunks;          // seed chunks per plane (0: no seed)
   int plane_rows;      // first scale/bias row of plane 1 (packed: G2P)
   float zero;          // the pack zero (packed layouts)
+  const float* dx;     // q8 mode: the activations' d [B, dx_cols]
+  int dx_cols;
 };
 
-// --------------------------------------------------------------- PTX pieces
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ uint64_t global_ns() {
-  uint64_t t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-
-// Wait for the phase of the given parity to complete.  A wait of more than
-// 10 s can only be a broken pipeline: it traps, so the launch fails with an
-// error instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  uint64_t t0 = 0;
-  for (uint32_t n = 0;; ++n) {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if ((n & 1023) == 1023) {
-      if (!t0) t0 = global_ns();
-      else if (global_ns() - t0 > 10000000000ull) __trap();
-    }
-  }
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-// a 2-D TMA box (c0 the inner coordinate) into shared memory, completing on bar
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int c0, int c1,
-                                         uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3}], [%4];" ::"r"(dst),
-      "l"((uint64_t)map), "r"(c0), "r"(c1), "r"(bar)
-      : "memory");
-}
-
-// a 3-D TMA box (c0 innermost)
-__device__ __forceinline__ void tma_load3(uint32_t dst, const CUtensorMap* map, int c0, int c1,
-                                          int c2, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3, %4}], [%5];" ::"r"(dst),
-      "l"((uint64_t)map), "r"(c0), "r"(c1), "r"(c2), "r"(bar)
-      : "memory");
-}
-
-// shared-memory matrix descriptor, 128-byte swizzle; offsets in bytes
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
-}
-
+// ------------------------------------------- shared-memory layouts, wgmma
 // A: BM rows x 64 K of bf16, K-major, rows of 128 bytes, 8-row groups 1024
 // bytes apart (the layout TMA's 128-byte swizzle writes)
 __device__ __forceinline__ uint64_t a_desc(uint32_t addr) { return sw128_desc(addr, 16, 1024); }
@@ -184,23 +141,14 @@ __device__ __forceinline__ int b_off(int k, int n) {
   return (n >> 6) * 8192 + k * 128 + ((((n & 63) >> 3) ^ (k & 7)) << 4);
 }
 
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
-}
-
 #define QMM_F8(i)                                                                  \
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]),     \
       "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
 
-// d[64] += A(64 x 16, K-major) @ B(16 x 128, MN-major), bf16 in, f32 out
-__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db) {
+// d[64] = A(64 x 16, K-major) @ B(16 x 128, MN-major) + (acc ? d : 0), bf16
+// in, f32 out
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db,
+                                                 int acc = 1) {
   asm volatile(
       "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
@@ -211,18 +159,10 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, ui
       "%64, %65, p, 1, 1, 0, 1;\n}"
       : QMM_F8(0), QMM_F8(8), QMM_F8(16), QMM_F8(24), QMM_F8(32), QMM_F8(40), QMM_F8(48),
         QMM_F8(56)
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(acc));
 }
-#undef QMM_F8
 
-template <int R>
-__device__ __forceinline__ void reg_alloc() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(R));
-}
-template <int R>
-__device__ __forceinline__ void reg_dealloc() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(R));
-}
+#undef QMM_F8
 
 __device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
@@ -307,16 +247,135 @@ __device__ __forceinline__ void seed_dequant(const uint8_t* __restrict__ raw,
   }
 }
 
+// ------------------------------------------------------------ q8 consumers
+// acc += D * (d_x * d_w) for one 32-group's integer dots D (the m64n128
+// accumulator layout: rows l/4 and l/4 + 8 of the warp's 16, d_x of each in
+// dx0 and dx1; columns 8j + 2(l%4) + {0, 1}, d_w of each from shared memory:
+// a warp's float2 loads fall in distinct banks)
+__device__ __forceinline__ void q8_scale(float (&acc)[64], const float (&dd)[64], float dx0,
+                                         float dx1, const float* __restrict__ dw, int l) {
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const float2 w = *reinterpret_cast<const float2*>(dw + 8 * j + 2 * (l % 4));
+    acc[4 * j] = fmaf(dd[4 * j], dx0 * w.x, acc[4 * j]);
+    acc[4 * j + 1] = fmaf(dd[4 * j + 1], dx0 * w.y, acc[4 * j + 1]);
+    acc[4 * j + 2] = fmaf(dd[4 * j + 2], dx1 * w.x, acc[4 * j + 2]);
+    acc[4 * j + 3] = fmaf(dd[4 * j + 3], dx1 * w.y, acc[4 * j + 3]);
+  }
+}
+
+// The q8 mode's consumer warpgroup wg (lt its thread): rows m0 + 64 wg ..
+// of each unit.  A step's A columns 0..31 and B rows 0..31 are its low
+// group, 32..63 its high group; D set h % NS takes group h.  With one
+// consumer warpgroup (NS = 2) the next group's wgmma runs while the last
+// group is scaled; with two (NS = 1: two D sets would not fit the register
+// budget) one warpgroup's wgmma runs while the other scales.  (Four m64n64
+// chunks into two 32-register D sets, which fit both budgets, named
+// barriers that make the two warpgroups take turns, and d_w laid out as one
+// float4 run per lane, all measured slower.)
+template <class S>
+__device__ __forceinline__ void q8_consumer(const Params& p, uint32_t sbase, uint8_t* b0,
+                                            uint32_t bar0, int wg, int lt) {
+  constexpr int NS = S::NC == 1 ? 2 : 1;
+  reg_alloc<S::REG_C>();
+  auto empty_a = [&](int s) { return bar0 + 8 * (S::A_STAGES + s); };
+  auto full_b = [&](int r) { return bar0 + 8 * (2 * S::A_STAGES + 2 * S::R_STAGES + r); };
+  auto empty_b = [&](int r) {
+    return bar0 + 8 * (2 * S::A_STAGES + 2 * S::R_STAGES + B_SLOTS + r);
+  };
+  auto dw_of = [&](int r) {
+    return reinterpret_cast<const float*>(b0 + r * S::B_SLOT + B_BYTES);
+  };
+  const int w = lt / 32, l = lt % 32;
+  float acc[64], dd[NS][64];
+  int it = 0;
+  for (int u = blockIdx.x; u < p.units; u += gridDim.x) {
+    const int split = u % p.splits, tile = u / p.splits;
+    const int m0 = (tile % p.m_tiles) * (64 * S::NC), n0 = (tile / p.m_tiles) * TN;
+    const int lo = split * p.steps / p.splits, hi = (split + 1) * p.steps / p.splits;
+    const int row = m0 + wg * 64 + 16 * w + l / 4;
+    // rows past B: their A rows are TMA's zero fill, so D = 0 whatever d_x
+    const float* dx0p = p.dx + (size_t)min(row, p.B - 1) * p.dx_cols;
+    const float* dx1p = p.dx + (size_t)min(row + 8, p.B - 1) * p.dx_cols;
+#pragma unroll
+    for (int e = 0; e < 64; ++e) acc[e] = 0.0f;
+    int prev_s = -1, prev_r = 0;
+    float prev_x0 = 0.0f, prev_x1 = 0.0f;  // (NS = 2) d_x of the last step's high group
+    for (int v = lo; v < hi; ++v, ++it) {
+      const int s = it % S::A_STAGES, r = it % B_SLOTS;
+      const float2 x0 = *reinterpret_cast<const float2*>(dx0p + 2 * v);
+      const float2 x1 = *reinterpret_cast<const float2*>(dx1p + 2 * v);
+      mbar_wait(bar0 + 8 * s, (it / S::A_STAGES) & 1);  // full_a
+      mbar_wait(full_b(r), (it / B_SLOTS) & 1);
+      const uint32_t a = sbase + s * S::A_BYTES + wg * 8192;
+      const uint32_t b = smem_u32(b0 + r * S::B_SLOT);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        wgmma_fence();
+        wgmma_m64n128k16(dd[h % NS], a_desc(a + 64 * h), b_desc(b + 4096 * h), 0);
+        wgmma_m64n128k16(dd[h % NS], a_desc(a + 64 * h + 32), b_desc(b + 4096 * h + 2048));
+        wgmma_commit();
+        if constexpr (NS == 2) {
+          wgmma_wait<1>();  // the group issued before this one is done
+          if (h == 1) {
+            q8_scale(acc, dd[0], x0.x, x1.x, dw_of(r), l);
+          } else if (prev_s >= 0) {
+            q8_scale(acc, dd[1], prev_x0, prev_x1, dw_of(prev_r) + TN, l);
+            if (lt == 0) {
+              mbar_arrive(empty_a(prev_s));
+              mbar_arrive(empty_b(prev_r));
+            }
+          }
+        } else {
+          wgmma_wait<0>();
+          q8_scale(acc, dd[0], h ? x0.y : x0.x, h ? x1.y : x1.x, dw_of(r) + TN * h, l);
+        }
+      }
+      if constexpr (NS == 2) {
+        prev_s = s;
+        prev_r = r;
+        prev_x0 = x0.y;
+        prev_x1 = x1.y;
+      } else if (lt == 0) {
+        mbar_arrive(empty_a(s));
+        mbar_arrive(empty_b(r));
+      }
+    }
+    if constexpr (NS == 2) {
+      wgmma_wait<0>();
+      if (prev_s >= 0) {
+        q8_scale(acc, dd[1], prev_x0, prev_x1, dw_of(prev_r) + TN, l);
+        if (lt == 0) {
+          mbar_arrive(empty_a(prev_s));
+          mbar_arrive(empty_b(prev_r));
+        }
+      }
+    }
+    // acc[4j + 2hh + e]: row row + 8hh, column n0 + 8j + 2(l%4) + e
+    float* dst = p.splits > 1 ? p.partial + (size_t)split * p.B * p.N : p.out;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int col = n0 + 8 * j + 2 * (l % 4);
+      if (col >= p.N) continue;
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+        if (row + 8 * hh < p.B)
+          *reinterpret_cast<float2*>(dst + (size_t)(row + 8 * hh) * p.N + col) =
+              make_float2(acc[4 * j + 2 * hh], acc[4 * j + 2 * hh + 1]);
+    }
+  }
+}
+
 // ----------------------------------------------------------------- kernel
 // Deq: the layout's policy.  Deq::MAIN_BYTES, the bytes of a main step's
 // weight and scale boxes; Deq::load issues them; Deq::dequant writes the
 // step's 64 x TN bf16 B tile (thread t of the dequantizing warpgroup).
 template <int BM, class Deq>
-__global__ void __launch_bounds__(Shape<BM>::THREADS, 1)
+__global__ void __launch_bounds__(Shape<BM, Deq::Q8>::THREADS, 1)
 tile_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap wmap,
             const __grid_constant__ CUtensorMap smap, const __grid_constant__ CUtensorMap bmap,
             const Params p) {
-  using S = Shape<BM>;
+  using S = Shape<BM, Deq::Q8>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   const uint32_t sbase = smem_u32(smem);
@@ -403,7 +462,7 @@ tile_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CU
         mbar_wait(full_r(s), (it / S::R_STAGES) & 1);
         mbar_wait(empty_b(r), ((it / B_SLOTS) & 1) ^ 1);
         const uint8_t* raw = raw0 + s * RAW_BYTES;
-        uint8_t* bs = b0 + r * B_BYTES;
+        uint8_t* bs = b0 + r * S::B_SLOT;
         if (v < p.main_steps)
           Deq::dequant(raw, bs, t, p.zero);
         else
@@ -419,6 +478,8 @@ tile_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CU
         }
       }
     }
+  } else if constexpr (Deq::Q8) {
+    q8_consumer<S>(p, sbase, b0, bar0, wg, tid % 128);
   } else {
     // ------------------------------------------------ consumer warpgroups
     reg_alloc<S::REG_C>();
@@ -439,7 +500,7 @@ tile_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CU
         mbar_wait(full_a(s), (it / S::A_STAGES) & 1);
         mbar_wait(full_b(r), (it / B_SLOTS) & 1);
         const uint32_t a = sbase + s * S::A_BYTES + wg * S::MT * 8192;
-        const uint32_t b = smem_u32(b0 + r * B_BYTES);
+        const uint32_t b = smem_u32(b0 + r * S::B_SLOT);
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk)
@@ -483,28 +544,6 @@ tile_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CU
 }
 
 // ------------------------------------------------------------------- host
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-inline EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr,
-                                                             12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr,
-                                                    cudaEnableDefault, &q);
-#endif
-    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = (EncodeTiled)ptr;
-  }
-  return fn;
-}
-
 // a row-major tensor [planes, rows, cols] of elem-byte values (planes 1: a
 // 2-D map), boxes of box_p x box_r x box_c
 inline cudaError_t make_map(CUtensorMap* map, CUtensorMapDataType type, int elem,
@@ -538,20 +577,27 @@ inline int sm_count() {
 // rows from plane_rows on), else 1; bias NULL for no seed.  xa: bf16 scratch
 // [B, ka]; partial: f32 [splits, B, N] when splits > 1.  ka, bm and splits
 // come from the caller's plan (ops/qmm.py::tile_plan) and are checked here.
+// The q8 mode (Deq::Q8) takes dx, f32 scratch [B, K/GS] for the activations'
+// d, and Deq::prep as its prep pass.
 template <class Deq>
 cudaError_t launch(const float* x, const void* w, int w_rows, const float* scales, int s_rows,
                    const float* bias, __nv_bfloat16* xa, float* partial, float* out, int B,
                    int K, int N, int planes, int GS, int plane_rows, float zero, int bm,
-                   int splits, int ka, cudaStream_t st) {
+                   int splits, int ka, cudaStream_t st, float* dx = nullptr) {
   const int groups = K / planes / GS;
   const int chunks = bias ? (groups + SEED_G - 1) / SEED_G : 0;
   const int main_steps = K / STEP;
   const int steps = main_steps + planes * chunks;
   if (K % STEP || N % 16 || B < 1 || ka != K + STEP * (steps - main_steps) || splits < 1 ||
-      splits > steps || (splits > 1 && !partial) || !xa)
+      splits > steps || (splits > 1 && !partial) || !xa || (Deq::Q8 && (!dx || bias)))
     return cudaErrorInvalidValue;
-  prep_kernel<<<B, PREP_THREADS, 0, st>>>(x, xa, K, ka, Deq::PERM, planes, GS, groups, chunks);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err;
+  if constexpr (Deq::Q8) {
+    err = Deq::prep(x, xa, dx, B, K, st);
+  } else {
+    prep_kernel<<<B, PREP_THREADS, 0, st>>>(x, xa, K, ka, Deq::PERM, planes, GS, groups, chunks);
+    err = cudaGetLastError();
+  }
   if (err != cudaSuccess) return err;
 
   CUtensorMap xmap, wmap, smap, bmap;
@@ -579,6 +625,8 @@ cudaError_t launch(const float* x, const void* w, int w_rows, const float* scale
   p.chunks = chunks;
   p.plane_rows = plane_rows;
   p.zero = zero;
+  p.dx = dx;
+  p.dx_cols = K / GS;
   const int grid = p.units < sm_count() ? p.units : sm_count();
 
   auto run = [&](auto kernel, int threads, int smem) -> cudaError_t {
@@ -588,12 +636,13 @@ cudaError_t launch(const float* x, const void* w, int w_rows, const float* scale
     kernel<<<grid, threads, smem, st>>>(xmap, wmap, smap, bmap, p);
     return cudaGetLastError();
   };
+  constexpr bool Q8 = Deq::Q8;
   if (bm == 64)
-    err = run(tile_kernel<64, Deq>, Shape<64>::THREADS, Shape<64>::SMEM);
+    err = run(tile_kernel<64, Deq>, Shape<64, Q8>::THREADS, Shape<64, Q8>::SMEM);
   else if (bm == 128)
-    err = run(tile_kernel<128, Deq>, Shape<128>::THREADS, Shape<128>::SMEM);
-  else if (bm == 256)
-    err = run(tile_kernel<256, Deq>, Shape<256>::THREADS, Shape<256>::SMEM);
+    err = run(tile_kernel<128, Deq>, Shape<128, Q8>::THREADS, Shape<128, Q8>::SMEM);
+  else if (bm == 256 && !Q8)  // no 256-row q8 form (64 stands in, never launched)
+    err = run(tile_kernel<Q8 ? 64 : 256, Deq>, Shape<256>::THREADS, Shape<256>::SMEM);
   else
     return cudaErrorInvalidValue;
   if (err != cudaSuccess || splits == 1) return err;

@@ -28,7 +28,8 @@ SOURCES = {
     "stream": os.path.join(_PKG, "csrc", "stream.cu"),
 }
 # headers the sources include: a change to one rebuilds every source
-HEADERS = [os.path.join(_PKG, "csrc", h) for h in ("qmm_common.cuh", "qmm_tile.cuh")]
+HEADERS = [os.path.join(_PKG, "csrc", h)
+           for h in ("hopper.cuh", "qmm_common.cuh", "qmm_tile.cuh")]
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

@@ -7,7 +7,9 @@ over the call's fresh (cache-round-tripped) K/V with ``n_past == 0``, which
 equals the cache-window attention of that call.
 
 For a CPU tensor the wrapper runs the plain version; for a CUDA tensor it
-launches the kernel or raises.
+launches the kernel or raises.  The kernel computes both products in 3xTF32
+on the tensor cores; ``flash_prefill_3xtf32_plain`` repeats that arithmetic
+in plain PyTorch (the tests hold it to f32 attention).
 """
 
 from __future__ import annotations
@@ -34,10 +36,48 @@ def flash_prefill_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(b, t, h, d)
 
 
+def tf32_round(a: torch.Tensor) -> torch.Tensor:
+    """f32 -> the nearest TF32 value (10 mantissa bits), ties away from zero,
+    as PTX cvt.rna.tf32.f32 rounds: add half a TF32 ulp to the magnitude's
+    bits and clear the 13 low ones."""
+    bits = a.float().contiguous().view(torch.int32)
+    mag = ((bits & 0x7FFFFFFF) + 0x1000) & ~0x1FFF
+    return ((bits & ~0x7FFFFFFF) | mag).view(torch.float32)
+
+
+def split_tf32(a: torch.Tensor):
+    """a ~ hi + lo, both TF32: hi = tf32(a), lo = tf32(a - hi)."""
+    hi = tf32_round(a)
+    return hi, tf32_round(a.float() - hi)
+
+
+def _mm_3xtf32(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """einsum eq of a and b as three TF32 products in f32 (each product of two
+    TF32 values is exact in f32): lo.hi' + hi.lo' + hi.hi'."""
+    ah, al = split_tf32(a)
+    bh, bl = split_tf32(b)
+    return (torch.einsum(eq, al, bh) + torch.einsum(eq, ah, bl)) + torch.einsum(eq, ah, bh)
+
+
+def flash_prefill_3xtf32_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                               scale: float) -> torch.Tensor:
+    """The kernel's arithmetic in plain PyTorch: flash_prefill_plain with both
+    products in 3xTF32 (the probabilities split after the softmax)."""
+    b, t, h, d = q.shape
+    g = k.shape[2]
+    qg = q.float().reshape(b, t, g, h // g, d)
+    scores = _mm_3xtf32("btgrd,bsgd->bgrts", qg, k.float()) * scale
+    causal = torch.ones(t, t, dtype=torch.bool, device=q.device).tril()
+    probs = torch.softmax(scores.masked_fill(~causal, float("-inf")), dim=-1)
+    out = _mm_3xtf32("bgrts,bsgd->btgrd", probs, v.float())
+    return out.reshape(b, t, h, d)
+
+
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "flash_prefill": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _P],
                       _I),
+    "flash_prefill_smem": ([_I], _I),
 }
 
 

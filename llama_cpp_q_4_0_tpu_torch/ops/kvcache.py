@@ -10,6 +10,8 @@ from dataclasses import dataclass
 
 import torch
 
+from .qmm import ieee_div
+
 
 @dataclass
 class QuantKV:
@@ -25,9 +27,12 @@ class QuantKV:
 
 def quantize_kv(val: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """[..., D] -> (int8 levels, f32 scale[...]) with scale = amax/127;
-    rounding is half to even, as in the JAX package."""
+    rounding is half to even, as in the JAX package.  The scale is a
+    correctly rounded division (``ieee_div``): PyTorch's CUDA division by
+    the Python scalar 127 multiplies by its reciprocal, an ulp off for some
+    amax."""
     vf = val.float()
     amax = vf.abs().amax(dim=-1)
-    scale = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
+    scale = torch.where(amax > 0, ieee_div(amax, 127.0), torch.ones_like(amax))
     q = torch.clamp(torch.round(vf / scale[..., None]), -127, 127).to(torch.int8)
     return q, scale

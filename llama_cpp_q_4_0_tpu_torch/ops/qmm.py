@@ -174,6 +174,20 @@ def quantize_q8x_plain(x: torch.Tensor, gsize: int = 32):
     return xq, dq.to(torch.float16).float()
 
 
+def q8x_tile_prep_plain(x: torch.Tensor, gsize: int = 32):
+    """K7's tile prep pass in plain PyTorch: (xa bf16 [B, K], dx f32
+    [B, K/gsize]).  xa holds quantize_q8x_plain's levels (exact in bf16) in
+    the tile's nibble order, pipeline step v's low-panel group v then its
+    high-panel group v; dx the two groups' d at columns 2v and 2v + 1."""
+    b, k = x.shape
+    g2 = k // 2 // gsize
+    xq, d = quantize_q8x_plain(x, gsize)
+    xa = torch.stack([xq[:, :k // 2].reshape(b, g2, gsize),
+                      xq[:, k // 2:].reshape(b, g2, gsize)], 2).reshape(b, k)
+    dx = torch.stack([d[:, :g2], d[:, g2:]], 2).reshape(b, 2 * g2)
+    return xa.to(torch.bfloat16), dx
+
+
 def qmm_packed_q8x_plain(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
                          *, zero: int = 8, gsize: int = 32) -> torch.Tensor:
     """Plain version of K7: per group g (the low panel's, then the high
@@ -250,9 +264,10 @@ _SIGNATURES = {
         "qmm_int8_splits": ([_I], _I),
     },
     "qmm_q8x": {
-        "qmm_q8x": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
+        "qmm_q8x": ([_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P], _I),
         "q8x_quantize": ([_P, _P, _P, _I, _I, _P], _I),
         "qmm_q8x_splits": ([_I], _I),
+        "qmm_q8x_tile_smem": ([_I], _I),
     },
 }
 GEMV_MAX_ROWS = 32  # rows the kernels take in their decode (split-K) form
@@ -285,10 +300,12 @@ def _scratch(lib, splits_fn: str, x: torch.Tensor, n: int) -> torch.Tensor | Non
 
 
 # The prefill tile (csrc/qmm_tile.cuh): TILE_N output columns and one of
-# TILE_ROWS rows per unit, TILE_STEP_K logical K rows per pipeline step, and
-# for an affine weight one extra step per SEED_GROUPS groups of each plane.
+# TILE_ROWS rows per unit (TILE_ROWS_Q8 in K7's q8 mode), TILE_STEP_K logical
+# K rows per pipeline step, and for an affine weight one extra step per
+# SEED_GROUPS groups of each plane.
 TILE_N = 128
 TILE_ROWS = (64, 128, 256)
+TILE_ROWS_Q8 = (64, 128)
 TILE_STEP_K = 64
 SEED_GROUPS = 16
 
@@ -309,25 +326,30 @@ class TilePlan:
 # 7B shapes and 64, 128 and 512 rows (q4_0 and q6_K, H100 80GB HBM3 at
 # 700 W) so that its plans come close to the fastest measured ones.
 TILE_STEP_COST = {64: 0.7, 128: 1.0, 256: 1.45}
+# the q8 mode's step (K7), on its own scale, fitted the same way to a sweep
+# of K7 at b=128 and 512 (any ratio from 1.1 to 1.6 gave the same plans)
+TILE_STEP_COST_Q8 = {64: 1.0, 128: 1.3}
 TILE_FILL_STEPS = 2  # a unit's pipeline fill and epilogue, in steps
 TILE_SPLITS = (1, 2, 4)
 TILE_REDUCE_COST = 1e-6  # per byte the split-K reduce moves (reads splits, writes 1)
 
 
 def tile_plan(b: int, k: int, n: int, gsize: int, *, packed: bool, bias: bool,
-              sms: int) -> TilePlan:
+              sms: int, q8: bool = False) -> TilePlan:
     """Rows per unit and K splits of a tile call.  The persistent loop gives
     each of the sms blocks ceil(units / sms) units; a block's time is its
     steps times the step cost of its unit height, plus the fill, plus the
     reduce pass's bytes when K is split.  Heights of which half or more would
-    be padding are not tried; K splits keep at least 4 steps each."""
+    be padding are not tried; K splits keep at least 4 steps each.  q8: K7's
+    mode (packed, no bias), its heights and step costs."""
     planes = 2 if packed else 1
     groups = k // planes // gsize
     seed = planes * -(-groups // SEED_GROUPS) if bias else 0
     steps = k // TILE_STEP_K + seed
     n_tiles = -(-n // TILE_N)
     best = None
-    for bm in TILE_ROWS:
+    step_cost = TILE_STEP_COST_Q8 if q8 else TILE_STEP_COST
+    for bm in TILE_ROWS_Q8 if q8 else TILE_ROWS:
         if bm > 64 and bm // 2 >= b:
             break
         units = -(-b // bm) * n_tiles
@@ -335,7 +357,7 @@ def tile_plan(b: int, k: int, n: int, gsize: int, *, packed: bool, bias: bool,
             if splits > 1 and splits * 4 > steps:
                 break
             cost = ((-(-units * splits // sms) * steps / splits + TILE_FILL_STEPS)
-                    * TILE_STEP_COST[bm])
+                    * step_cost[bm])
             if splits > 1:
                 cost += TILE_REDUCE_COST * (splits + 1) * b * n * 4
             if best is None or cost < best[0]:
@@ -350,11 +372,11 @@ def _sm_count(index: int) -> int:
 
 
 def _tile_scratch(x: torch.Tensor, n: int, gsize: int, *, packed: bool,
-                  bias: bool):
+                  bias: bool, q8: bool = False):
     """(plan, xa bf16 [B, ka], partial f32 [splits, B, N] or None)."""
     b, k = x.shape
     plan = tile_plan(b, k, n, gsize, packed=packed, bias=bias,
-                     sms=_sm_count(x.device.index or 0))
+                     sms=_sm_count(x.device.index or 0), q8=q8)
     xa = torch.empty((b, plan.ka), dtype=torch.bfloat16, device=x.device)
     partial = (torch.empty((plan.splits, b, n), dtype=torch.float32, device=x.device)
                if plan.splits > 1 else None)
@@ -485,8 +507,8 @@ def quantize_q8x(x: torch.Tensor, gsize: int = 32):
 
 def qmm_packed_q8x(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor, *,
                    zero: int = 8, gsize: int = 32) -> torch.Tensor:
-    """K7 at any row count (a split-K GEMV at 32 rows or fewer, an int8
-    tensor-core tile above): f32 [B, N]."""
+    """K7 at any row count (a split-K GEMV at 32 rows or fewer, the shared
+    tile's q8 mode above): f32 [B, N]."""
     _q4_0_only(zero, gsize)
     _check(x, packed, [scales], packed=True, gsize=gsize)
     if x.device.type == "cpu":
@@ -494,12 +516,15 @@ def qmm_packed_q8x(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor, 
     b, k = x.shape
     k2p, n = packed.shape
     lib = _lib("qmm_q8x")
-    xq = torch.empty((b, k), dtype=torch.int8, device=x.device)
     d = torch.empty((b, k // gsize), dtype=torch.float32, device=x.device)
-    partial = _scratch(lib, "qmm_q8x_splits", x, n)
+    partial, xq, xa, plan = _scratch(lib, "qmm_q8x_splits", x, n), None, None, _NO_TILE
+    if partial is None:
+        plan, xa, partial = _tile_scratch(x, n, gsize, packed=True, bias=False, q8=True)
+    else:
+        xq = torch.empty((b, k), dtype=torch.int8, device=x.device)
     out = torch.empty((b, n), dtype=torch.float32, device=x.device)
-    err = lib.qmm_q8x(x.data_ptr(), packed.data_ptr(), scales.data_ptr(),
-                      xq.data_ptr(), d.data_ptr(), _ptr(partial), out.data_ptr(),
-                      b, k, n, k2p // gsize, _stream(x))
+    err = lib.qmm_q8x(x.data_ptr(), packed.data_ptr(), scales.data_ptr(), _ptr(xq),
+                      d.data_ptr(), _ptr(partial), _ptr(xa), out.data_ptr(), b, k, n,
+                      k2p // gsize, plan.bm, plan.splits, plan.ka, _stream(x))
     _launched(err, "qmm_q8x")
     return out

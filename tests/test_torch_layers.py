@@ -160,18 +160,23 @@ def test_decode_attention_matches_mha_decode(quant):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("t", [128, 200, 512, 2048])
 @pytest.mark.parametrize("g,d", [(8, 128), (2, 128), (2, 256)],
                          ids=["mha128", "gqa128", "gqa256"])
-def test_flash_kernel_matches_plain_on_card(g, d):
+def test_flash_kernel_matches_plain_on_card(g, d, t):
+    """The 3xTF32 kernel against the f32 plain version within 1e-4 of the
+    output scale (T = 200: the ragged edge), two launches bit-identical."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     rng = _rng(5)
-    q, k, v = (torch.from_numpy(rng.standard_normal((1, 256, n, d))
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, t, n, d))
                                 .astype(np.float32)).cuda() for n in (8, g, g))
     got = flash_prefill(q, k, v, d ** -0.5)
+    again = flash_prefill(q, k, v, d ** -0.5)
     want = flash_prefill_plain(q, k, v, d ** -0.5)
     torch.cuda.synchronize()
     assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+    assert torch.equal(got, again)
 
 
 @pytest.mark.gpu
@@ -181,3 +186,94 @@ def test_flash_kernel_raises_for_other_head_widths():
     q = torch.zeros((1, 128, 4, 384), device="cuda")
     with pytest.raises(ValueError, match="head_dim"):
         flash_prefill(q, q, q, 384 ** -0.5)
+
+
+def _recip_sensitive_kv(n=64, d=16, seed=9):
+    """[n, d] rows whose amax x makes x * float32(1/127) differ from the
+    correctly rounded x / 127 (found with numpy), the rest of each row below."""
+    rng = _rng(seed)
+    cand = rng.uniform(0.0, 10.0, 100000).astype(np.float32)
+    cand = cand[cand * np.float32(1 / 127) != cand / np.float32(127)][:n]
+    assert len(cand) == n
+    v = rng.uniform(-1.0, 1.0, (n, d)).astype(np.float32) * cand[:, None] * 0.9
+    v[:, 3] = cand * np.where(np.arange(n) % 2, 1, -1)
+    return v, cand
+
+
+def test_quantize_kv_scale_is_a_correct_division():
+    """quantize_kv's scale is amax / 127 correctly rounded (numpy's and the
+    JAX package's division), not amax times the rounded reciprocal: on these
+    rows the two differ in every scale (limit: bit for bit)."""
+    v, amax = _recip_sensitive_kv()
+    _, ts = quantize_kv(_t(v))
+    want = amax / np.float32(127)
+    np.testing.assert_array_equal(ts.numpy().view(np.uint32), want.view(np.uint32))
+    assert (ts.numpy() != amax * np.float32(1 / 127)).all()
+    jq, js = jax_quantize_kv(jnp.asarray(v))
+    np.testing.assert_array_equal(ts.numpy().view(np.uint32), np.asarray(js).view(np.uint32))
+    np.testing.assert_array_equal(quantize_kv(_t(v))[0].numpy(), np.asarray(jq))
+
+
+@pytest.mark.gpu
+def test_quantize_kv_on_card_equals_cpu():
+    """The q8 cache's levels and scales on the card equal the CPU's bit for
+    bit, on rows where a reciprocal multiply would be an ulp off."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    v, _ = _recip_sensitive_kv(n=256, d=128)
+    cq, cs = quantize_kv(_t(v))
+    gq, gs = quantize_kv(_t(v).cuda())
+    assert torch.equal(gq.cpu(), cq)
+    assert torch.equal(gs.cpu().view(torch.int32), cs.view(torch.int32))
+
+
+# ---------------------------------------------- the flash kernel's 3xTF32
+
+def test_tf32_round_bit_patterns():
+    """tf32_round keeps 10 mantissa bits with ties away from zero (PTX
+    cvt.rna.tf32.f32), on chosen bit patterns; limit: bit for bit."""
+    from llama_cpp_q_4_0_tpu_torch.ops.flash_prefill import split_tf32, tf32_round
+    ulp = 2.0 ** -10
+    cases = [(1.0, 1.0), (1 + ulp / 2, 1 + ulp), (1 + 3 * ulp / 2, 1 + 2 * ulp),
+             (-(1 + ulp / 2), -(1 + ulp)), (1 + ulp / 2 - 2.0 ** -23, 1.0),
+             (1 + ulp / 2 + 2.0 ** -23, 1 + ulp), (0.0, 0.0), (-0.0, -0.0),
+             (2.0 ** -130, 2.0 ** -130),
+             (3.0 * 2.0 ** 100, 3.0 * 2.0 ** 100)]
+    x = torch.tensor([c[0] for c in cases], dtype=torch.float32)
+    want = torch.tensor([c[1] for c in cases], dtype=torch.float32)
+    got = tf32_round(x)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert (got.view(torch.int32) & 0x1FFF == 0).all()
+    # hi + lo recovers a to 2^-21 relative; lo is TF32 too
+    a = torch.from_numpy(_rng(4).standard_normal(10000).astype(np.float32))
+    hi, lo = split_tf32(a)
+    assert torch.equal(hi, tf32_round(hi)) and torch.equal(lo, tf32_round(lo))
+    assert ((hi.double() + lo.double() - a.double()).abs() <= a.double().abs() * 2.0 ** -21).all()
+
+
+@pytest.mark.parametrize("g,d,t", [(32, 128, 128), (8, 128, 128), (4, 256, 64)],
+                         ids=["7b", "gqa", "d256"])
+def test_flash_3xtf32_plain_matches_jax_attention(g, d, t):
+    """The kernel's arithmetic (both products in 3xTF32, ~2^-21 relative per
+    product) against the JAX package's f32 attention over the prompt's own
+    K/V, at the 7B attention width (32 heads of 128; GQA 32/8) and at head
+    width 256: within 1e-4 of the output scale, the kernel's limit on the
+    card.  Single-pass TF32 misses that limit on the same inputs."""
+    from llama_cpp_q_4_0_tpu_torch.ops.flash_prefill import (flash_prefill_3xtf32_plain,
+                                                             tf32_round)
+    h = 32 if d == 128 else 8
+    rng = _rng(20 + g)
+    q = (rng.standard_normal((1, t, h, d)) * 2.0).astype(np.float32)
+    k = (rng.standard_normal((1, t, g, d)) * 2.0).astype(np.float32)
+    v = rng.standard_normal((1, t, g, d)).astype(np.float32)
+    pos = np.arange(t)[None].astype(np.int32)
+    mask = np.ones((1, t), bool)
+    scale = d ** -0.5
+    want = np.asarray(jl.attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                   jnp.asarray(pos), jnp.asarray(mask), scale))
+    got = flash_prefill_3xtf32_plain(_t(q), _t(k), _t(v), scale).numpy()
+    lim = 1e-4 * np.abs(want).max()
+    assert np.abs(got - want).max() <= lim
+    one_pass = flash_prefill_plain(tf32_round(_t(q)), tf32_round(_t(k)), tf32_round(_t(v)),
+                                   scale).numpy()
+    assert np.abs(one_pass - want).max() > lim

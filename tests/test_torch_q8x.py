@@ -294,10 +294,11 @@ def test_q8x_model_equals_ref_int8(path, monkeypatch):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("b", [1, 8, 33, 128])
+@pytest.mark.parametrize("b", [1, 8, 33, 64, 128, 512, 2048])
 def test_q8x_kernel_matches_plain_on_card(b):
-    """On the card: the quantizer bit for bit, the matmul within 1e-4 of the
-    output scale (f32 summation order only)."""
+    """On the card: the quantizer bit for bit, the matmul (the decode form up
+    to 32 rows, the shared tile's q8 mode above) within 1e-4 of the output
+    scale (f32 summation order only), two launches bit-identical."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     _, packed, scales = _weight(4096, 11008, seed=b)
@@ -306,6 +307,92 @@ def test_q8x_kernel_matches_plain_on_card(b):
     xq, d = qmm.quantize_q8x(x)
     pq, pd = qmm.quantize_q8x_plain(x)
     got, want = qmm.qmm_packed_q8x(x, p, s), qmm.qmm_packed_q8x_plain(x, p, s)
+    again = qmm.qmm_packed_q8x(x, p, s)
     torch.cuda.synchronize()
     assert torch.equal(xq, pq) and torch.equal(d, pd)
+    assert torch.equal(got, again)
     assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+
+
+# ------------------------------------------ K7's prefill form on the shared tile
+
+@pytest.mark.parametrize("case", ["max_pos", "max_neg", "mixed_extremes", "random"])
+def test_bf16_integer_group_dot_is_exact(case):
+    """The tile's q8 mode feeds xq and the levels nib - 8 to bf16 wgmma with
+    f32 accumulators: both are exact in bf16 (|xq| <= 127, |level| <= 8),
+    each product below 2^10 and every partial sum of a 32-group below 2^15,
+    so the f32 sum is the int32 dot exactly in any order (limit: 0)."""
+    rng = np.random.default_rng(len(case))
+    if case == "max_pos":
+        xq = np.full((64, 32), 127)
+        lv = np.full((64, 32), 7)
+    elif case == "max_neg":
+        xq = np.full((64, 32), -127)
+        lv = np.full((64, 32), -8)
+    elif case == "mixed_extremes":
+        xq = rng.choice([-127, 127], (64, 32))
+        lv = rng.choice([-8, 7], (64, 32))
+    else:
+        xq = rng.integers(-127, 128, (4096, 32))
+        lv = rng.integers(-8, 8, (4096, 32))
+    want = (xq.astype(np.int64) * lv).sum(-1)
+    xb = torch.from_numpy(xq).to(torch.bfloat16)
+    lb = torch.from_numpy(lv).to(torch.bfloat16)
+    assert torch.equal(xb.to(torch.int64), torch.from_numpy(xq))  # exact in bf16
+    prods = xb.float() * lb.float()
+    for order in (np.arange(32), np.arange(32)[::-1].copy(), rng.permutation(32)):
+        acc = torch.zeros(xq.shape[0], dtype=torch.float32)
+        for j in order:
+            acc = acc + prods[:, j]
+        np.testing.assert_array_equal(acc.numpy().astype(np.int64), want)
+
+
+@pytest.mark.parametrize("k", [256, 1024, 704])
+def test_q8x_tile_prep_layout_unpacks_to_the_quantizer(k):
+    """The q8 tile's prep layout (xa bf16 in the nibble order, dx a step's
+    two d side by side) unpacks to quantize_q8x_plain's xq and d bit for bit."""
+    x = torch.from_numpy(_tie_rows(k))
+    xq, d = qmm.quantize_q8x_plain(x)
+    xa, dx = qmm.q8x_tile_prep_plain(x)
+    b, g2 = 3, k // 64
+    assert xa.dtype == torch.bfloat16 and tuple(xa.shape) == (b, k)
+    assert dx.dtype == torch.float32 and tuple(dx.shape) == (b, k // 32)
+    steps = xa.float().reshape(b, g2, 2, 32)
+    assert torch.equal(steps, steps.round())  # integers, exact in bf16
+    got_q = torch.cat([steps[:, :, 0], steps[:, :, 1]], 1).reshape(b, k).to(torch.int8)
+    assert torch.equal(got_q, xq)
+    got_d = torch.cat([dx.reshape(b, g2, 2)[:, :, 0], dx.reshape(b, g2, 2)[:, :, 1]], 1)
+    np.testing.assert_array_equal(got_d.numpy().view(np.uint32), d.numpy().view(np.uint32))
+    # step v's columns are the low panel's group v, then the high panel's
+    np.testing.assert_array_equal(xa[:, 32:64].float().numpy(), xq[:, k // 2:k // 2 + 32].float().numpy())
+
+
+SHAPES_7B = [(12288, 4096), (4096, 4096), (22016, 4096), (4096, 11008), (32000, 4096)]
+
+
+@pytest.mark.parametrize("b", [33, 64, 128, 512, 2048])
+@pytest.mark.parametrize("n,k", SHAPES_7B)
+def test_tile_plan_q8_is_well_formed(b, n, k):
+    """K7's plan at every 7B shape and prefill row count: a q8 unit height
+    (one m64 tile per consumer warpgroup) that is not mostly padding, K splits
+    of at least 4 steps and at most TILE_SPLITS, K/64 steps and no seed."""
+    plan = qmm.tile_plan(b, k, n, 32, packed=True, bias=False, sms=132, q8=True)
+    assert plan.bm in qmm.TILE_ROWS_Q8 and (plan.bm == 64 or plan.bm // 2 < b)
+    assert plan.steps == k // 64 and plan.ka == k
+    assert plan.splits in qmm.TILE_SPLITS
+    assert plan.splits == 1 or plan.steps // plan.splits >= 4
+    units = -(-b // plan.bm) * -(-n // qmm.TILE_N) * plan.splits
+    assert units >= 1
+
+
+@pytest.mark.parametrize("b", [33, 512])
+def test_q8x_tile_scratch_matches_the_plan(monkeypatch, b):
+    """The wrapper's scratch for K7's tile: bf16 x of width K (no seed) and
+    partial sums only when K is split (shapes a CUDA call would get)."""
+    monkeypatch.setattr(qmm, "_sm_count", lambda index: 132)
+    x = torch.zeros((b, 4096))
+    plan, xa, partial = qmm._tile_scratch(x, 4096, 32, packed=True, bias=False, q8=True)
+    assert xa.dtype == torch.bfloat16 and tuple(xa.shape) == (b, 4096)
+    assert (partial is None) == (plan.splits == 1)
+    if partial is not None:
+        assert tuple(partial.shape) == (plan.splits, b, 4096)
