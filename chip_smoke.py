@@ -21,20 +21,34 @@ Phases (each prints its own lines; any failure exits non-zero):
      bit-identical.  K7 (int8 activations) on the q4_0 shapes: its decode
      form at b=1, its tile (the shared tile's q8 mode) timed at b=128 and 512
      and checked at b=33, 64 and 2048, two launches bit-identical; its
-     quantizer bit for bit; the q8 KV cache's quantize_kv on the card
+     quantizer bit for bit.  K1, K2 and K7 on the q3_K layout (pack zero 4,
+     16-groups) at the shapes Q3_K_M runs them on (wq/wk 4096x4096, the
+     fused gate/up 22016x4096): K2 and K7 timed at b=1, K1 and K7's tile at
+     b=128 and 512 and checked at b=33, 64 and 2048, K7's quantizer at
+     16-groups bit for bit; for agreement only, the three on an odd pack
+     zero at each group size (3 at 16, 7 at 32).  K7's tile at b=512 and 2048
+     on both layouts launched 21 times, every output bit-identical to the
+     first and within tolerance.  The q8 KV cache's
+     quantize_kv on the card
      against the CPU bit for bit.  K4 (decode attention) at T=1 and 8 over windows
      of 256 and 2048 on int8 and bf16 caches, and for agreement on an f32
      cache, GQA, head widths 64 and 256, a strided B=2 window with an empty
      row; K8 (read stream) over 2 GiB of ones, its checksum exact.
   3. end to end, one path after another, the launch counts set to 0 just
      before each and read just after: synthetic LLaMA-7B q4_0 and LLaMA-7B
-     Q4_K_M (32 layers, full width) built on the card, each a Context prefill
-     of 512 tokens and 64 greedy decode steps through generate, then the
-     bench.py instruments (prefill-512 ms, median decode ms/token at
-     kv_window 256) and a profiled decode step; LLaMA-7B Q5_K_M (the path
-     of K6b), a 128-token prefill and 16 decode steps.  2-layer models at
-     the same width (q4_0, Q4_K_M) held against the plain versions on the
-     CPU.  7B q4_0 in the int8 configuration (QMM_Q8X=1, FUSED_ATTN=1, q8
+     Q4_K_M and LLaMA-7B Q3_K_M (32 layers, full width) built on the card,
+     each a Context prefill of 512 tokens and 64 greedy decode steps through
+     generate, then the bench.py instruments (prefill-512 ms, median decode
+     ms/token at kv_window 256) and a profiled decode step; Q3_K_M's launches
+     checked (per decode token 96 K2 + 96 K5 + 1 K6, per prefill 96 K1 + 96
+     K5 tile launches and 32 K3), and again in the int8 configuration (a
+     128-token prefill through K7's tile and 16 decode steps, 96 K7 + 32 K4
+     per token); LLaMA-7B Q5_K_M (the path of K6b), a 128-token prefill and
+     16 decode steps.  2-layer models at the same width (q4_0, Q4_K_M,
+     Q3_K_M) held against the plain versions on the CPU, and a 2-layer
+     Q3_K_M with a 32001-entry vocabulary and n_ff 8640, whose head and w2
+     lie outside the kernels' gate and take the bf16 product (checked: no
+     kernel launch for them).  7B q4_0 in the int8 configuration (QMM_Q8X=1, FUSED_ATTN=1, q8
      cache): the same prefill and decode, 129 K7 and 32 K4 launches per
      token checked, decode ms/token at windows 256 and 2048 with each switch
      on and off, and prefill-128 ms (median of 5 groups of 4; the launches of
@@ -42,16 +56,17 @@ Phases (each prints its own lines; any failure exits non-zero):
      in that configuration against the CPU.
   4. the `main` CLI answers prompts from GGJT files at 7B width (2 layers,
      32000-entry vocab) written by the port's own GGJTWriter: q4_0 (also in
-     the int8 configuration), and Q4_K_M from random k-quant blocks;
+     the int8 configuration), Q4_K_M and Q3_K_M from random k-quant blocks;
      `benchmark-matmult` (default, QMM_Q8X=1, --vdot, --stream,
      --stream-sweep).
   5. a JSON line of per-kernel numbers, then the contract line
      {"ok": true, "device": {...}}.
 ``--phases kernels,e2e,cli`` runs a subset (for debugging: a subset prints
-no result lines; with no arguments every phase runs).  Two phases run only
+no result lines; with no arguments every phase runs).  Phases that run only
 when named: ``sass`` (instruction counts of K7's and K3's kernels), ``k7k3``
-(K3's and K7's tile checks and times alone) and ``int8prefill`` (the int8
-configuration's prefill-128 instrument); a copy of this script placed beside
+(K3's and K7's tile checks and times alone), ``k7repeat`` (K7's repeated
+tile launches alone) and ``int8prefill`` (the int8 configuration's
+prefill-128 instrument); a copy of this script placed beside
 an older checkout's package measures that one.  Run without CUDA, or
 without the port beside it, it exits non-zero and prints no result.
 """
@@ -82,6 +97,9 @@ SHAPES = [("wqkv", 12288, 4096), ("wo", 4096, 4096), ("w_gateup", 22016, 4096),
 # layers and wq, wk, wo, gate/up of the others (the 4096x4096 row stands for
 # wq, wk and wo), K6 (q6_K) runs wv and w2 of half the layers and the head;
 # K6b (q5_K) is checked on one shape
+# (Q3_K_M runs K1, K2 and K7 on q3_K at wq and wk, 4096x4096, and the fused
+# gate/up, 22016x4096; the "/q3_K" entries: the same kernels in that form)
+Q3K_SHAPES = [("wq", 4096, 4096), ("w_gateup", 22016, 4096)]
 KERNEL_SHAPES = {
     "qmm_q4_0": ("qmm_packed", "Q4_0", SHAPES),
     "qmm_q4_0_kfold": ("qmm_packed_kfold", "Q4_0", SHAPES),
@@ -90,20 +108,27 @@ KERNEL_SHAPES = {
                                       ("output", 32000, 4096)]),
     "qmm_int8_bias": ("qmm_int8_bias", "Q5_K", [("wo", 4096, 4096)]),
     "qmm_q8x": ("qmm_packed_q8x", "Q4_0", SHAPES),
+    "qmm_q4_0/q3_K": ("qmm_packed", "Q3_K", Q3K_SHAPES),
+    "qmm_q4_0_kfold/q3_K": ("qmm_packed_kfold", "Q3_K", Q3K_SHAPES),
+    "qmm_q8x/q3_K": ("qmm_packed_q8x", "Q3_K", Q3K_SHAPES),
 }
 # agreement limits of the matmul kernels against their plain versions, as a
 # fraction of the output scale: bf16 operands summed in another order (1e-3);
 # K7's group dots are exact integers, so only the f32 order of the scaled
-# group terms differs (1e-4)
+# group terms differs (1e-4).  Keyed by kernel, whatever its form
 QMM_TOL = {"qmm_q8x": 1e-4}
 # the operation peak each matmul kernel's bound takes: K7 runs int8 products
 QMM_PEAK = {"qmm_q8x": PEAK_INT8}
 # the kernels' other compiled forms, checked for agreement only (not timed):
-# K5 on 16-groups (q2_K), K6 on 32-groups (q5_0, q8_0)
-OTHER_FORMS = {"qmm_packed_bias": ("Q2_K", [("wo", 4096, 4096)]),
-               "qmm_int8": ("Q8_0", [("wo", 4096, 4096)])}
+# K5 on 16-groups (q2_K), K6 on 32-groups (q5_0, q8_0); K1, K2 and K7 on an
+# odd pack zero at each group size (3 on q3_K's 16-groups, 7 on q4_0's
+# 32-groups), as (format, shapes, pack zero or None)
+OTHER_FORMS = {"qmm_packed_bias": [("Q2_K", [("wo", 4096, 4096)], None)],
+               "qmm_int8": [("Q8_0", [("wo", 4096, 4096)], None)]}
+for _name in ("qmm_q4_0", "qmm_q4_0_kfold", "qmm_q8x"):
+    OTHER_FORMS[_name] = [("Q3_K", [("wo", 4096, 4096)], 3), ("Q4_0", [("wo", 4096, 4096)], 7)]
 # (packed, group size, bias planes) of each format's device layout
-FORMATS = {"Q4_0": (True, 32, False), "Q4_K": (True, 32, True),
+FORMATS = {"Q4_0": (True, 32, False), "Q3_K": (True, 16, False), "Q4_K": (True, 32, True),
            "Q2_K": (True, 16, True), "Q6_K": (False, 16, False),
            "Q8_0": (False, 32, False), "Q5_K": (False, 32, True)}
 
@@ -208,20 +233,26 @@ def model_bounds(label, params, n_layer, t=512):
 
 
 def check_qmm(torch, timer, name: str, b: int, rec: dict | None,
-              other_form: bool = False, time_it: bool = True):
-    """A matmul kernel at its 7B shapes (KERNEL_SHAPES) against its plain
-    version, on synthetic weights of its format, at b rows; two launches on
-    the same inputs must give bit-identical outputs.  The error, times and
-    bounds summed over the shapes go into rec, and the sums print on a line
-    of their own.  other_form: the format and shape of OTHER_FORMS instead;
-    time_it False: agreement only (the error goes into rec, no times)."""
+              other_form: tuple | None = None, time_it: bool = True):
+    """A matmul kernel (or one of its forms, "kernel/form") at its 7B shapes
+    (KERNEL_SHAPES) against its plain version, on synthetic weights of its
+    format, at b rows; two launches on the same inputs must give
+    bit-identical outputs.  The error, times and bounds summed over the
+    shapes go into rec, and the sums print on a line of their own.
+    other_form: an entry of OTHER_FORMS (format, shapes, pack zero) instead,
+    agreement only; time_it False: agreement only (the error goes into rec,
+    no times)."""
+    import dataclasses
+
     from llama_cpp_q_4_0_tpu_torch.ops import qmm
     from llama_cpp_q_4_0_tpu_torch.quant.types import GGMLType
     from llama_cpp_q_4_0_tpu_torch.synth import synth_qtensor
 
     wrapper, fmt, shapes = KERNEL_SHAPES[name]
+    kernel = name.split("/")[0]
+    zero = None
     if other_form:
-        fmt, shapes = OTHER_FORMS[name]
+        fmt, shapes, zero = other_form
         time_it = False
     gen = torch.Generator(device="cuda")
     gen.manual_seed(100 + b)
@@ -238,16 +269,19 @@ def check_qmm(torch, timer, name: str, b: int, rec: dict | None,
     kern, plain = getattr(qmm, wrapper), getattr(qmm, wrapper + "_plain")
     for label, n, k in shapes:
         w = synth_qtensor(gen, n, k, "cuda", GGMLType[fmt])
+        if zero is not None:
+            w = dataclasses.replace(w, pack_zero=zero)
         x = torch.randn((b, k), generator=gen, device="cuda")
         got, again, ref = call(kern, x, w), call(kern, x, w), call(plain, x, w)
         torch.cuda.synchronize()
         err = (got - ref).abs().max().item()
-        tol = QMM_TOL.get(name, 1e-3) * ref.abs().max().item()
+        tol = QMM_TOL.get(kernel, 1e-3) * ref.abs().max().item()
         same = torch.equal(got, again)
         good = bool(torch.isfinite(got).all()) and err <= tol and same
         ok &= good
-        head = (f"kernel {name} {fmt} {label} b={b} N={n} K={k}"
-                f"{f' (g={w.gsize})' if other_form else ''}: max_abs_err={err:.3e} "
+        form = f" (g={w.gsize}{f', zero={zero}' if zero is not None else ''})"
+        head = (f"kernel {kernel} {fmt} {label} b={b} N={n} K={k}"
+                f"{form if other_form else ''}: max_abs_err={err:.3e} "
                 f"(tol {tol:.3e}) bit-identical={same}")
         if rec is not None:
             rec["max_abs_err"] = max(rec.get("max_abs_err", 0.0), err)
@@ -260,7 +294,7 @@ def check_qmm(torch, timer, name: str, b: int, rec: dict | None,
         k_ms = timer.ms(lambda: call(kern, x, w))
         p_ms = timer.ms(lambda: call(plain, x, w), reps=3)
         l_ms = timer.ms(lambda: torch.matmul(xb, deq))
-        bnd, by = qmm_bound(b, n, k, fmt, QMM_PEAK.get(name, PEAK_BF16))
+        bnd, by = qmm_bound(b, n, k, fmt, QMM_PEAK.get(kernel, PEAK_BF16))
         print(f"{head} kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} library_ms={l_ms:.4f} "
               f"bound_ms={bnd:.4f} bound_by={by} {'ok' if good else 'MISMATCH'}", flush=True)
         for key, v in (("ms", k_ms), ("plain_ms", p_ms), ("library_ms", l_ms),
@@ -269,12 +303,81 @@ def check_qmm(torch, timer, name: str, b: int, rec: dict | None,
         sums["bound_by"] = by
         del w, x, got, again, ref, deq, xb
     if sums:
-        print(f"kernel {name} {fmt} b={b} sum over {len(shapes)} shapes: "
+        print(f"kernel {kernel} {fmt} b={b} sum over {len(shapes)} shapes: "
               f"kernel_ms={sums['ms']:.4f} plain_ms={sums['plain_ms']:.4f} "
               f"library_ms={sums['library_ms']:.4f} bound_ms={sums['bound_ms']:.4f}",
               flush=True)
         if rec is not None:
             rec.update(sums)
+    return ok
+
+
+# the row counts at which each kernel's other forms are checked: K1 above 32
+# rows, K2 at 32 or fewer, K7 in both of its forms
+FORM_ROWS = {"qmm_q4_0": (33, 512, 2048), "qmm_q4_0_kfold": (1, 8),
+             "qmm_q8x": (1, 8, 33, 512)}
+
+
+def check_q3k(torch, timer, recs: dict) -> bool:
+    """K1, K2 and K7 on the q3_K layout (pack zero 4, 16-groups) at the
+    shapes Q3_K_M runs them on (Q3K_SHAPES): K2 and K7 timed at b=1 (recs
+    keep these), K2 checked at b=8, K1 and K7's tile timed at b=128 and 512
+    (K1's rec keeps b=512) and checked at b=33, 64 and 2048; K7's quantizer
+    at 16-groups bit for bit."""
+    ok = check_q8x_quantizer(torch, 16)
+    ok &= check_qmm(torch, timer, "qmm_q4_0_kfold/q3_K", 1, recs["qmm_q4_0_kfold/q3_K"])
+    ok &= check_qmm(torch, timer, "qmm_q4_0_kfold/q3_K", 8, None, time_it=False)
+    for name in ("qmm_q4_0/q3_K", "qmm_q8x/q3_K"):
+        if name == "qmm_q8x/q3_K":
+            ok &= check_qmm(torch, timer, name, 1, recs[name])
+        for b in (128, 512):
+            big = {}
+            ok &= check_qmm(torch, timer, name, b, big)
+            err = max(recs[name].get("max_abs_err", 0.0), big["max_abs_err"])
+            if b == 512 and name == "qmm_q4_0/q3_K":
+                recs[name].update(big)
+            recs[name]["max_abs_err"] = err
+        for b in (33, 64, 2048):
+            ok &= check_qmm(torch, timer, name, b, recs[name], time_it=False)
+    return ok
+
+
+def check_q8x_repeats(torch, reps: int = 20) -> bool:
+    """K7's tile launched 1 + reps times at b=512 and 2048 (128-row units,
+    several a block) on the q3_K and q4_0 layouts at Q3K_SHAPES: every output
+    bit-identical to the first and within QMM_TOL of the plain version.  Its
+    consumer warps read each B slot's d_w rows with their own loads, so a
+    slot freed before every warp is done shows only now and then: two
+    launches do not see it."""
+    from llama_cpp_q_4_0_tpu_torch.ops import qmm
+    from llama_cpp_q_4_0_tpu_torch.quant.types import GGMLType
+    from llama_cpp_q_4_0_tpu_torch.synth import synth_qtensor
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    ok = True
+    for fmt in ("Q3_K", "Q4_0"):
+        for label, n, k in Q3K_SHAPES:
+            w = synth_qtensor(gen, n, k, "cuda", GGMLType[fmt])
+            args, kw = (w.levels_t, w.gscale_t), {"zero": w.pack_zero, "gsize": w.gsize}
+            for b in (512, 2048):
+                x = torch.randn((b, k), generator=gen, device="cuda")
+                ref = qmm.qmm_packed_q8x_plain(x, *args, **kw)
+                tol = QMM_TOL["qmm_q8x"] * ref.abs().max().item()
+                first = qmm.qmm_packed_q8x(x, *args, **kw)
+                worst, differ, over = (first - ref).abs().max().item(), 0, 0
+                for _ in range(reps):
+                    out = qmm.qmm_packed_q8x(x, *args, **kw)
+                    err = (out - ref).abs().max().item()
+                    worst = max(worst, err)
+                    differ += not torch.equal(out, first)
+                    over += err > tol
+                good = differ == 0 and worst <= tol
+                ok &= good
+                print(f"kernel qmm_q8x {fmt} {label} b={b} N={n} K={k} tile x{reps + 1}: "
+                      f"differ-from-first={differ} over-tol={over} max_abs_err={worst:.3e} "
+                      f"(tol {tol:.3e}) {'ok' if good else 'MISMATCH'}", flush=True)
+            del w
     return ok
 
 
@@ -338,13 +441,13 @@ def ptxas_report(build) -> None:
                 props.setdefault(fn, []).append(line.split(":", 1)[-1].strip())
         for fn, lines in props.items():
             m = re.search(r"tile_kernelILi(\d+)E.*?(PackedDeq|Int8Deq)ILi(\d+)E(?:Lb(\d))?", fn)
-            mq = re.search(r"tile_kernelILi(\d+)E.*?Q8Deq", fn)
+            mq = re.search(r"tile_kernelILi(\d+)E.*?Q8DeqILi(\d+)E", fn)
             mf = re.search(r"flash_prefill_kernelILi(\d+)E", fn)
             if m:
                 flag = f", {'true' if m.group(4) == '1' else 'false'}" if m.group(4) else ""
                 fn = f"tile_kernel<{m.group(1)}, {m.group(2)}<{m.group(3)}{flag}>>"
             elif mq:
-                fn = f"tile_kernel<{mq.group(1)}, Q8Deq> (K7)"
+                fn = f"tile_kernel<{mq.group(1)}, Q8Deq<{mq.group(2)}>> (K7)"
             elif mf:
                 fn = f"flash_prefill_kernel<{mf.group(1)}> (K3)"
             elif "prep_kernel" in fn:
@@ -356,7 +459,8 @@ def ptxas_report(build) -> None:
     lib, q8 = qmm._lib("qmm_q4_0"), qmm._lib("qmm_q8x")
     print("build: tile_kernel dynamic shared memory (bytes): " + ", ".join(
         f"bm={bm} {lib.qmm_tile_smem(bm)}" for bm in qmm.TILE_ROWS) + "; q8 mode " + ", ".join(
-        f"bm={bm} {q8.qmm_q8x_tile_smem(bm)}" for bm in qmm.TILE_ROWS_Q8), flush=True)
+        f"bm={bm} g={g} {q8.qmm_q8x_tile_smem(bm, g)}" for g in (32, 16)
+        for bm in qmm.TILE_ROWS_Q8), flush=True)
     fl = build.load("flash_prefill", fp._SIGNATURES)
     print("build: flash_prefill_kernel dynamic shared memory (bytes): " + ", ".join(
         f"D={d} {fl.flash_prefill_smem(d)}" for d in fp.HEAD_DIMS), flush=True)
@@ -462,10 +566,10 @@ def check_quantize_kv(torch) -> bool:
     return same and recip
 
 
-def check_q8x_quantizer(torch) -> bool:
-    """K7's activation quantizer on the card, bit for bit against
-    quantize_q8x_plain (IEEE division, C roundf, fp16-rounded d) at the
-    decode and prefill row counts of the 7B widths."""
+def check_q8x_quantizer(torch, gsize: int = 32) -> bool:
+    """K7's activation quantizer on the card at gsize-groups, bit for bit
+    against quantize_q8x_plain (IEEE division, C roundf, fp16-rounded d) at
+    the decode and prefill row counts of the 7B widths."""
     from llama_cpp_q_4_0_tpu_torch.ops import qmm
 
     gen = torch.Generator(device="cuda")
@@ -473,13 +577,14 @@ def check_q8x_quantizer(torch) -> bool:
     ok = True
     for b, k in ((1, 4096), (128, 11008), (512, 4096)):
         x = torch.randn((b, k), generator=gen, device="cuda")
-        x[0, :32] = 0.0  # a group of zeros: d = 0, q = 0
-        xq, d = qmm.quantize_q8x(x)
-        pq, pd = qmm.quantize_q8x_plain(x)
+        x[0, :gsize] = 0.0  # a group of zeros: d = 0, q = 0
+        xq, d = qmm.quantize_q8x(x, gsize)
+        pq, pd = qmm.quantize_q8x_plain(x, gsize)
         torch.cuda.synchronize()
         same = torch.equal(xq, pq) and torch.equal(d.view(torch.int32), pd.view(torch.int32))
         ok &= same
-        print(f"kernel qmm_q8x quantizer b={b} K={k}: bit-identical={same}", flush=True)
+        print(f"kernel qmm_q8x quantizer g={gsize} b={b} K={k}: bit-identical={same}",
+              flush=True)
     return ok
 
 
@@ -630,6 +735,9 @@ class env:
 
 
 INT8 = {"QMM_Q8X": "1", "FUSED_ATTN": "1"}
+# the launches of one 7B Q3_K_M decode token: K2 for wq, wk and gate/up, K5
+# for wv, wo and w2 in each of 32 layers, K6 for the head
+Q3KM_PER_TOKEN = {"qmm_q4_0_kfold": 96, "qmm_packed_bias": 96, "qmm_int8": 1}
 
 
 def _zero(counters):
@@ -648,6 +756,14 @@ PATH_KERNELS = {"q4_0": ("qmm_q4_0", "qmm_q4_0_kfold", "flash_prefill"),
                 # (the 512-row prefill), K7 for the rest, K4 in every decode step
                 "q4_0_int8": ("qmm_q4_0", "qmm_q8x", "flash_prefill", "mha_decode"),
                 "q4_K_M": ("qmm_packed_bias", "qmm_int8", "flash_prefill"),
+                # q3_K (wq, wk, gate/up): K1 above 32 rows, K2 at 32 or fewer;
+                # q4_K (wv, wo, w2): K5; the q6_K head: K6
+                "q3_K_M": ("qmm_q4_0", "qmm_q4_0_kfold", "qmm_packed_bias", "qmm_int8",
+                           "flash_prefill"),
+                # QMM_Q8X=1, FUSED_ATTN=1, q8 cache, a 128-token prompt: K7 for
+                # every q3_K matmul (its tile in the prefill)
+                "q3_K_M_int8": ("qmm_q8x", "qmm_packed_bias", "qmm_int8",
+                                "flash_prefill", "mha_decode"),
                 "q5_K_M": ("qmm_int8_bias", "qmm_int8", "flash_prefill")}
 
 
@@ -732,7 +848,7 @@ def bench_instruments(torch, cfg, params, label="q4_0"):
     print(f"bench: {label} decode_ms_per_token (kv_window 256) "
           f"median={med:.3f} min={min(dec):.3f} "
           f"runs={[round(v, 3) for v in dec]}", flush=True)
-    trace_decode(torch, cfg, params, ck, cv, med)
+    trace_decode(torch, cfg, params, ck, cv, med, label)
     return statistics.median(pre), med
 
 
@@ -776,7 +892,7 @@ def int8_instruments(torch, cfg, params):
     int8_prefill_128(torch, cfg, params, ck, cv)
     with env(**INT8):
         med, _ = decode_ms(torch, cfg, params, ck, cv, 65, 256)
-        trace_decode(torch, cfg, params, ck, cv, med)
+        trace_decode(torch, cfg, params, ck, cv, med, "q4_0 int8-config")
 
 
 def int8_prefill_128(torch, cfg, params, ck, cv, counters=None):
@@ -836,7 +952,7 @@ def int8_prefill_128(torch, cfg, params, ck, cv, counters=None):
           f"launches of one call {json.dumps(launched)}", flush=True)
 
 
-def trace_decode(torch, cfg, params, ck, cv, step_ms: float):
+def trace_decode(torch, cfg, params, ck, cv, step_ms: float, label: str):
     """torch.profiler over 8 decode steps at kv_window 256: the device-busy
     time per step (sum of kernel times) against the unprofiled step time,
     and the kernels that take it."""
@@ -865,51 +981,66 @@ def trace_decode(torch, cfg, params, ck, cv, step_ms: float):
         return
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
-    print(f"trace: decode step (kv_window 256): device busy {busy:.3f} ms of "
+    print(f"trace: {label} decode step (kv_window 256): device busy {busy:.3f} ms of "
           f"{step_ms:.3f} ms unprofiled ({100 * busy / step_ms:.1f}%), "
           f"{sum(r[1] for r in rows)} kernels per step", flush=True)
     for ms, n, key in rows[:8]:
         print(f"trace:   {ms:8.4f} ms/step  x{n:<4d} {key[:90]}", flush=True)
 
 
-def two_layer_vs_cpu(torch, ftype="q4_0", counters=None) -> bool:
+def two_layer_vs_cpu(torch, counters, ftype="q4_0", *, int8=False, want_per_token=None,
+                     **widths) -> bool:
     """7B width, 2 layers: prefill 128 (prefill kernels, flash, decode-form
     head) and decode steps on the card against the plain versions on the
-    CPU from the same weights, the card's greedy tokens fed to both.  In
-    Q4_K_M layer 1 takes q6_K for wv and w2 (use_more_bits(1, 2)), so K5 and
-    K6 both run.  With counters: the int8 configuration (QMM_Q8X=1,
-    FUSED_ATTN=1) on an f32 cache, so that K7 (b=128, b=1), K3 and K4 (3
-    decode steps past slot 128, window 256) run on the card and K7's plain
-    version and the f32 attention chain on the CPU; each must launch."""
+    CPU from the same weights, the card's greedy tokens fed to both; the
+    card's launches of the run and of its last decode step print.  In Q4_K_M
+    layer 1 takes q6_K for wv and w2 (use_more_bits(1, 2)), so K5 and K6
+    both run.  int8: the int8 configuration (QMM_Q8X=1, FUSED_ATTN=1) on an
+    f32 cache, so that K7 (b=128, b=1), K3 and K4 (3 decode steps past slot
+    128, window 256) run on the card and K7's plain version and the f32
+    attention chain on the CPU; each must launch.  widths: other build_llama
+    widths (n_vocab, n_ff); want_per_token: the launches the last decode step
+    must make."""
     import numpy as np
 
     from llama_cpp_q_4_0_tpu_torch.runtime.context import Context
     from llama_cpp_q_4_0_tpu_torch.synth import build_llama
 
-    int8 = counters is not None
-    label = f"{ftype}{' int8 config' if int8 else ''}"
-    cfg, params = build_llama(n_layer=2, device="cuda", seed=1, ftype=ftype)
+    label = f"{ftype}{' int8 config' if int8 else ''}" + "".join(
+        f" {k}={v}" for k, v in widths.items())
+    cfg, params = build_llama(n_layer=2, device="cuda", seed=1, ftype=ftype, **widths)
     cpu = _params_to(params, "cpu")
     prompt = [1] + np.random.default_rng(1).integers(3, 32000, 127).tolist()
+    steps = 3 if int8 else 1
     ok, outs, toks = True, {}, []
     with env(**(INT8 if int8 else {})):
         for dev, p in (("cuda", params), ("cpu", cpu)):
-            if int8 and dev == "cuda":
+            if dev == "cuda":
                 _zero(counters)
             ctx = Context(cfg, p, n_ctx=256, device=dev,
                           cache_dtype=torch.float32 if int8 else torch.bfloat16)
             outs[dev] = [ctx.eval(prompt)]
-            for i in range(3 if int8 else 1):
+            for i in range(steps):
                 if dev == "cuda":
                     toks.append(int(np.argmax(outs[dev][-1][0, -1])))
+                    if i == steps - 1:  # the last decode step counted alone
+                        torch.cuda.synchronize()
+                        launched = _read(counters)
+                        _zero(counters)
                 outs[dev].append(ctx.eval([[toks[i]]]))
-            if int8 and dev == "cuda":
+            if dev == "cuda":
                 torch.cuda.synchronize()
-                launched = _read(counters)
+                per_token = {k: v for k, v in _read(counters).items() if v}
+                launched = {k: v + per_token.get(k, 0) for k, v in launched.items() if
+                            v + per_token.get(k, 0)}
+    print(f"e2e: 2-layer {label} launches on the card {json.dumps(launched)}; last decode "
+          f"step {json.dumps(per_token)}", flush=True)
     if int8:
-        print(f"e2e: 2-layer {label} launches on the card {json.dumps(launched)}",
+        ok &= all(launched.get(k, 0) > 0 for k in ("qmm_q8x", "mha_decode", "flash_prefill"))
+    if want_per_token is not None and per_token != want_per_token:
+        print(f"e2e: 2-layer {label} decode launches {per_token} != {want_per_token}",
               flush=True)
-        ok &= all(launched[k] > 0 for k in ("qmm_q8x", "mha_decode", "flash_prefill"))
+        ok = False
     # bf16: the rounding of activations can flip at one ulp when sums differ
     # in order, well under 2% of the logits through 2 layers; int8: the f32
     # chain, where only a q8 roundf tie that an ulp moves can flip (1e-3)
@@ -947,17 +1078,26 @@ def write_ggjt_7b_width(path: str, ftype: str = "q4_0"):
     """GGJT file at 7B width, 2 layers: random block bytes with small finite
     fp16 scales, f32 norms of one, a 32000-entry vocab.  q4_0: every 2-D
     weight q4_0.  Q4_K_M: q4_K blocks, q6_K for the output head and for wv
-    and w2 of layer 1 (use_more_bits(1, 2))."""
+    and w2 of layer 1 (use_more_bits(1, 2)).  Q3_K_M: q3_K blocks for the
+    token embeddings, wq, wk, w1 and w3, q4_K for wv, wo and w2, q6_K for the
+    output head."""
     import numpy as np
 
     from llama_cpp_q_4_0_tpu_torch.formats.ggjt import GGJTWriter
-    from llama_cpp_q_4_0_tpu_torch.quant.types import (BLOCK_Q4_0, BLOCK_Q4_K,
-                                                       BLOCK_Q6_K, GGMLType,
-                                                       LlamaFType)
+    from llama_cpp_q_4_0_tpu_torch.quant.types import (BLOCK_Q3_K, BLOCK_Q4_0,
+                                                       BLOCK_Q4_K, BLOCK_Q6_K,
+                                                       GGMLType, LlamaFType)
 
     n_vocab, e, n_ff, n_head, n_layer = 32000, 4096, 11008, 32, 2
     rng = np.random.default_rng(3)
-    kq = ftype == "Q4_K_M"
+
+    def q3_k(n, k):
+        blk = np.empty(n * k // 256, BLOCK_Q3_K)
+        blk["d"] = rng.uniform(0.5e-4, 1.5e-4, blk.shape).astype(np.float16)
+        blk["hmask"] = rng.integers(0, 256, (blk.shape[0], 32), dtype=np.uint8)
+        blk["qs"] = rng.integers(0, 256, (blk.shape[0], 64), dtype=np.uint8)
+        blk["scales"] = rng.integers(0, 256, (blk.shape[0], 12), dtype=np.uint8)
+        return blk
 
     def q4_k(n, k):
         blk = np.empty(n * k // 256, BLOCK_Q4_K)
@@ -987,16 +1127,27 @@ def write_ggjt_7b_width(path: str, ftype: str = "q4_0"):
         blk["qs"] = rng.integers(0, 256, (blk.shape[0], 16), dtype=np.uint8)
         return blk
 
-    file_type = LlamaFType.MOSTLY_Q4_K_M if kq else LlamaFType.MOSTLY_Q4_0
+    def qtype_of(name):
+        if ftype == "q4_0":
+            return GGMLType.Q4_0
+        if name == "output.weight":
+            return GGMLType.Q6_K
+        if ftype == "Q4_K_M":
+            return (GGMLType.Q6_K if name in ("layers.1.attention.wv.weight",
+                                              "layers.1.feed_forward.w2.weight")
+                    else GGMLType.Q4_K)
+        return (GGMLType.Q4_K if any(f in name for f in ("attention.wv", "attention.wo",
+                                                        "feed_forward.w2"))
+                else GGMLType.Q3_K)
+
+    blocks = {GGMLType.Q4_0: q4, GGMLType.Q3_K: q3_k, GGMLType.Q4_K: q4_k,
+              GGMLType.Q6_K: q6_k}
+    file_type = {"q4_0": LlamaFType.MOSTLY_Q4_0, "Q4_K_M": LlamaFType.MOSTLY_Q4_K_M,
+                 "Q3_K_M": LlamaFType.MOSTLY_Q3_K_M}[ftype]
     with GGJTWriter(path, "llama", hp, int(file_type), vocab) as w:
         def emit(name, n, k):
-            if not kq:
-                w.write_tensor(name, GGMLType.Q4_0, (k, n), q4(n, k))
-            elif name == "output.weight" or name in (
-                    "layers.1.attention.wv.weight", "layers.1.feed_forward.w2.weight"):
-                w.write_tensor(name, GGMLType.Q6_K, (k, n), q6_k(n, k))
-            else:
-                w.write_tensor(name, GGMLType.Q4_K, (k, n), q4_k(n, k))
+            qt = qtype_of(name)
+            w.write_tensor(name, qt, (k, n), blocks[qt](n, k))
 
         def ones(name):
             w.write_tensor(name, GGMLType.F32, (e,), np.ones(e, np.float32))
@@ -1092,7 +1243,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default="kernels,e2e,cli",
                     help="comma-separated subset of kernels,e2e,cli,sass,"
-                         "k7k3,int8prefill; the result lines print only for "
+                         "k7k3,k7repeat,int8prefill; the result lines print only for "
                          "the default kernels,e2e,cli")
     phases = set(ap.parse_args(argv).phases.split(","))
     full = phases == {"kernels", "e2e", "cli"}
@@ -1130,6 +1281,9 @@ def main(argv=None) -> int:
         if not ok:
             return fail("K7 or K3 disagrees with its plain version")
         del timer
+    if "k7repeat" in phases and not check_q8x_repeats(torch):
+        return fail("K7's tile launched again differs from its first launch or its "
+                    "plain version")
     if "int8prefill" in phases:
         from llama_cpp_q_4_0_tpu_torch.models import transformer
         from llama_cpp_q_4_0_tpu_torch.synth import build_llama
@@ -1141,7 +1295,8 @@ def main(argv=None) -> int:
 
     recs = {k: {} for k in ("qmm_q4_0", "qmm_q4_0_kfold", "flash_prefill",
                             "qmm_packed_bias", "qmm_int8", "qmm_int8_bias",
-                            "qmm_q8x", "mha_decode", "hbm_stream")}
+                            "qmm_q8x", "mha_decode", "hbm_stream", "qmm_q4_0/q3_K",
+                            "qmm_q4_0_kfold/q3_K", "qmm_q8x/q3_K")}
     if "kernels" in phases:
         timer = Timer(torch)
         # K1 runs above 32 rows, K2 at 32 or fewer; K5, K6 and K6b at both.
@@ -1163,9 +1318,10 @@ def main(argv=None) -> int:
                 recs[name]["max_abs_err"] = err
             for b in (33, 64, 2048):
                 ok &= check_qmm(torch, timer, name, b, recs[name], time_it=False)
-            if name in OTHER_FORMS:
-                for b in (1, 33, 64, 512, 2048):
-                    ok &= check_qmm(torch, timer, name, b, recs[name], other_form=True)
+        for name, forms in OTHER_FORMS.items():
+            for form in forms:
+                for b in FORM_ROWS.get(name, (1, 33, 64, 512, 2048)):
+                    ok &= check_qmm(torch, timer, name, b, recs[name], other_form=form)
         ok &= check_seed(torch)
         # K7: b=1 (decode; beside K2 above), its tile timed at b=128 (the
         # cap; beside K1 at b=128) and b=512 (under QMM_Q8X_MAX_B=512; beside
@@ -1180,6 +1336,8 @@ def main(argv=None) -> int:
                                                  big["max_abs_err"])
         for b in (33, 64, 2048):
             ok &= check_qmm(torch, timer, "qmm_q8x", b, recs["qmm_q8x"], time_it=False)
+        ok &= check_q3k(torch, timer, recs)
+        ok &= check_q8x_repeats(torch)
         ok &= check_mha(torch, timer, recs["mha_decode"])
         ok &= check_stream(torch, timer, recs["hbm_stream"])
         if not ok:
@@ -1206,6 +1364,39 @@ def main(argv=None) -> int:
             bench_instruments(torch, cfg, params, ftype)
             del params
             torch.cuda.empty_cache()
+        # Q3_K_M: K1 and K2 on q3_K (wq, wk, gate/up), K5 on q4_K (wv, wo,
+        # w2), K6 for the q6_K head; per 512-token prefill 96 K1 + 96 K5 tile
+        # launches, 32 K3 and the head's last row
+        ok, path_launches, per_token, cfg, params = end_to_end(torch, counters, "q3_K_M")
+        if not ok:
+            return fail("q3_K_M end-to-end run: non-finite logits or a kernel of the "
+                        "path never launched")
+        n_dec = path_launches["qmm_q4_0_kfold"] // 96
+        want = {"qmm_q4_0": 96, "flash_prefill": 32, "qmm_q4_0_kfold": 96 * n_dec,
+                "qmm_packed_bias": 96 * (1 + n_dec), "qmm_int8": 1 + n_dec}
+        got = {k: path_launches[k] for k in want}
+        if got != want or per_token != Q3KM_PER_TOKEN:
+            return fail(f"q3_K_M launches {got} != {want}, or per decode token "
+                        f"{per_token} != {Q3KM_PER_TOKEN}")
+        launches["qmm_q4_0/q3_K"] = path_launches["qmm_q4_0"]
+        launches["qmm_q4_0_kfold/q3_K"] = path_launches["qmm_q4_0_kfold"]
+        model_bounds("LLaMA-7B q3_K_M", params, cfg.n_layer)
+        bench_instruments(torch, cfg, params, "q3_K_M")
+        del params
+        torch.cuda.empty_cache()
+        # and in the int8 configuration, a 128-token prompt (K7's tile) and
+        # 16 decode steps: K7 for every q3_K matmul, K4 over the q8 cache
+        with env(**INT8):
+            ok, path_launches, per_token, cfg, params = end_to_end(
+                torch, counters, "q3_K_M", n_prompt=128, n_decode=16, path="q3_K_M_int8",
+                cache_dtype=torch.int8)
+        want = {"qmm_q8x": 96, "qmm_packed_bias": 96, "qmm_int8": 1, "mha_decode": 32}
+        if not ok or per_token != want:
+            return fail(f"q3_K_M int8-configuration run: non-finite logits, a kernel of "
+                        f"the path never launched, or decode launches {per_token} != {want}")
+        launches["qmm_q8x/q3_K"] = path_launches["qmm_q8x"]
+        del params
+        torch.cuda.empty_cache()
         # the int8 configuration: K7 for every matmul of at most 128 rows, K4
         # over the q8 cache in every decode step
         with env(**INT8):
@@ -1231,14 +1422,22 @@ def main(argv=None) -> int:
         launches["qmm_int8_bias"] = path_launches["qmm_int8_bias"]
         del params
         torch.cuda.empty_cache()
-        for ftype in ("q4_0", "q4_K_M"):
-            if not two_layer_vs_cpu(torch, ftype):
+        for ftype in ("q4_0", "q4_K_M", "q3_K_M"):
+            if not two_layer_vs_cpu(torch, counters, ftype):
                 return fail(f"2-layer {ftype} model on the card disagrees with "
                             "the CPU plain path")
             torch.cuda.empty_cache()
-        if not two_layer_vs_cpu(torch, "q4_0", counters):
+        if not two_layer_vs_cpu(torch, counters, "q4_0", int8=True):
             return fail("2-layer q4_0 int8 configuration on the card disagrees with "
                         "the CPU, or K7/K4 never launched")
+        torch.cuda.empty_cache()
+        # shapes outside the kernels' gate, routed as the JAX dispatch does: a
+        # 32001-entry head and w2 at K = 8640 take the bf16 product, no kernel
+        # (per decode token 3 K2 + 2 K5 a layer)
+        if not two_layer_vs_cpu(torch, counters, "q3_K_M", n_vocab=32001, n_ff=8640,
+                                want_per_token={"qmm_q4_0_kfold": 6, "qmm_packed_bias": 4}):
+            return fail("2-layer q3_K_M model with a 32001-entry vocabulary and n_ff "
+                        "8640 disagrees with the CPU or launched a kernel off the gate")
         torch.cuda.empty_cache()
     if "cli" in phases:
         if not cli_phase("q4_0", ("Hello", "The capital of France is",
@@ -1249,6 +1448,8 @@ def main(argv=None) -> int:
             return fail("benchmark-matmult failed on the card")
         if not cli_phase("Q4_K_M", ("Hello", "Once upon a time")):
             return fail("the main CLI failed on the Q4_K_M file")
+        if not cli_phase("Q3_K_M", ("Hello", "Once upon a time")):
+            return fail("the main CLI failed on the Q3_K_M file")
     if not full:
         print("partial run: no result lines", flush=True)
         return 0
@@ -1273,6 +1474,10 @@ def main(argv=None) -> int:
         "hbm_stream": ("llama_cpp_q_4_0_tpu_torch/csrc/stream.cu",
                        "llama_cpp_q_4_0_tpu/cli/benchmark.py:63"),
     }
+    # the q3_K forms of K1, K2 and K7 (pack zero 4, 16-groups), on the Q3_K_M
+    # path's counts
+    for name in ("qmm_q4_0", "qmm_q4_0_kfold", "qmm_q8x"):
+        meta[f"{name}/q3_K"] = meta[name]
     kernels = []
     for name, (src, repl) in meta.items():
         r = recs[name]

@@ -4,6 +4,9 @@
 //   qmm_q4_0         <- qmm_packed -> _qmm_packed_kernel        (prefill, > 32 rows)
 //   qmm_q4_0_kfold   <- qmm_packed(kfold=True)
 //                       -> _qmm_packed_kfold_kernel              (decode, <= 32 rows)
+//                       (both for any pack zero and 16- or 32-groups: q4_0 runs
+//                       compile-time (8, 32) instances, q3_K (zero 4, 16-groups)
+//                       the runtime-zero ones that K5 shares)
 //   qmm_packed_bias  <- qmm_packed(gbias_t) -> _qmm_packed_bias_kernel
 //                       (packed affine formats q4_K, q4_1, q2_K; every row count)
 //
@@ -52,8 +55,8 @@ namespace {
 // The tile's policy for the packed layout (qmm_tile.cuh): a step is 32
 // packed rows, whose low nibbles give B rows 0..31 and high nibbles B rows
 // 32..63 (x is permuted to match by prep_kernel), with S_ROWS scale rows of
-// each plane (two copies a step).  Q4_0 (K1): the pack zero 8 at compile time; else (K5) the
-// runtime zero.
+// each plane (two copies a step).  Q4_0 (K1 on q4_0): the pack zero 8 at compile time; else
+// (K5, and K1 on other packings such as q3_K) the runtime zero.
 template <int GS, bool Q4_0>
 struct PackedDeq {
   static constexpr bool Q8 = false;
@@ -269,22 +272,44 @@ int qmm_tile_smem(int bm) {
 
 // The prefill tile (B > 32): xa is bf16 scratch [B, ka], partial f32
 // [splits, B, N] when splits > 1; bm, splits and ka from ops/qmm.py::tile_plan.
+// q4_0's (zero 8, 32-groups) takes the compile-time instance; any other zero
+// and group size the runtime-zero tile with no seed.
 int qmm_q4_0(const void* x, const void* packed, const void* scales, void* xa, void* partial,
-             void* out, int B, int K, int N, int G2P, int bm, int splits, int ka,
-             void* stream) {
-  return (int)launch_tile<32, true>((const float*)x, (const uint8_t*)packed,
-                                    (const float*)scales, nullptr, xa, (float*)partial,
-                                    (float*)out, B, K, N, G2P, 8.0f, bm, splits, ka,
-                                    (cudaStream_t)stream);
+             void* out, int B, int K, int N, int G2P, int zero, int gsize, int bm, int splits,
+             int ka, void* stream) {
+  const float* xf = (const float*)x;
+  const uint8_t* pk = (const uint8_t*)packed;
+  const float* sc = (const float*)scales;
+  float* part = (float*)partial;
+  float* o = (float*)out;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const float z = (float)zero;
+  if (zero == 8 && gsize == 32)
+    return (int)launch_tile<32, true>(xf, pk, sc, nullptr, xa, part, o, B, K, N, G2P, 8.0f, bm,
+                                      splits, ka, st);
+  if (gsize == 32)
+    return (int)launch_tile<32, false>(xf, pk, sc, nullptr, xa, part, o, B, K, N, G2P, z, bm,
+                                       splits, ka, st);
+  if (gsize == 16)
+    return (int)launch_tile<16, false>(xf, pk, sc, nullptr, xa, part, o, B, K, N, G2P, z, bm,
+                                       splits, ka, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 int qmm_q4_0_kfold(const void* x, const void* packed, const void* scales,
-                   void* partial, void* out, int B, int K, int N, int G2P,
-                   void* stream) {
-  return (int)launch_gemv<32, true>((const float*)x, (const uint8_t*)packed,
-                                    (const float*)scales, nullptr, (float*)partial,
-                                    (float*)out, B, K, N, G2P, 8.0f,
-                                    (cudaStream_t)stream);
+                   void* partial, void* out, int B, int K, int N, int G2P, int zero,
+                   int gsize, void* stream) {
+  const float* xf = (const float*)x;
+  const uint8_t* pk = (const uint8_t*)packed;
+  const float* sc = (const float*)scales;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (gsize == 32)
+    return (int)launch_gemv<32, true>(xf, pk, sc, nullptr, (float*)partial, (float*)out, B, K,
+                                      N, G2P, (float)zero, st);
+  if (gsize == 16)
+    return (int)launch_gemv<16, true>(xf, pk, sc, nullptr, (float*)partial, (float*)out, B, K,
+                                      N, G2P, (float)zero, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 // The affine form: the decode shape at B <= 32 (scratch holds the K splits'

@@ -1,27 +1,31 @@
-// q4_0 matmul with int8 activations for Hopper (sm_90a):
-// out[B,N] = sum over 32-groups g of (float)(xq_g . level_g) * d_x[b,g] * d_w[g,n].
+// Packed 4-bit matmul with int8 activations for Hopper (sm_90a):
+// out[B,N] = sum over GS-groups g of (float)(xq_g . level_g) * d_x[b,g] * d_w[g,n],
+// level = nibble - zero, for any pack zero and GS = 32 (q4_0: zero 8) or 16
+// (q3_K: zero 4 on real weights).
 //
 // Replaces llama_cpp_q_4_0_tpu/ops/pallas/qmm.py::qmm_packed_q8x
 // (_qmm_packed_q8x_kernel, with its activation quantizer _quantize_q8x): the
 // reference's quantize_row_q8_0 + ggml_vec_dot_q4_0_q8_0 arithmetic.
 //
 // Layout: packed uint8 [K2P, N] (low nibble row r, high nibble row r + K/2,
-// each level + 8), scales f32 [2, K2P/32, N] (ops/qtensor.py).  Every group's
-// integer dot is exact; the activation quantizer (q8_quantize below) is
-// bit-identical to ops/qmm.py quantize_q8x_plain: one warp per group, amax by
-// warp shuffles, d = amax / 127, q = C roundf(x * (1/d)) with the product
-// rounded before the tie test (__fmul_rn, never fused), d rounded through
-// fp16 (IEEE division, no fast math).  Two forms, both launched by qmm_q8x:
+// each level + zero), scales f32 [2, K2P/GS, N] (ops/qtensor.py).  Every
+// group's integer dot is exact; the activation quantizer (q8_quantize below)
+// is bit-identical to ops/qmm.py quantize_q8x_plain: GS lanes per group (a
+// warp or a half-warp), amax by shuffles within them, d = amax / 127,
+// q = C roundf(x * (1/d)) with the product rounded before the tie test
+// (__fmul_rn, never fused), d rounded through fp16 (IEEE division, no fast
+// math).  Two forms, both launched by qmm_q8x:
 //  * B <= 32 (decode, buckets 8 and 32), three passes:
-//    1. q8x_quantize_kernel: xq int8 [B, K], d f32 [B, K/32] (logical groups:
+//    1. q8x_quantize_kernel: xq int8 [B, K], d f32 [B, K/GS] (logical groups:
 //       the low panel's, then the high panel's).
 //    2. a split-K GEMV in the manner of
 //       K2, bound by the bytes of the packed weight.  A warp owns one packed
-//       32-row step (one group of each panel), a lane 8 columns; every 4 rows
-//       the lane's 4 x 8 bytes are transposed by byte permutes so that each
-//       word holds 4 K-rows of one column, and __dp4a multiplies them with 4
-//       activation bytes.  The pack zero is folded exactly in integers:
-//       xq . (nib - 8) = xq . nib - 8 * sum(xq).  Each dot enters f32 as
+//       32-row step (32 / GS groups of each panel, one after the other), a
+//       lane 8 columns; every 4 rows the lane's 4 x 8 bytes are transposed by
+//       byte permutes so that each word holds 4 K-rows of one column, and
+//       __dp4a multiplies them with 4 activation bytes.  The pack zero is
+//       folded exactly in integers, per group:
+//       xq . (nib - zero) = xq . nib - zero * sum(xq).  Each dot enters f32 as
 //       (float)dot * d_x * d_w, the order of the TPU kernel (qmm.py:323).
 //    3. gemv_reduce: the K splits summed in a fixed order.
 //  * B > 32 (prefill buckets 64, 128; 512 and 2048 under a raised cap): the
@@ -39,15 +43,15 @@ using namespace qmm;
 
 namespace {
 
-constexpr int GS = 32;
-
 // ------------------------------------------------------------- quantizer
-// v: this lane's value of the warp's 32-group (every lane calls it) -> its
-// level q (an integer in -127..127) and the group's d, unrounded
+// v: this lane's value of its GS-group, GS consecutive lanes (every lane of
+// the warp calls it) -> its level q (an integer in -127..127) and the
+// group's d, unrounded
+template <int GS>
 __device__ __forceinline__ float q8_quantize(float v, float& dq) {
   float amax = fabsf(v);
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(FULL, amax, o));
+  for (int o = GS / 2; o > 0; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(FULL, amax, o));
   dq = amax / 127.0f;
   const float idq = dq > 0.0f ? 1.0f / dq : 0.0f;
   const float s = __fmul_rn(v, idq);
@@ -55,30 +59,33 @@ __device__ __forceinline__ float q8_quantize(float v, float& dq) {
   return fabsf(__fsub_rn(s, t)) == 0.5f ? t + copysignf(1.0f, s) : rintf(s);
 }
 
+template <int GS>
 __global__ void q8x_quantize_kernel(const float* __restrict__ x, int8_t* __restrict__ xq,
                                     float* __restrict__ d, int total) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;  // element; warp = group
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;  // element; GS lanes = group
   float dq;
-  const float q = q8_quantize(i < total ? x[i] : 0.0f, dq);
+  const float q = q8_quantize<GS>(i < total ? x[i] : 0.0f, dq);
   if (i >= total) return;
   xq[i] = (int8_t)(int)q;
-  if ((threadIdx.x & 31) == 0) d[i / GS] = __half2float(__float2half_rn(dq));
+  if ((threadIdx.x & (GS - 1)) == 0) d[i / GS] = __half2float(__float2half_rn(dq));
 }
 
 // The tile's prep pass: element i of xa [B, K] in the nibble order (step v's
-// 64 columns are x[32v .. 32v+32) then x[K/2 + 32v .. +32): a warp holds one
-// whole group) -> bf16(q); d of the group -> dx[i / 32], so dx [B, K/32]
-// holds step v's low group's d at column 2v and its high group's at 2v + 1.
+// 64 columns are x[32v .. 32v+32) then x[K/2 + 32v .. +32): GS consecutive
+// lanes hold one whole group) -> bf16(q); d of the group -> dx[i / GS], so
+// dx [B, K/GS] holds step v's 64 / GS groups from column (64 / GS) v on, the
+// low panel's then the high panel's.
+template <int GS>
 __global__ void q8x_prep_kernel(const float* __restrict__ x, __nv_bfloat16* __restrict__ xa,
                                 float* __restrict__ dx, int K, int total) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const int m = i / K, o = i % K, v = o / 64, j = o % 64;
   const int src = j < 32 ? 32 * v + j : K / 2 + 32 * v + j - 32;
   float dq;
-  const float q = q8_quantize(i < total ? x[(size_t)m * K + src] : 0.0f, dq);
+  const float q = q8_quantize<GS>(i < total ? x[(size_t)m * K + src] : 0.0f, dq);
   if (i >= total) return;
   xa[i] = __float2bfloat16_rn(q);
-  if ((threadIdx.x & 31) == 0) dx[i / GS] = __half2float(__float2half_rn(dq));
+  if ((threadIdx.x & (GS - 1)) == 0) dx[i / GS] = __half2float(__float2half_rn(dq));
 }
 
 // 4 rows of 4 bytes (one word per row, byte c = column c) -> 4 words, word c
@@ -94,27 +101,33 @@ __device__ __forceinline__ void transpose4(unsigned a, unsigned b, unsigned c, u
 }
 
 // ------------------------------------------------------------------ decode
-template <int NB>
+template <int NB, int GS>
 __global__ void __launch_bounds__(GEMV_WARPS * 32)
 q8x_gemv_kernel(const int8_t* __restrict__ xq, const float* __restrict__ dx,
                 const uint8_t* __restrict__ packed, const float* __restrict__ scales,
-                float* __restrict__ partial, int B, int K, int N, int G2P) {
+                float* __restrict__ partial, int B, int K, int N, int G2P, int zero) {
+  constexpr int NG = 32 / GS;  // groups of each panel a 32-row step holds
   __shared__ float red[GEMV_WARPS][GEMV_TILE_N];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int k2 = K / 2;
   const int G = K / GS;
-  const int t = blockIdx.y * GEMV_WARPS + warp;  // packed 32-row step = group t
-  const bool t_ok = t < k2 / GS;
+  const int t = blockIdx.y * GEMV_WARPS + warp;  // packed 32-row step
+  const bool t_ok = t < k2 / 32;
   const int n = blockIdx.x * GEMV_TILE_N + lane * GEMV_COLS;
   const bool col_ok = n < N;
 
-  float sl[GEMV_COLS], sh[GEMV_COLS];
+  float sl[NG][GEMV_COLS], sh[NG][GEMV_COLS];
 #pragma unroll
-  for (int c = 0; c < GEMV_COLS; ++c) sl[c] = sh[c] = 0.0f;
+  for (int h = 0; h < NG; ++h)
+#pragma unroll
+    for (int c = 0; c < GEMV_COLS; ++c) sl[h][c] = sh[h][c] = 0.0f;
   if (t_ok && col_ok) {
-    load8(scales + (size_t)t * N + n, sl);
-    load8(scales + ((size_t)G2P + t) * N + n, sh);
+#pragma unroll
+    for (int h = 0; h < NG; ++h) {
+      load8(scales + (size_t)(t * NG + h) * N + n, sl[h]);
+      load8(scales + ((size_t)G2P + t * NG + h) * N + n, sh[h]);
+    }
   }
 
   for (int b0 = 0; b0 < B; b0 += NB) {
@@ -124,7 +137,10 @@ q8x_gemv_kernel(const int8_t* __restrict__ xq, const float* __restrict__ dx,
 #pragma unroll
       for (int c = 0; c < GEMV_COLS; ++c) acc[bb][c] = 0.0f;
 
-    if (t_ok) {
+#pragma unroll
+    for (int h = 0; h < NG; ++h) {
+      if (!t_ok) break;  // warp-uniform
+      const int g = t * NG + h;  // the low panel's group (the high one: k2 / GS + g)
       int il[NB][GEMV_COLS], ih[NB][GEMV_COLS], xsl[NB], xsh[NB];
 #pragma unroll
       for (int bb = 0; bb < NB; ++bb) {
@@ -132,7 +148,7 @@ q8x_gemv_kernel(const int8_t* __restrict__ xq, const float* __restrict__ dx,
 #pragma unroll
         for (int c = 0; c < GEMV_COLS; ++c) il[bb][c] = ih[bb][c] = 0;
       }
-      const uint8_t* prow = packed + (size_t)t * GS * N + n;
+      const uint8_t* prow = packed + (size_t)g * GS * N + n;
 #pragma unroll 2
       for (int r = 0; r < GS; r += 4) {
         uint2 w[4];
@@ -154,8 +170,8 @@ q8x_gemv_kernel(const int8_t* __restrict__ xq, const float* __restrict__ dx,
           const int b = b0 + bb;
           int xl = 0, xh = 0;
           if (b < B) {
-            xl = *reinterpret_cast<const int*>(xq + (size_t)b * K + t * GS + r);
-            xh = *reinterpret_cast<const int*>(xq + (size_t)b * K + k2 + t * GS + r);
+            xl = *reinterpret_cast<const int*>(xq + (size_t)b * K + g * GS + r);
+            xh = *reinterpret_cast<const int*>(xq + (size_t)b * K + k2 + g * GS + r);
           }
           xsl[bb] = __dp4a(xl, 0x01010101, xsl[bb]);
           xsh[bb] = __dp4a(xh, 0x01010101, xsh[bb]);
@@ -169,12 +185,12 @@ q8x_gemv_kernel(const int8_t* __restrict__ xq, const float* __restrict__ dx,
 #pragma unroll
       for (int bb = 0; bb < NB; ++bb) {
         const int b = b0 + bb;
-        const float dl = b < B ? dx[(size_t)b * G + t] : 0.0f;
-        const float dh = b < B ? dx[(size_t)b * G + k2 / GS + t] : 0.0f;
+        const float dl = b < B ? dx[(size_t)b * G + g] : 0.0f;
+        const float dh = b < B ? dx[(size_t)b * G + k2 / GS + g] : 0.0f;
 #pragma unroll
         for (int c = 0; c < GEMV_COLS; ++c) {
-          acc[bb][c] += (float)(il[bb][c] - 8 * xsl[bb]) * dl * sl[c];
-          acc[bb][c] += (float)(ih[bb][c] - 8 * xsh[bb]) * dh * sh[c];
+          acc[bb][c] += (float)(il[bb][c] - zero * xsl[bb]) * dl * sl[h][c];
+          acc[bb][c] += (float)(ih[bb][c] - zero * xsh[bb]) * dh * sh[h][c];
         }
       }
     }
@@ -186,25 +202,31 @@ q8x_gemv_kernel(const int8_t* __restrict__ xq, const float* __restrict__ dx,
 
 // ----------------------------------------------------------------- prefill
 // The tile's q8 policy (qmm_tile.cuh): a step is 32 packed rows, the low
-// nibbles giving B rows 0..31 (the step's low group) and the high nibbles
-// rows 32..63 (its high group), each as bf16(nib - 8), exact; the step's two
-// d_w rows (one per plane) are copied beside the B tile for the consumers.
+// nibbles giving B rows 0..31 (the step's low groups) and the high nibbles
+// rows 32..63 (its high groups), each as bf16(nib - zero), exact; the step's
+// QG d_w rows (S_ROWS of each plane, in the tile's group order) are copied
+// beside the B tile for the consumers.
+template <int GS>
 struct Q8Deq {
   static constexpr bool Q8 = true;
+  static constexpr int QG = 64 / GS;
   static constexpr int W_ROWS = 32;
-  static constexpr int S_ROWS = 1;
-  static constexpr uint32_t MAIN_BYTES = 32 * tile::TN + 2 * tile::TN * 4;
+  static constexpr int S_ROWS = 32 / GS;
+  static constexpr int DW_BYTES = QG * tile::TN * 4;
+  static constexpr uint32_t MAIN_BYTES = 32 * tile::TN + DW_BYTES;
 
+  // s: the scales as a 3-D map [2, G2P, N], one box for both planes' rows
   __device__ static void load(uint32_t raw, const CUtensorMap* w, const CUtensorMap* s, int v,
                               int n0, uint32_t bar) {
     tile::tma_load(raw, w, n0, 32 * v, bar);
-    tile::tma_load3(raw + tile::SCALE_OFF, s, n0, v, 0, bar);
+    tile::tma_load3(raw + tile::SCALE_OFF, s, n0, S_ROWS * v, 0, bar);
   }
 
   // thread t: columns c .. c+8 of packed rows r0 + 8p; a nibble becomes
-  // nib - 8 as the low mantissa bits of 2^23, minus 2^23 + 8
+  // nib - zero as the low mantissa bits of 2^23, minus 2^23 + zero
   __device__ static void dequant(const uint8_t* __restrict__ raw, uint8_t* __restrict__ bs,
-                                 int t, float) {
+                                 int t, float zero) {
+    const float off = 8388608.0f + zero;
     const int c = (t & 15) * 8, r0 = t >> 4;
 #pragma unroll
     for (int p = 0; p < 4; ++p) {
@@ -215,7 +237,7 @@ struct Q8Deq {
       float f[16];
 #pragma unroll
       for (int e = 0; e < 16; ++e)
-        f[e] = __int_as_float(__byte_perm(w[e / 4], 0x4B000000u, 0x7540 + e % 4)) - 8388616.0f;
+        f[e] = __int_as_float(__byte_perm(w[e / 4], 0x4B000000u, 0x7540 + e % 4)) - off;
       *reinterpret_cast<uint4*>(bs + tile::b_off(r, c)) =
           make_uint4(tile::pack_bf16(f[0], f[1]), tile::pack_bf16(f[2], f[3]),
                      tile::pack_bf16(f[4], f[5]), tile::pack_bf16(f[6], f[7]));
@@ -223,7 +245,7 @@ struct Q8Deq {
           make_uint4(tile::pack_bf16(f[8], f[9]), tile::pack_bf16(f[10], f[11]),
                      tile::pack_bf16(f[12], f[13]), tile::pack_bf16(f[14], f[15]));
     }
-    if (t < tile::DW_BYTES / 16)
+    if (t < DW_BYTES / 16)
       reinterpret_cast<float4*>(bs + tile::B_BYTES)[t] =
           reinterpret_cast<const float4*>(raw + tile::SCALE_OFF)[t];
   }
@@ -231,15 +253,40 @@ struct Q8Deq {
   static cudaError_t prep(const float* x, __nv_bfloat16* xa, float* dx, int B, int K,
                           cudaStream_t st) {
     const int total = B * K;
-    q8x_prep_kernel<<<(total + 255) / 256, 256, 0, st>>>(x, xa, dx, K, total);
+    q8x_prep_kernel<GS><<<(total + 255) / 256, 256, 0, st>>>(x, xa, dx, K, total);
     return cudaGetLastError();
   }
 };
 
+template <int GS>
 cudaError_t quantize(const float* x, int8_t* xq, float* d, int B, int K, cudaStream_t st) {
-  const int total = B * K;  // K % 64 == 0: a warp never straddles two rows
-  q8x_quantize_kernel<<<(total + 255) / 256, 256, 0, st>>>(x, xq, d, total);
+  const int total = B * K;  // K % 64 == 0: a group never straddles two rows
+  q8x_quantize_kernel<GS><<<(total + 255) / 256, 256, 0, st>>>(x, xq, d, total);
   return cudaGetLastError();
+}
+
+// both forms at one group size (see qmm_q8x below)
+template <int GS>
+cudaError_t launch(const float* x, const uint8_t* pk, const float* sc, int8_t* q, float* dd,
+                   float* partial, void* xa, float* out, int B, int K, int N, int G2P, int zero,
+                   int bm, int splits, int ka, cudaStream_t st) {
+  if (B > 32)
+    return tile::launch<Q8Deq<GS>>(x, pk, G2P * GS, sc, 2 * G2P, nullptr, (__nv_bfloat16*)xa,
+                                    partial, out, B, K, N, 2, GS, G2P, (float)zero, bm, splits,
+                                    ka, st, dd);
+  cudaError_t err = quantize<GS>(x, q, dd, B, K, st);
+  if (err != cudaSuccess) return err;
+  const int n_split = gemv_splits(K / 2 / 32);
+  dim3 grid((N + GEMV_TILE_N - 1) / GEMV_TILE_N, n_split);
+  if (B == 1)
+    q8x_gemv_kernel<1, GS><<<grid, GEMV_WARPS * 32, 0, st>>>(q, dd, pk, sc, partial, B, K, N,
+                                                            G2P, zero);
+  else
+    q8x_gemv_kernel<4, GS><<<grid, GEMV_WARPS * 32, 0, st>>>(q, dd, pk, sc, partial, B, K, N,
+                                                            G2P, zero);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return gemv_reduce(partial, out, n_split, B * N, st);
 }
 
 }  // namespace
@@ -247,46 +294,48 @@ cudaError_t quantize(const float* x, int8_t* xq, float* d, int B, int K, cudaStr
 extern "C" {
 
 // Number of K splits of the decode form; partial holds [splits, B, N] floats.
-int qmm_q8x_splits(int K) { return gemv_splits(K / 2 / GS); }
+int qmm_q8x_splits(int K) { return gemv_splits(K / 2 / 32); }
 
-// Dynamic shared memory of the q8 tile at bm rows per unit (bytes).
-int qmm_q8x_tile_smem(int bm) {
+// Dynamic shared memory of the q8 tile at bm rows per unit and gsize-groups
+// (bytes).
+int qmm_q8x_tile_smem(int bm, int gsize) {
+  if (gsize == 16)
+    return bm == 64 ? tile::Shape<64, true, 4>::SMEM
+                    : bm == 128 ? tile::Shape<128, true, 4>::SMEM : 0;
   return bm == 64 ? tile::Shape<64, true>::SMEM : bm == 128 ? tile::Shape<128, true>::SMEM : 0;
 }
 
-int q8x_quantize(const void* x, void* xq, void* d, int B, int K, void* stream) {
-  return (int)quantize((const float*)x, (int8_t*)xq, (float*)d, B, K, (cudaStream_t)stream);
+int q8x_quantize(const void* x, void* xq, void* d, int B, int K, int gsize, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (gsize == 32)
+    return (int)quantize<32>((const float*)x, (int8_t*)xq, (float*)d, B, K, st);
+  if (gsize == 16)
+    return (int)quantize<16>((const float*)x, (int8_t*)xq, (float*)d, B, K, st);
+  return (int)cudaErrorInvalidValue;
 }
 
-// d: f32 [B, K/32] scratch.  At 32 rows or fewer xq is int8 [B, K] scratch
-// and partial [qmm_q8x_splits(K), B, N] f32 (xa unused); above, the tile:
-// xa bf16 [B, ka] scratch, partial f32 [splits, B, N] when splits > 1, and
-// bm, splits, ka from ops/qmm.py::tile_plan (xq unused).
+// d: f32 [B, K/gsize] scratch.  At 32 rows or fewer xq is int8 [B, K]
+// scratch and partial [qmm_q8x_splits(K), B, N] f32 (xa unused); above, the
+// tile: xa bf16 [B, ka] scratch, partial f32 [splits, B, N] when splits > 1,
+// and bm, splits, ka from ops/qmm.py::tile_plan (xq unused).
 int qmm_q8x(const void* x, const void* packed, const void* scales, void* xq, void* d,
-            void* partial, void* xa, void* out, int B, int K, int N, int G2P, int bm,
-            int splits, int ka, void* stream) {
-  const cudaStream_t st = (cudaStream_t)stream;
-  int8_t* q = (int8_t*)xq;
-  float* dd = (float*)d;
+            void* partial, void* xa, void* out, int B, int K, int N, int G2P, int zero,
+            int gsize, int bm, int splits, int ka, void* stream) {
+  const float* xf = (const float*)x;
   const uint8_t* pk = (const uint8_t*)packed;
   const float* sc = (const float*)scales;
-  if (B > 32)
-    return (int)tile::launch<Q8Deq>((const float*)x, pk, G2P * GS, sc, 2 * G2P, nullptr,
-                                    (__nv_bfloat16*)xa, (float*)partial, (float*)out, B, K, N,
-                                    2, GS, G2P, 8.0f, bm, splits, ka, st, dd);
-  cudaError_t err = quantize((const float*)x, q, dd, B, K, st);
-  if (err != cudaSuccess) return (int)err;
-  const int n_split = gemv_splits(K / 2 / GS);
-  dim3 grid((N + GEMV_TILE_N - 1) / GEMV_TILE_N, n_split);
-  if (B == 1)
-    q8x_gemv_kernel<1><<<grid, GEMV_WARPS * 32, 0, st>>>(q, dd, pk, sc, (float*)partial, B,
-                                                        K, N, G2P);
-  else
-    q8x_gemv_kernel<4><<<grid, GEMV_WARPS * 32, 0, st>>>(q, dd, pk, sc, (float*)partial, B,
-                                                        K, N, G2P);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  return (int)gemv_reduce((const float*)partial, (float*)out, n_split, B * N, st);
+  int8_t* q = (int8_t*)xq;
+  float* dd = (float*)d;
+  float* part = (float*)partial;
+  float* o = (float*)out;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (gsize == 32)
+    return (int)launch<32>(xf, pk, sc, q, dd, part, xa, o, B, K, N, G2P, zero, bm, splits, ka,
+                           st);
+  if (gsize == 16)
+    return (int)launch<16>(xf, pk, sc, q, dd, part, xa, o, B, K, N, G2P, zero, bm, splits, ka,
+                           st);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -1,8 +1,8 @@
 // The prefill tile of the quantized matmuls (more than 32 rows) for Hopper
 // (sm_90a), shared by qmm_q4_0.cu (K1, K5: packed nibbles) and qmm_int8.cu
 // (K6, K6b: unpacked int8 levels), and in its q8 mode by qmm_q8x.cu (K7:
-// q4_0 with int8 activations).  out[B, N] = x[B, K] @ dequant(W) (+ the
-// affine seed xg . gbias).
+// packed nibbles, any pack zero, 16- or 32-groups, with int8 activations).
+// out[B, N] = x[B, K] @ dequant(W) (+ the affine seed xg . gbias).
 //
 // What bounds it on an H100: by its operations the tile is bound by the
 // tensor cores (bf16 at 989 TFLOP/s) from 64 rows up, as long as the loads,
@@ -38,13 +38,14 @@
 // the persistent loop and the split-K reduce, and changes three things:
 //  * the prep pass is the q8_0 quantizer: xa holds the integer levels xq as
 //    bf16 (exact, |xq| <= 127) in the same nibble order, and dx the fp16-
-//    rounded d of every (row, group), a step's low group then its high one;
-//  * the dequantizers write bf16(nib - 8), exact with no scale, and copy the
-//    step's two d_w rows beside the B tile;
-//  * the consumers take a step as its two 32-groups: two wgmma k16 into a
-//    fresh D per group give each group's integer dot exactly (products below
-//    2^10, sums below 2^15, all exact in f32 in any order), then
-//    acc = fma(D, d_x * d_w, acc), an FMUL and an FFMA per term with no
+//    rounded d of every (row, group), a step's low groups then its high ones;
+//  * the dequantizers write bf16(nib - zero), exact with no scale, and copy
+//    the step's QG d_w rows (QG = 64 / GS groups a step: 2 or 4) beside the B
+//    tile;
+//  * the consumers take a step as its QG groups: GS / 16 wgmma k16 into a
+//    fresh D per group give each group's integer dot exactly (|level| <= 15:
+//    products below 2^11, sums below 2^16, all exact in f32 in any order),
+//    then acc = fma(D, d_x * d_w, acc), an FMUL and an FFMA per term with no
 //    int-to-float conversion.  That epilogue, not the tensor cores, bounds
 //    the mode (64 group terms a clock per SM either way), so int8 wgmma,
 //    whose s32 results would add a conversion per term, would not be faster.
@@ -76,7 +77,6 @@ constexpr int SEED_G = 16;       // groups per seed step
 constexpr int RAW_BYTES = 10240; // weight bytes + scale rows, or 16 bias rows
 constexpr int SCALE_OFF = 8192;  // scale rows inside a raw slot
 constexpr int B_BYTES = STEP * TN * 2;
-constexpr int DW_BYTES = 2 * TN * 4;  // q8 mode: a step's two d_w rows after its B tile
 constexpr int B_SLOTS = 4;
 constexpr int PREP_THREADS = 256;
 
@@ -92,16 +92,20 @@ constexpr int PREP_THREADS = 256;
 // block's own warpgroups gave back, so the counts below fit that budget:
 // 128*240 + 256*120 + 128*24 of 128 each for 512 threads (BM 64, 128),
 // 256*160 + 256*64 + 128*24 of 96 each for 640 threads (BM 256; q8 BM 128).
-// The q8 mode (Q8) has one m64 tile per consumer warpgroup.
-template <int BM, bool Q8 = false>
+// The q8 mode (Q8) has one m64 tile per consumer warpgroup, and QG groups a
+// step whose d_w rows (DW_BYTES) follow each B tile; at QG 4 (16-groups) the
+// 128-row shape keeps 5 x tiles in flight to fit the shared memory.
+template <int BM, bool Q8 = false, int G = 2>
 struct Shape {
+  static constexpr int QG = G;
   static constexpr int NC = Q8 ? BM / 64 : BM == 256 ? 2 : 1;
   static constexpr int MT = BM / (64 * NC);
   static constexpr int ND = 2;
-  static constexpr int A_STAGES = BM == 64 ? 8 : BM == 128 ? 6 : 3;
+  static constexpr int A_STAGES = BM == 64 ? 8 : BM == 128 ? (Q8 && QG == 4 ? 5 : 6) : 3;
   static constexpr int R_STAGES = BM == 64 ? 8 : BM == 128 ? 6 : 4;
   static constexpr int A_BYTES = BM * 128;
-  static constexpr int B_SLOT = B_BYTES + (Q8 ? DW_BYTES : 0);
+  static constexpr int DW_BYTES = Q8 ? QG * TN * 4 : 0;
+  static constexpr int B_SLOT = B_BYTES + DW_BYTES;
   static constexpr int THREADS = (NC + ND + 1) * 128;
   static constexpr int BAR_OFF = A_STAGES * A_BYTES + R_STAGES * RAW_BYTES + B_SLOTS * B_SLOT;
   static constexpr int SMEM = BAR_OFF + 1024 + 1024;  // barriers, alignment slack
@@ -110,6 +114,7 @@ struct Shape {
   static constexpr int REG_P = 24;
   static_assert(R_STAGES % ND == 0 && B_SLOTS % ND == 0, "ring ownership");
   static_assert(!Q8 || MT == 1, "q8 mode: one m64 tile per consumer warpgroup");
+  static_assert(!Q8 || QG == 2 || QG == 4, "q8 mode: 32- or 16-groups");
   static_assert(B_SLOT % 1024 == 0, "B tiles 1024-byte aligned (128-byte swizzle)");
   static_assert(SMEM <= 232448, "shared memory");
 };
@@ -248,7 +253,7 @@ __device__ __forceinline__ void seed_dequant(const uint8_t* __restrict__ raw,
 }
 
 // ------------------------------------------------------------ q8 consumers
-// acc += D * (d_x * d_w) for one 32-group's integer dots D (the m64n128
+// acc += D * (d_x * d_w) for one group's integer dots D (the m64n128
 // accumulator layout: rows l/4 and l/4 + 8 of the warp's 16, d_x of each in
 // dx0 and dx1; columns 8j + 2(l%4) + {0, 1}, d_w of each from shared memory:
 // a warp's float2 loads fall in distinct banks)
@@ -264,19 +269,36 @@ __device__ __forceinline__ void q8_scale(float (&acc)[64], const float (&dd)[64]
   }
 }
 
+// QG consecutive d_x of one row (16-byte aligned at QG 4, 8-byte at QG 2)
+template <int QG>
+__device__ __forceinline__ void load_dx(const float* p, float (&v)[QG]) {
+  if constexpr (QG == 4) {
+    const float4 a = *reinterpret_cast<const float4*>(p);
+    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  } else {
+    const float2 a = *reinterpret_cast<const float2*>(p);
+    v[0] = a.x; v[1] = a.y;
+  }
+}
+
 // The q8 mode's consumer warpgroup wg (lt its thread): rows m0 + 64 wg ..
-// of each unit.  A step's A columns 0..31 and B rows 0..31 are its low
-// group, 32..63 its high group; D set h % NS takes group h.  With one
-// consumer warpgroup (NS = 2) the next group's wgmma runs while the last
-// group is scaled; with two (NS = 1: two D sets would not fit the register
-// budget) one warpgroup's wgmma runs while the other scales.  (Four m64n64
-// chunks into two 32-register D sets, which fit both budgets, named
-// barriers that make the two warpgroups take turns, and d_w laid out as one
-// float4 run per lane, all measured slower.)
+// of each unit.  A step's QG groups lie at A columns and B rows GS h ..
+// GS h + GS (h < QG / 2 the low panel's, then the high panel's); D set
+// h % NS takes group h.  With one consumer warpgroup (NS = 2) the next
+// group's wgmma runs while the last group is scaled; with two (NS = 1: two D
+// sets would not fit the register budget) one warpgroup's wgmma runs while
+// the other scales.  (Four m64n64 chunks into two 32-register D sets, which
+// fit both budgets, named barriers that make the two warpgroups take turns,
+// and d_w laid out as one float4 run per lane, all measured slower at QG 2.)
 template <class S>
 __device__ __forceinline__ void q8_consumer(const Params& p, uint32_t sbase, uint8_t* b0,
                                             uint32_t bar0, int wg, int lt) {
   constexpr int NS = S::NC == 1 ? 2 : 1;
+  constexpr int QG = S::QG;
+  constexpr int GK = 4 / QG;  // k16 slices of one group
+  // the 128-row shape's 160 registers hold acc, one D set and two d_x, not
+  // four: at 16-groups it loads each group's d_x while the group's wgmma runs
+  constexpr bool LAZY_DX = NS == 1 && QG == 4;
   reg_alloc<S::REG_C>();
   auto empty_a = [&](int s) { return bar0 + 8 * (S::A_STAGES + s); };
   auto full_b = [&](int r) { return bar0 + 8 * (2 * S::A_STAGES + 2 * S::R_STAGES + r); };
@@ -287,6 +309,15 @@ __device__ __forceinline__ void q8_consumer(const Params& p, uint32_t sbase, uin
     return reinterpret_cast<const float*>(b0 + r * S::B_SLOT + B_BYTES);
   };
   const int w = lt / 32, l = lt % 32;
+  // a step's x tile is read by wgmma alone, done once the warpgroup's wait
+  // returns, so one thread frees it; its d_w rows are read by every warp's
+  // own loads, and a warp can still be scaling when another has moved on, so
+  // each warp frees the B slot for itself (empty_b counts 4 NC arrivals)
+  auto release = [&](int s, int r) {
+    if (lt == 0) mbar_arrive(empty_a(s));
+    __syncwarp();
+    if (l == 0) mbar_arrive(empty_b(r));
+  };
   float acc[64], dd[NS][64];
   int it = 0;
   for (int u = blockIdx.x; u < p.units; u += gridDim.x) {
@@ -300,55 +331,58 @@ __device__ __forceinline__ void q8_consumer(const Params& p, uint32_t sbase, uin
 #pragma unroll
     for (int e = 0; e < 64; ++e) acc[e] = 0.0f;
     int prev_s = -1, prev_r = 0;
-    float prev_x0 = 0.0f, prev_x1 = 0.0f;  // (NS = 2) d_x of the last step's high group
+    float prev_x0 = 0.0f, prev_x1 = 0.0f;  // (NS = 2) d_x of the last step's last group
     for (int v = lo; v < hi; ++v, ++it) {
       const int s = it % S::A_STAGES, r = it % B_SLOTS;
-      const float2 x0 = *reinterpret_cast<const float2*>(dx0p + 2 * v);
-      const float2 x1 = *reinterpret_cast<const float2*>(dx1p + 2 * v);
+      float x0[QG], x1[QG];
+      if constexpr (!LAZY_DX) {
+        load_dx<QG>(dx0p + QG * v, x0);
+        load_dx<QG>(dx1p + QG * v, x1);
+      }
       mbar_wait(bar0 + 8 * s, (it / S::A_STAGES) & 1);  // full_a
       mbar_wait(full_b(r), (it / B_SLOTS) & 1);
       const uint32_t a = sbase + s * S::A_BYTES + wg * 8192;
       const uint32_t b = smem_u32(b0 + r * S::B_SLOT);
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
+      for (int h = 0; h < QG; ++h) {
         wgmma_fence();
-        wgmma_m64n128k16(dd[h % NS], a_desc(a + 64 * h), b_desc(b + 4096 * h), 0);
-        wgmma_m64n128k16(dd[h % NS], a_desc(a + 64 * h + 32), b_desc(b + 4096 * h + 2048));
+#pragma unroll
+        for (int kk = 0; kk < GK; ++kk) {
+          const int c = GK * h + kk;  // the step's k16 slice
+          wgmma_m64n128k16(dd[h % NS], a_desc(a + 32 * c), b_desc(b + 2048 * c), kk);
+        }
         wgmma_commit();
         if constexpr (NS == 2) {
           wgmma_wait<1>();  // the group issued before this one is done
-          if (h == 1) {
-            q8_scale(acc, dd[0], x0.x, x1.x, dw_of(r), l);
+          if (h > 0) {
+            q8_scale(acc, dd[(h - 1) % 2], x0[h - 1], x1[h - 1], dw_of(r) + TN * (h - 1), l);
           } else if (prev_s >= 0) {
-            q8_scale(acc, dd[1], prev_x0, prev_x1, dw_of(prev_r) + TN, l);
-            if (lt == 0) {
-              mbar_arrive(empty_a(prev_s));
-              mbar_arrive(empty_b(prev_r));
-            }
+            q8_scale(acc, dd[(QG - 1) % 2], prev_x0, prev_x1, dw_of(prev_r) + TN * (QG - 1), l);
+            release(prev_s, prev_r);
           }
         } else {
+          if constexpr (LAZY_DX) {
+            x0[h] = dx0p[QG * v + h];
+            x1[h] = dx1p[QG * v + h];
+          }
           wgmma_wait<0>();
-          q8_scale(acc, dd[0], h ? x0.y : x0.x, h ? x1.y : x1.x, dw_of(r) + TN * h, l);
+          q8_scale(acc, dd[0], x0[h], x1[h], dw_of(r) + TN * h, l);
         }
       }
       if constexpr (NS == 2) {
         prev_s = s;
         prev_r = r;
-        prev_x0 = x0.y;
-        prev_x1 = x1.y;
-      } else if (lt == 0) {
-        mbar_arrive(empty_a(s));
-        mbar_arrive(empty_b(r));
+        prev_x0 = x0[QG - 1];
+        prev_x1 = x1[QG - 1];
+      } else {
+        release(s, r);
       }
     }
     if constexpr (NS == 2) {
       wgmma_wait<0>();
       if (prev_s >= 0) {
-        q8_scale(acc, dd[1], prev_x0, prev_x1, dw_of(prev_r) + TN, l);
-        if (lt == 0) {
-          mbar_arrive(empty_a(prev_s));
-          mbar_arrive(empty_b(prev_r));
-        }
+        q8_scale(acc, dd[(QG - 1) % 2], prev_x0, prev_x1, dw_of(prev_r) + TN * (QG - 1), l);
+        release(prev_s, prev_r);
       }
     }
     // acc[4j + 2hh + e]: row row + 8hh, column n0 + 8j + 2(l%4) + e
@@ -369,13 +403,25 @@ __device__ __forceinline__ void q8_consumer(const Params& p, uint32_t sbase, uin
 // ----------------------------------------------------------------- kernel
 // Deq: the layout's policy.  Deq::MAIN_BYTES, the bytes of a main step's
 // weight and scale boxes; Deq::load issues them; Deq::dequant writes the
-// step's 64 x TN bf16 B tile (thread t of the dequantizing warpgroup).
+// step's 64 x TN bf16 B tile (thread t of the dequantizing warpgroup).  A q8
+// policy also names Deq::QG, its groups a step.
+template <class Deq>
+constexpr int qg_of() {
+  if constexpr (Deq::Q8)
+    return Deq::QG;
+  else
+    return 2;
+}
+
 template <int BM, class Deq>
-__global__ void __launch_bounds__(Shape<BM, Deq::Q8>::THREADS, 1)
+using ShapeOf = Shape<BM, Deq::Q8, qg_of<Deq>()>;
+
+template <int BM, class Deq>
+__global__ void __launch_bounds__(ShapeOf<BM, Deq>::THREADS, 1)
 tile_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap wmap,
             const __grid_constant__ CUtensorMap smap, const __grid_constant__ CUtensorMap bmap,
             const Params p) {
-  using S = Shape<BM, Deq::Q8>;
+  using S = ShapeOf<BM, Deq>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   const uint32_t sbase = smem_u32(smem);
@@ -406,7 +452,7 @@ tile_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CU
     }
     for (int r = 0; r < B_SLOTS; ++r) {
       mbar_init(full_b(r), 1);
-      mbar_init(empty_b(r), S::NC);
+      mbar_init(empty_b(r), Deq::Q8 ? 4 * S::NC : S::NC);  // q8: one arrival a warp
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
@@ -578,7 +624,8 @@ inline int sm_count() {
 // [B, ka]; partial: f32 [splits, B, N] when splits > 1.  ka, bm and splits
 // come from the caller's plan (ops/qmm.py::tile_plan) and are checked here.
 // The q8 mode (Deq::Q8) takes dx, f32 scratch [B, K/GS] for the activations'
-// d, and Deq::prep as its prep pass.
+// d, and Deq::prep as its prep pass; zero is the pack zero its dequantizers
+// subtract.
 template <class Deq>
 cudaError_t launch(const float* x, const void* w, int w_rows, const float* scales, int s_rows,
                    const float* bias, __nv_bfloat16* xa, float* partial, float* out, int B,
@@ -638,9 +685,9 @@ cudaError_t launch(const float* x, const void* w, int w_rows, const float* scale
   };
   constexpr bool Q8 = Deq::Q8;
   if (bm == 64)
-    err = run(tile_kernel<64, Deq>, Shape<64, Q8>::THREADS, Shape<64, Q8>::SMEM);
+    err = run(tile_kernel<64, Deq>, ShapeOf<64, Deq>::THREADS, ShapeOf<64, Deq>::SMEM);
   else if (bm == 128)
-    err = run(tile_kernel<128, Deq>, Shape<128, Q8>::THREADS, Shape<128, Q8>::SMEM);
+    err = run(tile_kernel<128, Deq>, ShapeOf<128, Deq>::THREADS, ShapeOf<128, Deq>::SMEM);
   else if (bm == 256 && !Q8)  // no 256-row q8 form (64 stands in, never launched)
     err = run(tile_kernel<Q8 ? 64 : 256, Deq>, Shape<256>::THREADS, Shape<256>::SMEM);
   else

@@ -38,15 +38,8 @@ def load_tensor(gf: GGJTFile, name: str, device: torch.device,
     if len(t.shape) != 2 or t.qtype not in PLANAR_TYPES:
         raise NotImplementedError(f"{name}: {len(t.shape)}-D {t.qtype.name} "
                                   "tensors are not ported")
-    qt = QTensor.from_planar(pack_planar(gf.tensor_blocks(name), t.qtype, t.shape),
-                             device)
-    if qt.packed and qt.gbias_t is None and (qt.pack_zero, qt.gsize) != (8, 32):
-        # symmetric nibbles go to K1/K2, which take q4_0's packing alone
-        raise NotImplementedError(
-            f"{name}: {t.qtype.name} packs with zero {qt.pack_zero} and "
-            f"{qt.gsize}-groups; the packed kernels without a bias take only "
-            "zero 8 and 32-groups (q4_0)")
-    return qt
+    return QTensor.from_planar(pack_planar(gf.tensor_blocks(name), t.qtype, t.shape),
+                               device)
 
 
 def config_from_ggjt(gf: GGJTFile, n_ctx: int = 2048, **kw) -> ModelConfig:

@@ -55,9 +55,11 @@ def rope(x: torch.Tensor, positions: torch.Tensor, n_rot: int, *, neox: bool,
 
 def use_flash_prefill(t: int, hd: int, device: torch.device) -> bool:
     """Whole-prompt prefill eligibility for the flash kernel: the JAX rule
-    (prompt buckets of at least 128 that are multiples of 128, head widths
-    that are multiples of 128), on the card.  The kernel's wrapper raises for
-    a head width it is not compiled for."""
+    (``FLASH_PREFILL=0`` opts out; prompt buckets of at least 128 that are
+    multiples of 128, head widths that are multiples of 128), on the card.
+    The kernel's wrapper raises for a head width it is not compiled for."""
+    if os.environ.get("FLASH_PREFILL", "1") == "0":
+        return False
     return (device.type == "cuda" and t >= 128 and t % 128 == 0
             and hd % 128 == 0)
 
@@ -85,8 +87,9 @@ def attention(q: torch.Tensor, k_cache, v_cache, q_positions: torch.Tensor,
     True where a slot holds a valid token.  Returns f32 [B, T, n_head, hd].
 
     As in the JAX package, a bf16 or int8 cache feeds bf16-rounded operands
-    (q, the stored K/V and the probabilities) to f32-accumulated products, and
-    an f32 cache keeps the exact f32 chain.  QuantKV scales multiply the
+    (q, the stored K/V and the probabilities) to f32-accumulated products,
+    unless ``ATTN_MXU=0``; an f32 cache, or any cache with ``ATTN_MXU=0``,
+    keeps the exact f32 chain.  QuantKV scales multiply the
     scores (K) and the probabilities (V); query heads are grouped onto their
     KV head (GQA/MQA) without repeating the cache.  Where ``use_fused_decode``
     holds, the decode attention kernel (ops/mha_decode.py) computes the f32
@@ -107,7 +110,8 @@ def attention(q: torch.Tensor, k_cache, v_cache, q_positions: torch.Tensor,
     if use_fused_decode(rep, t, s, hd, q.device):
         return mha_decode(q.float().contiguous(), kd, ks, vd, vs, q_positions,
                           kv_mask, scale)
-    low = kd.dtype != torch.float32  # storage-dtype (bf16 operand) path
+    # the storage-dtype (bf16 operand) path
+    low = kd.dtype != torch.float32 and os.environ.get("ATTN_MXU", "1") != "0"
     rnd = bf16_f32 if low else (lambda a: a)
     qg = rnd(q.float()).reshape(b, t, n_kv, rep, hd)
     scores = torch.einsum("btgrd,bsgd->bgrts", qg, rnd(kd.float())) * scale

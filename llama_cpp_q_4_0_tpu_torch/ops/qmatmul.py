@@ -1,20 +1,27 @@
 """Quantized matmul dispatch: ``q_matmul(x, w)`` = x @ W^T for a QTensor or a
 dense weight, f32 out.
 
-Routing follows the default path of the JAX package's ``ops/qmatmul.py``:
+Routing follows the JAX package's ``ops/qmatmul.py`` on its accelerator,
+with its switches read the same way:
   * ``compute_dtype=float32`` (the parity path) takes a true f32 product of
     the f32-dequantized levels and scales, plus ``xg @ gbias`` for an affine
     weight (``xg`` the f32 group sums of x), as ``_xla_qmm`` does; it never
     reaches a kernel.
-  * bf16 compute on a packed weight without a bias (q4_0): with the
+  * bf16 compute on a weight outside the JAX dispatch's kernel gate (N a
+    multiple of 128 and K of 256; a 32001-entry vocabulary or K 8640 fail
+    it) takes ``_xla_qmm``'s bf16 product, ``dequant_matmul``, as the JAX
+    dispatch does; no kernel runs.
+  * bf16 compute on a packed weight without a bias (q4_0, q3_K): with the
     environment variable ``QMM_Q8X`` set (any value; ``bf16`` selects the
     same kernel, whose integer group dots are exact either way), calls of at
     most ``QMM_Q8X_MAX_B`` rows (default 128) go to the int8-activation
     kernel K7, decode included, as the JAX test comes before kfold's.
-    Otherwise calls of ``KFOLD_MAX_ROWS`` rows or fewer take the kfold
-    decode kernel K2 and larger ones the prefill kernel K1.  The row count
-    is the call's B*T: bucket 32 takes kfold, bucket 64 the prefill kernel,
-    and the output head after ``last_index`` slicing (one row) takes kfold.
+    Otherwise ``use_kfold`` sends a call to the kfold kernel K2 (by default
+    at ``QMM_KFOLD_MAX_B`` = 32 rows or fewer; ``QMM_KFOLD=0`` never,
+    ``QMM_KFOLD=1`` at every row count) and the rest to the prefill kernel
+    K1.  The row count is the call's B*T: bucket 32 takes kfold, bucket 64
+    the prefill kernel, and the output head after ``last_index`` slicing
+    (one row) takes kfold.
   * a packed weight with a bias (q4_K, q4_1, q2_K) goes to K5 at every row
     count (kfold refuses a biased tensor);
   * an unpacked weight (q5_0, q8_0, q6_K; q5_1, q5_K with a bias) goes to K6,
@@ -38,8 +45,6 @@ from .qmm import (bf16_f32, qmm_int8, qmm_int8_bias, qmm_packed,
                   ieee_div, roundf)
 from .qtensor import QTensor
 
-KFOLD_MAX_ROWS = 32
-
 
 def use_q8x(b: int, w: QTensor) -> bool:
     """The JAX ``QMM_Q8X`` test: a packed weight without a bias, at most
@@ -49,10 +54,13 @@ def use_q8x(b: int, w: QTensor) -> bool:
 
 
 def use_kfold(b: int, w: QTensor) -> bool:
-    """kfold needs a packed tensor with a nonzero pack zero and no bias (q4_0
-    always has zero 8)."""
-    return (w.gbias_t is None and bool(w.pack_zero)
-            and b <= KFOLD_MAX_ROWS)
+    """The JAX ``use_kfold``: a packed tensor with a nonzero pack zero and no
+    bias, and ``QMM_KFOLD`` unset (at most ``QMM_KFOLD_MAX_B`` rows, default
+    32), "1" (every row count) or anything but "0" (which turns it off)."""
+    env = os.environ.get("QMM_KFOLD", "")
+    if env == "0" or w.gbias_t is not None or not w.pack_zero:
+        return False
+    return env == "1" or b <= int(os.environ.get("QMM_KFOLD_MAX_B", "32"))
 
 
 def dequant_matmul(x2: torch.Tensor, w: QTensor,
@@ -90,6 +98,8 @@ def q_matmul(x: torch.Tensor, w, *, compute_dtype=torch.bfloat16) -> torch.Tenso
     n = w.shape[0]
     if compute_dtype == torch.float32:
         return dequant_matmul(x2, w).reshape(*lead, n)
+    if n % 128 or k % 256:  # outside the JAX kernel gate (logical N and K)
+        return dequant_matmul(x2, w, torch.bfloat16).reshape(*lead, n)
     x2 = x2.float().contiguous()
     if not w.packed:
         if w.gbias_t is None:

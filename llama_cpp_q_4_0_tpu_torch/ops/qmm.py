@@ -8,7 +8,8 @@ bias enters as the full-K seed ``xg . gbias``, with ``xg`` the f32 sums of
 un-rounded x over each group.  The JAX package's ``ops/pallas/qmm.py``
 kernels they replace:
 
-  qmm_packed        K1  ``_qmm_packed_kernel``        packed, no bias (q4_0)
+  qmm_packed        K1  ``_qmm_packed_kernel``        packed, no bias (q4_0,
+                                                       q3_K)
   qmm_packed_kfold  K2  ``_qmm_packed_kfold_kernel``  same, zero folded, B <= 32
   qmm_packed_bias   K5  ``_qmm_packed_bias_kernel``   packed affine (q4_K,
                                                        q4_1, q2_K)
@@ -16,12 +17,14 @@ kernels they replace:
                                                        (q5_0, q8_0, q6_K)
   qmm_int8_bias     K6b ``_qmm_bias_kernel``          same with a bias
                                                        (q5_1, q5_K)
-  qmm_packed_q8x    K7  ``_qmm_packed_q8x_kernel``    q4_0 with int8
-                                                       activations
+  qmm_packed_q8x    K7  ``_qmm_packed_q8x_kernel``    packed, no bias, with
+                                                       int8 activations
 
-K7 is the other arithmetic: x is quantized per 32-group as the reference's
-q8_0 (``quantize_q8x``) and each group dot is an exact integer product,
-scaled into f32 as ``dot * d_x * d_w``.
+K7 is the other arithmetic: x is quantized per weight group as the
+reference's q8_0 (``quantize_q8x``) and each group dot is an exact integer
+product, scaled into f32 as ``dot * d_x * d_w``.  K1, K2 and K7 take any pack
+zero and 16- or 32-groups (q4_0: zero 8, 32-groups; q3_K: zero 4 on real
+weights, 16-groups).
 
 Packed: ``packed`` uint8 ``[K2P, N]`` (low nibble row r, high nibble row
 r + K/2, each level + zero), planes f32 ``[2, K2P/g, N]``.  Unpacked:
@@ -50,15 +53,6 @@ def bf16_f32(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.bfloat16).to(torch.float32)
 
 
-def _q4_0_only(zero: int, gsize: int):
-    """K1 and K2 are built for q4_0's (zero 8, 32-groups) alone."""
-    if (zero, gsize) != (8, 32):
-        raise NotImplementedError(
-            f"the q4_0 kernels take pack zero 8 and 32-groups, not zero {zero} "
-            f"and {gsize}-groups (q3_K and other symmetric packings are not "
-            "ported)")
-
-
 def _group_sums(x: torch.Tensor, gsize: int) -> torch.Tensor:
     """f32 sums of x [B, K'] over each gsize-group: [B, K'/gsize]."""
     b, k = x.shape
@@ -80,8 +74,7 @@ def _packed_weights(packed: torch.Tensor, scales: torch.Tensor, k: int,
 
 def qmm_packed_plain(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
                      *, zero: int = 8, gsize: int = 32) -> torch.Tensor:
-    """Plain version of K1: w = bf16((nibble - 8) * d)."""
-    _q4_0_only(zero, gsize)
+    """Plain version of K1: w = bf16((nibble - zero) * d)."""
     k2 = x.shape[1] // 2
     wlo, whi = _packed_weights(packed, scales, x.shape[1], gsize, zero)
     xb = bf16_f32(x.float())
@@ -92,9 +85,8 @@ def qmm_packed_kfold_plain(x: torch.Tensor, packed: torch.Tensor,
                            scales: torch.Tensor, *, zero: int = 8,
                            gsize: int = 32) -> torch.Tensor:
     """Plain version of K2: w = bf16(nibble * d) with no subtract, plus
-    -8 * (xg_lo @ d_lo + xg_hi @ d_hi) where xg holds the f32 sums of x over
-    each 32-group."""
-    _q4_0_only(zero, gsize)
+    -zero * (xg_lo @ d_lo + xg_hi @ d_hi) where xg holds the f32 sums of x
+    over each group."""
     k2 = x.shape[1] // 2
     g2 = k2 // gsize
     wlo, whi = _packed_weights(packed, scales, x.shape[1], gsize, 0)
@@ -177,14 +169,16 @@ def quantize_q8x_plain(x: torch.Tensor, gsize: int = 32):
 def q8x_tile_prep_plain(x: torch.Tensor, gsize: int = 32):
     """K7's tile prep pass in plain PyTorch: (xa bf16 [B, K], dx f32
     [B, K/gsize]).  xa holds quantize_q8x_plain's levels (exact in bf16) in
-    the tile's nibble order, pipeline step v's low-panel group v then its
-    high-panel group v; dx the two groups' d at columns 2v and 2v + 1."""
+    the tile's nibble order, pipeline step v's 32 low-panel columns from
+    32v on, then its 32 high-panel columns; dx the d of the step's 64 / gsize
+    groups in that order at columns (64 / gsize) v on."""
     b, k = x.shape
-    g2 = k // 2 // gsize
+    steps, per = k // 64, 32 // gsize
     xq, d = quantize_q8x_plain(x, gsize)
-    xa = torch.stack([xq[:, :k // 2].reshape(b, g2, gsize),
-                      xq[:, k // 2:].reshape(b, g2, gsize)], 2).reshape(b, k)
-    dx = torch.stack([d[:, :g2], d[:, g2:]], 2).reshape(b, 2 * g2)
+    xa = torch.stack([xq[:, :k // 2].reshape(b, steps, 32),
+                      xq[:, k // 2:].reshape(b, steps, 32)], 2).reshape(b, k)
+    dx = torch.stack([d[:, :steps * per].reshape(b, steps, per),
+                      d[:, steps * per:].reshape(b, steps, per)], 2).reshape(b, -1)
     return xa.to(torch.bfloat16), dx
 
 
@@ -192,8 +186,7 @@ def qmm_packed_q8x_plain(x: torch.Tensor, packed: torch.Tensor, scales: torch.Te
                          *, zero: int = 8, gsize: int = 32) -> torch.Tensor:
     """Plain version of K7: per group g (the low panel's, then the high
     panel's), acc += (float)(xq_g . level_g) * d_x * d_w, the group dots
-    exact in f32 (|xq| <= 127, |level| <= 8, 32 terms)."""
-    _q4_0_only(zero, gsize)
+    exact in f32 (|xq| <= 127, |level| <= 15, at most 32 terms)."""
     b, k = x.shape
     k2, n = k // 2, packed.shape[1]
     g2 = k2 // gsize
@@ -252,8 +245,9 @@ def _check(x: torch.Tensor, w: torch.Tensor, planes: list, *, packed: bool,
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "qmm_q4_0": {
-        "qmm_q4_0": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P], _I),
-        "qmm_q4_0_kfold": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
+        "qmm_q4_0": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+                     _I),
+        "qmm_q4_0_kfold": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P], _I),
         "qmm_packed_bias": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                              _I, _P], _I),
         "qmm_packed_splits": ([_I], _I),
@@ -264,10 +258,11 @@ _SIGNATURES = {
         "qmm_int8_splits": ([_I], _I),
     },
     "qmm_q8x": {
-        "qmm_q8x": ([_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P], _I),
-        "q8x_quantize": ([_P, _P, _P, _I, _I, _P], _I),
+        "qmm_q8x": ([_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                     _P], _I),
+        "q8x_quantize": ([_P, _P, _P, _I, _I, _I, _P], _I),
         "qmm_q8x_splits": ([_I], _I),
-        "qmm_q8x_tile_smem": ([_I], _I),
+        "qmm_q8x_tile_smem": ([_I, _I], _I),
     },
 }
 GEMV_MAX_ROWS = 32  # rows the kernels take in their decode (split-K) form
@@ -393,7 +388,6 @@ def _ptr(t: torch.Tensor | None):
 def qmm_packed(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor, *,
                zero: int = 8, gsize: int = 32) -> torch.Tensor:
     """K1, the prefill form (more than 32 rows): f32 [B, N]."""
-    _q4_0_only(zero, gsize)
     _check(x, packed, [scales], packed=True, gsize=gsize)
     if x.device.type == "cpu":
         return qmm_packed_plain(x, packed, scales, zero=zero, gsize=gsize)
@@ -403,28 +397,32 @@ def qmm_packed(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor, *,
     out = torch.empty((b, n), dtype=torch.float32, device=x.device)
     err = _lib("qmm_q4_0").qmm_q4_0(x.data_ptr(), packed.data_ptr(), scales.data_ptr(),
                                     xa.data_ptr(), _ptr(partial), out.data_ptr(), b, k, n,
-                                    k2p // gsize, plan.bm, plan.splits, plan.ka, _stream(x))
+                                    k2p // gsize, zero, gsize, plan.bm, plan.splits, plan.ka,
+                                    _stream(x))
     _launched(err, "qmm_q4_0")
     return out
 
 
 def qmm_packed_kfold(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor, *,
                      zero: int = 8, gsize: int = 32) -> torch.Tensor:
-    """K2, the decode form (32 rows or fewer), zero point folded: f32 [B, N]."""
-    _q4_0_only(zero, gsize)
+    """K2, the decode form, zero point folded: f32 [B, N].  The kernel takes
+    up to 32 rows a launch; more rows (``QMM_KFOLD=1``) run as 32-row chunks,
+    one launch each, since every row is computed alone."""
     _check(x, packed, [scales], packed=True, gsize=gsize)
     if x.device.type == "cpu":
         return qmm_packed_kfold_plain(x, packed, scales, zero=zero, gsize=gsize)
     b, k = x.shape
     k2p, n = packed.shape
     if b > GEMV_MAX_ROWS:
-        raise ValueError(f"the kfold kernel takes at most {GEMV_MAX_ROWS} rows, not {b}")
+        return torch.cat([qmm_packed_kfold(x[i:i + GEMV_MAX_ROWS], packed, scales,
+                                           zero=zero, gsize=gsize)
+                          for i in range(0, b, GEMV_MAX_ROWS)])
     lib = _lib("qmm_q4_0")
     partial = _scratch(lib, "qmm_packed_splits", x, n)
     out = torch.empty((b, n), dtype=torch.float32, device=x.device)
     err = lib.qmm_q4_0_kfold(x.data_ptr(), packed.data_ptr(), scales.data_ptr(),
                              partial.data_ptr(), out.data_ptr(), b, k, n,
-                             k2p // gsize, _stream(x))
+                             k2p // gsize, zero, gsize, _stream(x))
     _launched(err, "qmm_q4_0_kfold")
     return out
 
@@ -486,8 +484,9 @@ def qmm_int8_bias(x: torch.Tensor, levels: torch.Tensor, scales: torch.Tensor,
 
 def quantize_q8x(x: torch.Tensor, gsize: int = 32):
     """K7's activation quantizer alone (its first pass): (xq int8 [B, K],
-    d f32 [B, K/32]), bit-identical to ``quantize_q8x_plain``."""
-    _q4_0_only(8, gsize)
+    d f32 [B, K/gsize]), bit-identical to ``quantize_q8x_plain``."""
+    if gsize not in (16, 32):
+        raise NotImplementedError(f"{gsize}-groups: the kernels take 16 and 32")
     if x.dim() != 2 or x.dtype != torch.float32 or x.shape[1] % 64:
         raise ValueError(f"x must be f32 [B, K] with K % 64 == 0, not "
                          f"{x.dtype} {tuple(x.shape)}")
@@ -499,7 +498,7 @@ def quantize_q8x(x: torch.Tensor, gsize: int = 32):
     xq = torch.empty((b, k), dtype=torch.int8, device=x.device)
     d = torch.empty((b, k // gsize), dtype=torch.float32, device=x.device)
     err = _lib("qmm_q8x").q8x_quantize(x.data_ptr(), xq.data_ptr(), d.data_ptr(),
-                                        b, k, _stream(x))
+                                        b, k, gsize, _stream(x))
     if err:
         raise RuntimeError(f"q8x_quantize launch failed: CUDA error {err}")
     return xq, d
@@ -509,7 +508,6 @@ def qmm_packed_q8x(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor, 
                    zero: int = 8, gsize: int = 32) -> torch.Tensor:
     """K7 at any row count (a split-K GEMV at 32 rows or fewer, the shared
     tile's q8 mode above): f32 [B, N]."""
-    _q4_0_only(zero, gsize)
     _check(x, packed, [scales], packed=True, gsize=gsize)
     if x.device.type == "cpu":
         return qmm_packed_q8x_plain(x, packed, scales, zero=zero, gsize=gsize)
@@ -525,6 +523,6 @@ def qmm_packed_q8x(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor, 
     out = torch.empty((b, n), dtype=torch.float32, device=x.device)
     err = lib.qmm_q8x(x.data_ptr(), packed.data_ptr(), scales.data_ptr(), _ptr(xq),
                       d.data_ptr(), _ptr(partial), _ptr(xa), out.data_ptr(), b, k, n,
-                      k2p // gsize, plan.bm, plan.splits, plan.ka, _stream(x))
+                      k2p // gsize, zero, gsize, plan.bm, plan.splits, plan.ka, _stream(x))
     _launched(err, "qmm_q8x")
     return out

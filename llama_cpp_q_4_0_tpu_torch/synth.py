@@ -10,9 +10,14 @@ shapes and formats.
 ``formats/quantize.py`` assigns them:
 
   q4_0    every 2-D weight q4_0 (the weights bench.py builds);
+  q3_K_M  q3_K for wq, wk, w1, w3 and the token embeddings, q4_K for wv, wo
+          and w2, q6_K for the output head;
   q4_K_M  q4_K everywhere, q6_K for the output head and for wv and w2 in
           the layers ``use_more_bits`` picks (half of them);
   q5_K_M  the same with q5_K in place of q4_K.
+
+q3_K weights are packed symmetric nibbles (levels -4..3 stored as 0..7, pack
+zero 4) over 16-groups with no bias, the layout the loader gives them.
 """
 
 from __future__ import annotations
@@ -29,7 +34,8 @@ from .ops.qtensor import QTensor
 from .quant.q4_0 import PACK_ZERO, k2_padded
 from .quant.types import GGMLType
 
-FTYPES = {"q4_0": GGMLType.Q4_0, "q4_K_M": GGMLType.Q4_K, "q5_K_M": GGMLType.Q5_K}
+FTYPES = {"q4_0": GGMLType.Q4_0, "q3_K_M": GGMLType.Q3_K, "q4_K_M": GGMLType.Q4_K,
+          "q5_K_M": GGMLType.Q5_K}
 
 
 def use_more_bits(i_layer: int, num_layers: int) -> bool:
@@ -42,11 +48,11 @@ def _uniform(gen, shape, lo, hi, device):
     return lo + (hi - lo) * torch.rand(shape, generator=gen, device=device)
 
 
-def _packed(gen, n, k, qtype, zero, gsize, bias, device) -> QTensor:
+def _packed(gen, n, k, qtype, zero, gsize, bias, device, mask=0xFF) -> QTensor:
     k2, k2p = k // 2, k2_padded(k)
     packed = torch.zeros((k2p, n), dtype=torch.uint8, device=device)
     packed[:k2] = torch.randint(0, 256, (k2, n), generator=gen, device=device,
-                                dtype=torch.uint8)
+                                dtype=torch.uint8) & mask
     g2 = k2 // gsize
 
     def plane(lo, hi):
@@ -73,6 +79,8 @@ def synth_qtensor(gen: torch.Generator, n: int, k: int, device,
     """One random [N, K] weight in the device layout of ``qtype``."""
     if qtype == GGMLType.Q4_0:
         return _packed(gen, n, k, qtype, PACK_ZERO, 32, False, device)
+    if qtype == GGMLType.Q3_K:
+        return _packed(gen, n, k, qtype, 4, 16, False, device, mask=0x77)
     if qtype == GGMLType.Q4_K:
         return _packed(gen, n, k, qtype, 0, 32, True, device)
     if qtype == GGMLType.Q2_K:
@@ -111,9 +119,11 @@ def build_llama(n_layer: int = 32, n_embd: int = 4096, n_head: int = 32,
         return torch.ones((e,), dtype=torch.float32, device=dev)
 
     def block(i):
-        wide = more if use_more_bits(i, n_layer) else base
+        wide, wo = (more if use_more_bits(i, n_layer) else base), base
+        if ftype == "q3_K_M":  # wv, wo and w2 in q4_K in every layer
+            wide = wo = GGMLType.Q4_K
         return Block(attn_norm_w=ones(), wq=q(e, e), wk=q(e, e), wv=q(e, e, wide),
-                     wo=q(e, e), ffn_norm_w=ones(), w_gate=q(n_ff, e),
+                     wo=q(e, e, wo), ffn_norm_w=ones(), w_gate=q(n_ff, e),
                      w_up=q(n_ff, e), w_down=q(e, n_ff, wide))
 
     blocks = tuple(block(i) for i in range(n_layer))

@@ -128,6 +128,41 @@ def test_use_flash_prefill_is_the_jax_rule(monkeypatch, t, hd):
     assert not tl.use_flash_prefill(t, hd, torch.device("cpu"))
 
 
+@pytest.mark.parametrize("t", [128, 512])
+@pytest.mark.parametrize("env", ["0", "1"])
+def test_flash_prefill_switch_matches_jax(monkeypatch, env, t):
+    """FLASH_PREFILL=0 turns the flash prefill off in both packages, and any
+    other value leaves the rule as it is."""
+    monkeypatch.setenv("FLASH_PREFILL", env)
+    monkeypatch.setattr(jl.jax, "default_backend", lambda: "tpu")
+    want = jl.use_flash_prefill(t, 128)
+    assert want == (env != "0")
+    assert tl.use_flash_prefill(t, 128, torch.device("cuda")) == want
+
+
+@pytest.mark.parametrize("g", [4, 2], ids=["mha", "gqa"])
+@pytest.mark.parametrize("cache", ["bf16", "int8"])
+def test_attn_mxu_off_takes_the_f32_chain(monkeypatch, cache, g):
+    """ATTN_MXU=0 on a bf16 or int8 cache: both packages take the exact f32
+    chain on the stored values (no bf16 rounding of q or the
+    probabilities), so they agree to the f32 cache's 2e-5; on a bf16 cache
+    the port equals its own attention over the same values in an f32
+    cache."""
+    monkeypatch.setenv("ATTN_MXU", "0")
+    q, (jk, jv), (tk, tv), pos, mask, scale = _attn_case(cache, g, seed=20 + g)
+    want = np.asarray(jl.attention(jnp.asarray(q), jk, jv, jnp.asarray(pos),
+                                   jnp.asarray(mask), scale))
+    got = tl.attention(_t(q), tk, tv, _t(pos).long(), _t(mask.copy()), scale)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=2e-5)
+    if cache == "bf16":  # the stored values held in an f32 cache
+        chain = tl.attention(_t(q), tk.float(), tv.float(), _t(pos).long(),
+                             _t(mask.copy()), scale)
+        torch.testing.assert_close(got, chain, rtol=0, atol=0)
+    monkeypatch.delenv("ATTN_MXU")
+    mxu = tl.attention(_t(q), tk, tv, _t(pos).long(), _t(mask.copy()), scale)
+    assert not torch.equal(mxu, got)  # the default path rounds to bf16
+
+
 @pytest.mark.parametrize("quant", [False, True], ids=["f32", "q8kv"])
 def test_decode_attention_matches_mha_decode(quant):
     """Second witness: the JAX package's Pallas decode kernel (interpret

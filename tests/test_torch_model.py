@@ -40,6 +40,17 @@ def path(tmp_path_factory):
     return p
 
 
+@pytest.fixture(scope="module")
+def path256(tmp_path_factory):
+    """A q4_0 LLaMA whose every matmul lies inside the kernels' gate (N % 128
+    == 0, K % 256 == 0): n_embd 256, n_ff 768, a 512-entry vocabulary.  The
+    default fixture's n_embd 64 lies outside it, where both packages take the
+    plain bf16 product."""
+    p = str(tmp_path_factory.mktemp("m256") / "llama.ggjt")
+    make_llama_ggjt(p, n_embd=256, n_mult=256, n_head=2)
+    return p
+
+
 def _jax(path, mode, n_ctx):
     gf = jax_read_ggjt(path)
     cfg = dataclasses.replace(jax_config(gf, n_ctx=n_ctx), compute_dtype=mode)
@@ -83,13 +94,14 @@ def test_f32_mode_matches_jax(path):
     assert tt == jt and len(tt) == 24
 
 
-def test_default_mode_within_kfold_class(path):
+def test_default_mode_within_kfold_class(path256):
     """bf16 compute with a bf16 cache.  On the CPU the JAX package takes its
     unfolded XLA matmul while the port's decode-shaped calls (<= 32 rows, as
     on the card) take the kfold form, whose documented drift from the
-    unfolded path is ~3e-2 of the logits (JAX ops/qmatmul.py use_kfold)."""
-    jcfg, jp = _jax(path, "bfloat16", 128)
-    tcfg, tp = _port(path, "bfloat16", 128)
+    unfolded path is ~3e-2 of the logits (JAX ops/qmatmul.py use_kfold).
+    The fixture's matmuls lie inside the kernels' gate, so kfold runs."""
+    jcfg, jp = _jax(path256, "bfloat16", 128)
+    tcfg, tp = _port(path256, "bfloat16", 128)
     seq = [PROMPT, [3], [100]]
     jl = _steps(JaxContext(jcfg, jp, n_ctx=128), seq)
     tl = _steps(Context(tcfg, tp, n_ctx=128, device="cpu"), seq)

@@ -1,6 +1,7 @@
-"""The int8-activation q4_0 path: the activation quantizer, K7's plain
-version and ``q_matmul_ref_int8`` against the JAX package, the ``QMM_Q8X``
-routing, and the model in ``ref_int8`` and in the int8 configuration (CPU)."""
+"""The int8-activation path: the activation quantizer, K7's plain version
+(q4_0's packing and q3_K's: any pack zero, 16-groups) and
+``q_matmul_ref_int8`` against the JAX package, the ``QMM_Q8X`` routing, and
+the model in ``ref_int8`` and in the int8 configuration (CPU)."""
 
 import dataclasses
 
@@ -78,6 +79,26 @@ def test_quantize_q8x_exact(k):
     assert (xq[1, 32:64] == 0).all() and d[1, 1] == 0
 
 
+@pytest.mark.parametrize("k", [256, 1024, 704])
+def test_quantize_q8x_16_groups_exact(k):
+    """At 16-groups (q3_K) the plain quantizer and the wrapper equal the JAX
+    ``_quantize_q8x`` bit for bit, its split-half planes rearranged into the
+    logical [B, K] and [B, K/16] order."""
+    x = _tie_rows(k)
+    x[2, 16:32] = 0.0  # a zero 16-group beside a nonzero one
+    k2p = -(-(k // 2) // 256) * 256
+    g2 = k // 32
+    lo, hi, slo, shi = (np.asarray(a) for a in _quantize_q8x(jnp.asarray(x), 16, k2p))
+    want_q = np.concatenate([lo[:g2], hi[:g2]], 0).transpose(2, 0, 1).reshape(3, k)
+    want_d = np.concatenate([slo[:, :g2], shi[:, :g2]], 1)
+    for xq, d in (qmm.quantize_q8x_plain(torch.from_numpy(x), 16),
+                  qmm.quantize_q8x(torch.from_numpy(x), 16)):
+        assert tuple(d.shape) == (3, k // 16)
+        np.testing.assert_array_equal(xq.numpy(), want_q)
+        np.testing.assert_array_equal(d.numpy().view(np.uint32), want_d.view(np.uint32))
+    assert d[2, 1] == 0 and d[2, 0] > 0
+
+
 def _ref64(w, x):
     """The reference's quantize_row_q8_0 + vec_dot_q4_0_q8_0 in float64
     (tests/test_qmatmul.py): associativity-free."""
@@ -119,8 +140,56 @@ def test_q8x_wrappers_take_the_plain_version_on_cpu():
     before = dict(qmm.launches)
     assert torch.equal(qmm.qmm_packed_q8x(x, p, s), qmm.qmm_packed_q8x_plain(x, p, s))
     assert qmm.launches == before
-    with pytest.raises(NotImplementedError):
-        qmm.qmm_packed_q8x(x, p, s, zero=4, gsize=16)
+    with pytest.raises(NotImplementedError):  # the kernels take 16- and 32-groups
+        qmm.qmm_packed_q8x(x, p, torch.zeros(2, 4, 128), zero=4, gsize=64)
+
+
+def _q3_k_weight(n, k, zero, seed):
+    """Random q3_K-layout arrays: split-half nibbles 0..7 whose levels are
+    nibble - zero, 16-group scale planes (padding rows zero)."""
+    rng = np.random.default_rng(seed)
+    k2, k2p = k // 2, -(-(k // 2) // 256) * 256
+    packed = np.zeros((k2p, n), np.uint8)
+    packed[:k2] = rng.integers(0, 256, (k2, n), dtype=np.uint8) & 0x77
+    scales = np.zeros((2, k2p // 16, n), np.float32)
+    scales[:, :k2 // 16] = rng.uniform(0.01, 0.03, (2, k2 // 16, n))
+    return packed, scales
+
+
+def _q8x_ref64(x, packed, scales, zero, gsize):
+    """K7's function in float64 from the plain quantizer's xq and d: exact
+    integer group dots, then the scaled sum (associativity-free)."""
+    b, k = x.shape
+    k2, n = k // 2, packed.shape[1]
+    xq, d = qmm.quantize_q8x_plain(torch.from_numpy(x), gsize)
+    p = packed[:k2].astype(np.int64)
+    lv = np.concatenate([(p & 0xF) - zero, (p >> 4) - zero]).reshape(-1, gsize, n)
+    sc = np.concatenate([scales[0, :k2 // gsize], scales[1, :k2 // gsize]])
+    dots = np.einsum("bgk,gkn->bgn", xq.numpy().astype(np.int64).reshape(b, -1, gsize), lv)
+    return np.einsum("bgn,bg,gn->bn", dots.astype(np.float64), d.numpy().astype(np.float64),
+                     sc.astype(np.float64))
+
+
+@pytest.mark.parametrize("b", [1, 4, 8, 128])
+@pytest.mark.parametrize("zero", [4, 3])
+def test_q8x_plain_16_groups_matches_pallas_interpret(b, zero):
+    """K7 on the q3_K layout (16-groups, pack zero 4, and an odd zero 3):
+    the plain version against the JAX kernel in interpret mode and a float64
+    version of the same function; the integer dots are exact on every side,
+    so only f32 summation order differs (2e-5 relative and absolute, as at
+    32-groups)."""
+    n, k = 256, 1024
+    packed, scales = _q3_k_weight(n, k, zero, seed=b + zero)
+    x = _x(b, k, seed=200 + b)
+    want = np.asarray(jax_q8x(jnp.asarray(x), jnp.asarray(packed), jnp.asarray(scales),
+                              gsize=16, zero=zero, block_n=128, block_k=256,
+                              interpret=True))
+    got = qmm.qmm_packed_q8x(torch.from_numpy(x), torch.from_numpy(packed),
+                             torch.from_numpy(scales), zero=zero, gsize=16).numpy()
+    assert got.shape == (b, n)
+    np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(got, _q8x_ref64(x, packed, scales, zero, 16),
+                               rtol=2e-5, atol=2e-5)
 
 
 @pytest.mark.parametrize("name", ["Q4_0", "Q4_1", "Q8_0", "Q4_K", "Q6_K"])
@@ -186,18 +255,47 @@ def test_q8x_routing(monkeypatch, env, b, route):
 @pytest.mark.parametrize("name,route", [("Q4_K", "qmm_packed_bias"),
                                         ("Q8_0", "qmm_int8"), ("Q5_K", "qmm_int8_bias")])
 def test_q8x_leaves_biased_and_unpacked_weights(monkeypatch, name, route):
+    """(N = 128: a weight inside the kernels' gate, N % 128 == 0.)"""
     monkeypatch.setenv("QMM_Q8X", "1")
-    w = (np.random.default_rng(0).standard_normal((64, 256)) * 0.05).astype(np.float32)
+    w = (np.random.default_rng(0).standard_normal((128, 256)) * 0.05).astype(np.float32)
     qt = QTensor.quantize(w, GGMLType[name], device="cpu")
     calls = _routes(monkeypatch)
     qmatmul.q_matmul(torch.from_numpy(_x(2, 256, seed=3)), qt)
     assert calls == [route]
 
 
+@pytest.mark.parametrize("b,route", [(1, "qmm_packed_q8x"), (64, "qmm_packed_q8x"),
+                                     (129, "qmm_packed")])
+def test_q8x_takes_q3_k(monkeypatch, b, route):
+    """q3_K (packed, no bias, zero 4, 16-groups) takes K7 under QMM_Q8X up to
+    its row cap, as q4_0 does, with its own zero and group size."""
+    monkeypatch.setenv("QMM_Q8X", "1")
+    monkeypatch.delenv("QMM_Q8X_MAX_B", raising=False)
+    w = (np.random.default_rng(1).standard_normal((128, 512)) * 0.05).astype(np.float32)
+    qt = QTensor.quantize(w, GGMLType.Q3_K, device="cpu")
+    assert (qt.pack_zero, qt.gsize, qt.gbias_t) == (4, 16, None)
+    calls = _routes(monkeypatch)
+    x = torch.from_numpy(_x(b, 512, seed=b))
+    out = qmatmul.q_matmul(x, qt)
+    assert calls == [route]
+    if route == "qmm_packed_q8x":
+        assert torch.equal(out, qmm.qmm_packed_q8x_plain(x, qt.levels_t, qt.gscale_t,
+                                                         zero=4, gsize=16))
+
+
 @pytest.fixture(scope="module")
 def path(tmp_path_factory):
     p = str(tmp_path_factory.mktemp("m") / "llama.ggjt")
     make_llama_ggjt(p)
+    return p
+
+
+@pytest.fixture(scope="module")
+def path256(tmp_path_factory):
+    """A q4_0 LLaMA whose every matmul lies inside the kernels' gate (N % 128
+    == 0, K % 256 == 0): n_embd 256, n_ff 768, a 512-entry vocabulary."""
+    p = str(tmp_path_factory.mktemp("m256") / "llama.ggjt")
+    make_llama_ggjt(p, n_embd=256, n_mult=256, n_head=2)
     return p
 
 
@@ -273,19 +371,20 @@ def test_ref_int8_q4_0_ties_follow_rms_norm_ulps(path):
     np.testing.assert_array_equal(qt.numpy(), np.asarray(qj_same).reshape(qt.shape))
 
 
-def test_q8x_model_equals_ref_int8(path, monkeypatch):
+def test_q8x_model_equals_ref_int8(path256, monkeypatch):
     """bf16 compute with QMM_Q8X=1 sends every q4_0 matmul of a prompt of at
     most 128 tokens (and every decode step) through K7, whose arithmetic is
     ref_int8's in another summation order: logits within 1e-4 of their
-    scale (measured on this fixture: 0, bit-identical logits)."""
+    scale.  The fixture's matmuls all lie inside the kernels' gate: outside
+    it the dispatch takes the bf16 product, as the JAX package does."""
     monkeypatch.setenv("QMM_Q8X", "1")
     rng = np.random.default_rng(4)
     seq = [PROMPT, [3], rng.integers(3, 500, 100).tolist(), [7]]
-    ref = _steps(Context(*_port(path, "ref_int8"), n_ctx=256, cache_dtype=torch.float32,
+    ref = _steps(Context(*_port(path256, "ref_int8"), n_ctx=256, cache_dtype=torch.float32,
                          device="cpu"), seq)
     before = qmm.launches["qmm_q8x"]
     calls = _routes(monkeypatch)
-    got = _steps(Context(*_port(path, "bfloat16"), n_ctx=256, cache_dtype=torch.float32,
+    got = _steps(Context(*_port(path256, "bfloat16"), n_ctx=256, cache_dtype=torch.float32,
                          device="cpu"), seq)
     assert set(calls) == {"qmm_packed_q8x"}
     assert qmm.launches["qmm_q8x"] == before  # the plain version on the CPU
@@ -308,6 +407,28 @@ def test_q8x_kernel_matches_plain_on_card(b):
     pq, pd = qmm.quantize_q8x_plain(x)
     got, want = qmm.qmm_packed_q8x(x, p, s), qmm.qmm_packed_q8x_plain(x, p, s)
     again = qmm.qmm_packed_q8x(x, p, s)
+    torch.cuda.synchronize()
+    assert torch.equal(xq, pq) and torch.equal(d, pd)
+    assert torch.equal(got, again)
+    assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [1, 8, 33, 64, 128, 512, 2048])
+@pytest.mark.parametrize("zero", [4, 3])
+def test_q8x_16_groups_kernel_matches_plain_on_card(b, zero):
+    """On the card, the q3_K layout (16-groups): the quantizer bit for bit,
+    the matmul within 1e-4 of the output scale, two launches bit-identical."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    packed, scales = _q3_k_weight(4096, 4096, zero, seed=b)
+    x = torch.from_numpy(_x(b, 4096, seed=b)).cuda()
+    p, s = torch.from_numpy(packed).cuda(), torch.from_numpy(scales).cuda()
+    xq, d = qmm.quantize_q8x(x, 16)
+    pq, pd = qmm.quantize_q8x_plain(x, 16)
+    kw = {"zero": zero, "gsize": 16}
+    got, again = qmm.qmm_packed_q8x(x, p, s, **kw), qmm.qmm_packed_q8x(x, p, s, **kw)
+    want = qmm.qmm_packed_q8x_plain(x, p, s, **kw)
     torch.cuda.synchronize()
     assert torch.equal(xq, pq) and torch.equal(d, pd)
     assert torch.equal(got, again)
@@ -345,6 +466,24 @@ def test_bf16_integer_group_dot_is_exact(case):
         for j in order:
             acc = acc + prods[:, j]
         np.testing.assert_array_equal(acc.numpy().astype(np.int64), want)
+
+
+@pytest.mark.parametrize("k", [256, 1024, 704])
+def test_q8x_tile_prep_16_groups_orders_four_groups_a_step(k):
+    """At 16-groups a tile step holds four groups: xa is laid out as at
+    32-groups, and dx holds the step's two low-panel groups' d, then its two
+    high-panel groups', bit for bit the quantizer's."""
+    x = torch.from_numpy(_tie_rows(k))
+    xq, d = qmm.quantize_q8x_plain(x, 16)
+    xa, dx = qmm.q8x_tile_prep_plain(x, 16)
+    b, steps = 3, k // 64
+    assert tuple(dx.shape) == (b, k // 16)
+    st = dx.reshape(b, steps, 4)
+    got_d = torch.cat([st[:, :, 0:2].reshape(b, -1), st[:, :, 2:4].reshape(b, -1)], 1)
+    np.testing.assert_array_equal(got_d.numpy().view(np.uint32), d.numpy().view(np.uint32))
+    steps_q = xa.float().reshape(b, steps, 2, 32)
+    got_q = torch.cat([steps_q[:, :, 0], steps_q[:, :, 1]], 1).reshape(b, k).to(torch.int8)
+    assert torch.equal(got_q, xq)
 
 
 @pytest.mark.parametrize("k", [256, 1024, 704])

@@ -2,8 +2,6 @@
 package's Pallas kernels in interpret mode, and the routing by layout and row
 count."""
 
-import dataclasses
-
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -214,12 +212,12 @@ def test_int8_plain_matches_pallas_interpret(b, gsize, bias):
 
 def _layouts(n, k, seed):
     """One weight of each layout, as (port QTensor, JAX QTensor): q4_0
-    (packed, no bias), q4_K (packed with bias), q6_K (int8), q5_K (int8 with
-    bias)."""
+    (packed, no bias), q3_K (packed, no bias, zero 4, 16-groups), q4_K
+    (packed with bias), q6_K (int8), q5_K (int8 with bias)."""
     rng = np.random.default_rng(seed)
     w = (rng.standard_normal((n, k)) * 0.05).astype(np.float32)
     out = {}
-    for name in ("Q4_0", "Q4_K", "Q6_K", "Q5_K"):
+    for name in ("Q4_0", "Q3_K", "Q4_K", "Q6_K", "Q5_K"):
         blocks = quantize(w, JaxGGMLType[name])
         mine = np.frombuffer(blocks.tobytes(),
                              dtype=type_traits(GGMLType[name]).block_dtype)
@@ -237,58 +235,160 @@ _JAX_KERNEL = {("qmm_packed", False, False): "qmm_packed",
                ("qmm", False, True): "qmm_int8_bias"}
 
 
-@pytest.mark.parametrize("b", [1, 8, 32, 33, 64])
-def test_routing_matches_jax_dispatch(monkeypatch, b):
-    """For each layout and row count the port calls the kernel that the JAX
-    dispatch's default TPU route calls (recorded, not run)."""
-    n, k = 128, 512
-    x = _x(b, k, seed=b)
-    for name, (w, jw) in _layouts(n, k, seed=1).items():
-        jax_calls, calls = [], []
+def _record_routes(monkeypatch, x, w, jw):
+    """(the port's kernel calls, the JAX dispatch's Pallas calls) of one
+    q_matmul each, the JAX ones recorded and not run, and the port's output
+    (on the CPU the wrappers run their plain versions)."""
+    jax_calls, calls = [], []
 
-        def rec_packed(x2, lv, gs, gb=None, **kw):
-            jax_calls.append(("qmm_packed", bool(kw.get("kfold")), gb is not None))
-            return jnp.zeros((x2.shape[0], lv.shape[1]), jnp.float32)
+    def rec_packed(x2, lv, gs, gb=None, **kw):
+        jax_calls.append(("qmm_packed", bool(kw.get("kfold")), gb is not None))
+        return jnp.zeros((x2.shape[0], lv.shape[1]), jnp.float32)
 
-        def rec_qmm(x2, lv, gs, gb=None, **kw):
-            jax_calls.append(("qmm", False, gb is not None))
-            return jnp.zeros((x2.shape[0], lv.shape[1]), jnp.float32)
+    def rec_qmm(x2, lv, gs, gb=None, **kw):
+        jax_calls.append(("qmm", False, gb is not None))
+        return jnp.zeros((x2.shape[0], lv.shape[1]), jnp.float32)
 
-        monkeypatch.setattr(jax_qmatmul, "qmm_packed", rec_packed)
-        monkeypatch.setattr(jax_qmatmul, "qmm", rec_qmm)
+    with monkeypatch.context() as m:
+        m.setattr(jax_qmatmul, "qmm_packed", rec_packed)
+        m.setattr(jax_qmatmul, "qmm", rec_qmm)
         jax_qmatmul.q_matmul(jnp.asarray(x), jw, use_pallas=True)
         for fn in _JAX_KERNEL.values():
             orig = getattr(qmatmul, fn)
-            monkeypatch.setattr(qmatmul, fn,
-                                lambda *a, _n=fn, _o=orig, **kw: calls.append(_n)
-                                or _o(*a, **kw))
-        qmatmul.q_matmul(torch.from_numpy(x), w)
-        assert len(jax_calls) == 1, name
-        assert calls == [_JAX_KERNEL[jax_calls[0]]], (name, b, calls, jax_calls)
-        monkeypatch.undo()
+            m.setattr(qmatmul, fn, lambda *a, _n=fn, _o=orig, **kw: calls.append(_n)
+                      or _o(*a, **kw))
+        out = qmatmul.q_matmul(torch.from_numpy(x), w)
+    return calls, jax_calls, out
 
 
-@pytest.mark.parametrize("zero,gsize", [(7, 32), (4, 16), (8, 16)])
-@pytest.mark.parametrize("b", [1, 64])
-def test_other_pack_zero_raises_on_q4_0_route(zero, gsize, b):
-    """A packed weight without a bias whose zero or group size is not q4_0's
-    raises on the K1/K2 route instead of being computed as q4_0."""
-    packed, scales = _weight(128, 512, seed=2)
-    g2p = packed.shape[0] // gsize
-    w = QTensor(levels_t=torch.from_numpy(packed),
-                gscale_t=torch.zeros((2, g2p, 128)), gsize=gsize,
-                qtype=GGMLType.Q3_K, shape=(128, 512), pack_zero=zero)
-    x = torch.from_numpy(_x(b, 512, seed=3))
-    with pytest.raises(NotImplementedError, match="zero 8 and 32-groups"):
-        qmatmul.q_matmul(x, w)
-    assert not qmatmul.use_kfold(1, dataclasses.replace(
-        w, gbias_t=torch.zeros_like(w.gscale_t)))
+# the JAX switches that move a packed call between K1 and K2, as (variable,
+# value) pairs set together; () leaves them unset
+KFOLD_ENVS = [(), (("QMM_KFOLD", "0"),), (("QMM_KFOLD", "1"),),
+              (("QMM_KFOLD_MAX_B", "8"),)]
 
 
-def test_q3_k_file_raises_at_load(tmp_path):
-    """q3_K packs as symmetric nibbles (zero 4, 16-groups), which K1/K2 do
-    not take: loading such a file raises and names the tensor's type."""
+@pytest.mark.parametrize("b", [1, 8, 32, 33, 64])
+def test_routing_matches_jax_dispatch(monkeypatch, b):
+    """For each layout and row count the port calls the kernel that the JAX
+    dispatch's TPU route calls (recorded, not run), with the kfold switches
+    unset, QMM_KFOLD=0, QMM_KFOLD=1 and QMM_KFOLD_MAX_B=8.  Outside the
+    kernels' gate (N = 32001, a vocabulary with one added token; K = 8640,
+    w2 at n_ff 8640) the JAX dispatch calls no Pallas kernel, the port no
+    kernel either, and its output is the JAX ``_xla_qmm`` in bf16 up to f32
+    summation order (1e-5 of the output scale: sums of up to 8640 terms)."""
+    for env in KFOLD_ENVS:
+        monkeypatch.delenv("QMM_KFOLD", raising=False)
+        monkeypatch.delenv("QMM_KFOLD_MAX_B", raising=False)
+        for key, value in env:
+            monkeypatch.setenv(key, value)
+        x = _x(b, 512, seed=b)
+        for name, (w, jw) in _layouts(128, 512, seed=1).items():
+            calls, jax_calls, _ = _record_routes(monkeypatch, x, w, jw)
+            assert len(jax_calls) == 1, (name, env)
+            assert calls == [_JAX_KERNEL[jax_calls[0]]], (name, b, env, calls, jax_calls)
+    for n, k in ((32001, 256), (128, 8640)):
+        x = _x(b, k, seed=b + 1)
+        for name, (w, jw) in _random_layouts(n, k, seed=2).items():
+            calls, jax_calls, out = _record_routes(monkeypatch, x, w, jw)
+            assert calls == [] and jax_calls == [], (name, n, k, calls, jax_calls)
+            want = np.asarray(jax_qmatmul._xla_qmm(jnp.asarray(x), jw, jnp.bfloat16))
+            assert out.shape == (b, n)
+            np.testing.assert_allclose(out.numpy(), want, rtol=0,
+                                       atol=1e-5 * np.abs(want).max(), err_msg=name)
+
+
+def _random_layouts(n, k, seed):
+    """Random arrays in each device layout, as (port QTensor, JAX QTensor)
+    pairs (no quantizer runs, so any N and K the layout divides): packed
+    without a bias (q4_0's zero 8 and 32-groups, q3_K's zero 4 and
+    16-groups), packed with a bias (q4_K), int8 (q6_K) and int8 with a bias
+    (q5_K)."""
+    out = {}
+    for name, packed, gsize, zero, bias in (("Q4_0", True, 32, 8, False),
+                                            ("Q3_K", True, 16, 4, False),
+                                            ("Q4_K", True, 32, 0, True),
+                                            ("Q6_K", False, 16, None, False),
+                                            ("Q5_K", False, 32, None, True)):
+        if packed:
+            lv, sc, gb = _packed_affine(n, k, gsize, zero or 0, seed)
+        else:
+            lv, sc, gb = _int8_weight(n, k, gsize, seed)
+        gb = gb if bias else None
+        t = torch.from_numpy
+        out[name] = (
+            QTensor(levels_t=t(lv), gscale_t=t(sc), gbias_t=None if gb is None else t(gb),
+                    gsize=gsize, qtype=GGMLType[name], shape=(n, k), pack_zero=zero),
+            JaxQTensor(levels_t=jnp.asarray(lv), gscale_t=jnp.asarray(sc),
+                       gbias_t=None if gb is None else jnp.asarray(gb), gsize=gsize,
+                       qtype=JaxGGMLType[name], shape=(n, k), pack_zero=zero))
+    return out
+
+
+def _packed_symmetric(n, k, gsize, zero, seed):
+    """Random split-half nibbles and scale planes of a packed weight without
+    a bias (padding zero): levels nibble - zero, in [-zero, 15 - zero]."""
+    packed, scales, _ = _packed_affine(n, k, gsize, zero, seed)
+    return packed, scales
+
+
+@pytest.mark.parametrize("b", [1, 8, 33, 64])
+@pytest.mark.parametrize("zero,gsize", [(4, 16), (3, 16), (8, 16), (7, 32)])
+def test_any_pack_zero_plain_matches_pallas_interpret(b, zero, gsize):
+    """K1 and K2 on any pack zero and group size (q3_K: zero 4, 16-groups):
+    the plain version the dispatch routes the call to (K2 at 32 rows or
+    fewer, K1 above) against the Pallas kernel in interpret mode with kfold
+    as routed, 2e-6 of the output scale (f32 summation order), and
+    ``q_matmul`` through the wrapper equal to it.  K = 768 pads K/2 = 384 up
+    to 512 packed rows."""
+    n, k = 128, 768
+    packed, scales = _packed_symmetric(n, k, gsize, zero, seed=b + zero + gsize)
+    x = _x(b, k, seed=b)
+    w = QTensor(levels_t=torch.from_numpy(packed), gscale_t=torch.from_numpy(scales),
+                gsize=gsize, qtype=GGMLType.Q3_K, shape=(n, k), pack_zero=zero)
+    kfold = qmatmul.use_kfold(b, w)
+    assert kfold == (b <= 32)
+    want = np.asarray(jax_qmm_packed(
+        jnp.asarray(x), jnp.asarray(packed), jnp.asarray(scales), None, gsize=gsize,
+        zero=zero, block_n=n, block_k=packed.shape[0], kfold=kfold, interpret=True))
+    plain = qmm.qmm_packed_kfold_plain if kfold else qmm.qmm_packed_plain
+    t = torch.from_numpy
+    got = plain(t(x), t(packed), t(scales), zero=zero, gsize=gsize)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=2e-6 * np.abs(want).max())
+    assert torch.equal(qmatmul.q_matmul(t(x), w), got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [1, 8, 33, 64, 512, 2048])
+@pytest.mark.parametrize("zero,gsize", [(4, 16), (3, 16), (7, 32)])
+def test_any_pack_zero_kernels_match_plain_on_card(b, zero, gsize):
+    """On the card: K2 (32 rows or fewer) and K1 (above) on the q3_K layout
+    and other packings at a 7B shape against their plain versions (the
+    limit of test_kernels_match_plain_on_card); above 32 rows two launches
+    bit-identical."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    packed, scales = _packed_symmetric(4096, 4096, gsize, zero, seed=b)
+    x = torch.from_numpy(_x(b, 4096, seed=b)).cuda()
+    p, s = torch.from_numpy(packed).cuda(), torch.from_numpy(scales).cuda()
+    kern, plain = ((qmm.qmm_packed_kfold, qmm.qmm_packed_kfold_plain)
+                   if b <= 32 else (qmm.qmm_packed, qmm.qmm_packed_plain))
+    got, again = kern(x, p, s, zero=zero, gsize=gsize), kern(x, p, s, zero=zero, gsize=gsize)
+    want = plain(x, p, s, zero=zero, gsize=gsize)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= 1e-3 * want.abs().max().item()
+    if b > 32:
+        assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("fuse", [False, True], ids=["unfused", "fused"])
+def test_q3_k_file_loads(tmp_path, fuse):
+    """A q3_K GGJT loads to the JAX loader's arrays byte for byte: packed
+    nibbles with pack zero 4 (levels -4..3) over 16-groups, no bias; fused,
+    QKV and gate/up become one weight each, as in the JAX package."""
     from llama_cpp_q_4_0_tpu.formats.fixtures import make_llama_ggjt
+    from llama_cpp_q_4_0_tpu.formats.ggjt import read_ggjt as jax_read_ggjt
+    from llama_cpp_q_4_0_tpu.models.loading import (
+        config_from_ggjt as jax_config, load_transformer as jax_load)
 
     from llama_cpp_q_4_0_tpu_torch.formats.ggjt import read_ggjt
     from llama_cpp_q_4_0_tpu_torch.models.loading import (config_from_ggjt,
@@ -297,9 +397,18 @@ def test_q3_k_file_raises_at_load(tmp_path):
     path = str(tmp_path / "q3k.ggjt")
     make_llama_ggjt(path, n_embd=256, n_mult=256, n_head=2, n_vocab=256,
                     n_layer=1, qtype=JaxGGMLType.Q3_K)
-    gf = read_ggjt(path)
-    with pytest.raises(NotImplementedError, match="Q3_K packs with zero 4"):
-        load_transformer(gf, config_from_ggjt(gf), device="cpu")
+    gf, jgf = read_ggjt(path), jax_read_ggjt(path)
+    tp = load_transformer(gf, config_from_ggjt(gf), device="cpu", fuse=fuse)
+    jp = jax_load(jgf, jax_config(jgf), fuse=fuse)
+    fields = ("wqkv", "w_gateup", "wo", "w_down") if fuse else (
+        "wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+    pairs = [(getattr(tp.blocks[0], f), getattr(jp.blocks[0], f)) for f in fields]
+    pairs += [(tp.tok_embeddings, jp.tok_embeddings), (tp.output, jp.output)]
+    for mine, ref in pairs:
+        assert mine.qtype == GGMLType.Q3_K and (mine.pack_zero, mine.gsize) == (4, 16)
+        assert (ref.pack_zero, ref.gsize) == (4, 16) and mine.gbias_t is None
+        np.testing.assert_array_equal(mine.levels_t.numpy(), np.asarray(ref.levels_t))
+        np.testing.assert_array_equal(mine.gscale_t.numpy(), np.asarray(ref.gscale_t))
 
 
 @pytest.mark.gpu
