@@ -10,7 +10,9 @@ the JAX package).  The structure mirrors TransformerParams:
 where a leaf is None, a numpy array (a dense weight), or a dict describing a
 QTensor in either form: {"levels_t", "gscale_t", "gbias_t", "gsize",
 "qtype", "shape", "pack_zero"} with the arrays as numpy (``gbias_t`` None for
-a symmetric format, ``pack_zero`` None for unpacked int8 levels).
+a symmetric format, ``pack_zero`` None for unpacked int8 levels).  float16
+planes (the JAX params after ``cast_scales_f16``) stay float16; any other
+plane becomes float32.
 """
 
 from __future__ import annotations
@@ -34,10 +36,13 @@ def _leaf(v, device: torch.device):
         def put(a, dt):
             return torch.from_numpy(np.array(a, dt)).to(device)
 
+        def plane(a):
+            return put(a, np.float16 if np.asarray(a).dtype == np.float16 else np.float32)
+
         return QTensor(
             levels_t=put(v["levels_t"], np.int8 if pz is None else np.uint8),
-            gscale_t=put(v["gscale_t"], np.float32),
-            gbias_t=None if gb is None else put(gb, np.float32),
+            gscale_t=plane(v["gscale_t"]),
+            gbias_t=None if gb is None else plane(gb),
             gsize=int(v["gsize"]), qtype=GGMLType(int(v["qtype"])),
             shape=tuple(int(s) for s in v["shape"]),
             pack_zero=None if pz is None else int(pz))

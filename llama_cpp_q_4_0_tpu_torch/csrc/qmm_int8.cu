@@ -7,8 +7,10 @@
 // kernels (qmm_int8, qmm_int8_bias).
 //
 // Layout (ops/qtensor.py of the port, unpacked form): levels int8 [K, N]
-// (W^T, one signed level per byte), scales f32 [K/GS, N], the affine bias
-// f32 [K/GS, N], GS = 16 (q6_K) or 32.  W^T[k, n] = level * scale (+ bias).
+// (W^T, one signed level per byte), scales [K/GS, N], the affine bias
+// [K/GS, N], both f32, f16 or bf16 (the scode argument: ScaleCode of
+// qmm_common.cuh), GS = 16 (q6_K) or 32.  W^T[k, n] = level * scale
+// (+ bias).  Both forms widen a plane value to f32 as they load it.
 // Callers guarantee K % 64 == 0, N % 16 == 0, 16-byte aligned contiguous
 // tensors (ops/qmm.py checks).
 //
@@ -48,7 +50,7 @@ struct Int8Deq {
   static constexpr int PERM = 0;
   static constexpr int W_ROWS = 64;
   static constexpr int S_ROWS = 64 / GS;
-  static constexpr uint32_t MAIN_BYTES = 64 * tile::TN + S_ROWS * tile::TN * 4;
+  static constexpr uint32_t main_bytes(int es) { return 64 * tile::TN + S_ROWS * tile::TN * es; }
 
   __device__ static void load(uint32_t raw, const CUtensorMap* w, const CUtensorMap* s, int v,
                               int n0, uint32_t bar) {
@@ -56,13 +58,14 @@ struct Int8Deq {
     tile::tma_load(raw + tile::SCALE_OFF, s, n0, S_ROWS * v, bar);
   }
 
+  template <int SC>
   __device__ static void dequant(const uint8_t* __restrict__ raw, uint8_t* __restrict__ bs,
                                  int t, float) {
     const int c = (t & 15) * 8, r0 = t >> 4;
-    const float* sc = reinterpret_cast<const float*>(raw + tile::SCALE_OFF);
     float s[S_ROWS][8];
 #pragma unroll
-    for (int g = 0; g < S_ROWS; ++g) load8(sc + g * tile::TN + c, s[g]);
+    for (int g = 0; g < S_ROWS; ++g)
+      load8s<SC>(raw + tile::SCALE_OFF, g * tile::TN + c, s[g]);
 #pragma unroll
     for (int p = 0; p < 8; ++p) {
       const int k = r0 + 8 * p, g = 8 * p / GS;
@@ -82,8 +85,8 @@ struct Int8Deq {
 template <int NB, int GS, bool BIAS>
 __global__ void __launch_bounds__(GEMV_WARPS * 32)
 qmm_int8_gemv_kernel(const float* __restrict__ x, const int8_t* __restrict__ levels,
-                     const float* __restrict__ scales, const float* __restrict__ bias,
-                     float* __restrict__ partial, int B, int K, int N) {
+                     const void* __restrict__ scales, const void* __restrict__ bias,
+                     float* __restrict__ partial, int B, int K, int N, int scode) {
   constexpr int NG = 32 / GS;  // groups per 32-row step
   __shared__ float red[GEMV_WARPS][GEMV_TILE_N];
   const int lane = threadIdx.x & 31;
@@ -101,8 +104,8 @@ qmm_int8_gemv_kernel(const float* __restrict__ x, const int8_t* __restrict__ lev
   if (t_ok && col_ok) {
 #pragma unroll
     for (int h = 0; h < NG; ++h) {
-      load8(scales + (size_t)(t * NG + h) * N + n, s[h]);
-      if (BIAS) load8(bias + (size_t)(t * NG + h) * N + n, bi[h]);
+      load8s(scales, (size_t)(t * NG + h) * N + n, scode, s[h]);
+      if (BIAS) load8s(bias, (size_t)(t * NG + h) * N + n, scode, bi[h]);
     }
   }
 
@@ -164,17 +167,17 @@ qmm_int8_gemv_kernel(const float* __restrict__ x, const int8_t* __restrict__ lev
 }
 
 template <int GS, bool BIAS>
-cudaError_t launch_gemv(const float* x, const int8_t* levels, const float* scales,
-                        const float* bias, float* partial, float* out, int B, int K,
-                        int N, cudaStream_t st) {
+cudaError_t launch_gemv(const float* x, const int8_t* levels, const void* scales,
+                        const void* bias, float* partial, float* out, int B, int K,
+                        int N, int scode, cudaStream_t st) {
   const int n_split = gemv_splits(K / 32);
   dim3 grid((N + GEMV_TILE_N - 1) / GEMV_TILE_N, n_split);
   if (B == 1)
     qmm_int8_gemv_kernel<1, GS, BIAS><<<grid, GEMV_WARPS * 32, 0, st>>>(
-        x, levels, scales, bias, partial, B, K, N);
+        x, levels, scales, bias, partial, B, K, N, scode);
   else
     qmm_int8_gemv_kernel<8, GS, BIAS><<<grid, GEMV_WARPS * 32, 0, st>>>(
-        x, levels, scales, bias, partial, B, K, N);
+        x, levels, scales, bias, partial, B, K, N, scode);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return gemv_reduce(partial, out, n_split, B * N, st);
@@ -182,14 +185,18 @@ cudaError_t launch_gemv(const float* x, const int8_t* levels, const float* scale
 
 // scratch: the decode form's partial sums (B <= 32) or the tile's (splits > 1)
 template <int GS>
-cudaError_t launch_int8(const float* x, const int8_t* levels, const float* scales,
-                        const float* bias, float* scratch, void* xa, float* out, int B, int K,
-                        int N, int bm, int splits, int ka, cudaStream_t st) {
-  if (B <= 32)
-    return bias ? launch_gemv<GS, true>(x, levels, scales, bias, scratch, out, B, K, N, st)
-                : launch_gemv<GS, false>(x, levels, scales, bias, scratch, out, B, K, N, st);
+cudaError_t launch_int8(const float* x, const int8_t* levels, const void* scales,
+                        const void* bias, float* scratch, void* xa, float* out, int B, int K,
+                        int N, int bm, int splits, int ka, int scode, cudaStream_t st) {
+  if (B <= 32) {
+    if (scode < SCALE_F32 || scode > SCALE_BF16) return cudaErrorInvalidValue;
+    return bias ? launch_gemv<GS, true>(x, levels, scales, bias, scratch, out, B, K, N, scode, st)
+                : launch_gemv<GS, false>(x, levels, scales, bias, scratch, out, B, K, N, scode,
+                                         st);
+  }
   return tile::launch<Int8Deq<GS>>(x, levels, K, scales, K / GS, bias, (__nv_bfloat16*)xa,
-                                   scratch, out, B, K, N, 1, GS, 0, 0.0f, bm, splits, ka, st);
+                                   scratch, out, B, K, N, 1, GS, 0, 0.0f, bm, splits, ka, scode,
+                                   st);
 }
 
 }  // namespace
@@ -204,21 +211,19 @@ int qmm_int8_splits(int K) { return gemv_splits(K / 32); }
 // the K splits' partial sums (qmm_int8_splits(K) x B x N floats) and xa is
 // unused; above, the prefill tile with the seed fused: xa bf16 [B, ka],
 // scratch f32 [splits, B, N] when splits > 1 (bm, splits and ka from
-// ops/qmm.py::tile_plan).
+// ops/qmm.py::tile_plan).  scode: the dtype of scales and bias (ScaleCode).
 int qmm_int8(const void* x, const void* levels, const void* scales, const void* bias,
              void* scratch, void* xa, void* out, int B, int K, int N, int gsize, int bm,
-             int splits, int ka, void* stream) {
+             int splits, int ka, int scode, void* stream) {
   const float* xf = (const float*)x;
   const int8_t* lv = (const int8_t*)levels;
-  const float* sc = (const float*)scales;
-  const float* bi = (const float*)bias;
   const cudaStream_t st = (cudaStream_t)stream;
   if (gsize == 32)
-    return (int)launch_int8<32>(xf, lv, sc, bi, (float*)scratch, xa, (float*)out, B, K, N, bm,
-                                splits, ka, st);
+    return (int)launch_int8<32>(xf, lv, scales, bias, (float*)scratch, xa, (float*)out, B, K, N,
+                                bm, splits, ka, scode, st);
   if (gsize == 16)
-    return (int)launch_int8<16>(xf, lv, sc, bi, (float*)scratch, xa, (float*)out, B, K, N, bm,
-                                splits, ka, st);
+    return (int)launch_int8<16>(xf, lv, scales, bias, (float*)scratch, xa, (float*)out, B, K, N,
+                                bm, splits, ka, scode, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -12,8 +12,10 @@
 //
 // Layout (ops/qtensor.py of the port): packed uint8 [K2P, N], byte [r, n] holds
 // row r of W^T in its low nibble and row r + K/2 in its high nibble, each a
-// level plus the pack zero; scales (and the affine bias) f32 [2, K2P/GS, N],
-// plane 0 for the low panel and plane 1 for the high panel, GS = 32 or 16.
+// level plus the pack zero; scales (and the affine bias) [2, K2P/GS, N] of
+// f32, f16 or bf16 (the scode argument: ScaleCode of qmm_common.cuh, one
+// dtype for both), plane 0 for the low panel and plane 1 for the high panel,
+// GS = 32 or 16.  Every form widens a plane value to f32 as it loads it.
 // Rows K/2..K2P are padding: the kernels loop over the real K/2 rows only.
 // Callers guarantee K % 64 == 0, N % 16 == 0, 16-byte aligned contiguous
 // tensors (ops/qmm.py checks).
@@ -63,7 +65,7 @@ struct PackedDeq {
   static constexpr int PERM = 1;
   static constexpr int W_ROWS = 32;
   static constexpr int S_ROWS = 32 / GS;
-  static constexpr uint32_t MAIN_BYTES = 32 * tile::TN + 2 * S_ROWS * tile::TN * 4;
+  static constexpr uint32_t main_bytes(int es) { return 32 * tile::TN + 2 * S_ROWS * tile::TN * es; }
 
   // s: the scales as a 3-D map [2, G2P, N], one box for both planes' rows
   __device__ static void load(uint32_t raw, const CUtensorMap* w, const CUtensorMap* s, int v,
@@ -74,16 +76,17 @@ struct PackedDeq {
 
   // thread t: columns c .. c+8, packed rows r0 + 8p; a nibble becomes
   // (nibble - zero) exactly as the low mantissa bits of 2^23 minus 2^23 + zero
+  template <int SC>
   __device__ static void dequant(const uint8_t* __restrict__ raw, uint8_t* __restrict__ bs,
                                  int t, float zero_arg) {
     const float off = 8388608.0f + (Q4_0 ? 8.0f : zero_arg);
     const int c = (t & 15) * 8, r0 = t >> 4;
-    const float* sc = reinterpret_cast<const float*>(raw + tile::SCALE_OFF);
+    const uint8_t* sc = raw + tile::SCALE_OFF;
     float sl[S_ROWS][8], sh[S_ROWS][8];
 #pragma unroll
     for (int g = 0; g < S_ROWS; ++g) {
-      load8(sc + g * tile::TN + c, sl[g]);
-      load8(sc + (S_ROWS + g) * tile::TN + c, sh[g]);
+      load8s<SC>(sc, g * tile::TN + c, sl[g]);
+      load8s<SC>(sc, (S_ROWS + g) * tile::TN + c, sh[g]);
     }
 #pragma unroll
     for (int p = 0; p < 4; ++p) {
@@ -112,9 +115,9 @@ struct PackedDeq {
 template <int NB, int GS, bool FOLD>
 __global__ void __launch_bounds__(GEMV_WARPS * 32)
 qmm_packed_gemv_kernel(const float* __restrict__ x, const uint8_t* __restrict__ packed,
-                       const float* __restrict__ scales, const float* __restrict__ bias,
+                       const void* __restrict__ scales, const void* __restrict__ bias,
                        float* __restrict__ partial, int B, int K, int N, int G2P,
-                       float zero) {
+                       float zero, int scode) {
   constexpr int NG = 32 / GS;  // groups per 32-row step
   __shared__ float red[GEMV_WARPS][GEMV_TILE_N];
   const int lane = threadIdx.x & 31;
@@ -134,11 +137,11 @@ qmm_packed_gemv_kernel(const float* __restrict__ x, const uint8_t* __restrict__ 
 #pragma unroll
     for (int h = 0; h < NG; ++h) {
       const int g = t * NG + h;
-      load8(scales + (size_t)g * N + n, sl[h]);
-      load8(scales + ((size_t)G2P + g) * N + n, sh[h]);
+      load8s(scales, (size_t)g * N + n, scode, sl[h]);
+      load8s(scales, ((size_t)G2P + g) * N + n, scode, sh[h]);
       if (!FOLD) {
-        load8(bias + (size_t)g * N + n, bl[h]);
-        load8(bias + ((size_t)G2P + g) * N + n, bh[h]);
+        load8s(bias, (size_t)g * N + n, scode, bl[h]);
+        load8s(bias, ((size_t)G2P + g) * N + n, scode, bh[h]);
       }
     }
   }
@@ -226,19 +229,19 @@ qmm_packed_gemv_kernel(const float* __restrict__ x, const uint8_t* __restrict__ 
 }
 
 template <int GS, bool FOLD>
-cudaError_t launch_gemv(const float* x, const uint8_t* packed, const float* scales,
-                        const float* bias, float* partial, float* out, int B, int K,
-                        int N, int G2P, float zero, cudaStream_t st) {
+cudaError_t launch_gemv(const float* x, const uint8_t* packed, const void* scales,
+                        const void* bias, float* partial, float* out, int B, int K,
+                        int N, int G2P, float zero, int scode, cudaStream_t st) {
   const int n_split = gemv_splits(K / 2 / 32);
   dim3 grid((N + GEMV_TILE_N - 1) / GEMV_TILE_N, n_split);
   // one row (a decode step), or rows in passes of 8 (the bucket-8 and -32
   // prefill calls and the output head of a batch)
   if (B == 1)
     qmm_packed_gemv_kernel<1, GS, FOLD><<<grid, GEMV_WARPS * 32, 0, st>>>(
-        x, packed, scales, bias, partial, B, K, N, G2P, zero);
+        x, packed, scales, bias, partial, B, K, N, G2P, zero, scode);
   else
     qmm_packed_gemv_kernel<8, GS, FOLD><<<grid, GEMV_WARPS * 32, 0, st>>>(
-        x, packed, scales, bias, partial, B, K, N, G2P, zero);
+        x, packed, scales, bias, partial, B, K, N, G2P, zero, scode);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return gemv_reduce(partial, out, n_split, B * N, st);
@@ -246,13 +249,13 @@ cudaError_t launch_gemv(const float* x, const uint8_t* packed, const float* scal
 
 // packed [K2P = G2P * GS, N], scales and bias [2 * G2P, N]
 template <int GS, bool Q4_0>
-cudaError_t launch_tile(const float* x, const uint8_t* packed, const float* scales,
-                        const float* bias, void* xa, float* partial, float* out, int B, int K,
-                        int N, int G2P, float zero, int bm, int splits, int ka,
+cudaError_t launch_tile(const float* x, const uint8_t* packed, const void* scales,
+                        const void* bias, void* xa, float* partial, float* out, int B, int K,
+                        int N, int G2P, float zero, int bm, int splits, int ka, int scode,
                         cudaStream_t st) {
   return tile::launch<PackedDeq<GS, Q4_0>>(x, packed, G2P * GS, scales, 2 * G2P, bias,
                                            (__nv_bfloat16*)xa, partial, out, B, K, N, 2, GS,
-                                           G2P, zero, bm, splits, ka, st);
+                                           G2P, zero, bm, splits, ka, scode, st);
 }
 
 }  // namespace
@@ -273,71 +276,72 @@ int qmm_tile_smem(int bm) {
 // The prefill tile (B > 32): xa is bf16 scratch [B, ka], partial f32
 // [splits, B, N] when splits > 1; bm, splits and ka from ops/qmm.py::tile_plan.
 // q4_0's (zero 8, 32-groups) takes the compile-time instance; any other zero
-// and group size the runtime-zero tile with no seed.
+// and group size the runtime-zero tile with no seed.  scode: the scale
+// planes' dtype (ScaleCode), in every entry point below.
 int qmm_q4_0(const void* x, const void* packed, const void* scales, void* xa, void* partial,
              void* out, int B, int K, int N, int G2P, int zero, int gsize, int bm, int splits,
-             int ka, void* stream) {
+             int ka, int scode, void* stream) {
   const float* xf = (const float*)x;
   const uint8_t* pk = (const uint8_t*)packed;
-  const float* sc = (const float*)scales;
   float* part = (float*)partial;
   float* o = (float*)out;
   const cudaStream_t st = (cudaStream_t)stream;
   const float z = (float)zero;
   if (zero == 8 && gsize == 32)
-    return (int)launch_tile<32, true>(xf, pk, sc, nullptr, xa, part, o, B, K, N, G2P, 8.0f, bm,
-                                      splits, ka, st);
+    return (int)launch_tile<32, true>(xf, pk, scales, nullptr, xa, part, o, B, K, N, G2P, 8.0f,
+                                      bm, splits, ka, scode, st);
   if (gsize == 32)
-    return (int)launch_tile<32, false>(xf, pk, sc, nullptr, xa, part, o, B, K, N, G2P, z, bm,
-                                       splits, ka, st);
+    return (int)launch_tile<32, false>(xf, pk, scales, nullptr, xa, part, o, B, K, N, G2P, z,
+                                       bm, splits, ka, scode, st);
   if (gsize == 16)
-    return (int)launch_tile<16, false>(xf, pk, sc, nullptr, xa, part, o, B, K, N, G2P, z, bm,
-                                       splits, ka, st);
+    return (int)launch_tile<16, false>(xf, pk, scales, nullptr, xa, part, o, B, K, N, G2P, z,
+                                       bm, splits, ka, scode, st);
   return (int)cudaErrorInvalidValue;
 }
 
 int qmm_q4_0_kfold(const void* x, const void* packed, const void* scales,
                    void* partial, void* out, int B, int K, int N, int G2P, int zero,
-                   int gsize, void* stream) {
+                   int gsize, int scode, void* stream) {
   const float* xf = (const float*)x;
   const uint8_t* pk = (const uint8_t*)packed;
-  const float* sc = (const float*)scales;
   const cudaStream_t st = (cudaStream_t)stream;
+  if (scode < SCALE_F32 || scode > SCALE_BF16) return (int)cudaErrorInvalidValue;
   if (gsize == 32)
-    return (int)launch_gemv<32, true>(xf, pk, sc, nullptr, (float*)partial, (float*)out, B, K,
-                                      N, G2P, (float)zero, st);
+    return (int)launch_gemv<32, true>(xf, pk, scales, nullptr, (float*)partial, (float*)out, B,
+                                      K, N, G2P, (float)zero, scode, st);
   if (gsize == 16)
-    return (int)launch_gemv<16, true>(xf, pk, sc, nullptr, (float*)partial, (float*)out, B, K,
-                                      N, G2P, (float)zero, st);
+    return (int)launch_gemv<16, true>(xf, pk, scales, nullptr, (float*)partial, (float*)out, B,
+                                      K, N, G2P, (float)zero, scode, st);
   return (int)cudaErrorInvalidValue;
 }
 
 // The affine form: the decode shape at B <= 32 (scratch holds the K splits'
 // partial sums, qmm_packed_splits(K) x B x N floats, xa unused), else the
 // prefill tile with the seed fused (scratch: its partial sums when
-// splits > 1; xa, bm, splits, ka as for qmm_q4_0).
+// splits > 1; xa, bm, splits, ka as for qmm_q4_0).  scales and bias share
+// the dtype scode.
 int qmm_packed_bias(const void* x, const void* packed, const void* scales,
                     const void* bias, void* scratch, void* xa, void* out, int B, int K,
                     int N, int G2P, int zero, int gsize, int bm, int splits, int ka,
-                    void* stream) {
+                    int scode, void* stream) {
   const float* xf = (const float*)x;
   const uint8_t* pk = (const uint8_t*)packed;
-  const float* sc = (const float*)scales;
-  const float* bi = (const float*)bias;
   float* o = (float*)out;
   float* part = (float*)scratch;
   const cudaStream_t st = (cudaStream_t)stream;
   const float z = (float)zero;
   if (gsize != 16 && gsize != 32) return (int)cudaErrorInvalidValue;
   if (B <= 32) {
+    if (scode < SCALE_F32 || scode > SCALE_BF16) return (int)cudaErrorInvalidValue;
     return (int)(gsize == 32
-        ? launch_gemv<32, false>(xf, pk, sc, bi, part, o, B, K, N, G2P, z, st)
-        : launch_gemv<16, false>(xf, pk, sc, bi, part, o, B, K, N, G2P, z, st));
+        ? launch_gemv<32, false>(xf, pk, scales, bias, part, o, B, K, N, G2P, z, scode, st)
+        : launch_gemv<16, false>(xf, pk, scales, bias, part, o, B, K, N, G2P, z, scode, st));
   }
   return (int)(gsize == 32
-      ? launch_tile<32, false>(xf, pk, sc, bi, xa, part, o, B, K, N, G2P, z, bm, splits, ka, st)
-      : launch_tile<16, false>(xf, pk, sc, bi, xa, part, o, B, K, N, G2P, z, bm, splits, ka,
-                               st));
+      ? launch_tile<32, false>(xf, pk, scales, bias, xa, part, o, B, K, N, G2P, z, bm, splits,
+                               ka, scode, st)
+      : launch_tile<16, false>(xf, pk, scales, bias, xa, part, o, B, K, N, G2P, z, bm, splits,
+                               ka, scode, st));
 }
 
 }  // extern "C"

@@ -8,7 +8,9 @@
 // reference's quantize_row_q8_0 + ggml_vec_dot_q4_0_q8_0 arithmetic.
 //
 // Layout: packed uint8 [K2P, N] (low nibble row r, high nibble row r + K/2,
-// each level + zero), scales f32 [2, K2P/GS, N] (ops/qtensor.py).  Every
+// each level + zero), scales [2, K2P/GS, N] of f32, f16 or bf16 (the scode
+// argument: ScaleCode of qmm_common.cuh; both forms widen a value to f32 as
+// they load it) (ops/qtensor.py).  Every
 // group's integer dot is exact; the activation quantizer (q8_quantize below)
 // is bit-identical to ops/qmm.py quantize_q8x_plain: GS lanes per group (a
 // warp or a half-warp), amax by shuffles within them, d = amax / 127,
@@ -104,8 +106,9 @@ __device__ __forceinline__ void transpose4(unsigned a, unsigned b, unsigned c, u
 template <int NB, int GS>
 __global__ void __launch_bounds__(GEMV_WARPS * 32)
 q8x_gemv_kernel(const int8_t* __restrict__ xq, const float* __restrict__ dx,
-                const uint8_t* __restrict__ packed, const float* __restrict__ scales,
-                float* __restrict__ partial, int B, int K, int N, int G2P, int zero) {
+                const uint8_t* __restrict__ packed, const void* __restrict__ scales,
+                float* __restrict__ partial, int B, int K, int N, int G2P, int zero,
+                int scode) {
   constexpr int NG = 32 / GS;  // groups of each panel a 32-row step holds
   __shared__ float red[GEMV_WARPS][GEMV_TILE_N];
   const int lane = threadIdx.x & 31;
@@ -125,8 +128,8 @@ q8x_gemv_kernel(const int8_t* __restrict__ xq, const float* __restrict__ dx,
   if (t_ok && col_ok) {
 #pragma unroll
     for (int h = 0; h < NG; ++h) {
-      load8(scales + (size_t)(t * NG + h) * N + n, sl[h]);
-      load8(scales + ((size_t)G2P + t * NG + h) * N + n, sh[h]);
+      load8s(scales, (size_t)(t * NG + h) * N + n, scode, sl[h]);
+      load8s(scales, ((size_t)G2P + t * NG + h) * N + n, scode, sh[h]);
     }
   }
 
@@ -204,16 +207,15 @@ q8x_gemv_kernel(const int8_t* __restrict__ xq, const float* __restrict__ dx,
 // The tile's q8 policy (qmm_tile.cuh): a step is 32 packed rows, the low
 // nibbles giving B rows 0..31 (the step's low groups) and the high nibbles
 // rows 32..63 (its high groups), each as bf16(nib - zero), exact; the step's
-// QG d_w rows (S_ROWS of each plane, in the tile's group order) are copied
-// beside the B tile for the consumers.
+// QG d_w rows (S_ROWS of each plane, in the tile's group order) are widened
+// to f32 (from any of the plane dtypes) beside the B tile for the consumers.
 template <int GS>
 struct Q8Deq {
   static constexpr bool Q8 = true;
   static constexpr int QG = 64 / GS;
   static constexpr int W_ROWS = 32;
   static constexpr int S_ROWS = 32 / GS;
-  static constexpr int DW_BYTES = QG * tile::TN * 4;
-  static constexpr uint32_t MAIN_BYTES = 32 * tile::TN + DW_BYTES;
+  static constexpr uint32_t main_bytes(int es) { return 32 * tile::TN + QG * tile::TN * es; }
 
   // s: the scales as a 3-D map [2, G2P, N], one box for both planes' rows
   __device__ static void load(uint32_t raw, const CUtensorMap* w, const CUtensorMap* s, int v,
@@ -224,6 +226,7 @@ struct Q8Deq {
 
   // thread t: columns c .. c+8 of packed rows r0 + 8p; a nibble becomes
   // nib - zero as the low mantissa bits of 2^23, minus 2^23 + zero
+  template <int SC>
   __device__ static void dequant(const uint8_t* __restrict__ raw, uint8_t* __restrict__ bs,
                                  int t, float zero) {
     const float off = 8388608.0f + zero;
@@ -245,9 +248,17 @@ struct Q8Deq {
           make_uint4(tile::pack_bf16(f[8], f[9]), tile::pack_bf16(f[10], f[11]),
                      tile::pack_bf16(f[12], f[13]), tile::pack_bf16(f[14], f[15]));
     }
-    if (t < DW_BYTES / 16)
-      reinterpret_cast<float4*>(bs + tile::B_BYTES)[t] =
-          reinterpret_cast<const float4*>(raw + tile::SCALE_OFF)[t];
+    if constexpr (SC == SCALE_F32) {  // copied as they are, 4 d_w a thread
+      if (t < QG * tile::TN / 4)
+        reinterpret_cast<float4*>(bs + tile::B_BYTES)[t] =
+            reinterpret_cast<const float4*>(raw + tile::SCALE_OFF)[t];
+    } else if (t < QG * tile::TN / 8) {  // widened, 8 d_w a thread
+      float d[8];
+      load8s<SC>(raw + tile::SCALE_OFF, 8 * t, d);
+      float4* dst = reinterpret_cast<float4*>(bs + tile::B_BYTES) + 2 * t;
+      dst[0] = make_float4(d[0], d[1], d[2], d[3]);
+      dst[1] = make_float4(d[4], d[5], d[6], d[7]);
+    }
   }
 
   static cudaError_t prep(const float* x, __nv_bfloat16* xa, float* dx, int B, int K,
@@ -267,23 +278,24 @@ cudaError_t quantize(const float* x, int8_t* xq, float* d, int B, int K, cudaStr
 
 // both forms at one group size (see qmm_q8x below)
 template <int GS>
-cudaError_t launch(const float* x, const uint8_t* pk, const float* sc, int8_t* q, float* dd,
+cudaError_t launch(const float* x, const uint8_t* pk, const void* sc, int8_t* q, float* dd,
                    float* partial, void* xa, float* out, int B, int K, int N, int G2P, int zero,
-                   int bm, int splits, int ka, cudaStream_t st) {
+                   int bm, int splits, int ka, int scode, cudaStream_t st) {
   if (B > 32)
     return tile::launch<Q8Deq<GS>>(x, pk, G2P * GS, sc, 2 * G2P, nullptr, (__nv_bfloat16*)xa,
                                     partial, out, B, K, N, 2, GS, G2P, (float)zero, bm, splits,
-                                    ka, st, dd);
+                                    ka, scode, st, dd);
+  if (scode < SCALE_F32 || scode > SCALE_BF16) return cudaErrorInvalidValue;
   cudaError_t err = quantize<GS>(x, q, dd, B, K, st);
   if (err != cudaSuccess) return err;
   const int n_split = gemv_splits(K / 2 / 32);
   dim3 grid((N + GEMV_TILE_N - 1) / GEMV_TILE_N, n_split);
   if (B == 1)
     q8x_gemv_kernel<1, GS><<<grid, GEMV_WARPS * 32, 0, st>>>(q, dd, pk, sc, partial, B, K, N,
-                                                            G2P, zero);
+                                                            G2P, zero, scode);
   else
     q8x_gemv_kernel<4, GS><<<grid, GEMV_WARPS * 32, 0, st>>>(q, dd, pk, sc, partial, B, K, N,
-                                                            G2P, zero);
+                                                            G2P, zero, scode);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return gemv_reduce(partial, out, n_split, B * N, st);
@@ -317,24 +329,24 @@ int q8x_quantize(const void* x, void* xq, void* d, int B, int K, int gsize, void
 // d: f32 [B, K/gsize] scratch.  At 32 rows or fewer xq is int8 [B, K]
 // scratch and partial [qmm_q8x_splits(K), B, N] f32 (xa unused); above, the
 // tile: xa bf16 [B, ka] scratch, partial f32 [splits, B, N] when splits > 1,
-// and bm, splits, ka from ops/qmm.py::tile_plan (xq unused).
+// and bm, splits, ka from ops/qmm.py::tile_plan (xq unused).  scode: the
+// scales' dtype (ScaleCode).
 int qmm_q8x(const void* x, const void* packed, const void* scales, void* xq, void* d,
             void* partial, void* xa, void* out, int B, int K, int N, int G2P, int zero,
-            int gsize, int bm, int splits, int ka, void* stream) {
+            int gsize, int bm, int splits, int ka, int scode, void* stream) {
   const float* xf = (const float*)x;
   const uint8_t* pk = (const uint8_t*)packed;
-  const float* sc = (const float*)scales;
   int8_t* q = (int8_t*)xq;
   float* dd = (float*)d;
   float* part = (float*)partial;
   float* o = (float*)out;
   const cudaStream_t st = (cudaStream_t)stream;
   if (gsize == 32)
-    return (int)launch<32>(xf, pk, sc, q, dd, part, xa, o, B, K, N, G2P, zero, bm, splits, ka,
-                           st);
+    return (int)launch<32>(xf, pk, scales, q, dd, part, xa, o, B, K, N, G2P, zero, bm, splits, ka,
+                           scode, st);
   if (gsize == 16)
-    return (int)launch<16>(xf, pk, sc, q, dd, part, xa, o, B, K, N, G2P, zero, bm, splits, ka,
-                           st);
+    return (int)launch<16>(xf, pk, scales, q, dd, part, xa, o, B, K, N, G2P, zero, bm, splits, ka,
+                           scode, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -16,7 +16,14 @@
 //  * Asynchronous rings: one producer thread keeps A_STAGES x tiles in flight
 //    (TMA boxes, 128-byte swizzle), another R_STAGES steps of weight bytes
 //    and scale rows (or the bias rows of a seed step), each behind full/empty
-//    mbarriers.
+//    mbarriers.  The scale and bias rows are copied in the planes' own dtype
+//    (Params::scode: f32, f16 or bf16; a 2-byte row of TN is 256 bytes, and
+//    fits the f32-sized region of a raw slot) and widened to f32 where the
+//    dequantizers read them, so the arithmetic after the load is the same for
+//    all three.  The dequantizers' loop is compiled once for each dtype in
+//    the same kernel: a branch on the code in every step's loads showed in
+//    the tile's times on the card, and one kernel per dtype would triple the
+//    instances and their build time.
 //  * Two dequantizing warpgroups, taking alternate steps, turn each step's
 //    weight bytes into a 64 x 128 bf16 tile in shared memory (MN-major,
 //    128-byte swizzle, the layout wgmma reads B from), rounded exactly as the
@@ -75,7 +82,7 @@ constexpr int TN = 128;          // output columns of a unit
 constexpr int STEP = 64;         // logical K rows per pipeline step
 constexpr int SEED_G = 16;       // groups per seed step
 constexpr int RAW_BYTES = 10240; // weight bytes + scale rows, or 16 bias rows
-constexpr int SCALE_OFF = 8192;  // scale rows inside a raw slot
+constexpr int SCALE_OFF = 8192;  // scale rows inside a raw slot (f32-sized)
 constexpr int B_BYTES = STEP * TN * 2;
 constexpr int B_SLOTS = 4;
 constexpr int PREP_THREADS = 256;
@@ -130,6 +137,9 @@ struct Params {
   float zero;          // the pack zero (packed layouts)
   const float* dx;     // q8 mode: the activations' d [B, dx_cols]
   int dx_cols;
+  int scode;           // the scale and bias planes' dtype (ScaleCode)
+  uint32_t main_bytes; // the TMA bytes of a main step: Deq::main_bytes
+  uint32_t seed_bytes; // and of a seed step: SEED_G bias rows
 };
 
 // ------------------------------------------- shared-memory layouts, wgmma
@@ -218,20 +228,20 @@ prep_kernel(const float* __restrict__ x, __nv_bfloat16* __restrict__ xa, int K, 
 }
 
 // ------------------------------------------------------------- seed steps
-// 16 bias rows f32 [16][TN] (groups g0 ..) -> B rows [hi, lo, hi, lo] of
-// them in bf16, against A's [hi, hi, lo, lo] of xg: the four products
+// 16 bias rows [16][TN] of dtype SC (groups g0 ..) -> B rows [hi, lo, hi,
+// lo] of them in bf16, against A's [hi, hi, lo, lo] of xg: the four products
 // hi.hi + hi.lo + lo.hi + lo.lo of each group.  Groups past the plane's
 // are zero.
+template <int SC>
 __device__ __forceinline__ void seed_dequant(const uint8_t* __restrict__ raw,
                                              uint8_t* __restrict__ bs, int t, int g0,
                                              int groups) {
   const int c = (t & 15) * 8, r0 = t >> 4;
-  const float* b = reinterpret_cast<const float*>(raw);
 #pragma unroll
   for (int p = 0; p < 2; ++p) {
     const int j = r0 + 8 * p;
     float v[8];
-    load8(b + j * TN + c, v);
+    load8s<SC>(raw, j * TN + c, v);
     if (g0 + j >= groups) {
 #pragma unroll
       for (int e = 0; e < 8; ++e) v[e] = 0.0f;
@@ -401,10 +411,11 @@ __device__ __forceinline__ void q8_consumer(const Params& p, uint32_t sbase, uin
 }
 
 // ----------------------------------------------------------------- kernel
-// Deq: the layout's policy.  Deq::MAIN_BYTES, the bytes of a main step's
-// weight and scale boxes; Deq::load issues them; Deq::dequant writes the
-// step's 64 x TN bf16 B tile (thread t of the dequantizing warpgroup).  A q8
-// policy also names Deq::QG, its groups a step.
+// Deq: the layout's policy.  Deq::main_bytes(es), the bytes of a main step's
+// weight and scale boxes at es bytes a plane value; Deq::load issues them;
+// Deq::dequant<SC> writes the step's 64 x TN bf16 B tile (thread t of the
+// dequantizing warpgroup) from scale rows of dtype SC.  A q8 policy also
+// names Deq::QG, its groups a step.
 template <class Deq>
 constexpr int qg_of() {
   if constexpr (Deq::Q8)
@@ -415,6 +426,45 @@ constexpr int qg_of() {
 
 template <int BM, class Deq>
 using ShapeOf = Shape<BM, Deq::Q8, qg_of<Deq>()>;
+
+// Dequantizing warpgroup d (t its thread): every ND-th step of the units, on
+// scale and bias rows of dtype SC.
+template <class S, class Deq, int SC>
+__device__ __forceinline__ void dequantizer(const Params& p, const uint8_t* raw0, uint8_t* b0,
+                                            uint32_t bar0, int d, int t) {
+  auto full_r = [&](int s) { return bar0 + 8 * (2 * S::A_STAGES + s); };
+  auto empty_r = [&](int s) { return bar0 + 8 * (2 * S::A_STAGES + S::R_STAGES + s); };
+  auto full_b = [&](int r) { return bar0 + 8 * (2 * S::A_STAGES + 2 * S::R_STAGES + r); };
+  auto empty_b = [&](int r) {
+    return bar0 + 8 * (2 * S::A_STAGES + 2 * S::R_STAGES + B_SLOTS + r);
+  };
+  int it = 0;
+  for (int u = blockIdx.x; u < p.units; u += gridDim.x) {
+    const int split = u % p.splits;
+    const int lo = split * p.steps / p.splits, hi = (split + 1) * p.steps / p.splits;
+    for (int v = lo; v < hi; ++v, ++it) {
+      if (it % S::ND != d) continue;
+      const int s = it % S::R_STAGES, r = it % B_SLOTS;
+      mbar_wait(full_r(s), (it / S::R_STAGES) & 1);
+      mbar_wait(empty_b(r), ((it / B_SLOTS) & 1) ^ 1);
+      const uint8_t* raw = raw0 + s * RAW_BYTES;
+      uint8_t* bs = b0 + r * S::B_SLOT;
+      if (v < p.main_steps)
+        Deq::template dequant<SC>(raw, bs, t, p.zero);
+      else
+        seed_dequant<SC>(raw, bs, t, ((v - p.main_steps) % p.chunks) * SEED_G, p.groups);
+      // each thread makes its stores visible to wgmma (the async proxy),
+      // the warpgroup meets at a named barrier, one thread signals: 128
+      // arrivals on one mbarrier would serialize
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      asm volatile("bar.sync %0, 128;" ::"r"(1 + d) : "memory");
+      if (t == 0) {
+        mbar_arrive(full_b(r));
+        mbar_arrive(empty_r(s));
+      }
+    }
+  }
+}
 
 template <int BM, class Deq>
 __global__ void __launch_bounds__(ShapeOf<BM, Deq>::THREADS, 1)
@@ -483,11 +533,11 @@ tile_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CU
         mbar_wait(empty_r(s), ((it / S::R_STAGES) & 1) ^ 1);
         const uint32_t raw = smem_u32(raw0 + s * RAW_BYTES);
         if (v < p.main_steps) {
-          mbar_expect_tx(full_r(s), Deq::MAIN_BYTES);
+          mbar_expect_tx(full_r(s), p.main_bytes);
           Deq::load(raw, &wmap, &smap, v, n0, full_r(s));
         } else {
           const int chunk = v - p.main_steps;
-          mbar_expect_tx(full_r(s), SEED_G * TN * 4);
+          mbar_expect_tx(full_r(s), p.seed_bytes);
           tma_load(raw, &bmap, n0,
                    (chunk / p.chunks) * p.plane_rows + (chunk % p.chunks) * SEED_G, full_r(s));
         }
@@ -496,34 +546,13 @@ tile_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CU
   } else if (wg >= S::NC) {
     // --------------------------------------------- dequantizing warpgroups
     reg_dealloc<S::REG_D>();
-    const int d = wg - S::NC;
-    const int t = tid % 128;
-    int it = 0;
-    for (int u = blockIdx.x; u < p.units; u += gridDim.x) {
-      const int split = u % p.splits;
-      const int lo = split * p.steps / p.splits, hi = (split + 1) * p.steps / p.splits;
-      for (int v = lo; v < hi; ++v, ++it) {
-        if (it % S::ND != d) continue;
-        const int s = it % S::R_STAGES, r = it % B_SLOTS;
-        mbar_wait(full_r(s), (it / S::R_STAGES) & 1);
-        mbar_wait(empty_b(r), ((it / B_SLOTS) & 1) ^ 1);
-        const uint8_t* raw = raw0 + s * RAW_BYTES;
-        uint8_t* bs = b0 + r * S::B_SLOT;
-        if (v < p.main_steps)
-          Deq::dequant(raw, bs, t, p.zero);
-        else
-          seed_dequant(raw, bs, t, ((v - p.main_steps) % p.chunks) * SEED_G, p.groups);
-        // each thread makes its stores visible to wgmma (the async proxy),
-        // the warpgroup meets at a named barrier, one thread signals: 128
-        // arrivals on one mbarrier would serialize
-        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-        asm volatile("bar.sync %0, 128;" ::"r"(1 + d) : "memory");
-        if (t == 0) {
-          mbar_arrive(full_b(r));
-          mbar_arrive(empty_r(s));
-        }
-      }
-    }
+    const int d = wg - S::NC, t = tid % 128;
+    if (p.scode == SCALE_F16)
+      dequantizer<S, Deq, SCALE_F16>(p, raw0, b0, bar0, d, t);
+    else if (p.scode == SCALE_BF16)
+      dequantizer<S, Deq, SCALE_BF16>(p, raw0, b0, bar0, d, t);
+    else
+      dequantizer<S, Deq, SCALE_F32>(p, raw0, b0, bar0, d, t);
   } else if constexpr (Deq::Q8) {
     q8_consumer<S>(p, sbase, b0, bar0, wg, tid % 128);
   } else {
@@ -619,25 +648,31 @@ inline int sm_count() {
 }
 
 // One call of the tile.  w: the weight bytes [w_rows, N] (packed or int8),
-// scales/bias: f32 [s_rows, N]; planes 2 for the packed layout (plane 1's
-// rows from plane_rows on), else 1; bias NULL for no seed.  xa: bf16 scratch
+// scales/bias: [s_rows, N] of dtype scode (ScaleCode); planes 2 for the
+// packed layout (plane 1's rows from plane_rows on), else 1; bias NULL for
+// no seed.  xa: bf16 scratch
 // [B, ka]; partial: f32 [splits, B, N] when splits > 1.  ka, bm and splits
 // come from the caller's plan (ops/qmm.py::tile_plan) and are checked here.
 // The q8 mode (Deq::Q8) takes dx, f32 scratch [B, K/GS] for the activations'
 // d, and Deq::prep as its prep pass; zero is the pack zero its dequantizers
 // subtract.
 template <class Deq>
-cudaError_t launch(const float* x, const void* w, int w_rows, const float* scales, int s_rows,
-                   const float* bias, __nv_bfloat16* xa, float* partial, float* out, int B,
+cudaError_t launch(const float* x, const void* w, int w_rows, const void* scales, int s_rows,
+                   const void* bias, __nv_bfloat16* xa, float* partial, float* out, int B,
                    int K, int N, int planes, int GS, int plane_rows, float zero, int bm,
-                   int splits, int ka, cudaStream_t st, float* dx = nullptr) {
+                   int splits, int ka, int scode, cudaStream_t st, float* dx = nullptr) {
   const int groups = K / planes / GS;
   const int chunks = bias ? (groups + SEED_G - 1) / SEED_G : 0;
   const int main_steps = K / STEP;
   const int steps = main_steps + planes * chunks;
   if (K % STEP || N % 16 || B < 1 || ka != K + STEP * (steps - main_steps) || splits < 1 ||
-      splits > steps || (splits > 1 && !partial) || !xa || (Deq::Q8 && (!dx || bias)))
+      splits > steps || (splits > 1 && !partial) || !xa || (Deq::Q8 && (!dx || bias)) ||
+      scode < SCALE_F32 || scode > SCALE_BF16)
     return cudaErrorInvalidValue;
+  const int es = scale_bytes(scode);
+  const CUtensorMapDataType stype = scode == SCALE_F32   ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                    : scode == SCALE_F16 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                                         : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   cudaError_t err;
   if constexpr (Deq::Q8) {
     err = Deq::prep(x, xa, dx, B, K, st);
@@ -652,10 +687,10 @@ cudaError_t launch(const float* x, const void* w, int w_rows, const float* scale
                       CU_TENSOR_MAP_SWIZZLE_128B)) != cudaSuccess ||
       (err = make_map(&wmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, w, N, w_rows, TN, Deq::W_ROWS,
                       CU_TENSOR_MAP_SWIZZLE_NONE)) != cudaSuccess ||
-      (err = make_map(&smap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, scales, N, s_rows / planes,
-                      TN, Deq::S_ROWS, CU_TENSOR_MAP_SWIZZLE_NONE, planes, planes)) != cudaSuccess ||
-      (err = make_map(&bmap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, bias ? bias : scales, N,
-                      s_rows, TN, SEED_G, CU_TENSOR_MAP_SWIZZLE_NONE)) != cudaSuccess)
+      (err = make_map(&smap, stype, es, scales, N, s_rows / planes, TN, Deq::S_ROWS,
+                      CU_TENSOR_MAP_SWIZZLE_NONE, planes, planes)) != cudaSuccess ||
+      (err = make_map(&bmap, stype, es, bias ? bias : scales, N, s_rows, TN, SEED_G,
+                      CU_TENSOR_MAP_SWIZZLE_NONE)) != cudaSuccess)
     return err;
 
   Params p;
@@ -674,6 +709,9 @@ cudaError_t launch(const float* x, const void* w, int w_rows, const float* scale
   p.zero = zero;
   p.dx = dx;
   p.dx_cols = K / GS;
+  p.scode = scode;
+  p.main_bytes = Deq::main_bytes(es);
+  p.seed_bytes = SEED_G * TN * es;
   const int grid = p.units < sm_count() ? p.units : sm_count();
 
   auto run = [&](auto kernel, int threads, int smem) -> cudaError_t {

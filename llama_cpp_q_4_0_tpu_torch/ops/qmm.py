@@ -27,8 +27,12 @@ zero and 16- or 32-groups (q4_0: zero 8, 32-groups; q3_K: zero 4 on real
 weights, 16-groups).
 
 Packed: ``packed`` uint8 ``[K2P, N]`` (low nibble row r, high nibble row
-r + K/2, each level + zero), planes f32 ``[2, K2P/g, N]``.  Unpacked:
-``levels`` int8 ``[K, N]``, planes f32 ``[K/g, N]``.
+r + K/2, each level + zero), planes ``[2, K2P/g, N]``.  Unpacked:
+``levels`` int8 ``[K, N]``, planes ``[K/g, N]``.  The planes of one call are
+all float32, float16 or bfloat16, as the JAX kernels take them: each kernel
+widens a plane value to f32 as it loads it (exact), so 2-byte planes give the
+result of f32 planes holding the same values bit for bit, and so does each
+plain version, which widens them first.
 
 For a CPU tensor each wrapper runs the plain PyTorch version; for a CUDA
 tensor it launches the kernel or raises.  ``launches`` counts the kernel
@@ -65,6 +69,7 @@ def _packed_weights(packed: torch.Tensor, scales: torch.Tensor, k: int,
     k2, n = k // 2, packed.shape[1]
     g2 = k2 // gsize
     p = packed[:k2].to(torch.int32)
+    scales = scales.float()
     out = []
     for plane, nib in enumerate((p & 0xF, p >> 4)):
         w = (nib - sub).float().reshape(g2, gsize, n) * scales[plane, :g2, None, :]
@@ -90,6 +95,7 @@ def qmm_packed_kfold_plain(x: torch.Tensor, packed: torch.Tensor,
     k2 = x.shape[1] // 2
     g2 = k2 // gsize
     wlo, whi = _packed_weights(packed, scales, x.shape[1], gsize, 0)
+    scales = scales.float()
     xf = x.float()
     xb = bf16_f32(xf)
     acc = xb[:, :k2] @ wlo + xb[:, k2:] @ whi
@@ -105,6 +111,7 @@ def qmm_packed_bias_plain(x: torch.Tensor, packed: torch.Tensor,
     k2 = x.shape[1] // 2
     g2 = k2 // gsize
     wlo, whi = _packed_weights(packed, scales, x.shape[1], gsize, zero)
+    gbias = gbias.float()
     xf = x.float()
     xb = bf16_f32(xf)
     seed = (_group_sums(xf[:, :k2], gsize) @ gbias[0, :g2]
@@ -114,7 +121,7 @@ def qmm_packed_bias_plain(x: torch.Tensor, packed: torch.Tensor,
 
 def _int8_weights(levels: torch.Tensor, scales: torch.Tensor, gsize: int):
     k, n = levels.shape
-    w = levels.float().reshape(k // gsize, gsize, n) * scales[:, None, :]
+    w = levels.float().reshape(k // gsize, gsize, n) * scales.float()[:, None, :]
     return bf16_f32(w.reshape(k, n))
 
 
@@ -129,7 +136,7 @@ def qmm_int8_bias_plain(x: torch.Tensor, levels: torch.Tensor,
                         gsize: int) -> torch.Tensor:
     """Plain version of K6b: the seed xg @ gbias, plus K6's product."""
     xf = x.float()
-    seed = _group_sums(xf, gsize) @ gbias
+    seed = _group_sums(xf, gsize) @ gbias.float()
     return seed + bf16_f32(xf) @ _int8_weights(levels, scales, gsize)
 
 
@@ -193,6 +200,7 @@ def qmm_packed_q8x_plain(x: torch.Tensor, packed: torch.Tensor, scales: torch.Te
     xq, d = quantize_q8x_plain(x, gsize)
     xq = xq.float().reshape(b, 2, g2, gsize)
     d = d.reshape(b, 2, g2)
+    scales = scales.float()
     p = packed[:k2].to(torch.int32)
     lv = torch.stack([(p & 0xF) - zero, (p >> 4) - zero]).float().reshape(2, g2, gsize, n)
     acc = torch.zeros((b, n), dtype=torch.float32, device=x.device)
@@ -203,10 +211,17 @@ def qmm_packed_q8x_plain(x: torch.Tensor, packed: torch.Tensor, scales: torch.Te
     return acc
 
 
+# the planes' dtype code each kernel entry point takes
+SCALE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
+
+
 def _check(x: torch.Tensor, w: torch.Tensor, planes: list, *, packed: bool,
-           gsize: int):
+           gsize: int) -> int:
     """Shapes, dtypes and devices of one call; on CUDA also what the kernels
-    take (contiguous, 16-byte aligned, K % 64 == 0, N % 16 == 0, B > 0)."""
+    take (contiguous, 16-byte aligned, K % 64 == 0, N % 16 == 0, B > 0; a
+    kernel loads 8 plane values of a row at once, 32 bytes of f32 or 16 of a
+    2-byte dtype, so 16-byte aligned planes serve all three).  Returns the
+    planes' dtype code (SCALE_CODES)."""
     if gsize not in (16, 32):
         raise NotImplementedError(f"{gsize}-groups: the kernels take 16 and 32")
     if x.dim() != 2 or w.dim() != 2:
@@ -225,9 +240,11 @@ def _check(x: torch.Tensor, w: torch.Tensor, planes: list, *, packed: bool,
         if tuple(p.shape) != want:
             raise ValueError(f"plane {tuple(p.shape)} != {want}")
     if x.dtype != torch.float32 or w.dtype != (torch.uint8 if packed else torch.int8) \
-            or any(p.dtype != torch.float32 for p in planes):
+            or planes[0].dtype not in SCALE_CODES \
+            or any(p.dtype != planes[0].dtype for p in planes):
         raise TypeError(f"dtypes {x.dtype}, {w.dtype}, {[p.dtype for p in planes]}; "
-                        f"want float32, {'uint8' if packed else 'int8'}, float32")
+                        f"want float32, {'uint8' if packed else 'int8'}, and planes "
+                        f"all float32, float16 or bfloat16")
     if any(t.device != x.device for t in (w, *planes)):
         raise ValueError("x, the weight and its planes lie on different devices")
     if x.device.type == "cuda":
@@ -240,26 +257,28 @@ def _check(x: torch.Tensor, w: torch.Tensor, planes: list, *, packed: bool,
             raise ValueError("the CUDA kernels take 16-byte aligned tensors")
     elif x.device.type != "cpu":
         raise ValueError(f"unsupported device {x.device}")
+    return SCALE_CODES[planes[0].dtype]
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "qmm_q4_0": {
-        "qmm_q4_0": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-                     _I),
-        "qmm_q4_0_kfold": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P], _I),
+        "qmm_q4_0": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                      _P], _I),
+        "qmm_q4_0_kfold": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P], _I),
         "qmm_packed_bias": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                             _I, _P], _I),
+                             _I, _I, _P], _I),
         "qmm_packed_splits": ([_I], _I),
         "qmm_tile_smem": ([_I], _I),
     },
     "qmm_int8": {
-        "qmm_int8": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P], _I),
+        "qmm_int8": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+                     _I),
         "qmm_int8_splits": ([_I], _I),
     },
     "qmm_q8x": {
         "qmm_q8x": ([_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                     _P], _I),
+                     _I, _P], _I),
         "q8x_quantize": ([_P, _P, _P, _I, _I, _I, _P], _I),
         "qmm_q8x_splits": ([_I], _I),
         "qmm_q8x_tile_smem": ([_I, _I], _I),
@@ -388,7 +407,7 @@ def _ptr(t: torch.Tensor | None):
 def qmm_packed(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor, *,
                zero: int = 8, gsize: int = 32) -> torch.Tensor:
     """K1, the prefill form (more than 32 rows): f32 [B, N]."""
-    _check(x, packed, [scales], packed=True, gsize=gsize)
+    code = _check(x, packed, [scales], packed=True, gsize=gsize)
     if x.device.type == "cpu":
         return qmm_packed_plain(x, packed, scales, zero=zero, gsize=gsize)
     b, k = x.shape
@@ -398,7 +417,7 @@ def qmm_packed(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor, *,
     err = _lib("qmm_q4_0").qmm_q4_0(x.data_ptr(), packed.data_ptr(), scales.data_ptr(),
                                     xa.data_ptr(), _ptr(partial), out.data_ptr(), b, k, n,
                                     k2p // gsize, zero, gsize, plan.bm, plan.splits, plan.ka,
-                                    _stream(x))
+                                    code, _stream(x))
     _launched(err, "qmm_q4_0")
     return out
 
@@ -408,7 +427,7 @@ def qmm_packed_kfold(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor
     """K2, the decode form, zero point folded: f32 [B, N].  The kernel takes
     up to 32 rows a launch; more rows (``QMM_KFOLD=1``) run as 32-row chunks,
     one launch each, since every row is computed alone."""
-    _check(x, packed, [scales], packed=True, gsize=gsize)
+    code = _check(x, packed, [scales], packed=True, gsize=gsize)
     if x.device.type == "cpu":
         return qmm_packed_kfold_plain(x, packed, scales, zero=zero, gsize=gsize)
     b, k = x.shape
@@ -422,7 +441,7 @@ def qmm_packed_kfold(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor
     out = torch.empty((b, n), dtype=torch.float32, device=x.device)
     err = lib.qmm_q4_0_kfold(x.data_ptr(), packed.data_ptr(), scales.data_ptr(),
                              partial.data_ptr(), out.data_ptr(), b, k, n,
-                             k2p // gsize, zero, gsize, _stream(x))
+                             k2p // gsize, zero, gsize, code, _stream(x))
     _launched(err, "qmm_q4_0_kfold")
     return out
 
@@ -430,7 +449,7 @@ def qmm_packed_kfold(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor
 def qmm_packed_bias(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
                     gbias: torch.Tensor, *, zero: int, gsize: int) -> torch.Tensor:
     """K5, the packed affine matmul at any row count: f32 [B, N]."""
-    _check(x, packed, [scales, gbias], packed=True, gsize=gsize)
+    code = _check(x, packed, [scales, gbias], packed=True, gsize=gsize)
     if x.device.type == "cpu":
         return qmm_packed_bias_plain(x, packed, scales, gbias, zero=zero, gsize=gsize)
     b, k = x.shape
@@ -443,12 +462,12 @@ def qmm_packed_bias(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
     err = lib.qmm_packed_bias(x.data_ptr(), packed.data_ptr(), scales.data_ptr(),
                               gbias.data_ptr(), _ptr(scratch), _ptr(xa), out.data_ptr(),
                               b, k, n, k2p // gsize, zero, gsize, plan.bm, plan.splits,
-                              plan.ka, _stream(x))
+                              plan.ka, code, _stream(x))
     _launched(err, "qmm_packed_bias")
     return out
 
 
-def _int8(x, levels, scales, gbias, gsize, name):
+def _int8(x, levels, scales, gbias, gsize, name, code):
     b, k = x.shape
     n = levels.shape[1]
     lib = _lib("qmm_int8")
@@ -459,7 +478,7 @@ def _int8(x, levels, scales, gbias, gsize, name):
     out = torch.empty((b, n), dtype=torch.float32, device=x.device)
     err = lib.qmm_int8(x.data_ptr(), levels.data_ptr(), scales.data_ptr(),
                        _ptr(gbias), _ptr(scratch), _ptr(xa), out.data_ptr(), b, k, n,
-                       gsize, plan.bm, plan.splits, plan.ka, _stream(x))
+                       gsize, plan.bm, plan.splits, plan.ka, code, _stream(x))
     _launched(err, name)
     return out
 
@@ -467,19 +486,19 @@ def _int8(x, levels, scales, gbias, gsize, name):
 def qmm_int8(x: torch.Tensor, levels: torch.Tensor, scales: torch.Tensor, *,
              gsize: int) -> torch.Tensor:
     """K6, unpacked int8 levels at any row count: f32 [B, N]."""
-    _check(x, levels, [scales], packed=False, gsize=gsize)
+    code = _check(x, levels, [scales], packed=False, gsize=gsize)
     if x.device.type == "cpu":
         return qmm_int8_plain(x, levels, scales, gsize=gsize)
-    return _int8(x, levels, scales, None, gsize, "qmm_int8")
+    return _int8(x, levels, scales, None, gsize, "qmm_int8", code)
 
 
 def qmm_int8_bias(x: torch.Tensor, levels: torch.Tensor, scales: torch.Tensor,
                   gbias: torch.Tensor, *, gsize: int) -> torch.Tensor:
     """K6b, unpacked int8 levels with the affine bias seed: f32 [B, N]."""
-    _check(x, levels, [scales, gbias], packed=False, gsize=gsize)
+    code = _check(x, levels, [scales, gbias], packed=False, gsize=gsize)
     if x.device.type == "cpu":
         return qmm_int8_bias_plain(x, levels, scales, gbias, gsize=gsize)
-    return _int8(x, levels, scales, gbias, gsize, "qmm_int8_bias")
+    return _int8(x, levels, scales, gbias, gsize, "qmm_int8_bias", code)
 
 
 def quantize_q8x(x: torch.Tensor, gsize: int = 32):
@@ -508,7 +527,7 @@ def qmm_packed_q8x(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor, 
                    zero: int = 8, gsize: int = 32) -> torch.Tensor:
     """K7 at any row count (a split-K GEMV at 32 rows or fewer, the shared
     tile's q8 mode above): f32 [B, N]."""
-    _check(x, packed, [scales], packed=True, gsize=gsize)
+    code = _check(x, packed, [scales], packed=True, gsize=gsize)
     if x.device.type == "cpu":
         return qmm_packed_q8x_plain(x, packed, scales, zero=zero, gsize=gsize)
     b, k = x.shape
@@ -523,6 +542,7 @@ def qmm_packed_q8x(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor, 
     out = torch.empty((b, n), dtype=torch.float32, device=x.device)
     err = lib.qmm_q8x(x.data_ptr(), packed.data_ptr(), scales.data_ptr(), _ptr(xq),
                       d.data_ptr(), _ptr(partial), _ptr(xa), out.data_ptr(), b, k, n,
-                      k2p // gsize, zero, gsize, plan.bm, plan.splits, plan.ka, _stream(x))
+                      k2p // gsize, zero, gsize, plan.bm, plan.splits, plan.ka, code,
+                      _stream(x))
     _launched(err, "qmm_q8x")
     return out

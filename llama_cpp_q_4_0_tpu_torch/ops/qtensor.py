@@ -8,7 +8,7 @@ q5_K, q6_K):
 
   levels_t int8 [K, N];  W[n, k] = levels_t[k, n] * gscale_t[k // g, n]
                                    (+ gbias_t[k // g, n])
-  gscale_t, gbias_t f32 [K/g, N].
+  gscale_t, gbias_t [K/g, N].
 
 Packed (levels spanning at most 16 values: q4_0, q4_1, q2_K, q3_K, q4_K),
 split-half nibbles:
@@ -19,7 +19,10 @@ split-half nibbles:
   gscale_t, gbias_t f32 [2, K2P/g, N]: plane 0 holds the low panel's groups,
   plane 1 the high panel's; padding rows are zero.
 
-``gbias_t`` is None for the symmetric formats.  Split-half (not adjacent
+The planes are float32, float16 or bfloat16, one dtype for all planes of a
+tensor (``cast_scales_f16`` and ``cast_scales_bf16`` below make the 2-byte
+ones); every host-side reader widens them to f32, exactly.  ``gbias_t`` is
+None for the symmetric formats.  Split-half (not adjacent
 pairs) so a kernel unpacks with one mask and one shift and each nibble plane
 is a contiguous K panel.  The JAX package's ``ops/qtensor.py`` without the
 pytree registration.
@@ -28,6 +31,7 @@ pytree registration.
 from __future__ import annotations
 
 import dataclasses
+import os
 from dataclasses import dataclass
 
 import numpy as np
@@ -41,12 +45,12 @@ from ..quant.types import GGMLType
 @dataclass
 class QTensor:
     levels_t: torch.Tensor  # int8 [K, N] | uint8 [K2P, N] when packed
-    gscale_t: torch.Tensor  # f32 [K // gsize, N] | [2, K2P // gsize, N] packed
+    gscale_t: torch.Tensor  # f32/f16/bf16 [K // gsize, N] | [2, K2P // gsize, N] packed
     gsize: int
     qtype: GGMLType
     shape: tuple[int, int]  # (N, K)
     pack_zero: int | None = None  # nibble bias; None = unpacked int8
-    gbias_t: torch.Tensor | None = None  # f32, same shape rule as gscale_t
+    gbias_t: torch.Tensor | None = None  # gscale_t's dtype and shape rule
 
     @property
     def n_out(self) -> int:
@@ -134,13 +138,36 @@ class QTensor:
         return self._unpack(self.levels_t).to(torch.int8)
 
     def gscale_full(self) -> torch.Tensor:
-        """Group scales in logical [K/gsize, N] order."""
-        return self._panels(self.gscale_t) if self.packed else self.gscale_t
+        """Group scales in logical [K/gsize, N] order, f32."""
+        return (self._panels(self.gscale_t) if self.packed else self.gscale_t).float()
 
     def gbias_full(self) -> torch.Tensor | None:
-        if self.gbias_t is None or not self.packed:
-            return self.gbias_t
-        return self._panels(self.gbias_t)
+        if self.gbias_t is None:
+            return None
+        return (self._panels(self.gbias_t) if self.packed else self.gbias_t).float()
+
+    def fold_zero(self) -> "QTensor":
+        """The JAX ``QTensor.fold_zero``: a packed tensor's symmetric pack zero
+        becomes the affine bias plane gbias = d * -zero (computed in f32, stored
+        in the planes' dtype; exact, -zero * d is d shifted by a small
+        integer multiple), with pack zero 0, so that w = d * nib + gbias.  The
+        levels and scale planes are shared, not copied.  A tensor that is
+        unpacked, has pack zero 0 or already has a bias is returned as is."""
+        if not self.packed or not self.pack_zero or self.gbias_t is not None:
+            return self
+        gb = (self.gscale_t.float() * float(-self.pack_zero)).to(self.gscale_t.dtype)
+        return dataclasses.replace(self, gbias_t=gb, pack_zero=0)
+
+    def scales_f16(self) -> "QTensor":
+        """The JAX ``QTensor.scales_f16``: the scale (and bias) planes stored
+        as float16, half their bytes.  Exact for the block formats, whose d
+        (and m) the file holds as fp16 (``_F16_EXACT_QTYPES``); the levels
+        are shared."""
+        if self.gscale_t.dtype == torch.float16:
+            return self
+        return dataclasses.replace(
+            self, gscale_t=self.gscale_t.to(torch.float16),
+            gbias_t=None if self.gbias_t is None else self.gbias_t.to(torch.float16))
 
     def dequantize_t(self, dtype=torch.float32) -> torch.Tensor:
         """W^T [K, N] (the matmul-ready orientation)."""
@@ -168,3 +195,67 @@ class QTensor:
         if gb is not None:
             w = w + gb[:, flat][:, None, :]
         return w.reshape(k, -1).T.reshape(*idx.shape, k).to(dtype)
+
+
+# Formats whose group scales are the file's fp16 d (and m), so that f16
+# planes hold them exactly (the JAX package's _F16_EXACT_QTYPES).  Not the
+# k-quants: their scale is d times a 6-bit sub-scale, a product fp16 may not
+# hold.
+_F16_EXACT_QTYPES = frozenset((GGMLType.Q4_0, GGMLType.Q4_1, GGMLType.Q5_0,
+                               GGMLType.Q5_1, GGMLType.Q8_0))
+
+
+def _map_qtensors(params, fn):
+    """fn applied to every QTensor of params (a TransformerParams, a Block, a
+    QTensor, or a list, tuple or dict of them); every other leaf is kept."""
+    if isinstance(params, QTensor):
+        return fn(params)
+    if dataclasses.is_dataclass(params) and not isinstance(params, type):
+        return dataclasses.replace(params, **{
+            f.name: _map_qtensors(getattr(params, f.name), fn)
+            for f in dataclasses.fields(params)})
+    if isinstance(params, (list, tuple)):
+        return type(params)(_map_qtensors(v, fn) for v in params)
+    if isinstance(params, dict):
+        return {k: _map_qtensors(v, fn) for k, v in params.items()}
+    return params
+
+
+def cast_scales_bf16(params):
+    """The JAX ``cast_scales_bf16``: every QTensor with f32 planes gets them
+    as bfloat16.  Not exact (bf16 keeps 8 significant bits of fp16's 11, a
+    scale moves by up to 2^-9 of itself); applied only when asked for."""
+    def cast(t: QTensor) -> QTensor:
+        if t.gscale_t.dtype != torch.float32:
+            return t
+        return dataclasses.replace(
+            t, gscale_t=t.gscale_t.to(torch.bfloat16),
+            gbias_t=None if t.gbias_t is None else t.gbias_t.to(torch.bfloat16))
+
+    return _map_qtensors(params, cast)
+
+
+def cast_scales_f16(params):
+    """The JAX ``cast_scales_f16``: ``QTensor.scales_f16`` for the formats
+    where it is exact (``_F16_EXACT_QTYPES``); the others are kept."""
+    return _map_qtensors(
+        params, lambda t: t.scales_f16() if t.qtype in _F16_EXACT_QTYPES else t)
+
+
+def maybe_cast_scales_f16(params):
+    """``cast_scales_f16`` when the environment sets ``QMM_F16_SCALES=1``."""
+    if os.environ.get("QMM_F16_SCALES") != "1":
+        return params
+    return cast_scales_f16(params)
+
+
+def fold_zero_points(params):
+    """The JAX ``fold_zero_points``: ``QTensor.fold_zero`` over params."""
+    return _map_qtensors(params, QTensor.fold_zero)
+
+
+def maybe_fold_zero_points(params):
+    """``fold_zero_points`` when the environment sets ``QMM_ZERO_FOLD=1``."""
+    if os.environ.get("QMM_ZERO_FOLD") != "1":
+        return params
+    return fold_zero_points(params)

@@ -4,6 +4,14 @@ Holds the model params, preallocated KV buffers and n_past.  Prompt lengths
 are padded up to the next bucket of ``PREFILL_BUCKETS``, and attention reads
 only the first ``kv_window`` cache slots, with ``kv_window`` the bucket of
 ``n_past + t`` — the same shapes the JAX package compiles for.
+
+As the JAX ``Context`` (without a mesh), it keeps two views of the params
+that share their levels and scale planes: ``QMM_F16_SCALES=1`` first stores
+the planes of the exact formats as float16 (``maybe_cast_scales_f16``), which
+both views take; ``QMM_ZERO_FOLD=1`` then folds each symmetric pack zero into
+a bias plane (``maybe_fold_zero_points``) in ``params``, the view of calls of
+at most 32 tokens (decode-shaped), while ``_params_prefill`` keeps the
+unfolded tensors for larger buckets.
 """
 
 from __future__ import annotations
@@ -20,6 +28,7 @@ from ..models.config import ModelConfig
 from ..models.transformer import TransformerParams, init_cache
 from ..ops.flash_prefill import flash_prefill
 from ..ops.layers import use_flash_prefill
+from ..ops.qtensor import maybe_cast_scales_f16, maybe_fold_zero_points
 
 PREFILL_BUCKETS = (1, 8, 32, 64, 128, 256, 512, 1024, 2048)
 
@@ -70,7 +79,11 @@ class Context:
         asked for; params must already lie on it (models.loading)."""
         self.device = resolve_device(device)
         self.cfg = cfg
-        self.params = params
+        # cast before the fold, so that both views share the cast planes and
+        # the folded bias takes their dtype (JAX context.py)
+        params = maybe_cast_scales_f16(params)
+        self._params_prefill = params
+        self.params = maybe_fold_zero_points(params)
         self.n_ctx = n_ctx or cfg.n_ctx
         self.batch = batch
         self.cache_k, self.cache_v = init_cache(cfg, batch, self.n_ctx,
@@ -106,8 +119,10 @@ class Context:
                 and use_flash_prefill(bt, self.cfg.head_dim, self.device)):
             attn_fn = flash_prefill
         slice_last = not logits_all and bt != t
+        # decode-shaped calls take the folded view, larger buckets the raw one
+        params = self.params if bt <= 32 else self._params_prefill
         logits = transformer.forward(
-            self.cfg, self.params,
+            self.cfg, params,
             torch.from_numpy(padded).to(self.device), self.n_past,
             self.cache_k, self.cache_v,
             last_only=not (logits_all or bt != t),

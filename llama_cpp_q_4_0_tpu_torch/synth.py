@@ -9,7 +9,8 @@ shapes and formats.
 ``ftype`` picks the file type's mix of formats, as the JAX package's
 ``formats/quantize.py`` assigns them:
 
-  q4_0    every 2-D weight q4_0 (the weights bench.py builds);
+  q4_0    every 2-D weight q4_0 (the weights bench.py builds); q4_1, q5_0,
+          q5_1 and q8_0 the same in those formats;
   q3_K_M  q3_K for wq, wk, w1, w3 and the token embeddings, q4_K for wv, wo
           and w2, q6_K for the output head;
   q4_K_M  q4_K everywhere, q6_K for the output head and for wv and w2 in
@@ -17,7 +18,9 @@ shapes and formats.
   q5_K_M  the same with q5_K in place of q4_K.
 
 q3_K weights are packed symmetric nibbles (levels -4..3 stored as 0..7, pack
-zero 4) over 16-groups with no bias, the layout the loader gives them.
+zero 4) over 16-groups with no bias, the layout the loader gives them.  The
+block formats' scales and biases are fp16 values, as a file stores them, so
+that ``cast_scales_f16`` holds them exactly.
 """
 
 from __future__ import annotations
@@ -30,12 +33,13 @@ from . import resolve_device
 from .models.config import ModelConfig
 from .models.fuse import fuse_projections
 from .models.transformer import Block, TransformerParams
-from .ops.qtensor import QTensor
+from .ops.qtensor import _F16_EXACT_QTYPES, QTensor
 from .quant.q4_0 import PACK_ZERO, k2_padded
 from .quant.types import GGMLType
 
-FTYPES = {"q4_0": GGMLType.Q4_0, "q3_K_M": GGMLType.Q3_K, "q4_K_M": GGMLType.Q4_K,
-          "q5_K_M": GGMLType.Q5_K}
+FTYPES = {"q4_0": GGMLType.Q4_0, "q4_1": GGMLType.Q4_1, "q5_0": GGMLType.Q5_0,
+          "q5_1": GGMLType.Q5_1, "q8_0": GGMLType.Q8_0, "q3_K_M": GGMLType.Q3_K,
+          "q4_K_M": GGMLType.Q4_K, "q5_K_M": GGMLType.Q5_K}
 
 
 def use_more_bits(i_layer: int, num_layers: int) -> bool:
@@ -48,6 +52,11 @@ def _uniform(gen, shape, lo, hi, device):
     return lo + (hi - lo) * torch.rand(shape, generator=gen, device=device)
 
 
+def _plane_values(p: torch.Tensor, qtype: GGMLType) -> torch.Tensor:
+    """A block format's planes rounded to the fp16 values its file holds."""
+    return p.half().float() if qtype in _F16_EXACT_QTYPES else p
+
+
 def _packed(gen, n, k, qtype, zero, gsize, bias, device, mask=0xFF) -> QTensor:
     k2, k2p = k // 2, k2_padded(k)
     packed = torch.zeros((k2p, n), dtype=torch.uint8, device=device)
@@ -58,7 +67,7 @@ def _packed(gen, n, k, qtype, zero, gsize, bias, device, mask=0xFF) -> QTensor:
     def plane(lo, hi):
         p = torch.zeros((2, k2p // gsize, n), dtype=torch.float32, device=device)
         p[:, :g2] = _uniform(gen, (2, g2, n), lo, hi, device)
-        return p
+        return _plane_values(p, qtype)
 
     return QTensor(levels_t=packed, gscale_t=plane(0.005, 0.015), gsize=gsize,
                    qtype=qtype, shape=(n, k), pack_zero=zero,
@@ -69,9 +78,12 @@ def _unpacked(gen, n, k, qtype, lo, hi, gsize, scale, bias, device) -> QTensor:
     levels = torch.randint(lo, hi + 1, (k, n), generator=gen, device=device,
                            dtype=torch.int8)
     g = k // gsize
-    return QTensor(levels_t=levels, gscale_t=_uniform(gen, (g, n), *scale, device),
-                   gsize=gsize, qtype=qtype, shape=(n, k),
-                   gbias_t=_uniform(gen, (g, n), -0.08, 0.0, device) if bias else None)
+
+    def plane(lo, hi):
+        return _plane_values(_uniform(gen, (g, n), lo, hi, device), qtype)
+
+    return QTensor(levels_t=levels, gscale_t=plane(*scale), gsize=gsize, qtype=qtype,
+                   shape=(n, k), gbias_t=plane(-0.08, 0.0) if bias else None)
 
 
 def synth_qtensor(gen: torch.Generator, n: int, k: int, device,
@@ -79,6 +91,8 @@ def synth_qtensor(gen: torch.Generator, n: int, k: int, device,
     """One random [N, K] weight in the device layout of ``qtype``."""
     if qtype == GGMLType.Q4_0:
         return _packed(gen, n, k, qtype, PACK_ZERO, 32, False, device)
+    if qtype == GGMLType.Q4_1:
+        return _packed(gen, n, k, qtype, 0, 32, True, device)
     if qtype == GGMLType.Q3_K:
         return _packed(gen, n, k, qtype, 4, 16, False, device, mask=0x77)
     if qtype == GGMLType.Q4_K:
@@ -87,6 +101,10 @@ def synth_qtensor(gen: torch.Generator, n: int, k: int, device,
         return _packed(gen, n, k, qtype, 0, 16, True, device)
     if qtype == GGMLType.Q8_0:
         return _unpacked(gen, n, k, qtype, -127, 127, 32, (0.0005, 0.0015), False, device)
+    if qtype == GGMLType.Q5_0:
+        return _unpacked(gen, n, k, qtype, -16, 15, 32, (0.0025, 0.0075), False, device)
+    if qtype == GGMLType.Q5_1:
+        return _unpacked(gen, n, k, qtype, 0, 31, 32, (0.0025, 0.0075), True, device)
     if qtype == GGMLType.Q5_K:
         return _unpacked(gen, n, k, qtype, 0, 31, 32, (0.0025, 0.0075), True, device)
     if qtype == GGMLType.Q6_K:
