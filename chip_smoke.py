@@ -12,6 +12,12 @@ Phases (each prints its own lines; any failure exits non-zero):
      K3 on q4_0 weights; the prefill tile (K1 on q4_0, K5 on q4_K, K6 on
      q6_K, K6b on q5_K) timed at b=128 and 512 and checked at b=33, 64 and
      2048, two launches bit-identical; K5, K6, K6b's decode form at b=1;
+     the four decode forms of one GEMV skeleton (K2, K5, K6, K6b: one launch
+     a call, the K splits reduced inside a thread-block cluster) at b=1, 3,
+     8, 17 and 32 at their 7B shapes, a ragged N=4224 and K=11008, each
+     within tolerance, two launches bit-identical, 10 replays of a CUDA graph
+     of one launch bit-identical to it, and on 2-byte planes equal to its f32
+     twin (check_gemv);
      for agreement only, K5 on q2_K (16-groups) and K6 on q8_0 (32-groups)
      at b=1, 33, 64, 512, 2048; the fused affine seed of K5 and K6b alone
      against an f64 seed; ptxas's registers, shared memory and spills of the
@@ -77,12 +83,16 @@ Phases (each prints its own lines; any failure exits non-zero):
      {"ok": true, "device": {...}}.
 ``--phases kernels,e2e,cli`` runs a subset (for debugging: a subset prints
 no result lines; with no arguments every phase runs).  Phases that run only
-when named: ``sass`` (instruction counts of K7's and K3's kernels), ``k7k3``
+when named: ``sass`` (instruction counts of K7's and K3's kernels and of
+the decode GEMV's instances), ``gemv`` (check_gemv alone), ``busy`` (device
+busy and kernels a 7B decode step on the q4_0, Q4_K_M, Q3_K_M and Q5_K_M
+paths), ``splits`` (each decode form timed at every K split count), ``k7k3``
 (K3's and K7's tile checks and times alone), ``k7repeat`` (K7's repeated
 tile launches alone), ``int8prefill`` (the int8 configuration's
 prefill-128 instrument), ``planes`` (the 2-byte plane forms' kernel
 checks alone) and ``tiles`` (TILE_AB: the matmul kernels' f32-plane times
-alone); a copy of this script placed beside
+and the decode forms' at b=1 and 8 on f32 and 2-byte planes, alone); a copy
+of this script placed beside
 an older checkout's package measures that one.  Run without CUDA, or
 without the port beside it, it exits non-zero and prints no result.
 """
@@ -91,6 +101,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -169,11 +180,16 @@ PLANE_FORMS = {
     "qmm_q8x/f16": ("qmm_packed_q8x", "Q4_0", SHAPES, "float16", False),
     "qmm_q8x/bf16": ("qmm_packed_q8x", "Q3_K", Q3K_SHAPES, "bfloat16", False),
 }
-# the f32-plane forms the ``tiles`` phase times alone, for an A/B of this
-# script beside two checkouts' packages (the runtime plane dtype's cost)
+# the forms the ``tiles`` phase times alone, for an A/B of this script beside
+# two checkouts' packages: the matmul kernels on f32 planes, and the four
+# decode forms at b=1 and 8 on f32 and 2-byte planes
 TILE_AB = (("qmm_q4_0", 512), ("qmm_q4_0", 128), ("qmm_q4_0_kfold", 1),
            ("qmm_packed_bias", 512), ("qmm_packed_bias", 1), ("qmm_int8", 512),
-           ("qmm_int8", 1), ("qmm_q8x", 512), ("qmm_q8x", 1))
+           ("qmm_int8", 1), ("qmm_q8x", 512), ("qmm_q8x", 1), ("qmm_int8_bias", 1),
+           ("qmm_q4_0_kfold", 8), ("qmm_packed_bias", 8), ("qmm_int8", 8),
+           ("qmm_int8_bias", 8), ("qmm_q4_0_kfold/f16", 1), ("qmm_packed_bias/bf16", 1),
+           ("qmm_int8/bf16", 1), ("qmm_int8_bias/bf16", 1), ("qmm_q4_0_kfold/f16", 8),
+           ("qmm_packed_bias/bf16", 8), ("qmm_int8/bf16", 8), ("qmm_int8_bias/bf16", 8))
 # (timed rows, checked rows) of each kernel's 2-byte forms; the JSON line
 # keeps the first timed row (K2 and K7 b=1, the others b=512)
 PLANE_ROWS = {"qmm_q4_0": ((512,), (33, 2048)), "qmm_q4_0_kfold": ((1,), (8,)),
@@ -441,6 +457,79 @@ def check_planes(torch, timer, recs: dict) -> bool:
     return ok
 
 
+# The four decode forms redesigned in one skeleton (csrc/qmm_common.cuh
+# gemv_kernel), each with the 2-byte plane form it is held against its f32
+# twin in, and the rows and extra shapes check_gemv takes them at: a ragged
+# N = 4224 (33 x 128 columns: inside the JAX kernel gate, half a 256-column
+# tile) and K = 11008 (uneven splits: 344 int8 or 172 packed steps)
+GEMV_FORMS = {"qmm_q4_0_kfold": "qmm_q4_0_kfold/f16", "qmm_packed_bias": "qmm_packed_bias/bf16",
+              "qmm_int8": "qmm_int8/bf16", "qmm_int8_bias": "qmm_int8_bias/bf16"}
+GEMV_ROWS = (1, 3, 8, 17, 32)
+GEMV_EXTRA = [("ragged", 4224, 4096), ("w_down", 4096, 11008)]
+
+
+def check_gemv(torch) -> bool:
+    """Each decode form of GEMV_FORMS at its 7B shapes and GEMV_EXTRA, at
+    every b of GEMV_ROWS: within QMM_TOL of its plain version; two launches
+    bit-identical; one launch captured in a CUDA graph and replayed 10 times
+    bit-identical to the eager launch (the in-kernel reduce leaves no state
+    behind); and on its planes cast to 2 bytes, equal bit for bit to the
+    same kernel on f32 planes of the same values.  One line a form and
+    shape."""
+    from llama_cpp_q_4_0_tpu_torch.ops import qmm
+    from llama_cpp_q_4_0_tpu_torch.ops.qtensor import cast_scales_bf16, cast_scales_f16
+    from llama_cpp_q_4_0_tpu_torch.quant.types import GGMLType
+    from llama_cpp_q_4_0_tpu_torch.synth import synth_qtensor
+
+    def call(fn, x, w):
+        planes = [w.gscale_t] + ([w.gbias_t] if w.gbias_t is not None else [])
+        kw = {"gsize": w.gsize}
+        if w.packed:
+            kw["zero"] = w.pack_zero
+        return fn(x, w.levels_t, *planes, **kw)
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(9)
+    ok = True
+    for name, form in GEMV_FORMS.items():
+        wrapper, fmt, shapes = KERNEL_SHAPES[name]
+        dtype = PLANE_FORMS[form][3]
+        kern, plain = getattr(qmm, wrapper), getattr(qmm, wrapper + "_plain")
+        extra = [e for e in GEMV_EXTRA if (e[1], e[2]) not in {(n, k) for _, n, k in shapes}]
+        for label, n, k in shapes + extra:
+            w = synth_qtensor(gen, n, k, "cuda", GGMLType[fmt])
+            w2 = (cast_scales_f16 if dtype == "float16" else cast_scales_bf16)(w)
+            w2f = f32_planes(w2)
+            worst, same, graph_same, twin = 0.0, True, True, True
+            for b in GEMV_ROWS:
+                x = torch.randn((b, k), generator=gen, device="cuda")
+                got, again, ref = call(kern, x, w), call(kern, x, w), call(plain, x, w)
+                g = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(g):
+                    gout = call(kern, x, w)
+                replays = []
+                for _ in range(10):
+                    g.replay()
+                    replays.append(torch.equal(gout, got))
+                two, two_f32 = call(kern, x, w2), call(kern, x, w2f)
+                torch.cuda.synchronize()
+                err = (got - ref).abs().max().item()
+                tol = QMM_TOL.get(name, 1e-3) * ref.abs().max().item()
+                worst = max(worst, err / tol)
+                same &= torch.equal(got, again) and bool(torch.isfinite(got).all())
+                graph_same &= all(replays)
+                twin &= torch.equal(two, two_f32)
+                del g, gout, got, again, ref, two, two_f32, x
+            good = worst <= 1.0 and same and graph_same and twin
+            ok &= good
+            print(f"gemv {name} {fmt} {label} N={n} K={k} b={','.join(map(str, GEMV_ROWS))}: "
+                  f"max err/tol={worst:.3e} bit-identical={same} graph_replays_identical="
+                  f"{graph_same} {dtype}_equal_f32={twin} {'ok' if good else 'MISMATCH'}",
+                  flush=True)
+            del w, w2, w2f
+    return ok
+
+
 def check_q8x_repeats(torch, reps: int = 20) -> bool:
     """K7's tile launched 1 + reps times at b=512 and 2048 (128-row units,
     several a block) on the q3_K and q4_0 layouts at Q3K_SHAPES: every output
@@ -525,7 +614,6 @@ def ptxas_report(build) -> None:
     """ptxas's registers, shared memory and spills of every function of the
     prefill tile (tile_kernel in each mode, prep_kernel, gemv_reduce_kernel)
     and of K3 (flash_prefill_kernel), and the warnings, one line each."""
-    import re
 
     for lib, log in build.build_log.items():
         fn, props = None, {}
@@ -565,29 +653,54 @@ def ptxas_report(build) -> None:
         f"D={d} {fl.flash_prefill_smem(d)}" for d in fp.HEAD_DIMS), flush=True)
 
 
+GEMV_OPS = ("LDG", "PRMT", "FADD", "FMUL", "F2F", "FFMA", "SHFL", "HMUL2")
+
+
 def sass_counts(build) -> None:
-    """Instruction counts in the SASS (cuobjdump -sass) of K7's and K3's
-    kernels as built from this checkout: tensor-core ops (IMMA, HGMMA),
-    int-to-float conversions (I2F*), FMUL and FFMA, one line per kernel."""
+    """Instruction counts in the SASS (cuobjdump -sass) of the kernels as
+    built from this checkout, one line per kernel: K7's and K3's tensor-core
+    ops (IMMA, HGMMA), int-to-float conversions (I2F*), FMUL and FFMA; and
+    every instance of the decode GEMV of K2, K5, K6 and K6b (gemv_kernel):
+    LDG, PRMT, FADD, FMUL, F2F (F2FP included), FFMA, SHFL and HMUL2, with
+    its instructions per weight byte: all its instructions over the bytes its
+    8-byte level loads (LDG.64) cover, so the prologue, x staging and
+    reduce count against the inlined chunk bodies (an upper bound)."""
     cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
-    for lib in ("qmm_q8x", "flash_prefill"):
+    for lib in ("qmm_q8x", "flash_prefill", "qmm_q4_0", "qmm_int8"):
         sass = subprocess.run([cuobjdump, "-sass", build._so_path(lib)], capture_output=True,
                               text=True, timeout=300).stdout
         fn, counts = None, {}
         for line in sass.splitlines():
             if "Function :" in line:
                 fn = line.split("Function :")[1].strip()
-                counts[fn] = dict.fromkeys(("IMMA", "HGMMA", "I2F", "FMUL", "FFMA"), 0)
+                counts[fn] = dict.fromkeys(("IMMA", "HGMMA", "I2F", "ALL", "LDG64") + GEMV_OPS, 0)
                 continue
-            op = line.split("*/", 1)[-1].strip().split(" ")[0].split(".")[0] if fn else ""
-            if op.startswith("@"):
-                op = line.split("*/", 1)[-1].split()[1].split(".")[0]
-            key = "I2F" if op.startswith("I2F") else op
-            if fn and key in counts[fn]:
+            text = line.split("*/", 1)[-1].strip() if fn else ""
+            if not fn or not line.strip().startswith("/*") or not text or text.startswith("/*"):
+                continue
+            words = text.split()
+            full = words[1] if words[0].startswith("@") and len(words) > 1 else words[0]
+            op = full.split(".")[0]
+            key = "I2F" if op.startswith("I2F") else "F2F" if op.startswith("F2F") else op
+            counts[fn]["ALL"] += 1
+            if op == "LDG" and ".64" in full:
+                counts[fn]["LDG64"] += 1
+            if key in counts[fn]:
                 counts[fn][key] += 1
         for fn, c in counts.items():
-            if c["IMMA"] or c["HGMMA"]:
-                print(f"sass: {lib} {fn[:90]}: {json.dumps(c)}", flush=True)
+            if "gemv_kernel" in fn:
+                m = re.search(r"(Int8Gemv|PackedGemv)ILi(\d+)ELb(\d)EEELi(\d+)E", fn)
+                name = (f"gemv_kernel<{m.group(1)}<{m.group(2)}, "
+                        f"{'true' if m.group(3) == '1' else 'false'}>, {m.group(4)}>"
+                        if m else fn[:90])
+                per_byte = c["ALL"] / (8 * c["LDG64"]) if c["LDG64"] else float("nan")
+                ops = {k: c[k] for k in GEMV_OPS}
+                print(f"sass: {lib} {name}: {json.dumps(ops)} all={c['ALL']} "
+                      f"instructions_per_weight_byte={per_byte:.2f}", flush=True)
+            elif c["IMMA"] or c["HGMMA"]:
+                print(f"sass: {lib} {fn[:90]}: "
+                      f"{json.dumps({k: c[k] for k in ('IMMA', 'HGMMA', 'I2F', 'FMUL', 'FFMA')})}",
+                      flush=True)
 
 
 def check_flash(torch, timer, rec: dict):
@@ -1108,6 +1221,70 @@ def trace_decode(torch, cfg, params, ck, cv, step_ms: float | None, label: str):
         print(f"trace:   {ms:8.4f} ms/step  x{n:<4d} {key[:90]}", flush=True)
 
 
+def splits_phase(torch) -> None:
+    """The card's clusters at once for each split count (the plan's input),
+    then each decode form of GEMV_FORMS at b=1 on each of its 7B shapes,
+    timed at every split count 1..8 (the plan forced for the call), beside
+    the split count ops/qmm.py::gemv_plan picks: the sweep the plan's choices
+    are checked against (tests/test_torch_gemv.py)."""
+    from llama_cpp_q_4_0_tpu_torch.ops import qmm
+    from llama_cpp_q_4_0_tpu_torch.quant.types import GGMLType
+    from llama_cpp_q_4_0_tpu_torch.synth import synth_qtensor
+
+    for source in ("qmm_q4_0", "qmm_int8"):
+        print(f"splits: {source} clusters at once by split count "
+              f"{json.dumps(qmm._gemv_clusters(source, 0))} "
+              f"(ops/qmm.py H100_GEMV_CLUSTERS {json.dumps(qmm.H100_GEMV_CLUSTERS)})",
+              flush=True)
+    timer = Timer(torch)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    planner = qmm.gemv_plan
+    try:
+        for name in GEMV_FORMS:
+            wrapper, fmt, shapes = KERNEL_SHAPES[name]
+            kern = getattr(qmm, wrapper)
+            for label, n, k in shapes:
+                w = synth_qtensor(gen, n, k, "cuda", GGMLType[fmt])
+                x = torch.randn((1, k), generator=gen, device="cuda")
+                planes = [w.gscale_t] + ([w.gbias_t] if w.gbias_t is not None else [])
+                kw = {"gsize": w.gsize, **({"zero": w.pack_zero} if w.packed else {})}
+                row = {}
+                for s in range(1, qmm.GEMV_MAX_SPLITS + 1):
+                    qmm.gemv_plan = lambda k_, n_, p_, s=s, **_: qmm.GemvPlan(
+                        s, k_ // (2 * qmm.GEMV_STEP) if p_ else k_ // qmm.GEMV_STEP)
+                    row[s] = round(timer.ms(lambda: kern(x, w.levels_t, *planes, **kw)), 5)
+                qmm.gemv_plan = planner
+                pick = planner(k, n, w.packed).splits
+                print(f"splits: {name} {fmt} {label} N={n} K={k} b=1 ms by splits "
+                      f"{json.dumps(row)} fastest={min(row, key=row.get)} plan={pick}",
+                      flush=True)
+    finally:
+        qmm.gemv_plan = planner
+
+
+# the decode paths whose device-busy step the ``busy`` phase profiles
+BUSY_PATHS = ("q4_0", "q4_K_M", "q3_K_M", "q5_K_M")
+
+
+def busy_phase(torch) -> None:
+    """Each of BUSY_PATHS at LLaMA-7B (32 layers, synthetic weights from seed
+    0): decode ms/token at kv_window 256 (median of 3 passes of 16 tokens)
+    and one profiled decode step (trace_decode: device busy and kernels a
+    step).  A copy of this script beside an older checkout's package measures
+    that one, for an A/B of the decode forms in one call."""
+    from llama_cpp_q_4_0_tpu_torch.models import transformer
+    from llama_cpp_q_4_0_tpu_torch.synth import build_llama
+
+    for ftype in BUSY_PATHS:
+        cfg, params = build_llama(device="cuda", seed=0, ftype=ftype)
+        ck, cv = transformer.init_cache(cfg, 1, cfg.n_ctx, device="cuda")
+        med, _ = decode_ms(torch, cfg, params, ck, cv, 65, 256, n_tok=16, passes=3)
+        trace_decode(torch, cfg, params, ck, cv, med, f"LLaMA-7B {ftype}")
+        del params, ck, cv
+        torch.cuda.empty_cache()
+
+
 def two_layer_vs_cpu(torch, counters, ftype="q4_0", *, int8=False, want_per_token=None,
                      planes=None, gate_cpu=True, **widths):
     """7B width, 2 layers: prefill 128 (prefill kernels, flash, decode-form
@@ -1478,9 +1655,9 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default="kernels,e2e,cli",
-                    help="comma-separated subset of kernels,e2e,cli,sass,"
-                         "k7k3,k7repeat,int8prefill,planes,tiles; the result lines print "
-                         "only for the default kernels,e2e,cli")
+                    help="comma-separated subset of kernels,e2e,cli,sass,k7k3,k7repeat,"
+                         "int8prefill,planes,tiles,gemv,busy,splits; the result lines "
+                         "print only for the default kernels,e2e,cli")
     phases = set(ap.parse_args(argv).phases.split(","))
     full = phases == {"kernels", "e2e", "cli"}
     try:
@@ -1522,6 +1699,13 @@ def main(argv=None) -> int:
         for name, b in TILE_AB:
             check_qmm(torch, timer, name, b, {})
         del timer
+    if "busy" in phases:
+        busy_phase(torch)
+    if "splits" in phases:
+        splits_phase(torch)
+    if "gemv" in phases and not check_gemv(torch):
+        return fail("a decode GEMV disagrees with its plain version, with its own launch "
+                    "again or in a CUDA graph, or on 2-byte planes with its f32 twin")
     if "planes" in phases and not check_planes(torch, Timer(torch), {}):
         return fail("a kernel on 2-byte planes differs from its f32-plane run or "
                     "disagrees with its plain version")
@@ -1582,6 +1766,7 @@ def main(argv=None) -> int:
             ok &= check_qmm(torch, timer, "qmm_q8x", b, recs["qmm_q8x"], time_it=False)
         ok &= check_q3k(torch, timer, recs)
         ok &= check_planes(torch, timer, recs)
+        ok &= check_gemv(torch)
         ok &= check_q8x_repeats(torch)
         ok &= check_mha(torch, timer, recs["mha_decode"])
         ok &= check_stream(torch, timer, recs["hbm_stream"])

@@ -26,11 +26,16 @@
 //    step; the bias seed runs as extra K steps of the same mainloop on bf16
 //    hi/lo parts of xg and gbias, so no pass after the tile touches out.
 //  * Decode (32 rows or fewer) is bound by the bytes of the levels and
-//    planes: 8 bits per weight, twice the packed formats'.  Each thread
-//    streams 8 consecutive columns (8-byte loads), each warp a 32-row step,
-//    each block 8 steps; blocks split K and gemv_reduce sums the splits in a
-//    fixed order.  x stays in registers, broadcast by warp shuffles, and the
-//    group sums for the seed come from the same registers.
+//    planes, 8 bits per weight, twice the packed formats', and then by issue
+//    slots (about 6-7 thread instructions a level byte here, against a
+//    budget of 9-10).  It runs the decode skeleton of qmm_common.cuh
+//    (gemv_kernel: one launch, the K splits of a column tile reduced inside
+//    a thread-block cluster, every load of a chunk in flight before any is
+//    used and the next chunk's loads issued before this one is computed, x
+//    broadcast from shared memory) with Int8Gemv below as its body: per 8-byte
+//    row word 2 sign flips, 8 byte permutes, 8 FADD, 8 FMUL, 8 bf16
+//    roundings (one cvt each) and 8 FFMA a batch row; the bias seed once a
+//    chunk from the chunk's x sums.
 //  * Levels become floats by flipping the sign bit and a byte permute into
 //    the mantissa of 2^23 (sbyte_to_float), not through the int-to-float unit.
 #include "qmm_common.cuh"
@@ -82,117 +87,62 @@ struct Int8Deq {
 };
 
 // ------------------------------------------------------------------ decode
-template <int NB, int GS, bool BIAS>
-__global__ void __launch_bounds__(GEMV_WARPS * 32)
-qmm_int8_gemv_kernel(const float* __restrict__ x, const int8_t* __restrict__ levels,
-                     const void* __restrict__ scales, const void* __restrict__ bias,
-                     float* __restrict__ partial, int B, int K, int N, int scode) {
-  constexpr int NG = 32 / GS;  // groups per 32-row step
-  __shared__ float red[GEMV_WARPS][GEMV_TILE_N];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int t = blockIdx.y * GEMV_WARPS + warp;  // 32-row step, warp-uniform
-  const bool t_ok = t < K / 32;
-  const int n = blockIdx.x * GEMV_TILE_N + lane * GEMV_COLS;
-  const bool col_ok = n < N;
+// The skeleton's body for int8 levels (gemv_kernel, qmm_common.cuh): one
+// panel, the scale row (and the bias row) of the chunk's group.
+template <int GS_, bool BIAS>
+struct Int8Gemv {
+  static constexpr int PANELS = 1;
+  static constexpr int GS = GS_;
+  static constexpr int NPL = BIAS ? 2 : 1;
 
-  float s[NG][GEMV_COLS], bi[NG][GEMV_COLS];
+  // rows of a chunk: acc[bb] += x[bb, r] * bf16(level[r] * d)
+  template <int NB, int CH>
+  __device__ static void rows(const uint2 (&w)[CH], const float (&pl)[NPL][GEMV_COLS],
+                              const float* xs, int xb, int, float,
+                              float (&acc)[NB][GEMV_COLS]) {
+    float4 x4;
 #pragma unroll
-  for (int h = 0; h < NG; ++h)
+    for (int r = 0; r < CH; ++r) {
+      float wf[GEMV_COLS];
 #pragma unroll
-    for (int c = 0; c < GEMV_COLS; ++c) s[h][c] = bi[h][c] = 0.0f;
-  if (t_ok && col_ok) {
-#pragma unroll
-    for (int h = 0; h < NG; ++h) {
-      load8s(scales, (size_t)(t * NG + h) * N + n, scode, s[h]);
-      if (BIAS) load8s(bias, (size_t)(t * NG + h) * N + n, scode, bi[h]);
-    }
-  }
-
-  for (int b0 = 0; b0 < B; b0 += NB) {
-    float acc[NB][GEMV_COLS];
-#pragma unroll
-    for (int bb = 0; bb < NB; ++bb)
-#pragma unroll
-      for (int c = 0; c < GEMV_COLS; ++c) acc[bb][c] = 0.0f;
-
-    if (t_ok) {
-      // lane l holds x[b, 32t + l]
-      float xr[NB], xg[NB][NG];
+      for (int j = 0; j < GEMV_COLS; ++j)
+        wf[j] = bf16_round1(sbyte_to_float(j < 4 ? w[r].x : w[r].y, j % 4) * pl[0][j]);
 #pragma unroll
       for (int bb = 0; bb < NB; ++bb) {
-        const int b = b0 + bb;
-        const float v = b < B ? x[(size_t)b * K + t * 32 + lane] : 0.0f;
-        xr[bb] = bf16_round(v);
-        if (BIAS) {
-          float sum = v;  // sums over each GS-lane segment
+        const float xv = x_at<NB>(xs, xb, r, bb, x4);
 #pragma unroll
-          for (int o = GS / 2; o > 0; o >>= 1) sum += __shfl_xor_sync(FULL, sum, o);
-#pragma unroll
-          for (int h = 0; h < NG; ++h) xg[bb][h] = __shfl_sync(FULL, sum, h * GS);
-        }
-      }
-#pragma unroll
-      for (int h = 0; h < NG; ++h) {
-        const int8_t* prow = levels + (size_t)(t * 32 + h * GS) * N + n;
-#pragma unroll 4
-        for (int r = 0; r < GS; ++r) {
-          uint2 lv = make_uint2(0u, 0u);
-          if (col_ok) lv = *reinterpret_cast<const uint2*>(prow + (size_t)r * N);
-          float w[GEMV_COLS];
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            w[j] = bf16_round(sbyte_to_float(lv.x, j) * s[h][j]);
-            w[4 + j] = bf16_round(sbyte_to_float(lv.y, j) * s[h][4 + j]);
-          }
-#pragma unroll
-          for (int bb = 0; bb < NB; ++bb) {
-            const float xv = __shfl_sync(FULL, xr[bb], h * GS + r);
-#pragma unroll
-            for (int c = 0; c < GEMV_COLS; ++c) acc[bb][c] += xv * w[c];
-          }
-        }
-        if (BIAS) {
-#pragma unroll
-          for (int bb = 0; bb < NB; ++bb)
-#pragma unroll
-            for (int c = 0; c < GEMV_COLS; ++c) acc[bb][c] += xg[bb][h] * bi[h][c];
-        }
+        for (int j = 0; j < GEMV_COLS; ++j) acc[bb][j] += xv * wf[j];
       }
     }
-#pragma unroll
-    for (int bb = 0; bb < NB; ++bb)
-      gemv_block_partial(red, acc[bb], partial, b0 + bb, B, N);
   }
-}
 
-template <int GS, bool BIAS>
-cudaError_t launch_gemv(const float* x, const int8_t* levels, const void* scales,
-                        const void* bias, float* partial, float* out, int B, int K,
-                        int N, int scode, cudaStream_t st) {
-  const int n_split = gemv_splits(K / 32);
-  dim3 grid((N + GEMV_TILE_N - 1) / GEMV_TILE_N, n_split);
-  if (B == 1)
-    qmm_int8_gemv_kernel<1, GS, BIAS><<<grid, GEMV_WARPS * 32, 0, st>>>(
-        x, levels, scales, bias, partial, B, K, N, scode);
-  else
-    qmm_int8_gemv_kernel<8, GS, BIAS><<<grid, GEMV_WARPS * 32, 0, st>>>(
-        x, levels, scales, bias, partial, B, K, N, scode);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  return gemv_reduce(partial, out, n_split, B * N, st);
-}
+  // the seed of a chunk: acc[bb] += xg[bb] * bias (xg: the chunk's x sums)
+  template <int NB>
+  __device__ static void seed(const float (&pl)[NPL][GEMV_COLS], const float* xg, int gb, int,
+                              float, float (&acc)[NB][GEMV_COLS]) {
+    if constexpr (BIAS) {
+#pragma unroll
+      for (int bb = 0; bb < NB; ++bb) {
+        const float g = xg[bb * gb];
+#pragma unroll
+        for (int j = 0; j < GEMV_COLS; ++j) acc[bb][j] += g * pl[1][j];
+      }
+    }
+  }
+};
 
-// scratch: the decode form's partial sums (B <= 32) or the tile's (splits > 1)
+// B <= 32: the decode skeleton in `splits` K splits (scratch and xa
+// unused); above, the prefill tile (scratch: its partial sums when
+// splits > 1)
 template <int GS>
 cudaError_t launch_int8(const float* x, const int8_t* levels, const void* scales,
                         const void* bias, float* scratch, void* xa, float* out, int B, int K,
                         int N, int bm, int splits, int ka, int scode, cudaStream_t st) {
   if (B <= 32) {
-    if (scode < SCALE_F32 || scode > SCALE_BF16) return cudaErrorInvalidValue;
-    return bias ? launch_gemv<GS, true>(x, levels, scales, bias, scratch, out, B, K, N, scode, st)
-                : launch_gemv<GS, false>(x, levels, scales, bias, scratch, out, B, K, N, scode,
-                                         st);
+    const GemvArgs a{x, (const uint8_t*)levels, scales, bias, out, B, K, N, K / GEMV_STEP, 0,
+                     scode, 0.0f};
+    return bias ? gemv_launch<Int8Gemv<GS, true>>(a, splits, st)
+                : gemv_launch<Int8Gemv<GS, false>>(a, splits, st);
   }
   return tile::launch<Int8Deq<GS>>(x, levels, K, scales, K / GS, bias, (__nv_bfloat16*)xa,
                                    scratch, out, B, K, N, 1, GS, 0, 0.0f, bm, splits, ka, scode,
@@ -203,13 +153,15 @@ cudaError_t launch_int8(const float* x, const int8_t* levels, const void* scales
 
 extern "C" {
 
-// Number of K splits of the decode form (B <= 32); the caller allocates
-// partial sums of [splits, B, N] f32 for it.
-int qmm_int8_splits(int K) { return gemv_splits(K / 32); }
+// Clusters of `splits` blocks the decode GEMV runs at once (rows: 1, or 8
+// a pass), for ops/qmm.py::gemv_plan; -1 on an error.
+int qmm_int8_gemv_clusters(int splits, int rows) {
+  return gemv_max_clusters<Int8Gemv<32, true>>(splits, rows);
+}
 
-// bias NULL: _qmm_kernel; else _qmm_bias_kernel.  At B <= 32 scratch holds
-// the K splits' partial sums (qmm_int8_splits(K) x B x N floats) and xa is
-// unused; above, the prefill tile with the seed fused: xa bf16 [B, ka],
+// bias NULL: _qmm_kernel; else _qmm_bias_kernel.  At B <= 32 the decode
+// GEMV in `splits` K splits (ops/qmm.py::gemv_plan; scratch, xa, bm and ka
+// unused); above, the prefill tile with the seed fused: xa bf16 [B, ka],
 // scratch f32 [splits, B, N] when splits > 1 (bm, splits and ka from
 // ops/qmm.py::tile_plan).  scode: the dtype of scales and bias (ScaleCode).
 int qmm_int8(const void* x, const void* levels, const void* scales, const void* bias,

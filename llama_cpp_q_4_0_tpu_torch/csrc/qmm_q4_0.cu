@@ -33,17 +33,22 @@
 //    the same tensor-core mainloop on bf16 hi/lo parts of xg and gbias.
 //  * The decode form (qmm_q4_0_kfold; qmm_packed_bias at 32 rows or fewer) is
 //    bound by the bytes of the packed weight and its planes, read once per
-//    token.  Each thread streams 8 consecutive columns (8-byte loads; a warp
-//    covers 256 contiguous bytes of a row), each warp one 32-row step, each
-//    block 8 steps; blocks split K so that the card has enough loads in
-//    flight, and gemv_reduce sums the K splits in a fixed order.  x stays in
-//    registers and is broadcast with warp shuffles; the group sums xg come
-//    from the same registers by shuffle reductions.  kfold folds the zero
-//    point as the TPU kernel does (weights bf16(nib * d), plus
-//    -zero * (xg_lo * d_lo + xg_hi * d_hi) per group); the affine form
-//    dequantizes bf16((nib - zero) * d) and adds xg_lo * b_lo + xg_hi * b_hi.
+//    token, and then by issue slots: two weights a byte leave about 5
+//    thread instructions a weight of a 9-10 a byte budget.  It runs the
+//    decode skeleton of qmm_common.cuh (gemv_kernel: one launch, the K
+//    splits of a column tile reduced inside a thread-block cluster, every
+//    load of a chunk in flight before any is used and the next chunk's loads
+//    issued before this one is computed, x of both panels broadcast from
+//    shared memory) with PackedGemv below as its body.  Per 8-byte row
+//    word: 3 masks and shifts, 16 byte permutes, 16 FADD that both end the
+//    mantissa trick and subtract the zero (off = 2^23 + zero), 16 FMUL, 16
+//    bf16 roundings (one cvt each) and 16 FFMA a batch row.  kfold folds the
+//    zero point as the TPU kernel does (weights bf16(nib * d), plus
+//    -zero * (xg_lo * d_lo + xg_hi * d_hi)); the affine form dequantizes
+//    bf16((nib - zero) * d) and adds xg_lo * b_lo + xg_hi * b_hi; both once a
+//    chunk, xg the chunk's x sums.
 //  * Nibbles become floats by a byte permute into the mantissa of 2^23
-//    (byte_to_float) instead of the int-to-float unit, which issues at a
+//    (byte_minus) instead of the int-to-float unit, which issues at a
 //    fraction of the FMA rate and would otherwise bound the decode form
 //    before the memory does (two conversions per weight byte).
 #include "qmm_common.cuh"
@@ -97,8 +102,7 @@ struct PackedDeq {
       float f[16];
 #pragma unroll
       for (int e = 0; e < 16; ++e)
-        f[e] = (__int_as_float(__byte_perm(w[e / 4], 0x4B000000u, 0x7540 + e % 4)) - off) *
-               (e < 8 ? sl[g][e] : sh[g][e - 8]);
+        f[e] = byte_minus(w[e / 4], e % 4, off) * (e < 8 ? sl[g][e] : sh[g][e - 8]);
       *reinterpret_cast<uint4*>(bs + tile::b_off(r, c)) =
           make_uint4(tile::pack_bf16(f[0], f[1]), tile::pack_bf16(f[2], f[3]),
                      tile::pack_bf16(f[4], f[5]), tile::pack_bf16(f[6], f[7]));
@@ -110,141 +114,74 @@ struct PackedDeq {
 };
 
 // ------------------------------------------------------------------ decode
-// FOLD: the kfold form (bf16(nib * d), seed -zero * xg.d); else the affine
-// form (bf16((nib - zero) * d), seed xg.bias).
-template <int NB, int GS, bool FOLD>
-__global__ void __launch_bounds__(GEMV_WARPS * 32)
-qmm_packed_gemv_kernel(const float* __restrict__ x, const uint8_t* __restrict__ packed,
-                       const void* __restrict__ scales, const void* __restrict__ bias,
-                       float* __restrict__ partial, int B, int K, int N, int G2P,
-                       float zero, int scode) {
-  constexpr int NG = 32 / GS;  // groups per 32-row step
-  __shared__ float red[GEMV_WARPS][GEMV_TILE_N];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int k2 = K / 2;
-  const int t = blockIdx.y * GEMV_WARPS + warp;  // 32-row step, warp-uniform
-  const bool t_ok = t < k2 / 32;
-  const int n = blockIdx.x * GEMV_TILE_N + lane * GEMV_COLS;
-  const bool col_ok = n < N;
+// The skeleton's body for the packed layout (gemv_kernel, qmm_common.cuh):
+// two panels, a packed row r giving K row r (low nibbles) and K/2 + r (high
+// nibbles); the chunk's planes are the two scale rows of its group and, for
+// the affine form, the two bias rows.  FOLD: the kfold form (bf16(nib * d),
+// seed -zero * xg . d); else the affine form (bf16((nib - zero) * d), seed
+// xg . bias).
+template <int GS_, bool FOLD>
+struct PackedGemv {
+  static constexpr int PANELS = 2;
+  static constexpr int GS = GS_;
+  static constexpr int NPL = FOLD ? 2 : 4;
 
-  float sl[NG][GEMV_COLS], sh[NG][GEMV_COLS], bl[NG][GEMV_COLS], bh[NG][GEMV_COLS];
+  template <int NB, int CH>
+  __device__ static void rows(const uint2 (&w)[CH], const float (&pl)[NPL][GEMV_COLS],
+                              const float* xs, int xb, int xp, float zero,
+                              float (&acc)[NB][GEMV_COLS]) {
+    const float off = 8388608.0f + (FOLD ? 0.0f : zero);
+    float4 xl4, xh4;
 #pragma unroll
-  for (int h = 0; h < NG; ++h)
+    for (int r = 0; r < CH; ++r) {
+      float wl[GEMV_COLS], wh[GEMV_COLS];
 #pragma unroll
-    for (int c = 0; c < GEMV_COLS; ++c) sl[h][c] = sh[h][c] = bl[h][c] = bh[h][c] = 0.0f;
-  if (t_ok && col_ok) {
+      for (int q = 0; q < 2; ++q) {
+        const unsigned wd = q ? w[r].y : w[r].x;
+        const unsigned lo = wd & 0x0F0F0F0Fu, hi = (wd >> 4) & 0x0F0F0F0Fu;
 #pragma unroll
-    for (int h = 0; h < NG; ++h) {
-      const int g = t * NG + h;
-      load8s(scales, (size_t)g * N + n, scode, sl[h]);
-      load8s(scales, ((size_t)G2P + g) * N + n, scode, sh[h]);
-      if (!FOLD) {
-        load8s(bias, (size_t)g * N + n, scode, bl[h]);
-        load8s(bias, ((size_t)G2P + g) * N + n, scode, bh[h]);
+        for (int j = 0; j < 4; ++j) {
+          const int c = 4 * q + j;
+          wl[c] = bf16_round1(byte_minus(lo, j, off) * pl[0][c]);
+          wh[c] = bf16_round1(byte_minus(hi, j, off) * pl[1][c]);
+        }
       }
-    }
-  }
-
-  for (int b0 = 0; b0 < B; b0 += NB) {
-    float acc[NB][GEMV_COLS];
-#pragma unroll
-    for (int bb = 0; bb < NB; ++bb)
-#pragma unroll
-      for (int c = 0; c < GEMV_COLS; ++c) acc[bb][c] = 0.0f;
-
-    if (t_ok) {
-      // lane l holds x[b, 32t + l] (low panel) and x[b, K/2 + 32t + l] (high)
-      float xlo[NB], xhi[NB], xg_lo[NB][NG], xg_hi[NB][NG];
 #pragma unroll
       for (int bb = 0; bb < NB; ++bb) {
-        const int b = b0 + bb;
-        const float vlo = b < B ? x[(size_t)b * K + t * 32 + lane] : 0.0f;
-        const float vhi = b < B ? x[(size_t)b * K + k2 + t * 32 + lane] : 0.0f;
-        xlo[bb] = bf16_round(vlo);
-        xhi[bb] = bf16_round(vhi);
-        float slo_sum = vlo, shi_sum = vhi;  // sums over each GS-lane segment
+        const float xl = x_at<NB>(xs, xb, r, bb, xl4);
+        const float xh = x_at<NB>(xs + xp, xb, r, bb, xh4);
 #pragma unroll
-        for (int o = GS / 2; o > 0; o >>= 1) {
-          slo_sum += __shfl_xor_sync(FULL, slo_sum, o);
-          shi_sum += __shfl_xor_sync(FULL, shi_sum, o);
+        for (int c = 0; c < GEMV_COLS; ++c) {
+          acc[bb][c] += xl * wl[c];
+          acc[bb][c] += xh * wh[c];
         }
-#pragma unroll
-        for (int h = 0; h < NG; ++h) {
-          xg_lo[bb][h] = __shfl_sync(FULL, slo_sum, h * GS);
-          xg_hi[bb][h] = __shfl_sync(FULL, shi_sum, h * GS);
-        }
-      }
-#pragma unroll
-      for (int h = 0; h < NG; ++h) {
-        const uint8_t* prow = packed + (size_t)(t * 32 + h * GS) * N + n;
-#pragma unroll 4
-        for (int r = 0; r < GS; ++r) {
-          uint2 pk = make_uint2(0u, 0u);
-          if (col_ok) pk = *reinterpret_cast<const uint2*>(prow + (size_t)r * N);
-          float wl[GEMV_COLS], wh[GEMV_COLS];
-#pragma unroll
-          for (int q = 0; q < 2; ++q) {
-            const unsigned wd = q ? pk.y : pk.x;
-            const unsigned lo = wd & 0x0F0F0F0Fu;
-            const unsigned hi = (wd >> 4) & 0x0F0F0F0Fu;
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              const int c = 4 * q + j;
-              if (FOLD) {
-                wl[c] = bf16_round(byte_to_float(lo, j) * sl[h][c]);
-                wh[c] = bf16_round(byte_to_float(hi, j) * sh[h][c]);
-              } else {
-                wl[c] = bf16_round((byte_to_float(lo, j) - zero) * sl[h][c]);
-                wh[c] = bf16_round((byte_to_float(hi, j) - zero) * sh[h][c]);
-              }
-            }
-          }
-#pragma unroll
-          for (int bb = 0; bb < NB; ++bb) {
-            const float xl = __shfl_sync(FULL, xlo[bb], h * GS + r);
-            const float xh = __shfl_sync(FULL, xhi[bb], h * GS + r);
-#pragma unroll
-            for (int c = 0; c < GEMV_COLS; ++c) {
-              acc[bb][c] += xl * wl[c];
-              acc[bb][c] += xh * wh[c];
-            }
-          }
-        }
-#pragma unroll
-        for (int bb = 0; bb < NB; ++bb)
-#pragma unroll
-          for (int c = 0; c < GEMV_COLS; ++c) {
-            if (FOLD)
-              acc[bb][c] += -zero * (xg_lo[bb][h] * sl[h][c] + xg_hi[bb][h] * sh[h][c]);
-            else
-              acc[bb][c] += xg_lo[bb][h] * bl[h][c] + xg_hi[bb][h] * bh[h][c];
-          }
       }
     }
-#pragma unroll
-    for (int bb = 0; bb < NB; ++bb)
-      gemv_block_partial(red, acc[bb], partial, b0 + bb, B, N);
   }
-}
+
+  template <int NB>
+  __device__ static void seed(const float (&pl)[NPL][GEMV_COLS], const float* xg, int gb, int gp,
+                              float zero, float (&acc)[NB][GEMV_COLS]) {
+#pragma unroll
+    for (int bb = 0; bb < NB; ++bb) {
+      const float gl = xg[bb * gb], gh = xg[bb * gb + gp];
+#pragma unroll
+      for (int c = 0; c < GEMV_COLS; ++c) {
+        if (FOLD)
+          acc[bb][c] += -zero * (gl * pl[0][c] + gh * pl[1][c]);
+        else
+          acc[bb][c] += gl * pl[2][c] + gh * pl[3][c];
+      }
+    }
+  }
+};
 
 template <int GS, bool FOLD>
 cudaError_t launch_gemv(const float* x, const uint8_t* packed, const void* scales,
-                        const void* bias, float* partial, float* out, int B, int K,
-                        int N, int G2P, float zero, int scode, cudaStream_t st) {
-  const int n_split = gemv_splits(K / 2 / 32);
-  dim3 grid((N + GEMV_TILE_N - 1) / GEMV_TILE_N, n_split);
-  // one row (a decode step), or rows in passes of 8 (the bucket-8 and -32
-  // prefill calls and the output head of a batch)
-  if (B == 1)
-    qmm_packed_gemv_kernel<1, GS, FOLD><<<grid, GEMV_WARPS * 32, 0, st>>>(
-        x, packed, scales, bias, partial, B, K, N, G2P, zero, scode);
-  else
-    qmm_packed_gemv_kernel<8, GS, FOLD><<<grid, GEMV_WARPS * 32, 0, st>>>(
-        x, packed, scales, bias, partial, B, K, N, G2P, zero, scode);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  return gemv_reduce(partial, out, n_split, B * N, st);
+                        const void* bias, float* out, int B, int K, int N, int G2P, float zero,
+                        int splits, int scode, cudaStream_t st) {
+  const GemvArgs a{x, packed, scales, bias, out, B, K, N, K / 2 / GEMV_STEP, G2P, scode, zero};
+  return gemv_launch<PackedGemv<GS, FOLD>>(a, splits, st);
 }
 
 // packed [K2P = G2P * GS, N], scales and bias [2 * G2P, N]
@@ -261,10 +198,6 @@ cudaError_t launch_tile(const float* x, const uint8_t* packed, const void* scale
 }  // namespace
 
 extern "C" {
-
-// Number of K splits (blocks along K) of the decode form; the caller
-// allocates partial sums of [splits, B, N] f32.
-int qmm_packed_splits(int K) { return gemv_splits(K / 2 / 32); }
 
 // Dynamic shared memory of the prefill tile at bm rows per unit (bytes), for
 // reports: ptxas sees only static shared memory.
@@ -299,27 +232,33 @@ int qmm_q4_0(const void* x, const void* packed, const void* scales, void* xa, vo
   return (int)cudaErrorInvalidValue;
 }
 
-int qmm_q4_0_kfold(const void* x, const void* packed, const void* scales,
-                   void* partial, void* out, int B, int K, int N, int G2P, int zero,
-                   int gsize, int scode, void* stream) {
+// Clusters of `splits` blocks the decode GEMV runs at once (rows: 1, or 8
+// a pass), for ops/qmm.py::gemv_plan; -1 on an error.
+int qmm_packed_gemv_clusters(int splits, int rows) {
+  return gemv_max_clusters<PackedGemv<32, false>>(splits, rows);
+}
+
+// The decode form of K2 (1 <= B <= 32) in `splits` K splits
+// (ops/qmm.py::gemv_plan).
+int qmm_q4_0_kfold(const void* x, const void* packed, const void* scales, void* out, int B,
+                   int K, int N, int G2P, int zero, int gsize, int splits, int scode,
+                   void* stream) {
   const float* xf = (const float*)x;
   const uint8_t* pk = (const uint8_t*)packed;
   const cudaStream_t st = (cudaStream_t)stream;
-  if (scode < SCALE_F32 || scode > SCALE_BF16) return (int)cudaErrorInvalidValue;
   if (gsize == 32)
-    return (int)launch_gemv<32, true>(xf, pk, scales, nullptr, (float*)partial, (float*)out, B,
-                                      K, N, G2P, (float)zero, scode, st);
+    return (int)launch_gemv<32, true>(xf, pk, scales, nullptr, (float*)out, B, K, N, G2P,
+                                      (float)zero, splits, scode, st);
   if (gsize == 16)
-    return (int)launch_gemv<16, true>(xf, pk, scales, nullptr, (float*)partial, (float*)out, B,
-                                      K, N, G2P, (float)zero, scode, st);
+    return (int)launch_gemv<16, true>(xf, pk, scales, nullptr, (float*)out, B, K, N, G2P,
+                                      (float)zero, splits, scode, st);
   return (int)cudaErrorInvalidValue;
 }
 
-// The affine form: the decode shape at B <= 32 (scratch holds the K splits'
-// partial sums, qmm_packed_splits(K) x B x N floats, xa unused), else the
-// prefill tile with the seed fused (scratch: its partial sums when
-// splits > 1; xa, bm, splits, ka as for qmm_q4_0).  scales and bias share
-// the dtype scode.
+// The affine form: the decode GEMV at B <= 32 in `splits` K splits
+// (ops/qmm.py::gemv_plan; scratch, xa, bm and ka unused), else the prefill
+// tile with the seed fused (scratch: its partial sums when splits > 1; xa,
+// bm, splits, ka as for qmm_q4_0).  scales and bias share the dtype scode.
 int qmm_packed_bias(const void* x, const void* packed, const void* scales,
                     const void* bias, void* scratch, void* xa, void* out, int B, int K,
                     int N, int G2P, int zero, int gsize, int bm, int splits, int ka,
@@ -331,12 +270,10 @@ int qmm_packed_bias(const void* x, const void* packed, const void* scales,
   const cudaStream_t st = (cudaStream_t)stream;
   const float z = (float)zero;
   if (gsize != 16 && gsize != 32) return (int)cudaErrorInvalidValue;
-  if (B <= 32) {
-    if (scode < SCALE_F32 || scode > SCALE_BF16) return (int)cudaErrorInvalidValue;
+  if (B <= 32)
     return (int)(gsize == 32
-        ? launch_gemv<32, false>(xf, pk, scales, bias, part, o, B, K, N, G2P, z, scode, st)
-        : launch_gemv<16, false>(xf, pk, scales, bias, part, o, B, K, N, G2P, z, scode, st));
-  }
+        ? launch_gemv<32, false>(xf, pk, scales, bias, o, B, K, N, G2P, z, splits, scode, st)
+        : launch_gemv<16, false>(xf, pk, scales, bias, o, B, K, N, G2P, z, splits, scode, st));
   return (int)(gsize == 32
       ? launch_tile<32, false>(xf, pk, scales, bias, xa, part, o, B, K, N, G2P, z, bm, splits,
                                ka, scode, st)

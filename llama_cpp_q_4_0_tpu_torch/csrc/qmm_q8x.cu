@@ -20,8 +20,8 @@
 //  * B <= 32 (decode, buckets 8 and 32), three passes:
 //    1. q8x_quantize_kernel: xq int8 [B, K], d f32 [B, K/GS] (logical groups:
 //       the low panel's, then the high panel's).
-//    2. a split-K GEMV in the manner of
-//       K2, bound by the bytes of the packed weight.  A warp owns one packed
+//    2. a split-K GEMV, bound by the bytes of the packed weight (its own
+//       body, not yet on the decode skeleton of qmm_common.cuh).  A warp owns one packed
 //       32-row step (32 / GS groups of each panel, one after the other), a
 //       lane 8 columns; every 4 rows the lane's 4 x 8 bytes are transposed by
 //       byte permutes so that each word holds 4 K-rows of one column, and

@@ -265,16 +265,16 @@ _SIGNATURES = {
     "qmm_q4_0": {
         "qmm_q4_0": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                       _P], _I),
-        "qmm_q4_0_kfold": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P], _I),
+        "qmm_q4_0_kfold": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P], _I),
         "qmm_packed_bias": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                              _I, _I, _P], _I),
-        "qmm_packed_splits": ([_I], _I),
         "qmm_tile_smem": ([_I], _I),
+        "qmm_packed_gemv_clusters": ([_I, _I], _I),
     },
     "qmm_int8": {
         "qmm_int8": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
                      _I),
-        "qmm_int8_splits": ([_I], _I),
+        "qmm_int8_gemv_clusters": ([_I, _I], _I),
     },
     "qmm_q8x": {
         "qmm_q8x": ([_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
@@ -304,13 +304,78 @@ def _launched(err: int, name: str):
 
 
 def _scratch(lib, splits_fn: str, x: torch.Tensor, n: int) -> torch.Tensor | None:
-    """The decode form's f32 partial sums of its K splits, [splits, B, N];
-    None above GEMV_MAX_ROWS rows."""
+    """K7's decode form's f32 partial sums of its K splits, [splits, B, N],
+    which its reduce pass adds; None above GEMV_MAX_ROWS rows.  (K2, K5, K6
+    and K6b reduce their splits inside the kernel and take none.)"""
     b, k = x.shape
     if b > GEMV_MAX_ROWS:
         return None
     return torch.empty((getattr(lib, splits_fn)(k), b, n), dtype=torch.float32,
                        device=x.device)
+
+
+# The decode GEMV of K2, K5, K6 and K6b (csrc/qmm_common.cuh gemv_kernel):
+# GEMV_TILE_N columns a block, weight rows in GEMV_STEP-row steps, the K
+# splits of a column tile one thread-block cluster of at most
+# GEMV_MAX_SPLITS blocks.
+GEMV_TILE_N = 256
+GEMV_STEP = 32
+GEMV_MAX_SPLITS = 8
+GEMV_FILL_STEPS = 4  # a split's own cost (first loads, the cluster reduce), in steps
+# clusters of s blocks the card runs at once, as the kernels' occupancy query
+# (qmm_*_gemv_clusters) gives it on an NVIDIA H100 80GB HBM3: the plan's
+# default away from the card
+H100_GEMV_CLUSTERS = {1: 132, 2: 66, 3: 39, 4: 30, 5: 22, 6: 17, 7: 15, 8: 15}
+
+
+@dataclasses.dataclass(frozen=True)
+class GemvPlan:
+    """One decode call: K split in ``splits`` (the cluster size) over the
+    weight's ``steps`` 32-row steps."""
+    splits: int
+    steps: int
+
+    def ranges(self) -> list[tuple[int, int]]:
+        """The steps [t0, t1) of each split, as the kernel computes them."""
+        return [(q * self.steps // self.splits, (q + 1) * self.steps // self.splits)
+                for q in range(self.splits)]
+
+
+def gemv_plan(k: int, n: int, packed: bool, *,
+              clusters: dict[int, int] = H100_GEMV_CLUSTERS) -> GemvPlan:
+    """K splits of a decode call at K x N.  The N tiles x s blocks run in
+    waves of clusters[s] clusters; a wave costs a split's steps plus
+    GEMV_FILL_STEPS.  Every split keeps at least one step.  (At the 7B shapes
+    this picks the fastest s of a sweep of s = 1..8 on the H100: 6 on the
+    4096-column weights, 2 on wqkv, 4 on the fused gate/up, 1 on the head.)"""
+    steps = k // (2 * GEMV_STEP) if packed else k // GEMV_STEP
+    tiles = -(-n // GEMV_TILE_N)
+    best = None
+    for s in range(1, min(GEMV_MAX_SPLITS, steps) + 1):
+        waves = -(-tiles * s // (clusters[s] * s))
+        cost = waves * (-(-steps // s) + GEMV_FILL_STEPS)
+        if best is None or cost < best[0]:
+            best = (cost, s)
+    return GemvPlan(best[1], steps)
+
+
+@functools.lru_cache(maxsize=None)
+def _gemv_clusters(source: str, index: int) -> dict[int, int]:
+    """The card's clusters at once for each split count (one query a device)."""
+    lib = _lib(source)
+    fn = getattr(lib, "qmm_packed_gemv_clusters" if source == "qmm_q4_0"
+                 else "qmm_int8_gemv_clusters")
+    with torch.cuda.device(index):
+        got = {s: fn(s, 1) for s in range(1, GEMV_MAX_SPLITS + 1)}
+    if min(got.values()) < 1:
+        raise RuntimeError(f"the decode GEMV's cluster occupancy query failed: {got}")
+    return got
+
+
+def _gemv_plan(x: torch.Tensor, n: int, packed: bool) -> GemvPlan:
+    index = x.device.index or 0
+    return gemv_plan(x.shape[1], n, packed,
+                     clusters=_gemv_clusters("qmm_q4_0" if packed else "qmm_int8", index))
 
 
 # The prefill tile (csrc/qmm_tile.cuh): TILE_N output columns and one of
@@ -397,7 +462,7 @@ def _tile_scratch(x: torch.Tensor, n: int, gsize: int, *, packed: bool,
     return plan, xa, partial
 
 
-_NO_TILE = TilePlan(0, 0, 0, 0)  # the decode form takes no plan
+_NO_TILE = TilePlan(0, 0, 0, 0)  # K7's decode form takes no tile plan
 
 
 def _ptr(t: torch.Tensor | None):
@@ -436,12 +501,18 @@ def qmm_packed_kfold(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor
         return torch.cat([qmm_packed_kfold(x[i:i + GEMV_MAX_ROWS], packed, scales,
                                            zero=zero, gsize=gsize)
                           for i in range(0, b, GEMV_MAX_ROWS)])
-    lib = _lib("qmm_q4_0")
-    partial = _scratch(lib, "qmm_packed_splits", x, n)
+    return _kfold(x, packed, scales, zero, gsize, code)
+
+
+def _kfold(x, packed, scales, zero, gsize, code):
+    b, k = x.shape
+    k2p, n = packed.shape
+    plan = _gemv_plan(x, n, packed=True)
     out = torch.empty((b, n), dtype=torch.float32, device=x.device)
-    err = lib.qmm_q4_0_kfold(x.data_ptr(), packed.data_ptr(), scales.data_ptr(),
-                             partial.data_ptr(), out.data_ptr(), b, k, n,
-                             k2p // gsize, zero, gsize, code, _stream(x))
+    err = _lib("qmm_q4_0").qmm_q4_0_kfold(x.data_ptr(), packed.data_ptr(),
+                                          scales.data_ptr(), out.data_ptr(), b, k, n,
+                                          k2p // gsize, zero, gsize, plan.splits, code,
+                                          _stream(x))
     _launched(err, "qmm_q4_0_kfold")
     return out
 
@@ -452,17 +523,28 @@ def qmm_packed_bias(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
     code = _check(x, packed, [scales, gbias], packed=True, gsize=gsize)
     if x.device.type == "cpu":
         return qmm_packed_bias_plain(x, packed, scales, gbias, zero=zero, gsize=gsize)
+    return _packed_bias(x, packed, scales, gbias, zero, gsize, code)
+
+
+def _decode_or_tile(x, n, gsize, *, packed, bias):
+    """(plan, xa, scratch) of a K5, K6 or K6b call: at 32 rows or fewer the
+    decode GEMV's splits in a plan with no rows per unit or x buffer (and no
+    scratch: it reduces its K splits inside the kernel), else the tile's."""
+    if x.shape[0] <= GEMV_MAX_ROWS:
+        gemv = _gemv_plan(x, n, packed)
+        return TilePlan(0, gemv.splits, gemv.steps, 0), None, None
+    return _tile_scratch(x, n, gsize, packed=packed, bias=bias)
+
+
+def _packed_bias(x, packed, scales, gbias, zero, gsize, code):
     b, k = x.shape
     k2p, n = packed.shape
-    lib = _lib("qmm_q4_0")
-    scratch, xa, plan = _scratch(lib, "qmm_packed_splits", x, n), None, _NO_TILE
-    if scratch is None:
-        plan, xa, scratch = _tile_scratch(x, n, gsize, packed=True, bias=True)
+    plan, xa, scratch = _decode_or_tile(x, n, gsize, packed=True, bias=True)
     out = torch.empty((b, n), dtype=torch.float32, device=x.device)
-    err = lib.qmm_packed_bias(x.data_ptr(), packed.data_ptr(), scales.data_ptr(),
-                              gbias.data_ptr(), _ptr(scratch), _ptr(xa), out.data_ptr(),
-                              b, k, n, k2p // gsize, zero, gsize, plan.bm, plan.splits,
-                              plan.ka, code, _stream(x))
+    err = _lib("qmm_q4_0").qmm_packed_bias(
+        x.data_ptr(), packed.data_ptr(), scales.data_ptr(), gbias.data_ptr(), _ptr(scratch),
+        _ptr(xa), out.data_ptr(), b, k, n, k2p // gsize, zero, gsize, plan.bm, plan.splits,
+        plan.ka, code, _stream(x))
     _launched(err, "qmm_packed_bias")
     return out
 
@@ -470,15 +552,12 @@ def qmm_packed_bias(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
 def _int8(x, levels, scales, gbias, gsize, name, code):
     b, k = x.shape
     n = levels.shape[1]
-    lib = _lib("qmm_int8")
-    scratch, xa, plan = _scratch(lib, "qmm_int8_splits", x, n), None, _NO_TILE
-    if scratch is None:
-        plan, xa, scratch = _tile_scratch(x, n, gsize, packed=False,
-                                          bias=gbias is not None)
+    plan, xa, scratch = _decode_or_tile(x, n, gsize, packed=False, bias=gbias is not None)
     out = torch.empty((b, n), dtype=torch.float32, device=x.device)
-    err = lib.qmm_int8(x.data_ptr(), levels.data_ptr(), scales.data_ptr(),
-                       _ptr(gbias), _ptr(scratch), _ptr(xa), out.data_ptr(), b, k, n,
-                       gsize, plan.bm, plan.splits, plan.ka, code, _stream(x))
+    err = _lib("qmm_int8").qmm_int8(x.data_ptr(), levels.data_ptr(), scales.data_ptr(),
+                                    _ptr(gbias), _ptr(scratch), _ptr(xa), out.data_ptr(), b, k,
+                                    n, gsize, plan.bm, plan.splits, plan.ka, code,
+                                    _stream(x))
     _launched(err, name)
     return out
 
