@@ -12,12 +12,14 @@ Phases (each prints its own lines; any failure exits non-zero):
      K3 on q4_0 weights; the prefill tile (K1 on q4_0, K5 on q4_K, K6 on
      q6_K, K6b on q5_K) timed at b=128 and 512 and checked at b=33, 64 and
      2048, two launches bit-identical; K5, K6, K6b's decode form at b=1;
-     the four decode forms of one GEMV skeleton (K2, K5, K6, K6b: one launch
-     a call, the K splits reduced inside a thread-block cluster) at b=1, 3,
-     8, 17 and 32 at their 7B shapes, a ragged N=4224 and K=11008, each
-     within tolerance, two launches bit-identical, 10 replays of a CUDA graph
-     of one launch bit-identical to it, and on 2-byte planes equal to its f32
-     twin (check_gemv);
+     the decode forms of one GEMV skeleton (K2, K5, K6, K6b, and K7 on q4_0
+     and q3_K: one launch a call, the K splits reduced inside a thread-block
+     cluster) at b=1, 3, 8, 17 and 32 at their 7B shapes, a ragged N=4224
+     and K=11008, each within tolerance, two launches bit-identical, 10
+     replays of a CUDA graph of one launch bit-identical to it, and on 2-byte
+     planes equal to its f32 twin; K7 also on an odd pack zero and on
+     single-group tie rows, equal to its plain version bit for bit
+     (check_gemv);
      for agreement only, K5 on q2_K (16-groups) and K6 on q8_0 (32-groups)
      at b=1, 33, 64, 512, 2048; the fused affine seed of K5 and K6b alone
      against an f64 seed; ptxas's registers, shared memory and spills of the
@@ -36,10 +38,12 @@ Phases (each prints its own lines; any failure exits non-zero):
      on both layouts launched 21 times, every output bit-identical to the
      first and within tolerance.  The q8 KV cache's
      quantize_kv on the card
-     against the CPU bit for bit.  K4 (decode attention) at T=1 and 8 over windows
-     of 256 and 2048 on int8 and bf16 caches, and for agreement on an f32
-     cache, GQA, head widths 64 and 256, a strided B=2 window with an empty
-     row; K8 (read stream) over 2 GiB of ones, its checksum exact.
+     against the CPU bit for bit.  K4 (decode attention, one cluster launch)
+     at T=1 and 8 over windows of 256 and 2048 on int8 and bf16 caches, and
+     for agreement on an f32 cache, GQA, head widths 64 and 256, a strided
+     B=2 window with an empty row, every case bit-identical over two
+     launches and 10 graph replays; K8 (read stream) over 2 GiB of ones, its
+     checksum exact.
      The six matmul kernels on 2-byte scale planes (PLANE_FORMS): f16 on
      q4_0 (K1, K2, K7, and K5 on the zero folded into an f16 bias plane),
      q5_0 (K6) and q5_1 (K6b); bf16 on q3_K (K1, K2, K7), q4_K (K5), q6_K
@@ -84,9 +88,11 @@ Phases (each prints its own lines; any failure exits non-zero):
 ``--phases kernels,e2e,cli`` runs a subset (for debugging: a subset prints
 no result lines; with no arguments every phase runs).  Phases that run only
 when named: ``sass`` (instruction counts of K7's and K3's kernels and of
-the decode GEMV's instances), ``gemv`` (check_gemv alone), ``busy`` (device
-busy and kernels a 7B decode step on the q4_0, Q4_K_M, Q3_K_M and Q5_K_M
-paths), ``splits`` (each decode form timed at every K split count), ``k7k3``
+the decode GEMV's and K4's instances), ``gemv`` (check_gemv alone),
+``busy`` (device busy and kernels a 7B decode step on the q4_0, Q4_K_M,
+Q3_K_M and Q5_K_M paths, and the int8 configuration at windows 256 and
+2048), ``attn`` (K4's timed cases alone), ``splits`` (each decode form timed
+at every K split count), ``k7k3``
 (K3's and K7's tile checks and times alone), ``k7repeat`` (K7's repeated
 tile launches alone), ``int8prefill`` (the int8 configuration's
 prefill-128 instrument), ``planes`` (the 2-byte plane forms' kernel
@@ -181,15 +187,17 @@ PLANE_FORMS = {
     "qmm_q8x/bf16": ("qmm_packed_q8x", "Q3_K", Q3K_SHAPES, "bfloat16", False),
 }
 # the forms the ``tiles`` phase times alone, for an A/B of this script beside
-# two checkouts' packages: the matmul kernels on f32 planes, and the four
-# decode forms at b=1 and 8 on f32 and 2-byte planes
+# two checkouts' packages: the matmul kernels on f32 planes, and the five
+# decode forms at b=1 and 8 on f32 and 2-byte planes (K7's on q3_K too)
 TILE_AB = (("qmm_q4_0", 512), ("qmm_q4_0", 128), ("qmm_q4_0_kfold", 1),
            ("qmm_packed_bias", 512), ("qmm_packed_bias", 1), ("qmm_int8", 512),
            ("qmm_int8", 1), ("qmm_q8x", 512), ("qmm_q8x", 1), ("qmm_int8_bias", 1),
            ("qmm_q4_0_kfold", 8), ("qmm_packed_bias", 8), ("qmm_int8", 8),
            ("qmm_int8_bias", 8), ("qmm_q4_0_kfold/f16", 1), ("qmm_packed_bias/bf16", 1),
            ("qmm_int8/bf16", 1), ("qmm_int8_bias/bf16", 1), ("qmm_q4_0_kfold/f16", 8),
-           ("qmm_packed_bias/bf16", 8), ("qmm_int8/bf16", 8), ("qmm_int8_bias/bf16", 8))
+           ("qmm_packed_bias/bf16", 8), ("qmm_int8/bf16", 8), ("qmm_int8_bias/bf16", 8),
+           ("qmm_q8x", 8), ("qmm_q8x/q3_K", 1), ("qmm_q8x/f16", 1), ("qmm_q8x/bf16", 1),
+           ("qmm_q8x/f16", 8), ("qmm_q8x/bf16", 8))
 # (timed rows, checked rows) of each kernel's 2-byte forms; the JSON line
 # keeps the first timed row (K2 and K7 b=1, the others b=512)
 PLANE_ROWS = {"qmm_q4_0": ((512,), (33, 2048)), "qmm_q4_0_kfold": ((1,), (8,)),
@@ -457,15 +465,37 @@ def check_planes(torch, timer, recs: dict) -> bool:
     return ok
 
 
-# The four decode forms redesigned in one skeleton (csrc/qmm_common.cuh
-# gemv_kernel), each with the 2-byte plane form it is held against its f32
-# twin in, and the rows and extra shapes check_gemv takes them at: a ragged
-# N = 4224 (33 x 128 columns: inside the JAX kernel gate, half a 256-column
-# tile) and K = 11008 (uneven splits: 344 int8 or 172 packed steps)
+# The decode forms of one skeleton (csrc/qmm_common.cuh gemv_kernel): K2, K5,
+# K6, K6b and K7 on q4_0 and q3_K, each with the 2-byte plane
+# form it is held against its f32 twin in; K7 also on an odd pack zero
+# (GEMV_ODD_ZERO) and on single-group tie rows (q8x_tie_rows).  The rows and
+# extra shapes check_gemv takes them at: a ragged N = 4224 (33 x 128
+# columns: inside the JAX kernel gate, half a 256-column tile) and K = 11008
+# (uneven splits: 344 int8 or 172 packed steps)
 GEMV_FORMS = {"qmm_q4_0_kfold": "qmm_q4_0_kfold/f16", "qmm_packed_bias": "qmm_packed_bias/bf16",
-              "qmm_int8": "qmm_int8/bf16", "qmm_int8_bias": "qmm_int8_bias/bf16"}
+              "qmm_int8": "qmm_int8/bf16", "qmm_int8_bias": "qmm_int8_bias/bf16",
+              "qmm_q8x": "qmm_q8x/f16", "qmm_q8x/q3_K": "qmm_q8x/bf16"}
+GEMV_ODD_ZERO = {"qmm_q8x": 7, "qmm_q8x/q3_K": 3}
 GEMV_ROWS = (1, 3, 8, 17, 32)
 GEMV_EXTRA = [("ragged", 4224, 4096), ("w_down", 4096, 11008)]
+
+
+def q8x_tie_rows(torch, b: int, k: int, gsize: int, gen):
+    """x [b, k] whose row i is zero but for one gsize-group (group 7 i + 3,
+    so the rows cover both panels): 127 and half-integers in (-127, 127).
+    The group's d is 127 / 127 = 1 exactly (fp16 too) and every other value
+    sits on a roundf tie, which C's roundf takes away from zero and
+    round-half-even would not; every other group quantizes to 0 with d = 0.
+    So each output column of K7 is one f32 term, (dot * d_x) * d_w, in the
+    same order in the kernel and the plain version: equal bit for bit."""
+    x = torch.zeros((b, k), device="cuda")
+    n_groups = k // gsize
+    for i in range(b):
+        g = (7 * i + 3) % n_groups
+        vals = torch.randint(-127, 127, (gsize,), generator=gen, device="cuda").float() + 0.5
+        vals[i % gsize] = 127.0
+        x[i, g * gsize:(g + 1) * gsize] = vals
+    return x
 
 
 def check_gemv(torch) -> bool:
@@ -474,8 +504,11 @@ def check_gemv(torch) -> bool:
     bit-identical; one launch captured in a CUDA graph and replayed 10 times
     bit-identical to the eager launch (the in-kernel reduce leaves no state
     behind); and on its planes cast to 2 bytes, equal bit for bit to the
-    same kernel on f32 planes of the same values.  One line a form and
-    shape."""
+    same kernel on f32 planes of the same values.  K7's forms also on
+    GEMV_ODD_ZERO's pack zero, and on q8x_tie_rows equal to the plain version
+    bit for bit.  One line a form, zero and shape."""
+    import dataclasses
+
     from llama_cpp_q_4_0_tpu_torch.ops import qmm
     from llama_cpp_q_4_0_tpu_torch.ops.qtensor import cast_scales_bf16, cast_scales_f16
     from llama_cpp_q_4_0_tpu_torch.quant.types import GGMLType
@@ -493,40 +526,52 @@ def check_gemv(torch) -> bool:
     ok = True
     for name, form in GEMV_FORMS.items():
         wrapper, fmt, shapes = KERNEL_SHAPES[name]
+        kernel = name.split("/")[0]
         dtype = PLANE_FORMS[form][3]
         kern, plain = getattr(qmm, wrapper), getattr(qmm, wrapper + "_plain")
         extra = [e for e in GEMV_EXTRA if (e[1], e[2]) not in {(n, k) for _, n, k in shapes}]
-        for label, n, k in shapes + extra:
-            w = synth_qtensor(gen, n, k, "cuda", GGMLType[fmt])
-            w2 = (cast_scales_f16 if dtype == "float16" else cast_scales_bf16)(w)
-            w2f = f32_planes(w2)
-            worst, same, graph_same, twin = 0.0, True, True, True
-            for b in GEMV_ROWS:
-                x = torch.randn((b, k), generator=gen, device="cuda")
-                got, again, ref = call(kern, x, w), call(kern, x, w), call(plain, x, w)
-                g = torch.cuda.CUDAGraph()
-                with torch.cuda.graph(g):
-                    gout = call(kern, x, w)
-                replays = []
-                for _ in range(10):
-                    g.replay()
-                    replays.append(torch.equal(gout, got))
-                two, two_f32 = call(kern, x, w2), call(kern, x, w2f)
-                torch.cuda.synchronize()
-                err = (got - ref).abs().max().item()
-                tol = QMM_TOL.get(name, 1e-3) * ref.abs().max().item()
-                worst = max(worst, err / tol)
-                same &= torch.equal(got, again) and bool(torch.isfinite(got).all())
-                graph_same &= all(replays)
-                twin &= torch.equal(two, two_f32)
-                del g, gout, got, again, ref, two, two_f32, x
-            good = worst <= 1.0 and same and graph_same and twin
-            ok &= good
-            print(f"gemv {name} {fmt} {label} N={n} K={k} b={','.join(map(str, GEMV_ROWS))}: "
-                  f"max err/tol={worst:.3e} bit-identical={same} graph_replays_identical="
-                  f"{graph_same} {dtype}_equal_f32={twin} {'ok' if good else 'MISMATCH'}",
-                  flush=True)
-            del w, w2, w2f
+        for zero in (None, GEMV_ODD_ZERO[name]) if name in GEMV_ODD_ZERO else (None,):
+            for label, n, k in shapes + extra:
+                if zero is not None and label not in ("wo", "wq", "ragged"):
+                    continue  # the odd zero on one square shape and the ragged N
+                w = synth_qtensor(gen, n, k, "cuda", GGMLType[fmt])
+                if zero is not None:
+                    w = dataclasses.replace(w, pack_zero=zero)
+                w2 = (cast_scales_f16 if dtype == "float16" else cast_scales_bf16)(w)
+                w2f = f32_planes(w2)
+                worst, same, graph_same, twin, ties = 0.0, True, True, True, True
+                for b in GEMV_ROWS:
+                    x = torch.randn((b, k), generator=gen, device="cuda")
+                    got, again, ref = call(kern, x, w), call(kern, x, w), call(plain, x, w)
+                    g = torch.cuda.CUDAGraph()
+                    with torch.cuda.graph(g):
+                        gout = call(kern, x, w)
+                    replays = []
+                    for _ in range(10):
+                        g.replay()
+                        replays.append(torch.equal(gout, got))
+                    two, two_f32 = call(kern, x, w2), call(kern, x, w2f)
+                    if kernel == "qmm_q8x":
+                        xt = q8x_tie_rows(torch, b, k, w.gsize, gen)
+                        ties &= torch.equal(call(kern, xt, w), call(plain, xt, w))
+                    torch.cuda.synchronize()
+                    err = (got - ref).abs().max().item()
+                    tol = QMM_TOL.get(kernel, 1e-3) * ref.abs().max().item()
+                    worst = max(worst, err / tol)
+                    same &= torch.equal(got, again) and bool(torch.isfinite(got).all())
+                    graph_same &= all(replays)
+                    twin &= torch.equal(two, two_f32)
+                    del g, gout, got, again, ref, two, two_f32, x
+                good = worst <= 1.0 and same and graph_same and twin and ties
+                ok &= good
+                tie_note = f" tie_rows_bit_identical={ties}" if kernel == "qmm_q8x" else ""
+                zero_note = f" zero={zero}" if zero is not None else ""
+                print(f"gemv {name} {fmt}{zero_note} {label} N={n} K={k} "
+                      f"b={','.join(map(str, GEMV_ROWS))}: max err/tol={worst:.3e} "
+                      f"bit-identical={same} graph_replays_identical={graph_same} "
+                      f"{dtype}_equal_f32={twin}{tie_note} {'ok' if good else 'MISMATCH'}",
+                      flush=True)
+                del w, w2, w2f
     return ok
 
 
@@ -623,7 +668,8 @@ def ptxas_report(build) -> None:
                 fn = m.group(1)
             if "warning" in line.lower():
                 print(f"build: {lib}: {line.strip()}", flush=True)
-            if fn and (fn.startswith("_ZN3qmm4tile") or "flash_prefill_kernel" in fn) and (
+            if fn and (fn.startswith("_ZN3qmm4tile") or "flash_prefill_kernel" in fn
+                       or "gemv_kernel" in fn or "mha_decode_kernel" in fn) and (
                     "spill" in line or "registers" in line):
                 props.setdefault(fn, []).append(line.split(":", 1)[-1].strip())
         for fn, lines in props.items():
@@ -639,6 +685,8 @@ def ptxas_report(build) -> None:
                 fn = f"flash_prefill_kernel<{mf.group(1)}> (K3)"
             elif "prep_kernel" in fn:
                 fn = "prep_kernel"
+            elif "gemv_kernel" in fn or "mha_decode_kernel" in fn:
+                fn = kernel_label(fn)
             print(f"build: {lib} {fn}: {'; '.join(dict.fromkeys(lines))}", flush=True)
     from llama_cpp_q_4_0_tpu_torch.ops import flash_prefill as fp
     from llama_cpp_q_4_0_tpu_torch.ops import qmm
@@ -653,7 +701,25 @@ def ptxas_report(build) -> None:
         f"D={d} {fl.flash_prefill_smem(d)}" for d in fp.HEAD_DIMS), flush=True)
 
 
-GEMV_OPS = ("LDG", "PRMT", "FADD", "FMUL", "F2F", "FFMA", "SHFL", "HMUL2")
+GEMV_OPS = ("LDG", "PRMT", "FADD", "FMUL", "F2F", "FFMA", "SHFL", "HMUL2", "IDP", "LOP3", "LDS",
+            "I2F")
+MHA_OPS = ("LDGSTS", "LDG", "LDS", "FFMA", "FMUL", "PRMT", "SHFL", "MUFU", "BAR", "ALL")
+MHA_TYPES = {"a": "int8", "13__nv_bfloat16": "bf16", "6__half": "f16", "f": "f32"}
+
+
+def kernel_label(fn: str) -> str:
+    """A readable name for a mangled decode GEMV or K4 instance."""
+    m = re.search(r"(Int8Gemv|PackedGemv)ILi(\d+)ELb(\d)EEELi(\d+)E", fn)
+    if m:
+        return (f"gemv_kernel<{m.group(1)}<{m.group(2)}, "
+                f"{'true' if m.group(3) == '1' else 'false'}>, {m.group(4)}>")
+    m = re.search(r"Q8GemvILi(\d+)EEELi(\d+)E", fn)
+    if m:
+        return f"gemv_kernel<Q8Gemv<{m.group(1)}>, {m.group(2)}> (K7)"
+    m = re.search(r"mha_decode_kernelI(a|13__nv_bfloat16|6__half|f)Li(\d+)ELi(\d+)E", fn)
+    if m:
+        return f"mha_decode_kernel<{MHA_TYPES[m.group(1)]}, {m.group(2)}, {m.group(3)}> (K4)"
+    return fn[:90]
 
 
 def sass_counts(build) -> None:
@@ -666,14 +732,15 @@ def sass_counts(build) -> None:
     8-byte level loads (LDG.64) cover, so the prologue, x staging and
     reduce count against the inlined chunk bodies (an upper bound)."""
     cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
-    for lib in ("qmm_q8x", "flash_prefill", "qmm_q4_0", "qmm_int8"):
+    for lib in ("qmm_q8x", "flash_prefill", "qmm_q4_0", "qmm_int8", "mha_decode"):
         sass = subprocess.run([cuobjdump, "-sass", build._so_path(lib)], capture_output=True,
                               text=True, timeout=300).stdout
         fn, counts = None, {}
         for line in sass.splitlines():
             if "Function :" in line:
                 fn = line.split("Function :")[1].strip()
-                counts[fn] = dict.fromkeys(("IMMA", "HGMMA", "I2F", "ALL", "LDG64") + GEMV_OPS, 0)
+                counts[fn] = dict.fromkeys(("IMMA", "HGMMA", "ALL", "LDG64") + GEMV_OPS
+                                           + MHA_OPS, 0)
                 continue
             text = line.split("*/", 1)[-1].strip() if fn else ""
             if not fn or not line.strip().startswith("/*") or not text or text.startswith("/*"):
@@ -681,18 +748,19 @@ def sass_counts(build) -> None:
             words = text.split()
             full = words[1] if words[0].startswith("@") and len(words) > 1 else words[0]
             op = full.split(".")[0]
-            key = "I2F" if op.startswith("I2F") else "F2F" if op.startswith("F2F") else op
+            key = ("I2F" if op.startswith("I2F") else "F2F" if op.startswith("F2F")
+                   else "IDP" if op.startswith("IDP") else op)
             counts[fn]["ALL"] += 1
             if op == "LDG" and ".64" in full:
                 counts[fn]["LDG64"] += 1
             if key in counts[fn]:
                 counts[fn][key] += 1
         for fn, c in counts.items():
-            if "gemv_kernel" in fn:
-                m = re.search(r"(Int8Gemv|PackedGemv)ILi(\d+)ELb(\d)EEELi(\d+)E", fn)
-                name = (f"gemv_kernel<{m.group(1)}<{m.group(2)}, "
-                        f"{'true' if m.group(3) == '1' else 'false'}>, {m.group(4)}>"
-                        if m else fn[:90])
+            if "mha_decode_kernel" in fn:
+                print(f"sass: {lib} {kernel_label(fn)}: "
+                      f"{json.dumps({k: c[k] for k in MHA_OPS})}", flush=True)
+            elif "gemv_kernel" in fn:
+                name = kernel_label(fn)
                 per_byte = c["ALL"] / (8 * c["LDG64"]) if c["LDG64"] else float("nan")
                 ops = {k: c[k] for k in GEMV_OPS}
                 print(f"sass: {lib} {name}: {json.dumps(ops)} all={c['ALL']} "
@@ -831,13 +899,17 @@ def _mha_inputs(torch, gen, cache, b, t, h, g, d, s, n_past, n_ctx=2048):
     return q, kv, pos, mask
 
 
-def check_mha(torch, timer, rec: dict) -> bool:
+def check_mha(torch, timer, rec: dict, ab: bool = False) -> bool:
     """K4 against its plain version: timed at T = 1 and 8, S = 256 and 2048,
     int8 and bf16 caches (B = 1, H = G = 32, D = 128, the window nearly
     full); for agreement only, an f32 cache, GQA, D = 64 and 256, and B = 2
-    over a strided window whose second row has no valid slot.  rec takes the
-    main path's case: T = 1 over the int8 window of 2048.  Also timed: the
-    port's default attention (FUSED_ATTN unset) on the same window."""
+    over a strided window whose second row has no valid slot.  Every case:
+    two launches bit-identical, and one launch captured in a CUDA graph and
+    replayed 10 times bit-identical to it (no state left behind).  rec takes
+    the main path's case: T = 1 over the int8 window of 2048.  Also timed:
+    the port's default attention (FUSED_ATTN unset) on the same window.
+    ab: the timed cases alone, with the kernel's time, the library's and the
+    bound only (the ``attn`` phase, for an A/B beside another checkout)."""
     import torch.nn.functional as F
 
     from llama_cpp_q_4_0_tpu_torch.ops.kvcache import QuantKV
@@ -852,7 +924,7 @@ def check_mha(torch, timer, rec: dict) -> bool:
             ("bf16", 1, 8, 32, 8, 64, 512, 400), ("int8", 1, 16, 16, 4, 256, 256, 100),
             ("int8", 2, 1, 32, 32, 128, 1024, 700)]
     cases = [(c, 1, t, 32, 32, 128, s, s - t - 40, True) for c, t, s in timed]
-    cases += [(*o, False) for o in only]
+    cases += [] if ab else [(*o, False) for o in only]
     for cache, b, t, h, g, d, s, n_past, time_it in cases:
         q, (kd, ks, vd, vs), pos, mask = _mha_inputs(torch, gen, cache, b, t, h, g, d, s,
                                                      n_past)
@@ -861,16 +933,26 @@ def check_mha(torch, timer, rec: dict) -> bool:
             mask[1] = False  # a row with no valid slot: both give 0
         scale = d ** -0.5
         args = (q, kd, ks, vd, vs, pos, mask, scale)
-        got, ref = mha_decode(*args), mha_decode_plain(*args)
+        got, again, ref = mha_decode(*args), mha_decode(*args), mha_decode_plain(*args)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            gout = mha_decode(*args)
+        replays = []
+        for _ in range(10):
+            graph.replay()
+            replays.append(torch.equal(gout, got))
         torch.cuda.synchronize()
         err = (got - ref).abs().max().item()
         tol = 1e-4 * ref.abs().max().item()  # f32 chain, f32 summation order
-        good = bool(torch.isfinite(got).all()) and err <= tol
+        same, graph_same = torch.equal(got, again), all(replays)
+        good = bool(torch.isfinite(got).all()) and err <= tol and same and graph_same
         if b == 2:
             good &= bool((got[1] == 0).all())
         ok &= good
+        del graph, gout
         head = (f"kernel mha_decode {cache} B={b} T={t} H={h} G={g} D={d} S={s} "
-                f"n_past={n_past}: max_abs_err={err:.3e} (tol {tol:.3e})")
+                f"n_past={n_past}: max_abs_err={err:.3e} (tol {tol:.3e}) bit-identical={same} "
+                f"graph_replays_identical={graph_same}")
         rec["max_abs_err"] = max(rec.get("max_abs_err", 0.0), err)
         if not time_it:
             print(f"{head} {'ok' if good else 'MISMATCH'}", flush=True)
@@ -882,14 +964,16 @@ def check_mha(torch, timer, rec: dict) -> bool:
         amask = (mask[:, None, :] & (slot[None, None, :] <= pos[:, :, None]))[:, None]
         qh, kh, vh = q.transpose(1, 2), kf.transpose(1, 2), vf.transpose(1, 2)
         k_ms = timer.ms(lambda: mha_decode(*args))
-        p_ms = timer.ms(lambda: mha_decode_plain(*args), reps=3)
-        # the port's default attention on the same window (FUSED_ATTN unset)
-        kc, vc = ((QuantKV(kd, ks), QuantKV(vd, vs)) if ks is not None else (kd, vd))
-        with env(FUSED_ATTN=""):
-            a_ms = timer.ms(lambda: attention(q, kc, vc, pos, mask, scale), reps=3)
         l_ms = timer.ms(lambda: F.scaled_dot_product_attention(
             qh, kh, vh, attn_mask=amask, scale=scale))
         bnd, by = mha_bound(b, t, h, g, d, n_past + t, kd.element_size())
+        p_ms = a_ms = float("nan")
+        if not ab:
+            p_ms = timer.ms(lambda: mha_decode_plain(*args), reps=3)
+            # the port's default attention on the same window (FUSED_ATTN unset)
+            kc, vc = ((QuantKV(kd, ks), QuantKV(vd, vs)) if ks is not None else (kd, vd))
+            with env(FUSED_ATTN=""):
+                a_ms = timer.ms(lambda: attention(q, kc, vc, pos, mask, scale), reps=3)
         print(f"{head} kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} library_ms={l_ms:.4f} "
               f"default_attention_ms={a_ms:.4f} bound_ms={bnd:.4f} bound_by={by} "
               f"{'ok' if good else 'MISMATCH'}", flush=True)
@@ -1174,8 +1258,8 @@ def int8_prefill_128(torch, cfg, params, ck, cv, counters=None):
         dev = getattr(ev, "self_device_time_total", None)
         dev = (getattr(ev, "self_cuda_time_total", 0) if dev is None else dev) / 1e3
         busy["all"] += dev
-        if any(n in ev.key for n in ("Q8Deq", "q8x_", "gemv_reduce")):
-            busy["K7"] += dev  # every K7 pass: quantizer or prep, tile or GEMV, reduce
+        if any(n in ev.key for n in ("Q8Deq", "Q8Gemv", "q8x_", "gemv_reduce")):
+            busy["K7"] += dev  # every K7 pass: prep, tile, reduce; the head's GEMV
         elif "flash_prefill" in ev.key:
             busy["K3"] += dev
     print(f"bench: q4_0 int8-config prefill_128_ms median={statistics.median(runs):.3f} "
@@ -1184,10 +1268,12 @@ def int8_prefill_128(torch, cfg, params, ck, cv, counters=None):
           f"launches of one call {json.dumps(launched)}", flush=True)
 
 
-def trace_decode(torch, cfg, params, ck, cv, step_ms: float | None, label: str):
-    """torch.profiler over 8 decode steps at kv_window 256: the device-busy
-    time per step (sum of kernel times) against the unprofiled step time
-    (when step_ms is given), and the kernels that take it."""
+def trace_decode(torch, cfg, params, ck, cv, step_ms: float | None, label: str,
+                 window: int = 256, n_past: int = 65):
+    """torch.profiler over 8 decode steps from slot n_past on at kv_window
+    window: the device-busy time per step (sum of kernel times) against the
+    unprofiled step time (when step_ms is given), and the kernels that take
+    it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1197,8 +1283,8 @@ def trace_decode(torch, cfg, params, ck, cv, step_ms: float | None, label: str):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for i in range(8):
-            transformer.forward(cfg, params, tok, 65 + i, ck, cv,
-                                last_only=True, kv_window=256)
+            transformer.forward(cfg, params, tok, n_past + i, ck, cv,
+                                last_only=True, kv_window=window)
         torch.cuda.synchronize()
     rows = []
     for ev in prof.key_averages():
@@ -1215,7 +1301,7 @@ def trace_decode(torch, cfg, params, ck, cv, step_ms: float | None, label: str):
     busy = sum(r[0] for r in rows)
     share = (f" of {step_ms:.3f} ms unprofiled ({100 * busy / step_ms:.1f}%)"
              if step_ms else "")
-    print(f"trace: {label} decode step (kv_window 256): device busy {busy:.3f} ms"
+    print(f"trace: {label} decode step (kv_window {window}): device busy {busy:.3f} ms"
           f"{share}, {sum(r[1] for r in rows)} kernels per step", flush=True)
     for ms, n, key in rows[:8]:
         print(f"trace:   {ms:8.4f} ms/step  x{n:<4d} {key[:90]}", flush=True)
@@ -1231,11 +1317,13 @@ def splits_phase(torch) -> None:
     from llama_cpp_q_4_0_tpu_torch.quant.types import GGMLType
     from llama_cpp_q_4_0_tpu_torch.synth import synth_qtensor
 
-    for source in ("qmm_q4_0", "qmm_int8"):
-        print(f"splits: {source} clusters at once by split count "
-              f"{json.dumps(qmm._gemv_clusters(source, 0))} "
-              f"(ops/qmm.py H100_GEMV_CLUSTERS {json.dumps(qmm.H100_GEMV_CLUSTERS)})",
-              flush=True)
+    for source in ("qmm_q4_0", "qmm_int8", "qmm_q8x"):
+        for rows in (1, 8):
+            print(f"splits: {source} rows={rows} clusters at once by split count "
+                  f"{json.dumps(qmm._gemv_clusters(source, 0, rows))} "
+                  f"(ops/qmm.py H100_GEMV_CLUSTERS {json.dumps(qmm.H100_GEMV_CLUSTERS)}, "
+                  f"H100_Q8X_GEMV_CLUSTERS {json.dumps(qmm.H100_Q8X_GEMV_CLUSTERS)})",
+                  flush=True)
     timer = Timer(torch)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(5)
@@ -1255,7 +1343,8 @@ def splits_phase(torch) -> None:
                         s, k_ // (2 * qmm.GEMV_STEP) if p_ else k_ // qmm.GEMV_STEP)
                     row[s] = round(timer.ms(lambda: kern(x, w.levels_t, *planes, **kw)), 5)
                 qmm.gemv_plan = planner
-                pick = planner(k, n, w.packed).splits
+                pick = qmm._gemv_plan(x, n, w.packed, "qmm_q8x" if name.startswith("qmm_q8x")
+                                      else None).splits
                 print(f"splits: {name} {fmt} {label} N={n} K={k} b=1 ms by splits "
                       f"{json.dumps(row)} fastest={min(row, key=row.get)} plan={pick}",
                       flush=True)
@@ -1263,24 +1352,34 @@ def splits_phase(torch) -> None:
         qmm.gemv_plan = planner
 
 
-# the decode paths whose device-busy step the ``busy`` phase profiles
-BUSY_PATHS = ("q4_0", "q4_K_M", "q3_K_M", "q5_K_M")
+# the decode paths whose device-busy step the ``busy`` phase profiles, as
+# (file type, int8 configuration: QMM_Q8X=1 FUSED_ATTN=1 on a q8 cache)
+BUSY_PATHS = (("q4_0", False), ("q4_K_M", False), ("q3_K_M", False), ("q5_K_M", False),
+              ("q4_0", True))
+# (kv_window, n_past) of each profiled step: the int8 configuration also at
+# the long window, where K4 reads 1,900 slots a layer
+BUSY_WINDOWS = {False: ((256, 65),), True: ((256, 65), (2048, 1900))}
 
 
 def busy_phase(torch) -> None:
     """Each of BUSY_PATHS at LLaMA-7B (32 layers, synthetic weights from seed
-    0): decode ms/token at kv_window 256 (median of 3 passes of 16 tokens)
-    and one profiled decode step (trace_decode: device busy and kernels a
-    step).  A copy of this script beside an older checkout's package measures
-    that one, for an A/B of the decode forms in one call."""
+    0): decode ms/token (median of 3 passes of 16 tokens) and one profiled
+    decode step (trace_decode: device busy and kernels a step) at each of
+    its BUSY_WINDOWS.  A copy of this script beside an older checkout's
+    package measures that one, for an A/B of the decode forms in one call."""
     from llama_cpp_q_4_0_tpu_torch.models import transformer
     from llama_cpp_q_4_0_tpu_torch.synth import build_llama
 
-    for ftype in BUSY_PATHS:
+    for ftype, int8 in BUSY_PATHS:
         cfg, params = build_llama(device="cuda", seed=0, ftype=ftype)
-        ck, cv = transformer.init_cache(cfg, 1, cfg.n_ctx, device="cuda")
-        med, _ = decode_ms(torch, cfg, params, ck, cv, 65, 256, n_tok=16, passes=3)
-        trace_decode(torch, cfg, params, ck, cv, med, f"LLaMA-7B {ftype}")
+        ck, cv = transformer.init_cache(cfg, 1, cfg.n_ctx, device="cuda",
+                                        **({"dtype": torch.int8} if int8 else {}))
+        label = f"LLaMA-7B {ftype}{' int8-config' if int8 else ''}"
+        with env(**(INT8 if int8 else {})):
+            for window, n_past in BUSY_WINDOWS[int8]:
+                med, _ = decode_ms(torch, cfg, params, ck, cv, n_past, window, n_tok=16,
+                                   passes=3)
+                trace_decode(torch, cfg, params, ck, cv, med, label, window, n_past)
         del params, ck, cv
         torch.cuda.empty_cache()
 
@@ -1656,7 +1755,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default="kernels,e2e,cli",
                     help="comma-separated subset of kernels,e2e,cli,sass,k7k3,k7repeat,"
-                         "int8prefill,planes,tiles,gemv,busy,splits; the result lines "
+                         "int8prefill,planes,tiles,attn,gemv,busy,splits; the result lines "
                          "print only for the default kernels,e2e,cli")
     phases = set(ap.parse_args(argv).phases.split(","))
     full = phases == {"kernels", "e2e", "cli"}
@@ -1699,6 +1798,8 @@ def main(argv=None) -> int:
         for name, b in TILE_AB:
             check_qmm(torch, timer, name, b, {})
         del timer
+    if "attn" in phases:
+        check_mha(torch, Timer(torch), {}, ab=True)
     if "busy" in phases:
         busy_phase(torch)
     if "splits" in phases:
@@ -1757,6 +1858,7 @@ def main(argv=None) -> int:
         ok &= check_q8x_quantizer(torch)
         ok &= check_quantize_kv(torch)
         ok &= check_qmm(torch, timer, "qmm_q8x", 1, recs["qmm_q8x"])
+        ok &= check_qmm(torch, timer, "qmm_q8x", 8, None)
         for b in (128, 512):
             big = {}
             ok &= check_qmm(torch, timer, "qmm_q8x", b, big)

@@ -1,9 +1,9 @@
 // Pieces shared by the quantized matmul kernels of qmm_q4_0.cu, qmm_int8.cu
 // and qmm_q8x.cu (Hopper, sm_90a): exact byte -> float unpacking, bf16
 // rounding, the loads of f32, f16 and bf16 scale planes, the decode GEMV
-// skeleton of K2, K5, K6 and K6b (one launch a call, split-K reduced inside
-// the kernel across a thread-block cluster), and the deterministic split-K
-// reduce pass of K7's GEMV and the prefill tile.  The prefill tile itself is
+// skeleton of K2, K5, K6, K6b and K7 (one launch a call, split-K reduced
+// inside the kernel across a thread-block cluster), and the deterministic
+// split-K reduce pass of the prefill tile.  The prefill tile itself is
 // qmm_tile.cuh.
 #pragma once
 
@@ -87,10 +87,16 @@ __device__ __forceinline__ void load8s(const void* p, size_t i, int code, float 
 }
 
 // ------------------------------------------------------------------ decode
-// The decode GEMV of K2, K5, K6 and K6b (32 rows or fewer): one skeleton,
-// gemv_kernel<Body, NB>, with a small layout body (Int8Gemv in qmm_int8.cu,
-// PackedGemv in qmm_q4_0.cu) that turns one chunk of loaded weight rows into
-// products, the way the prefill tile takes Int8Deq and PackedDeq.
+// The decode GEMV of K2, K5, K6, K6b and K7 (32 rows or fewer): one
+// skeleton, gemv_kernel<Body, NB>, with a small layout body (Int8Gemv in
+// qmm_int8.cu, PackedGemv in qmm_q4_0.cu, Q8Gemv in qmm_q8x.cu) that stages
+// a chunk's x in shared memory and turns the chunk's loaded weight rows into
+// products, the way the prefill tile takes Int8Deq and PackedDeq.  A body
+// names its chunk height (CH1 at one x row, CHN at more), the chunks a warp
+// keeps in flight (BUFS1, BUFSN: two, or one where the registers are worth
+// more to the body), the blocks an SM at one x row (OCC1) and the x rows of
+// a pass (NBM): K7's chunk is one whole weight group, since its activations
+// are quantized a group at a time inside the kernel.
 //
 // What bounds it on an H100: first the bytes of the levels and planes, read
 // once per call (3.35 TB/s); then, once those stream, the issue slots (132
@@ -110,18 +116,21 @@ __device__ __forceinline__ void load8s(const void* p, size_t i, int code, float 
 //    ops/qmm.py::gemv_plan picks S so that the grid's clusters fit the card
 //    at once where that pays (qmm_*_gemv_clusters asks the card).
 //  * Bytes in flight.  Split q covers 32-row steps [q T / S, (q+1) T / S) of
-//    the T steps; its rows are cut into chunks of CH rows (16 at one x row,
-//    8 at more), dealt to the warps in turn.  A lane owns 8 consecutive
-//    columns: a chunk is CH 8-byte level loads (ld.global.nc.L1::no_allocate:
-//    read once), the chunk's plane rows (16-byte loads) and its x values,
-//    all issued before any is used, and the next chunk's loads are issued
-//    before this one is computed (two register buffers), so a warp keeps
-//    4-8 KB in flight from start to end and no block-wide barrier stands
-//    before the first product.
-//  * Fewer instructions a weight.  Each warp rounds its chunk's x to bf16
-//    into its own slot of shared memory and sums it for the seed (a few
-//    shuffles a chunk); lanes read x as broadcasts from there (a float4 for
-//    four rows at one x row), not by a shuffle per row and batch row.  The
+//    the T steps; its rows are cut into chunks of CH rows (the bf16 bodies:
+//    16 at one x row, 8 at more; K7: one group), dealt to the warps in turn.
+//    A lane owns 8 consecutive columns: a chunk is CH 8-byte level loads
+//    (ld.global.nc.L1::no_allocate: read once), the chunk's plane rows
+//    (16-byte loads) and its x values, all issued before any is used, and
+//    (two register buffers, the bf16 bodies) the next chunk's loads are
+//    issued before this one is computed, so a warp keeps 4-8 KB in flight
+//    from start to end and no block-wide barrier stands before the first
+//    product.  K7 keeps one 8 KB chunk in flight a warp and, at one x row,
+//    two blocks an SM instead.
+//  * Fewer instructions a weight.  Each warp stages its chunk's x into its
+//    own slot of shared memory (Body::stage; stage_bf16 for the bf16 bodies:
+//    x rounded to bf16 and summed for the seed, a few shuffles a chunk);
+//    lanes read x as broadcasts from there (a float4 for four rows at one x
+//    row), not by a shuffle per row and batch row.  The bf16
 //    bodies keep the TPU kernel's arithmetic (weight bf16(level * d), x bf16,
 //    f32 products and sums) and round each weight with one cvt.rn.bf16x2.f32
 //    whose other half is zero, so the result is the f32 value itself: one
@@ -266,43 +275,52 @@ __device__ __forceinline__ void load_chunk(const GemvArgs& a, int b0, int row0, 
                         ((size_t)(i % PANELS) * a.G2P + g) * a.N + n, a.scode);
 }
 
-// one loaded chunk: x rounded into the warp's slot xs [NB][P][CH] with its
-// sums in xg [NB][P], then the rows' products and the chunk's seed
-template <class Body, int NB, int CH, int XL>
-__device__ __forceinline__ void run_chunk(const GemvArgs& a, const GemvChunk<CH, Body::NPL, XL>& c,
-                                          float* xs, float* xg, float (&acc)[NB][GEMV_COLS]) {
-  constexpr int P = Body::PANELS;
+// The bf16 bodies' staging of a chunk's x (value v of the lane's XL: row
+// v % CH of panel v / CH % P of batch row v / (CH P)): rounded to bf16 into
+// the warp's slot xs [NB][P][CH], with its f32 sums over each CH-lane
+// segment (one panel of one batch row) in xg [NB][P] for the seed
+template <int NB, int P, int CH, int XL>
+__device__ __forceinline__ void stage_bf16(const float (&x)[XL], float* xs, float* xg) {
   const int lane = threadIdx.x & 31;
-  __syncwarp();  // the previous chunk's reads of xs and xg are done
 #pragma unroll
   for (int i = 0; i < XL; ++i) {
     const int v = lane + 32 * i;
-    float sum = c.x[i];  // over each CH-lane segment: one panel of one batch row
+    float sum = x[i];
 #pragma unroll
     for (int o = CH / 2; o > 0; o >>= 1) sum += __shfl_xor_sync(FULL, sum, o);
     if (v < NB * P * CH) {
-      xs[v] = bf16_round(c.x[i]);
+      xs[v] = bf16_round(x[i]);
       if (v % CH == 0) xg[v / CH] = sum;
     }
   }
+}
+
+// one loaded chunk: its x staged into the warp's slots xs (NB P CH floats)
+// and xg (2 NB P floats) by the body, then the rows' products
+template <class Body, int NB, int CH, int XL>
+__device__ __forceinline__ void run_chunk(const GemvArgs& a, const GemvChunk<CH, Body::NPL, XL>& c,
+                                          float* xs, float* xg, float (&acc)[NB][GEMV_COLS]) {
+  __syncwarp();  // the previous chunk's reads of xs and xg are done
+  Body::template stage<NB, CH, XL>(c.x, xs, xg);
   __syncwarp();
   float pl[Body::NPL][GEMV_COLS];
 #pragma unroll
   for (int i = 0; i < Body::NPL; ++i) widen_plane(c.p[i], a.scode, pl[i]);
-  Body::template rows<NB, CH>(c.w, pl, xs, P * CH, CH, a.zero, acc);
-  Body::template seed<NB>(pl, xg, P, 1, a.zero, acc);
+  Body::template rows<NB, CH>(c.w, pl, xs, xg, a.zero, acc);
 }
 
 template <class Body, int NB>
-__global__ void __launch_bounds__(GEMV_WARPS * 32, 1) gemv_kernel(const GemvArgs a) {
+__global__ void __launch_bounds__(GEMV_WARPS * 32, NB == 1 ? Body::OCC1 : 1)
+    gemv_kernel(const GemvArgs a) {
   namespace cg = cooperative_groups;
   constexpr int P = Body::PANELS, GS = Body::GS, NPL = Body::NPL, W = GEMV_WARPS;
-  constexpr int CH = NB == 1 ? 16 : 8;         // rows of a chunk
-  constexpr int CPS = GEMV_STEP / CH;         // chunks of a step
+  constexpr int CH = NB == 1 ? Body::CH1 : Body::CHN;  // rows of a chunk
+  constexpr int BUFS = NB == 1 ? Body::BUFS1 : Body::BUFSN;  // chunks in flight a warp
+  constexpr int CPS = GEMV_STEP / CH;                 // chunks of a step
   constexpr int XL = (NB * P * CH + 31) / 32;  // x values a lane loads a chunk
   static_assert(CH <= GS && 32 % CH == 0, "a chunk lies in one group and one step");
   __shared__ __align__(16) float xs[W][NB * P * CH];
-  __shared__ float xg[W][NB * P];
+  __shared__ __align__(16) float xg[W][2 * NB * P];
   __shared__ float red[W][GEMV_TILE_N];
   __shared__ float sums[NB][GEMV_TILE_N];
   cg::cluster_group cluster = cg::this_cluster();
@@ -320,8 +338,9 @@ __global__ void __launch_bounds__(GEMV_WARPS * 32, 1) gemv_kernel(const GemvArgs
     for (int bb = 0; bb < NB; ++bb)
 #pragma unroll
       for (int j = 0; j < GEMV_COLS; ++j) acc[bb][j] = 0.0f;
-    GemvChunk<CH, NPL, XL> ca, cb;
-    if (c0 < c1) load_chunk<NB, P, GS>(a, b0, c0 * CH, n, col_ok, ca);
+    if constexpr (BUFS == 2) {
+      GemvChunk<CH, NPL, XL> ca, cb;
+      if (c0 < c1) load_chunk<NB, P, GS>(a, b0, c0 * CH, n, col_ok, ca);
       for (int c = c0; c < c1; c += 2 * W) {
         if (c + W < c1) load_chunk<NB, P, GS>(a, b0, (c + W) * CH, n, col_ok, cb);
         run_chunk<Body, NB, CH>(a, ca, xs[warp], xg[warp], acc);
@@ -329,6 +348,14 @@ __global__ void __launch_bounds__(GEMV_WARPS * 32, 1) gemv_kernel(const GemvArgs
         if (c + 2 * W < c1) load_chunk<NB, P, GS>(a, b0, (c + 2 * W) * CH, n, col_ok, ca);
         run_chunk<Body, NB, CH>(a, cb, xs[warp], xg[warp], acc);
       }
+    } else {  // one buffer: its registers go to the body's x rows, or to a
+              // second block an SM
+      for (int c = c0; c < c1; c += W) {
+        GemvChunk<CH, NPL, XL> ca;
+        load_chunk<NB, P, GS>(a, b0, c * CH, n, col_ok, ca);
+        run_chunk<Body, NB, CH>(a, ca, xs[warp], xg[warp], acc);
+      }
+    }
 
     // the block's warps in warp order ...
 #pragma unroll
@@ -380,7 +407,7 @@ inline cudaLaunchConfig_t gemv_config(int n_tiles, int splits, cudaLaunchAttribu
 }
 
 // One decode call (1 <= B <= 32) in S = splits K splits: one row a pass at
-// B == 1, else passes of 8 rows.  Refuses what it cannot take.
+// B == 1, else passes of Body::NBM rows.  Refuses what it cannot take.
 template <class Body>
 cudaError_t gemv_launch(const GemvArgs& a, int splits, cudaStream_t st) {
   if (a.B < 1 || a.B > 32 || splits < 1 || splits > GEMV_MAX_SPLITS || splits > a.steps ||
@@ -391,12 +418,12 @@ cudaError_t gemv_launch(const GemvArgs& a, int splits, cudaStream_t st) {
       gemv_config((a.N + GEMV_TILE_N - 1) / GEMV_TILE_N, splits, attr);
   cfg.stream = st;
   const cudaError_t e = a.B == 1 ? cudaLaunchKernelEx(&cfg, gemv_kernel<Body, 1>, a)
-                                 : cudaLaunchKernelEx(&cfg, gemv_kernel<Body, 8>, a);
+                                 : cudaLaunchKernelEx(&cfg, gemv_kernel<Body, Body::NBM>, a);
   if (e != cudaSuccess) cudaGetLastError();  // this launch's error, not left for the next
   return e;
 }
 
-// Clusters of `splits` blocks the card runs at once (rows: 1, or 8 a pass),
+// Clusters of `splits` blocks the card runs at once (rows: 1, or more a pass),
 // or -1 on an error: ops/qmm.py::gemv_plan sizes the grid by it.
 template <class Body>
 int gemv_max_clusters(int splits, int rows) {
@@ -406,7 +433,8 @@ int gemv_max_clusters(int splits, int rows) {
   int n = 0;
   const cudaError_t e =
       rows == 1 ? cudaOccupancyMaxActiveClusters(&n, (const void*)gemv_kernel<Body, 1>, &cfg)
-                : cudaOccupancyMaxActiveClusters(&n, (const void*)gemv_kernel<Body, 8>, &cfg);
+                : cudaOccupancyMaxActiveClusters(&n, (const void*)gemv_kernel<Body, Body::NBM>,
+                                                 &cfg);
   if (e != cudaSuccess) {
     cudaGetLastError();
     return -1;
@@ -414,29 +442,9 @@ int gemv_max_clusters(int splits, int rows) {
   return n;
 }
 
-// ------------------------------------------- split-K reduce pass (K7, tile)
-// K7's decode GEMV and the prefill tile's K splits write [splits, B, N] f32
-// partial sums; gemv_reduce adds them in a fixed order (deterministic, no
-// atomics).
-
-// The block's warps' acc for one output row, summed and written as this
-// block's partial: every thread of the block calls it (K7's GEMV).
-__device__ __forceinline__ void gemv_block_partial(float (*red)[GEMV_TILE_N],
-                                                   const float (&acc)[GEMV_COLS],
-                                                   float* partial, int b, int B,
-                                                   int N) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int c = 0; c < GEMV_COLS; ++c) red[warp][lane * GEMV_COLS + c] = acc[c];
-  __syncthreads();
-  float s = 0.0f;
-#pragma unroll
-  for (int w = 0; w < GEMV_WARPS; ++w) s += red[w][threadIdx.x];
-  const int col = blockIdx.x * GEMV_TILE_N + threadIdx.x;
-  if (b < B && col < N) partial[((size_t)blockIdx.y * B + b) * N + col] = s;
-  __syncthreads();
-}
+// ------------------------------------------------ split-K reduce pass (tile)
+// The prefill tile's K splits write [splits, B, N] f32 partial sums;
+// gemv_reduce adds them in a fixed order (deterministic, no atomics).
 
 __global__ void gemv_reduce_kernel(const float* __restrict__ partial,
                                    float* __restrict__ out, int n_split, int total) {
@@ -446,8 +454,6 @@ __global__ void gemv_reduce_kernel(const float* __restrict__ partial,
   for (int y = 0; y < n_split; ++y) s += partial[(size_t)y * total + i];
   out[i] = s;
 }
-
-inline int gemv_splits(int tiles) { return (tiles + GEMV_WARPS - 1) / GEMV_WARPS; }
 
 inline cudaError_t gemv_reduce(const float* partial, float* out, int n_split,
                                int total, cudaStream_t st) {

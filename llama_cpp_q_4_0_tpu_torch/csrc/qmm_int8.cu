@@ -94,12 +94,19 @@ struct Int8Gemv {
   static constexpr int PANELS = 1;
   static constexpr int GS = GS_;
   static constexpr int NPL = BIAS ? 2 : 1;
+  static constexpr int CH1 = 16, CHN = 8, NBM = 8, BUFS1 = 2, BUFSN = 2, OCC1 = 1;
 
-  // rows of a chunk: acc[bb] += x[bb, r] * bf16(level[r] * d)
+  template <int NB, int CH, int XL>
+  __device__ static void stage(const float (&x)[XL], float* xs, float* xg) {
+    stage_bf16<NB, PANELS, CH, XL>(x, xs, xg);
+  }
+
+  // rows of a chunk: acc[bb] += x[bb, r] * bf16(level[r] * d); then the seed
   template <int NB, int CH>
   __device__ static void rows(const uint2 (&w)[CH], const float (&pl)[NPL][GEMV_COLS],
-                              const float* xs, int xb, int, float,
+                              const float* xs, const float* xg, float zero,
                               float (&acc)[NB][GEMV_COLS]) {
+    constexpr int xb = CH;
     float4 x4;
 #pragma unroll
     for (int r = 0; r < CH; ++r) {
@@ -114,6 +121,7 @@ struct Int8Gemv {
         for (int j = 0; j < GEMV_COLS; ++j) acc[bb][j] += xv * wf[j];
       }
     }
+    seed<NB>(pl, xg, 1, 0, zero, acc);
   }
 
   // the seed of a chunk: acc[bb] += xg[bb] * bias (xg: the chunk's x sums)

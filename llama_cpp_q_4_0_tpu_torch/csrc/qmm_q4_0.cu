@@ -125,11 +125,19 @@ struct PackedGemv {
   static constexpr int PANELS = 2;
   static constexpr int GS = GS_;
   static constexpr int NPL = FOLD ? 2 : 4;
+  static constexpr int CH1 = 16, CHN = 8, NBM = 8, BUFS1 = 2, BUFSN = 2, OCC1 = 1;
 
+  template <int NB, int CH, int XL>
+  __device__ static void stage(const float (&x)[XL], float* xs, float* xg) {
+    stage_bf16<NB, PANELS, CH, XL>(x, xs, xg);
+  }
+
+  // the chunk's rows, then its seed from the chunk's x sums
   template <int NB, int CH>
   __device__ static void rows(const uint2 (&w)[CH], const float (&pl)[NPL][GEMV_COLS],
-                              const float* xs, int xb, int xp, float zero,
+                              const float* xs, const float* xg, float zero,
                               float (&acc)[NB][GEMV_COLS]) {
+    constexpr int xb = PANELS * CH, xp = CH;
     const float off = 8388608.0f + (FOLD ? 0.0f : zero);
     float4 xl4, xh4;
 #pragma unroll
@@ -157,6 +165,7 @@ struct PackedGemv {
         }
       }
     }
+    seed<NB>(pl, xg, PANELS, 1, zero, acc);
   }
 
   template <int NB>

@@ -17,19 +17,20 @@
 // q = C roundf(x * (1/d)) with the product rounded before the tie test
 // (__fmul_rn, never fused), d rounded through fp16 (IEEE division, no fast
 // math).  Two forms, both launched by qmm_q8x:
-//  * B <= 32 (decode, buckets 8 and 32), three passes:
-//    1. q8x_quantize_kernel: xq int8 [B, K], d f32 [B, K/GS] (logical groups:
-//       the low panel's, then the high panel's).
-//    2. a split-K GEMV, bound by the bytes of the packed weight (its own
-//       body, not yet on the decode skeleton of qmm_common.cuh).  A warp owns one packed
-//       32-row step (32 / GS groups of each panel, one after the other), a
-//       lane 8 columns; every 4 rows the lane's 4 x 8 bytes are transposed by
-//       byte permutes so that each word holds 4 K-rows of one column, and
-//       __dp4a multiplies them with 4 activation bytes.  The pack zero is
-//       folded exactly in integers, per group:
-//       xq . (nib - zero) = xq . nib - zero * sum(xq).  Each dot enters f32 as
-//       (float)dot * d_x * d_w, the order of the TPU kernel (qmm.py:323).
-//    3. gemv_reduce: the K splits summed in a fixed order.
+//  * B <= 32 (decode, buckets 8 and 32): one launch of the decode skeleton of
+//    qmm_common.cuh (gemv_kernel: the K splits of a column tile reduced
+//    inside a thread-block cluster, every load of a chunk in flight before
+//    any is used, the next chunk's loads issued before this one is
+//    computed) with Q8Gemv below as its body.  It is bound by the bytes of
+//    the packed weight and its scale planes; its body is cheap (byte
+//    permutes, masks and __dp4a: the whole one-row kernel is at most 6.4 SASS
+//    instructions a packed byte), so what it needs is bytes in flight and no
+//    extra passes.  A chunk is one
+//    group: each warp quantizes the chunk's x itself (no quantizer pass, no
+//    x levels in global memory), and each group's integer dot enters f32
+//    once, as the TPU kernel's does.  The quantizer pass q8x_quantize_kernel
+//    stays as an entry of its own (q8x_quantize) that the card checks bit for
+//    bit against the plain quantizer.
 //  * B > 32 (prefill buckets 64, 128; 512 and 2048 under a raised cap): the
 //    shared Hopper tile of qmm_tile.cuh in its q8 mode, with Q8Deq below as
 //    its policy: the prep pass quantizes x into bf16 levels in the tile's
@@ -103,105 +104,109 @@ __device__ __forceinline__ void transpose4(unsigned a, unsigned b, unsigned c, u
 }
 
 // ------------------------------------------------------------------ decode
-template <int NB, int GS>
-__global__ void __launch_bounds__(GEMV_WARPS * 32)
-q8x_gemv_kernel(const int8_t* __restrict__ xq, const float* __restrict__ dx,
-                const uint8_t* __restrict__ packed, const void* __restrict__ scales,
-                float* __restrict__ partial, int B, int K, int N, int G2P, int zero,
-                int scode) {
-  constexpr int NG = 32 / GS;  // groups of each panel a 32-row step holds
-  __shared__ float red[GEMV_WARPS][GEMV_TILE_N];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int k2 = K / 2;
-  const int G = K / GS;
-  const int t = blockIdx.y * GEMV_WARPS + warp;  // packed 32-row step
-  const bool t_ok = t < k2 / 32;
-  const int n = blockIdx.x * GEMV_TILE_N + lane * GEMV_COLS;
-  const bool col_ok = n < N;
+// a's 4 signed bytes times b's 4 unsigned bytes, plus c
+__device__ __forceinline__ int dp4a_su(int a, unsigned b, int c) {
+  int d;
+  asm("dp4a.s32.u32 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+  return d;
+}
 
-  float sl[NG][GEMV_COLS], sh[NG][GEMV_COLS];
+// The decode skeleton's body for K7 (gemv_kernel, qmm_common.cuh): two
+// panels, a packed row r giving K row r (low nibbles) and K/2 + r (high
+// nibbles); a chunk is one GS-row group, its planes the group's two scale
+// rows.
+//  * stage: each GS-lane segment of the warp's x values is one group of one
+//    panel of one x row; q8_quantize gives its levels (the quantizer pass's
+//    own device function, so they equal quantize_q8x_plain bit for bit),
+//    stored as int8 in the warp's slot with the low and high panels' words
+//    of each 4 rows side by side (byte (bb, p, r) at 2 CH bb + 8 (r / 4) +
+//    4 p + r % 4), and the group's fp16-rounded d_x and integer level sum
+//    beside them in xg.
+//  * rows: every 4 rows the lane's 4 x 8 bytes are transposed by byte
+//    permutes so that each word holds 4 K-rows of one column; per x row one
+//    8-byte shared load gives both panels' 4 levels, and __dp4a multiplies
+//    them with the low nibbles (masked) and, unsigned, with the high nibbles
+//    left in place (masked, so the dot is 16 times the high panel's, shifted
+//    back exactly once a group).  The pack zero is folded exactly in
+//    integers: xq . (nib - zero) = xq . nib - zero * sum(xq).  Each group
+//    and panel enters f32 once, as ((float)dot * d_x) * d_w, unfused, the
+//    order of the TPU kernel (qmm.py:323) and of the plain version.
+template <int GS_>
+struct Q8Gemv {
+  static constexpr int PANELS = 2;
+  static constexpr int GS = GS_;
+  static constexpr int NPL = 2;
+  // one chunk in flight a warp: at one x row the body's registers (the
+  // chunk's rows, its x and its int8 dots) then fit 128 a thread, two blocks
+  // an SM; at more, 8 x rows a pass (one pass at b <= 8) fit 255 with no
+  // spill (two chunks in flight spill, and 4 rows a pass take two passes)
+  static constexpr int CH1 = GS, CHN = GS, BUFS1 = 1, BUFSN = 1, OCC1 = 2, NBM = 8;
+
+  template <int NB, int CH, int XL>
+  __device__ static void stage(const float (&x)[XL], float* xs, float* xg) {
+    static_assert(CH == GS && XL * 32 == NB * PANELS * CH, "a chunk is one group");
+    int8_t* q = reinterpret_cast<int8_t*>(xs);
+    int* xsum = reinterpret_cast<int*>(xg + NB * PANELS);
+    const int lane = threadIdx.x & 31;
 #pragma unroll
-  for (int h = 0; h < NG; ++h)
+    for (int i = 0; i < XL; ++i) {
+      const int v = lane + 32 * i, r = v % CH, p = v / CH % PANELS, bb = v / (CH * PANELS);
+      float dq;
+      const int lv = (int)q8_quantize<GS>(x[i], dq);
+      int sum = lv;
 #pragma unroll
-    for (int c = 0; c < GEMV_COLS; ++c) sl[h][c] = sh[h][c] = 0.0f;
-  if (t_ok && col_ok) {
-#pragma unroll
-    for (int h = 0; h < NG; ++h) {
-      load8s(scales, (size_t)(t * NG + h) * N + n, scode, sl[h]);
-      load8s(scales, ((size_t)G2P + t * NG + h) * N + n, scode, sh[h]);
+      for (int o = GS / 2; o > 0; o >>= 1) sum += __shfl_xor_sync(FULL, sum, o);
+      q[bb * 2 * CH + (r / 4) * 8 + p * 4 + r % 4] = (int8_t)lv;
+      if (r == 0) {
+        xg[v / CH] = __half2float(__float2half_rn(dq));
+        xsum[v / CH] = sum;
+      }
     }
   }
 
-  for (int b0 = 0; b0 < B; b0 += NB) {
-    float acc[NB][GEMV_COLS];
+  template <int NB, int CH>
+  __device__ static void rows(const uint2 (&w)[CH], const float (&pl)[NPL][GEMV_COLS],
+                              const float* xs, const float* xg, float zero,
+                              float (&acc)[NB][GEMV_COLS]) {
+    constexpr int Q = CH / 4;
+    unsigned t[Q][GEMV_COLS];
 #pragma unroll
-    for (int bb = 0; bb < NB; ++bb)
+    for (int j = 0; j < Q; ++j) {
+      unsigned half[4];
+      transpose4(w[4 * j].x, w[4 * j + 1].x, w[4 * j + 2].x, w[4 * j + 3].x, half);
 #pragma unroll
-      for (int c = 0; c < GEMV_COLS; ++c) acc[bb][c] = 0.0f;
-
+      for (int c = 0; c < 4; ++c) t[j][c] = half[c];
+      transpose4(w[4 * j].y, w[4 * j + 1].y, w[4 * j + 2].y, w[4 * j + 3].y, half);
 #pragma unroll
-    for (int h = 0; h < NG; ++h) {
-      if (!t_ok) break;  // warp-uniform
-      const int g = t * NG + h;  // the low panel's group (the high one: k2 / GS + g)
-      int il[NB][GEMV_COLS], ih[NB][GEMV_COLS], xsl[NB], xsh[NB];
+      for (int c = 0; c < 4; ++c) t[j][4 + c] = half[c];
+    }
+    const int z = (int)zero;
+    const int* xsum = reinterpret_cast<const int*>(xg + NB * PANELS);
+    const int2* xw = reinterpret_cast<const int2*>(xs);
 #pragma unroll
-      for (int bb = 0; bb < NB; ++bb) {
-        xsl[bb] = xsh[bb] = 0;
+    for (int bb = 0; bb < NB; ++bb) {
+      int il[GEMV_COLS], ih[GEMV_COLS];
 #pragma unroll
-        for (int c = 0; c < GEMV_COLS; ++c) il[bb][c] = ih[bb][c] = 0;
-      }
-      const uint8_t* prow = packed + (size_t)g * GS * N + n;
-#pragma unroll 2
-      for (int r = 0; r < GS; r += 4) {
-        uint2 w[4];
+      for (int c = 0; c < GEMV_COLS; ++c) il[c] = ih[c] = 0;
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          w[i] = make_uint2(0u, 0u);
-          if (col_ok) w[i] = *reinterpret_cast<const uint2*>(prow + (size_t)(r + i) * N);
-        }
-        unsigned cw[GEMV_COLS];
-        unsigned half[4];
-        transpose4(w[0].x, w[1].x, w[2].x, w[3].x, half);
-#pragma unroll
-        for (int c = 0; c < 4; ++c) cw[c] = half[c];
-        transpose4(w[0].y, w[1].y, w[2].y, w[3].y, half);
-#pragma unroll
-        for (int c = 0; c < 4; ++c) cw[4 + c] = half[c];
-#pragma unroll
-        for (int bb = 0; bb < NB; ++bb) {
-          const int b = b0 + bb;
-          int xl = 0, xh = 0;
-          if (b < B) {
-            xl = *reinterpret_cast<const int*>(xq + (size_t)b * K + g * GS + r);
-            xh = *reinterpret_cast<const int*>(xq + (size_t)b * K + k2 + g * GS + r);
-          }
-          xsl[bb] = __dp4a(xl, 0x01010101, xsl[bb]);
-          xsh[bb] = __dp4a(xh, 0x01010101, xsh[bb]);
-#pragma unroll
-          for (int c = 0; c < GEMV_COLS; ++c) {
-            il[bb][c] = __dp4a(xl, (int)(cw[c] & 0x0F0F0F0Fu), il[bb][c]);
-            ih[bb][c] = __dp4a(xh, (int)((cw[c] >> 4) & 0x0F0F0F0Fu), ih[bb][c]);
-          }
-        }
-      }
-#pragma unroll
-      for (int bb = 0; bb < NB; ++bb) {
-        const int b = b0 + bb;
-        const float dl = b < B ? dx[(size_t)b * G + g] : 0.0f;
-        const float dh = b < B ? dx[(size_t)b * G + k2 / GS + g] : 0.0f;
+      for (int j = 0; j < Q; ++j) {
+        const int2 xv = xw[bb * Q + j];  // the low panel's 4 levels, then the high's
 #pragma unroll
         for (int c = 0; c < GEMV_COLS; ++c) {
-          acc[bb][c] += (float)(il[bb][c] - zero * xsl[bb]) * dl * sl[h][c];
-          acc[bb][c] += (float)(ih[bb][c] - zero * xsh[bb]) * dh * sh[h][c];
+          il[c] = __dp4a(xv.x, (int)(t[j][c] & 0x0F0F0F0Fu), il[c]);
+          ih[c] = dp4a_su(xv.y, t[j][c] & 0xF0F0F0F0u, ih[c]);
         }
       }
-    }
+      const float dl = xg[2 * bb], dh = xg[2 * bb + 1];
+      const int sl = z * xsum[2 * bb], sh = z * xsum[2 * bb + 1];
 #pragma unroll
-    for (int bb = 0; bb < NB; ++bb)
-      gemv_block_partial(red, acc[bb], partial, b0 + bb, B, N);
+      for (int c = 0; c < GEMV_COLS; ++c) {
+        acc[bb][c] += __fmul_rn(__fmul_rn((float)(il[c] - sl), dl), pl[0][c]);
+        acc[bb][c] += __fmul_rn(__fmul_rn((float)((ih[c] >> 4) - sh), dh), pl[1][c]);
+      }
+    }
   }
-}
+};
 
 // ----------------------------------------------------------------- prefill
 // The tile's q8 policy (qmm_tile.cuh): a step is 32 packed rows, the low
@@ -278,35 +283,27 @@ cudaError_t quantize(const float* x, int8_t* xq, float* d, int B, int K, cudaStr
 
 // both forms at one group size (see qmm_q8x below)
 template <int GS>
-cudaError_t launch(const float* x, const uint8_t* pk, const void* sc, int8_t* q, float* dd,
-                   float* partial, void* xa, float* out, int B, int K, int N, int G2P, int zero,
-                   int bm, int splits, int ka, int scode, cudaStream_t st) {
+cudaError_t launch(const float* x, const uint8_t* pk, const void* sc, float* dd, float* partial,
+                   void* xa, float* out, int B, int K, int N, int G2P, int zero, int bm,
+                   int splits, int ka, int scode, cudaStream_t st) {
   if (B > 32)
     return tile::launch<Q8Deq<GS>>(x, pk, G2P * GS, sc, 2 * G2P, nullptr, (__nv_bfloat16*)xa,
                                     partial, out, B, K, N, 2, GS, G2P, (float)zero, bm, splits,
                                     ka, scode, st, dd);
-  if (scode < SCALE_F32 || scode > SCALE_BF16) return cudaErrorInvalidValue;
-  cudaError_t err = quantize<GS>(x, q, dd, B, K, st);
-  if (err != cudaSuccess) return err;
-  const int n_split = gemv_splits(K / 2 / 32);
-  dim3 grid((N + GEMV_TILE_N - 1) / GEMV_TILE_N, n_split);
-  if (B == 1)
-    q8x_gemv_kernel<1, GS><<<grid, GEMV_WARPS * 32, 0, st>>>(q, dd, pk, sc, partial, B, K, N,
-                                                            G2P, zero, scode);
-  else
-    q8x_gemv_kernel<4, GS><<<grid, GEMV_WARPS * 32, 0, st>>>(q, dd, pk, sc, partial, B, K, N,
-                                                            G2P, zero, scode);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  return gemv_reduce(partial, out, n_split, B * N, st);
+  const GemvArgs a{x, pk, sc, nullptr, out, B, K, N, K / 2 / GEMV_STEP, G2P, scode,
+                   (float)zero};
+  return gemv_launch<Q8Gemv<GS>>(a, splits, st);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Number of K splits of the decode form; partial holds [splits, B, N] floats.
-int qmm_q8x_splits(int K) { return gemv_splits(K / 2 / 32); }
+// Clusters of `splits` blocks the decode form runs at once (rows: 1, or
+// more a pass), for ops/qmm.py::gemv_plan; -1 on an error.
+int qmm_q8x_gemv_clusters(int splits, int rows) {
+  return gemv_max_clusters<Q8Gemv<32>>(splits, rows);
+}
 
 // Dynamic shared memory of the q8 tile at bm rows per unit and gsize-groups
 // (bytes).
@@ -326,26 +323,26 @@ int q8x_quantize(const void* x, void* xq, void* d, int B, int K, int gsize, void
   return (int)cudaErrorInvalidValue;
 }
 
-// d: f32 [B, K/gsize] scratch.  At 32 rows or fewer xq is int8 [B, K]
-// scratch and partial [qmm_q8x_splits(K), B, N] f32 (xa unused); above, the
-// tile: xa bf16 [B, ka] scratch, partial f32 [splits, B, N] when splits > 1,
-// and bm, splits, ka from ops/qmm.py::tile_plan (xq unused).  scode: the
-// scales' dtype (ScaleCode).
-int qmm_q8x(const void* x, const void* packed, const void* scales, void* xq, void* d,
-            void* partial, void* xa, void* out, int B, int K, int N, int G2P, int zero,
-            int gsize, int bm, int splits, int ka, int scode, void* stream) {
+// At 32 rows or fewer the decode GEMV in `splits` K splits
+// (ops/qmm.py::gemv_plan), one launch with the activations quantized inside
+// it (d, partial, xa, bm and ka unused); above, the tile: d f32 [B, K/gsize]
+// and xa bf16 [B, ka] scratch, partial f32 [splits, B, N] when splits > 1,
+// and bm, splits, ka from ops/qmm.py::tile_plan.  scode: the scales' dtype
+// (ScaleCode).
+int qmm_q8x(const void* x, const void* packed, const void* scales, void* d, void* partial,
+            void* xa, void* out, int B, int K, int N, int G2P, int zero, int gsize, int bm,
+            int splits, int ka, int scode, void* stream) {
   const float* xf = (const float*)x;
   const uint8_t* pk = (const uint8_t*)packed;
-  int8_t* q = (int8_t*)xq;
   float* dd = (float*)d;
   float* part = (float*)partial;
   float* o = (float*)out;
   const cudaStream_t st = (cudaStream_t)stream;
   if (gsize == 32)
-    return (int)launch<32>(xf, pk, scales, q, dd, part, xa, o, B, K, N, G2P, zero, bm, splits, ka,
+    return (int)launch<32>(xf, pk, scales, dd, part, xa, o, B, K, N, G2P, zero, bm, splits, ka,
                            scode, st);
   if (gsize == 16)
-    return (int)launch<16>(xf, pk, scales, q, dd, part, xa, o, B, K, N, G2P, zero, bm, splits, ka,
+    return (int)launch<16>(xf, pk, scales, dd, part, xa, o, B, K, N, G2P, zero, bm, splits, ka,
                            scode, st);
   return (int)cudaErrorInvalidValue;
 }

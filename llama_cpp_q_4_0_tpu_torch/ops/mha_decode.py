@@ -10,6 +10,11 @@ probabilities, and ``acc / max(l, 1e-30)``, so a row with no valid slot
 gives 0.  The default ``attention`` rounds q and the probabilities to bf16 on
 a bf16 or int8 cache; this function never does.
 
+The kernel is one launch a call: the window's slots are split over the
+blocks of a thread-block cluster (``mha_plan``), each keeping its slice's
+softmax state, merged in rank order inside the kernel.
+``mha_decode_split_plain`` is that order in plain PyTorch.
+
 For a CPU tensor the wrapper runs the plain version; for a CUDA tensor it
 launches the kernel or raises.
 """
@@ -17,6 +22,7 @@ launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
@@ -24,7 +30,34 @@ NEG = -1e30
 HEAD_DIMS = (64, 128, 256)  # the head widths the kernel is compiled for
 MAX_T = 16
 KV_TYPES = {torch.int8: 0, torch.bfloat16: 1, torch.float16: 2, torch.float32: 3}
+MAX_SPLITS = 8  # the portable cluster size
+MIN_SLICE = 64  # slots a split keeps at least (a sweep of 16, 32, 64 on the H100)
+ROW_BLOCKS = (1, 4, 8, 16)  # query rows a block, compiled instances
 launches = {"mha_decode": 0}
+
+
+@dataclasses.dataclass(frozen=True)
+class MhaPlan:
+    """One call: the window's ``slots`` split over ``splits`` blocks of a
+    cluster, ``rows`` query rows a block."""
+    splits: int
+    rows: int
+    slots: int
+
+    def ranges(self) -> list[tuple[int, int]]:
+        """The slots [s0, s1) of each rank, as the kernel computes them."""
+        return [(q * self.slots // self.splits, (q + 1) * self.slots // self.splits)
+                for q in range(self.splits)]
+
+
+def mha_plan(s: int, rows: int) -> MhaPlan:
+    """The split of a window of s slots for T x rep = rows query rows of a KV
+    head: as many ranks as keep MIN_SLICE slots each, at most MAX_SPLITS; the
+    smallest compiled row block that holds the rows (16 beyond, several
+    blocks)."""
+    splits = max(1, min(MAX_SPLITS, s // MIN_SLICE))
+    rb = next((r for r in ROW_BLOCKS if r >= rows), ROW_BLOCKS[-1])
+    return MhaPlan(splits, rb, s)
 
 
 def mha_decode_plain(q: torch.Tensor, kd: torch.Tensor, ks: torch.Tensor | None,
@@ -53,11 +86,51 @@ def mha_decode_plain(q: torch.Tensor, kd: torch.Tensor, ks: torch.Tensor | None,
     return out.reshape(b, t, h, d)
 
 
+def mha_decode_split_plain(q: torch.Tensor, kd: torch.Tensor, ks: torch.Tensor | None,
+                           vd: torch.Tensor, vs: torch.Tensor | None,
+                           q_positions: torch.Tensor, kv_mask: torch.Tensor, scale: float,
+                           splits: int | None = None) -> torch.Tensor:
+    """The kernel's order in plain PyTorch: the slots split as ``mha_plan``
+    splits them (or in ``splits``), each slice's (m, l, acc) computed alone,
+    the slices merged in rank order: M = max m, L = sum l exp(m - M),
+    out = (sum acc exp(m - M)) / max(L, 1e-30)."""
+    b, t, h, d = q.shape
+    s, g = kd.shape[1], kd.shape[2]
+    plan = mha_plan(s, t * (h // g))
+    if splits is not None:
+        plan = dataclasses.replace(plan, splits=splits)
+    qg = q.float().reshape(b, t, g, h // g, d)
+    state = []
+    for lo, hi in plan.ranges():
+        sc = torch.einsum("btgrd,bsgd->bgrts", qg, kd[:, lo:hi].float()) * scale
+        if ks is not None:
+            sc = sc * ks[:, lo:hi].permute(0, 2, 1)[:, :, None, None, :]
+        slot = torch.arange(lo, hi, device=q.device)
+        valid = (kv_mask[:, None, None, None, lo:hi]
+                 & (slot <= q_positions[:, None, None, :, None]))
+        sc = torch.where(valid, sc, torch.full((), NEG, device=q.device))
+        m = (sc.amax(dim=-1) if hi > lo
+             else torch.full(sc.shape[:-1], NEG, device=q.device))
+        p = torch.where(valid, torch.exp(sc - m[..., None]), torch.zeros((), device=q.device))
+        l = p.sum(dim=-1)
+        if vs is not None:
+            p = p * vs[:, lo:hi].permute(0, 2, 1)[:, :, None, None, :]
+        state.append((m, l, torch.einsum("bgrts,bsgd->bgrtd", p, vd[:, lo:hi].float())))
+    big = torch.stack([m for m, _, _ in state]).amax(dim=0)
+    l_all = torch.zeros_like(big)
+    o_all = torch.zeros_like(state[0][2])
+    for m, l, acc in state:
+        w = torch.exp(m - big)
+        l_all = l_all + l * w
+        o_all = o_all + acc * w[..., None]
+    out = o_all / torch.clamp(l_all, min=1e-30)[..., None]  # [b, g, r, t, d]
+    return out.permute(0, 3, 1, 2, 4).reshape(b, t, h, d)
+
+
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
-    "mha_decode": ([_P, _P, _P, _P, _P, _P, _L, _P, _L, _P, _P, _P, _I, _I, _I, _I,
-                    _I, _I, _L, _L, _I, ctypes.c_float, _P], _I),
-    "mha_decode_chunks": ([_I], _I),
+    "mha_decode": ([_P, _P, _P, _P, _P, _P, _L, _P, _L, _P, _I, _I, _I, _I, _I, _I,
+                    _L, _L, _I, ctypes.c_float, _I, _I, _P], _I),
 }
 
 
@@ -80,8 +153,8 @@ def _check_cuda(q, kd, ks, vd, vs, q_positions, kv_mask):
         if a.stride()[1:] != (g * d, d, 1) or a.stride(0) != kd.stride(0):
             raise ValueError("K/V must be contiguous inside a batch row, with one "
                              "batch stride")
-        if a.data_ptr() % 16:
-            raise ValueError("the CUDA kernel takes 16-byte aligned K/V")
+        if a.data_ptr() % 16 or (a.stride(0) * a.element_size()) % 16:
+            raise ValueError("the CUDA kernel takes 16-byte aligned K/V rows")
     if (ks is None) != (kd.dtype != torch.int8) or (vs is None) != (ks is None):
         raise ValueError("an int8 cache needs its K and V scales, a float one none")
     if ks is not None:
@@ -101,7 +174,7 @@ def mha_decode(q: torch.Tensor, kd: torch.Tensor, ks: torch.Tensor | None,
                kv_mask: torch.Tensor, scale: float) -> torch.Tensor:
     """Attention of T <= 16 query tokens over the cache window -> f32
     [B, T, H, D].  The window may be a strided ``cache[:, :w]`` view: the
-    kernel takes its batch stride and copies nothing."""
+    kernel takes its batch stride and copies nothing, and no scratch."""
     b, t, h, d = q.shape
     s, g = kd.shape[1], kd.shape[2]
     if kd.shape != vd.shape or kd.shape[0] != b or kd.shape[3] != d or h % g:
@@ -119,18 +192,15 @@ def mha_decode(q: torch.Tensor, kd: torch.Tensor, ks: torch.Tensor | None,
     from ..kernels import build
 
     lib = build.load("mha_decode", _SIGNATURES)
-    rows = b * g * lib.mha_decode_chunks(s) * t * (h // g)
-    opart = torch.empty((rows, d), dtype=torch.float32, device=q.device)
-    mlpart = torch.empty((rows, 2), dtype=torch.float32, device=q.device)
+    plan = mha_plan(s, t * (h // g))
     out = torch.empty_like(q)
     err = lib.mha_decode(
         q.data_ptr(), kd.data_ptr(), None if ks is None else ks.data_ptr(),
         vd.data_ptr(), None if vs is None else vs.data_ptr(),
         q_positions.data_ptr(), q_positions.stride(0), kv_mask.data_ptr(),
-        kv_mask.stride(0), opart.data_ptr(), mlpart.data_ptr(), out.data_ptr(),
-        b, t, h, g, s, d, kd.stride(0), 0 if ks is None else ks.stride(0),
-        KV_TYPES[kd.dtype], float(scale),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        kv_mask.stride(0), out.data_ptr(), b, t, h, g, s, d, kd.stride(0),
+        0 if ks is None else ks.stride(0), KV_TYPES[kd.dtype], float(scale), plan.splits,
+        plan.rows, torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"mha_decode launch failed: CUDA error {err}")
     launches["mha_decode"] += 1

@@ -277,10 +277,10 @@ _SIGNATURES = {
         "qmm_int8_gemv_clusters": ([_I, _I], _I),
     },
     "qmm_q8x": {
-        "qmm_q8x": ([_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                     _I, _P], _I),
+        "qmm_q8x": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                     _P], _I),
         "q8x_quantize": ([_P, _P, _P, _I, _I, _I, _P], _I),
-        "qmm_q8x_splits": ([_I], _I),
+        "qmm_q8x_gemv_clusters": ([_I, _I], _I),
         "qmm_q8x_tile_smem": ([_I, _I], _I),
     },
 }
@@ -303,18 +303,7 @@ def _launched(err: int, name: str):
     launches[name] += 1
 
 
-def _scratch(lib, splits_fn: str, x: torch.Tensor, n: int) -> torch.Tensor | None:
-    """K7's decode form's f32 partial sums of its K splits, [splits, B, N],
-    which its reduce pass adds; None above GEMV_MAX_ROWS rows.  (K2, K5, K6
-    and K6b reduce their splits inside the kernel and take none.)"""
-    b, k = x.shape
-    if b > GEMV_MAX_ROWS:
-        return None
-    return torch.empty((getattr(lib, splits_fn)(k), b, n), dtype=torch.float32,
-                       device=x.device)
-
-
-# The decode GEMV of K2, K5, K6 and K6b (csrc/qmm_common.cuh gemv_kernel):
+# The decode GEMV of K2, K5, K6, K6b and K7 (csrc/qmm_common.cuh gemv_kernel):
 # GEMV_TILE_N columns a block, weight rows in GEMV_STEP-row steps, the K
 # splits of a column tile one thread-block cluster of at most
 # GEMV_MAX_SPLITS blocks.
@@ -322,10 +311,17 @@ GEMV_TILE_N = 256
 GEMV_STEP = 32
 GEMV_MAX_SPLITS = 8
 GEMV_FILL_STEPS = 4  # a split's own cost (first loads, the cluster reduce), in steps
+# each decode body's fill, by the source that holds it: K7's chunk is a whole
+# step and a warp has one in flight, so a split's first loads and its
+# cluster reduce weigh more (8 fits chip_smoke.py --phases splits at the 7B
+# shapes on the H100 with two blocks an SM)
+GEMV_FILL = {"qmm_q4_0": GEMV_FILL_STEPS, "qmm_int8": GEMV_FILL_STEPS, "qmm_q8x": 8}
 # clusters of s blocks the card runs at once, as the kernels' occupancy query
 # (qmm_*_gemv_clusters) gives it on an NVIDIA H100 80GB HBM3: the plan's
 # default away from the card
 H100_GEMV_CLUSTERS = {1: 132, 2: 66, 3: 39, 4: 30, 5: 22, 6: 17, 7: 15, 8: 15}
+# K7's one-row form runs two blocks an SM (128 registers a thread)
+H100_Q8X_GEMV_CLUSTERS = {1: 264, 2: 132, 3: 79, 4: 62, 5: 47, 6: 39, 7: 32, 8: 30}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -342,40 +338,51 @@ class GemvPlan:
 
 
 def gemv_plan(k: int, n: int, packed: bool, *,
-              clusters: dict[int, int] = H100_GEMV_CLUSTERS) -> GemvPlan:
+              clusters: dict[int, int] = H100_GEMV_CLUSTERS,
+              fill: int = GEMV_FILL_STEPS) -> GemvPlan:
     """K splits of a decode call at K x N.  The N tiles x s blocks run in
-    waves of clusters[s] clusters; a wave costs a split's steps plus
-    GEMV_FILL_STEPS.  Every split keeps at least one step.  (At the 7B shapes
-    this picks the fastest s of a sweep of s = 1..8 on the H100: 6 on the
-    4096-column weights, 2 on wqkv, 4 on the fused gate/up, 1 on the head.)"""
+    waves of clusters[s] clusters; a wave costs a split's steps plus the
+    body's fill (GEMV_FILL).  Every split keeps at least one step.  (At the
+    7B shapes this picks the fastest s of a sweep of s = 1..8 on the H100:
+    for K2, K5, K6, K6b 6 on the 4096-column weights, 2 on wqkv, 4 on the
+    fused gate/up, 1 on the head; for K7 8, 4, 2 and 2.)"""
     steps = k // (2 * GEMV_STEP) if packed else k // GEMV_STEP
     tiles = -(-n // GEMV_TILE_N)
     best = None
     for s in range(1, min(GEMV_MAX_SPLITS, steps) + 1):
         waves = -(-tiles * s // (clusters[s] * s))
-        cost = waves * (-(-steps // s) + GEMV_FILL_STEPS)
+        cost = waves * (-(-steps // s) + fill)
         if best is None or cost < best[0]:
             best = (cost, s)
     return GemvPlan(best[1], steps)
 
 
+# each decode body's occupancy query, by the source that holds it
+_CLUSTER_QUERY = {"qmm_q4_0": "qmm_packed_gemv_clusters", "qmm_int8": "qmm_int8_gemv_clusters",
+                  "qmm_q8x": "qmm_q8x_gemv_clusters"}
+
+
 @functools.lru_cache(maxsize=None)
-def _gemv_clusters(source: str, index: int) -> dict[int, int]:
-    """The card's clusters at once for each split count (one query a device)."""
+def _gemv_clusters(source: str, index: int, rows: int = 1) -> dict[int, int]:
+    """The card's clusters at once for each split count (one query a device
+    and form: rows 1 for the one-row instance, more for the other)."""
     lib = _lib(source)
-    fn = getattr(lib, "qmm_packed_gemv_clusters" if source == "qmm_q4_0"
-                 else "qmm_int8_gemv_clusters")
+    fn = getattr(lib, _CLUSTER_QUERY[source])
     with torch.cuda.device(index):
-        got = {s: fn(s, 1) for s in range(1, GEMV_MAX_SPLITS + 1)}
+        got = {s: fn(s, rows) for s in range(1, GEMV_MAX_SPLITS + 1)}
     if min(got.values()) < 1:
         raise RuntimeError(f"the decode GEMV's cluster occupancy query failed: {got}")
     return got
 
 
-def _gemv_plan(x: torch.Tensor, n: int, packed: bool) -> GemvPlan:
+def _gemv_plan(x: torch.Tensor, n: int, packed: bool, source: str | None = None) -> GemvPlan:
+    """The plan of a decode call on this card; source: the body's source
+    (default the packed or int8 one), whose occupancy query sizes it."""
     index = x.device.index or 0
-    return gemv_plan(x.shape[1], n, packed,
-                     clusters=_gemv_clusters("qmm_q4_0" if packed else "qmm_int8", index))
+    source = source or ("qmm_q4_0" if packed else "qmm_int8")
+    rows = 1 if x.shape[0] == 1 else GEMV_MAX_ROWS
+    return gemv_plan(x.shape[1], n, packed, clusters=_gemv_clusters(source, index, rows),
+                     fill=GEMV_FILL[source])
 
 
 # The prefill tile (csrc/qmm_tile.cuh): TILE_N output columns and one of
@@ -460,9 +467,6 @@ def _tile_scratch(x: torch.Tensor, n: int, gsize: int, *, packed: bool,
     partial = (torch.empty((plan.splits, b, n), dtype=torch.float32, device=x.device)
                if plan.splits > 1 else None)
     return plan, xa, partial
-
-
-_NO_TILE = TilePlan(0, 0, 0, 0)  # K7's decode form takes no tile plan
 
 
 def _ptr(t: torch.Tensor | None):
@@ -581,7 +585,8 @@ def qmm_int8_bias(x: torch.Tensor, levels: torch.Tensor, scales: torch.Tensor,
 
 
 def quantize_q8x(x: torch.Tensor, gsize: int = 32):
-    """K7's activation quantizer alone (its first pass): (xq int8 [B, K],
+    """K7's activation quantizer as a pass of its own (q8x_quantize_kernel,
+    whose device function K7's decode form runs inside it): (xq int8 [B, K],
     d f32 [B, K/gsize]), bit-identical to ``quantize_q8x_plain``."""
     if gsize not in (16, 32):
         raise NotImplementedError(f"{gsize}-groups: the kernels take 16 and 32")
@@ -604,24 +609,29 @@ def quantize_q8x(x: torch.Tensor, gsize: int = 32):
 
 def qmm_packed_q8x(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor, *,
                    zero: int = 8, gsize: int = 32) -> torch.Tensor:
-    """K7 at any row count (a split-K GEMV at 32 rows or fewer, the shared
-    tile's q8 mode above): f32 [B, N]."""
+    """K7 at any row count (the decode skeleton with the activations
+    quantized inside it at 32 rows or fewer, the shared tile's q8 mode
+    above): f32 [B, N]."""
     code = _check(x, packed, [scales], packed=True, gsize=gsize)
     if x.device.type == "cpu":
         return qmm_packed_q8x_plain(x, packed, scales, zero=zero, gsize=gsize)
+    return _q8x(x, packed, scales, zero, gsize, code)
+
+
+def _q8x(x, packed, scales, zero, gsize, code):
     b, k = x.shape
     k2p, n = packed.shape
-    lib = _lib("qmm_q8x")
-    d = torch.empty((b, k // gsize), dtype=torch.float32, device=x.device)
-    partial, xq, xa, plan = _scratch(lib, "qmm_q8x_splits", x, n), None, None, _NO_TILE
-    if partial is None:
-        plan, xa, partial = _tile_scratch(x, n, gsize, packed=True, bias=False, q8=True)
+    d = None
+    if b <= GEMV_MAX_ROWS:  # one launch, no scratch
+        gemv = _gemv_plan(x, n, True, "qmm_q8x")
+        plan, xa, partial = TilePlan(0, gemv.splits, gemv.steps, 0), None, None
     else:
-        xq = torch.empty((b, k), dtype=torch.int8, device=x.device)
+        plan, xa, partial = _tile_scratch(x, n, gsize, packed=True, bias=False, q8=True)
+        d = torch.empty((b, k // gsize), dtype=torch.float32, device=x.device)
     out = torch.empty((b, n), dtype=torch.float32, device=x.device)
-    err = lib.qmm_q8x(x.data_ptr(), packed.data_ptr(), scales.data_ptr(), _ptr(xq),
-                      d.data_ptr(), _ptr(partial), _ptr(xa), out.data_ptr(), b, k, n,
-                      k2p // gsize, zero, gsize, plan.bm, plan.splits, plan.ka, code,
-                      _stream(x))
+    err = _lib("qmm_q8x").qmm_q8x(x.data_ptr(), packed.data_ptr(), scales.data_ptr(), _ptr(d),
+                                  _ptr(partial), _ptr(xa), out.data_ptr(), b, k, n,
+                                  k2p // gsize, zero, gsize, plan.bm, plan.splits, plan.ka,
+                                  code, _stream(x))
     _launched(err, "qmm_q8x")
     return out

@@ -1,5 +1,6 @@
 """Decode attention over the KV cache (K4): the port's plain ``mha_decode``
-against the JAX package's Pallas kernel in interpret mode, the
+and the plain twin of the kernel's split-and-merge order against the JAX
+package's Pallas kernel in interpret mode, the kernel's split plan, the
 ``FUSED_ATTN`` routing rule, and the kernel against its plain version on the
 card."""
 
@@ -62,6 +63,48 @@ def test_plain_matches_pallas_interpret(cache, t, g):
         assert (got[1] == 0).all()
 
 
+@pytest.mark.parametrize("g", [4, 2, 1], ids=["rep1", "rep2", "mqa"])
+@pytest.mark.parametrize("t", [1, 5, 8, 16])
+@pytest.mark.parametrize("cache", ["f32", "bf16", "int8"])
+def test_split_plain_matches_pallas_interpret(cache, t, g):
+    """The kernel's order in plain torch (mha_plan's slices, each slice's
+    (m, l, acc) alone, merged in rank order) against the JAX kernel in
+    interpret mode, at the limit of test_plain_matches_pallas_interpret
+    (2e-5: f32 summation order only).  The window of 256 slots splits 4 ways,
+    so rank 3 (slots 192+) holds no valid slot; batch row 1 has none at all
+    in the t=16 cases: both give 0."""
+    q, pos, mask, ja, pa, scale = _case(cache, t, 4, g, seed=t + g, empty_row=t == 16)
+    want = np.asarray(jax_mha_decode(jnp.asarray(q), *ja, jnp.asarray(pos),
+                                     jnp.asarray(mask), scale, block_s=128,
+                                     interpret=True))
+    assert md.mha_plan(256, t * (4 // g)).splits == 4
+    got = md.mha_decode_split_plain(torch.from_numpy(q), *pa, torch.from_numpy(pos).long(),
+                                    torch.from_numpy(mask), scale).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=2e-5)
+    if t == 16:
+        assert (got[1] == 0).all()
+
+
+@pytest.mark.parametrize("rows", [1, 2, 4, 8, 9, 16, 32, 64])
+@pytest.mark.parametrize("s", [1, 31, 32, 100, 128, 255, 256, 1000, 2048, 4096])
+def test_mha_plan_covers_every_slot_once(s, rows):
+    """Every slot of the window lies in exactly one rank's slice, in rank
+    order; at most MAX_SPLITS (8) ranks, each with MIN_SLICE slots or more
+    when there are two or more; the row block is a compiled one that holds
+    the rows (16 beyond, several blocks)."""
+    plan = md.mha_plan(s, rows)
+    assert 1 <= plan.splits <= md.MAX_SPLITS == 8 and plan.slots == s
+    ranges = plan.ranges()
+    assert len(ranges) == plan.splits
+    assert ranges[0][0] == 0 and ranges[-1][1] == s
+    assert all(a1 == b0 for (_, a1), (b0, _) in zip(ranges, ranges[1:]))
+    assert sorted(x for lo, hi in ranges for x in range(lo, hi)) == list(range(s))
+    if plan.splits > 1:
+        assert all(hi - lo >= md.MIN_SLICE for lo, hi in ranges)
+    assert plan.rows in md.ROW_BLOCKS and plan.rows >= min(rows, 16)
+    assert all(r < min(rows, 16) for r in md.ROW_BLOCKS if r < plan.rows)  # the smallest
+
+
 def test_plain_takes_a_strided_window():
     """The cache reaches attention as cache[:, :w]: strided over the batch for
     B > 1.  The plain version (and the kernel's contract) take the view as it
@@ -121,17 +164,27 @@ def test_attention_routes_to_mha_decode(monkeypatch):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("cache", ["f32", "bf16", "int8"])
-@pytest.mark.parametrize("t,h,g,d", [(1, 32, 32, 128), (8, 32, 8, 128), (16, 8, 1, 256),
-                                     (3, 8, 4, 64)])
+@pytest.mark.parametrize("t,h,g,d", [(1, 32, 32, 128), (8, 32, 32, 128), (8, 32, 8, 128),
+                                     (16, 8, 1, 256), (3, 8, 4, 64)])
 def test_kernel_matches_plain_on_card(cache, t, h, g, d):
-    """The CUDA kernel against its plain version: f32 order noise, 1e-4 of
-    the output scale; row 1 with no valid slot gives 0."""
+    """The CUDA kernel (one launch, every row block of mha_plan) against its
+    plain version: f32 order noise, 1e-4 of the output scale; row 1 with no
+    valid slot gives 0; two launches and 10 replays of a CUDA graph of one
+    launch bit-identical."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     q, pos, mask, _, pa, scale = _case(cache, t, h, g, d=d, s=384, seed=t, empty_row=True)
     args = [torch.from_numpy(q).cuda(), *(a.cuda() if a is not None else None for a in pa),
             torch.from_numpy(pos).long().cuda(), torch.from_numpy(mask).cuda(), scale]
-    got, want = md.mha_decode(*args), md.mha_decode_plain(*args)
+    got, again, want = md.mha_decode(*args), md.mha_decode(*args), md.mha_decode_plain(*args)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        gout = md.mha_decode(*args)
+    replays = []
+    for _ in range(10):
+        graph.replay()
+        replays.append(torch.equal(gout, got))
     torch.cuda.synchronize()
     assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
     assert (got[1] == 0).all()
+    assert torch.equal(got, again) and all(replays)

@@ -1,9 +1,12 @@
-"""The decode GEMV of K2, K5, K6 and K6b (csrc/qmm_common.cuh gemv_kernel):
-its K-split plan, the scratch its wrappers allocate (none: the splits are
-reduced inside the kernel; K7's GEMV keeps its partial sums), and the plain
-versions the card holds it to at the rows and shapes the redesign added
-(b = 3 and 17, a ragged N = 4224), against the Pallas kernels in interpret
-mode."""
+"""The decode GEMV of K2, K5, K6, K6b and K7 (csrc/qmm_common.cuh
+gemv_kernel): its K-split plan, the scratch its wrappers allocate (none: the
+splits are reduced inside the kernel; the prefill tiles keep their partial
+sums), the plain versions the card holds it to at the rows and shapes the
+redesign added (b = 3 and 17, a ragged N = 4224) against the Pallas kernels
+in interpret mode, and K7's single-group tie rows, on which the card must
+equal the plain version bit for bit."""
+
+import unittest.mock as mock
 
 import jax.numpy as jnp
 import numpy as np
@@ -22,16 +25,19 @@ SHAPES = [(12288, 4096), (4096, 4096), (22016, 4096), (4096, 11008), (32000, 409
           (4224, 4096), (4096, 8640), (128, 256), (256, 64 * 7)]
 
 
-@pytest.mark.parametrize("packed", [False, True], ids=["int8", "packed"])
+@pytest.mark.parametrize("source", ["qmm_int8", "qmm_q4_0", "qmm_q8x"],
+                         ids=["int8", "packed", "q8x"])
 @pytest.mark.parametrize("n,k", SHAPES)
 @pytest.mark.parametrize("clusters", [qmm.H100_GEMV_CLUSTERS,
                                       {s: max(1, 20 // s) for s in range(1, 9)}],
                          ids=["h100", "small-card"])
-def test_gemv_plan_covers_every_step_once(n, k, packed, clusters):
+def test_gemv_plan_covers_every_step_once(n, k, source, clusters):
     """Every 32-row step of the weight lies in exactly one split, in order;
     every split has at least one step; at most GEMV_MAX_SPLITS splits (the
-    portable cluster size)."""
-    plan = qmm.gemv_plan(k, n, packed, clusters=clusters)
+    portable cluster size).  Each body with its own fill cost (K7, q8x, on
+    the packed layout)."""
+    packed = source != "qmm_int8"
+    plan = qmm.gemv_plan(k, n, packed, clusters=clusters, fill=qmm.GEMV_FILL[source])
     assert plan.steps == (k // 64 if packed else k // 32)
     assert 1 <= plan.splits <= qmm.GEMV_MAX_SPLITS
     ranges = plan.ranges()
@@ -53,6 +59,17 @@ def test_gemv_plan_picks_the_measured_best(n, k, want, packed):
     assert qmm.gemv_plan(k, n, packed).splits == want
 
 
+@pytest.mark.parametrize("n,k,want", [(4096, 4096, 8), (12288, 4096, 4), (22016, 4096, 2),
+                                      (4096, 11008, 8)])
+def test_q8x_plan_picks_the_measured_best(n, k, want):
+    """K7's splits at the 7B shapes on the H100's occupancy of its one-row
+    form (two blocks an SM) with its own fill: those a sweep measured fastest
+    (chip_smoke.py --phases splits; at the 32000-row head 1 and 2 tie)."""
+    plan = qmm.gemv_plan(k, n, True, clusters=qmm.H100_Q8X_GEMV_CLUSTERS,
+                         fill=qmm.GEMV_FILL["qmm_q8x"])
+    assert plan.splits == want
+
+
 def test_gemv_plan_fits_one_wave_where_it_can():
     """With 16 column tiles (N = 4096) the H100 runs 17 clusters of 6 (102
     blocks) but 15 of 8 (120 < 128): 6 splits run in one wave, 8 would take
@@ -69,8 +86,6 @@ class _FakeLib:
         self.calls = {}
 
     def __getattr__(self, name):
-        if name.endswith("_splits"):
-            return lambda k: 3
         return lambda *args: self.calls.setdefault(name, args) and 0
 
 
@@ -80,14 +95,15 @@ def fake_lib(monkeypatch):
     monkeypatch.setattr(qmm, "_lib", lambda source: lib)
     monkeypatch.setattr(qmm, "_stream", lambda x: 0)
     monkeypatch.setattr(qmm, "_sm_count", lambda index: 132)
-    monkeypatch.setattr(qmm, "_gemv_clusters", lambda source, index: qmm.H100_GEMV_CLUSTERS)
+    monkeypatch.setattr(qmm, "_gemv_clusters",
+                        lambda source, index, rows=1: qmm.H100_GEMV_CLUSTERS)
     monkeypatch.setattr(qmm, "launches", dict(qmm.launches))
     return lib
 
 
 @pytest.mark.parametrize("b", [1, 3, 17, 32])
 def test_decode_forms_take_no_scratch(fake_lib, b):
-    """At 32 rows or fewer K2, K5, K6 and K6b pass no scratch and no x
+    """At 32 rows or fewer K2, K5, K6, K6b and K7 pass no scratch and no x
     buffer, only the plan's splits (the tensors here lie on the CPU; the
     shapes and pointers are what a CUDA call gets)."""
     n, k = 4096, 4096
@@ -97,6 +113,7 @@ def test_decode_forms_take_no_scratch(fake_lib, b):
     packed = torch.zeros((k // 2, n), dtype=torch.uint8)
     pplanes = torch.zeros((2, k // 64, n))
     want = qmm.gemv_plan(k, n, False).splits
+    want_q8x = qmm.gemv_plan(k, n, True, fill=qmm.GEMV_FILL["qmm_q8x"]).splits
     qmm._int8(x, levels, planes, planes, 32, "qmm_int8_bias", 0)
     args = fake_lib.calls["qmm_int8"]
     assert args[4] is None and args[5] is None  # scratch, xa
@@ -107,17 +124,45 @@ def test_decode_forms_take_no_scratch(fake_lib, b):
     qmm._kfold(x, packed, pplanes, 8, 32, 0)
     args = fake_lib.calls["qmm_q4_0_kfold"]
     assert len(args) == 13 and args[10] == want  # no scratch argument at all
+    qmm._q8x(x, packed, pplanes, 8, 32, 0)
+    args = fake_lib.calls["qmm_q8x"]
+    assert args[3] is None and args[4] is None and args[5] is None  # d, partial, xa
+    assert args[13] == 0 and args[14] == want_q8x and args[15] == 0  # bm, splits, ka
     assert qmm.launches["qmm_int8_bias"] == qmm.launches["qmm_packed_bias"] == 1
-    assert qmm.launches["qmm_q4_0_kfold"] == 1
+    assert qmm.launches["qmm_q4_0_kfold"] == qmm.launches["qmm_q8x"] == 1
+
+
+@pytest.mark.parametrize("b", [1, 8, 32])
+def test_k7_decode_form_takes_no_scratch(fake_lib, b):
+    """K7's decode form is one launch that quantizes x inside the kernel: no
+    x levels, no d_x and no partial sums are allocated, at every row count of
+    the decode buckets, with the plan of its own occupancy query."""
+    n, k = 4096, 11008
+    allocated = []
+    real_empty = torch.empty
+    x, packed = torch.zeros((b, k)), torch.zeros((k // 2, n), dtype=torch.uint8)
+    pplanes = torch.zeros((2, k // 64, n))
+    with mock.patch.object(qmm.torch, "empty",
+                           lambda *a, **kw: allocated.append(a) or real_empty(*a, **kw)):
+        qmm._q8x(x, packed, pplanes, 8, 32, 0)
+    assert allocated == [((b, n),)]  # the output alone
+    args = fake_lib.calls["qmm_q8x"]
+    assert args[3:6] == (None, None, None)
+    assert args[14] == qmm.gemv_plan(k, n, True, fill=qmm.GEMV_FILL["qmm_q8x"]).splits
 
 
 def test_k7_and_the_tile_keep_their_partials(fake_lib):
-    """K7's decode GEMV still writes [splits, B, N] partial sums for its
-    reduce pass; above 32 rows the tile's plan decides (K6b at b = 128)."""
-    x = torch.zeros((8, 4096))
-    part = qmm._scratch(fake_lib, "qmm_q8x_splits", x, 4096)
-    assert tuple(part.shape) == (3, 8, 4096) and part.dtype == torch.float32
-    assert qmm._scratch(fake_lib, "qmm_q8x_splits", torch.zeros((33, 4096)), 4096) is None
+    """Above 32 rows the prefill tiles keep their partial sums where the
+    tile's plan splits K: K7's tile (with its d_x and bf16 x scratch) at
+    b = 33, and K6b's at b = 128."""
+    x = torch.zeros((33, 4096))
+    packed, pplanes = torch.zeros((2048, 4096), dtype=torch.uint8), torch.zeros((2, 64, 4096))
+    qmm._q8x(x, packed, pplanes, 8, 32, 0)
+    args = fake_lib.calls["qmm_q8x"]
+    plan = qmm.tile_plan(33, 4096, 4096, 32, packed=True, bias=False, sms=132, q8=True)
+    assert args[3] is not None  # d_x [B, K/32] for the prep pass
+    assert args[13] == plan.bm and args[14] == plan.splits and args[15] == plan.ka
+    assert (args[4] is None) == (plan.splits == 1) and args[5] is not None
     plan, xa, scratch = qmm._decode_or_tile(torch.zeros((128, 4096)), 4096, 32,
                                             packed=False, bias=True)
     assert isinstance(plan, qmm.TilePlan) and xa.shape == (128, plan.ka)
@@ -206,15 +251,70 @@ def test_int8_decode_plain_matches_pallas_interpret(bias, b, n):
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=2e-6 * np.abs(want).max())
 
 
+# ------------------------------------------------ K7's single-group tie rows
+
+def _tie_rows(b, k, gsize, seed):
+    """chip_smoke.py's q8x_tie_rows in numpy: row i zero but for group
+    7 i + 3 (logical order), 127 and half-integers in (-127, 127)."""
+    rng = np.random.default_rng(seed)
+    x = np.zeros((b, k), np.float32)
+    groups = []
+    for i in range(b):
+        g = (7 * i + 3) % (k // gsize)
+        vals = rng.integers(-127, 127, gsize).astype(np.float32) + 0.5
+        vals[i % gsize] = 127.0
+        x[i, g * gsize:(g + 1) * gsize] = vals
+        groups.append(g)
+    return x, groups
+
+
+@pytest.mark.parametrize("gsize,zero", [(32, 8), (16, 4), (32, 7)])
+def test_k7_tie_rows_are_one_term(gsize, zero):
+    """On the tie rows K7's plain version gives each column one f32 term,
+    float32(dot * 1 * d_w) of its float64 value (d_x = 1 exactly; every
+    other group has d_x = 0); so the card, whose order is the same there,
+    must equal it bit for bit.  Rounding any one tie toward zero instead of
+    away (round-half-even's choice for half of them) changes every column
+    whose level at that row is nonzero: the card check sees a wrong tie."""
+    n, k, b = 256, 1024, 4
+    packed, scales, _ = _packed(n, k, gsize, zero, seed=gsize + zero, bias=False)
+    x, groups = _tie_rows(b, k, gsize, seed=zero)
+    t = torch.from_numpy
+    got = qmm.qmm_packed_q8x_plain(t(x), t(packed), t(scales), zero=zero, gsize=gsize).numpy()
+    xq, d = (a.numpy() for a in qmm.quantize_q8x_plain(t(x), gsize))
+    g2 = k // 2 // gsize
+    nib = packed[:k // 2].astype(np.int64)
+    for i, g in enumerate(groups):
+        h, gg = divmod(g, g2)
+        rows = slice(gg * gsize, (gg + 1) * gsize)
+        lv = (nib[rows] & 0xF if h == 0 else nib[rows] >> 4) - zero
+        xs = x[i, g * gsize:(g + 1) * gsize]
+        q = xq[i, g * gsize:(g + 1) * gsize].astype(np.int64)
+        np.testing.assert_array_equal(q, np.sign(xs) * np.floor(np.abs(xs) + 0.5))
+        assert d[i, g] == 1.0 and np.count_nonzero(d[i]) == 1
+        term = (q @ lv).astype(np.float64) * scales[h, gg].astype(np.float64)
+        np.testing.assert_array_equal(got[i].view(np.uint32),
+                                      term.astype(np.float32).view(np.uint32))
+        j = next(j for j in range(gsize) if xs[j] != 127.0)
+        q2 = q.copy()
+        q2[j] -= int(np.sign(xs[j]))
+        wrong = ((q2 @ lv).astype(np.float64) * scales[h, gg]).astype(np.float32)
+        seen = lv[j] != 0
+        assert seen.any() and (wrong[seen] != got[i][seen]).all()
+
+
 # ------------------------------------------------------------- on the card
 
 def _forms(n, k, seed):
-    """(name, kernel call, plain call, 2-byte twin call, its f32 call) of the
-    four decode forms on one random weight each, tensors on the card."""
+    """(name, kernel call, plain call, 2-byte twin planes) of the five
+    decode forms on one random weight each (K7 also on q3_K's layout: zero 4,
+    16-groups), tensors on the card; and the widening back to f32."""
     c = lambda a: torch.from_numpy(a).cuda()  # noqa: E731
     packed, pscales, pbias = _packed(n, k, 32, 0, seed, bias=True)
     levels, iscales, ibias = _int8(n, k, 32, seed)
-    p, ps, pb, lv, is_, ib = map(c, (packed, pscales, pbias, levels, iscales, ibias))
+    q3packed, q3scales, _ = _packed(n, k, 16, 4, seed + 1, bias=False)
+    p, ps, pb, lv, is_, ib, q3, q3s = map(c, (packed, pscales, pbias, levels, iscales, ibias,
+                                              q3packed, q3scales))
     bf = lambda t: t.to(torch.bfloat16)  # noqa: E731
     f16 = lambda t: t.to(torch.float16)  # noqa: E731
     back = lambda t: t.float()  # noqa: E731
@@ -227,6 +327,10 @@ def _forms(n, k, seed):
          lambda x: qmm.qmm_int8_plain(x, lv, is_, gsize=32), bf(is_)),
         ("K6b", lambda x, s=is_, g=ib: qmm.qmm_int8_bias(x, lv, s, g, gsize=32),
          lambda x: qmm.qmm_int8_bias_plain(x, lv, is_, ib, gsize=32), (bf(is_), bf(ib))),
+        ("K7", lambda x, s=ps: qmm.qmm_packed_q8x(x, p, s, zero=8, gsize=32),
+         lambda x: qmm.qmm_packed_q8x_plain(x, p, ps, zero=8, gsize=32), f16(ps)),
+        ("K7 q3_K", lambda x, s=q3s: qmm.qmm_packed_q8x(x, q3, s, zero=4, gsize=16),
+         lambda x: qmm.qmm_packed_q8x_plain(x, q3, q3s, zero=4, gsize=16), bf(q3s)),
     ], back
 
 
@@ -235,10 +339,11 @@ def _forms(n, k, seed):
 @pytest.mark.parametrize("n,k", [(4224, 4096), (4096, 11008)])
 def test_decode_forms_on_card(n, k, b):
     """On the card, each decode form: within 1e-3 of its plain version's
-    scale, two launches bit-identical, one launch captured in a CUDA graph
-    and replayed 10 times bit-identical (the in-kernel reduce leaves no
-    state), and on 2-byte planes equal bit for bit to f32 planes holding the
-    same values."""
+    scale (K7: 1e-4, its group dots are exact), two launches bit-identical,
+    one launch captured in a CUDA graph and replayed 10 times bit-identical
+    (the in-kernel reduce leaves no state), and on 2-byte planes equal bit
+    for bit to f32 planes holding the same values.  K7 on the tie rows equals
+    its plain version bit for bit."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     forms, back = _forms(n, k, seed=n + b)
@@ -257,6 +362,10 @@ def test_decode_forms_on_card(n, k, b):
         else:
             a2, a32 = kern(x, two), kern(x, back(two))
         torch.cuda.synchronize()
-        assert (got - want).abs().max().item() <= 1e-3 * want.abs().max().item(), name
+        tol = 1e-4 if name.startswith("K7") else 1e-3
+        assert (got - want).abs().max().item() <= tol * want.abs().max().item(), name
         assert torch.equal(got, again) and all(replays), name
         assert torch.equal(a2, a32), name
+        if name.startswith("K7"):
+            xt = torch.from_numpy(_tie_rows(b, k, 16 if "q3_K" in name else 32, seed=b)[0])
+            assert torch.equal(kern(xt.cuda()), plain(xt.cuda())), name
