@@ -78,15 +78,32 @@ Phases (each prints its own lines; any failure exits non-zero):
      2-byte plane bytes and profiled decode steps of each beside its f32
      weights'.  2-layer q4_1, q5_0, q5_1 and q8_0 models on f16 planes, and
      Q3_K_M (int8 configuration) and Q5_K_M on bf16 planes, against the CPU.
-  4. the `main` CLI answers prompts from GGJT files at 7B width (2 layers,
+     Every Context step on the card is a CUDA graph replayed per key (the
+     first call of a key runs eagerly and captures it): each run prints the
+     graphs it captured, their capture ms and the pool's bytes, and
+     bench_instruments and int8_instruments print the replayed step's
+     prefill-512 and decode ms/token (windows 256, and 2048 in the int8
+     configuration) beside the eager figures, with a profiled replayed step
+     (device busy, host step, idle share).
+  4. graphs: LLaMA-7B q4_0, 512 + 64 greedy tokens through Context +
+     generate on a bf16 cache, and the int8 configuration 128 + 16 on a q8
+     cache: every step's logits equal to an eager transformer.forward of the
+     same inputs on a twin cache bit for bit, the same greedy tokens, the
+     caches equal after the run, each replay's launches equal to the eager
+     step's (129 K2; 129 K7 + 32 K4 a token); a replayed Context.embed and
+     Context.eval_embd against their eager twins.
+  5. q8chaos (printed, not gated): the 2-layer q8_0 model of the e2e phase,
+     each op of a 128-token prefill and a decode step on the card and on the
+     CPU's f32 plain path, against an f64 forward of the same weights.
+  6. the `main` CLI answers prompts from GGJT files at 7B width (2 layers,
      32000-entry vocab) written by the port's own GGJTWriter: q4_0 (also in
-     the int8 configuration), Q4_K_M and Q3_K_M from random k-quant blocks;
-     `benchmark-matmult` (default, QMM_Q8X=1, --vdot, --stream,
-     --stream-sweep).
-  5. a JSON line of per-kernel numbers, then the contract line
+     the int8 configuration, and the `embedding` tool), Q4_K_M and Q3_K_M
+     from random k-quant blocks; `benchmark-matmult` (default, QMM_Q8X=1,
+     --vdot, --stream, --stream-sweep).
+  7. a JSON line of per-kernel numbers, then the contract line
      {"ok": true, "device": {...}}.
-``--phases kernels,e2e,cli`` runs a subset (for debugging: a subset prints
-no result lines; with no arguments every phase runs).  Phases that run only
+``--phases kernels,e2e,graphs,q8chaos,cli`` runs a subset (for debugging: a
+subset prints no result lines; with no arguments every phase runs).  Phases that run only
 when named: ``sass`` (instruction counts of K7's and K3's kernels and of
 the decode GEMV's and K4's instances), ``gemv`` (check_gemv alone),
 ``busy`` (device busy and kernels a 7B decode step on the q4_0, Q4_K_M,
@@ -1034,9 +1051,11 @@ INT8 = {"QMM_Q8X": "1", "FUSED_ATTN": "1"}
 # Why the 2-layer q8_0 model is held against its own f32 planes and its CPU
 # agreement only printed: its synthetic weights (levels uniform over +-127,
 # d 0.0005-0.0015, 1.6 times the other formats' weight scale) make a model
-# that turns summation order into logit changes past the 2e-2 limit on f32
+# that turns small differences into logit changes past the 2e-2 limit on f32
 # planes as well, while K6 on q8_0 agrees with its plain version to ~5e-6 of
-# its output at every shape (the kernel checks).
+# its output at every shape (the kernel checks).  q8chaos_phase localizes
+# it: the CPU departs from an f64 forward 2-5x more than the card from the
+# first attention on (its bf16-rounded q and probabilities against K3's f32).
 Q8_0_CHAOS = "its synthetic model amplifies summation order past the limit on f32 planes too"
 # the launches of one 7B Q3_K_M decode token: K2 for wq, wk and gate/up, K5
 # for wv, wo and w2 in each of 32 layers, K6 for the head
@@ -1133,6 +1152,7 @@ def end_to_end(torch, counters, ftype="q4_0", n_prompt=512, n_decode=64, *,
           f"{len(toks)} tokens; logits finite={finite}", flush=True)
     print(f"e2e: {path} launches on the main path {json.dumps(launches)}; "
           f"per decode token {json.dumps(per_token)}", flush=True)
+    print(f"e2e: {path} {graph_summary(ctx)}", flush=True)
     ok = finite and len(toks) == n_decode and all(
         launches[k] > 0 for k in PATH_KERNELS[path])
     del ctx
@@ -1141,7 +1161,9 @@ def end_to_end(torch, counters, ftype="q4_0", n_prompt=512, n_decode=64, *,
 
 def bench_instruments(torch, cfg, params, label="q4_0"):
     """bench.py's instruments: prefill-512 (groups of 4, median of 5) and
-    decode ms/token at kv_window 256 (median of 5 passes of 64 tokens)."""
+    decode ms/token at kv_window 256 (median of 5 passes of 64 tokens), eager
+    (transformer.forward) and profiled; then the same through the Context's
+    replayed step (graph_instruments)."""
     from llama_cpp_q_4_0_tpu_torch.models import transformer
     from llama_cpp_q_4_0_tpu_torch.ops.flash_prefill import flash_prefill
 
@@ -1165,6 +1187,8 @@ def bench_instruments(torch, cfg, params, label="q4_0"):
           f"median={med:.3f} min={min(dec):.3f} "
           f"runs={[round(v, 3) for v in dec]}", flush=True)
     trace_decode(torch, cfg, params, ck, cv, med, label)
+    del ck, cv
+    graph_instruments(torch, cfg, params, label, statistics.median(pre), {256: med})
     return statistics.median(pre), med
 
 
@@ -1192,16 +1216,19 @@ def int8_instruments(torch, cfg, params):
     """Decode ms/token of 7B q4_0 on a q8 cache at kv_window 256 (n_past 65)
     and 2048 (n_past 1900): with QMM_Q8X=1 and FUSED_ATTN=1, then with each
     switched off alone.  Printed, not gated.  Then a profiled decode step of
-    the int8 configuration at window 256."""
+    the int8 configuration at windows 256 and 2048, eager and replayed
+    through the Context (graph_instruments)."""
     from llama_cpp_q_4_0_tpu_torch.models import transformer
 
     ck, cv = transformer.init_cache(cfg, 1, cfg.n_ctx, dtype=torch.int8, device="cuda")
+    eager = {}
     for window, n_past in ((256, 65), (2048, 1900)):
         for label, switches in (("QMM_Q8X=1 FUSED_ATTN=1", INT8),
                                 ("QMM_Q8X=1 FUSED_ATTN off", {"QMM_Q8X": "1", "FUSED_ATTN": ""}),
                                 ("QMM_Q8X off FUSED_ATTN=1", {"QMM_Q8X": "", "FUSED_ATTN": "1"})):
             with env(**switches):
                 med, runs = decode_ms(torch, cfg, params, ck, cv, n_past, window)
+            eager.setdefault(window, med)
             print(f"bench: q4_0 q8-cache decode_ms_per_token (kv_window {window}, n_past "
                   f"{n_past}, {label}) median={med:.3f} runs={[round(v, 3) for v in runs]}",
                   flush=True)
@@ -1209,6 +1236,10 @@ def int8_instruments(torch, cfg, params):
     with env(**INT8):
         med, _ = decode_ms(torch, cfg, params, ck, cv, 65, 256)
         trace_decode(torch, cfg, params, ck, cv, med, "q4_0 int8-config")
+        trace_decode(torch, cfg, params, ck, cv, eager[2048], "q4_0 int8-config", 2048, 1900)
+        del ck, cv
+        graph_instruments(torch, cfg, params, "q4_0 int8-config", None, eager,
+                          windows=((256, 128), (2048, 1900)), cache_dtype=torch.int8)
 
 
 def int8_prefill_128(torch, cfg, params, ck, cv, counters=None):
@@ -1274,7 +1305,6 @@ def trace_decode(torch, cfg, params, ck, cv, step_ms: float | None, label: str,
     window: the device-busy time per step (sum of kernel times) against the
     unprofiled step time (when step_ms is given), and the kernels that take
     it."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from llama_cpp_q_4_0_tpu_torch.models import transformer
@@ -1286,18 +1316,10 @@ def trace_decode(torch, cfg, params, ck, cv, step_ms: float | None, label: str,
             transformer.forward(cfg, params, tok, n_past + i, ck, cv,
                                 last_only=True, kv_window=window)
         torch.cuda.synchronize()
-    rows = []
-    for ev in prof.key_averages():
-        if getattr(ev, "device_type", None) != DeviceType.CUDA:
-            continue  # operator rows would count their kernels twice
-        dev = getattr(ev, "self_device_time_total", None)
-        if dev is None:
-            dev = getattr(ev, "self_cuda_time_total", 0)
-        rows.append((dev / 1e3 / 8, ev.count // 8, ev.key))
+    rows = _kernel_rows(prof, 8)
     if not rows:
         print("trace: the profiler recorded no kernel time (not measured)")
         return
-    rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
     share = (f" of {step_ms:.3f} ms unprofiled ({100 * busy / step_ms:.1f}%)"
              if step_ms else "")
@@ -1305,6 +1327,261 @@ def trace_decode(torch, cfg, params, ck, cv, step_ms: float | None, label: str,
           f"{share}, {sum(r[1] for r in rows)} kernels per step", flush=True)
     for ms, n, key in rows[:8]:
         print(f"trace:   {ms:8.4f} ms/step  x{n:<4d} {key[:90]}", flush=True)
+
+
+def _kernel_rows(prof, n: int):
+    """(ms a call, kernels a call, name) of each kernel under the profiler,
+    over n calls; operator rows would count their kernels twice."""
+    from torch.autograd import DeviceType
+
+    rows = []
+    for ev in prof.key_averages():
+        if getattr(ev, "device_type", None) != DeviceType.CUDA:
+            continue
+        dev = getattr(ev, "self_device_time_total", None)
+        if dev is None:
+            dev = getattr(ev, "self_cuda_time_total", 0)
+        rows.append((dev / 1e3 / n, ev.count // n, ev.key))
+    return sorted(rows, reverse=True)
+
+
+def graph_summary(ctx) -> str:
+    """The graphs a Context captured: kind, T and window of each with its
+    capture ms, and the shared pool's growth."""
+    graphs = ctx.graphs()
+    each = ", ".join(f"{g['key'][0]} T={g['key'][1]} window={g['key'][2]} "
+                     f"{g['capture_ms']:.1f} ms" for g in graphs)
+    pool = sum(g["pool_bytes"] for g in graphs)
+    return (f"{len(graphs)} graphs captured ({each}); pool {pool} bytes "
+            f"({pool / 2**20:.1f} MiB)")
+
+
+def trace_replayed(torch, fn, n: int, host_ms: float, label: str) -> None:
+    """torch.profiler over n calls of fn, each a replayed Context step: the
+    device-busy time a call (the sum of its kernel times) against the
+    unprofiled host time of a call (host_ms), the idle share, and the
+    kernels that take it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    rows = _kernel_rows(prof, n)
+    if not rows:
+        print(f"trace: {label} replayed: the profiler recorded no kernel time (not measured)",
+              flush=True)
+        return
+    busy = sum(r[0] for r in rows)
+    print(f"trace: {label} replayed: device busy {busy:.3f} ms of {host_ms:.3f} ms host "
+          f"step (idle {100 * (1 - busy / host_ms):.1f}%), {sum(r[1] for r in rows)} "
+          f"kernels per step", flush=True)
+    for ms, k, key in rows[:8]:
+        print(f"trace:   {ms:8.4f} ms/step  x{k:<4d} {key[:90]}", flush=True)
+
+
+def graph_instruments(torch, cfg, params, label, eager_prefill, eager_decode: dict,
+                      windows=((256, 128),), cache_dtype=None) -> None:
+    """The replayed step through Context.eval, every call's logits copied
+    to the host as Context.eval does: prefill-512 (groups of 4, median of 5,
+    n_past set back to 0 before each call; skipped when eager_prefill is
+    None) and decode ms/token at each (kv_window, n_past) of windows (median
+    of 5 passes of 64 tokens from n_past on: Context takes the bucket of
+    n_past + 1 as its window, so n_past 128 gives window 256), beside the
+    eager figures of the same run (eager_decode by window); then the
+    profiled replayed steps (trace_replayed)."""
+    from llama_cpp_q_4_0_tpu_torch.runtime.context import Context
+
+    ctx = Context(cfg, params, n_ctx=cfg.n_ctx, device="cuda",
+                  cache_dtype=cache_dtype or torch.bfloat16)
+    if eager_prefill is not None:
+        prompt = [[0] * 512]
+
+        def prefill():
+            ctx.n_past = 0
+            ctx.eval(prompt)
+
+        prefill()  # the eager first call, then the capture
+        runs = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            for _ in range(4):
+                prefill()
+            runs.append((time.perf_counter() - t0) / 4 * 1e3)
+        med = statistics.median(runs)
+        print(f"bench: {label} replayed prefill_512_ms median={med:.3f} min={min(runs):.3f} "
+              f"runs={[round(v, 3) for v in runs]} (eager median {eager_prefill:.3f})",
+              flush=True)
+        trace_replayed(torch, prefill, 1, med, f"{label} prefill-512")
+    for window, n_past in windows:
+        def step():
+            ctx.eval([[0]])
+
+        ctx.n_past = n_past
+        step()
+        if ctx.last_call.kv_window != window:
+            raise RuntimeError(f"n_past {n_past} gave window {ctx.last_call.kv_window}")
+        runs = []
+        for _ in range(5):
+            ctx.n_past = n_past
+            t0 = time.perf_counter()
+            for _ in range(64):
+                step()
+            runs.append((time.perf_counter() - t0) / 64 * 1e3)
+        med = statistics.median(runs)
+        print(f"bench: {label} replayed decode_ms_per_token (kv_window {window}, n_past "
+              f"{n_past}) median={med:.3f} min={min(runs):.3f} "
+              f"runs={[round(v, 3) for v in runs]} (eager median {eager_decode[window]:.3f})",
+              flush=True)
+        ctx.n_past = n_past
+        trace_replayed(torch, step, 8, med, f"{label} decode step (kv_window {window})")
+    print(f"graphs: {label} {graph_summary(ctx)}", flush=True)
+
+
+def _flat_cache(caches):
+    from llama_cpp_q_4_0_tpu_torch.ops.kvcache import QuantKV
+
+    return [a for c in caches for a in ((c.data, c.scale) if isinstance(c, QuantKV) else (c,))]
+
+
+def eager_step(torch, cfg, call, ck, cv):
+    """transformer.forward of a Context step's inputs (ctx.last_call),
+    eagerly, on the caches ck, cv: the step's reference."""
+    from llama_cpp_q_4_0_tpu_torch.models import transformer
+
+    return transformer.forward(
+        cfg, call.params, torch.from_numpy(call.x).cuda(), call.n_past, ck, cv,
+        last_only=call.last_only, kv_window=call.kv_window, last_index=call.last_index,
+        attention_fn=call.attention_fn, with_embedding=call.kind == "embed")
+
+
+def graph_run(torch, counters, cfg, params, label, n_prompt, n_decode, cache_dtype,
+              want_per_token) -> bool:
+    """A prefill of n_prompt tokens and n_decode greedy tokens through Context
+    and generate on the card (the steps replayed from graphs), each step
+    checked against an eager transformer.forward of the same inputs on a twin
+    cache: logits equal bit for bit, the twin's greedy tokens equal, the
+    launches of each replayed step equal the eager step's (and a decode
+    token's equal want_per_token), and the two caches equal after the run."""
+    import numpy as np
+
+    from llama_cpp_q_4_0_tpu_torch.models import transformer
+    from llama_cpp_q_4_0_tpu_torch.runtime.context import Context
+    from llama_cpp_q_4_0_tpu_torch.runtime.generate import GenerateParams, generate
+    from llama_cpp_q_4_0_tpu_torch.runtime.sampling import Sampler, SamplingParams
+
+    ctx = Context(cfg, params, n_ctx=2048, device="cuda", cache_dtype=cache_dtype)
+    ck, cv = transformer.init_cache(cfg, 1, 2048, cache_dtype, "cuda")
+    prompt = [1] + np.random.default_rng(0).integers(3, cfg.n_vocab, n_prompt - 1).tolist()
+    gp = GenerateParams(n_predict=n_decode, ignore_eos=True, sampling=SamplingParams(temp=0.0))
+    # the twin's tokens: generate's sampler on the eager logits
+    sampler = Sampler(gp.sampling, cfg.n_vocab, gp.seed)
+    log = {"steps": 0, "equal": 0, "replayed": 0, "launches_equal": 0, "per_token": {},
+           "twin_tokens": list(prompt)}
+    run_eval = ctx.eval
+
+    def checked(tokens, *, logits_all=False):
+        captured = len(ctx.graphs())
+        _zero(counters)
+        got = run_eval(tokens, logits_all=logits_all)
+        torch.cuda.synchronize()
+        replay = {k: v for k, v in _read(counters).items() if v}
+        _zero(counters)
+        want = eager_step(torch, cfg, ctx.last_call, ck, cv)
+        t = np.atleast_2d(tokens).shape[1]
+        want = (want[:, :t] if want.shape[1] > 1 else want).float().cpu().numpy()
+        eager = {k: v for k, v in _read(counters).items() if v}
+        log["steps"] += 1
+        log["equal"] += bool(np.array_equal(got, want))
+        if len(ctx.graphs()) == captured:  # this call replayed a graph
+            log["replayed"] += 1
+            log["launches_equal"] += replay == eager
+            if t == 1:
+                log["per_token"] = replay
+        log["twin_tokens"].append(sampler.sample(want[0, -1], log["twin_tokens"]))
+        return got
+
+    ctx.eval = checked
+    t0 = time.perf_counter()
+    toks = list(generate(ctx, prompt, gp))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    del ctx.eval
+    same_cache = all(torch.equal(a, b) for a, b in zip(_flat_cache(ctx.cache_k + ctx.cache_v),
+                                                       _flat_cache(ck + cv)))
+    same_toks = toks == log["twin_tokens"][n_prompt:n_prompt + n_decode] \
+        and len(toks) == n_decode
+    ok = (log["steps"] == n_decode + 1 and log["equal"] == log["steps"]
+          and log["launches_equal"] == log["replayed"] > 0 and same_toks and same_cache
+          and log["per_token"] == want_per_token)
+    print(f"graphs: {label} {n_prompt} + {n_decode} through Context + generate ({seconds:.1f} s "
+          f"with the eager twin): {log['steps']} steps, {log['replayed']} replayed; logits "
+          f"equal to eager forward bit for bit at {log['equal']} of {log['steps']}; greedy "
+          f"tokens identical {same_toks}; caches identical {same_cache}; launches equal to "
+          f"eager at {log['launches_equal']} of {log['replayed']} replays; a replayed decode "
+          f"token {json.dumps(log['per_token'])} (want {json.dumps(want_per_token)}) "
+          f"{'ok' if ok else 'MISMATCH'}", flush=True)
+    print(f"graphs: {label} {graph_summary(ctx)}", flush=True)
+    return ok
+
+
+def graph_embed(torch, cfg, params) -> bool:
+    """Context.embed of a 100-token prompt and Context.eval_embd of the
+    model's own embedding rows of 16 tokens on the card, each replayed (a
+    first call captures, reset() zeroes the cache in place), against an
+    eager transformer.forward of the same inputs on a zeroed twin cache: the
+    hidden state and the logits bit for bit."""
+    import numpy as np
+
+    from llama_cpp_q_4_0_tpu_torch.models import transformer
+    from llama_cpp_q_4_0_tpu_torch.runtime.context import Context
+
+    ctx = Context(cfg, params, n_ctx=2048, device="cuda")
+    ck, cv = transformer.init_cache(cfg, 1, 2048, device="cuda")
+    prompt = [1] + np.random.default_rng(2).integers(3, cfg.n_vocab, 99).tolist()
+    ctx.embed(prompt)
+    ctx.reset()
+    emb = ctx.embed(prompt)
+    logits, x = eager_step(torch, cfg, ctx.last_call, ck, cv)
+    same = (np.array_equal(emb, x[:, len(prompt) - 1].float().cpu().numpy())
+            and np.array_equal(ctx.logits, logits[:, :len(prompt)].float().cpu().numpy())
+            and bool(np.isfinite(emb).all()))
+    rows = transformer._embed(params, torch.tensor([prompt[:16]], device="cuda")).cpu().numpy()
+    for c in _flat_cache(ck + cv):
+        c.zero_()
+    for _ in range(2):
+        ctx.reset()
+        got = ctx.eval_embd(rows)
+    want = eager_step(torch, cfg, ctx.last_call, ck, cv).float().cpu().numpy()
+    same_embd = np.array_equal(got, want) and bool(np.isfinite(got).all())
+    graphs = ctx.graphs()
+    replayed = [g["key"][0] for g in graphs if g["replays"] == 1] == ["embed", "eval_embd"]
+    print(f"graphs: Context.embed of {len(prompt)} tokens and eval_embd of 16 embedding rows, "
+          f"each replayed ({replayed}): embed's hidden state [{emb.shape[0]}, {emb.shape[1]}] "
+          f"and logits equal to eager forward bit for bit {same}; eval_embd's logits {same_embd}; "
+          f"{graph_summary(ctx)}", flush=True)
+    return replayed and same and same_embd
+
+
+def graphs_phase(torch, counters, built=None) -> bool:
+    """The compiled step on the card, LLaMA-7B q4_0 (32 layers, built from
+    seed 0 unless built gives the weights): 512 + 64 on a bf16 cache (129 K2
+    a replayed token), the int8 configuration 128 + 16 on a q8 cache (129 K7
+    + 32 K4), and Context.embed and eval_embd (graph_run, graph_embed)."""
+    from llama_cpp_q_4_0_tpu_torch.synth import build_llama
+
+    cfg, params = built or build_llama(device="cuda", seed=0, ftype="q4_0")
+    ok = graph_run(torch, counters, cfg, params, "q4_0", 512, 64, torch.bfloat16,
+                   {"qmm_q4_0_kfold": 129})
+    torch.cuda.empty_cache()
+    with env(**INT8):
+        ok &= graph_run(torch, counters, cfg, params, "q4_0 int8-config", 128, 16, torch.int8,
+                        {"qmm_q8x": 129, "mha_decode": 32})
+    torch.cuda.empty_cache()
+    ok &= graph_embed(torch, cfg, params)
+    torch.cuda.empty_cache()
+    return ok
 
 
 def splits_phase(torch) -> None:
@@ -1718,9 +1995,35 @@ def cli_phase(ftype: str, prompts, counters=None) -> bool:
                   flush=True)
             ok &= rc == 0 and launched.get("qmm_q8x", 0) > 0 \
                 and launched.get("mha_decode", 0) > 0
+            ok &= embedding_cli(path, prompt, counters)
         return ok
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def embedding_cli(path: str, prompt: str, counters) -> bool:
+    """The `embedding` tool on the file: one line of n_embd finite values
+    (summarised here; the line itself is 4096 numbers), its decode-shaped
+    step replayed from a graph must launch K2."""
+    import contextlib
+    import io
+
+    from llama_cpp_q_4_0_tpu_torch.cli import embedding as embedding_cli_mod
+
+    out = io.StringIO()
+    _zero(counters)
+    with contextlib.redirect_stdout(out):
+        rc = embedding_cli_mod.main(["-m", path, "-p", prompt, "-c", "256",
+                                     "--device", "cuda"])
+    launched = {k: v for k, v in _read(counters).items() if v}
+    vals = [float(v) for v in out.getvalue().splitlines()[0].split()] if rc == 0 else []
+    ok = (rc == 0 and len(vals) == 4096 and all(v == v and abs(v) != float("inf")
+                                                 for v in vals)
+          and launched.get("qmm_q4_0_kfold", 0) > 0)
+    print(f"cli: embedding -p {prompt!r}: rc={rc}, {len(vals)} values, first "
+          f"{[round(v, 6) for v in vals[:4]]}; launches {json.dumps(launched)} "
+          f"{'ok' if ok else 'FAILED'}", flush=True)
+    return ok
 
 
 def benchmark_phase(counters):
@@ -1749,16 +2052,206 @@ def benchmark_phase(counters):
     return ok and stream_launches > 0, stream_launches
 
 
+def _traced_forward(torch, cfg, params, tokens, n_past, ck, cv, window, attention_fn, rec):
+    """transformer.forward's LLaMA body for a last_only call (fused wqkv and
+    gate/up), the same ops in the same order, each op's output kept in rec
+    as f64 on the CPU."""
+    import math
+
+    from llama_cpp_q_4_0_tpu_torch.models import transformer as tf
+    from llama_cpp_q_4_0_tpu_torch.ops.layers import attention, rms_norm, rope, silu
+
+    def keep(name, v):
+        rec[name] = v.double().cpu()
+        return v
+
+    b, t = tokens.shape
+    dev = tokens.device
+    n = torch.full((), n_past, dtype=torch.int64, device=dev)
+    pos = (n + torch.arange(t, device=dev, dtype=torch.int64))[None, :].expand(b, t)
+    kv_mask = (torch.arange(window, device=dev) < n + t)[None, :].expand(b, window)
+    slots = tf._insert_slots(n, ck[0].shape[1], t)
+    scale = 1.0 / math.sqrt(cfg.head_dim)
+    x = keep("embed", tf._embed(params, tokens))
+    for i, blk in enumerate(params.blocks):
+        h = keep(f"L{i} attn_norm", rms_norm(x, blk.attn_norm_w, cfg.norm_eps))
+        q, k, v = tf._qkv(cfg, blk, h, b, t)
+        keep(f"L{i} v", v)
+        q = keep(f"L{i} q roped", rope(q, pos, cfg.n_rot, neox=cfg.rope_neox,
+                                       base=cfg.rope_base))
+        k = keep(f"L{i} k roped", rope(k, pos, cfg.n_rot, neox=cfg.rope_neox,
+                                       base=cfg.rope_base))
+        tf._cache_insert(ck[i], k, slots)
+        tf._cache_insert(cv[i], v, slots)
+        if attention_fn is not None:
+            a = attention_fn(q.contiguous(), tf._roundtrip(ck[i], k),
+                             tf._roundtrip(cv[i], v), scale)
+        else:
+            a = attention(q, tf._kv_view(ck[i], window), tf._kv_view(cv[i], window), pos,
+                          kv_mask, scale)
+        keep(f"L{i} attention", a)
+        o = keep(f"L{i} wo", tf._mm(a.reshape(b, t, cfg.n_embd), blk.wo, cfg))
+        x = keep(f"L{i} x+attn", x + o)
+        h = keep(f"L{i} ffn_norm", rms_norm(x, blk.ffn_norm_w, cfg.norm_eps))
+        gu = keep(f"L{i} gate/up", tf._mm(h, blk.w_gateup, cfg))
+        f = gu.shape[-1] // 2
+        inner = keep(f"L{i} silu*up", silu(gu[..., :f]) * gu[..., f:])
+        x = keep(f"L{i} x+ffn", x + keep(f"L{i} w2", tf._mm(inner, blk.w_down, cfg)))
+    x = keep("out_norm", rms_norm(x[:, -1:], params.out_norm_w, cfg.norm_eps))
+    return keep("logits", tf._mm(x, params.output, cfg))
+
+
+def _f64_forward(torch, cfg, params, tokens, n_past, kc, vc, rec):
+    """The same LLaMA in f64 on the CPU from the same weights (params on the
+    CPU; kc, vc f64 caches): the roundings of the bf16 compute kept (x and
+    the dequantized weight rounded to bf16 before each product, K/V stored
+    as bf16), every sum, norm, rotation and softmax in f64, attention exact
+    (q and the probabilities not rounded, as the card's K3 keeps them f32)."""
+    import math
+
+    f64 = torch.float64
+
+    def bf(a):
+        return a.to(torch.bfloat16).to(f64)
+
+    def keep(name, v):
+        rec[name] = v
+        return v
+
+    def mm(x, w):
+        n, k = w.shape
+        deq = (w.levels_full().float().reshape(-1, w.gsize, n)
+               * w.gscale_full()[:, None, :]).reshape(k, n)
+        out = bf(x) @ bf(deq)
+        gb = w.gbias_full()
+        if gb is not None:
+            out = out + x.reshape(*x.shape[:-1], -1, w.gsize).sum(-1) @ gb.double()
+        return out
+
+    def norm(x, w):
+        return x / torch.sqrt((x * x).mean(-1, keepdim=True) + cfg.norm_eps) * w.double()
+
+    def rope(x, pos):  # adjacent pairs over the whole head (LLaMA)
+        half = cfg.n_rot // 2
+        freqs = cfg.rope_base ** (-torch.arange(half, dtype=f64) * 2.0 / cfg.n_rot)
+        th = pos.double()[..., None, None] * freqs
+        x0, x1 = x[..., 0::2], x[..., 1::2]
+        return torch.stack([x0 * th.cos() - x1 * th.sin(), x0 * th.sin() + x1 * th.cos()],
+                           dim=-1).reshape(x.shape)
+
+    if cfg.rope_neox or cfg.n_rot != cfg.head_dim:
+        raise NotImplementedError("the f64 forward rotates adjacent pairs over whole heads")
+    b, t = tokens.shape
+    hq, g, hd = cfg.n_head, cfg.kv_heads, cfg.head_dim
+    pos = (n_past + torch.arange(t))[None, :].expand(b, t)
+    s = n_past + t
+    causal = torch.arange(s)[None, :] <= pos[0][:, None]  # [t, s]
+    x = keep("embed", params.tok_embeddings.rows(tokens).double())
+    for i, blk in enumerate(params.blocks):
+        h = keep(f"L{i} attn_norm", norm(x, blk.attn_norm_w))
+        qkv = mm(h, blk.wqkv)
+        e, kvd = hq * hd, g * hd
+        q = qkv[..., :e].reshape(b, t, hq, hd)
+        k = qkv[..., e:e + kvd].reshape(b, t, g, hd)
+        v = keep(f"L{i} v", qkv[..., e + kvd:].reshape(b, t, g, hd))
+        q = keep(f"L{i} q roped", rope(q, pos))
+        k = keep(f"L{i} k roped", rope(k, pos))
+        kc[i][:, n_past:s] = bf(k)
+        vc[i][:, n_past:s] = bf(v)
+        qg = q.reshape(b, t, g, hq // g, hd)
+        sc = torch.einsum("btgrd,bsgd->bgrts", qg, kc[i][:, :s]) / math.sqrt(hd)
+        p = torch.softmax(sc.masked_fill(~causal, float("-inf")), dim=-1)
+        a = keep(f"L{i} attention", torch.einsum("bgrts,bsgd->btgrd", p, vc[i][:, :s])
+                 .reshape(b, t, hq, hd))
+        x = keep(f"L{i} x+attn", x + keep(f"L{i} wo", mm(a.reshape(b, t, e), blk.wo)))
+        h = keep(f"L{i} ffn_norm", norm(x, blk.ffn_norm_w))
+        gu = keep(f"L{i} gate/up", mm(h, blk.w_gateup))
+        f = gu.shape[-1] // 2
+        inner = keep(f"L{i} silu*up", gu[..., :f] * torch.sigmoid(gu[..., :f]) * gu[..., f:])
+        x = keep(f"L{i} x+ffn", x + keep(f"L{i} w2", mm(inner, blk.w_down)))
+    x = keep("out_norm", norm(x[:, -1:], params.out_norm_w))
+    return keep("logits", mm(x, params.output))
+
+
+def q8chaos_phase(torch) -> None:
+    """Where the 2-layer q8_0 model's card-vs-CPU gap comes from (ROADMAP
+    queue 3): its model, seed, prompt and 2e-2 limit as two_layer_vs_cpu
+    runs it (on f32 planes, whose logits the run's f16 planes equal bit for
+    bit), a 128-token prefill and one decode step (the card's greedy token),
+    run three times: on the card and in the CPU's plain f32 path (each
+    through _traced_forward, whose card logits must equal forward's bit for
+    bit), and in f64 on the CPU (_f64_forward).  Each op's largest departure
+    of the card and of the CPU from f64 is printed, with the card's from the
+    CPU, beside the op's f64 scale.  Printed, not gated."""
+    import numpy as np
+
+    from llama_cpp_q_4_0_tpu_torch.models import transformer
+    from llama_cpp_q_4_0_tpu_torch.ops.flash_prefill import flash_prefill
+    from llama_cpp_q_4_0_tpu_torch.synth import build_llama
+
+    cfg, params = build_llama(n_layer=2, device="cuda", seed=1, ftype="q8_0")
+    cpu = _params_to(params, "cpu")
+    prompt = [1] + np.random.default_rng(1).integers(3, 32000, 127).tolist()
+    n_ctx, hd = 256, cfg.head_dim
+    ck, cv = transformer.init_cache(cfg, 1, n_ctx, device="cuda")
+    cpu_k, cpu_v = transformer.init_cache(cfg, 1, n_ctx, device="cpu")
+    ref_k, ref_v = transformer.init_cache(cfg, 1, n_ctx, device="cuda")
+    f64_k = [torch.zeros((1, n_ctx, cfg.kv_heads, hd), dtype=torch.float64)
+             for _ in range(cfg.n_layer)]
+    f64_v = [torch.zeros_like(c) for c in f64_k]
+    steps = {}
+    tok = None
+    for step, toks, n_past, window in (("prefill-128", prompt, 0, 128),
+                                       ("decode", None, 128, 256)):
+        toks = toks or [tok]
+        card, cpu32, exact = {}, {}, {}
+        x = torch.tensor([toks])
+        got = _traced_forward(torch, cfg, params, x.cuda(), n_past, ck, cv, window,
+                              flash_prefill if n_past == 0 else None, card)
+        want = transformer.forward(cfg, params, x.cuda(), n_past, ref_k, ref_v,
+                                   last_only=True, kv_window=window,
+                                   attention_fn=flash_prefill if n_past == 0 else None)
+        _traced_forward(torch, cfg, cpu, x, n_past, cpu_k, cpu_v, window, None, cpu32)
+        _f64_forward(torch, cfg, cpu, x, n_past, f64_k, f64_v, exact)
+        tok = int(got[0, -1].argmax())
+        steps[step] = (card, cpu32, exact)
+        lg, lc = card["logits"], cpu32["logits"]
+        print(f"q8chaos: {step} traced card logits equal to forward's bit for bit: "
+              f"{torch.equal(got, want)}; card vs CPU max_abs_err "
+              f"{float((lg - lc).abs().max()):.3e} (limit 2e-2 of the CPU's scale, "
+              f"{2e-2 * float(lc.abs().max()):.3e})", flush=True)
+    for step, (card, cpu32, exact) in steps.items():
+        louder = []
+        for op, ref in exact.items():
+            a = float((card[op] - ref).abs().max())
+            c = float((cpu32[op] - ref).abs().max())
+            d = float((card[op] - cpu32[op]).abs().max())
+            m = float(ref.abs().max())
+            if a > 2 * c and a > 1e-6 * m:
+                louder.append(f"{op} ({a / m:.1e} of its scale)")
+            print(f"q8chaos: {step:11s} {op:14s} card-f64 {a:.3e}  cpu32-f64 {c:.3e}  "
+                  f"card-cpu32 {d:.3e}  |f64| {m:.3e}", flush=True)
+        print(f"q8chaos: {step} ops where the card departs from f64 by more than twice the "
+              f"CPU's: {louder or 'none'} (the matmul kernels' limit against their plain "
+              f"versions: 1e-3 of the output scale)", flush=True)
+    del params, cpu, ck, cv, ref_k, ref_v
+    torch.cuda.empty_cache()
+
+
+# the phases of the full run, in their order
+FULL_RUN = ("kernels", "e2e", "graphs", "q8chaos", "cli")
+
+
 def main(argv=None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="kernels,e2e,cli",
-                    help="comma-separated subset of kernels,e2e,cli,sass,k7k3,k7repeat,"
-                         "int8prefill,planes,tiles,attn,gemv,busy,splits; the result lines "
-                         "print only for the default kernels,e2e,cli")
+    ap.add_argument("--phases", default=",".join(FULL_RUN),
+                    help="comma-separated subset of kernels,e2e,graphs,q8chaos,cli,sass,k7k3,"
+                         "k7repeat,int8prefill,planes,tiles,attn,gemv,busy,splits; the result "
+                         "lines print only for the default " + ",".join(FULL_RUN))
     phases = set(ap.parse_args(argv).phases.split(","))
-    full = phases == {"kernels", "e2e", "cli"}
+    full = phases == set(FULL_RUN)
     try:
         import torch
     except ImportError:
@@ -1885,8 +2378,8 @@ def main(argv=None) -> int:
         elapsed("kernels")
     counters = [qmm.launches, fp.launches, md.launches, st.launches]
     launches = {}
+    q4 = None  # the q4_0 weights, taken again by its 2-byte, int8 and graph runs
     if "e2e" in phases:
-        q4 = None  # the q4_0 weights, taken again by its 2-byte and int8 runs
         for ftype in ("q4_0", "q4_K_M"):
             ok, path_launches, per_token, cfg, params, toks = end_to_end(
                 torch, counters, ftype)
@@ -1958,7 +2451,7 @@ def main(argv=None) -> int:
         for k in ("qmm_q8x", "mha_decode"):
             launches[k] = path_launches[k]
         int8_instruments(torch, cfg, params)
-        del params, q4
+        del params
         torch.cuda.empty_cache()
         # the path of K6b: Q5_K_M (q5_K everywhere but the q6_K head, wv, w2)
         ok, path_launches, _, cfg, params, _ = end_to_end(
@@ -2006,6 +2499,16 @@ def main(argv=None) -> int:
             torch.cuda.empty_cache()
     if "e2e" in phases:
         elapsed("e2e")
+    if "graphs" in phases:
+        if not graphs_phase(torch, counters, built=q4):
+            return fail("a replayed step differs from its eager forward (logits, tokens, "
+                        "cache or launches)")
+        elapsed("graphs")
+    del q4
+    torch.cuda.empty_cache()
+    if "q8chaos" in phases:
+        q8chaos_phase(torch)
+        elapsed("q8chaos")
     if "cli" in phases:
         if not cli_phase("q4_0", ("Hello", "The capital of France is",
                                   "Once upon a time"), counters):

@@ -9,6 +9,8 @@ TOOLS = {
     "main": ("generate text (examples/main)", "main"),
     "benchmark-matmult": ("quantized vs dense matmul, vdot, HBM read stream",
                           "benchmark"),
+    "embedding": ("print the final hidden state of a prompt's last token",
+                  "embedding"),
 }
 
 

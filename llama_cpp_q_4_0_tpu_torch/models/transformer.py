@@ -4,7 +4,11 @@ The KV cache is a preallocated [B, S, H_kv, D] buffer per layer.  K is roped
 at insert time with its absolute position (cache slot == position), and
 attention masks the slots beyond the valid prefix instead of growing views.
 Unlike the JAX package, which is functional and donates its buffers, the
-forward writes each layer's K/V into the cache tensors IN PLACE.
+forward writes each layer's K/V into the cache tensors IN PLACE.  ``n_past``
+and ``last_index`` may be 0-d int64 tensors on the device, as the JAX forward
+takes them traced: nothing in the forward then reads a value on the host, so
+``runtime/context.py`` captures it in a CUDA graph and replays it for any
+``n_past``.
 
 gptneox, falcon and bonsai run only in the JAX package so far: ``forward``
 raises NotImplementedError for them.
@@ -99,19 +103,33 @@ def _kv_view(cache, w: int):
     return cache[:, :w]
 
 
-def _cache_insert(cache, val: torch.Tensor, n_past: int):
-    """Write val [B, T, H, D] at slot n_past, in place.  The start is clamped
-    to [0, S - T] exactly as the JAX package's dynamic_update_slice clamps
-    it, so a bucket-padded block near the end of the cache lands earlier
-    than n_past (a quirk of the reference, kept for parity)."""
-    s, t = cache.shape[1], val.shape[1]
-    start = max(0, min(n_past, s - t))
+def _insert_slots(n_past: torch.Tensor, s: int, t: int) -> torch.Tensor:
+    """The T cache slots a call writes, on the device: from n_past (a 0-d
+    device tensor) clamped to [0, S - T], exactly as the JAX package's
+    dynamic_update_slice clamps its start, so a bucket-padded block near the
+    end of the cache lands earlier than n_past (a quirk of the reference,
+    kept for parity)."""
+    start = n_past.clamp(max=s - t).clamp(min=0)
+    return start + torch.arange(t, device=n_past.device)
+
+
+def _cache_insert(cache, val: torch.Tensor, slots: torch.Tensor):
+    """Write val [B, T, H, D] into the cache slots ``_insert_slots`` gives,
+    in place."""
     if isinstance(cache, QuantKV):
         q, sc = quantize_kv(val)
-        cache.data[:, start:start + t] = q
-        cache.scale[:, start:start + t] = sc
+        cache.data.index_copy_(1, slots, q)
+        cache.scale.index_copy_(1, slots, sc)
     else:
-        cache[:, start:start + t] = val.to(cache.dtype)
+        cache.index_copy_(1, slots, val.to(cache.dtype))
+
+
+def _device_int(v, device) -> torch.Tensor:
+    """A 0-d int64 tensor on device: v itself, or a Python int filled in on
+    the device (no host copy, which would synchronise)."""
+    if isinstance(v, torch.Tensor):
+        return v
+    return torch.full((), v, dtype=torch.int64, device=device)
 
 
 def _roundtrip(cache, val: torch.Tensor) -> torch.Tensor:
@@ -124,11 +142,15 @@ def _roundtrip(cache, val: torch.Tensor) -> torch.Tensor:
 
 @torch.no_grad()
 def forward(cfg: ModelConfig, params: TransformerParams, tokens: torch.Tensor,
-            n_past: int, cache_k: list, cache_v: list, *,
-            last_only: bool = False, kv_window: int | None = None,
-            last_index: int | None = None, attention_fn=None) -> torch.Tensor:
-    """tokens [B, T] -> logits [B, T | 1, n_vocab] f32; updates the caches.
+            n_past, cache_k: list, cache_v: list, *,
+            last_only: bool = False, with_embedding: bool = False,
+            kv_window: int | None = None, last_index=None, attention_fn=None):
+    """tokens [B, T] int (or raw input embeddings [B, T, E] float, the JAX
+    forward's llama_eval_embd entry) -> logits [B, T | 1, n_vocab] f32;
+    updates the caches.  With with_embedding, (logits, x) where x is the
+    hidden state after the output norm (llama_get_embeddings).
 
+    n_past and last_index: Python ints or 0-d int64 tensors on the device.
     kv_window restricts attention to the first kv_window cache slots (the
     caller guarantees n_past + T <= kv_window).  last_index keeps one row (the
     real last token of a bucket-padded prompt) before the output norm and
@@ -137,24 +159,29 @@ def forward(cfg: ModelConfig, params: TransformerParams, tokens: torch.Tensor,
     n_past == 0 and the call covers the whole sequence."""
     if cfg.arch != "llama":
         raise NotImplementedError(f"{cfg.arch} is not ported yet")
-    b, t = tokens.shape
+    b, t = tokens.shape[:2]
     dev = tokens.device
     s = cache_k[0].shape[1]
     w = s if kv_window is None else min(kv_window, s)
+    n_past = _device_int(n_past, dev)
     pos = (n_past + torch.arange(t, device=dev, dtype=torch.int64))[None, :]
     pos = pos.expand(b, t)
     kv_mask = (torch.arange(w, device=dev) < n_past + t)[None, :].expand(b, w)
+    slots = _insert_slots(n_past, s, t)
     scale = 1.0 / math.sqrt(cfg.head_dim)
 
-    x = _embed(params, tokens)  # [B, T, E] f32
+    if tokens.dim() == 3:  # raw input embeddings (JAX forward, llama_eval_embd)
+        x = tokens.float()
+    else:
+        x = _embed(params, tokens)  # [B, T, E] f32
     for layer, blk in enumerate(params.blocks):
         h = rms_norm(x, blk.attn_norm_w, cfg.norm_eps)
         q, k, v = _qkv(cfg, blk, h, b, t)
         if cfg.n_rot > 0:
             q = rope(q, pos, cfg.n_rot, neox=cfg.rope_neox, base=cfg.rope_base)
             k = rope(k, pos, cfg.n_rot, neox=cfg.rope_neox, base=cfg.rope_base)
-        _cache_insert(cache_k[layer], k, n_past)
-        _cache_insert(cache_v[layer], v, n_past)
+        _cache_insert(cache_k[layer], k, slots)
+        _cache_insert(cache_v[layer], v, slots)
         if attention_fn is not None:
             a = attention_fn(q.contiguous(), _roundtrip(cache_k[layer], k),
                              _roundtrip(cache_v[layer], v), scale)
@@ -165,11 +192,14 @@ def forward(cfg: ModelConfig, params: TransformerParams, tokens: torch.Tensor,
         x = x + _ffn(cfg, blk, rms_norm(x, blk.ffn_norm_w, cfg.norm_eps))
 
     if last_index is not None:
-        x = x[:, last_index:last_index + 1]
+        x = x.index_select(1, _device_int(last_index, dev).reshape(1))
     elif last_only:
         x = x[:, -1:]
     x = rms_norm(x, params.out_norm_w, cfg.norm_eps)
-    return _mm(x, params.output, cfg)
+    logits = _mm(x, params.output, cfg)
+    if with_embedding:
+        return logits, x
+    return logits
 
 
 def init_cache(cfg: ModelConfig, batch: int, n_ctx: int | None = None,

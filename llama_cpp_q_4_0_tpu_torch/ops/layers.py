@@ -37,7 +37,9 @@ def rope(x: torch.Tensor, positions: torch.Tensor, n_rot: int, *, neox: bool,
     xf = x.float()
     half = n_rot // 2
     exps = -torch.arange(half, dtype=torch.float32, device=x.device) * 2.0 / n_rot
-    freqs = torch.pow(torch.tensor(base, dtype=torch.float32, device=x.device), exps)
+    # the base filled in on the device: torch.tensor(base, device=...) is a
+    # host copy, which synchronises and cannot be captured in a CUDA graph
+    freqs = torch.pow(torch.full((), base, dtype=torch.float32, device=x.device), exps)
     theta = positions.float()[..., None, None] * freqs
     cos, sin = torch.cos(theta), torch.sin(theta)
     if neox:

@@ -1,4 +1,4 @@
-"""Inference context: params + KV cache + eval (the llama_context).
+"""Inference context: params + KV cache + the compiled step (the llama_context).
 
 Holds the model params, preallocated KV buffers and n_past.  Prompt lengths
 are padded up to the next bucket of ``PREFILL_BUCKETS``, and attention reads
@@ -12,12 +12,26 @@ both views take; ``QMM_ZERO_FOLD=1`` then folds each symmetric pack zero into
 a bias plane (``maybe_fold_zero_points``) in ``params``, the view of calls of
 at most 32 tokens (decode-shaped), while ``_params_prefill`` keeps the
 unfolded tensors for larger buckets.
+
+The step is compiled as the JAX package compiles it.  JAX jits
+``_eval_step`` and ``_embed_step`` once per static key, with ``n_past`` and
+``last_index`` traced and the caches donated.  Here each key (``step_key``:
+the step kind, the padded T, kv_window, last_only, slice_last, the attention
+path, the params view and the routing switches of ``SWITCHES``) gets one
+``torch.cuda.CUDAGraph`` on the card.  Its inputs are static tensors written
+before each call (the tokens or embeddings, ``n_past`` and ``last_index``);
+the caches are captured by address and written in place.  The first call of
+a key runs the step eagerly, which also warms it up (kernels built, plans and
+occupancy queries cached, cuBLAS handles made), then captures it; every later
+call replays the graph.  A failed capture or replay raises.  On the CPU,
+which the caller must ask for, the same step runs eagerly, uncaptured.
 """
 
 from __future__ import annotations
 
+import os
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -27,7 +41,10 @@ from ..models import transformer
 from ..models.config import ModelConfig
 from ..models.transformer import TransformerParams, init_cache
 from ..ops.flash_prefill import flash_prefill
+from ..ops.flash_prefill import launches as _flash_launches
 from ..ops.layers import use_flash_prefill
+from ..ops.mha_decode import launches as _mha_launches
+from ..ops.qmm import launches as _qmm_launches
 from ..ops.qtensor import maybe_cast_scales_f16, maybe_fold_zero_points
 
 PREFILL_BUCKETS = (1, 8, 32, 64, 128, 256, 512, 1024, 2048)
@@ -69,6 +86,118 @@ class Timings:
         return "\n".join(lines)
 
 
+# The environment switches the routing reads at call time (ops/qmatmul.py
+# use_q8x and use_kfold; ops/layers.py use_fused_decode, use_flash_prefill and
+# attention).  A graph replays the route of its capture, so their values
+# enter its key.
+SWITCHES = ("QMM_Q8X", "QMM_Q8X_MAX_B", "QMM_KFOLD", "QMM_KFOLD_MAX_B",
+            "FUSED_ATTN", "FUSED_MAX_T", "FLASH_PREFILL", "ATTN_MXU")
+# the kernel wrappers' launch counts: a replay runs no Python, so it adds
+# what its capture would have added
+LAUNCH_COUNTERS = (_qmm_launches, _flash_launches, _mha_launches)
+
+
+def _eval_step(cfg, params, tokens, n_past, cache_k, cache_v, last_only,
+               kv_window=None, last_index=None, slice_last=False,
+               attention_fn=None):
+    """The JAX ``_eval_step``: one forward; tokens may be raw embeddings."""
+    return transformer.forward(
+        cfg, params, tokens, n_past, cache_k, cache_v, last_only=last_only,
+        kv_window=kv_window, last_index=last_index if slice_last else None,
+        attention_fn=attention_fn)
+
+
+def _embed_step(cfg, params, tokens, n_past, cache_k, cache_v):
+    """The JAX ``_embed_step``: (logits, post-norm hidden state) over the
+    whole cache."""
+    return transformer.forward(cfg, params, tokens, n_past, cache_k, cache_v,
+                               with_embedding=True)
+
+
+def step_key(kind: str, t: int, kv_window, last_only: bool, slice_last: bool,
+             attention_fn, view: str) -> tuple:
+    """The graph key of a step: what its jit is keyed on in the JAX package
+    (kind, padded T, kv_window, last_only, slice_last, the attention path,
+    the params view), and the routing switches as the environment holds them
+    now.  n_past and last_index are inputs, not keys."""
+    return (kind, t, kv_window, last_only, slice_last,
+            None if attention_fn is None else attention_fn.__name__, view,
+            tuple(os.environ.get(name) for name in SWITCHES))
+
+
+def record_launches(counters, fn):
+    """Run fn (a capture, which launches nothing) and return its result and
+    what it added to each launch counter, with the counters put back as they
+    were: a capture counts as no launch."""
+    before = [dict(c) for c in counters]
+    try:
+        out = fn()
+        delta = [{k: c[k] - b[k] for k in c} for c, b in zip(counters, before)]
+    finally:
+        for c, b in zip(counters, before):
+            c.update(b)
+    return out, delta
+
+
+def add_launches(counters, delta):
+    """What one replay launches, added to the counters."""
+    for c, d in zip(counters, delta):
+        for k, v in d.items():
+            c[k] += v
+
+
+@dataclass
+class StepCall:
+    """One step as the Context runs it: the host input (padded tokens
+    [B, T] int64, or embeddings [B, T, E] f32), n_past, the kept row of a
+    bucket-padded prompt (None unless slice_last), the params view and the
+    step's static arguments.  ``transformer.forward`` of these, eagerly, is
+    the step's reference."""
+    kind: str  # "eval", "eval_embd" or "embed"
+    x: np.ndarray
+    n_past: int
+    last_index: int | None
+    params: TransformerParams
+    view: str  # "decode" (Context.params) or "prefill" (_params_prefill)
+    last_only: bool = False
+    kv_window: int | None = None
+    attention_fn: object = None
+    key: tuple = field(init=False)  # taken when the call is made
+
+    def __post_init__(self):
+        self.key = step_key(self.kind, self.x.shape[1], self.kv_window, self.last_only,
+                            self.last_index is not None, self.attention_fn, self.view)
+
+
+class _Step:
+    """The static inputs of one key, and on the card its graph.  The input,
+    n_past and last_index live at fixed addresses and are written before
+    each call: the input through a pinned staging tensor (an asynchronous
+    copy), the scalars by fills on the device."""
+
+    def __init__(self, x: np.ndarray, device: torch.device):
+        dtype = torch.from_numpy(x).dtype
+        self.x = torch.zeros(x.shape, dtype=dtype, device=device)
+        self.n_past = torch.zeros((), dtype=torch.int64, device=device)
+        self.last_index = torch.zeros((), dtype=torch.int64, device=device)
+        self.staging = (torch.empty(x.shape, dtype=dtype, pin_memory=True)
+                        if device.type == "cuda" else None)
+        self.graph = self.out = self.launches = None
+        self.capture_ms = 0.0
+        self.pool_bytes = 0
+        self.replays = 0
+
+    def load(self, call: StepCall):
+        host = torch.from_numpy(call.x)
+        if self.staging is None:
+            self.x.copy_(host)
+        else:
+            self.staging.copy_(host)
+            self.x.copy_(self.staging, non_blocking=True)
+        self.n_past.fill_(call.n_past)
+        self.last_index.fill_(call.last_index or 0)
+
+
 class Context:
     """One generation run over a loaded model: KV cache, n_past, timings."""
 
@@ -86,11 +215,16 @@ class Context:
         self.params = maybe_fold_zero_points(params)
         self.n_ctx = n_ctx or cfg.n_ctx
         self.batch = batch
+        # captured by address in every graph: written in place, never
+        # reassigned
         self.cache_k, self.cache_v = init_cache(cfg, batch, self.n_ctx,
                                                 cache_dtype, self.device)
         self.n_past = 0
         self.timings = Timings()
         self._logits = None
+        self._steps: dict[tuple, _Step] = {}
+        self._pool = None
+        self.last_call: StepCall | None = None
 
     def reset(self):
         for c in (*self.cache_k, *self.cache_v):
@@ -101,34 +235,101 @@ class Context:
                 c.scale.zero_()
         self.n_past = 0
 
-    def eval(self, tokens, *, logits_all: bool = False) -> np.ndarray:
-        """Evaluate tokens (list or [B, T] array) after the current n_past.
-        Returns host f32 logits: [B, T, V] if logits_all else [B, 1, V]."""
-        tokens = np.atleast_2d(np.asarray(tokens, dtype=np.int64))
-        b, t = tokens.shape
+    def _view(self, t: int):
+        """Decode-shaped calls take the folded view, larger ones the raw one."""
+        return (self.params, "decode") if t <= 32 else (self._params_prefill, "prefill")
+
+    def _check(self, b: int, t: int):
         if b != self.batch:
             raise ValueError(f"batch {b} != context batch {self.batch}")
         if self.n_past + t > self.n_ctx:
             raise ValueError("context overflow")
-        bt = _bucket(t)
-        padded = np.zeros((b, bt), dtype=np.int64)
+
+    def _padded(self, tokens) -> tuple[np.ndarray, int]:
+        tokens = np.atleast_2d(np.asarray(tokens, dtype=np.int64))
+        b, t = tokens.shape
+        self._check(b, t)
+        padded = np.zeros((b, _bucket(t)), dtype=np.int64)
         padded[:, :t] = tokens
+        return padded, t
+
+    def _run(self, call: StepCall):
+        """The step's outputs on the device.  On the card they are the
+        graph's static outputs, valid until the next call of this Context:
+        every graph shares one memory pool, so callers copy them to the host
+        before the next replay (each public method does)."""
+        self.last_call = call
+        st = self._steps.get(call.key)
+        if st is None:
+            st = self._steps[call.key] = _Step(call.x, self.device)
+        st.load(call)
+        if self.device.type != "cuda":  # the caller asked for the CPU
+            return self._step(call, st)
+        if st.graph is None:
+            out = self._step(call, st)  # eager: the warm-up, and this call's result
+            self._capture(call, st)
+            return out
+        st.graph.replay()
+        st.replays += 1
+        add_launches(LAUNCH_COUNTERS, st.launches)
+        return st.out
+
+    def _step(self, call: StepCall, st: _Step):
+        if call.kind == "embed":
+            return _embed_step(self.cfg, call.params, st.x, st.n_past,
+                               self.cache_k, self.cache_v)
+        return _eval_step(self.cfg, call.params, st.x, st.n_past, self.cache_k,
+                          self.cache_v, call.last_only, kv_window=call.kv_window,
+                          last_index=st.last_index,
+                          slice_last=call.last_index is not None,
+                          attention_fn=call.attention_fn)
+
+    def _capture(self, call: StepCall, st: _Step):
+        """Capture the step on a side stream into the shared pool.  Capture
+        runs no kernel, so the caches keep what the eager call wrote."""
+        with torch.cuda.device(self.device):
+            if self._pool is None:
+                self._pool = torch.cuda.graph_pool_handle()
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            reserved = torch.cuda.memory_stats()["reserved_bytes.all.current"]
+            t0 = time.perf_counter()
+            graph = torch.cuda.CUDAGraph()
+
+            def capture():
+                with torch.cuda.graph(graph, pool=self._pool):
+                    return self._step(call, st)
+
+            st.out, st.launches = record_launches(LAUNCH_COUNTERS, capture)
+            st.capture_ms = (time.perf_counter() - t0) * 1e3
+            st.pool_bytes = (torch.cuda.memory_stats()["reserved_bytes.all.current"]
+                             - reserved)
+            st.graph = graph
+
+    def graphs(self) -> list[dict]:
+        """Each captured step: its key, capture ms, the bytes its capture
+        added to the card's reserved memory (the shared pool's growth) and
+        its replays so far."""
+        return [{"key": key, "capture_ms": st.capture_ms,
+                 "pool_bytes": st.pool_bytes, "replays": st.replays}
+                for key, st in self._steps.items() if st.graph is not None]
+
+    def eval(self, tokens, *, logits_all: bool = False) -> np.ndarray:
+        """Evaluate tokens (list or [B, T] array) after the current n_past.
+        Returns host f32 logits: [B, T, V] if logits_all else [B, 1, V]."""
+        padded, t = self._padded(tokens)
+        bt = padded.shape[1]
         t0 = time.perf_counter()
         attn_fn = None
         if (self.n_past == 0 and t > 1
                 and use_flash_prefill(bt, self.cfg.head_dim, self.device)):
             attn_fn = flash_prefill
         slice_last = not logits_all and bt != t
-        # decode-shaped calls take the folded view, larger buckets the raw one
-        params = self.params if bt <= 32 else self._params_prefill
-        logits = transformer.forward(
-            self.cfg, params,
-            torch.from_numpy(padded).to(self.device), self.n_past,
-            self.cache_k, self.cache_v,
-            last_only=not (logits_all or bt != t),
+        logits = self._run(StepCall(
+            "eval", padded, self.n_past, t - 1 if slice_last else None,
+            *self._view(bt), last_only=not (logits_all or bt != t),
             kv_window=min(_bucket(self.n_past + t), self.n_ctx),
-            last_index=t - 1 if slice_last else None,
-            attention_fn=attn_fn)
+            attention_fn=attn_fn))
         if logits.shape[1] > 1:
             logits = logits[:, :t]
         logits = logits.float().cpu().numpy()
@@ -146,3 +347,33 @@ class Context:
     @property
     def logits(self) -> np.ndarray:
         return self._logits
+
+    def eval_embd(self, embeddings, *, logits_all: bool = False) -> np.ndarray:
+        """Evaluate raw input embeddings [B, T, n_embd] (llama_eval_embd, the
+        embd-input entry point).  No bucket padding: callers control T
+        exactly, and T keys the graph.  Returns host f32 logits of the last
+        token [B, 1, V], or of every token with logits_all."""
+        emb = np.array(embeddings, dtype=np.float32, order="C")  # a copy of its own
+        if emb.ndim != 3 or emb.shape[2] != self.cfg.n_embd:
+            raise ValueError(f"embeddings {emb.shape} are not [B, T, {self.cfg.n_embd}]")
+        b, t, _ = emb.shape
+        self._check(b, t)
+        logits = self._run(StepCall(
+            "eval_embd", emb, self.n_past, None, *self._view(t),
+            last_only=not logits_all,
+            kv_window=min(_bucket(self.n_past + t), self.n_ctx)))
+        self.n_past += t
+        self._logits = logits.float().cpu().numpy()
+        return self._logits
+
+    def embed(self, tokens) -> np.ndarray:
+        """Evaluate tokens and return the final-norm hidden state of the last
+        token [B, n_embd] (llama_get_embeddings).  The step attends over the
+        whole cache and keeps every row, as the JAX ``_embed_step``; the
+        logits of the real tokens stay in ``logits``."""
+        padded, t = self._padded(tokens)
+        logits, emb = self._run(StepCall("embed", padded, self.n_past, None,
+                                         *self._view(padded.shape[1])))
+        self.n_past += t
+        self._logits = logits[:, :t].float().cpu().numpy()
+        return emb[:, t - 1].float().cpu().numpy()
