@@ -92,17 +92,32 @@ Phases (each prints its own lines; any failure exits non-zero):
      caches equal after the run, each replay's launches equal to the eager
      step's (129 K2; 129 K7 + 32 K4 a token); a replayed Context.embed and
      Context.eval_embd against their eager twins.
-  5. q8chaos (printed, not gated): the 2-layer q8_0 model of the e2e phase,
+  5. ondevice: on-device decode (runtime/device_sample.py) on LLaMA-7B q4_0,
+     each chunk a run of replays of one captured decode-and-sample graph:
+     generate_ondevice greedy and sampled (temp 0.8, top-k 40, top-p 0.95,
+     repeat penalty 1.1) 512 + 64 at chunk 16 and the int8 configuration
+     128 + 16 at chunk 8, every chunk's tokens, key, recent window, mu and
+     n_past equal to the eager decode_chunk on a twin cache bit for bit, the
+     caches after the run too, launches a token (129 K2; 129 K7 + 32 K4),
+     the same key giving the same tokens, the path's launches read after a
+     run from 0; greedy agreement with the host loop printed; a B=2 chunk at
+     n_past [100, 140] with a greedy SamplingVec banning a token in one row
+     (replays equal eager, the token absent, the first step's logits against
+     each row alone); the out-of-range per-row insert (no device assert, the
+     insert equal to the CPU's bit for bit); bench lines of on-device against
+     host-loop ms/token (greedy, sampled; with Timings.t_sample_ms) and the
+     profiler over one chunk of each.
+  6. q8chaos (printed, not gated): the 2-layer q8_0 model of the e2e phase,
      each op of a 128-token prefill and a decode step on the card and on the
      CPU's f32 plain path, against an f64 forward of the same weights.
-  6. the `main` CLI answers prompts from GGJT files at 7B width (2 layers,
+  7. the `main` CLI answers prompts from GGJT files at 7B width (2 layers,
      32000-entry vocab) written by the port's own GGJTWriter: q4_0 (also in
      the int8 configuration, and the `embedding` tool), Q4_K_M and Q3_K_M
      from random k-quant blocks; `benchmark-matmult` (default, QMM_Q8X=1,
      --vdot, --stream, --stream-sweep).
-  7. a JSON line of per-kernel numbers, then the contract line
+  8. a JSON line of per-kernel numbers, then the contract line
      {"ok": true, "device": {...}}.
-``--phases kernels,e2e,graphs,q8chaos,cli`` runs a subset (for debugging: a
+``--phases kernels,e2e,graphs,ondevice,q8chaos,cli`` runs a subset (for debugging: a
 subset prints no result lines; with no arguments every phase runs).  Phases that run only
 when named: ``sass`` (instruction counts of K7's and K3's kernels and of
 the decode GEMV's and K4's instances), ``gemv`` (check_gemv alone),
@@ -232,6 +247,37 @@ def card_line() -> str:
                         "--format=csv,noheader"], capture_output=True,
                        text=True, timeout=60)
     return r.stdout.strip().splitlines()[0] if r.returncode == 0 else "unknown"
+
+
+class Clocks:
+    """nvidia-smi sampling the card's SM and memory clocks and power draw
+    every 100 ms while a with-block runs; str() gives their ranges."""
+
+    def __enter__(self):
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=clocks.sm,clocks.mem,power.draw",
+             "--format=csv,noheader,nounits", "-lms", "100"],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        return self
+
+    def __exit__(self, *exc):
+        self.proc.terminate()
+        out, _ = self.proc.communicate(timeout=60)
+        self.rows = []
+        for line in out.splitlines():
+            try:
+                self.rows.append([float(v) for v in line.split(",")])
+            except ValueError:
+                pass
+
+    def __str__(self):
+        if not self.rows:
+            return "clocks not read"
+        cols = list(zip(*self.rows))
+        span = [f"{min(c):.0f}-{max(c):.0f}" if min(c) != max(c) else f"{min(c):.0f}"
+                for c in cols[:2]]
+        return (f"SM {span[0]} MHz, memory {span[1]} MHz, power {min(cols[2]):.0f}-"
+                f"{max(cols[2]):.0f} W over {len(self.rows)} samples")
 
 
 class Timer:
@@ -2238,8 +2284,431 @@ def q8chaos_phase(torch) -> None:
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------ on-device decode
+
+GREEDY_DS = dict(temp=-1.0)
+SAMPLED_DS = dict(temp=0.8, top_k=40, top_p=0.95, repeat_penalty=1.1)
+
+
+def _host_sampling(ds):
+    """The host Sampler's settings for a DeviceSampling (no penalty unless
+    the DeviceSampling has one)."""
+    from llama_cpp_q_4_0_tpu_torch.runtime.sampling import SamplingParams
+
+    return SamplingParams(temp=ds.temp, top_k=ds.top_k, top_p=ds.top_p,
+                          repeat_penalty=ds.repeat_penalty,
+                          repeat_last_n=ds.repeat_last_n,
+                          frequency_penalty=ds.frequency_penalty,
+                          presence_penalty=ds.presence_penalty)
+
+
+def checked_chunks(torch, counters, ctx, ck, cv, log):
+    """Wrap ctx.decode_chunk: every chunk is also run by the eager
+    device_sample.decode_chunk on the twin caches ck, cv from the same
+    inputs (the twin takes the Context's caches at the first chunk, after
+    the prefill); tokens, key, recent window, mu and the chunk's final
+    n_past must equal bit for bit, and the caches after the run (the caller
+    compares them).  The launches of each chunk are counted alone, the
+    twin's apart.  Returns the function that takes the wrapper off."""
+    import numpy as np
+
+    from llama_cpp_q_4_0_tpu_torch.runtime import device_sample
+
+    real = ctx.decode_chunk
+
+    def checked(tok, n_past, key, **kw):
+        if log["chunks"] == 0:
+            for a, b in zip(_flat_cache(ck + cv), _flat_cache(ctx.cache_k + ctx.cache_v)):
+                a.copy_(b)
+        captured = len(ctx.graphs())
+        _zero(counters)
+        got = real(tok, n_past, key, **kw)
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in _read(counters).items() if v}
+        _zero(counters)
+        want = device_sample.decode_chunk(ctx.cfg, ctx.params, tok, n_past, ck, cv, key, **kw)
+        torch.cuda.synchronize()
+        n_end = torch.as_tensor(n_past, device="cuda") + kw["n_steps"]
+        same = (np.array_equal(got[0], want[0].cpu().numpy())
+                and all(torch.equal(a, b) for a, b in zip(got[1:], want[3:]))
+                and torch.equal(ctx.last_chunk.n_past, n_end))
+        log["chunks"] += 1
+        log["equal"] += same
+        log["replayed"] += len(ctx.graphs()) == captured
+        log["per_token"] = {k: v // kw["n_steps"] for k, v in launched.items()}
+        log["whole"] &= all(v % kw["n_steps"] == 0 for v in launched.values())
+        log["windows"].add(kw["kv_window"])
+        return got
+
+    ctx.decode_chunk = checked
+
+    def off():
+        del ctx.decode_chunk
+
+    return off
+
+
+def ondevice_run(torch, counters, cfg, params, label, ds_kw, n_prompt, n_decode, chunk,
+                 cache_dtype, want_per_token, path_kernels, seed=0, host=False):
+    """generate_ondevice on LLaMA-7B (Context on the card, n_ctx 2048): a
+    prefill of n_prompt tokens, then chunks of chunk tokens, each replayed
+    chunk against its eager twin (checked_chunks), the caches equal after
+    the run and launches a token want_per_token.  Then the same call again
+    with the launch counts set to 0 just before and read just after (the
+    path's own run: each of path_kernels must launch), whose tokens must
+    equal the first run's (the same key).  host: print how many greedy
+    tokens agree with the host loop (generate) before the first difference.
+    Returns (ok, tokens)."""
+    import numpy as np
+
+    from llama_cpp_q_4_0_tpu_torch.models import transformer
+    from llama_cpp_q_4_0_tpu_torch.runtime.context import Context
+    from llama_cpp_q_4_0_tpu_torch.runtime.device_sample import (DeviceSampling,
+                                                                 generate_ondevice)
+    from llama_cpp_q_4_0_tpu_torch.runtime.generate import GenerateParams, generate
+
+    ds = DeviceSampling(**ds_kw)
+    ctx = Context(cfg, params, n_ctx=2048, device="cuda", cache_dtype=cache_dtype)
+    ck, cv = transformer.init_cache(cfg, 1, 2048, cache_dtype, "cuda")
+    prompt = [1] + np.random.default_rng(0).integers(3, cfg.n_vocab, n_prompt - 1).tolist()
+    log = {"chunks": 0, "equal": 0, "replayed": 0, "per_token": {}, "whole": True,
+           "windows": set()}
+    off = checked_chunks(torch, counters, ctx, ck, cv, log)
+    t0 = time.perf_counter()
+    toks = generate_ondevice(ctx, prompt, n_decode, sampling=ds, seed=seed, chunk=chunk,
+                             eos_token=-1)
+    seconds = time.perf_counter() - t0
+    off()
+    same_cache = all(torch.equal(a, b) for a, b in zip(_flat_cache(ctx.cache_k + ctx.cache_v),
+                                                       _flat_cache(ck + cv)))
+    del ck, cv
+    n_past = ctx.n_past
+    ctx.reset()
+    _zero(counters)
+    again = generate_ondevice(ctx, prompt, n_decode, sampling=ds, seed=seed, chunk=chunk,
+                              eos_token=-1)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in _read(counters).items() if v}
+    ok = (len(toks) == n_decode and log["equal"] == log["chunks"] > 0
+          and log["replayed"] > 0 and log["whole"] and same_cache
+          and log["per_token"] == want_per_token and again == toks
+          and n_past == ctx.n_past == n_prompt + (n_decode - 1 + chunk - 1) // chunk * chunk
+          and all(launches.get(k, 0) > 0 for k in path_kernels))
+    print(f"ondevice: {label} generate_ondevice {n_prompt} + {n_decode} (chunk {chunk}, kv_window "
+          f"{sorted(log['windows'])}; {seconds:.1f} s with the eager twin): {log['chunks']} "
+          f"chunks, {log['replayed']} replayed whole; tokens, key, recent, mu and n_past equal to "
+          f"the eager decode_chunk bit for bit at {log['equal']} of {log['chunks']}; caches "
+          f"identical {same_cache}; a token's launches {json.dumps(log['per_token'])} (want "
+          f"{json.dumps(want_per_token)}); the same key again gives the same tokens "
+          f"{again == toks}; the path's launches {json.dumps(launches)} "
+          f"{'ok' if ok else 'MISMATCH'}", flush=True)
+    if host:
+        ctx.reset()
+        gp = GenerateParams(n_predict=n_decode, ignore_eos=True, sampling=_host_sampling(ds))
+        ref = list(generate(ctx, prompt, gp))
+        agree = next((i for i, (a, b) in enumerate(zip(toks, ref)) if a != b), len(toks))
+        print(f"ondevice: {label} greedy tokens agreeing with the host loop (generate, window "
+              f"of each token's own bucket) before the first difference: {agree} of "
+              f"{len(toks)}", flush=True)
+    print(f"ondevice: {label} {graph_summary(ctx)}", flush=True)
+    del ctx
+    torch.cuda.empty_cache()
+    return ok, toks
+
+
+def ondevice_rows(torch, cfg, params) -> bool:
+    """B=2 at n_past [100, 140] (each row's prompt prefilled alone at B=1,
+    the two caches copied into the rows of a B=2 Context), greedy rows of a
+    SamplingVec, row 1 banning the token it would pick first: a chunk of 16
+    on the card (replays) against the eager decode_chunk on a twin, tokens
+    and caches bit for bit; the banned token never appears; the first step's
+    logits of each row (a per-row forward at window 256) against that row
+    alone at B=1 at the same window, also with FUSED_ATTN=1 (K4 at the rows'
+    own positions, one launch a layer): the largest differences printed and
+    held under 2e-2 of the logit scale, the first tokens equal to the alone
+    rows' greedy picks."""
+    import numpy as np
+
+    from llama_cpp_q_4_0_tpu_torch.models import transformer
+    from llama_cpp_q_4_0_tpu_torch.ops import mha_decode as md
+    from llama_cpp_q_4_0_tpu_torch.runtime import device_sample as dsm
+    from llama_cpp_q_4_0_tpu_torch.runtime.context import Context
+    from llama_cpp_q_4_0_tpu_torch.runtime.sampling import SamplingParams
+
+    rng = np.random.default_rng(3)
+    starts = (100, 140)
+    prompts = [[1] + rng.integers(3, cfg.n_vocab, n - 1).tolist() for n in starts]
+    ctx = Context(cfg, params, n_ctx=512, batch=2, device="cuda")
+    firsts = []
+    for r, prompt in enumerate(prompts):
+        solo = Context(cfg, params, n_ctx=512, device="cuda")
+        firsts.append(int(np.argmax(solo.eval(prompt)[0, -1])))
+        for a, b in zip(_flat_cache(ctx.cache_k + ctx.cache_v),
+                        _flat_cache(solo.cache_k + solo.cache_v)):
+            a[r].copy_(b[0])
+        del solo
+    tok = torch.tensor(firsts, device="cuda")
+    n_past = torch.tensor(starts, device="cuda")
+    window = 256
+    # the first step's logits: a per-row forward against each row alone
+    twin = [[c.clone() for c in cs] for cs in (ctx.cache_k, ctx.cache_v)]
+    both = transformer.forward(cfg, ctx.params, tok[:, None], n_past, *twin, last_only=True,
+                               kv_window=window)[:, -1].float()
+    alone = []
+    for r in range(2):
+        rows = [[c[r:r + 1].clone() for c in cs] for cs in (ctx.cache_k, ctx.cache_v)]
+        alone.append(transformer.forward(cfg, ctx.params, tok[r:r + 1, None], starts[r], *rows,
+                                         last_only=True, kv_window=window)[0, -1].float())
+    alone = torch.stack(alone)
+    diff = float((both - alone).abs().max())
+    scale = float(alone.abs().max())
+    # the same under FUSED_ATTN=1: K4 takes the two rows' own positions
+    with env(FUSED_ATTN="1"):
+        md.launches["mha_decode"] = 0
+        both4 = transformer.forward(cfg, ctx.params, tok[:, None], n_past,
+                                    *[[c.clone() for c in cs] for cs in (ctx.cache_k, ctx.cache_v)],
+                                    last_only=True, kv_window=window)[:, -1].float()
+        k4 = md.launches["mha_decode"]
+        alone4 = torch.stack([transformer.forward(
+            cfg, ctx.params, tok[r:r + 1, None], starts[r],
+            *[[c[r:r + 1].clone() for c in cs] for cs in (ctx.cache_k, ctx.cache_v)],
+            last_only=True, kv_window=window)[0, -1].float() for r in range(2)])
+    diff4 = float((both4 - alone4).abs().max())
+    banned = int(alone[1].argmax())
+    second = alone[1].clone()
+    second[banned] = float("-inf")
+    want_first = [int(alone[0].argmax()), int(second.argmax())]
+    neutral = SamplingParams(temp=-1.0, top_k=0, repeat_penalty=1.0, repeat_last_n=0)
+    ban = SamplingParams(temp=-1.0, top_k=0, repeat_penalty=1.0, repeat_last_n=0,
+                         logit_bias={banned: float("-inf")})
+    sv = dsm.make_sampling_vec([neutral, ban], device="cuda")
+    recent = dsm.make_recent([p + [f] for p, f in zip(prompts, firsts)], dsm.VEC_WINDOW,
+                             cfg.n_vocab, device="cuda")
+    ds = dsm.DeviceSampling(temp=-1.0)
+    key = dsm.prng_key(5, "cuda")
+    twin = [[c.clone() for c in cs] for cs in (ctx.cache_k, ctx.cache_v)]
+    kw = dict(n_steps=16, ds=ds, kv_window=window, recent=recent, sv=sv)
+    got, key2, rec2, _ = ctx.decode_chunk(tok, n_past, key, **kw)
+    want = dsm.decode_chunk(cfg, ctx.params, tok, n_past, *twin, key, **kw)
+    same = (np.array_equal(got, want[0].cpu().numpy()) and torch.equal(key2, want[3])
+            and torch.equal(rec2, want[4])
+            and torch.equal(ctx.last_chunk.n_past, n_past + 16)
+            and all(torch.equal(a, b) for a, b in zip(
+                _flat_cache(ctx.cache_k + ctx.cache_v), _flat_cache(twin[0] + twin[1]))))
+    no_ban = banned not in got[1].tolist()
+    first_ok = got[:, 0].tolist() == want_first
+    ok = (same and no_ban and first_ok and diff <= 2e-2 * scale and diff4 <= 2e-2 * scale
+          and k4 == cfg.n_layer)
+    print(f"ondevice: per-row B=2 n_past {list(starts)} (kv_window {window}), greedy SamplingVec, "
+          f"row 1 banning token {banned}: 16 steps replayed equal to the eager decode_chunk "
+          f"(tokens, key, recent, n_past, caches) {same}; banned token absent {no_ban}; first "
+          f"step's logits against each row alone at B=1: max |diff| {diff:.6g}, with "
+          f"FUSED_ATTN=1 (K4 at the rows' own positions, {k4} launches) {diff4:.6g} (logit "
+          f"scale {scale:.4g}, limit 2e-2 of it); first tokens {got[:, 0].tolist()} (want "
+          f"{want_first}) {'ok' if ok else 'MISMATCH'}", flush=True)
+    del ctx, twin
+    torch.cuda.empty_cache()
+    return ok
+
+
+def ondevice_oob(torch, cfg, params) -> bool:
+    """The out-of-range per-row insert: a forward of T=2 tokens with n_past
+    [5, S-1] on a B=2 cache of S=256 slots (row 1 writes slot S-1 and drops
+    slot S, as a frozen speculative row would) runs without a device
+    assert, its logits finite, and writes exactly slots 5, 6 of row 0 and
+    S-1 of row 1; then the insert alone (transformer._cache_insert_rows) of
+    the same random K/V into bf16 and q8 caches at n_past [5, S-1, S+3] on
+    the card against the CPU, bit for bit over every slot."""
+    from llama_cpp_q_4_0_tpu_torch.models import transformer
+    from llama_cpp_q_4_0_tpu_torch.ops.kvcache import QuantKV
+
+    s = 256
+    ck, cv = transformer.init_cache(cfg, 2, s, device="cuda")
+    toks = torch.tensor([[11, 12], [13, 14]], device="cuda")
+    logits = transformer.forward(cfg, params, toks, torch.tensor([5, s - 1], device="cuda"),
+                                 ck, cv, kv_window=s)
+    torch.cuda.synchronize()
+    finite = bool(torch.isfinite(logits).all())
+    written = sorted({(int(r), int(p)) for c in ck + cv
+                      for r, p in (c.abs().amax(dim=(2, 3)) > 0).nonzero().tolist()})
+    forward_ok = finite and written == [(0, 5), (0, 6), (1, s - 1)]
+    del ck, cv
+    gen = torch.Generator().manual_seed(9)
+    n_past = torch.tensor([5, s - 1, s + 3])
+    val = torch.randn((3, 2, cfg.kv_heads, cfg.head_dim), generator=gen) * 3
+    old = torch.randn((3, s, cfg.kv_heads, cfg.head_dim), generator=gen) * 50
+    same = {}
+    for name in ("bf16", "q8"):
+        out = []
+        for dev in ("cpu", "cuda"):
+            cache = (old.to(torch.bfloat16) if name == "bf16" else
+                     QuantKV(old.clamp(-127, 127).to(torch.int8), old[..., 0].abs() + 0.1))
+            cache = (cache.to(dev) if name == "bf16" else
+                     QuantKV(cache.data.to(dev), cache.scale.to(dev)))
+            transformer._cache_insert_rows(cache, val.to(dev),
+                                           transformer._row_slots(n_past.to(dev), s, 2))
+            out.append([c.cpu() for c in _flat_cache([cache])])
+        same[name] = all(torch.equal(a, b) for a, b in zip(*out))
+    ok = forward_ok and all(same.values())
+    print(f"ondevice: out-of-range per-row insert: forward T=2 at n_past [5, {s - 1}] on {s} "
+          f"slots ran, logits finite {finite}, slots written {written}; the insert alone at "
+          f"n_past [5, {s - 1}, {s + 3}] on the card equal to the CPU bit for bit "
+          f"{json.dumps(same)} {'ok' if ok else 'MISMATCH'}", flush=True)
+    return ok
+
+
+def ondevice_bench(torch, card, cfg, params):
+    """ms/token of 64 tokens from a 128-token prompt (decode from n_past
+    128, kv_window 256, as the `bench: ... replayed` lines): generate_ondevice
+    greedy and sampled, chunk 16 (the time of each Context.decode_chunk
+    call, its one host copy included, over its tokens), beside the host loop
+    generate with the same sampling (eval + sample ms/token and
+    Timings.t_sample_ms a token); median of 3 passes after a warm-up pass,
+    in turns greedy, sampled, sampled, greedy.  Then the profiler over one
+    chunk of each: device busy a token against the profiled chunk's own host
+    time (idle share) and the kernels that take it; and the host's enqueue
+    time of the chunk's graph replays against their device time."""
+    import numpy as np
+
+    from llama_cpp_q_4_0_tpu_torch.runtime.context import Context
+    from llama_cpp_q_4_0_tpu_torch.runtime.device_sample import (DeviceSampling,
+                                                                 generate_ondevice, make_recent,
+                                                                 prng_key)
+    from llama_cpp_q_4_0_tpu_torch.runtime.generate import GenerateParams, generate
+
+    ctx = Context(cfg, params, n_ctx=2048, device="cuda")
+    prompt = [1] + np.random.default_rng(4).integers(3, cfg.n_vocab, 127).tolist()
+    real = ctx.decode_chunk
+    spent = []
+
+    def timed(*a, **kw):
+        t0 = time.perf_counter()
+        out = real(*a, **kw)
+        spent.append((time.perf_counter() - t0, kw["n_steps"], kw["kv_window"]))
+        return out
+
+    meds = {}
+    for turn, name in enumerate(("greedy", "sampled", "sampled", "greedy")):
+        ds = DeviceSampling(**(GREEDY_DS if name == "greedy" else SAMPLED_DS))
+        runs = []
+        with Clocks() as clocks:
+            for i in range(4):
+                ctx.reset()
+                spent.clear()
+                ctx.decode_chunk = timed
+                generate_ondevice(ctx, prompt, 65, sampling=ds, seed=i, chunk=16, eos_token=-1)
+                del ctx.decode_chunk
+                windows = sorted({w for _, _, w in spent})
+                if i:
+                    runs.append(sum(t for t, _, _ in spent) / sum(n for _, n, _ in spent) * 1e3)
+        hosts, samples = [], []
+        for i in range(4):
+            ctx.reset()
+            gp = GenerateParams(n_predict=64, ignore_eos=True, sampling=_host_sampling(ds), seed=i)
+            list(generate(ctx, prompt, gp))
+            tm = ctx.timings
+            ctx.timings = type(tm)()
+            if i:
+                hosts.append((tm.t_eval_ms + tm.t_sample_ms) / tm.n_eval)
+                samples.append(tm.t_sample_ms / tm.n_sample)
+        med = meds[name] = statistics.median(runs)
+        print(f"bench: q4_0 {name} (turn {turn + 1}) generate_ondevice chunk 16 "
+              f"decode_ms_per_token (kv_window {windows}, n_past 128-191) median={med:.3f} "
+              f"min={min(runs):.3f} runs={[round(v, 3) for v in runs]} ({clocks}); "
+              f"host loop generate median={statistics.median(hosts):.3f} ms/token (eval + "
+              f"sample) of which "
+              f"Timings.t_sample_ms {statistics.median(samples):.3f} ms/token "
+              f"runs={[round(v, 3) for v in hosts]} [{card}]", flush=True)
+    from torch.profiler import ProfilerActivity, profile
+
+    ctx.reset()
+    ctx.eval(prompt)
+    tok = torch.full((1,), 7, dtype=torch.int64, device="cuda")
+    key = prng_key(0, "cuda")
+    for name, kw in (("greedy", GREEDY_DS), ("sampled", SAMPLED_DS)):
+        ds = DeviceSampling(**kw)
+        recent = (make_recent([prompt], ds.repeat_last_n, cfg.n_vocab, device="cuda")
+                  if ds.penalized else None)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            ctx.decode_chunk(tok, 128, key, n_steps=16, ds=ds, kv_window=256, recent=recent)
+            wall = (time.perf_counter() - t0) * 1e3 / 16
+        rows = _kernel_rows(prof, 16)
+        if not rows:
+            print(f"trace: q4_0 {name} chunk: the profiler recorded no kernel time (not "
+                  f"measured)", flush=True)
+            continue
+        busy = sum(r[0] for r in rows)
+        print(f"trace: q4_0 {name} chunk of 16 (kv_window 256): device busy {busy:.3f} ms a "
+              f"token of {wall:.3f} ms a token on the host clock of the profiled chunk (idle "
+              f"{100 * (1 - busy / wall):.1f}%; unprofiled {meds[name]:.3f}), "
+              f"{sum(r[1] for r in rows)} kernels a token [{card}]", flush=True)
+        for ms, k, kname in rows[:6]:
+            print(f"trace:   {ms:8.4f} ms/token  x{k:<4d} {kname[:90]}", flush=True)
+        # where a replay's host time goes: the host's enqueue of one replay
+        # from an idle card, and of 16 back to back, against their ends (the
+        # step index set back to 0 first: the graph writes token `step` of 16)
+        ch = ctx.last_chunk
+        one, enq, total = [], [], []
+        for _ in range(3):
+            ch.step.zero_()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ch.graph.replay()
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            one.append(((t1 - t0) * 1e3, (time.perf_counter() - t0) * 1e3))
+            ch.step.zero_()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(16):
+                ch.graph.replay()
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            enq.append((t1 - t0) / 16 * 1e3)
+            total.append((time.perf_counter() - t0) / 16 * 1e3)
+        print(f"trace: q4_0 {name} chunk graph: one replay from an idle card enqueued in "
+              f"{statistics.median(a for a, _ in one):.3f} ms, done in "
+              f"{statistics.median(b for _, b in one):.3f} ms; 16 back to back enqueued in "
+              f"{statistics.median(enq):.3f} ms a replay, done in {statistics.median(total):.3f} "
+              f"ms a replay [{card}]", flush=True)
+    print(f"ondevice: bench {graph_summary(ctx)}", flush=True)
+    del ctx
+    torch.cuda.empty_cache()
+
+
+def ondevice_phase(torch, counters, card, built=None) -> bool:
+    """On-device decode on LLaMA-7B q4_0 (32 layers, built from seed 0
+    unless built gives the weights): greedy B=1 512 + 64 chunk 16 (129 K2 a
+    token; agreement with the host loop printed), sampled (temp 0.8, top-k
+    40, top-p 0.95, repeat penalty 1.1) 512 + 64, the int8 configuration
+    128 + 16 chunk 8 on a q8 cache (129 K7 + 32 K4 a token), the per-row
+    B=2 chunk, the out-of-range insert, and the bench and trace lines."""
+    from llama_cpp_q_4_0_tpu_torch.synth import build_llama
+
+    t0 = time.perf_counter()
+    cfg, params = built or build_llama(device="cuda", seed=0, ftype="q4_0")
+    ok, _ = ondevice_run(torch, counters, cfg, params, "q4_0 greedy", GREEDY_DS, 512, 64, 16,
+                         torch.bfloat16, {"qmm_q4_0_kfold": 129}, PATH_KERNELS["q4_0"],
+                         host=True)
+    ok2, _ = ondevice_run(torch, counters, cfg, params, "q4_0 sampled", SAMPLED_DS, 512, 64, 16,
+                          torch.bfloat16, {"qmm_q4_0_kfold": 129}, PATH_KERNELS["q4_0"], seed=7)
+    ok &= ok2
+    with env(**INT8):
+        ok3, _ = ondevice_run(torch, counters, cfg, params, "q4_0 int8-config", GREEDY_DS, 128,
+                              16, 8, torch.int8, {"qmm_q8x": 129, "mha_decode": 32},
+                              PATH_KERNELS["q4_0_int8_f16"])
+    ok &= ok3
+    ok &= ondevice_rows(torch, cfg, params)
+    ok &= ondevice_oob(torch, cfg, params)
+    ondevice_bench(torch, card, cfg, params)
+    print(f"ondevice: phase {time.perf_counter() - t0:.1f} s", flush=True)
+    return ok
+
+
 # the phases of the full run, in their order
-FULL_RUN = ("kernels", "e2e", "graphs", "q8chaos", "cli")
+FULL_RUN = ("kernels", "e2e", "graphs", "ondevice", "q8chaos", "cli")
 
 
 def main(argv=None) -> int:
@@ -2247,7 +2716,7 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(FULL_RUN),
-                    help="comma-separated subset of kernels,e2e,graphs,q8chaos,cli,sass,k7k3,"
+                    help="comma-separated subset of kernels,e2e,graphs,ondevice,q8chaos,cli,sass,k7k3,"
                          "k7repeat,int8prefill,planes,tiles,attn,gemv,busy,splits; the result "
                          "lines print only for the default " + ",".join(FULL_RUN))
     phases = set(ap.parse_args(argv).phases.split(","))
@@ -2504,6 +2973,11 @@ def main(argv=None) -> int:
             return fail("a replayed step differs from its eager forward (logits, tokens, "
                         "cache or launches)")
         elapsed("graphs")
+    if "ondevice" in phases:
+        if not ondevice_phase(torch, counters, card, built=q4):
+            return fail("on-device decode: a replayed chunk differs from its eager twin, a "
+                        "launch count, the per-row chunk or the out-of-range insert")
+        elapsed("ondevice")
     del q4
     torch.cuda.empty_cache()
     if "q8chaos" in phases:

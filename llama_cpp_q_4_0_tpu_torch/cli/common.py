@@ -14,6 +14,7 @@ from ..models.config import ModelConfig
 from ..models.loading import config_from_ggjt, load_transformer
 from ..quant.types import LlamaFType
 from ..runtime.context import Context
+from ..runtime.sampling import SamplingParams
 from ..runtime.tokenizer import Tokenizer, Vocab
 
 CACHE_TYPES = {"bf16": torch.bfloat16, "f32": torch.float32,
@@ -37,6 +38,49 @@ def add_model_args(p: argparse.ArgumentParser):
                         "token-head vector)")
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu; no silent CPU fallback")
+
+
+def add_sampling_args(p: argparse.ArgumentParser):
+    p.add_argument("-n", "--n-predict", type=int, default=128)
+    p.add_argument("-s", "--seed", type=int, default=-1)
+    p.add_argument("--top-k", type=int, default=40)
+    p.add_argument("--top-p", type=float, default=0.95)
+    p.add_argument("--temp", type=float, default=0.8)
+    p.add_argument("--repeat-penalty", type=float, default=1.1)
+    p.add_argument("--repeat-last-n", type=int, default=64)
+    p.add_argument("--frequency-penalty", type=float, default=0.0)
+    p.add_argument("--presence-penalty", type=float, default=0.0)
+    p.add_argument("--tfs", type=float, default=1.0)
+    p.add_argument("--typical", type=float, default=1.0)
+    p.add_argument("--mirostat", type=int, default=0, choices=(0, 1, 2))
+    p.add_argument("--mirostat-lr", type=float, default=0.1)
+    p.add_argument("--mirostat-ent", type=float, default=5.0)
+    p.add_argument("-l", "--logit-bias", action="append", default=[],
+                   metavar="TOKEN_ID(+/-)BIAS",
+                   help="e.g. 2-inf to ban EOS (main --logit-bias)")
+    p.add_argument("--ignore-eos", action="store_true")
+
+
+def sampling_from_args(args) -> SamplingParams:
+    """The sampling flags as SamplingParams, parsed as the JAX package
+    parses them (``-l 2-inf`` bans token 2; ``--ignore-eos`` bans EOS)."""
+    logit_bias = {}
+    for item in args.logit_bias:
+        sep = "+" if "+" in item[1:] else "-"
+        idx = item.rfind(sep)
+        tok, val = int(item[:idx]), item[idx:]
+        logit_bias[tok] = float("-inf") if val in ("-inf", "-Infinity") else float(val)
+    if args.ignore_eos:
+        logit_bias[2] = float("-inf")  # llama EOS (common.cpp --ignore-eos)
+    return SamplingParams(
+        top_k=args.top_k, top_p=args.top_p, temp=args.temp,
+        repeat_penalty=args.repeat_penalty, repeat_last_n=args.repeat_last_n,
+        frequency_penalty=args.frequency_penalty,
+        presence_penalty=args.presence_penalty,
+        tfs_z=args.tfs, typical_p=args.typical,
+        mirostat=args.mirostat, mirostat_eta=args.mirostat_lr,
+        mirostat_tau=args.mirostat_ent, logit_bias=logit_bias,
+    )
 
 
 @dataclass

@@ -8,7 +8,8 @@ forward writes each layer's K/V into the cache tensors IN PLACE.  ``n_past``
 and ``last_index`` may be 0-d int64 tensors on the device, as the JAX forward
 takes them traced: nothing in the forward then reads a value on the host, so
 ``runtime/context.py`` captures it in a CUDA graph and replays it for any
-``n_past``.
+``n_past``.  ``n_past`` may also be a [B] int64 tensor, each row of the batch
+at its own position (continuous batching, the JAX forward's per-row form).
 
 gptneox, falcon and bonsai run only in the JAX package so far: ``forward``
 raises NotImplementedError for them.
@@ -124,6 +125,53 @@ def _cache_insert(cache, val: torch.Tensor, slots: torch.Tensor):
         cache.index_copy_(1, slots, val.to(cache.dtype))
 
 
+def _row_slots(n_past: torch.Tensor, s: int, t: int):
+    """The per-row insert of a [B] n_past: the flat index (row * S + slot)
+    of each of the B*T writes, and the index j into val of the write each one
+    carries.  Row r writes its T tokens at slots n_past[r] + j.  JAX scatters
+    them with ``mode="promise_in_bounds"``; here a write at a slot >= S (a
+    frozen speculative row runs past the cache) is dropped: it is sent to
+    slot S - 1 carrying the same bytes as the row's own write there, or, when
+    the row writes nothing below S, the bytes slot S - 1 already holds
+    (``_row_values``), so that duplicate writes of one slot never disagree."""
+    b = n_past.shape[0]
+    dev = n_past.device
+    pos = n_past[:, None] + torch.arange(t, device=dev)  # [B, T]
+    inb = pos < s
+    # the write of slot S - 1 in the row, where the row makes one
+    last = (s - 1 - n_past).clamp(0, t - 1)[:, None].expand(b, t)
+    j = torch.where(inb, torch.arange(t, device=dev)[None, :], last)
+    keep_old = (n_past >= s)[:, None] & ~inb  # no write of the row is in range
+    rows = torch.arange(b, device=dev)[:, None]
+    flat = (rows * s + pos.clamp(max=s - 1)).reshape(-1)
+    return flat, j, keep_old
+
+
+def _row_values(buf: torch.Tensor, vals: torch.Tensor, j, keep_old, s: int):
+    """The B*T values the per-row insert writes into buf [B, S, ...]: vals
+    [B, T, ...] taken at j, and buf's slot S - 1 where keep_old."""
+    b, t = j.shape
+    src = vals.gather(1, j.reshape(b, t, *([1] * (vals.dim() - 2))).expand(vals.shape))
+    old = buf[:, s - 1:s].expand(src.shape)
+    mask = keep_old.reshape(b, t, *([1] * (vals.dim() - 2)))
+    return torch.where(mask, old, src).reshape(b * t, *vals.shape[2:])
+
+
+def _cache_insert_rows(cache, val: torch.Tensor, slots):
+    """Write val [B, T, H, D] at each row's own slots, ``_row_slots``, in
+    place; a QuantKV writes its levels and its scales alike."""
+    flat, j, keep_old = slots
+    s = cache.shape[1]
+    if isinstance(cache, QuantKV):
+        pairs = zip((cache.data, cache.scale), quantize_kv(val))
+    else:
+        pairs = ((cache, val.to(cache.dtype)),)
+    for buf, v in pairs:
+        b = buf.shape[0]
+        buf.view(b * s, *buf.shape[2:]).index_copy_(
+            0, flat, _row_values(buf, v, j, keep_old, s))
+
+
 def _device_int(v, device) -> torch.Tensor:
     """A 0-d int64 tensor on device: v itself, or a Python int filled in on
     the device (no host copy, which would synchronise)."""
@@ -150,7 +198,9 @@ def forward(cfg: ModelConfig, params: TransformerParams, tokens: torch.Tensor,
     updates the caches.  With with_embedding, (logits, x) where x is the
     hidden state after the output norm (llama_get_embeddings).
 
-    n_past and last_index: Python ints or 0-d int64 tensors on the device.
+    n_past and last_index: Python ints or 0-d int64 tensors on the device;
+    n_past may also be a [B] int64 tensor, a position per row (the JAX
+    forward's scatter insert, whose writes at slots >= S are dropped here).
     kv_window restricts attention to the first kv_window cache slots (the
     caller guarantees n_past + T <= kv_window).  last_index keeps one row (the
     real last token of a bucket-padded prompt) before the output norm and
@@ -164,10 +214,17 @@ def forward(cfg: ModelConfig, params: TransformerParams, tokens: torch.Tensor,
     s = cache_k[0].shape[1]
     w = s if kv_window is None else min(kv_window, s)
     n_past = _device_int(n_past, dev)
-    pos = (n_past + torch.arange(t, device=dev, dtype=torch.int64))[None, :]
-    pos = pos.expand(b, t)
-    kv_mask = (torch.arange(w, device=dev) < n_past + t)[None, :].expand(b, w)
-    slots = _insert_slots(n_past, s, t)
+    per_row = n_past.dim() == 1
+    # [B, 1] or [1, 1]: each row's start
+    start = n_past[:, None] if per_row else n_past.reshape(1, 1)
+    pos = (start + torch.arange(t, device=dev, dtype=torch.int64)[None, :]).expand(b, t)
+    kv_mask = (torch.arange(w, device=dev)[None, :] < start + t).expand(b, w)
+    if per_row:
+        slots = _row_slots(n_past, s, t)
+        insert = _cache_insert_rows
+    else:
+        slots = _insert_slots(n_past, s, t)
+        insert = _cache_insert
     scale = 1.0 / math.sqrt(cfg.head_dim)
 
     if tokens.dim() == 3:  # raw input embeddings (JAX forward, llama_eval_embd)
@@ -180,8 +237,8 @@ def forward(cfg: ModelConfig, params: TransformerParams, tokens: torch.Tensor,
         if cfg.n_rot > 0:
             q = rope(q, pos, cfg.n_rot, neox=cfg.rope_neox, base=cfg.rope_base)
             k = rope(k, pos, cfg.n_rot, neox=cfg.rope_neox, base=cfg.rope_base)
-        _cache_insert(cache_k[layer], k, slots)
-        _cache_insert(cache_v[layer], v, slots)
+        insert(cache_k[layer], k, slots)
+        insert(cache_v[layer], v, slots)
         if attention_fn is not None:
             a = attention_fn(q.contiguous(), _roundtrip(cache_k[layer], k),
                              _roundtrip(cache_v[layer], v), scale)

@@ -25,6 +25,13 @@ a key runs the step eagerly, which also warms it up (kernels built, plans and
 occupancy queries cached, cuBLAS handles made), then captures it; every later
 call replays the graph.  A failed capture or replay raises.  On the CPU,
 which the caller must ask for, the same step runs eagerly, uncaptured.
+
+``decode_chunk`` is the JAX ``device_sample.decode_chunk`` jit: one decode
+step with its sampling and its carry update (``device_sample.decode_step``)
+is one graph, keyed by ``chunk_key``, whose carry (token, n_past, key,
+recent window, mu, the step index and the [B, n_steps] tokens) lives in
+static tensors; a chunk is n_steps replays back to back and one copy of the
+tokens to the host.
 """
 
 from __future__ import annotations
@@ -46,6 +53,7 @@ from ..ops.layers import use_flash_prefill
 from ..ops.mha_decode import launches as _mha_launches
 from ..ops.qmm import launches as _qmm_launches
 from ..ops.qtensor import maybe_cast_scales_f16, maybe_fold_zero_points
+from . import device_sample
 
 PREFILL_BUCKETS = (1, 8, 32, 64, 128, 256, 512, 1024, 2048)
 
@@ -125,6 +133,17 @@ def step_key(kind: str, t: int, kv_window, last_only: bool, slice_last: bool,
             tuple(os.environ.get(name) for name in SWITCHES))
 
 
+def chunk_key(n_steps: int, kv_window, ds, sv, recent_width: int, per_row: bool) -> tuple:
+    """The graph key of a decode chunk: a one-token decode step's key, and
+    what the JAX ``decode_chunk`` jit is keyed on besides (n_steps, the
+    DeviceSampling value), the shapes of the SamplingVec's present fields,
+    the recent window's width and whether n_past is 0-d or [B]."""
+    sv_shapes = None if sv is None else tuple(
+        (name, tuple(t.shape)) for name, t in sv.present().items())
+    return step_key("chunk", 1, kv_window, True, False, None, "decode") + (
+        n_steps, ds, sv_shapes, recent_width, per_row)
+
+
 def record_launches(counters, fn):
     """Run fn (a capture, which launches nothing) and return its result and
     what it added to each launch counter, with the counters put back as they
@@ -139,11 +158,11 @@ def record_launches(counters, fn):
     return out, delta
 
 
-def add_launches(counters, delta):
-    """What one replay launches, added to the counters."""
+def add_launches(counters, delta, times: int = 1):
+    """What `times` replays launch, added to the counters."""
     for c, d in zip(counters, delta):
         for k, v in d.items():
-            c[k] += v
+            c[k] += v * times
 
 
 @dataclass
@@ -169,23 +188,30 @@ class StepCall:
                             self.last_index is not None, self.attention_fn, self.view)
 
 
-class _Step:
+class _Graph:
+    """A key's graph on the card, what its capture recorded and its replays."""
+
+    def __init__(self):
+        self.graph = self.out = self.launches = None
+        self.capture_ms = 0.0
+        self.pool_bytes = 0
+        self.replays = 0
+
+
+class _Step(_Graph):
     """The static inputs of one key, and on the card its graph.  The input,
     n_past and last_index live at fixed addresses and are written before
     each call: the input through a pinned staging tensor (an asynchronous
     copy), the scalars by fills on the device."""
 
     def __init__(self, x: np.ndarray, device: torch.device):
+        super().__init__()
         dtype = torch.from_numpy(x).dtype
         self.x = torch.zeros(x.shape, dtype=dtype, device=device)
         self.n_past = torch.zeros((), dtype=torch.int64, device=device)
         self.last_index = torch.zeros((), dtype=torch.int64, device=device)
         self.staging = (torch.empty(x.shape, dtype=dtype, pin_memory=True)
                         if device.type == "cuda" else None)
-        self.graph = self.out = self.launches = None
-        self.capture_ms = 0.0
-        self.pool_bytes = 0
-        self.replays = 0
 
     def load(self, call: StepCall):
         host = torch.from_numpy(call.x)
@@ -196,6 +222,31 @@ class _Step:
             self.x.copy_(self.staging, non_blocking=True)
         self.n_past.fill_(call.n_past)
         self.last_index.fill_(call.last_index or 0)
+
+
+class _Chunk(_Graph):
+    """The static carry of a decode chunk's key: decode_step's inputs (tok,
+    n_past, key, recent, mu, and the SamplingVec's present fields), the step
+    index and the [B, n_steps] tokens; the graph writes each step's results
+    back into them.  Loaded by copies on the device before a chunk."""
+
+    def __init__(self, carry, sv, n_steps: int):
+        super().__init__()
+        self.tok, self.n_past, self.key, self.recent, self.mu = (
+            t.clone() for t in carry)
+        self.sv = None if sv is None else device_sample.SamplingVec(
+            **{k: t.clone() for k, t in sv.present().items()})
+        self.step = torch.zeros((), dtype=torch.int64, device=self.tok.device)
+        self.toks = torch.zeros((self.tok.shape[0], n_steps), dtype=torch.int64,
+                                device=self.tok.device)
+
+    def load(self, carry, sv):
+        for dst, src in zip((self.tok, self.n_past, self.key, self.recent, self.mu), carry):
+            dst.copy_(src)
+        if sv is not None:
+            for k, t in sv.present().items():
+                getattr(self.sv, k).copy_(t)
+        self.step.zero_()
 
 
 class Context:
@@ -225,6 +276,7 @@ class Context:
         self._steps: dict[tuple, _Step] = {}
         self._pool = None
         self.last_call: StepCall | None = None
+        self.last_chunk: _Chunk | None = None  # the carry of the last chunk on the card
 
     def reset(self):
         for c in (*self.cache_k, *self.cache_v):
@@ -267,7 +319,7 @@ class Context:
             return self._step(call, st)
         if st.graph is None:
             out = self._step(call, st)  # eager: the warm-up, and this call's result
-            self._capture(call, st)
+            self._capture(st, lambda: self._step(call, st))
             return out
         st.graph.replay()
         st.replays += 1
@@ -284,9 +336,10 @@ class Context:
                           slice_last=call.last_index is not None,
                           attention_fn=call.attention_fn)
 
-    def _capture(self, call: StepCall, st: _Step):
-        """Capture the step on a side stream into the shared pool.  Capture
-        runs no kernel, so the caches keep what the eager call wrote."""
+    def _capture(self, st: _Graph, fn):
+        """Capture fn (a step) on a side stream into the shared pool.
+        Capture runs no kernel, so the caches keep what the eager call
+        wrote."""
         with torch.cuda.device(self.device):
             if self._pool is None:
                 self._pool = torch.cuda.graph_pool_handle()
@@ -298,7 +351,7 @@ class Context:
 
             def capture():
                 with torch.cuda.graph(graph, pool=self._pool):
-                    return self._step(call, st)
+                    return fn()
 
             st.out, st.launches = record_launches(LAUNCH_COUNTERS, capture)
             st.capture_ms = (time.perf_counter() - t0) * 1e3
@@ -313,6 +366,69 @@ class Context:
         return [{"key": key, "capture_ms": st.capture_ms,
                  "pool_bytes": st.pool_bytes, "replays": st.replays}
                 for key, st in self._steps.items() if st.graph is not None]
+
+    @torch.no_grad()
+    def decode_chunk(self, tok, n_past, key, *, n_steps: int,
+                     ds: "device_sample.DeviceSampling", kv_window: int | None = None,
+                     recent=None, mu=None, sv=None):
+        """``device_sample.decode_chunk`` on this Context's params (the
+        decode view) and caches: n_steps tokens from tok [B] (a device
+        tensor) at n_past (an int, or a [B] int64 tensor, a position per
+        row), sampled on the device.  ctx.n_past is left to the caller, as
+        the JAX ``generate_ondevice`` advances it.  Returns (tokens [B,
+        n_steps] as a host array, key, recent, mu); the last three are
+        device tensors of their own.
+
+        On the card the chunk is n_steps replays of one captured step (the
+        first call of a key runs its first step eagerly, then captures), and
+        the tokens are copied to the host once.  On the CPU it is the eager
+        loop."""
+        carry = device_sample.chunk_carry(tok, n_past, key, recent, mu, ds, sv)
+        if carry[1].dim() == 0 and int(n_past) + n_steps > self.n_ctx:
+            raise ValueError("context overflow")
+        t0 = time.perf_counter()
+        if self.device.type != "cuda":  # the caller asked for the CPU
+            tok, n_past, key, recent, mu = carry
+            toks, _, _, key, recent, mu = device_sample.decode_chunk(
+                self.cfg, self.params, tok, n_past, self.cache_k, self.cache_v, key,
+                n_steps=n_steps, ds=ds, kv_window=kv_window, recent=recent, mu=mu, sv=sv)
+            out = (toks.numpy(), key, recent, mu)
+        else:
+            out = self._chunk(carry, sv, n_steps, ds, kv_window)
+        self.timings.t_eval_ms += (time.perf_counter() - t0) * 1e3
+        self.timings.n_eval += n_steps
+        return out
+
+    def _chunk(self, carry, sv, n_steps, ds, kv_window):
+        """A chunk on the card: the key's graph replayed n_steps times."""
+        key = chunk_key(n_steps, kv_window, ds, sv, carry[3].shape[1], carry[1].dim() == 1)
+        ch = self._steps.get(key)
+        if ch is None:
+            ch = self._steps[key] = _Chunk(carry, sv, n_steps)
+        else:
+            ch.load(carry, sv)
+
+        def step():
+            nxt, n_past, k, recent, mu = device_sample.decode_step(
+                self.cfg, self.params, ch.tok, ch.n_past, self.cache_k, self.cache_v,
+                ch.key, ch.recent, ch.mu, ds=ds, kv_window=kv_window, sv=ch.sv)
+            ch.toks.index_copy_(1, ch.step.reshape(1), nxt[:, None])
+            for dst, src in ((ch.tok, nxt), (ch.n_past, n_past), (ch.key, k),
+                             (ch.recent, recent), (ch.mu, mu)):
+                dst.copy_(src)
+            ch.step.add_(1)
+
+        self.last_chunk = ch
+        replays = n_steps
+        if ch.graph is None:
+            step()  # eager: the warm-up, and this chunk's first step
+            self._capture(ch, step)
+            replays -= 1
+        for _ in range(replays):
+            ch.graph.replay()
+        ch.replays += replays
+        add_launches(LAUNCH_COUNTERS, ch.launches, replays)
+        return (ch.toks.cpu().numpy(), ch.key.clone(), ch.recent.clone(), ch.mu.clone())
 
     def eval(self, tokens, *, logits_all: bool = False) -> np.ndarray:
         """Evaluate tokens (list or [B, T] array) after the current n_past.

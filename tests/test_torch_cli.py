@@ -47,6 +47,54 @@ def test_main_prints_the_jax_text(model_path, prompt, capsysbinary):
     assert b"eval time" in r.stderr
 
 
+@pytest.mark.parametrize("extra", [
+    ["--ondevice-sampling"],
+    ["--repeat-penalty", "1.3", "--repeat-last-n", "8", "--frequency-penalty", "0.1",
+     "--presence-penalty", "0.2", "-l", "100-inf", "-l", "7+1.5"],
+], ids=["ondevice", "host_penalties_bias"])
+def test_main_sampling_flags_print_the_jax_text(model_path, extra, capsysbinary):
+    """Greedy (`--temp -1 --ignore-eos`, 4 tokens) with the sampling flags:
+    on-device sampling in chunks, and the host chain with penalties and
+    logit biases, each printing what the JAX package's `main` prints with
+    the same flags on the same fixture."""
+    import llama_cpp_q_4_0_tpu.cli.main as jax_main
+
+    args = ["-m", model_path, "-p", "hello", "-n", "4", "-c", "64", "-s", "1",
+            "--temp", "-1", "--ignore-eos", *extra]
+    assert jax_main.main(args) == 0
+    want = capsysbinary.readouterr().out
+    r = _port_main([*args, "--device", "cpu"])
+    assert r.returncode == 0, r.stderr.decode()
+    assert r.stdout == want and len(r.stdout) > len(b"hello")
+
+
+@pytest.mark.parametrize("flags", [
+    [],
+    ["--top-k", "5", "--top-p", "0.9", "--temp", "0.7", "--repeat-penalty", "1.2",
+     "--repeat-last-n", "16", "--frequency-penalty", "0.1", "--presence-penalty", "0.3",
+     "--tfs", "0.95", "--typical", "0.9", "--mirostat", "2", "--mirostat-lr", "0.2",
+     "--mirostat-ent", "4", "-l", "2-inf", "-l", "15+1.5", "-l", "9-0.5", "-s", "3",
+     "-n", "9"],
+    ["-l", "2-Infinity", "--ignore-eos", "-l", "3+0.25"],
+], ids=["defaults", "every_flag", "inf_forms"])
+def test_sampling_flags_parse_as_jax(flags):
+    """add_sampling_args and sampling_from_args give JAX's SamplingParams
+    field for field (`-l 2-inf` bans token 2, `--ignore-eos` bans EOS)."""
+    import argparse
+    import dataclasses
+
+    from llama_cpp_q_4_0_tpu.cli import common as jax_common
+    from llama_cpp_q_4_0_tpu_torch.cli import common
+
+    pj, pt = argparse.ArgumentParser(), argparse.ArgumentParser()
+    jax_common.add_sampling_args(pj)
+    common.add_sampling_args(pt)
+    aj, at = pj.parse_args(flags), pt.parse_args(flags)
+    assert vars(at) == vars(aj)
+    assert (dataclasses.asdict(common.sampling_from_args(at))
+            == dataclasses.asdict(jax_common.sampling_from_args(aj)))
+
+
 def test_main_without_cuda_raises(model_path):
     """No silent CPU fallback: without --device cpu the CLI needs CUDA."""
     r = _port_main(["-m", model_path, "-p", "hi", "-n", "1",
