@@ -107,17 +107,32 @@ Phases (each prints its own lines; any failure exits non-zero):
      insert equal to the CPU's bit for bit); bench lines of on-device against
      host-loop ms/token (greedy, sampled; with Timings.t_sample_ms) and the
      profiler over one chunk of each.
-  6. q8chaos (printed, not gated): the 2-layer q8_0 model of the e2e phase,
+  6. families: the GPT-NeoX, Falcon and Bonsai families (synthetic q4_0,
+     every step a replayed graph held against its eager twin bit for bit,
+     512 + 64 on a bf16 cache and 128 + 16 in the int8 configuration): GPT-NeoX
+     at StableLM-Base-Alpha-7B widths, 16 layers (65 K2 a token, 64 K1 + 16
+     K3 a 512-prefill; 65 K7 + 16 K4 a token in the int8 configuration;
+     checked), with a generate_ondevice run, Context.embed and eval_embd and
+     the bench and trace lines; Falcon-7B widths, 32 layers, every matmul off
+     the kernels' gate (the bf16 product, no matmul kernel; 32 K4 a token at
+     71 query heads over one KV head in the int8 configuration, also through
+     generate_ondevice), bench and trace lines; a 2-layer Bonsai inside the
+     gate, replayed and against the CPU; K4 at H=71, G=1, D=64 (T=1 and 8, S=256
+     and 2048, int8 and bf16 caches) against its plain version; `main --arch
+     bonsai` and `embedding` on a Bonsai file of formats/fixtures.py, card
+     against CPU.
+  7. q8chaos (printed, not gated): the 2-layer q8_0 model of the e2e phase,
      each op of a 128-token prefill and a decode step on the card and on the
      CPU's f32 plain path, against an f64 forward of the same weights.
-  7. the `main` CLI answers prompts from GGJT files at 7B width (2 layers,
+  8. the `main` CLI answers prompts from GGJT files at 7B width (2 layers,
      32000-entry vocab) written by the port's own GGJTWriter: q4_0 (also in
      the int8 configuration, and the `embedding` tool), Q4_K_M and Q3_K_M
      from random k-quant blocks; `benchmark-matmult` (default, QMM_Q8X=1,
      --vdot, --stream, --stream-sweep).
-  8. a JSON line of per-kernel numbers, then the contract line
+  9. a JSON line of per-kernel numbers (launches: the e2e paths' and the
+     families'), then the contract line
      {"ok": true, "device": {...}}.
-``--phases kernels,e2e,graphs,ondevice,q8chaos,cli`` runs a subset (for debugging: a
+``--phases kernels,e2e,graphs,ondevice,families,q8chaos,cli`` runs a subset (for debugging: a
 subset prints no result lines; with no arguments every phase runs).  Phases that run only
 when named: ``sass`` (instruction counts of K7's and K3's kernels and of
 the decode GEMV's and K4's instances), ``gemv`` (check_gemv alone),
@@ -165,6 +180,11 @@ SHAPES = [("wqkv", 12288, 4096), ("wo", 4096, 4096), ("w_gateup", 22016, 4096),
 # (Q3_K_M runs K1, K2 and K7 on q3_K at wq and wk, 4096x4096, and the fused
 # gate/up, 22016x4096; the "/q3_K" entries: the same kernels in that form)
 Q3K_SHAPES = [("wq", 4096, 4096), ("w_gateup", 22016, 4096)]
+# the GPT-NeoX path's matmuls at StableLM-Base-Alpha-7B widths: fused QKV,
+# attention output, up, down (K = 24576) and the head; K1 runs the first
+# four in a prefill, K2 and K7 all five (the "/gptneox" entries)
+NEOX_SHAPES = [("wqkv", 18432, 6144), ("wo", 6144, 6144), ("w_up", 24576, 6144),
+               ("w_down", 6144, 24576), ("output", 50688, 6144)]
 KERNEL_SHAPES = {
     "qmm_q4_0": ("qmm_packed", "Q4_0", SHAPES),
     "qmm_q4_0_kfold": ("qmm_packed_kfold", "Q4_0", SHAPES),
@@ -176,6 +196,9 @@ KERNEL_SHAPES = {
     "qmm_q4_0/q3_K": ("qmm_packed", "Q3_K", Q3K_SHAPES),
     "qmm_q4_0_kfold/q3_K": ("qmm_packed_kfold", "Q3_K", Q3K_SHAPES),
     "qmm_q8x/q3_K": ("qmm_packed_q8x", "Q3_K", Q3K_SHAPES),
+    "qmm_q4_0/gptneox": ("qmm_packed", "Q4_0", NEOX_SHAPES[:4]),
+    "qmm_q4_0_kfold/gptneox": ("qmm_packed_kfold", "Q4_0", NEOX_SHAPES),
+    "qmm_q8x/gptneox": ("qmm_packed_q8x", "Q4_0", NEOX_SHAPES),
 }
 # agreement limits of the matmul kernels against their plain versions, as a
 # fraction of the output scale: bf16 operands summed in another order (1e-3);
@@ -343,12 +366,13 @@ def flash_bound(b, t, h, g, d):
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def model_bounds(label, params, n_layer, t=512):
+def model_bounds(label, params, n_layer, t=512, heads=(32, 32, 128)):
     """The decode and prefill-t bounds of a model's matmuls, from its own
     weights (their planes' bytes a value and bias planes included): every
     layer matmul and the head at b=1 per decode token; the layer matmuls at
-    b=t, the head at b=1 and K3 in every layer for one prefill.  Returns the
-    decode bound in ms."""
+    b=t, the head at b=1 and K3's bound in every layer for one prefill
+    (heads: the query heads, KV heads and head width).  Returns the decode
+    bound in ms."""
     from llama_cpp_q_4_0_tpu_torch.ops.qtensor import QTensor
 
     def mm(w):  # qmm_bound's (n, k, fmt, peak, es, bias)
@@ -363,7 +387,7 @@ def model_bounds(label, params, n_layer, t=512):
                     for n, k, f, _, es, bias in layer + [head])
     dec_ms = sum(qmm_bound(1, *a)[0] for a in layer + [head])
     pre_ms = (sum(qmm_bound(t, *a)[0] for a in layer) + qmm_bound(1, *head)[0]
-              + n_layer * flash_bound(1, t, 32, 32, 128)[0])
+              + n_layer * flash_bound(1, t, *heads)[0])
     print(f"bound: {label} decode token {dec_bytes} bytes through "
           f"{len(layer) + 1} matmuls, {dec_ms:.4f} ms; prefill-{t} "
           f"{pre_ms:.4f} ms", flush=True)
@@ -541,6 +565,8 @@ GEMV_FORMS = {"qmm_q4_0_kfold": "qmm_q4_0_kfold/f16", "qmm_packed_bias": "qmm_pa
 GEMV_ODD_ZERO = {"qmm_q8x": 7, "qmm_q8x/q3_K": 3}
 GEMV_ROWS = (1, 3, 8, 17, 32)
 GEMV_EXTRA = [("ragged", 4224, 4096), ("w_down", 4096, 11008)]
+# K2 and K7 at the GPT-NeoX shapes (the families phase)
+NEOX_GEMV = {"qmm_q4_0_kfold/gptneox": "qmm_q4_0_kfold/f16", "qmm_q8x/gptneox": "qmm_q8x/f16"}
 
 
 def q8x_tie_rows(torch, b: int, k: int, gsize: int, gen):
@@ -561,8 +587,8 @@ def q8x_tie_rows(torch, b: int, k: int, gsize: int, gen):
     return x
 
 
-def check_gemv(torch) -> bool:
-    """Each decode form of GEMV_FORMS at its 7B shapes and GEMV_EXTRA, at
+def check_gemv(torch, forms=GEMV_FORMS, extra_shapes=GEMV_EXTRA) -> bool:
+    """Each decode form of forms at its shapes and extra_shapes, at
     every b of GEMV_ROWS: within QMM_TOL of its plain version; two launches
     bit-identical; one launch captured in a CUDA graph and replayed 10 times
     bit-identical to the eager launch (the in-kernel reduce leaves no state
@@ -587,12 +613,12 @@ def check_gemv(torch) -> bool:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(9)
     ok = True
-    for name, form in GEMV_FORMS.items():
+    for name, form in forms.items():
         wrapper, fmt, shapes = KERNEL_SHAPES[name]
         kernel = name.split("/")[0]
         dtype = PLANE_FORMS[form][3]
         kern, plain = getattr(qmm, wrapper), getattr(qmm, wrapper + "_plain")
-        extra = [e for e in GEMV_EXTRA if (e[1], e[2]) not in {(n, k) for _, n, k in shapes}]
+        extra = [e for e in extra_shapes if (e[1], e[2]) not in {(n, k) for _, n, k in shapes}]
         for zero in (None, GEMV_ODD_ZERO[name]) if name in GEMV_ODD_ZERO else (None,):
             for label, n, k in shapes + extra:
                 if zero is not None and label not in ("wo", "wq", "ragged"):
@@ -834,12 +860,24 @@ def sass_counts(build) -> None:
                       flush=True)
 
 
-def check_flash(torch, timer, rec: dict):
+# (B, T, H, G, D, timed) of K3's checks: timed at T=512 and 2048 (B=1, H=32,
+# D=128), checked at T=128, with GQA 32/8 and at head width 256 (T=200: the
+# ragged edge)
+FLASH_CASES = ((1, 512, 32, 32, 128, True), (1, 2048, 32, 32, 128, True),
+               (1, 128, 32, 32, 128, False), (1, 512, 32, 8, 128, False),
+               (1, 2048, 32, 8, 128, False), (2, 256, 16, 4, 256, False),
+               (1, 200, 16, 16, 256, False))
+# the families' prefills: GPT-NeoX's 48 heads of 128 at 512 and 128 tokens,
+# Bonsai's 16 heads over one KV head
+FAMILY_FLASH = ((1, 512, 48, 48, 128, True), (1, 128, 48, 48, 128, False),
+                (1, 512, 16, 1, 128, False))
+
+
+def check_flash(torch, timer, rec: dict, cases=FLASH_CASES):
     """K3 against its f32 plain version (limit 1e-4 of the output scale: the
     3xTF32 products carry ~2^-21 relative error, the rest is f32 order), two
-    launches bit-identical: timed at T=512 (rec) and 2048 (B=1, H=32, D=128),
-    checked at T=128, with GQA 32/8 and at head width 256 (T=200: the ragged
-    edge)."""
+    launches bit-identical, at each of cases; rec keeps the error and the
+    times of the T=512 case."""
     import torch.nn.functional as F
 
     from llama_cpp_q_4_0_tpu_torch.ops.flash_prefill import (
@@ -848,10 +886,7 @@ def check_flash(torch, timer, rec: dict):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(7)
     good = True
-    for b, t, h, g, d, time_it in ((1, 512, 32, 32, 128, True), (1, 2048, 32, 32, 128, True),
-                                   (1, 128, 32, 32, 128, False), (1, 512, 32, 8, 128, False),
-                                   (1, 2048, 32, 8, 128, False), (2, 256, 16, 4, 256, False),
-                                   (1, 200, 16, 16, 256, False)):
+    for b, t, h, g, d, time_it in cases:
         q = torch.randn((b, t, h, d), generator=gen, device="cuda")
         k, v = (torch.randn((b, t, g, d), generator=gen, device="cuda") for _ in range(2))
         scale = d ** -0.5
@@ -962,7 +997,13 @@ def _mha_inputs(torch, gen, cache, b, t, h, g, d, s, n_past, n_ctx=2048):
     return q, kv, pos, mask
 
 
-def check_mha(torch, timer, rec: dict, ab: bool = False) -> bool:
+# K4 at Falcon-7B's attention: 71 query heads over one KV head of 64, T = 1
+# and 8 (5 row blocks of 16, the last holding 7 rows; 568 rows at T = 8)
+FALCON_MHA = [(c, 1, t, 71, 1, 64, s, s - t - 40, True)
+              for c in ("int8", "bf16") for t in (1, 8) for s in (256, 2048)]
+
+
+def check_mha(torch, timer, rec: dict, ab: bool = False, cases=None) -> bool:
     """K4 against its plain version: timed at T = 1 and 8, S = 256 and 2048,
     int8 and bf16 caches (B = 1, H = G = 32, D = 128, the window nearly
     full); for agreement only, an f32 cache, GQA, D = 64 and 256, and B = 2
@@ -972,7 +1013,9 @@ def check_mha(torch, timer, rec: dict, ab: bool = False) -> bool:
     the main path's case: T = 1 over the int8 window of 2048.  Also timed:
     the port's default attention (FUSED_ATTN unset) on the same window.
     ab: the timed cases alone, with the kernel's time, the library's and the
-    bound only (the ``attn`` phase, for an A/B beside another checkout)."""
+    bound only (the ``attn`` phase, for an A/B beside another checkout).
+    cases: these (cache, B, T, H, G, D, S, n_past, timed) instead, each held
+    and timed the same way (FALCON_MHA)."""
     import torch.nn.functional as F
 
     from llama_cpp_q_4_0_tpu_torch.ops.kvcache import QuantKV
@@ -986,8 +1029,9 @@ def check_mha(torch, timer, rec: dict, ab: bool = False) -> bool:
     only = [("f32", 2, 8, 32, 32, 128, 256, 200), ("int8", 1, 1, 32, 8, 128, 2048, 1900),
             ("bf16", 1, 8, 32, 8, 64, 512, 400), ("int8", 1, 16, 16, 4, 256, 256, 100),
             ("int8", 2, 1, 32, 32, 128, 1024, 700)]
-    cases = [(c, 1, t, 32, 32, 128, s, s - t - 40, True) for c, t, s in timed]
-    cases += [] if ab else [(*o, False) for o in only]
+    if cases is None:
+        cases = [(c, 1, t, 32, 32, 128, s, s - t - 40, True) for c, t, s in timed]
+        cases += [] if ab else [(*o, False) for o in only]
     for cache, b, t, h, g, d, s, n_past, time_it in cases:
         q, (kd, ks, vd, vs), pos, mask = _mha_inputs(torch, gen, cache, b, t, h, g, d, s,
                                                      n_past)
@@ -1026,6 +1070,8 @@ def check_mha(torch, timer, rec: dict, ab: bool = False) -> bool:
         slot = torch.arange(s, device="cuda")
         amask = (mask[:, None, :] & (slot[None, None, :] <= pos[:, :, None]))[:, None]
         qh, kh, vh = q.transpose(1, 2), kf.transpose(1, 2), vf.transpose(1, 2)
+        if g != h:  # the library call takes K/V for every query head
+            kh, vh = kh.repeat_interleave(h // g, dim=1), vh.repeat_interleave(h // g, dim=1)
         k_ms = timer.ms(lambda: mha_decode(*args))
         l_ms = timer.ms(lambda: F.scaled_dot_product_attention(
             qh, kh, vh, attn_mask=amask, scale=scale))
@@ -1040,7 +1086,7 @@ def check_mha(torch, timer, rec: dict, ab: bool = False) -> bool:
         print(f"{head} kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} library_ms={l_ms:.4f} "
               f"default_attention_ms={a_ms:.4f} bound_ms={bnd:.4f} bound_by={by} "
               f"{'ok' if good else 'MISMATCH'}", flush=True)
-        if (cache, t, s) == ("int8", 1, 2048):
+        if (cache, t, h, s) == ("int8", 1, 32, 2048):
             rec.update(ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=bnd, bound_by=by)
         del kf, vf, qh, kh, vh
     return ok
@@ -1205,28 +1251,31 @@ def end_to_end(torch, counters, ftype="q4_0", n_prompt=512, n_decode=64, *,
     return ok, launches, per_token, cfg, params, toks
 
 
-def bench_instruments(torch, cfg, params, label="q4_0"):
-    """bench.py's instruments: prefill-512 (groups of 4, median of 5) and
-    decode ms/token at kv_window 256 (median of 5 passes of 64 tokens), eager
-    (transformer.forward) and profiled; then the same through the Context's
-    replayed step (graph_instruments)."""
+def bench_instruments(torch, cfg, params, label="q4_0", passes=5, n_tok=64):
+    """bench.py's instruments: prefill-512 (median of passes groups of 4)
+    and decode ms/token at kv_window 256 (median of passes of n_tok tokens;
+    default 5 of each, 64 tokens), eager (transformer.forward) and profiled;
+    then the same through the Context's replayed step (graph_instruments).
+    The eager prefill takes K3 where a Context would (use_flash_prefill)."""
     from llama_cpp_q_4_0_tpu_torch.models import transformer
     from llama_cpp_q_4_0_tpu_torch.ops.flash_prefill import flash_prefill
+    from llama_cpp_q_4_0_tpu_torch.ops.layers import use_flash_prefill
 
     ck, cv = transformer.init_cache(cfg, 1, cfg.n_ctx, device="cuda")
     toks = torch.zeros((1, 512), dtype=torch.int64, device="cuda")
+    attn = flash_prefill if use_flash_prefill(512, cfg.head_dim, toks.device) else None
     pre = []
     transformer.forward(cfg, params, toks, 0, ck, cv, last_only=True,
-                        kv_window=512, attention_fn=flash_prefill)
+                        kv_window=512, attention_fn=attn)
     torch.cuda.synchronize()
-    for _ in range(5):
+    for _ in range(passes):
         t0 = time.perf_counter()
         for _ in range(4):
             transformer.forward(cfg, params, toks, 0, ck, cv, last_only=True,
-                                kv_window=512, attention_fn=flash_prefill)
+                                kv_window=512, attention_fn=attn)
         torch.cuda.synchronize()
         pre.append((time.perf_counter() - t0) / 4 * 1e3)
-    med, dec = decode_ms(torch, cfg, params, ck, cv, 65, 256, n_tok=64, passes=5)
+    med, dec = decode_ms(torch, cfg, params, ck, cv, 65, 256, n_tok=n_tok, passes=passes)
     print(f"bench: {label} prefill_512_ms median={statistics.median(pre):.3f} "
           f"min={min(pre):.3f} runs={[round(v, 3) for v in pre]}", flush=True)
     print(f"bench: {label} decode_ms_per_token (kv_window 256) "
@@ -1234,7 +1283,8 @@ def bench_instruments(torch, cfg, params, label="q4_0"):
           f"runs={[round(v, 3) for v in dec]}", flush=True)
     trace_decode(torch, cfg, params, ck, cv, med, label)
     del ck, cv
-    graph_instruments(torch, cfg, params, label, statistics.median(pre), {256: med})
+    graph_instruments(torch, cfg, params, label, statistics.median(pre), {256: med},
+                      passes=passes, n_tok=n_tok)
     return statistics.median(pre), med
 
 
@@ -1428,15 +1478,15 @@ def trace_replayed(torch, fn, n: int, host_ms: float, label: str) -> None:
 
 
 def graph_instruments(torch, cfg, params, label, eager_prefill, eager_decode: dict,
-                      windows=((256, 128),), cache_dtype=None) -> None:
+                      windows=((256, 128),), cache_dtype=None, passes=5, n_tok=64) -> None:
     """The replayed step through Context.eval, every call's logits copied
-    to the host as Context.eval does: prefill-512 (groups of 4, median of 5,
-    n_past set back to 0 before each call; skipped when eager_prefill is
-    None) and decode ms/token at each (kv_window, n_past) of windows (median
-    of 5 passes of 64 tokens from n_past on: Context takes the bucket of
-    n_past + 1 as its window, so n_past 128 gives window 256), beside the
-    eager figures of the same run (eager_decode by window); then the
-    profiled replayed steps (trace_replayed)."""
+    to the host as Context.eval does: prefill-512 (median of passes groups
+    of 4, n_past set back to 0 before each call; skipped when eager_prefill
+    is None) and decode ms/token at each (kv_window, n_past) of windows
+    (median of passes of n_tok tokens from n_past on, default 5 of 64: Context takes
+    the bucket of n_past + 1 as its window, so n_past 128 gives window 256),
+    beside the eager figures of the same run (eager_decode by window); then
+    the profiled replayed steps (trace_replayed)."""
     from llama_cpp_q_4_0_tpu_torch.runtime.context import Context
 
     ctx = Context(cfg, params, n_ctx=cfg.n_ctx, device="cuda",
@@ -1450,7 +1500,7 @@ def graph_instruments(torch, cfg, params, label, eager_prefill, eager_decode: di
 
         prefill()  # the eager first call, then the capture
         runs = []
-        for _ in range(5):
+        for _ in range(passes):
             t0 = time.perf_counter()
             for _ in range(4):
                 prefill()
@@ -1469,12 +1519,12 @@ def graph_instruments(torch, cfg, params, label, eager_prefill, eager_decode: di
         if ctx.last_call.kv_window != window:
             raise RuntimeError(f"n_past {n_past} gave window {ctx.last_call.kv_window}")
         runs = []
-        for _ in range(5):
+        for _ in range(passes):
             ctx.n_past = n_past
             t0 = time.perf_counter()
-            for _ in range(64):
+            for _ in range(n_tok):
                 step()
-            runs.append((time.perf_counter() - t0) / 64 * 1e3)
+            runs.append((time.perf_counter() - t0) / n_tok * 1e3)
         med = statistics.median(runs)
         print(f"bench: {label} replayed decode_ms_per_token (kv_window {window}, n_past "
               f"{n_past}) median={med:.3f} min={min(runs):.3f} "
@@ -1503,13 +1553,15 @@ def eager_step(torch, cfg, call, ck, cv):
 
 
 def graph_run(torch, counters, cfg, params, label, n_prompt, n_decode, cache_dtype,
-              want_per_token) -> bool:
+              want_per_token, want_prefill=None, totals=None) -> bool:
     """A prefill of n_prompt tokens and n_decode greedy tokens through Context
     and generate on the card (the steps replayed from graphs), each step
     checked against an eager transformer.forward of the same inputs on a twin
     cache: logits equal bit for bit, the twin's greedy tokens equal, the
     launches of each replayed step equal the eager step's (and a decode
-    token's equal want_per_token), and the two caches equal after the run."""
+    token's equal want_per_token, the prefill's want_prefill when given), and
+    the two caches equal after the run.  totals (a dict) gains the launches
+    of the run's own steps, the twin's apart."""
     import numpy as np
 
     from llama_cpp_q_4_0_tpu_torch.models import transformer
@@ -1524,7 +1576,7 @@ def graph_run(torch, counters, cfg, params, label, n_prompt, n_decode, cache_dty
     # the twin's tokens: generate's sampler on the eager logits
     sampler = Sampler(gp.sampling, cfg.n_vocab, gp.seed)
     log = {"steps": 0, "equal": 0, "replayed": 0, "launches_equal": 0, "per_token": {},
-           "twin_tokens": list(prompt)}
+           "prefill": None, "twin_tokens": list(prompt)}
     run_eval = ctx.eval
 
     def checked(tokens, *, logits_all=False):
@@ -1533,9 +1585,14 @@ def graph_run(torch, counters, cfg, params, label, n_prompt, n_decode, cache_dty
         got = run_eval(tokens, logits_all=logits_all)
         torch.cuda.synchronize()
         replay = {k: v for k, v in _read(counters).items() if v}
+        for k, v in replay.items():
+            if totals is not None:
+                totals[k] = totals.get(k, 0) + v
         _zero(counters)
         want = eager_step(torch, cfg, ctx.last_call, ck, cv)
         t = np.atleast_2d(tokens).shape[1]
+        if log["prefill"] is None:
+            log["prefill"] = replay
         want = (want[:, :t] if want.shape[1] > 1 else want).float().cpu().numpy()
         eager = {k: v for k, v in _read(counters).items() if v}
         log["steps"] += 1
@@ -1560,13 +1617,16 @@ def graph_run(torch, counters, cfg, params, label, n_prompt, n_decode, cache_dty
         and len(toks) == n_decode
     ok = (log["steps"] == n_decode + 1 and log["equal"] == log["steps"]
           and log["launches_equal"] == log["replayed"] > 0 and same_toks and same_cache
-          and log["per_token"] == want_per_token)
+          and log["per_token"] == want_per_token
+          and want_prefill in (None, log["prefill"]))
     print(f"graphs: {label} {n_prompt} + {n_decode} through Context + generate ({seconds:.1f} s "
           f"with the eager twin): {log['steps']} steps, {log['replayed']} replayed; logits "
           f"equal to eager forward bit for bit at {log['equal']} of {log['steps']}; greedy "
           f"tokens identical {same_toks}; caches identical {same_cache}; launches equal to "
           f"eager at {log['launches_equal']} of {log['replayed']} replays; a replayed decode "
-          f"token {json.dumps(log['per_token'])} (want {json.dumps(want_per_token)}) "
+          f"token {json.dumps(log['per_token'])} (want {json.dumps(want_per_token)}); the "
+          f"prefill {json.dumps(log['prefill'])}"
+          f"{'' if want_prefill is None else f' (want {json.dumps(want_prefill)})'} "
           f"{'ok' if ok else 'MISMATCH'}", flush=True)
     print(f"graphs: {label} {graph_summary(ctx)}", flush=True)
     return ok
@@ -1708,7 +1768,8 @@ def busy_phase(torch) -> None:
 
 
 def two_layer_vs_cpu(torch, counters, ftype="q4_0", *, int8=False, want_per_token=None,
-                     planes=None, gate_cpu=True, **widths):
+                     planes=None, gate_cpu=True, build=None, frac=None, probe=False,
+                     **widths):
     """7B width, 2 layers: prefill 128 (prefill kernels, flash, decode-form
     head) and decode steps on the card against the plain versions on the
     CPU from the same weights, the card's greedy tokens fed to both; the
@@ -1723,8 +1784,15 @@ def two_layer_vs_cpu(torch, counters, ftype="q4_0", *, int8=False, want_per_toke
     Context casts), "bf16" gives both cast_scales_bf16's weights; the card
     then also runs the weights on f32 planes of the same values, whose
     logits must equal the 2-byte planes' bit for bit.  gate_cpu False: the
-    CPU agreement is printed, not held (Q8_0_CHAOS).  Returns (ok, the
-    card's launches of the run)."""
+    CPU agreement is printed, not held (Q8_0_CHAOS).  build: another
+    family's synth builder (default build_llama).  frac: the limit as a
+    fraction of the CPU's logit scale (default below).  probe: the CPU also
+    runs with every layer's attention-norm weight moved by 1e-6 of its value
+    (seeded), and that run's departure from the CPU's prints beside the
+    card's: how far the model itself carries a difference of an ulp or so.
+    Returns (ok, the card's launches of the run)."""
+    import dataclasses
+
     import numpy as np
 
     from llama_cpp_q_4_0_tpu_torch.ops.qtensor import _map_qtensors, cast_scales_bf16
@@ -1733,7 +1801,10 @@ def two_layer_vs_cpu(torch, counters, ftype="q4_0", *, int8=False, want_per_toke
 
     label = f"{ftype}{' int8 config' if int8 else ''}{f' {planes} planes' if planes else ''}" \
         + "".join(f" {k}={v}" for k, v in widths.items())
-    cfg, params = build_llama(n_layer=2, device="cuda", seed=1, ftype=ftype, **widths)
+    cfg, params = (build or build_llama)(n_layer=2, device="cuda", seed=1, ftype=ftype,
+                                         **widths)
+    if build is not None:
+        label = f"{cfg.arch} {label}"
     f32 = params  # synth's block-format planes are fp16 values already
     if planes == "bf16":
         params = cast_scales_bf16(params)
@@ -1746,6 +1817,12 @@ def two_layer_vs_cpu(torch, counters, ftype="q4_0", *, int8=False, want_per_toke
     runs = [("cuda", params, {**switches, **({"QMM_F16_SCALES": "1"} if planes == "f16"
                                              else {})})]
     runs.append(("cpu", cpu, runs[0][2]))
+    if probe:
+        gen = torch.Generator().manual_seed(3)
+        moved = tuple(dataclasses.replace(blk, attn_norm_w=blk.attn_norm_w * (
+            1 + 1e-6 * torch.randn(blk.attn_norm_w.shape, generator=gen)))
+            for blk in cpu.blocks)
+        runs.append(("cpu moved", dataclasses.replace(cpu, blocks=moved), runs[0][2]))
     if planes:
         runs.append(("cuda f32 planes", f32, switches))
     for run, p, sw in runs:
@@ -1786,7 +1863,8 @@ def two_layer_vs_cpu(torch, counters, ftype="q4_0", *, int8=False, want_per_toke
     # in order, well under 2% of the logits through 2 layers; int8 on q4_0:
     # the f32 chain, where only a q8 roundf tie that an ulp moves can flip
     # (1e-3); int8 on a k-quant mix keeps K5 and K6's bf16 products (2e-2)
-    frac = 1e-3 if int8 and ftype == "q4_0" else 2e-2
+    if frac is None:
+        frac = 1e-3 if int8 and ftype == "q4_0" else 2e-2
     for i, (g, r) in enumerate(zip(outs["cuda"], outs["cpu"])):
         err = float(np.abs(g - r).max())
         tol = frac * float(np.abs(r).max())
@@ -1797,8 +1875,11 @@ def two_layer_vs_cpu(torch, counters, ftype="q4_0", *, int8=False, want_per_toke
         else:
             ok &= bool(np.isfinite(g).all())
             verdict = f"printed, not held: {Q8_0_CHAOS}"
-        print(f"e2e: 2-layer 7B-width {label} {'prefill-128' if i == 0 else 'decode'} "
-              f"card vs CPU plain: max_abs_err={err:.3e} (tol {tol:.3e}) {verdict}",
+        width = "" if build else "7B-width "
+        moved = (f"; the CPU with its norm weights moved by 1e-6 vs the CPU: "
+                 f"{float(np.abs(outs['cpu moved'][i] - r).max()):.3e}" if probe else "")
+        print(f"e2e: 2-layer {width}{label} {'prefill-128' if i == 0 else 'decode'} "
+              f"card vs CPU plain: max_abs_err={err:.3e} (tol {tol:.3e}){moved} {verdict}",
               flush=True)
     return ok, launched
 
@@ -1906,7 +1987,8 @@ def _params_to(params, device):
                 for f in dataclasses.fields(blk)}) for blk in params.blocks)
     return dataclasses.replace(
         params, blocks=blocks, tok_embeddings=mv(params.tok_embeddings),
-        out_norm_w=mv(params.out_norm_w), output=mv(params.output))
+        out_norm_w=mv(params.out_norm_w), out_norm_b=mv(params.out_norm_b),
+        output=mv(params.output))
 
 
 def write_ggjt_7b_width(path: str, ftype: str = "q4_0"):
@@ -2350,7 +2432,7 @@ def checked_chunks(torch, counters, ctx, ck, cv, log):
 
 def ondevice_run(torch, counters, cfg, params, label, ds_kw, n_prompt, n_decode, chunk,
                  cache_dtype, want_per_token, path_kernels, seed=0, host=False):
-    """generate_ondevice on LLaMA-7B (Context on the card, n_ctx 2048): a
+    """generate_ondevice on a 7B-class model (Context on the card, n_ctx 2048): a
     prefill of n_prompt tokens, then chunks of chunk tokens, each replayed
     chunk against its eager twin (checked_chunks), the caches equal after
     the run and launches a token want_per_token.  Then the same call again
@@ -2707,8 +2789,243 @@ def ondevice_phase(torch, counters, card, built=None) -> bool:
     return ok
 
 
+def _tool_output(mod, argv):
+    """(rc, stdout bytes) of a CLI tool's main run in this process."""
+    import contextlib
+    import io
+
+    buf = io.BytesIO()
+    out = io.TextIOWrapper(buf, encoding="utf-8", write_through=True)
+    with contextlib.redirect_stdout(out):
+        rc = mod.main(argv)
+        out.flush()
+    return rc, buf.getvalue()
+
+
+def families_cli(counters) -> bool:
+    """`main --arch bonsai` (4 greedy tokens) and `embedding --arch bonsai`
+    on a Bonsai GGJT of the port's formats/fixtures.py (n_embd 256, 2 heads
+    of 128, every matmul inside the kernels' gate), on the card and on the
+    CPU: the same text, K2 launched on the card; the embedding's values
+    within 1e-2 of their scale (bf16 activations rounded apart by another
+    summation order)."""
+    import numpy as np
+
+    from llama_cpp_q_4_0_tpu_torch.cli import embedding as embedding_mod
+    from llama_cpp_q_4_0_tpu_torch.cli import main as main_mod
+    from llama_cpp_q_4_0_tpu_torch.formats.fixtures import make_falcon_like_ggjt
+    from llama_cpp_q_4_0_tpu_torch.kernels.build import BUILD_DIR
+
+    tmp = os.path.join(BUILD_DIR, "smoke-families")
+    os.makedirs(tmp, exist_ok=True)
+    path = os.path.join(tmp, "bonsai-256.ggjt")
+    try:
+        make_falcon_like_ggjt(path, "bonsai", n_embd=256, n_head=2, n_vocab=512, seed=4)
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            _zero(counters)
+            rc, text = _tool_output(main_mod, ["-m", path, "--arch", "bonsai", "-p", "Hello",
+                                               "-n", "4", "--temp", "0", "-c", "64",
+                                               "--device", dev])
+            launched = {k: v for k, v in _read(counters).items() if v}
+            rc2, emb = _tool_output(embedding_mod, ["-m", path, "--arch", "bonsai", "-p",
+                                                    "Hello world", "-c", "64", "--device", dev])
+            vals = np.asarray([float(v) for v in emb.decode().splitlines()[0].split()]
+                              if rc2 == 0 else [])
+            runs[dev] = (rc, text, launched, rc2, vals)
+        (rc, text, launched, rc2, vals), (crc, ctext, _, crc2, cvals) = runs["cuda"], runs["cpu"]
+        err = float(np.abs(vals - cvals).max()) if vals.shape == cvals.shape == (256,) else 1e9
+        tol = 1e-2 * float(np.abs(cvals).max()) if cvals.size else 0.0
+        ok = (rc == crc == rc2 == crc2 == 0 and text == ctext and text.startswith(b"Hello")
+              and launched.get("qmm_q4_0_kfold", 0) > 0 and err <= tol
+              and bool(np.isfinite(vals).all()))
+        print(f"families: main --arch bonsai on the card {text!r}, on the CPU {ctext!r} "
+              f"(equal {text == ctext}; card launches {json.dumps(launched)}); embedding "
+              f"--arch bonsai card vs CPU max_abs_err={err:.3e} (tol {tol:.3e}) "
+              f"{'ok' if ok else 'MISMATCH'}", flush=True)
+        return ok
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _add(launches: dict, totals: dict) -> None:
+    for k, v in totals.items():
+        launches[k] = launches.get(k, 0) + v
+
+
+def family_kernels(torch, recs: dict) -> bool:
+    """The kernels of the GPT-NeoX path at the shapes it gives them, each
+    against its plain version: K1 at NEOX_SHAPES[:4], timed at b=512 (the
+    prefill) and checked at b=128; K2 and K7 timed at b=1 on NEOX_SHAPES and
+    through check_gemv at every row of GEMV_ROWS (the split plan at K =
+    24576, graph replays); K7's tile timed at b=128 (the int8
+    configuration's prefill); K3 at FAMILY_FLASH.  recs[kernel] keeps the
+    largest error; the times print only."""
+    timer = Timer(torch)
+    ok = True
+
+    def merge(kernel, rec):
+        recs[kernel]["max_abs_err"] = max(recs[kernel].get("max_abs_err", 0.0),
+                                          rec["max_abs_err"])
+
+    for name, b, timed in (("qmm_q4_0/gptneox", 512, True), ("qmm_q4_0/gptneox", 128, False),
+                           ("qmm_q4_0_kfold/gptneox", 1, True), ("qmm_q8x/gptneox", 1, True),
+                           ("qmm_q8x/gptneox", 128, True)):
+        rec = {}
+        ok &= check_qmm(torch, timer, name, b, rec, time_it=timed)
+        merge(name.split("/")[0], rec)
+        torch.cuda.empty_cache()
+    ok &= check_gemv(torch, NEOX_GEMV, ())
+    rec = {}
+    ok &= check_flash(torch, timer, rec, FAMILY_FLASH)
+    merge("flash_prefill", rec)
+    torch.cuda.empty_cache()
+    return ok
+
+
+def families_phase(torch, counters, launches: dict, recs: dict) -> bool:
+    """The GPT-NeoX, Falcon and Bonsai families on the card, synthetic q4_0
+    weights built from seed 0, every Context step a replayed graph held
+    against its eager twin bit for bit (graph_run), each model 512 + 64 on a
+    bf16 cache and 128 + 16 in the int8 configuration (q8 cache):
+      GPT-NeoX at StableLM-Base-Alpha-7B widths (n_embd 6144, 48 heads of
+        128, n_rot 32, n_ff 24576, vocab 50688), 16 layers: 65 K2 a decode
+        token, 64 K1 + 16 K3 + 1 K2 a 512-token prefill; 65 K7 + 16 K4 a
+        token and 65 K7 + 16 K3 a 128-token prefill in the int8
+        configuration; a generate_ondevice run (chunks against eager
+        twins), Context.embed and eval_embd, the bench and trace lines;
+      Falcon-7B widths (n_embd 4544, 71 heads of 64 over one KV head, n_ff
+        18176, vocab 65024), 32 layers: every matmul outside the kernels'
+        gate, so the bf16 product and no matmul kernel; plain prefill
+        attention (head width 64); 32 K4 a token in the int8 configuration
+        (rep 71), a generate_ondevice run there; bench and trace lines;
+      Bonsai, 2 layers at widths inside the gate (n_embd 2048, 16 heads of
+        128, one KV head): graph runs, and against the CPU (default and
+        int8 configuration);
+    the GPT-NeoX path's kernels at its shapes (family_kernels) and a 2-layer
+    GPT-NeoX at the same widths against the CPU (default and int8
+    configuration); K4 at H=71, G=1, D=64 against its plain version
+    (FALCON_MHA); `main --arch bonsai` and `embedding` card against CPU.
+    launches gains each run's launches, recs the kernels' largest errors."""
+    from llama_cpp_q_4_0_tpu_torch.synth import build_bonsai, build_falcon, build_gptneox
+
+    t0 = time.perf_counter()
+    ok = family_kernels(torch, recs)
+    rec = {}
+    ok &= check_mha(torch, Timer(torch), rec, cases=FALCON_MHA)
+    recs["mha_decode"]["max_abs_err"] = max(recs["mha_decode"].get("max_abs_err", 0.0),
+                                            rec["max_abs_err"])
+    torch.cuda.empty_cache()
+    print(f"families: kernel checks done {time.perf_counter() - t0:.1f} s", flush=True)
+
+    def built(name, cfg):
+        torch.cuda.synchronize()
+        print(f"families: synthetic {name} q4_0 built on the card (n_layer={cfg.n_layer} "
+              f"n_embd={cfg.n_embd} n_head={cfg.n_head} kv_heads={cfg.kv_heads} "
+              f"n_rot={cfg.n_rot} n_ff={cfg.n_ff} n_vocab={cfg.n_vocab}; "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card)", flush=True)
+
+    # GPT-NeoX: the slice's kernel path
+    cfg, params = build_gptneox(device="cuda", seed=0)
+    built("GPT-NeoX (StableLM-Base-Alpha-7B widths, 16 layers)", cfg)
+    model_bounds("GPT-NeoX-6144 q4_0", params, cfg.n_layer, heads=(48, 48, 128))
+    totals = {}
+    ok &= graph_run(torch, counters, cfg, params, "gptneox", 512, 64, torch.bfloat16,
+                    {"qmm_q4_0_kfold": 65},
+                    want_prefill={"qmm_q4_0": 64, "flash_prefill": 16, "qmm_q4_0_kfold": 1},
+                    totals=totals)
+    with env(**INT8):
+        ok &= graph_run(torch, counters, cfg, params, "gptneox int8-config", 128, 16,
+                        torch.int8, {"qmm_q8x": 65, "mha_decode": 16},
+                        want_prefill={"qmm_q8x": 65, "flash_prefill": 16}, totals=totals)
+    _add(launches, totals)
+    torch.cuda.empty_cache()
+    good, _ = ondevice_run(torch, counters, cfg, params, "gptneox greedy", GREEDY_DS, 512, 64,
+                           16, torch.bfloat16, {"qmm_q4_0_kfold": 65},
+                           PATH_KERNELS["q4_0"])
+    ok &= good
+    ok &= graph_embed(torch, cfg, params)
+    torch.cuda.empty_cache()
+    bench_instruments(torch, cfg, params, "gptneox")
+    ck, cv = transformer_cache(torch, cfg, torch.int8)
+    with env(**INT8):
+        med, _ = decode_ms(torch, cfg, params, ck, cv, 65, 256)
+        del ck, cv
+        graph_instruments(torch, cfg, params, "gptneox int8-config", None, {256: med},
+                          cache_dtype=torch.int8)
+    del params
+    torch.cuda.empty_cache()
+    # 2 layers at the same widths against the CPU: 4 K2 a layer and the
+    # head's a decode token (4 K7 + 1 K4 a layer in the int8 configuration).
+    # The limit is 2e-2 of the logit scale in both configurations: this
+    # synthetic model (layer norms, GELU) carries an ulp-sized difference
+    # into the logits as far as the card departs from the CPU, q8 rounding
+    # flips included, as the probe's line shows
+    for int8, want in ((False, {"qmm_q4_0_kfold": 9}),
+                       (True, {"qmm_q8x": 9, "mha_decode": 2})):
+        ok &= two_layer_vs_cpu(torch, counters, "q4_0", int8=int8, want_per_token=want,
+                               build=build_gptneox, frac=2e-2, probe=True)[0]
+        torch.cuda.empty_cache()
+    print(f"families: gptneox done {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # Falcon: off the kernels' gate, K4 at rep 71 in the int8 configuration
+    cfg, params = build_falcon(device="cuda", seed=0)
+    built("Falcon (Falcon-7B widths, 32 layers)", cfg)
+    model_bounds("Falcon-4544 q4_0", params, cfg.n_layer, heads=(71, 1, 64))
+    totals = {}
+    ok &= graph_run(torch, counters, cfg, params, "falcon", 512, 64, torch.bfloat16, {},
+                    want_prefill={}, totals=totals)
+    with env(**INT8):
+        ok &= graph_run(torch, counters, cfg, params, "falcon int8-config", 128, 16,
+                        torch.int8, {"mha_decode": 32}, want_prefill={}, totals=totals)
+        good, _ = ondevice_run(torch, counters, cfg, params, "falcon int8-config", GREEDY_DS,
+                               128, 16, 8, torch.int8, {"mha_decode": 32}, ("mha_decode",))
+        ok &= good
+    _add(launches, totals)
+    torch.cuda.empty_cache()
+    bench_instruments(torch, cfg, params, "falcon", passes=3, n_tok=16)
+    ck, cv = transformer_cache(torch, cfg, torch.int8)
+    with env(**INT8):
+        med, _ = decode_ms(torch, cfg, params, ck, cv, 65, 256, n_tok=16)
+        del ck, cv
+        graph_instruments(torch, cfg, params, "falcon int8-config", None, {256: med},
+                          cache_dtype=torch.int8, passes=3, n_tok=16)
+    del params
+    torch.cuda.empty_cache()
+    print(f"families: falcon done {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # Bonsai, 2 layers inside the gate: replays, and the card against the CPU
+    cfg, params = build_bonsai(device="cuda", seed=0)
+    built("Bonsai (2 layers)", cfg)
+    totals = {}
+    ok &= graph_run(torch, counters, cfg, params, "bonsai", 512, 64, torch.bfloat16,
+                    {"qmm_q4_0_kfold": 9},
+                    want_prefill={"qmm_q4_0": 8, "flash_prefill": 2, "qmm_q4_0_kfold": 1},
+                    totals=totals)
+    with env(**INT8):
+        ok &= graph_run(torch, counters, cfg, params, "bonsai int8-config", 128, 16,
+                        torch.int8, {"qmm_q8x": 9, "mha_decode": 2},
+                        want_prefill={"qmm_q8x": 9, "flash_prefill": 2}, totals=totals)
+    _add(launches, totals)
+    del params
+    torch.cuda.empty_cache()
+    for int8 in (False, True):
+        ok &= two_layer_vs_cpu(torch, counters, "q4_0", int8=int8, build=build_bonsai)[0]
+        torch.cuda.empty_cache()
+    ok &= families_cli(counters)
+    print(f"families: phase {time.perf_counter() - t0:.1f} s", flush=True)
+    return ok
+
+
+def transformer_cache(torch, cfg, dtype):
+    """A model's KV caches on the card, n_ctx 2048."""
+    from llama_cpp_q_4_0_tpu_torch.models import transformer
+
+    return transformer.init_cache(cfg, 1, cfg.n_ctx, dtype=dtype, device="cuda")
+
+
 # the phases of the full run, in their order
-FULL_RUN = ("kernels", "e2e", "graphs", "ondevice", "q8chaos", "cli")
+FULL_RUN = ("kernels", "e2e", "graphs", "ondevice", "families", "q8chaos", "cli")
 
 
 def main(argv=None) -> int:
@@ -2716,7 +3033,8 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(FULL_RUN),
-                    help="comma-separated subset of kernels,e2e,graphs,ondevice,q8chaos,cli,sass,k7k3,"
+                    help="comma-separated subset of kernels,e2e,graphs,ondevice,families,q8chaos,"
+                         "cli,sass,k7k3,"
                          "k7repeat,int8prefill,planes,tiles,attn,gemv,busy,splits; the result "
                          "lines print only for the default " + ",".join(FULL_RUN))
     phases = set(ap.parse_args(argv).phases.split(","))
@@ -2980,6 +3298,12 @@ def main(argv=None) -> int:
         elapsed("ondevice")
     del q4
     torch.cuda.empty_cache()
+    if "families" in phases:
+        if not families_phase(torch, counters, launches, recs):
+            return fail("a family's kernel at its shapes, replayed step or chunk against "
+                        "its eager twin, a launch count, K4 at 71 heads over one, GPT-NeoX "
+                        "or Bonsai against the CPU, or the CLI on a Bonsai file")
+        elapsed("families")
     if "q8chaos" in phases:
         q8chaos_phase(torch)
         elapsed("q8chaos")

@@ -31,6 +31,9 @@ def ftype_name(ftype: int) -> str:
 
 def add_model_args(p: argparse.ArgumentParser):
     p.add_argument("-m", "--model", required=True, help="model path (ggjt v3)")
+    p.add_argument("--arch", default=None,
+                   help="llama|gptneox|falcon|bonsai (default: detect; a bonsai file "
+                        "reads as falcon unless named; rwkv is not ported)")
     p.add_argument("-c", "--ctx-size", "--n-ctx", type=int, default=512,
                    dest="n_ctx")
     p.add_argument("--cache-type", default="bf16", choices=tuple(CACHE_TYPES),
@@ -92,10 +95,11 @@ class LoadedModel:
 
 
 def load_model(args) -> LoadedModel:
-    """File -> params -> context on the requested device (llama only)."""
+    """File -> params -> context on the requested device: llama, gptneox,
+    falcon or bonsai (RWKV is not ported)."""
     t0 = time.perf_counter()
-    arch = detect_arch(args.model)
-    if arch != "llama":
+    arch = args.arch or detect_arch(args.model)
+    if arch == "rwkv":
         raise NotImplementedError(f"{arch} models are not ported yet")
     gf = read_ggjt(args.model, arch)
     cfg = config_from_ggjt(gf, n_ctx=args.n_ctx)

@@ -7,7 +7,8 @@ the JAX package).  The structure mirrors TransformerParams:
   {"tok_embeddings": leaf, "blocks": [{field: leaf, ...}, ...],
    "out_norm_w": leaf, "out_norm_b": leaf, "output": leaf}
 
-where a leaf is None, a numpy array (a dense weight), or a dict describing a
+where a leaf is None, a numpy array (a dense weight, a norm or a bias of
+the gptneox, falcon and bonsai blocks' fields), or a dict describing a
 QTensor in either form: {"levels_t", "gscale_t", "gbias_t", "gsize",
 "qtype", "shape", "pack_zero"} with the arrays as numpy (``gbias_t`` None for
 a symmetric format, ``pack_zero`` None for unpacked int8 levels).  float16
@@ -58,8 +59,8 @@ def params_from_numpy(tree: dict, device=None) -> TransformerParams:
     dev = resolve_device(device)
     return TransformerParams(
         tok_embeddings=_leaf(tree["tok_embeddings"], dev),
-        # None fields (biases llama does not have) are dropped; any other
-        # field Block lacks raises
+        # None fields (a family's missing biases and norms) keep Block's
+        # default; a field Block lacks raises
         blocks=tuple(Block(**{k: _leaf(v, dev) for k, v in blk.items()
                               if v is not None})
                      for blk in tree["blocks"]),

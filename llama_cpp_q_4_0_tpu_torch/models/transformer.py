@@ -1,4 +1,13 @@
-"""Decoder-only transformer forward (the LLaMA family).
+"""Decoder-only transformer forward: one function for four families,
+switched by ModelConfig.
+
+  llama   — RMSNorm, separate wq/wk/wv, adjacent-pair RoPE, SwiGLU, serial
+  gptneox — LayerNorm and biases, fused QKV, partial NeoX RoPE, GELU MLP,
+            parallel or serial residual with its own post-attention norm
+  falcon  — LayerNorm, fused MQA QKV (one KV head), NeoX RoPE, GELU MLP,
+            parallel residual sharing the input norm
+  bonsai  — RMSNorm with a bias and a min shift, fused MQA QKV, NeoX RoPE,
+            the hybrid relu/gelu MLP, parallel residual sharing the input norm
 
 The KV cache is a preallocated [B, S, H_kv, D] buffer per layer.  K is roped
 at insert time with its absolute position (cache slot == position), and
@@ -10,9 +19,8 @@ takes them traced: nothing in the forward then reads a value on the host, so
 ``runtime/context.py`` captures it in a CUDA graph and replays it for any
 ``n_past``.  ``n_past`` may also be a [B] int64 tensor, each row of the batch
 at its own position (continuous batching, the JAX forward's per-row form).
-
-gptneox, falcon and bonsai run only in the JAX package so far: ``forward``
-raises NotImplementedError for them.
+The NeoX family's "rope the whole cache from position 0" is the same as
+roping K at insert, since a cache slot is its position.
 """
 
 from __future__ import annotations
@@ -25,7 +33,8 @@ import torch
 
 from .. import resolve_device
 from ..ops.kvcache import QuantKV, quantize_kv
-from ..ops.layers import attention, rms_norm, rope, silu
+from ..ops.layers import (act_f16_table, attention, gelu, layer_norm, rms_norm,
+                          rms_norm_ref, rope, silu)
 from ..ops.qmatmul import q_matmul, q_matmul_ref_int8
 from ..ops.qtensor import QTensor
 from .config import ModelConfig
@@ -36,17 +45,26 @@ Param = Any  # QTensor | torch.Tensor | None
 @dataclass
 class Block:
     attn_norm_w: Param = None
+    attn_norm_b: Param = None
     wq: Param = None
     wk: Param = None
     wv: Param = None
+    bq: Param = None
+    bk: Param = None
+    bv: Param = None
     wo: Param = None
+    bo: Param = None
     ffn_norm_w: Param = None
+    ffn_norm_b: Param = None
     w_gate: Param = None  # llama w1
-    w_up: Param = None  # llama w3
-    w_down: Param = None  # llama w2
+    w_up: Param = None  # llama w3 / the MLP's fc
+    w_down: Param = None  # llama w2 / the MLP's proj
+    b_up: Param = None
+    b_down: Param = None
     # load-time fused projections (models/fuse.py), set instead of
-    # wq/wk/wv and w_gate/w_up
+    # wq/wk/wv (and their biases) and w_gate/w_up
     wqkv: Param = None
+    b_qkv: Param = None
     w_gateup: Param = None
 
 
@@ -63,10 +81,57 @@ def _compute_dtype(cfg: ModelConfig):
     return torch.float32 if cfg.compute_dtype == "float32" else torch.bfloat16
 
 
-def _mm(x, w, cfg: ModelConfig):
+def bonsai_rms_norm(x, weight, bias, eps: float = 1e-5):
+    """BonsaiRMSNorm: the T5 layer norm shifted positive, with a bias.  The
+    family's ``_norm`` calls it with this default eps, not cfg.norm_eps, as
+    the JAX package does."""
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    cur = xf * torch.rsqrt(var + eps)
+    cur = cur - cur.amin(dim=-1, keepdim=True) + eps
+    return cur * weight.float() + bias.float()
+
+
+def grelu(x):
+    """Bonsai's hybrid activation: relu above zero, x (tanh(x sqrt(2/pi)) +
+    1) below."""
+    x1 = torch.clamp(x, max=0.0)
+    return torch.clamp(x, min=0.0) + x1 * (torch.tanh(x1 * math.sqrt(2.0 / math.pi)) + 1.0)
+
+
+def _norm(cfg: ModelConfig, x, w, b):
+    if cfg.act_f16_table and cfg.norm == "rmsnorm":
+        return rms_norm_ref(x, w, cfg.norm_eps)
+    if cfg.norm == "rmsnorm":
+        return rms_norm(x, w, cfg.norm_eps)
+    if cfg.norm == "layernorm":
+        return layer_norm(x, w, b, cfg.norm_eps)
+    if cfg.norm == "rmsnorm_bias":
+        return bonsai_rms_norm(x, w, b)
+    raise ValueError(cfg.norm)
+
+
+_ACTS = {"silu": silu, "gelu": gelu, "bonsai_hybrid": grelu}
+
+
+def _act(cfg: ModelConfig, x):
+    try:
+        fn = _ACTS[cfg.act]
+    except KeyError:
+        raise ValueError(cfg.act) from None
+    if cfg.act_f16_table:
+        return act_f16_table(fn, x)
+    return fn(x)
+
+
+def _mm(x, w, cfg: ModelConfig, b=None):
     if cfg.compute_dtype == "ref_int8":
-        return q_matmul_ref_int8(x, w)
-    return q_matmul(x, w, compute_dtype=_compute_dtype(cfg))
+        out = q_matmul_ref_int8(x, w)
+    else:
+        out = q_matmul(x, w, compute_dtype=_compute_dtype(cfg))
+    if b is not None:
+        out = out + b.float()
+    return out
 
 
 def _embed(params: TransformerParams, tokens: torch.Tensor) -> torch.Tensor:
@@ -79,22 +144,26 @@ def _embed(params: TransformerParams, tokens: torch.Tensor) -> torch.Tensor:
 def _qkv(cfg: ModelConfig, blk: Block, h, b: int, t: int):
     hq, hkv, hd = cfg.n_head, cfg.kv_heads, cfg.head_dim
     if blk.wqkv is not None:
-        qkv = _mm(h, blk.wqkv, cfg)
+        qkv = _mm(h, blk.wqkv, cfg, blk.b_qkv)
         e, kvd = hq * hd, hkv * hd
         q, k, v = qkv[..., :e], qkv[..., e:e + kvd], qkv[..., e + kvd:]
     else:
-        q, k, v = _mm(h, blk.wq, cfg), _mm(h, blk.wk, cfg), _mm(h, blk.wv, cfg)
+        q, k, v = (_mm(h, blk.wq, cfg, blk.bq), _mm(h, blk.wk, cfg, blk.bk),
+                   _mm(h, blk.wv, cfg, blk.bv))
     return (q.reshape(b, t, hq, hd), k.reshape(b, t, hkv, hd),
             v.reshape(b, t, hkv, hd))
 
 
 def _ffn(cfg: ModelConfig, blk: Block, h):
+    if not cfg.ffn_gated:
+        up = _act(cfg, _mm(h, blk.w_up, cfg, blk.b_up))
+        return _mm(up, blk.w_down, cfg, blk.b_down)
     if blk.w_gateup is not None:
         gu = _mm(h, blk.w_gateup, cfg)
         f = gu.shape[-1] // 2
-        inner = silu(gu[..., :f]) * gu[..., f:]
+        inner = _act(cfg, gu[..., :f]) * gu[..., f:]
     else:
-        inner = silu(_mm(h, blk.w_gate, cfg)) * _mm(h, blk.w_up, cfg)
+        inner = _act(cfg, _mm(h, blk.w_gate, cfg)) * _mm(h, blk.w_up, cfg)
     return _mm(inner, blk.w_down, cfg)
 
 
@@ -207,8 +276,6 @@ def forward(cfg: ModelConfig, params: TransformerParams, tokens: torch.Tensor,
     head.  attention_fn(q, k, v, scale) replaces the cache-window attention
     over this call's fresh, cache-round-tripped K/V; valid only when
     n_past == 0 and the call covers the whole sequence."""
-    if cfg.arch != "llama":
-        raise NotImplementedError(f"{cfg.arch} is not ported yet")
     b, t = tokens.shape[:2]
     dev = tokens.device
     s = cache_k[0].shape[1]
@@ -232,7 +299,7 @@ def forward(cfg: ModelConfig, params: TransformerParams, tokens: torch.Tensor,
     else:
         x = _embed(params, tokens)  # [B, T, E] f32
     for layer, blk in enumerate(params.blocks):
-        h = rms_norm(x, blk.attn_norm_w, cfg.norm_eps)
+        h = _norm(cfg, x, blk.attn_norm_w, blk.attn_norm_b)
         q, k, v = _qkv(cfg, blk, h, b, t)
         if cfg.n_rot > 0:
             q = rope(q, pos, cfg.n_rot, neox=cfg.rope_neox, base=cfg.rope_base)
@@ -244,15 +311,22 @@ def forward(cfg: ModelConfig, params: TransformerParams, tokens: torch.Tensor,
                              _roundtrip(cache_v[layer], v), scale)
         else:
             a = attention(q, _kv_view(cache_k[layer], w),
-                          _kv_view(cache_v[layer], w), pos, kv_mask, scale)
-        x = x + _mm(a.reshape(b, t, cfg.n_embd), blk.wo, cfg)
-        x = x + _ffn(cfg, blk, rms_norm(x, blk.ffn_norm_w, cfg.norm_eps))
+                          _kv_view(cache_v[layer], w), pos, kv_mask, scale,
+                          ref_f16_softmax=cfg.act_f16_table)
+        attn_out = _mm(a.reshape(b, t, cfg.n_embd), blk.wo, cfg, blk.bo)
+        if cfg.parallel_residual:
+            ff_in = h if cfg.ffn_norm_shared else _norm(
+                cfg, x, blk.ffn_norm_w, blk.ffn_norm_b)
+            x = x + attn_out + _ffn(cfg, blk, ff_in)
+        else:
+            x = x + attn_out
+            x = x + _ffn(cfg, blk, _norm(cfg, x, blk.ffn_norm_w, blk.ffn_norm_b))
 
     if last_index is not None:
         x = x.index_select(1, _device_int(last_index, dev).reshape(1))
     elif last_only:
         x = x[:, -1:]
-    x = rms_norm(x, params.out_norm_w, cfg.norm_eps)
+    x = _norm(cfg, x, params.out_norm_w, params.out_norm_b)
     logits = _mm(x, params.output, cfg)
     if with_embedding:
         return logits, x

@@ -1,4 +1,6 @@
-"""Synthetic LLaMA weights built on the device from a torch.Generator.
+"""Synthetic weights built on the device from a torch.Generator: LLaMA
+(``build_llama``) and the GPT-NeoX, Falcon and Bonsai families
+(``build_gptneox``, ``build_falcon``, ``build_bonsai``).
 
 Random levels and group scales (and, for the affine k-quants, group biases)
 in the loader's layouts: padding rows and planes zero, projections fused
@@ -16,6 +18,10 @@ shapes and formats.
   q4_K_M  q4_K everywhere, q6_K for the output head and for wv and w2 in
           the layers ``use_more_bits`` picks (half of them);
   q5_K_M  the same with q5_K in place of q4_K.
+
+The families take one block format for every 2-D weight (q4_0 by default),
+norm weights of one, and small random f32 biases where the family has them
+(norms; GPT-NeoX's projections).
 
 q3_K weights are packed symmetric nibbles (levels -4..3 stored as 0..7, pack
 zero 4) over 16-groups with no bias, the layout the loader gives them.  The
@@ -149,3 +155,75 @@ def build_llama(n_layer: int = 32, n_embd: int = 4096, n_head: int = 32,
                                out_norm_w=ones(), out_norm_b=None,
                                output=q(n_vocab, e, more))
     return cfg, fuse_projections(cfg, params)
+
+
+def _family(cfg: ModelConfig, ftype: str, dev, seed: int):
+    """(cfg, params) of a gptneox, falcon or bonsai cfg: each 2-D weight in
+    ftype's block format, Q, K and V (and their biases) fused at kv_heads
+    width."""
+    if ftype not in FTYPES or ftype.endswith("_K_M"):
+        raise NotImplementedError(f"no synthetic {ftype} {cfg.arch}")
+    base = FTYPES[ftype]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    e, kvd, f = cfg.n_embd, cfg.kv_heads * cfg.head_dim, cfg.n_ff
+
+    def q(n, k):
+        return synth_qtensor(gen, n, k, dev, base)
+
+    def ones():
+        return torch.ones((e,), dtype=torch.float32, device=dev)
+
+    def bias(n):
+        return 0.01 * torch.randn((n,), generator=gen, device=dev)
+
+    def opt_bias(n):
+        return bias(n) if cfg.qkv_bias else None
+
+    def block():
+        blk = Block(attn_norm_w=ones(), attn_norm_b=bias(e),
+                    wq=q(e, e), wk=q(kvd, e), wv=q(kvd, e),
+                    bq=opt_bias(e), bk=opt_bias(kvd), bv=opt_bias(kvd),
+                    wo=q(e, e), bo=opt_bias(e), w_up=q(f, e), b_up=opt_bias(f),
+                    w_down=q(e, f), b_down=opt_bias(e))
+        if not cfg.ffn_norm_shared:  # gptneox's post-attention norm
+            blk.ffn_norm_w, blk.ffn_norm_b = ones(), bias(e)
+        return blk
+
+    blocks = tuple(block() for _ in range(cfg.n_layer))
+    params = TransformerParams(tok_embeddings=q(cfg.n_vocab, e), blocks=blocks,
+                               out_norm_w=ones(), out_norm_b=bias(e),
+                               output=q(cfg.n_vocab, e))
+    return cfg, fuse_projections(cfg, params)
+
+
+def build_gptneox(n_layer: int = 16, n_embd: int = 6144, n_head: int = 48,
+                  n_vocab: int = 50688, n_ctx: int = 2048, rotary_pct: float = 0.25,
+                  *, device=None, seed: int = 0, ftype: str = "q4_0"):
+    """(cfg, params) of a GPT-NeoX with the parallel residual (default:
+    StableLM-Base-Alpha-7B's widths, n_rot = rotary_pct * head_dim = 32, at
+    16 layers)."""
+    dev = resolve_device(device)
+    cfg = ModelConfig.gptneox(n_vocab, n_embd, n_head, n_layer,
+                              int(rotary_pct * (n_embd // n_head)), n_ctx=n_ctx)
+    return _family(cfg, ftype, dev, seed)
+
+
+def build_falcon(n_layer: int = 32, n_embd: int = 4544, n_head: int = 71,
+                 n_vocab: int = 65024, n_ctx: int = 2048, *, device=None, seed: int = 0,
+                 ftype: str = "q4_0"):
+    """(cfg, params) of a Falcon with parallel attention (default: Falcon-7B's
+    widths, one KV head of 64)."""
+    dev = resolve_device(device)
+    cfg = ModelConfig.falcon(n_vocab, n_embd, n_head, n_layer, n_ctx=n_ctx)
+    return _family(cfg, ftype, dev, seed)
+
+
+def build_bonsai(n_layer: int = 2, n_embd: int = 2048, n_head: int = 16,
+                 n_vocab: int = 32000, n_ctx: int = 2048, *, device=None, seed: int = 0,
+                 ftype: str = "q4_0"):
+    """(cfg, params) of a Bonsai with parallel attention (default widths
+    chosen inside the kernels' gate: head_dim 128, one KV head)."""
+    dev = resolve_device(device)
+    cfg = ModelConfig.bonsai(n_vocab, n_embd, n_head, n_layer, n_ctx=n_ctx)
+    return _family(cfg, ftype, dev, seed)

@@ -8,7 +8,7 @@ import numpy as np
 import pytest
 import torch
 
-from llama_cpp_q_4_0_tpu.formats.fixtures import make_gptneox_ggjt, make_llama_ggjt
+from llama_cpp_q_4_0_tpu.formats.fixtures import make_llama_ggjt
 from llama_cpp_q_4_0_tpu.formats.ggjt import read_ggjt as jax_read_ggjt
 from llama_cpp_q_4_0_tpu.models.loading import (
     config_from_ggjt as jax_config, load_transformer as jax_load)
@@ -179,10 +179,26 @@ def test_cache_clamp_near_n_ctx(path):
 
 
 def test_other_families_raise(tmp_path):
-    p = str(tmp_path / "neox.ggjt")
-    make_gptneox_ggjt(p)
+    """RWKV, the one family the port does not run, raises at the config,
+    at the loader and in the CLI (gptneox, falcon and bonsai run:
+    tests/test_torch_families.py)."""
+    import argparse
+
+    from llama_cpp_q_4_0_tpu.formats.fixtures import make_rwkv_ggjt
+    from llama_cpp_q_4_0_tpu_torch.cli.common import load_model
+    from llama_cpp_q_4_0_tpu_torch.models.config import ModelConfig
+
+    p = str(tmp_path / "rwkv.ggjt")
+    make_rwkv_ggjt(p)
+    gf = read_ggjt(p, "rwkv")
     with pytest.raises(NotImplementedError):
-        config_from_ggjt(read_ggjt(p, "gptneox"))
+        config_from_ggjt(gf)
+    with pytest.raises(NotImplementedError):
+        load_transformer(gf, ModelConfig(arch="rwkv", n_vocab=512, n_embd=64, n_layer=2),
+                         device="cpu")
+    with pytest.raises(NotImplementedError):
+        load_model(argparse.Namespace(model=p, arch=None, n_ctx=64, cache_type="f32",
+                                      device="cpu"))
 
 
 # ------------------------------------------------------------ k-quant files
