@@ -39,7 +39,8 @@ Phases (each prints its own lines; any failure exits non-zero):
      first and within tolerance.  The q8 KV cache's
      quantize_kv on the card
      against the CPU bit for bit.  K4 (decode attention, one cluster launch)
-     at T=1 and 8 over windows of 256 and 2048 on int8 and bf16 caches, and
+     at T=1 and 8 over windows of 256 and 2048 on int8, bf16 and e4m3 (the
+     f8 cache) caches, and
      for agreement on an f32 cache, GQA, head widths 64 and 256, a strided
      B=2 window with an empty row, every case bit-identical over two
      launches and 10 graph replays; K8 (read stream) over 2 GiB of ones, its
@@ -107,7 +108,25 @@ Phases (each prints its own lines; any failure exits non-zero):
      insert equal to the CPU's bit for bit); bench lines of on-device against
      host-loop ms/token (greedy, sampled; with Timings.t_sample_ms) and the
      profiler over one chunk of each.
-  6. families: the GPT-NeoX, Falcon and Bonsai families (synthetic q4_0,
+  6. session: the session slice on 7B q4_0 (the e2e phase's weights, n_ctx
+     1024): perplexity of 4 x 512 token ids drawn from --seed, through the
+     host loop at -b 512 and -b 256, under FLASH_PREFILL=0 and through the
+     on-device loop (one graph a chunk), each with ms a chunk and K1/K3
+     launches a chunk checked, the on-device value held to the host one on
+     the same attention (|d ln ppl| <= 1e-4); the 2-layer 7B-width model's
+     perplexity on the card against the CPU (2 x two_layer_vs_cpu's logit
+     limit); 512 + 32 greedy tokens, then get_state / state_to_bytes /
+     set_state into a fresh Context and into the same one (graphs captured,
+     cache addresses unchanged), a zip session and a .ggsn session: each
+     continues bit for bit like the uninterrupted run (the .ggsn cache equal
+     to the saved one cast through f16); shift_kv_cache(32, 256) against a
+     fresh eval of the surviving prompt (layer 0, bf16 and f32 caches) and 16
+     more tokens; the f8 cache through generate with and without FUSED_ATTN=1
+     (129 K2, + 32 K4 a token, checked), replayed ms/token beside bf16 and
+     its perplexity; the tools on a 2-layer 7B-width GGJT: main
+     --prompt-cache (zip, .ggsn) twice, main -i card vs CPU, main -f --n-keep
+     with context swaps, perplexity (host and --on-device), save-load-state.
+  7. families: the GPT-NeoX, Falcon and Bonsai families (synthetic q4_0,
      every step a replayed graph held against its eager twin bit for bit,
      512 + 64 on a bf16 cache and 128 + 16 in the int8 configuration): GPT-NeoX
      at StableLM-Base-Alpha-7B widths, 16 layers (65 K2 a token, 64 K1 + 16
@@ -121,19 +140,19 @@ Phases (each prints its own lines; any failure exits non-zero):
      and 2048, int8 and bf16 caches) against its plain version; `main --arch
      bonsai` and `embedding` on a Bonsai file of formats/fixtures.py, card
      against CPU.
-  7. q8chaos (printed, not gated): the 2-layer q8_0 model of the e2e phase,
+  8. q8chaos (printed, not gated): the 2-layer q8_0 model of the e2e phase,
      each op of a 128-token prefill and a decode step on the card and on the
      CPU's f32 plain path, against an f64 forward of the same weights.
-  8. the `main` CLI answers prompts from GGJT files at 7B width (2 layers,
+  9. the `main` CLI answers prompts from GGJT files at 7B width (2 layers,
      32000-entry vocab) written by the port's own GGJTWriter: q4_0 (also in
      the int8 configuration, and the `embedding` tool), Q4_K_M and Q3_K_M
      from random k-quant blocks; `benchmark-matmult` (default, QMM_Q8X=1,
      --vdot, --stream, --stream-sweep).
-  9. a JSON line of per-kernel numbers (launches: the e2e paths' and the
+  10. a JSON line of per-kernel numbers (launches: the e2e paths' and the
      families'), then the contract line
      {"ok": true, "device": {...}}.
-``--phases kernels,e2e,graphs,ondevice,families,q8chaos,cli`` runs a subset (for debugging: a
-subset prints no result lines; with no arguments every phase runs).  Phases that run only
+``--phases kernels,e2e,graphs,ondevice,session,families,q8chaos,cli`` runs a subset
+(for debugging: a subset prints no result lines; with no arguments every phase runs).  Phases that run only
 when named: ``sass`` (instruction counts of K7's and K3's kernels and of
 the decode GEMV's and K4's instances), ``gemv`` (check_gemv alone),
 ``busy`` (device busy and kernels a 7B decode step on the q4_0, Q4_K_M,
@@ -153,6 +172,7 @@ without the port beside it, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import math
 import os
 import re
 import shutil
@@ -793,7 +813,8 @@ def ptxas_report(build) -> None:
 GEMV_OPS = ("LDG", "PRMT", "FADD", "FMUL", "F2F", "FFMA", "SHFL", "HMUL2", "IDP", "LOP3", "LDS",
             "I2F")
 MHA_OPS = ("LDGSTS", "LDG", "LDS", "FFMA", "FMUL", "PRMT", "SHFL", "MUFU", "BAR", "ALL")
-MHA_TYPES = {"a": "int8", "13__nv_bfloat16": "bf16", "6__half": "f16", "f": "f32"}
+MHA_TYPES = {"a": "int8", "13__nv_bfloat16": "bf16", "6__half": "f16", "f": "f32",
+             "13__nv_fp8_e4m3": "e4m3"}
 
 
 def kernel_label(fn: str) -> str:
@@ -805,7 +826,8 @@ def kernel_label(fn: str) -> str:
     m = re.search(r"Q8GemvILi(\d+)EEELi(\d+)E", fn)
     if m:
         return f"gemv_kernel<Q8Gemv<{m.group(1)}>, {m.group(2)}> (K7)"
-    m = re.search(r"mha_decode_kernelI(a|13__nv_bfloat16|6__half|f)Li(\d+)ELi(\d+)E", fn)
+    m = re.search(r"mha_decode_kernelI(a|13__nv_bfloat16|6__half|f|13__nv_fp8_e4m3)Li(\d+)ELi(\d+)E",
+                  fn)
     if m:
         return f"mha_decode_kernel<{MHA_TYPES[m.group(1)]}, {m.group(2)}, {m.group(3)}> (K4)"
     return fn[:90]
@@ -966,12 +988,15 @@ def check_q8x_quantizer(torch, gsize: int = 32) -> bool:
     return ok
 
 
-def mha_bound(b, t, h, g, d, n_slots, itemsize):
+def mha_bound(b, t, h, g, d, n_slots, itemsize, scaled=None):
     """(least ms, what bounds it) for decode attention over n_slots valid
-    cache slots: the K/V levels and (int8) their f32 scales, q and out once,
-    against 4*D operations per (query head, slot) at the f32 peak."""
-    nbytes = (2 * b * n_slots * g * d * itemsize + (8 * b * n_slots * g if itemsize == 1
-                                                     else 0) + 8 * b * t * h * d)
+    cache slots: the K/V levels and (int8, scaled: default for 1-byte
+    values) their f32 scales, q and out once, against 4*D operations per
+    (query head, slot) at the f32 peak.  An e4m3 cache has 1-byte values and
+    no scales."""
+    scaled = itemsize == 1 if scaled is None else scaled
+    nbytes = (2 * b * n_slots * g * d * itemsize + (8 * b * n_slots * g if scaled else 0)
+              + 8 * b * t * h * d)
     ops = 4 * b * t * h * d * n_slots
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_F32
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
@@ -981,7 +1006,7 @@ def _mha_inputs(torch, gen, cache, b, t, h, g, d, s, n_past, n_ctx=2048):
     """q and a [:, :s] window of an n_ctx cache of the given type, positions
     n_past.. and the mask of the first n_past + t slots, as transformer.forward
     hands them to attention."""
-    from llama_cpp_q_4_0_tpu_torch.ops.kvcache import quantize_kv
+    from llama_cpp_q_4_0_tpu_torch.ops.kvcache import quantize_kv, to_f8
 
     q = torch.randn((b, t, h, d), generator=gen, device="cuda")
     k = torch.randn((b, n_ctx, g, d), generator=gen, device="cuda")
@@ -989,6 +1014,8 @@ def _mha_inputs(torch, gen, cache, b, t, h, g, d, s, n_past, n_ctx=2048):
     if cache == "int8":
         (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)
         kv = (kq[:, :s], ks[:, :s], vq[:, :s], vs[:, :s])
+    elif cache == "f8":
+        kv = (to_f8(k)[:, :s], None, to_f8(v)[:, :s], None)
     else:
         dt = {"bf16": torch.bfloat16, "f32": torch.float32}[cache]
         kv = (k.to(dt)[:, :s], None, v.to(dt)[:, :s], None)
@@ -1005,8 +1032,8 @@ FALCON_MHA = [(c, 1, t, 71, 1, 64, s, s - t - 40, True)
 
 def check_mha(torch, timer, rec: dict, ab: bool = False, cases=None) -> bool:
     """K4 against its plain version: timed at T = 1 and 8, S = 256 and 2048,
-    int8 and bf16 caches (B = 1, H = G = 32, D = 128, the window nearly
-    full); for agreement only, an f32 cache, GQA, D = 64 and 256, and B = 2
+    int8, bf16 and e4m3 (the f8 cache) caches (B = 1, H = G = 32, D = 128,
+    the window nearly full); for agreement only, an f32 cache, GQA, D = 64 and 256, and B = 2
     over a strided window whose second row has no valid slot.  Every case:
     two launches bit-identical, and one launch captured in a CUDA graph and
     replayed 10 times bit-identical to it (no state left behind).  rec takes
@@ -1025,7 +1052,7 @@ def check_mha(torch, timer, rec: dict, ab: bool = False, cases=None) -> bool:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(13)
     ok = True
-    timed = [(c, t, s) for c in ("int8", "bf16") for t in (1, 8) for s in (256, 2048)]
+    timed = [(c, t, s) for c in ("int8", "bf16", "f8") for t in (1, 8) for s in (256, 2048)]
     only = [("f32", 2, 8, 32, 32, 128, 256, 200), ("int8", 1, 1, 32, 8, 128, 2048, 1900),
             ("bf16", 1, 8, 32, 8, 64, 512, 400), ("int8", 1, 16, 16, 4, 256, 256, 100),
             ("int8", 2, 1, 32, 32, 128, 1024, 700)]
@@ -1075,7 +1102,7 @@ def check_mha(torch, timer, rec: dict, ab: bool = False, cases=None) -> bool:
         k_ms = timer.ms(lambda: mha_decode(*args))
         l_ms = timer.ms(lambda: F.scaled_dot_product_attention(
             qh, kh, vh, attn_mask=amask, scale=scale))
-        bnd, by = mha_bound(b, t, h, g, d, n_past + t, kd.element_size())
+        bnd, by = mha_bound(b, t, h, g, d, n_past + t, kd.element_size(), ks is not None)
         p_ms = a_ms = float("nan")
         if not ab:
             p_ms = timer.ms(lambda: mha_decode_plain(*args), reps=3)
@@ -1188,7 +1215,11 @@ PATH_KERNELS = {"q4_0": ("qmm_q4_0", "qmm_q4_0_kfold", "flash_prefill"),
                 "q4_0_int8_f16": ("qmm_q8x", "flash_prefill", "mha_decode"),
                 # after cast_scales_bf16
                 "q3_K_M_bf16": ("qmm_q4_0", "qmm_q4_0_kfold", "qmm_packed_bias", "qmm_int8",
-                                "flash_prefill")}
+                                "flash_prefill"),
+                # --cache-type f8: q4_0's path over an e4m3 cache, and with
+                # FUSED_ATTN=1 K4 reading it in every decode step
+                "q4_0_f8": ("qmm_q4_0", "qmm_q4_0_kfold", "flash_prefill"),
+                "q4_0_f8_fused": ("qmm_q4_0", "qmm_q4_0_kfold", "flash_prefill", "mha_decode")}
 
 
 def end_to_end(torch, counters, ftype="q4_0", n_prompt=512, n_decode=64, *,
@@ -3017,6 +3048,494 @@ def families_phase(torch, counters, launches: dict, recs: dict) -> bool:
     return ok
 
 
+# ------------------------------------------------------------------ session
+
+def _greedy(ctx, n: int):
+    """n greedy decode steps from ctx.logits: (tokens, each step's logits)."""
+    import numpy as np
+
+    toks, logits = [], []
+    for _ in range(n):
+        toks.append(int(np.argmax(ctx.logits[0, -1])))
+        logits.append(ctx.eval([[toks[-1]]]))
+    return toks, logits
+
+
+def _same_run(a, b) -> bool:
+    """Two _greedy runs equal bit for bit: tokens and every step's logits."""
+    import numpy as np
+
+    return a[0] == b[0] and all(np.array_equal(x, y) for x, y in zip(a[1], b[1]))
+
+
+def _cache_ptrs(ctx):
+    from llama_cpp_q_4_0_tpu_torch.ops.kvcache import QuantKV
+
+    return [t.data_ptr() for c in (*ctx.cache_k, *ctx.cache_v)
+            for t in ((c.data, c.scale) if isinstance(c, QuantKV) else (c,))]
+
+
+def _pair_mag(torch, w, n_rot: int, neox: bool):
+    """Each element's rotation pair magnitude (its own beyond n_rot)."""
+    half = n_rot // 2
+    a, b = (w[..., :half], w[..., half:n_rot]) if neox else (w[..., 0:n_rot:2],
+                                                           w[..., 1:n_rot:2])
+    mag = torch.sqrt(a * a + b * b)
+    mag = torch.cat([mag, mag], dim=-1) if neox else mag.repeat_interleave(2, dim=-1)
+    return torch.cat([mag, w[..., n_rot:].abs()], dim=-1)
+
+
+def pair_ulps(torch, got, want, n_rot: int, neox: bool) -> float:
+    """The largest |got - want| of a rotated bf16 K in bf16 ulps of its
+    rotation pair's magnitude (tests/test_torch_session.py): a shifted K was
+    rounded at its old position and rotated again, which spreads that
+    rounding (half an ulp of each component) over both components of the
+    pair; with the two final roundings the difference stays within about
+    1.7 ulps of the pair's magnitude."""
+    g, w = got.float(), want.float()
+    mag = _pair_mag(torch, w, n_rot, neox)
+    ulp = torch.exp2(torch.floor(torch.log2(mag.clamp(min=1e-30))) - 7)
+    return float(((g - w).abs() / ulp).max())
+
+
+def pair_rel(torch, got, want, n_rot: int, neox: bool) -> float:
+    """The largest |got - want| of a rotated f32 K relative to its rotation
+    pair's magnitude.  RoPE's angle p * f is an f32 product: the shift
+    composes the angles of the old position and of -n_discard, each rounded
+    apart from the new position's, so at positions of a few hundred the
+    rotation moves by up to 1.5 ulps of the largest angle (ulp(543) = 2^-14),
+    times the pair's magnitude; JAX's test of 1e-5 relative runs at
+    positions below 8."""
+    g, w = got.float(), want.float()
+    return float(((g - w).abs() / _pair_mag(torch, w, n_rot, neox).clamp(min=1e-30)).max())
+
+
+def bf16_ulps(torch, got, want) -> int:
+    """The largest distance of two bf16 tensors in ulps (their bit patterns
+    ordered as their values)."""
+    def ordered(t):
+        b = t.contiguous().view(torch.int16).to(torch.int32) & 0xFFFF
+        return torch.where(b >= 0x8000, -(b & 0x7FFF), b)
+
+    return int((ordered(got) - ordered(want)).abs().max())
+
+
+# the kernels' launches a perplexity chunk of 512 tokens on 7B q4_0: every
+# matmul of the 512-row prefill takes K1 (wqkv, wo, gate/up, w2 in 32 layers
+# and the 512-row head, logits_all), K3 the whole-prompt attention at n_past
+# 0; -b 256 runs two pieces (2 x 129 K1), the second at n_past 256 through the
+# cache-window attention; the on-device loop's forward takes no
+# attention_fn (JAX's _chunk_nll), so no K3
+PPL_LAUNCHES = {"b512": {"qmm_q4_0": 129, "flash_prefill": 32},
+                "b256": {"qmm_q4_0": 258, "flash_prefill": 32},
+                "b512_noflash": {"qmm_q4_0": 129},
+                "ondevice": {"qmm_q4_0": 129}}
+
+
+def session_ppl(torch, counters, card, cfg, params, stream, launches: dict):
+    """Perplexity of 7B q4_0 over 4 chunks of 512 (n_ctx 1024 Context, bf16
+    cache): the host loop at -b 512 and -b 256, the host loop under
+    FLASH_PREFILL=0 (the on-device loop's attention) and the on-device loop.
+    Each runs once to capture its graphs, then again with the launch counts
+    set to 0: ms a chunk (host clock) and the launches a chunk, checked.
+    Holds the on-device value to the like-for-like host one (FLASH_PREFILL=0)
+    within |d ln ppl| <= 1e-4 (f32 against f64 logsumexp); the K3 runs'
+    differences print.  The counted runs' launches are added to launches.
+    Returns (ok, {run: ppl})."""
+    import numpy as np
+
+    from llama_cpp_q_4_0_tpu_torch.runtime.context import Context
+    from llama_cpp_q_4_0_tpu_torch.runtime.perplexity import perplexity, perplexity_ondevice
+
+    ctx = Context(cfg, params, n_ctx=1024, device="cuda")
+    runs = {"b512": ({}, lambda: perplexity(ctx, stream, n_ctx=512, n_batch=512)),
+            "b256": ({}, lambda: perplexity(ctx, stream, n_ctx=512, n_batch=256)),
+            "b512_noflash": ({"FLASH_PREFILL": "0"},
+                             lambda: perplexity(ctx, stream, n_ctx=512, n_batch=512)),
+            "ondevice": ({}, lambda: perplexity_ondevice(ctx, stream, n_ctx=512))}
+    ok, ppl = True, {}
+    n_chunk = len(stream) // 512
+    for name, (sw, fn) in runs.items():
+        with env(**sw):
+            fn()  # captures
+            torch.cuda.synchronize()
+            _zero(counters)
+            t0 = time.perf_counter()
+            res = fn()
+            ms = (time.perf_counter() - t0) * 1e3 / n_chunk
+            _add(launches, _read(counters))
+            launched = {k: v / n_chunk for k, v in _read(counters).items() if v}
+        good = launched == PPL_LAUNCHES[name] and np.isfinite(res.ppl)
+        ok &= good
+        ppl[name] = res.ppl
+        print(f"session: 7B q4_0 perplexity {name} over {n_chunk} chunks of 512: ppl "
+              f"{res.ppl!r} (chunks {[round(c, 4) for c in res.chunk_ppls]}), {ms:.2f} ms a "
+              f"chunk (host clock, replayed), launches a chunk {json.dumps(launched)} (want "
+              f"{json.dumps(PPL_LAUNCHES[name])}) {'ok' if good else 'MISMATCH'} [{card}]",
+              flush=True)
+    d = abs(np.log(ppl["ondevice"]) - np.log(ppl["b512_noflash"]))
+    ok &= bool(d <= 1e-4)
+    print(f"session: |d ln ppl| on-device vs host (FLASH_PREFILL=0, the same attention) "
+          f"{d:.3e} (limit 1e-4) {'ok' if d <= 1e-4 else 'MISMATCH'}; host with K3 "
+          f"(-b 512) vs on-device {abs(np.log(ppl['ondevice']) - np.log(ppl['b512'])):.3e}, "
+          f"-b 256 vs on-device {abs(np.log(ppl['ondevice']) - np.log(ppl['b256'])):.3e} "
+          f"(printed: K3's f32 attention against the bf16-operand chain)", flush=True)
+    print(f"session: perplexity {graph_summary(ctx)}", flush=True)
+    del ctx
+    torch.cuda.empty_cache()
+    return ok, ppl
+
+
+def session_ppl_vs_cpu(torch, seed: int) -> bool:
+    """The 2-layer 7B-width q4_0 model (two_layer_vs_cpu's, seed 1):
+    perplexity over 2 chunks of 128 on the card and on the CPU's plain
+    path, held to |d ln ppl| <= 2 x two_layer_vs_cpu's logit limit (2e-2 of
+    the CPU logits' scale): each token's NLL (logsumexp minus the target's
+    logit) moves by at most twice the largest logit deviation."""
+    import numpy as np
+
+    from llama_cpp_q_4_0_tpu_torch.runtime.context import Context
+    from llama_cpp_q_4_0_tpu_torch.runtime.perplexity import perplexity
+    from llama_cpp_q_4_0_tpu_torch.synth import build_llama
+
+    cfg, params = build_llama(n_layer=2, device="cuda", seed=1, ftype="q4_0")
+    stream = np.random.default_rng(seed + 1).integers(3, cfg.n_vocab, 2 * 128)
+    res, scale = {}, 0.0
+    for dev, p in (("cuda", params), ("cpu", _params_to(params, "cpu"))):
+        ctx = Context(cfg, p, n_ctx=128, device=dev)
+        t0 = time.perf_counter()
+        res[dev] = perplexity(ctx, stream, n_ctx=128, n_batch=128).ppl
+        print(f"session: 2-layer 7B-width q4_0 perplexity on {dev}: {res[dev]!r} "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+        if dev == "cpu":
+            scale = float(np.abs(ctx.logits).max())
+        del ctx
+    d = abs(np.log(res["cuda"]) - np.log(res["cpu"]))
+    tol = 2 * 2e-2 * scale
+    ok = bool(d <= tol and np.isfinite(res["cuda"]))
+    print(f"session: 2-layer card vs CPU |d ln ppl| {d:.3e} (limit 2 x 2e-2 x {scale:.3f} = "
+          f"{tol:.3e}) {'ok' if ok else 'MISMATCH'}", flush=True)
+    del params
+    torch.cuda.empty_cache()
+    return ok
+
+
+LLAMA7B_HPARAMS = {"n_vocab": 32000, "n_embd": 4096, "n_mult": 256, "n_head": 32,
+                   "n_layer": 32, "n_rot": 128}
+
+
+def session_state(torch, card, cfg, params, prompt, tmp) -> bool:
+    """State round trips on 7B q4_0 (n_ctx 1024, bf16 cache): a 512-token
+    prefill and 32 greedy tokens, the state S taken, 32 more (the
+    uninterrupted run).  Each restore of S must continue like it bit for bit
+    (32 greedy tokens, every step's logits): set_state of S's bytes into a
+    fresh Context; set_state into the same Context, whose step graphs are
+    captured, its cache tensors at their addresses; load_session of a zip
+    session into the second Context.  A .ggsn save loaded into the second
+    Context: its slots equal S's cast through f16.  Then the KV shift
+    (shift_kv_cache(n_keep=32, n_discard=256)): layer 0's surviving prompt
+    slots against a fresh eval of the surviving prompt tokens (bf16: V
+    within one ulp, K within two ulps of each rotation pair's magnitude,
+    pair_ulps; an f32 cache: V within 1e-5 relative, K within two f32 ulps
+    of the largest RoPE angle times the pair's magnitude, pair_rel), 16
+    more tokens finite."""
+    import numpy as np
+
+    from llama_cpp_q_4_0_tpu_torch.runtime.context import Context
+    from llama_cpp_q_4_0_tpu_torch.runtime.session import (
+        get_state, load_session, save_session, set_state, shift_kv_cache,
+        state_from_bytes, state_to_bytes)
+
+    ok = True
+
+    def check(label, good, extra=""):
+        nonlocal ok
+        ok &= bool(good)
+        print(f"session: {label}{extra} {'ok' if good else 'MISMATCH'}", flush=True)
+
+    a = Context(cfg, params, n_ctx=1024, device="cuda")
+    a.eval([prompt])
+    head = _greedy(a, 32)
+    t0 = time.perf_counter()
+    state = get_state(a)
+    blob = state_to_bytes(state)
+    t_get = (time.perf_counter() - t0) * 1e3
+    ref = _greedy(a, 32)
+    tokens = prompt + head[0]
+    b = Context(cfg, params, n_ctx=1024, device="cuda")
+    t0 = time.perf_counter()
+    set_state(b, state_from_bytes(blob))
+    torch.cuda.synchronize()
+    t_set = (time.perf_counter() - t0) * 1e3
+    print(f"session: 7B state at n_past {state['n_past']}: get_state + state_to_bytes "
+          f"{t_get:.1f} ms, {len(blob)} bytes; state_from_bytes + set_state {t_set:.1f} ms "
+          f"(host clock) [{card}]", flush=True)
+    check("set_state into a fresh Context continues bit for bit (32 tokens, logits)",
+          _same_run(_greedy(b, 32), ref))
+    ptrs = _cache_ptrs(a)
+    set_state(a, state)
+    same_ptrs = _cache_ptrs(a) == ptrs
+    zpath, gpath = os.path.join(tmp, "s.bin"), os.path.join(tmp, "s.ggsn")
+    t0 = time.perf_counter()
+    save_session(zpath, a, tokens)
+    t_zip = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    save_session(gpath, a, tokens, hparams=LLAMA7B_HPARAMS, ftype=2)
+    t_ggsn = (time.perf_counter() - t0) * 1e3
+    check("set_state into the same Context (graphs captured) continues bit for bit",
+          _same_run(_greedy(a, 32), ref) and same_ptrs,
+          f"; cache tensors at their addresses {same_ptrs}")
+    ptrs = _cache_ptrs(b)
+    t0 = time.perf_counter()
+    loaded = load_session(zpath, b)
+    t_zload = (time.perf_counter() - t0) * 1e3
+    check("zip session save/load continues bit for bit",
+          loaded == tokens and _same_run(_greedy(b, 32), ref) and _cache_ptrs(b) == ptrs,
+          f" (save {t_zip:.1f} ms, load {t_zload:.1f} ms, {os.path.getsize(zpath)} bytes)")
+    t0 = time.perf_counter()
+    loaded = load_session(gpath, b)
+    t_gload = (time.perf_counter() - t0) * 1e3
+    n = len(tokens)
+    f16 = all(torch.equal(y[:, :n], x[:, :n].float().half().to(torch.bfloat16))
+              for x, y in zip((*a.cache_k, *a.cache_v), (*b.cache_k, *b.cache_v)))
+    check("GGSN save/load: the loaded cache equals the saved one cast through f16 bit for bit",
+          loaded == tokens and f16 and b.n_past == n and _cache_ptrs(b) == ptrs,
+          f" (save {t_ggsn:.1f} ms, load {t_gload:.1f} ms, {os.path.getsize(gpath)} bytes)")
+    # the KV shift, from S
+    set_state(a, state)
+    n_keep, n_discard = 32, 256
+    survivors = prompt[:n_keep] + prompt[n_keep + n_discard:]
+    ptrs = _cache_ptrs(a)
+    t0 = time.perf_counter()
+    shift_kv_cache(a, n_keep, n_discard)
+    torch.cuda.synchronize()
+    t_shift = (time.perf_counter() - t0) * 1e3
+    b.reset()
+    b.eval([survivors])
+    m = len(survivors)
+    k_ulps = pair_ulps(torch, a.cache_k[0][:, :m], b.cache_k[0][:, :m], cfg.n_rot,
+                       cfg.rope_neox)
+    v_ulps = bf16_ulps(torch, a.cache_v[0][:, :m], b.cache_v[0][:, :m])
+    tail = _greedy(a, 16)
+    check(f"shift_kv_cache(n_keep={n_keep}, n_discard={n_discard}) on bf16: layer 0's "
+          f"{m} prompt slots against a fresh eval",
+          k_ulps <= 2 and v_ulps <= 1 and a.n_past == n - n_discard + 16
+          and _cache_ptrs(a) == ptrs and all(np.isfinite(x).all() for x in tail[1]),
+          f": K {k_ulps:.3f} ulps of its pair's magnitude (limit 2), V {v_ulps} ulp (limit "
+          f"1); {t_shift:.1f} ms (host clock); 16 more tokens finite {tail[0][:8]}...")
+    del a, b
+    torch.cuda.empty_cache()
+    # the same on an f32 cache
+    f = Context(cfg, params, n_ctx=1024, device="cuda", cache_dtype=torch.float32)
+    f.eval([prompt])
+    _greedy(f, 32)
+    shift_kv_cache(f, n_keep, n_discard)
+    k0, v0 = f.cache_k[0][:, :m].clone(), f.cache_v[0][:, :m].clone()
+    f.reset()
+    f.eval([survivors])
+    # the largest angle the shift composes: position n_prompt + 31, frequency 1
+    theta_ulp = 2.0 ** (math.floor(math.log2(len(prompt) + 31)) - 23)
+    k_rel = pair_rel(torch, k0, f.cache_k[0][:, :m], cfg.n_rot, cfg.rope_neox)
+    v_err = float(((v0 - f.cache_v[0][:, :m]).abs() - 1e-5 * f.cache_v[0][:, :m].abs()).max())
+    check("shift_kv_cache on f32: layer 0 against a fresh eval",
+          k_rel <= 2 * theta_ulp and v_err <= 1e-5,
+          f": K {k_rel:.3e} of its pair's magnitude (limit 2 ulps of the largest angle, "
+          f"{2 * theta_ulp:.3e}), V within 1e-5 relative (max |d| - 1e-5 |want| {v_err:.3e})")
+    del f, k0, v0
+    torch.cuda.empty_cache()
+    return ok
+
+
+# the f8 cache's runs: K2 for all 129 matmuls a decode token; under
+# FUSED_ATTN=1 also K4 over the e4m3 window in each of 32 layers
+F8_PER_TOKEN = {"q4_0_f8": {"qmm_q4_0_kfold": 129},
+                "q4_0_f8_fused": {"qmm_q4_0_kfold": 129, "mha_decode": 32}}
+
+
+def session_f8(torch, counters, card, cfg, params, stream, ppl_bf16, launches: dict) -> bool:
+    """7B q4_0 with --cache-type f8, 512 + 32 greedy tokens through Context +
+    generate, in the default attention and under FUSED_ATTN=1 (K4 reads the
+    e4m3 window): the decode launches checked, the tokens printed; the
+    replayed decode ms/token of the bf16 and f8 caches, each with and
+    without FUSED_ATTN=1; the on-device perplexity of the f8 cache beside
+    the bf16 cache's.  The generate runs' launches are added to launches."""
+    import numpy as np
+
+    from llama_cpp_q_4_0_tpu_torch.runtime.context import Context
+    from llama_cpp_q_4_0_tpu_torch.runtime.perplexity import perplexity_ondevice
+
+    ok, toks = True, {}
+    for path, sw in (("q4_0_f8", {}), ("q4_0_f8_fused", {"FUSED_ATTN": "1"})):
+        with env(**sw):
+            good, launched, per_token, _, _, toks[path] = end_to_end(
+                torch, counters, "q4_0", n_prompt=512, n_decode=32, path=path,
+                cache_dtype=torch.float8_e4m3fn, built=(cfg, params))
+        _add(launches, launched)
+        good &= per_token == F8_PER_TOKEN[path]
+        ok &= good
+        print(f"session: {path} decode launches a token {json.dumps(per_token)} (want "
+              f"{json.dumps(F8_PER_TOKEN[path])}); tokens {toks[path]} "
+              f"{'ok' if good else 'MISMATCH'} [{card}]", flush=True)
+    same = next((i for i, (x, y) in enumerate(zip(toks["q4_0_f8"], toks["q4_0_f8_fused"]))
+                 if x != y), len(toks["q4_0_f8"]))
+    # replayed decode ms/token at window 1024 (n_past 513-544), each cache and
+    # attention path in turn, the first (captured) step left out
+    prompt = [1] + np.random.default_rng(0).integers(3, cfg.n_vocab, 511).tolist()
+    for label, dt, sw in (("bf16 cache", torch.bfloat16, {}),
+                          ("f8 cache", torch.float8_e4m3fn, {}),
+                          ("bf16 cache, FUSED_ATTN=1", torch.bfloat16, {"FUSED_ATTN": "1"}),
+                          ("f8 cache, FUSED_ATTN=1", torch.float8_e4m3fn, {"FUSED_ATTN": "1"})):
+        with env(**sw):
+            ctx = Context(cfg, params, n_ctx=2048, device="cuda", cache_dtype=dt)
+            ctx.eval([prompt])
+            tok = int(np.argmax(ctx.eval([[int(np.argmax(ctx.logits[0, -1]))]])[0, -1]))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(32):
+                tok = int(np.argmax(ctx.eval([[tok]])[0, -1]))
+            ms = (time.perf_counter() - t0) * 1e3 / 32
+        print(f"session: 7B q4_0 {label}, replayed decode at window 1024 (n_past "
+              f"514-545): {ms:.3f} ms/token (host clock, 32 tokens) [{card}]", flush=True)
+        del ctx
+    ctx = Context(cfg, params, n_ctx=512, device="cuda", cache_dtype=torch.float8_e4m3fn)
+    res = perplexity_ondevice(ctx, stream, n_ctx=512)
+    ok &= bool(np.isfinite(res.ppl))
+    print(f"session: greedy tokens of the f8 cache agreeing between the default attention and "
+          f"K4 before the first difference: {same} of {len(toks['q4_0_f8'])}; on-device "
+          f"perplexity of the f8 cache {res.ppl!r} beside the bf16 cache's {ppl_bf16!r} "
+          f"(d ln ppl {np.log(res.ppl) - np.log(ppl_bf16):+.4e}) [{card}]", flush=True)
+    del ctx
+    torch.cuda.empty_cache()
+    return ok
+
+
+def _tool_run(mod, argv, stdin: str = ""):
+    """(rc, stdout bytes, stderr text) of a CLI tool's main in this process,
+    stdin fed from a string; the stderr passes through after the run."""
+    import contextlib
+    import io
+
+    err = io.StringIO()
+    saved = sys.stdin
+    sys.stdin = io.StringIO(stdin)
+    try:
+        with contextlib.redirect_stderr(err):
+            rc, out = _tool_output(mod, argv)
+    finally:
+        sys.stdin = saved
+    sys.stderr.write(err.getvalue())
+    return rc, out, err.getvalue()
+
+
+def session_cli(counters, card, tmp) -> bool:
+    """The tools of the slice on the 2-layer 7B-width q4_0 GGJT
+    (write_ggjt_7b_width): `main --prompt-cache` twice on a zip and on a
+    .ggsn path (the second run prints `session: reused`), `main -i -n 2`
+    with two lines on stdin (on the card and on the CPU, --memory-f32, the
+    same text; the CPU's plain path takes ~2.6 s a forward at this width),
+    `main -f --n-keep 8 -c 64 -n 80` (80 tokens through context swaps),
+    `perplexity -f PAPERS.md -c 128 -b 64` and `--on-device` (--memory-f32:
+    held to each other within 1e-4 in ln ppl, the printed line as JAX's
+    tests check it), and `save-load-state`."""
+    import numpy as np
+
+    from llama_cpp_q_4_0_tpu_torch.cli import main as main_mod
+    from llama_cpp_q_4_0_tpu_torch.cli import perplexity as ppl_mod
+    from llama_cpp_q_4_0_tpu_torch.cli import save_load_state as sls_mod
+
+    path = os.path.join(tmp, "llama7b-width-2layer-q4_0.ggjt")
+    write_ggjt_7b_width(path, "q4_0")
+    base = ["-m", path, "--temp", "0", "-s", "1"]
+    ok = True
+
+    def check(label, good, extra=""):
+        nonlocal ok
+        ok &= bool(good)
+        print(f"cli-session: {label}{extra} {'ok' if good else 'FAILED'}", flush=True)
+
+    for suffix in (".bin", ".ggsn"):
+        cache = os.path.join(tmp, "prompt-cache" + suffix)
+        runs = [_tool_run(main_mod, [*base, "-p", "Once upon a time", "-n", "8", "-c", "256",
+                                     "--prompt-cache", cache]) for _ in range(2)]
+        reused = [l for l in runs[1][2].splitlines() if l.startswith("session: reused")]
+        check(f"main --prompt-cache {suffix} twice",
+              runs[0][0] == runs[1][0] == 0 and reused and "session: reused" not in runs[0][2],
+              f": {reused}; texts {runs[0][1]!r}, {runs[1][1]!r}")
+    text = {}
+    for dev in ("cuda", "cpu"):
+        _zero(counters)
+        rc, out, _ = _tool_run(main_mod, [*base, "-p", "Hello", "-n", "2", "-c", "256", "-i",
+                                          "--memory-f32", "--device", dev],
+                               stdin="Tell me more\nAnd then\n")
+        text[dev] = (rc, out, {k: v for k, v in _read(counters).items() if v})
+    check("main -i, two lines on stdin, card vs CPU",
+          text["cuda"][0] == text["cpu"][0] == 0 and text["cuda"][1] == text["cpu"][1]
+          and text["cuda"][1].count(b"\n> ") == 3
+          and text["cuda"][2].get("qmm_q4_0_kfold", 0) > 0,
+          f": card {text['cuda'][1]!r}, CPU {text['cpu'][1]!r}, card launches "
+          f"{json.dumps(text['cuda'][2])}")
+    pfile = os.path.join(tmp, "prompt.txt")
+    with open(pfile, "w") as fh:
+        fh.write("Once upon a time there was a small model on a large card")
+    rc, out, err = _tool_run(main_mod, [*base, "-f", pfile, "--n-keep", "8", "-c", "64",
+                                        "-n", "80", "--ignore-eos"])
+    m = re.search(r"prompt eval time = .* / (\d+) tokens", err)
+    evaluated = int(m.group(1)) if m else 0
+    check("main -f --n-keep 8 -c 64 -n 80 (context swaps)", rc == 0 and evaluated > 64,
+          f": {len(out)} bytes; {evaluated} prompt tokens evaluated (over 64: swapped)")
+    text_file = os.path.join(ROOT, "PAPERS.md")
+    ppl = {}
+    for label, extra in (("host", []), ("--on-device", ["--on-device"])):
+        rc, out, _ = _tool_run(ppl_mod, ["-m", path, "-f", text_file, "-c", "128", "-b", "64",
+                                         "--memory-f32", *extra])
+        m = re.search(rb"Final estimate: PPL = ([0-9.]+) over (\d+) tokens", out)
+        ppl[label] = float(m.group(1)) if rc == 0 and m else float("nan")
+        print(f"cli-session: perplexity {label}: rc={rc} {out.decode().strip()!r}", flush=True)
+    d = abs(np.log(ppl["host"]) - np.log(ppl["--on-device"]))
+    check("perplexity -c 128 -b 64 host vs --on-device on the card (--memory-f32)",
+          d <= 1e-4, f": |d ln ppl| {d:.3e} (limit 1e-4) [{card}]")
+    rc, out, _ = _tool_run(sls_mod, ["-m", path, "-c", "256", "-n", "8"])
+    check("save-load-state", rc == 0 and b"generations identical" in out,
+          f": {out.decode().strip()!r}")
+    return ok
+
+
+def session_phase(torch, counters, card, built, seed: int, launches: dict) -> bool:
+    """The session slice on 7B q4_0 at full depth (the e2e phase's weights):
+    perplexity three ways and like-for-like (session_ppl), the 2-layer model
+    card vs CPU (session_ppl_vs_cpu), state round trips, sessions and the KV
+    shift (session_state), the f8 cache (session_f8) and the tools
+    (session_cli).  The token streams are drawn from seed; the launches of
+    the perplexity and f8 runs are added to launches."""
+    import numpy as np
+
+    from llama_cpp_q_4_0_tpu_torch.kernels.build import BUILD_DIR
+    from llama_cpp_q_4_0_tpu_torch.synth import build_llama
+
+    t0 = time.perf_counter()
+    cfg, params = built or build_llama(device="cuda", seed=0, ftype="q4_0")
+    rng = np.random.default_rng(seed)
+    stream = rng.integers(3, cfg.n_vocab, 4 * 512)
+    prompt = [1] + rng.integers(3, cfg.n_vocab, 511).tolist()
+    tmp = os.path.join(BUILD_DIR, "smoke-session")
+    os.makedirs(tmp, exist_ok=True)
+    try:
+        ok, ppl = session_ppl(torch, counters, card, cfg, params, stream, launches)
+        print(f"time: session perplexity {time.perf_counter() - t0:.1f} s", flush=True)
+        ok &= session_ppl_vs_cpu(torch, seed)
+        print(f"time: session 2-layer {time.perf_counter() - t0:.1f} s", flush=True)
+        ok &= session_state(torch, card, cfg, params, prompt, tmp)
+        print(f"time: session state {time.perf_counter() - t0:.1f} s", flush=True)
+        ok &= session_f8(torch, counters, card, cfg, params, stream, ppl["ondevice"],
+                         launches)
+        print(f"time: session f8 {time.perf_counter() - t0:.1f} s", flush=True)
+        ok &= session_cli(counters, card, tmp)
+        print(f"time: session cli {time.perf_counter() - t0:.1f} s", flush=True)
+        return ok
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def transformer_cache(torch, cfg, dtype):
     """A model's KV caches on the card, n_ctx 2048."""
     from llama_cpp_q_4_0_tpu_torch.models import transformer
@@ -3025,7 +3544,7 @@ def transformer_cache(torch, cfg, dtype):
 
 
 # the phases of the full run, in their order
-FULL_RUN = ("kernels", "e2e", "graphs", "ondevice", "families", "q8chaos", "cli")
+FULL_RUN = ("kernels", "e2e", "graphs", "ondevice", "session", "families", "q8chaos", "cli")
 
 
 def main(argv=None) -> int:
@@ -3033,11 +3552,14 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(FULL_RUN),
-                    help="comma-separated subset of kernels,e2e,graphs,ondevice,families,q8chaos,"
-                         "cli,sass,k7k3,"
+                    help="comma-separated subset of kernels,e2e,graphs,ondevice,session,families,"
+                         "q8chaos,cli,sass,k7k3,"
                          "k7repeat,int8prefill,planes,tiles,attn,gemv,busy,splits; the result "
                          "lines print only for the default " + ",".join(FULL_RUN))
-    phases = set(ap.parse_args(argv).phases.split(","))
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the session phase's token streams")
+    opts = ap.parse_args(argv)
+    phases = set(opts.phases.split(","))
     full = phases == set(FULL_RUN)
     try:
         import torch
@@ -3296,6 +3818,13 @@ def main(argv=None) -> int:
             return fail("on-device decode: a replayed chunk differs from its eager twin, a "
                         "launch count, the per-row chunk or the out-of-range insert")
         elapsed("ondevice")
+    if "session" in phases:
+        if not session_phase(torch, counters, card, q4, opts.seed, launches):
+            return fail("the session slice: a perplexity run (launches, host against "
+                        "on-device, card against CPU), a state restore or session file not "
+                        "continuing bit for bit, the KV shift, the f8 cache's launches, or a "
+                        "tool")
+        elapsed("session")
     del q4
     torch.cuda.empty_cache()
     if "families" in phases:

@@ -7,10 +7,12 @@ import sys
 
 TOOLS = {
     "main": ("generate text (examples/main)", "main"),
+    "perplexity": ("wikitext perplexity gate (examples/perplexity)", "perplexity"),
     "benchmark-matmult": ("quantized vs dense matmul, vdot, HBM read stream",
                           "benchmark"),
     "embedding": ("print the final hidden state of a prompt's last token",
                   "embedding"),
+    "save-load-state": ("state determinism self-test", "save_load_state"),
 }
 
 

@@ -18,7 +18,7 @@ from ..runtime.sampling import SamplingParams
 from ..runtime.tokenizer import Tokenizer, Vocab
 
 CACHE_TYPES = {"bf16": torch.bfloat16, "f32": torch.float32,
-               "f16": torch.float16, "q8": torch.int8}
+               "f16": torch.float16, "f8": torch.float8_e4m3fn, "q8": torch.int8}
 
 
 def ftype_name(ftype: int) -> str:
@@ -36,9 +36,16 @@ def add_model_args(p: argparse.ArgumentParser):
                         "reads as falcon unless named; rwkv is not ported)")
     p.add_argument("-c", "--ctx-size", "--n-ctx", type=int, default=512,
                    dest="n_ctx")
-    p.add_argument("--cache-type", default="bf16", choices=tuple(CACHE_TYPES),
-                   help="KV cache dtype; q8 is scaled int8 (amax/127 per "
-                        "token-head vector)")
+    p.add_argument("-b", "--batch-size", type=int, default=512, dest="n_batch")
+    p.add_argument("--memory-f32", action="store_true",
+                   help="f32 KV cache (default bf16; reference default f16)")
+    p.add_argument("--cache-type", default=None, choices=tuple(CACHE_TYPES),
+                   help="KV cache dtype (default bf16, f32 under --memory-f32); "
+                        "f8 (e4m3) halves KV memory, q8 (scaled int8, amax/127 "
+                        "per token-head vector) quarters it")
+    p.add_argument("-t", "--threads", type=int, default=0,
+                   help="accepted for reference-CLI compatibility (the device "
+                        "manages its own parallelism)")
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu; no silent CPU fallback")
 
@@ -91,12 +98,26 @@ class LoadedModel:
     cfg: ModelConfig
     ctx: Context
     tokenizer: Tokenizer
+    arch: str
     t_load_ms: float
+    # the model file's header (GGSN sessions need the raw llama_hparams
+    # fields and the ftype, formats/ggsn.py)
+    hparams: dict | None = None
+    ftype: int = 0
 
 
-def load_model(args) -> LoadedModel:
+def cache_dtype(args):
+    """The KV cache dtype the flags ask for: --cache-type, else f32 under
+    --memory-f32, else bf16."""
+    if getattr(args, "cache_type", None):
+        return CACHE_TYPES[args.cache_type]
+    return torch.float32 if getattr(args, "memory_f32", False) else torch.bfloat16
+
+
+def load_model(args, *, logits_all: bool = False) -> LoadedModel:
     """File -> params -> context on the requested device: llama, gptneox,
-    falcon or bonsai (RWKV is not ported)."""
+    falcon or bonsai (RWKV is not ported).  logits_all is accepted as the
+    JAX ``load_model`` accepts it: a Context returns every row on request."""
     t0 = time.perf_counter()
     arch = args.arch or detect_arch(args.model)
     if arch == "rwkv":
@@ -105,12 +126,13 @@ def load_model(args) -> LoadedModel:
     cfg = config_from_ggjt(gf, n_ctx=args.n_ctx)
     tokenizer = Tokenizer(Vocab.from_ggjt(gf))
     params = load_transformer(gf, cfg, device=args.device)
-    ctx = Context(cfg, params, n_ctx=args.n_ctx,
-                  cache_dtype=CACHE_TYPES[args.cache_type], device=args.device)
+    ctx = Context(cfg, params, n_ctx=args.n_ctx, cache_dtype=cache_dtype(args),
+                  device=args.device)
     t_load = (time.perf_counter() - t0) * 1e3
     ctx.timings.t_load_ms = t_load
     print(f"{arch}: loaded {args.model} | ftype={ftype_name(gf.ftype)} "
           f"n_vocab={cfg.n_vocab} "
           f"n_embd={cfg.n_embd} n_layer={cfg.n_layer} n_ctx={args.n_ctx} "
           f"device={ctx.device}", file=sys.stderr)
-    return LoadedModel(cfg, ctx, tokenizer, t_load)
+    return LoadedModel(cfg, ctx, tokenizer, arch, t_load, hparams=dict(gf.hparams),
+                       ftype=gf.ftype)

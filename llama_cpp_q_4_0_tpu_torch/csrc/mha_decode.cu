@@ -4,7 +4,8 @@
 // Replaces llama_cpp_q_4_0_tpu/ops/pallas/attention.py::mha_decode
 // (_mha_decode_kernel).  Contract (ops/mha_decode.py): q [B,T,H,D] f32
 // contiguous, T <= 16; K and V [B,S,G,D] int8 (with f32 scales [B,S,G]),
-// bf16, f16 or f32, contiguous inside a batch row, any batch stride (the
+// bf16, f16, f32 or e4m3 (the f8 cache, widened through f16 as each piece
+// leaves the ring), contiguous inside a batch row, any batch stride (the
 // cache[:, :w] window of a larger cache); q_positions [B,T] int64 and
 // kv_mask [B,S] bool, each with its own batch stride (0 when broadcast).
 // out [B,T,H,D] f32.  Query head h reads KV head h / (H/G).  The arithmetic is
@@ -44,6 +45,7 @@
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -124,7 +126,11 @@ __device__ __forceinline__ void load_vals(const uint8_t* p, float (&f)[N]) {
   }
 #pragma unroll
   for (int e = 0; e < N; ++e) {
-    if constexpr (sizeof(T) == 1) {  // signed byte: sign flip, mantissa of 2^23
+    if constexpr (std::is_same<T, __nv_fp8_e4m3>::value) {  // e4m3 -> f16, exact
+      const __half_raw h = __nv_cvt_fp8_to_halfraw(
+          (__nv_fp8_storage_t)((w[e / 4] >> (8 * (e % 4))) & 0xFFu), __NV_E4M3);
+      f[e] = __half2float(__half(h));
+    } else if constexpr (sizeof(T) == 1) {  // signed byte: sign flip, mantissa of 2^23
       f[e] = __int_as_float(__byte_perm(w[e / 4] ^ 0x80808080u, 0x4B000000u, 0x7540 + e % 4))
              - 8388736.0f;
     } else if constexpr (sizeof(T) == 4) {
@@ -158,7 +164,7 @@ struct Args {
 template <typename T, int D, int RB>
 __global__ void __launch_bounds__(THREADS) mha_decode_kernel(const Args a) {
   using Gm = Geo<T, D, RB>;
-  constexpr bool SCALED = sizeof(T) == 1;
+  constexpr bool SCALED = std::is_same<T, int8_t>::value;
   constexpr int CHS = Gm::CHS, PITCH = Gm::PITCH, PIECES = Gm::PIECES, VPP = Gm::VPP;
   constexpr int CPT = Gm::CPT, NCG = Gm::NCG, SG = Gm::SG, TPS = Gm::TPS;
   extern __shared__ __align__(16) uint8_t smem[];
@@ -442,8 +448,9 @@ cudaError_t launch_d(int D, const Args& a, int rb, int splits, int B, cudaStream
 
 extern "C" {
 
-// kv_type: 0 int8 (ks and vs f32 scales), 1 bf16, 2 f16, 3 f32.  kv_bs and
-// sc_bs are the batch strides of K/V and of the scales, in elements.
+// kv_type: 0 int8 (ks and vs f32 scales), 1 bf16, 2 f16, 3 f32, 4 e4m3.
+// kv_bs and sc_bs are the batch strides of K/V and of the scales, in
+// elements.
 // splits (the cluster size, 1..8) and rb (query rows a block: 1, 4, 8 or
 // 16) from ops/mha_decode.py::mha_plan.
 int mha_decode(const void* q, const void* kd, const void* ks, const void* vd,
@@ -464,6 +471,7 @@ int mha_decode(const void* q, const void* kd, const void* ks, const void* vd,
     case 1: return (int)launch_d<__nv_bfloat16>(D, a, rb, splits, B, st);
     case 2: return (int)launch_d<__half>(D, a, rb, splits, B, st);
     case 3: return (int)launch_d<float>(D, a, rb, splits, B, st);
+    case 4: return (int)launch_d<__nv_fp8_e4m3>(D, a, rb, splits, B, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -32,7 +32,7 @@ from typing import Any
 import torch
 
 from .. import resolve_device
-from ..ops.kvcache import QuantKV, quantize_kv
+from ..ops.kvcache import F8, QuantKV, quantize_kv, raw, to_cache
 from ..ops.layers import (act_f16_table, attention, gelu, layer_norm, rms_norm,
                           rms_norm_ref, rope, silu)
 from ..ops.qmatmul import q_matmul, q_matmul_ref_int8
@@ -185,13 +185,13 @@ def _insert_slots(n_past: torch.Tensor, s: int, t: int) -> torch.Tensor:
 
 def _cache_insert(cache, val: torch.Tensor, slots: torch.Tensor):
     """Write val [B, T, H, D] into the cache slots ``_insert_slots`` gives,
-    in place."""
+    in place (an f8 cache through its bytes)."""
     if isinstance(cache, QuantKV):
         q, sc = quantize_kv(val)
         cache.data.index_copy_(1, slots, q)
         cache.scale.index_copy_(1, slots, sc)
     else:
-        cache.index_copy_(1, slots, val.to(cache.dtype))
+        raw(cache).index_copy_(1, slots, raw(to_cache(val, cache.dtype)))
 
 
 def _row_slots(n_past: torch.Tensor, s: int, t: int):
@@ -234,7 +234,7 @@ def _cache_insert_rows(cache, val: torch.Tensor, slots):
     if isinstance(cache, QuantKV):
         pairs = zip((cache.data, cache.scale), quantize_kv(val))
     else:
-        pairs = ((cache, val.to(cache.dtype)),)
+        pairs = ((raw(cache), raw(to_cache(val, cache.dtype))),)
     for buf, v in pairs:
         b = buf.shape[0]
         buf.view(b * s, *buf.shape[2:]).index_copy_(
@@ -254,7 +254,7 @@ def _roundtrip(cache, val: torch.Tensor) -> torch.Tensor:
     if isinstance(cache, QuantKV):
         q, sc = quantize_kv(val)
         return (q.float() * sc[..., None]).contiguous()
-    return val.to(cache.dtype).float().contiguous()
+    return to_cache(val, cache.dtype).float().contiguous()
 
 
 @torch.no_grad()
@@ -337,7 +337,8 @@ def init_cache(cfg: ModelConfig, batch: int, n_ctx: int | None = None,
                dtype=torch.bfloat16, device=None):
     """Preallocated per-layer KV buffers on ``device`` (default cuda; raises
     without CUDA unless device="cpu"); dtype torch.int8 selects the
-    scaled-int8 QuantKV layout, any float dtype a plain cast cache."""
+    scaled-int8 QuantKV layout, any float dtype (torch.float8_e4m3fn
+    included) a plain cast cache."""
     device = resolve_device(device)
     s = n_ctx or cfg.n_ctx
     shape = (batch, s, cfg.kv_heads, cfg.head_dim)
@@ -347,7 +348,8 @@ def init_cache(cfg: ModelConfig, batch: int, n_ctx: int | None = None,
             return QuantKV(torch.zeros(shape, dtype=torch.int8, device=device),
                            torch.zeros(shape[:3], dtype=torch.float32,
                                        device=device))
-        return torch.zeros(shape, dtype=dtype, device=device)
+        return torch.zeros(shape, dtype=torch.uint8 if dtype == F8 else dtype,
+                           device=device).view(dtype)
 
     return ([mk() for _ in range(cfg.n_layer)],
             [mk() for _ in range(cfg.n_layer)])

@@ -162,11 +162,12 @@ def attention(q: torch.Tensor, k_cache, v_cache, q_positions: torch.Tensor,
     or QuantKV; q_positions [B, T] absolute positions; kv_mask [B, S] bool,
     True where a slot holds a valid token.  Returns f32 [B, T, n_head, hd].
 
-    As in the JAX package, a bf16 or int8 cache feeds bf16-rounded operands
-    (q, the stored K/V and the probabilities) to f32-accumulated products,
-    unless ``ATTN_MXU=0``; an f32 cache, or any cache with ``ATTN_MXU=0``,
-    keeps the exact f32 chain.  QuantKV scales multiply the
-    scores (K) and the probabilities (V); query heads are grouped onto their
+    As in the JAX package, a cache of any dtype but f32 (bf16, f16, int8,
+    e4m3) feeds bf16-rounded operands (q, the stored K/V, exact in bf16 for
+    e4m3, and the probabilities) to f32-accumulated products, unless
+    ``ATTN_MXU=0``; an f32 cache, or any cache with ``ATTN_MXU=0``, keeps the
+    exact f32 chain.  QuantKV scales multiply the scores (K) and the
+    probabilities (V); query heads are grouped onto their
     KV head (GQA/MQA) without repeating the cache.  Where ``use_fused_decode``
     holds, the decode attention kernel (ops/mha_decode.py) computes the f32
     chain on the stored values instead.  ``ref_f16_softmax`` (the parity

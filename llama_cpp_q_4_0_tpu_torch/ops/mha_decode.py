@@ -29,7 +29,8 @@ import torch
 NEG = -1e30
 HEAD_DIMS = (64, 128, 256)  # the head widths the kernel is compiled for
 MAX_T = 16
-KV_TYPES = {torch.int8: 0, torch.bfloat16: 1, torch.float16: 2, torch.float32: 3}
+KV_TYPES = {torch.int8: 0, torch.bfloat16: 1, torch.float16: 2, torch.float32: 3,
+            torch.float8_e4m3fn: 4}
 MAX_SPLITS = 8  # the portable cluster size
 MIN_SLICE = 64  # slots a split keeps at least (a sweep of 16, 32, 64 on the H100)
 ROW_BLOCKS = (1, 4, 8, 16)  # query rows a block, compiled instances
@@ -64,8 +65,9 @@ def mha_decode_plain(q: torch.Tensor, kd: torch.Tensor, ks: torch.Tensor | None,
                      vd: torch.Tensor, vs: torch.Tensor | None,
                      q_positions: torch.Tensor, kv_mask: torch.Tensor,
                      scale: float) -> torch.Tensor:
-    """q [B,T,H,D]; kd/vd [B,S,G,D] (ks/vs [B,S,G] f32 for an int8 cache,
-    else None); q_positions [B,T]; kv_mask [B,S] bool -> f32 [B,T,H,D]."""
+    """q [B,T,H,D]; kd/vd [B,S,G,D] int8, bf16, f16, f32 or e4m3 (ks/vs
+    [B,S,G] f32 for an int8 cache, else None); q_positions [B,T]; kv_mask
+    [B,S] bool -> f32 [B,T,H,D]."""
     b, t, h, d = q.shape
     s, g = kd.shape[1], kd.shape[2]
     qg = q.float().reshape(b, t, g, h // g, d)

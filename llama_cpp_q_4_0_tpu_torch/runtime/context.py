@@ -49,6 +49,7 @@ from ..models.config import ModelConfig
 from ..models.transformer import TransformerParams, init_cache
 from ..ops.flash_prefill import flash_prefill
 from ..ops.flash_prefill import launches as _flash_launches
+from ..ops.kvcache import raw
 from ..ops.layers import use_flash_prefill
 from ..ops.mha_decode import launches as _mha_launches
 from ..ops.qmm import launches as _qmm_launches
@@ -281,7 +282,7 @@ class Context:
     def reset(self):
         for c in (*self.cache_k, *self.cache_v):
             if isinstance(c, torch.Tensor):
-                c.zero_()
+                raw(c).zero_()
             else:
                 c.data.zero_()
                 c.scale.zero_()
@@ -441,8 +442,10 @@ class Context:
                 and use_flash_prefill(bt, self.cfg.head_dim, self.device)):
             attn_fn = flash_prefill
         slice_last = not logits_all and bt != t
+        # an empty call (main's bare Enter) keeps row 0, the padding token's:
+        # JAX's dynamic_slice clamps its index -1 to 0
         logits = self._run(StepCall(
-            "eval", padded, self.n_past, t - 1 if slice_last else None,
+            "eval", padded, self.n_past, max(t - 1, 0) if slice_last else None,
             *self._view(bt), last_only=not (logits_all or bt != t),
             kv_window=min(_bucket(self.n_past + t), self.n_ctx),
             attention_fn=attn_fn))

@@ -38,8 +38,9 @@ def _case(cache, t, h, g, *, b=2, s=256, d=64, seed=0, empty_row=False):
         jax_args = (jnp.asarray(jk), jnp.asarray(js), jnp.asarray(jv), jnp.asarray(jvs))
         port_args = tuple(torch.from_numpy(a.copy()) for a in (jk, js, jv, jvs))
     else:
-        jdt = {"f32": jnp.float32, "bf16": jnp.bfloat16}[cache]
-        tdt = {"f32": torch.float32, "bf16": torch.bfloat16}[cache]
+        jdt = {"f32": jnp.float32, "bf16": jnp.bfloat16, "f8": jnp.float8_e4m3fn}[cache]
+        tdt = {"f32": torch.float32, "bf16": torch.bfloat16,
+               "f8": torch.float8_e4m3fn}[cache]
         jax_args = (jnp.asarray(k, jdt), None, jnp.asarray(v, jdt), None)
         port_args = (torch.from_numpy(k).to(tdt), None, torch.from_numpy(v).to(tdt), None)
     return q, pos, mask, jax_args, port_args, 1.0 / np.sqrt(d)
@@ -47,10 +48,12 @@ def _case(cache, t, h, g, *, b=2, s=256, d=64, seed=0, empty_row=False):
 
 @pytest.mark.parametrize("g", [4, 2, 1], ids=["rep1", "rep2", "mqa"])
 @pytest.mark.parametrize("t", [1, 5, 8, 16])
-@pytest.mark.parametrize("cache", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("cache", ["f32", "bf16", "int8", "f8"])
 def test_plain_matches_pallas_interpret(cache, t, g):
-    """Both compute the f32 chain on the stored values; only the f32
-    summation order differs (2e-5, tests/test_fused_attention.py's limit).
+    """Both compute the f32 chain on the stored values (an e4m3 cache
+    included: the JAX kernel reads any float cache through astype(f32));
+    only the f32 summation order differs (2e-5, tests/test_fused_attention.py's
+    limit).
     Batch row 1 has no valid slot in the t=16 cases: both give 0."""
     q, pos, mask, ja, pa, scale = _case(cache, t, 4, g, seed=t + g, empty_row=t == 16)
     want = np.asarray(jax_mha_decode(jnp.asarray(q), *ja, jnp.asarray(pos),
@@ -65,7 +68,7 @@ def test_plain_matches_pallas_interpret(cache, t, g):
 
 @pytest.mark.parametrize("g", [4, 2, 1], ids=["rep1", "rep2", "mqa"])
 @pytest.mark.parametrize("t", [1, 5, 8, 16])
-@pytest.mark.parametrize("cache", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("cache", ["f32", "bf16", "int8", "f8"])
 def test_split_plain_matches_pallas_interpret(cache, t, g):
     """The kernel's order in plain torch (mha_plan's slices, each slice's
     (m, l, acc) alone, merged in rank order) against the JAX kernel in
@@ -163,7 +166,7 @@ def test_attention_routes_to_mha_decode(monkeypatch):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("cache", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("cache", ["f32", "bf16", "int8", "f8"])
 @pytest.mark.parametrize("t,h,g,d", [(1, 32, 32, 128), (8, 32, 32, 128), (8, 32, 8, 128),
                                      (16, 8, 1, 256), (3, 8, 4, 64)])
 def test_kernel_matches_plain_on_card(cache, t, h, g, d):

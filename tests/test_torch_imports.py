@@ -56,7 +56,8 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert out["leaked"] == []
     for m in ("ops.qmm", "ops.flash_prefill", "ops.mha_decode", "ops.stream",
               "kernels.build", "runtime.context", "runtime.device_sample", "cli.main",
-              "cli.benchmark",
+              "cli.benchmark", "runtime.session", "runtime.perplexity", "formats.ggsn",
+              "cli.console", "cli.perplexity", "cli.save_load_state",
               "quant.registry", "convert", "synth"):
         assert f"llama_cpp_q_4_0_tpu_torch.{m}" in out["mods"], m
     if not out["cuda"]:

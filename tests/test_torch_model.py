@@ -150,6 +150,42 @@ def _to_numpy_tree(params):
     }
 
 
+@pytest.mark.parametrize("mode", ["float32", "bfloat16"])
+def test_f8_cache_matches_jax(path, mode):
+    """An e4m3 cache (--cache-type f8) against the JAX package's
+    jnp.float8_e4m3fn cache, a prefill and three decode steps: the logits
+    within the bf16-cache limit of test_prefill_equals_incremental (1e-2;
+    both feed bf16 operands to attention over a non-f32 cache) and the
+    cache bytes equal after every insert (the JAX insert is a plain cast)."""
+    jcfg, jp = _jax(path, mode, 128)
+    tcfg, tp = _port(path, mode, 128)
+    jctx = JaxContext(jcfg, jp, n_ctx=128, cache_dtype=jnp.float8_e4m3fn)
+    tctx = Context(tcfg, tp, n_ctx=128, cache_dtype=torch.float8_e4m3fn, device="cpu")
+    for toks in (PROMPT, [3], [100], [200]):
+        a, b = jctx.eval(np.asarray([toks])), tctx.eval(np.asarray([toks]))
+        np.testing.assert_allclose(b, a, rtol=0, atol=1e-2)
+        for jc, tc in zip((*jctx.cache_k, *jctx.cache_v), (*tctx.cache_k, *tctx.cache_v)):
+            assert tc.dtype == torch.float8_e4m3fn
+            np.testing.assert_array_equal(tc.view(torch.uint8).numpy(),
+                                          np.asarray(jc).view(np.uint8))
+
+
+def test_f8_cast_is_the_jax_cast():
+    """to_f8 rounds as the JAX cast (nearest even, subnormals) and gives NaN
+    beyond 464, where PyTorch's own CPU cast saturates at 448."""
+    from llama_cpp_q_4_0_tpu_torch.ops.kvcache import to_f8
+
+    rng = np.random.default_rng(0)
+    x = (rng.standard_normal(20000) * np.exp(rng.uniform(-14, 7, 20000))).astype(np.float32)
+    x = np.concatenate([x, [448.0, 460.0, 464.0, 464.1, 500.0, -1e4, np.inf, np.nan, 0.0,
+                            -0.0]]).astype(np.float32)
+    want = np.asarray(jnp.asarray(x).astype(jnp.float8_e4m3fn)).view(np.uint8)
+    got = to_f8(torch.from_numpy(x)).view(torch.uint8).numpy()
+    nan = np.isnan(np.asarray(jnp.asarray(x).astype(jnp.float8_e4m3fn)).astype(np.float32))
+    np.testing.assert_array_equal(got[~nan], want[~nan])
+    assert np.isnan(to_f8(torch.from_numpy(x)).float().numpy()[nan]).all()
+
+
 def test_params_from_numpy_matches_loader(path):
     """The JAX package's fused params, handed over as numpy, give the port
     exactly the logits of its own loader (the same bytes)."""
