@@ -126,7 +126,28 @@ Phases (each prints its own lines; any failure exits non-zero):
      its perplexity; the tools on a 2-layer 7B-width GGJT: main
      --prompt-cache (zip, .ggsn) twice, main -i card vs CPU, main -f --n-keep
      with context swaps, perplexity (host and --on-device), save-load-state.
-  7. families: the GPT-NeoX, Falcon and Bonsai families (synthetic q4_0,
+  7. spec: speculative decoding and LoRA on 7B q4_0 (the e2e phase's weights,
+     n_ctx 1024, bf16 cache; a 512-token prompt of a 64-token pattern from
+     --seed, 128 greedy tokens): the plain on-device chunk (the reference
+     tokens) and the replayed step, then the host loop generate_speculative,
+     generate_ondevice_spec (k 7, n_steps 8), generate_ondevice_spec_draft
+     with the target as its own draft, with its first 2 blocks as the draft
+     and with a 2-layer model of other weights (32 tokens; every draft
+     rejected); every verify or round against its eager twin on twin caches
+     bit for bit, the caches after the run equal and never rebound, each
+     verify round's launches exact (129 K2 at 8 rows; 1,161 a self-draft
+     round, 201 a 2-layer-draft round), the greedy tokens equal to the plain
+     chunk's or parting at a near-tie (the plain logits' top-2 margin below
+     the largest verify-decode difference there), ms per emitted token and
+     tokens per verify, a verify round and a decode step under the profiler;
+     the int8 configuration 128 + 64 through generate_ondevice_spec (129 K7 +
+     32 K4 a round); an unmerged rank-16 adapter on wq, wk, wv and wo of the
+     32 blocks (replayed decode ms/token with it and without, 193 K2 a token,
+     the bases untouched); on the tools phase's 2-layer 7B-width GGJT `main
+     --lora` merged and --lora-unmerged, card against CPU (the CPU runs in
+     child processes meanwhile), and EmbdInput over the adapter card against
+     CPU.
+  8. families: the GPT-NeoX, Falcon and Bonsai families (synthetic q4_0,
      every step a replayed graph held against its eager twin bit for bit,
      512 + 64 on a bf16 cache and 128 + 16 in the int8 configuration): GPT-NeoX
      at StableLM-Base-Alpha-7B widths, 16 layers (65 K2 a token, 64 K1 + 16
@@ -140,18 +161,18 @@ Phases (each prints its own lines; any failure exits non-zero):
      and 2048, int8 and bf16 caches) against its plain version; `main --arch
      bonsai` and `embedding` on a Bonsai file of formats/fixtures.py, card
      against CPU.
-  8. q8chaos (printed, not gated): the 2-layer q8_0 model of the e2e phase,
+  9. q8chaos (printed, not gated): the 2-layer q8_0 model of the e2e phase,
      each op of a 128-token prefill and a decode step on the card and on the
      CPU's f32 plain path, against an f64 forward of the same weights.
-  9. the `main` CLI answers prompts from GGJT files at 7B width (2 layers,
+  10. the `main` CLI answers prompts from GGJT files at 7B width (2 layers,
      32000-entry vocab) written by the port's own GGJTWriter: q4_0 (also in
      the int8 configuration, and the `embedding` tool), Q4_K_M and Q3_K_M
      from random k-quant blocks; `benchmark-matmult` (default, QMM_Q8X=1,
      --vdot, --stream, --stream-sweep).
-  10. a JSON line of per-kernel numbers (launches: the e2e paths' and the
-     families'), then the contract line
+  11. a JSON line of per-kernel numbers (launches: the e2e paths', the
+     families', the session and spec phases'), then the contract line
      {"ok": true, "device": {...}}.
-``--phases kernels,e2e,graphs,ondevice,session,families,q8chaos,cli`` runs a subset
+``--phases kernels,e2e,graphs,ondevice,session,spec,families,q8chaos,cli`` runs a subset
 (for debugging: a subset prints no result lines; with no arguments every phase runs).  Phases that run only
 when named: ``sass`` (instruction counts of K7's and K3's kernels and of
 the decode GEMV's and K4's instances), ``gemv`` (check_gemv alone),
@@ -3543,8 +3564,625 @@ def transformer_cache(torch, cfg, dtype):
     return transformer.init_cache(cfg, 1, cfg.n_ctx, dtype=dtype, device="cuda")
 
 
+# ------------------------------------------------------------------- spec
+
+SPEC_K, SPEC_STEPS = 7, 8  # drafts a verify (T = 8 rows), rounds a chunk
+# the launches of one verify forward of 7B q4_0 (4 matmuls a layer and the
+# head, each at k+1 rows), and in the int8 configuration
+SPEC_VERIFY = {"qmm_q4_0_kfold": 129}
+SPEC_VERIFY_INT8 = {"qmm_q8x": 129, "mha_decode": 32}
+
+
+def spec_prompt(seed: int, n_vocab: int, n: int = 512):
+    """n token ids from seed: a 64-token pattern repeated, so that prompt
+    lookup finds matches."""
+    import numpy as np
+
+    pattern = np.random.default_rng(seed).integers(3, n_vocab, 64).tolist()
+    return (pattern * (n // 64 + 1))[:n]
+
+
+def _clone_caches(caches):
+    from llama_cpp_q_4_0_tpu_torch.ops.kvcache import QuantKV
+
+    return [QuantKV(c.data.clone(), c.scale.clone()) if isinstance(c, QuantKV) else c.clone()
+            for c in caches]
+
+
+def spec_twin(torch, counters, ctx, method, eager, log, draft=None):
+    """Wrap ctx.<method> (verify, spec_chunk or draft_spec_chunk): each call
+    also runs eager(twins, *args, **kw), the graph's eager twin (the round
+    functions of runtime/device_spec.py, speculative.verify_step), on twin
+    caches from the same inputs; the twins take the Contexts' caches at the
+    first call, after the prefill.  Every result must equal the call's bit
+    for bit (log["equal"]); the caller compares the caches after the run
+    (spec_caches_equal).  The launches of each call are counted alone (the
+    twin's apart) into log["path"] and, per verify round, log["rounds"].
+    Returns the function that takes the wrapper off."""
+    real = getattr(ctx, method)
+    ctxs = [ctx] + ([draft] if draft is not None else [])
+
+    def checked(*a, **kw):
+        if log["twins"] is None:
+            log["twins"] = [(_clone_caches(c.cache_k), _clone_caches(c.cache_v)) for c in ctxs]
+        _add(log["path"], _read(counters))  # the prefill's, outside the wrapper
+        captured = len(ctx.graphs())
+        _zero(counters)
+        got = real(*a, **kw)
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in _read(counters).items() if v}
+        _add(log["path"], launched)
+        _zero(counters)
+        want = eager(log["twins"], *a, **kw)
+        torch.cuda.synchronize()
+        _zero(counters)
+        rounds = kw.get("n_steps", 1)
+        log["calls"] += 1
+        log["equal"] += all(torch.equal(torch.as_tensor(g).cuda(), w) for g, w in zip(got, want))
+        log["replayed"] += len(ctx.graphs()) == captured
+        log["rounds"].append({k: v / rounds for k, v in launched.items()})
+        log["rows"].add(kw["k"] + 1 if "k" in kw else a[0].shape[1])
+        log["windows"].add(kw["kv_window"])
+        return got
+
+    setattr(ctx, method, checked)
+    return lambda: delattr(ctx, method)
+
+
+def spec_caches_equal(torch, log, ctxs) -> bool:
+    """The Contexts' caches equal their twins' after a checked run."""
+    return all(torch.equal(a, b) for c, (tk, tv) in zip(ctxs, log["twins"])
+               for a, b in zip(_flat_cache(c.cache_k + c.cache_v), _flat_cache(tk + tv)))
+
+
+def _new_log():
+    return {"twins": None, "calls": 0, "equal": 0, "replayed": 0, "rounds": [], "rows": set(),
+            "windows": set(), "path": {}}
+
+
+def timed_run(ctxs, fn):
+    """fn() with the time of every ctx.eval call (the prefills) apart:
+    (fn's result, seconds of fn, seconds outside the evals)."""
+    spent = [0.0]
+    evals = [c.eval for c in ctxs]
+
+    def wrap(real):
+        def timed(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return real(*a, **kw)
+            finally:
+                spent[0] += time.perf_counter() - t0
+        return timed
+
+    for c, real in zip(ctxs, evals):
+        c.eval = wrap(real)
+    t0 = time.perf_counter()
+    try:
+        out = fn()
+    finally:
+        for c in ctxs:
+            del c.eval
+    total = time.perf_counter() - t0
+    return out, total, total - spent[0]
+
+
+def spec_parting(torch, cfg, params, prompt, ref, got, cache_dtype, window):
+    """Where a speculative run's greedy tokens got part from the plain
+    chunk's ref: (ok, text).  Equal: ok.  Else at the first difference p the
+    plain replayed decode step's logits (Context.eval of ref[:p] one token a
+    step after the prompt) give the top-2 margin, and verify forwards of 8
+    rows whose row j predicts p (j = 0..7; the accepted prefix ref before
+    it, the run's own tokens after) the largest |verify - decode| logit
+    difference there; ok only when the margin is below that difference (a
+    true near-tie)."""
+    import numpy as np
+
+    from llama_cpp_q_4_0_tpu_torch.models import transformer
+    from llama_cpp_q_4_0_tpu_torch.runtime.context import Context
+
+    p = next((i for i, (a, b) in enumerate(zip(ref, got)) if a != b), None)
+    if p is None:
+        return len(got) == len(ref), f"equal to the plain chunk's {len(ref)} greedy tokens"
+    ctx = Context(cfg, params, n_ctx=1024, device="cuda", cache_dtype=cache_dtype)
+    ctx.eval([prompt])
+    for t in ref[:p]:
+        ctx.eval([[t]])
+    dec = ctx.logits[0, -1]
+    top = np.sort(dec)[::-1]
+    margin = float(top[0] - top[1])
+    saved = _clone_caches(ctx.cache_k + ctx.cache_v)
+    seq = list(prompt) + list(ref[:p]) + list(got[p:]) + [0] * 8
+    diff = 0.0
+    for j in range(8):
+        start = len(prompt) + p - 1 - j
+        toks = torch.tensor([seq[start:start + 8]], device="cuda")
+        logits = transformer.forward(cfg, ctx.params, toks, start, ctx.cache_k, ctx.cache_v,
+                                     last_only=False, kv_window=window)
+        diff = max(diff, float(np.abs(logits[0, j].float().cpu().numpy() - dec).max()))
+        for a, b in zip(_flat_cache(ctx.cache_k + ctx.cache_v), _flat_cache(saved)):
+            a.copy_(b)
+    del ctx, saved
+    torch.cuda.empty_cache()
+    return margin < diff, (f"parts from the plain chunk at token {p} of {len(ref)} ({ref[p]} "
+                           f"vs {got[p]}): the plain logits' top-2 margin {margin:.6f} against "
+                           f"the largest |verify - decode| logit difference there {diff:.6f}"
+                           f" ({'a near-tie' if margin < diff else 'NOT a near-tie'})")
+
+
+def spec_trace(torch, card, run_chunk, n: int, label: str, unit: str) -> None:
+    """torch.profiler over one call of run_chunk (n rounds or decode steps
+    replayed; a first call captures, a second is timed unprofiled): device
+    busy a unit against the host time a unit of the unprofiled call (idle
+    share) and of the profiled one, and the kernels that take it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    run_chunk()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run_chunk()
+    torch.cuda.synchronize()
+    plain = (time.perf_counter() - t0) * 1e3 / n
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run_chunk()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / n
+    rows = _kernel_rows(prof, n)
+    if not rows:
+        print(f"trace: {label}: the profiler recorded no kernel time (not measured)", flush=True)
+        return
+    busy = sum(r[0] for r in rows)
+    print(f"trace: {label}: device busy {busy:.3f} ms a {unit} of {plain:.3f} ms a {unit} on the "
+          f"host clock unprofiled (idle {100 * (1 - busy / plain):.1f}%; profiled {wall:.3f}), "
+          f"{sum(r[1] for r in rows)} kernels a {unit} [{card}]", flush=True)
+    for ms, k, kname in rows[:6]:
+        print(f"trace:   {ms:8.4f} ms/{unit}  x{k:<4d} {kname[:90]}", flush=True)
+
+
+def spec_loop(torch, counters, card, cfg, params, label, run, prompt, ref, method, eager,
+              want_round, cache_dtype, window, draft_cfg=None, draft_params=None):
+    """One speculative loop on 7B: run(ctx, draft_ctx, stats) -> tokens, on a
+    fresh Context (n_ctx 1024; and a draft Context when draft_cfg is given),
+    first checked (spec_twin on ctx.<method>: every call equal to its eager
+    twin bit for bit, the caches after the run, each verify round's launches
+    equal to want_round, the greedy tokens against ref through spec_parting),
+    then again timed: ms a token emitted after the first (the prefills
+    apart).  Returns (ok, ms a token, the SpecStats, the path's launches,
+    the Contexts)."""
+    from llama_cpp_q_4_0_tpu_torch.runtime.context import Context
+    from llama_cpp_q_4_0_tpu_torch.runtime.speculative import SpecStats
+
+    ctx = Context(cfg, params, n_ctx=1024, device="cuda", cache_dtype=cache_dtype)
+    dctx = (None if draft_cfg is None else
+            Context(draft_cfg, draft_params, n_ctx=1024, device="cuda", cache_dtype=cache_dtype))
+    ctxs = [c for c in (ctx, dctx) if c is not None]
+    ptrs = [_cache_ptrs(c) for c in ctxs]
+    log = _new_log()
+    _zero(counters)
+    off = spec_twin(torch, counters, ctx, method, eager, log, draft=dctx)
+    t0 = time.perf_counter()
+    stats = SpecStats()
+    toks = run(ctx, dctx, stats)
+    seconds = time.perf_counter() - t0
+    off()
+    _add(log["path"], _read(counters))
+    same_cache = spec_caches_equal(torch, log, ctxs)
+    rounds_ok = all(r == want_round for r in log["rounds"])
+    near, parting = spec_parting(torch, cfg, params, prompt, ref, toks, cache_dtype, window)
+    for c in ctxs:
+        c.reset()
+    timed_stats = SpecStats()
+    again, total, after = timed_run(ctxs, lambda: run(ctx, dctx, timed_stats))
+    ms = after / max(1, len(again) - 1) * 1e3
+    same_ptrs = [_cache_ptrs(c) for c in ctxs] == ptrs
+    ok = (log["calls"] > 0 and log["equal"] == log["calls"] and log["replayed"] > 0
+          and same_cache and rounds_ok and near and again == toks and same_ptrs
+          and len(toks) == len(ref))
+    print(f"spec: {label}: {log['calls']} {method} calls ({seconds:.1f} s with the eager twin), "
+          f"{log['replayed']} replayed; results equal to the eager twin bit for bit at "
+          f"{log['equal']} of {log['calls']}; caches identical {same_cache}, never rebound "
+          f"{same_ptrs}; a verify round's launches {json.dumps(log['rounds'][-1] if log['rounds'] else {})} "
+          f"at {sorted(log['rows'])} rows (want {json.dumps(want_round)} every round: "
+          f"{rounds_ok}); kv_window {sorted(log['windows'])}; {parting}; the timed run's tokens "
+          f"the same {again == toks} {'ok' if ok else 'MISMATCH'}", flush=True)
+    print(f"bench: spec {label} ms_per_emitted_token={ms:.3f} ({len(again) - 1} tokens after "
+          f"the first in {after * 1e3:.1f} ms, prefills apart; {total * 1e3:.1f} ms in all); "
+          f"{timed_stats.tokens_per_step:.3f} tokens per verify, acceptance "
+          f"{timed_stats.acceptance:.3f} ({timed_stats.n_accepted}/{timed_stats.n_drafted}), "
+          f"{timed_stats.n_verify} verifies [{card}]", flush=True)
+    print(f"graphs: spec {label} {graph_summary(ctx)}", flush=True)
+    return ok, ms, timed_stats, log["path"], ctx, dctx
+
+
+def spec_plain(torch, card, cfg, params, prompt, n, cache_dtype):
+    """The plain greedy references on a fresh Context (n_ctx 1024): the
+    on-device chunk (generate_ondevice, chunk 16; its tokens are the
+    speculative runs' reference), then timed again (ms a token: the
+    decode_chunk calls over their tokens), and the host loop generate of the
+    replayed step (Timings.t_eval_ms a decode token).  Returns (tokens,
+    chunk ms a token, step ms a token, the Context)."""
+    from llama_cpp_q_4_0_tpu_torch.runtime.context import Context
+    from llama_cpp_q_4_0_tpu_torch.runtime.device_sample import DeviceSampling, generate_ondevice
+    from llama_cpp_q_4_0_tpu_torch.runtime.generate import GenerateParams, generate
+    from llama_cpp_q_4_0_tpu_torch.runtime.sampling import SamplingParams
+
+    ctx = Context(cfg, params, n_ctx=1024, device="cuda", cache_dtype=cache_dtype)
+    ds = DeviceSampling(temp=-1.0)
+    ref = generate_ondevice(ctx, prompt, n, sampling=ds, chunk=16, eos_token=-1)
+    ctx.reset()
+    real, spent = ctx.decode_chunk, []
+
+    def timed(*a, **kw):
+        t0 = time.perf_counter()
+        out = real(*a, **kw)
+        spent.append((time.perf_counter() - t0, kw["n_steps"]))
+        return out
+
+    ctx.decode_chunk = timed
+    again = generate_ondevice(ctx, prompt, n, sampling=ds, chunk=16, eos_token=-1)
+    del ctx.decode_chunk
+    chunk_ms = sum(t for t, _ in spent) / sum(s for _, s in spent) * 1e3
+    ctx.reset()
+    ctx.timings = type(ctx.timings)()
+    greedy = SamplingParams(temp=0.0, top_k=0, repeat_penalty=1.0, repeat_last_n=0)
+    host = list(generate(ctx, prompt, GenerateParams(n_predict=n, ignore_eos=True,
+                                                     sampling=greedy), eos_token=-1))
+    step_ms = ctx.timings.t_eval_ms / ctx.timings.n_eval
+    agree = next((i for i, (a, b) in enumerate(zip(ref, host)) if a != b), len(ref))
+    print(f"bench: spec plain references ({len(prompt)} + {n}): on-device chunk 16 "
+          f"{chunk_ms:.3f} ms/token (tokens the same again {again == ref}); the replayed step "
+          f"through generate {step_ms:.3f} ms/token (greedy tokens agreeing with the chunk's "
+          f"before the first difference: {agree} of {n}) [{card}]", flush=True)
+    return ref, chunk_ms, step_ms, ctx
+
+
+def spec_runs(torch, counters, card, cfg, params, prompt, n, cache_dtype, want, loops, tag):
+    """The plain references, then each speculative loop of loops (names of
+    "host", "ondevice", "self_draft", "draft_2layer", "draft_other": the
+    host loop, prompt lookup on the card, the target as its own draft, its
+    first 2 blocks as the draft, a 2-layer model of other weights as the
+    draft) through spec_loop on them; the on-device loop's round and the
+    plain chunk's decode step then under the profiler.  Returns (ok, the
+    path's launches)."""
+    import dataclasses
+
+    import numpy as np
+
+    from llama_cpp_q_4_0_tpu_torch.models.transformer import TransformerParams
+    from llama_cpp_q_4_0_tpu_torch.runtime import device_spec, speculative
+    from llama_cpp_q_4_0_tpu_torch.runtime.context import _bucket
+    from llama_cpp_q_4_0_tpu_torch.runtime.device_sample import DeviceSampling, prng_key
+    from llama_cpp_q_4_0_tpu_torch.synth import build_llama
+
+    ds = DeviceSampling(temp=-1.0)
+    # the kv_window of every call of the runs: the bucket of the run's end
+    window = min(_bucket(len(prompt) + n + 1), 1024)
+    sp = speculative.SpecParams(n_draft=SPEC_K)
+    ref, chunk_ms, step_ms, plain = spec_plain(torch, card, cfg, params, prompt, n, cache_dtype)
+    path = {}
+    ok = True
+
+    def verify_twin(tw, tokens, n_past, key, recent=None, *, ds, kv_window):
+        x = torch.from_numpy(np.atleast_2d(np.asarray(tokens, np.int64))).cuda()
+        return speculative.verify_step(cfg, params, x, n_past, tw[0][0], tw[0][1], key,
+                                       recent if ds.penalized else None, ds=ds,
+                                       kv_window=kv_window)
+
+    def chunk_twin(tw, hist, n_hist, key, done, sv=None, **kw):
+        out = device_spec.spec_chunk(cfg, params, hist, n_hist, tw[0][0], tw[0][1], key, done,
+                                     sv, **kw)
+        return tuple(out[i] for i in (0, 1, 4, 5, 6, 7, 8))
+
+    def draft_twin(tw, draft, tok, n_past, key, done, recent, **kw):
+        out = device_spec.draft_spec_chunk(cfg, params, draft.cfg, draft.params, tok, n_past,
+                                           tw[0][0], tw[0][1], tw[1][0], tw[1][1], key, done,
+                                           recent, **kw)
+        return tuple(out[i] for i in (0, 1, 6, 7, 8, 9, 10))
+
+    two = TransformerParams(tok_embeddings=params.tok_embeddings, blocks=params.blocks[:2],
+                            out_norm_w=params.out_norm_w, out_norm_b=params.out_norm_b,
+                            output=params.output)
+    other = build_llama(n_layer=2, n_embd=cfg.n_embd, n_head=cfg.n_head, n_ff=cfg.n_ff,
+                        n_vocab=cfg.n_vocab, device="cuda", seed=1, ftype="q4_0") \
+        if "draft_other" in loops else (None, None)
+    def host(c, d, st, cnt):
+        return speculative.generate_speculative(c, prompt, cnt, sampling=ds, spec=sp,
+                                                ignore_eos=True, stats=st)
+
+    def ondevice(c, d, st, cnt):
+        return device_spec.generate_ondevice_spec(c, prompt, cnt, sampling=ds, spec=sp,
+                                                  n_steps=SPEC_STEPS, ignore_eos=True, stats=st)
+
+    def drafted(c, d, st, cnt):
+        return device_spec.generate_ondevice_spec_draft(c, d, prompt, cnt, sampling=ds,
+                                                        n_draft=SPEC_K, n_steps=SPEC_STEPS,
+                                                        ignore_eos=True, stats=st)
+
+    small = {"qmm_q4_0_kfold": 129 + (SPEC_K + 1) * 9}  # 8 steps of a 2-layer draft, a verify
+    # name: (label, the Context method checked, its eager twin, a round's launches, the
+    # draft model, the loop, the tokens it generates)
+    table = {
+        "host": ("host loop (generate_speculative, prompt lookup, k 7)", "verify", verify_twin,
+                 want, None, None, host, n),
+        "ondevice": ("generate_ondevice_spec (k 7, n_steps 8)", "spec_chunk", chunk_twin, want,
+                     None, None, ondevice, n),
+        "self_draft": ("generate_ondevice_spec_draft, the target as its own draft",
+                       "draft_spec_chunk", draft_twin,
+                       {k: v * (SPEC_K + 2) for k, v in want.items()}, cfg, params, drafted, n),
+        "draft_2layer": ("generate_ondevice_spec_draft, a 2-layer draft of the target's first "
+                         "blocks", "draft_spec_chunk", draft_twin, small,
+                         dataclasses.replace(cfg, n_layer=2), two, drafted, n),
+        # every draft rejected: a round a token, so 32 tokens
+        "draft_other": ("generate_ondevice_spec_draft, a 2-layer draft of other weights (seed "
+                        "1)", "draft_spec_chunk", draft_twin, small, other[0], other[1], drafted,
+                        32),
+    }
+    res = {}
+    for name in loops:
+        label, method, eager, want_round, dcfg, dparams, loop, cnt = table[name]
+        good, ms, st, launched, ctx, dctx = spec_loop(
+            torch, counters, card, cfg, params, f"{tag} {label}",
+            lambda c, d, st, loop=loop, cnt=cnt: loop(c, d, st, cnt), prompt, ref[:cnt], method,
+            eager, want_round, cache_dtype, window, dcfg, dparams)
+        ok &= good
+        _add(path, launched)
+        res[name] = (ms, st)
+        if name == "ondevice":
+            # one chunk of 8 rounds replayed under the profiler, from the run's end
+            hist = torch.zeros((1, 1024), dtype=torch.int64, device="cuda")
+            seq = list(prompt) + ref
+            hist[0, :len(seq)] = torch.tensor(seq)
+            m = torch.tensor([len(seq) - 64], device="cuda")
+            kw = dict(k=SPEC_K, n_steps=SPEC_STEPS, ds=ds, kv_window=window, max_ngram=3,
+                      min_ngram=1, eos=-1, ignore_eos=True)
+            spec_trace(torch, card, lambda: ctx.spec_chunk(
+                hist, m, prng_key(0, "cuda"), torch.zeros(1, dtype=torch.bool, device="cuda"),
+                **kw), SPEC_STEPS, f"spec {tag} a verify round (generate_ondevice_spec's graph, "
+                f"T=8, kv_window {window})", "round")
+        del ctx, dctx
+        torch.cuda.empty_cache()
+    tok = torch.full((1,), ref[-1], dtype=torch.int64, device="cuda")
+    spec_trace(torch, card, lambda: plain.decode_chunk(
+        tok, len(prompt) + 32, prng_key(0, "cuda"), n_steps=16, ds=ds, kv_window=window), 16,
+        f"spec {tag} a plain decode step (the on-device chunk's graph, kv_window {window})",
+        "token")
+    del plain
+    torch.cuda.empty_cache()
+    line = "; ".join(f"{k} {ms:.3f} ({st.tokens_per_step:.2f} tokens/verify)"
+                     for k, (ms, st) in res.items())
+    print(f"bench: spec {tag} ms per emitted token: {line}; beside the replayed step "
+          f"{step_ms:.3f} and the on-device chunk {chunk_ms:.3f} [{card}]", flush=True)
+    return ok, path
+
+
+def lora_tensors(seed: int, n_layer: int, e: int = 4096, r: int = 16):
+    """A rank-r ggla adapter's tensors from seed on wq, wk, wv and wo of
+    every block (A stored [K, r], B [N, r]; deltas of the weights' size)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    out = {}
+    for layer in range(n_layer):
+        for name in ("wq", "wk", "wv", "wo"):
+            base = f"layers.{layer}.attention.{name}.weight"
+            out[base + ".loraA"] = (rng.standard_normal((e, r)) * 0.02).astype(np.float32)
+            out[base + ".loraB"] = (rng.standard_normal((e, r)) * 0.02).astype(np.float32)
+    return out
+
+
+def spec_lora_7b(torch, counters, card, cfg, params, seed) -> bool:
+    """The unmerged adapter (lora_tensors, 32 blocks) on the 32-layer
+    synthetic model: the replayed decode step's ms/token with the adapter
+    and without it (kv_window 256, n_past 128), the adapted step's launches
+    (each of wq, wk, wv unfused: 193 K2 a token), and the bases untouched
+    (the same tensors, data_ptr and bytes)."""
+    import statistics
+
+    from llama_cpp_q_4_0_tpu_torch.formats.ggla import GglaFile
+    from llama_cpp_q_4_0_tpu_torch.models.fuse import defuse_projections, fuse_projections
+    from llama_cpp_q_4_0_tpu_torch.models.lora import apply_lora
+    from llama_cpp_q_4_0_tpu_torch.runtime.context import Context
+
+    base = defuse_projections(cfg, params)
+    before = {(i, f): (getattr(b, f), getattr(b, f).levels_t.data_ptr(),
+                       getattr(b, f).levels_t.clone())
+              for i, b in enumerate(base.blocks) if i in (0, 31) for f in ("wq", "wo")}
+    adapted = fuse_projections(cfg, apply_lora(
+        base, GglaFile(16, 32, lora_tensors(seed, cfg.n_layer, cfg.n_embd)), merge=False))
+    ms = {}
+    for label, p in (("without", params), ("with", adapted)):
+        ctx = Context(cfg, p, n_ctx=1024, device="cuda")
+        runs = []
+        for i in range(4):
+            ctx.n_past = 128
+            _zero(counters)
+            t0 = time.perf_counter()
+            for _ in range(64):
+                ctx.eval([[7]])
+            if i:
+                runs.append((time.perf_counter() - t0) / 64 * 1e3)
+        per_token = {k: v // 64 for k, v in _read(counters).items() if v}
+        ms[label] = (statistics.median(runs), per_token)
+        del ctx
+    untouched = all(adapted.blocks[i].__dict__[f].base is w and w.levels_t.data_ptr() == ptr
+                    and torch.equal(w.levels_t, saved)
+                    for (i, f), (w, ptr, saved) in before.items())
+    ok = (untouched and ms["with"][1] == {"qmm_q4_0_kfold": 6 * cfg.n_layer + 1}
+          and ms["without"][1] == {"qmm_q4_0_kfold": 4 * cfg.n_layer + 1})
+    print(f"bench: spec lora 7B q4_0 replayed decode_ms_per_token (kv_window 256, n_past 128-191) "
+          f"with an unmerged rank-16 adapter on wq, wk, wv, wo of 32 blocks "
+          f"{ms['with'][0]:.3f} (launches a token {json.dumps(ms['with'][1])}), without "
+          f"{ms['without'][0]:.3f} ({json.dumps(ms['without'][1])}); the bases untouched (the "
+          f"same tensors, data_ptr and bytes) {untouched} {'ok' if ok else 'MISMATCH'} [{card}]",
+          flush=True)
+    del adapted, base
+    torch.cuda.empty_cache()
+    return ok
+
+
+def spec_cli(counters, path) -> bool:
+    """`main --draft 7` on the card, greedy, 24 tokens of the GGJT at path:
+    the host loop, --ondevice-sampling (the loop on the card) and
+    --draft-model (the file as its own draft), each with rc 0, its stats
+    line and K2 launched; the text beside plain `main`'s (printed)."""
+    from llama_cpp_q_4_0_tpu_torch.cli import main as main_mod
+
+    base = ["-m", path, "-p", "Once upon a time", "-n", "24", "-c", "256", "--temp", "0",
+            "-s", "1", "--ignore-eos", "--device", "cuda"]
+    _, plain, _ = _tool_run(main_mod, base)
+    ok = True
+    for extra in (["--draft", "7"], ["--draft", "7", "--ondevice-sampling"],
+                  ["--draft", "7", "--draft-model", path, "--ondevice-sampling"]):
+        _zero(counters)
+        rc, out, err = _tool_run(main_mod, [*base, *extra])
+        launched = {k: v for k, v in _read(counters).items() if v}
+        stats = next((l for l in err.splitlines() if l.startswith("speculative:")), None)
+        good = rc == 0 and stats is not None and launched.get("qmm_q4_0_kfold", 0) > 0
+        ok &= good
+        print(f"spec: main {' '.join(extra)} -n 24 on the card: rc {rc}, {stats!r}, launches "
+              f"{json.dumps(launched)}; text the same as plain main's {out == plain} "
+              f"{'ok' if good else 'FAILED'}", flush=True)
+    return ok
+
+
+def spec_lora_2layer(torch, counters, seed, tmp) -> bool:
+    """On the tools phase's 2-layer 7B-width q4_0 GGJT (write_ggjt_7b_width):
+    `main --draft` on the card (spec_cli); with a rank-16 ggla adapter on
+    wq, wk, wv and wo of both blocks (lora_tensors): `main --lora` merged
+    and `--lora-unmerged`, -n 3,
+    --memory-f32, on the card in this process and on the CPU in two child
+    processes of 4 threads each that run meanwhile (waited for, or killed on
+    an error), the same text; then, on the unmerged adapted params,
+    EmbdInput (eval_tokens, eval_float of 4 projected rows, generate 2
+    greedy tokens) on the card and on the CPU: the same tokens, and the
+    logits after eval_float within two_layer_vs_cpu's limit (2e-2 of the CPU
+    logits' scale)."""
+    import numpy as np
+
+    from llama_cpp_q_4_0_tpu_torch.cli import main as main_mod
+    from llama_cpp_q_4_0_tpu_torch.formats.ggjt import read_ggjt
+    from llama_cpp_q_4_0_tpu_torch.formats.ggla import write_ggla
+    from llama_cpp_q_4_0_tpu_torch.models.fuse import fuse_projections
+    from llama_cpp_q_4_0_tpu_torch.models.loading import config_from_ggjt, load_transformer
+    from llama_cpp_q_4_0_tpu_torch.models.lora import apply_lora
+    from llama_cpp_q_4_0_tpu_torch.runtime.context import Context
+    from llama_cpp_q_4_0_tpu_torch.runtime.embd_input import EmbdInput, LinearProjector
+    from llama_cpp_q_4_0_tpu_torch.runtime.sampling import SamplingParams
+
+    path = os.path.join(tmp, "llama7b-width-2layer-q4_0.ggjt")
+    adapter = os.path.join(tmp, "adapter.ggla")
+    write_ggjt_7b_width(path, "q4_0")
+    write_ggla(adapter, 16, 32, lora_tensors(seed, 2))
+    modes = {"merged": [], "--lora-unmerged": ["--lora-unmerged"]}
+    args = ["-m", path, "-p", "Hello", "-n", "3", "-c", "256", "--temp", "0", "-s", "1",
+            "--memory-f32", "--lora", adapter]
+    t0 = time.perf_counter()
+    cpu = {mode: subprocess.Popen(
+        [sys.executable, "-m", "llama_cpp_q_4_0_tpu_torch", "main", *args, *extra, "--device",
+         "cpu"], cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        env={**os.environ, "OMP_NUM_THREADS": "4"}) for mode, extra in modes.items()}
+    ok = True
+    try:
+        card_out = {}
+        for mode, extra in modes.items():
+            _zero(counters)
+            t1 = time.perf_counter()
+            rc, out, _ = _tool_run(main_mod, [*args, *extra, "--device", "cuda"])
+            card_out[mode] = (rc, out, {k: v for k, v in _read(counters).items() if v},
+                              time.perf_counter() - t1)
+        ok &= spec_cli(counters, path)
+        gf = read_ggjt(path)
+        cfg = config_from_ggjt(gf, n_ctx=256)
+        rng = np.random.default_rng(seed)
+        proj = LinearProjector(rng.standard_normal((cfg.n_embd, 64)).astype(np.float32) * 0.05)
+        feats = rng.standard_normal((4, 64)).astype(np.float32)
+        res = {}
+        for dev in ("cuda", "cpu"):
+            p = fuse_projections(cfg, apply_lora(load_transformer(gf, cfg, device=dev,
+                                                                  fuse=False),
+                                                 adapter, merge=False))
+            m = EmbdInput(Context(cfg, p, n_ctx=256, device=dev, cache_dtype=torch.float32),
+                          None, SamplingParams(temp=0.0))
+            m.eval_tokens([1, 15043, 29892])
+            m.eval_float(proj(feats))
+            res[dev] = (m.ctx.logits.copy(), list(m.generate(2, eos_token=-1)))
+            del m, p
+        for mode, proc in cpu.items():
+            out, err = proc.communicate(timeout=600)
+            sys.stderr.write(err.decode(errors="replace"))
+            rc, card_text, launched, secs = card_out[mode]
+            good = (rc == proc.returncode == 0 and card_text == out
+                    and launched.get("qmm_q4_0_kfold", 0) > 0)
+            ok &= good
+            print(f"spec: main --lora ({mode}) -n 3 card vs CPU: card {card_text!r} ({secs:.1f} s, "
+                  f"launches {json.dumps(launched)}), CPU {out!r} (a child process, "
+                  f"{time.perf_counter() - t0:.1f} s after both started) "
+                  f"{'ok' if good else 'MISMATCH'}", flush=True)
+    finally:
+        for proc in cpu.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    scale = float(np.abs(res["cpu"][0]).max())
+    dev_max = float(np.abs(res["cuda"][0] - res["cpu"][0]).max())
+    good = dev_max <= 2e-2 * scale and res["cuda"][1] == res["cpu"][1]
+    ok &= good
+    print(f"spec: EmbdInput over the unmerged adapter (eval_tokens 3, eval_float 4 rows, generate "
+          f"2) card vs CPU: logits after eval_float max |d| {dev_max:.3e} (limit 2e-2 x "
+          f"{scale:.3f}), tokens {res['cuda'][1]} vs {res['cpu'][1]} "
+          f"{'ok' if good else 'MISMATCH'}", flush=True)
+    return ok
+
+
+def spec_phase(torch, counters, card, built, seed: int, launches: dict) -> bool:
+    """Speculative decoding and LoRA on 7B q4_0 at full depth (the e2e
+    phase's weights; built from seed 0 alone), n_ctx 1024, bf16 cache: the
+    prompt of spec_prompt(seed), 128 greedy tokens through the host loop,
+    generate_ondevice_spec, and generate_ondevice_spec_draft with the target
+    as its own draft, with its first 2 blocks and with a 2-layer model of
+    other weights as the draft (spec_runs);
+    the int8 configuration (QMM_Q8X=1, FUSED_ATTN=1, q8 cache) 128 + 64
+    through generate_ondevice_spec (129 K7 + 32 K4 a verify round); the
+    unmerged adapter on the 32-layer model (spec_lora_7b) and the 2-layer
+    GGJT's LoRA and embd-input card vs CPU (spec_lora_2layer).  The path's
+    launches (the runs', not their twins') are added to launches."""
+    from llama_cpp_q_4_0_tpu_torch.kernels.build import BUILD_DIR
+    from llama_cpp_q_4_0_tpu_torch.synth import build_llama
+
+    t0 = time.perf_counter()
+    cfg, params = built or build_llama(device="cuda", seed=0, ftype="q4_0")
+    prompt = spec_prompt(seed, cfg.n_vocab)
+    ok, path = spec_runs(torch, counters, card, cfg, params, prompt, 128, torch.bfloat16,
+                         SPEC_VERIFY, ("host", "ondevice", "self_draft", "draft_2layer",
+                                       "draft_other"), "q4_0")
+    print(f"time: spec q4_0 {time.perf_counter() - t0:.1f} s", flush=True)
+    with env(**INT8):
+        ok8, path8 = spec_runs(torch, counters, card, cfg, params, prompt[:128], 64, torch.int8,
+                               SPEC_VERIFY_INT8, ("ondevice",), "q4_0 int8-config")
+    ok &= ok8
+    _add(path, path8)
+    print(f"time: spec int8 {time.perf_counter() - t0:.1f} s", flush=True)
+    ok &= spec_lora_7b(torch, counters, card, cfg, params, seed)
+    print(f"time: spec lora 7B {time.perf_counter() - t0:.1f} s", flush=True)
+    tmp = os.path.join(BUILD_DIR, "smoke-spec")
+    os.makedirs(tmp, exist_ok=True)
+    try:
+        ok &= spec_lora_2layer(torch, counters, seed, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    kernels = ("qmm_q4_0", "qmm_q4_0_kfold", "flash_prefill", "qmm_q8x", "mha_decode")
+    ok &= all(path.get(k, 0) > 0 for k in kernels)
+    _add(launches, {k: path.get(k, 0) for k in kernels})
+    print(f"spec: the path's launches (the runs', their twins apart) {json.dumps(path)}; every "
+          f"kernel of the path launched {all(path.get(k, 0) > 0 for k in kernels)}; phase "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return ok
+
+
 # the phases of the full run, in their order
-FULL_RUN = ("kernels", "e2e", "graphs", "ondevice", "session", "families", "q8chaos", "cli")
+FULL_RUN = ("kernels", "e2e", "graphs", "ondevice", "session", "spec", "families", "q8chaos",
+            "cli")
 
 
 def main(argv=None) -> int:
@@ -3552,12 +4190,13 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(FULL_RUN),
-                    help="comma-separated subset of kernels,e2e,graphs,ondevice,session,families,"
+                    help="comma-separated subset of kernels,e2e,graphs,ondevice,session,spec,"
+                         "families,"
                          "q8chaos,cli,sass,k7k3,"
                          "k7repeat,int8prefill,planes,tiles,attn,gemv,busy,splits; the result "
                          "lines print only for the default " + ",".join(FULL_RUN))
     ap.add_argument("--seed", type=int, default=0,
-                    help="seed of the session phase's token streams")
+                    help="seed of the session and spec phases' token streams and adapters")
     opts = ap.parse_args(argv)
     phases = set(opts.phases.split(","))
     full = phases == set(FULL_RUN)
@@ -3825,6 +4464,13 @@ def main(argv=None) -> int:
                         "continuing bit for bit, the KV shift, the f8 cache's launches, or a "
                         "tool")
         elapsed("session")
+    if "spec" in phases:
+        if not spec_phase(torch, counters, card, q4, opts.seed, launches):
+            return fail("speculative decoding or LoRA: a replayed verify or round differing "
+                        "from its eager twin, a launch count, greedy tokens parting from the "
+                        "plain chunk's off a near-tie, the caches rebound, the adapted bases "
+                        "touched, or LoRA / embd-input card against CPU")
+        elapsed("spec")
     del q4
     torch.cuda.empty_cache()
     if "families" in phases:

@@ -13,6 +13,7 @@ TOOLS = {
     "embedding": ("print the final hidden state of a prompt's last token",
                   "embedding"),
     "save-load-state": ("state determinism self-test", "save_load_state"),
+    "convert-lora": ("PEFT LoRA adapter dir -> ggla file", "convert_lora"),
 }
 
 

@@ -11,7 +11,9 @@ import torch
 
 from ..formats.ggjt import detect_arch, read_ggjt
 from ..models.config import ModelConfig
+from ..models.fuse import fuse_projections
 from ..models.loading import config_from_ggjt, load_transformer
+from ..models.lora import apply_lora
 from ..quant.types import LlamaFType
 from ..runtime.context import Context
 from ..runtime.sampling import SamplingParams
@@ -37,6 +39,11 @@ def add_model_args(p: argparse.ArgumentParser):
     p.add_argument("-c", "--ctx-size", "--n-ctx", type=int, default=512,
                    dest="n_ctx")
     p.add_argument("-b", "--batch-size", type=int, default=512, dest="n_batch")
+    p.add_argument("--lora", default=None, help="ggla adapter to apply")
+    p.add_argument("--lora-base", default=None, help="f16/f32 base model for --lora")
+    p.add_argument("--lora-unmerged", action="store_true",
+                   help="apply LoRA at matmul time instead of merging: quantized "
+                        "bases stay bit for bit (no quantizing again)")
     p.add_argument("--memory-f32", action="store_true",
                    help="f32 KV cache (default bf16; reference default f16)")
     p.add_argument("--cache-type", default=None, choices=tuple(CACHE_TYPES),
@@ -115,8 +122,9 @@ def cache_dtype(args):
 
 
 def load_model(args, *, logits_all: bool = False) -> LoadedModel:
-    """File -> params -> context on the requested device: llama, gptneox,
-    falcon or bonsai (RWKV is not ported).  logits_all is accepted as the
+    """File -> params (with the --lora adapter, merged or not) -> context on
+    the requested device: llama, gptneox, falcon or bonsai (RWKV is not
+    ported).  logits_all is accepted as the
     JAX ``load_model`` accepts it: a Context returns every row on request."""
     t0 = time.perf_counter()
     arch = args.arch or detect_arch(args.model)
@@ -125,7 +133,18 @@ def load_model(args, *, logits_all: bool = False) -> LoadedModel:
     gf = read_ggjt(args.model, arch)
     cfg = config_from_ggjt(gf, n_ctx=args.n_ctx)
     tokenizer = Tokenizer(Vocab.from_ggjt(gf))
-    params = load_transformer(gf, cfg, device=args.device)
+    want_lora = bool(getattr(args, "lora", None))
+    # LoRA targets are named per projection: load unfused, apply, then fuse
+    # what still fuses
+    params = load_transformer(gf, cfg, device=args.device, fuse=not want_lora)
+    if want_lora:
+        base_weights = None
+        if args.lora_base:
+            bgf = read_ggjt(args.lora_base, arch)
+            base_weights = {n: bgf.tensor_f32(n) for n in bgf.tensors}
+        params = apply_lora(params, args.lora, base_weights=base_weights,
+                            merge=not getattr(args, "lora_unmerged", False))
+        params = fuse_projections(cfg, params)
     ctx = Context(cfg, params, n_ctx=args.n_ctx, cache_dtype=cache_dtype(args),
                   device=args.device)
     t_load = (time.perf_counter() - t0) * 1e3

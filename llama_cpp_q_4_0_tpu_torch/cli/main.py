@@ -6,18 +6,26 @@ reuse (zip or ``.ggsn``), the infinite-text context swap (``--n-keep``), the
 full sampling chain, antiprompts (``-r``), the interactive, instruct and
 OpenAssistant modes through the console (cli/console.py), and the timings
 report on stderr.  ``--ondevice-sampling`` samples on the device in chunked
-decode loops (runtime/device_sample.py).  The speculative flags
-(``--draft``, ``--draft-model``) are not ported."""
+decode loops (runtime/device_sample.py).  ``--draft K`` decodes
+speculatively, K drafts a verify: prompt-lookup drafts through the host loop
+(runtime/speculative.py), or with ``--ondevice-sampling`` the whole
+draft-verify loop on the device (runtime/device_spec.py); ``--draft-model``
+drafts with a small model of the same vocabulary instead, in either loop.
+The speculative run prints its stats line on stderr."""
 
 from __future__ import annotations
 
 import argparse
+import copy
 import os
 import sys
 
 from ..runtime.device_sample import DeviceSampling, generate_ondevice
+from ..runtime.device_spec import generate_ondevice_spec, generate_ondevice_spec_draft
 from ..runtime.generate import GenerateParams, generate
 from ..runtime.session import load_session, save_session, session_prefix_match
+from ..runtime.speculative import (DraftModelDrafter, SpecParams, SpecStats,
+                                   generate_speculative)
 from ..runtime.tokenizer import TOKEN_BOS, TOKEN_EOS
 from .common import add_model_args, add_sampling_args, load_model, sampling_from_args
 from .console import Color, Console
@@ -47,6 +55,13 @@ def build_parser(p: argparse.ArgumentParser | None = None):
                    help="sample on the device in chunked decode loops, one host "
                         "round trip a chunk (temp/top-k/top-p/tfs/typical, "
                         "repetition penalties, logit bias)")
+    p.add_argument("--draft", type=int, default=0, metavar="K",
+                   help="speculative decoding: verify K drafted tokens a forward "
+                        "(prompt-lookup drafts; exact for greedy, unbiased for "
+                        "sampling)")
+    p.add_argument("--draft-model", default=None, metavar="PATH",
+                   help="a small model of the same vocabulary that drafts for --draft "
+                        "(default: prompt-lookup drafts, no model)")
     p.add_argument("--color", action="store_true")
     p.add_argument("--multiline-input", action="store_true",
                    dest="multiline_input",
@@ -88,6 +103,35 @@ def _reuse_session(args, ctx, tok, prompt: str, prompt_tokens: list[int]):
     if not prompt_tokens:
         prompt_tokens = [(tok.tokenize(prompt, bos=True) or [TOKEN_BOS])[-1]]
     return session_tokens, prompt_tokens
+
+
+def _draft_context(args):
+    """The --draft-model file loaded as main loads its model (no --lora)."""
+    dargs = copy.copy(args)
+    dargs.model, dargs.lora = args.draft_model, None
+    return load_model(dargs).ctx
+
+
+def _speculative(args, ctx, prompt_tokens, ds):
+    """--draft K, one of the JAX main's three loops: the host loop (prompt
+    lookup or a DraftModelDrafter), or with --ondevice-sampling the device
+    loop of prompt-lookup rounds or of draft-model rounds.  Returns (tokens,
+    SpecStats)."""
+    stats = SpecStats()
+    spec = SpecParams(n_draft=args.draft)
+    common = dict(sampling=ds, seed=max(0, args.seed), ignore_eos=args.ignore_eos,
+                  stats=stats)
+    if args.ondevice_sampling and not args.draft_model:
+        out = generate_ondevice_spec(ctx, prompt_tokens, args.n_predict, spec=spec,
+                                     n_keep=args.n_keep, **common)
+    elif args.ondevice_sampling:
+        out = generate_ondevice_spec_draft(ctx, _draft_context(args), prompt_tokens,
+                                           args.n_predict, n_draft=args.draft, **common)
+    else:
+        drafter = DraftModelDrafter(_draft_context(args)) if args.draft_model else None
+        out = generate_speculative(ctx, prompt_tokens, args.n_predict, spec=spec,
+                                   drafter=drafter, **common)
+    return out, stats
 
 
 def run(args) -> int:
@@ -142,19 +186,24 @@ def run(args) -> int:
     console.set_color(Color.PROMPT)  # the prompt's echo
     print(prompt, end="", flush=True)
     console.set_color(Color.DEFAULT)
-    if args.ondevice_sampling:
-        # the JAX main's fields: no mirostat on this path
-        sp = gp.sampling
-        out = generate_ondevice(
-            ctx, prompt_tokens, args.n_predict,
-            sampling=DeviceSampling(
-                temp=sp.temp, top_k=sp.top_k, top_p=sp.top_p,
-                repeat_penalty=sp.repeat_penalty, repeat_last_n=sp.repeat_last_n,
-                frequency_penalty=sp.frequency_penalty,
-                presence_penalty=sp.presence_penalty, tfs_z=sp.tfs_z,
-                typical_p=sp.typical_p, logit_bias=tuple(sorted(sp.logit_bias.items()))),
-            seed=max(0, args.seed))
+    # the JAX main's fields for the device loops: no mirostat there
+    sp = gp.sampling
+    ds = DeviceSampling(
+        temp=sp.temp, top_k=sp.top_k, top_p=sp.top_p,
+        repeat_penalty=sp.repeat_penalty, repeat_last_n=sp.repeat_last_n,
+        frequency_penalty=sp.frequency_penalty, presence_penalty=sp.presence_penalty,
+        tfs_z=sp.tfs_z, typical_p=sp.typical_p,
+        logit_bias=tuple(sorted(sp.logit_bias.items())))
+    if args.draft > 0:
+        out, stats = _speculative(args, ctx, prompt_tokens, ds)
         for t in out:
+            emit(t)
+        print("\n" + stats.report(), file=sys.stderr)
+        print(ctx.timings.report(), file=sys.stderr)
+        return 0
+    if args.ondevice_sampling:
+        for t in generate_ondevice(ctx, prompt_tokens, args.n_predict, sampling=ds,
+                                   seed=max(0, args.seed)):
             emit(t)
         print("\n" + ctx.timings.report(), file=sys.stderr)
         return 0

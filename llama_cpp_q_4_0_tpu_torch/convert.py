@@ -11,9 +11,10 @@ where a leaf is None, a numpy array (a dense weight, a norm or a bias of
 the gptneox, falcon and bonsai blocks' fields), or a dict describing a
 QTensor in either form: {"levels_t", "gscale_t", "gbias_t", "gsize",
 "qtype", "shape", "pack_zero"} with the arrays as numpy (``gbias_t`` None for
-a symmetric format, ``pack_zero`` None for unpacked int8 levels).  float16
-planes (the JAX params after ``cast_scales_f16``) stay float16; any other
-plane becomes float32.
+a symmetric format, ``pack_zero`` None for unpacked int8 levels), or a dict
+describing a LowRankPatched weight (an unmerged LoRA adapter), {"base": leaf,
+"a": [r, K], "b": [N, r], "scale": float}.  float16 planes (the JAX params
+after ``cast_scales_f16``) stay float16; any other plane becomes float32.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ import torch
 
 from . import resolve_device
 from .models.transformer import Block, TransformerParams
+from .ops.lowrank import LowRankPatched
 from .ops.qtensor import QTensor
 from .quant.types import GGMLType
 
@@ -30,6 +32,12 @@ from .quant.types import GGMLType
 def _leaf(v, device: torch.device):
     if v is None:
         return None
+    if isinstance(v, dict) and "base" in v:
+        return LowRankPatched(
+            base=_leaf(v["base"], device),
+            a=torch.from_numpy(np.array(v["a"], np.float32)).to(device),
+            b=torch.from_numpy(np.array(v["b"], np.float32)).to(device),
+            scale=float(v["scale"]))
     if isinstance(v, dict):
         pz = v.get("pack_zero")
         gb = v.get("gbias_t")

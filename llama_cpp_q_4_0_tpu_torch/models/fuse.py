@@ -21,7 +21,9 @@ from .transformer import TransformerParams
 
 
 def _concat_n(ws: list):
-    """Concatenate weights along the output dim; None if they do not match."""
+    """Concatenate weights along the output dim; None if they do not match
+    (a LowRankPatched weight, an unmerged adapter, never does: its group
+    stays unfused, the numbers the JAX package gives unfused)."""
     if any(w is None for w in ws):
         return None
     if all(isinstance(w, QTensor) for w in ws):
@@ -40,7 +42,7 @@ def _concat_n(ws: list):
             shape=(sum(w.shape[0] for w in ws), w0.shape[1]),
             pack_zero=w0.pack_zero,
         )
-    if not any(isinstance(w, QTensor) for w in ws):
+    if all(isinstance(w, torch.Tensor) for w in ws):
         if len({w.shape[1] for w in ws}) != 1 or len({w.dtype for w in ws}) != 1:
             return None
         return torch.cat(list(ws), dim=0)

@@ -26,6 +26,9 @@ with its switches read the same way:
     count (kfold refuses a biased tensor);
   * an unpacked weight (q5_0, q8_0, q6_K; q5_1, q5_K with a bias) goes to K6,
     or K6b when it has a bias.
+  * a ``LowRankPatched`` weight (an unmerged LoRA adapter, ops/lowrank.py)
+    sends its base down the route above and adds the two skinny f32
+    products of its delta.
 
 ``q_matmul_ref_int8`` is the reference's own arithmetic for every quantized
 format (the model's ``compute_dtype="ref_int8"``): activations quantized as
@@ -40,6 +43,7 @@ import os
 import torch
 
 from ..quant.types import K_QUANTS
+from .lowrank import LowRankPatched, lowrank_apply
 from .qmm import (bf16_f32, qmm_int8, qmm_int8_bias, qmm_packed,
                   qmm_packed_bias, qmm_packed_kfold, qmm_packed_q8x,
                   ieee_div, roundf)
@@ -87,6 +91,10 @@ def q_matmul(x: torch.Tensor, w, *, compute_dtype=torch.bfloat16) -> torch.Tenso
         raise ValueError(f"compute_dtype {compute_dtype}")
     lead, k = x.shape[:-1], x.shape[-1]
     x2 = x.reshape(-1, k)
+    if isinstance(w, LowRankPatched):
+        # unmerged LoRA: the base on its own route, plus two skinny products
+        base = q_matmul(x2, w.base, compute_dtype=compute_dtype)
+        return (base + lowrank_apply(x2, w)).reshape(*lead, w.shape[0])
     if not isinstance(w, QTensor):
         # dense (f16/f32 tensors of the model file): a plain product, with
         # bf16-rounded operands in bf16 mode

@@ -32,6 +32,12 @@ is one graph, keyed by ``chunk_key``, whose carry (token, n_past, key,
 recent window, mu, the step index and the [B, n_steps] tokens) lives in
 static tensors; a chunk is n_steps replays back to back and one copy of the
 tokens to the host.
+
+The speculative steps are built the same way: ``verify`` (the JAX
+``speculative._verify``: a T = k+1 forward sampling every position) is one
+graph per key, and ``spec_chunk`` / ``draft_spec_chunk`` (the JAX
+``device_spec`` scans) capture one draft-verify round and replay it n_steps
+times, the draft model's forwards and caches inside the target's graph.
 """
 
 from __future__ import annotations
@@ -139,10 +145,8 @@ def chunk_key(n_steps: int, kv_window, ds, sv, recent_width: int, per_row: bool)
     what the JAX ``decode_chunk`` jit is keyed on besides (n_steps, the
     DeviceSampling value), the shapes of the SamplingVec's present fields,
     the recent window's width and whether n_past is 0-d or [B]."""
-    sv_shapes = None if sv is None else tuple(
-        (name, tuple(t.shape)) for name, t in sv.present().items())
     return step_key("chunk", 1, kv_window, True, False, None, "decode") + (
-        n_steps, ds, sv_shapes, recent_width, per_row)
+        n_steps, ds, _sv_shapes(sv), recent_width, per_row)
 
 
 def record_launches(counters, fn):
@@ -225,29 +229,30 @@ class _Step(_Graph):
         self.last_index.fill_(call.last_index or 0)
 
 
-class _Chunk(_Graph):
-    """The static carry of a decode chunk's key: decode_step's inputs (tok,
-    n_past, key, recent, mu, and the SamplingVec's present fields), the step
-    index and the [B, n_steps] tokens; the graph writes each step's results
-    back into them.  Loaded by copies on the device before a chunk."""
+class _Carry(_Graph):
+    """The static tensors of a chunk's or a verify's key, by name (inputs,
+    the carry each call writes back, outputs) and a SamplingVec's present
+    fields: fixed addresses the graph reads and writes, loaded by copies on
+    the device before a call."""
 
-    def __init__(self, carry, sv, n_steps: int):
+    def __init__(self, sv=None, **tensors):
         super().__init__()
-        self.tok, self.n_past, self.key, self.recent, self.mu = (
-            t.clone() for t in carry)
+        for name, t in tensors.items():
+            setattr(self, name, t.clone())
         self.sv = None if sv is None else device_sample.SamplingVec(
             **{k: t.clone() for k, t in sv.present().items()})
-        self.step = torch.zeros((), dtype=torch.int64, device=self.tok.device)
-        self.toks = torch.zeros((self.tok.shape[0], n_steps), dtype=torch.int64,
-                                device=self.tok.device)
 
-    def load(self, carry, sv):
-        for dst, src in zip((self.tok, self.n_past, self.key, self.recent, self.mu), carry):
-            dst.copy_(src)
+    def load(self, sv=None, **tensors):
+        for name, t in tensors.items():
+            getattr(self, name).copy_(t)
         if sv is not None:
             for k, t in sv.present().items():
                 getattr(self.sv, k).copy_(t)
-        self.step.zero_()
+
+
+def _sv_shapes(sv):
+    return None if sv is None else tuple((name, tuple(t.shape))
+                                         for name, t in sv.present().items())
 
 
 class Context:
@@ -277,7 +282,7 @@ class Context:
         self._steps: dict[tuple, _Step] = {}
         self._pool = None
         self.last_call: StepCall | None = None
-        self.last_chunk: _Chunk | None = None  # the carry of the last chunk on the card
+        self.last_chunk: _Carry | None = None  # the carry of the last chunk on the card
 
     def reset(self):
         for c in (*self.cache_k, *self.cache_v):
@@ -400,14 +405,33 @@ class Context:
         self.timings.n_eval += n_steps
         return out
 
+    def _rounds(self, st: _Graph, fn, n: int):
+        """n calls of fn (a step that writes its results into st's static
+        tensors) on the card: the first call of a key runs eagerly (the
+        warm-up) and is captured; every other call is a replay."""
+        left = n
+        if st.graph is None:
+            fn()
+            self._capture(st, fn)
+            left -= 1
+        for _ in range(left):
+            st.graph.replay()
+        st.replays += left
+        add_launches(LAUNCH_COUNTERS, st.launches, left)
+
     def _chunk(self, carry, sv, n_steps, ds, kv_window):
         """A chunk on the card: the key's graph replayed n_steps times."""
         key = chunk_key(n_steps, kv_window, ds, sv, carry[3].shape[1], carry[1].dim() == 1)
+        state = dict(zip(("tok", "n_past", "key", "recent", "mu"), carry))
         ch = self._steps.get(key)
         if ch is None:
-            ch = self._steps[key] = _Chunk(carry, sv, n_steps)
+            dev = carry[0].device
+            ch = self._steps[key] = _Carry(
+                sv, **state, step=torch.zeros((), dtype=torch.int64, device=dev),
+                toks=torch.zeros((carry[0].shape[0], n_steps), dtype=torch.int64, device=dev))
         else:
-            ch.load(carry, sv)
+            ch.load(sv, **state)
+            ch.step.zero_()
 
         def step():
             nxt, n_past, k, recent, mu = device_sample.decode_step(
@@ -420,16 +444,182 @@ class Context:
             ch.step.add_(1)
 
         self.last_chunk = ch
-        replays = n_steps
-        if ch.graph is None:
-            step()  # eager: the warm-up, and this chunk's first step
-            self._capture(ch, step)
-            replays -= 1
-        for _ in range(replays):
-            ch.graph.replay()
-        ch.replays += replays
-        add_launches(LAUNCH_COUNTERS, ch.launches, replays)
+        self._rounds(ch, step, n_steps)
         return (ch.toks.cpu().numpy(), ch.key.clone(), ch.recent.clone(), ch.mu.clone())
+
+    @torch.no_grad()
+    def verify(self, tokens, n_past: int, key, recent=None, *,
+               ds: "device_sample.DeviceSampling", kv_window: int):
+        """The speculative verify (``speculative.verify_step``, the JAX
+        ``_verify``) on this Context's params (the decode view) and caches:
+        forward tokens [B, T] (host ints) at n_past and sample every
+        position.  recent [B, N] is the penalty window (make_recent), needed
+        when ds has penalties.  ctx.n_past is left to the caller.  Returns
+        (ids [B, T] as a host array, the carried key on the device).
+
+        On the card one graph per key (T, kv_window, ds, the window's
+        width), replayed with the tokens, n_past, key and window as static
+        inputs; the ids are the call's one copy to the host."""
+        from .speculative import verify_step
+
+        x = torch.from_numpy(np.atleast_2d(np.asarray(tokens, dtype=np.int64))).to(self.device)
+        b, t = x.shape
+        if b != self.batch or n_past + t > self.n_ctx:
+            raise ValueError(f"a [{b}, {t}] verify at n_past {n_past} does not fit the context")
+        if ds.penalized and recent is None:
+            raise ValueError("ds has penalties: pass `recent` (make_recent)")
+        t0 = time.perf_counter()
+        if self.device.type != "cuda":  # the caller asked for the CPU
+            ids, key = verify_step(self.cfg, self.params, x, n_past, self.cache_k, self.cache_v,
+                                   key, recent, ds=ds, kv_window=kv_window)
+        else:
+            if recent is None:
+                recent = torch.zeros((b, 1), dtype=torch.int64, device=self.device)  # unused
+            gkey = step_key("verify", t, kv_window, False, False, None, "decode") + (
+                ds, recent.shape[1])
+            state = dict(x=x, n_past=torch.full((), n_past, dtype=torch.int64,
+                                                device=self.device),
+                         key=key, recent=recent)
+            st = self._steps.get(gkey)
+            if st is None:
+                st = self._steps[gkey] = _Carry(**state, ids=x, key_out=key)
+            else:
+                st.load(**state)
+
+            def step():
+                ids, k = verify_step(self.cfg, self.params, st.x, st.n_past, self.cache_k,
+                                     self.cache_v, st.key, st.recent if ds.penalized else None,
+                                     ds=ds, kv_window=kv_window)
+                st.ids.copy_(ids)
+                st.key_out.copy_(k)
+
+            self._rounds(st, step, 1)
+            ids, key = st.ids, st.key_out.clone()
+        ids = ids.cpu().numpy()
+        self.timings.t_eval_ms += (time.perf_counter() - t0) * 1e3
+        self.timings.n_eval += 1
+        return ids, key
+
+    @torch.no_grad()
+    def spec_chunk(self, hist, n_hist, key, done, sv=None, *, k: int, n_steps: int,
+                   ds: "device_sample.DeviceSampling", kv_window: int, max_ngram: int,
+                   min_ngram: int, eos: int, ignore_eos: bool):
+        """``device_spec.spec_chunk`` on this Context's params (the decode
+        view) and caches: n_steps prompt-lookup draft-verify rounds from the
+        device histories hist [B, H] with lengths n_hist [B] and frozen rows
+        done [B].  Returns device tensors (hist, n_hist, key, done, eosed,
+        emit_toks [n_steps, B, k+1], emit_ns [n_steps, B]); ctx.n_past is
+        left to the caller.
+
+        On the card a round is one graph (``device_spec.spec_round``), keyed
+        by the verify's T and kv_window, n_steps, the sampling and the
+        lookup's settings, replayed n_steps times over static carry tensors;
+        the caches are written in place.  On the CPU it is the eager loop."""
+        from . import device_spec
+
+        static = dict(k=k, ds=ds, kv_window=kv_window, max_ngram=max_ngram,
+                      min_ngram=min_ngram, eos=eos, ignore_eos=ignore_eos)
+        t0 = time.perf_counter()
+        if self.device.type != "cuda":  # the caller asked for the CPU
+            hist, n_hist, _, _, key, done, eosed, toks, ns = device_spec.spec_chunk(
+                self.cfg, self.params, hist, n_hist, self.cache_k, self.cache_v, key, done,
+                sv, n_steps=n_steps, **static)
+            out = (hist, n_hist, key, done, eosed, toks, ns)
+        else:
+            b, h = hist.shape
+            gkey = step_key("spec", k + 1, kv_window, False, False, None, "decode") + (
+                n_steps, ds, _sv_shapes(sv), h, k, max_ngram, min_ngram, eos, ignore_eos)
+            state = dict(hist=device_spec.pad_hist(hist, k), m=n_hist.to(torch.int64),
+                         key=key, done=done, eosed=torch.zeros_like(done))
+            st = self._steps.get(gkey)
+            if st is None:
+                st = self._steps[gkey] = _Carry(
+                    sv, **state, step=torch.zeros((), dtype=torch.int64, device=self.device),
+                    toks=torch.zeros((n_steps, b, k + 1), dtype=torch.int64, device=self.device),
+                    ns=torch.zeros((n_steps, b), dtype=torch.int64, device=self.device))
+            else:
+                st.load(sv, **state)
+                st.step.zero_()
+
+            def step():
+                new, (emit, emit_n) = device_spec.spec_round(
+                    self.cfg, self.params, (st.hist, st.m, st.key, st.done, st.eosed),
+                    self.cache_k, self.cache_v, st.sv, h=h, **static)
+                for dst, src in zip((st.hist, st.m, st.key, st.done, st.eosed), new):
+                    dst.copy_(src)
+                st.toks.index_copy_(0, st.step.reshape(1), emit[None])
+                st.ns.index_copy_(0, st.step.reshape(1), emit_n[None])
+                st.step.add_(1)
+
+            self.last_chunk = st
+            self._rounds(st, step, n_steps)
+            out = (st.hist[:, :h].clone(), st.m.clone(), st.key.clone(), st.done.clone(),
+                   st.eosed.clone(), st.toks.clone(), st.ns.clone())
+        self.timings.t_eval_ms += (time.perf_counter() - t0) * 1e3
+        self.timings.n_eval += n_steps
+        return out
+
+    @torch.no_grad()
+    def draft_spec_chunk(self, draft: "Context", tok, n_past, key, done, recent, *, k: int,
+                         n_steps: int, ds: "device_sample.DeviceSampling", kv_window: int,
+                         eos: int, ignore_eos: bool):
+        """``device_spec.draft_spec_chunk`` with this Context as the target
+        and ``draft`` as the draft model (the decode views; both caches
+        written in place): n_steps rounds of k+1 greedy draft steps and one
+        verify from tok, n_past, done [B] and the penalty window recent [B,
+        N].  Returns device tensors (tok, n_past, key, done, recent,
+        emit_toks [n_steps, B, k+1], emit_ns [n_steps, B]); both Contexts'
+        n_past are left to the caller.
+
+        On the card a round (``device_spec.draft_round``: k+1 draft forwards
+        and the target's verify) is one graph in this Context's pool over
+        both Contexts' caches, keyed as spec_chunk's and by the draft
+        Context, replayed n_steps times."""
+        from . import device_spec
+
+        static = dict(k=k, ds=ds, kv_window=kv_window, eos=eos, ignore_eos=ignore_eos)
+        t0 = time.perf_counter()
+        if self.device.type != "cuda":  # the caller asked for the CPU
+            tok, n_past, _, _, _, _, key, done, recent, toks, ns = device_spec.draft_spec_chunk(
+                self.cfg, self.params, draft.cfg, draft.params, tok, n_past, self.cache_k,
+                self.cache_v, draft.cache_k, draft.cache_v, key, done, recent,
+                n_steps=n_steps, **static)
+            out = (tok, n_past, key, done, recent, toks, ns)
+        else:
+            b = tok.shape[0]
+            gkey = step_key("draft_spec", k + 1, kv_window, False, False, None, "decode") + (
+                n_steps, ds, recent.shape[1], k, eos, ignore_eos, id(draft))
+            state = dict(tok=tok, n_past=n_past.to(torch.int64), key=key, done=done,
+                         recent=recent)
+            st = self._steps.get(gkey)
+            if st is None:
+                st = self._steps[gkey] = _Carry(
+                    **state, step=torch.zeros((), dtype=torch.int64, device=self.device),
+                    toks=torch.zeros((n_steps, b, k + 1), dtype=torch.int64, device=self.device),
+                    ns=torch.zeros((n_steps, b), dtype=torch.int64, device=self.device))
+                st.draft = draft  # the graph holds its caches: keep it (and its id) alive
+            else:
+                st.load(**state)
+                st.step.zero_()
+            names = ("tok", "n_past", "key", "done", "recent")
+
+            def step():
+                new, (emit, emit_n) = device_spec.draft_round(
+                    self.cfg, self.params, draft.cfg, draft.params,
+                    tuple(getattr(st, n) for n in names), self.cache_k, self.cache_v,
+                    draft.cache_k, draft.cache_v, **static)
+                for n, src in zip(names, new):
+                    getattr(st, n).copy_(src)
+                st.toks.index_copy_(0, st.step.reshape(1), emit[None])
+                st.ns.index_copy_(0, st.step.reshape(1), emit_n[None])
+                st.step.add_(1)
+
+            self.last_chunk = st
+            self._rounds(st, step, n_steps)
+            out = tuple(getattr(st, n).clone() for n in names + ("toks", "ns"))
+        self.timings.t_eval_ms += (time.perf_counter() - t0) * 1e3
+        self.timings.n_eval += n_steps
+        return out
 
     def eval(self, tokens, *, logits_all: bool = False) -> np.ndarray:
         """Evaluate tokens (list or [B, T] array) after the current n_past.

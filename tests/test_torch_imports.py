@@ -58,7 +58,9 @@ def test_port_imports_no_jax_and_no_jax_package():
               "kernels.build", "runtime.context", "runtime.device_sample", "cli.main",
               "cli.benchmark", "runtime.session", "runtime.perplexity", "formats.ggsn",
               "cli.console", "cli.perplexity", "cli.save_load_state",
-              "quant.registry", "convert", "synth"):
+              "quant.registry", "convert", "synth", "runtime.speculative",
+              "runtime.device_spec", "runtime.embd_input", "runtime.mm_adapters",
+              "ops.lowrank", "models.lora", "formats.ggla", "cli.convert_lora"):
         assert f"llama_cpp_q_4_0_tpu_torch.{m}" in out["mods"], m
     if not out["cuda"]:
         # entry points refuse to run on the CPU unless asked to
