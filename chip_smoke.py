@@ -153,8 +153,8 @@ Phases (each prints its own lines; any failure exits non-zero):
      at StableLM-Base-Alpha-7B widths, 16 layers (65 K2 a token, 64 K1 + 16
      K3 a 512-prefill; 65 K7 + 16 K4 a token in the int8 configuration;
      checked), with a generate_ondevice run, Context.embed and eval_embd and
-     the bench and trace lines; Falcon-7B widths, 32 layers, every matmul off
-     the kernels' gate (the bf16 product, no matmul kernel; 32 K4 a token at
+     the bench and trace lines; Falcon-7B widths, 16 layers, every matmul off
+     the kernels' gate (the bf16 product, no matmul kernel; 16 K4 a token at
      71 query heads over one KV head in the int8 configuration, also through
      generate_ondevice), bench and trace lines; a 2-layer Bonsai inside the
      gate, replayed and against the CPU; K4 at H=71, G=1, D=64 (T=1 and 8, S=256
@@ -169,10 +169,22 @@ Phases (each prints its own lines; any failure exits non-zero):
      the int8 configuration, and the `embedding` tool), Q4_K_M and Q3_K_M
      from random k-quant blocks; `benchmark-matmult` (default, QMM_Q8X=1,
      --vdot, --stream, --stream-sweep).
-  11. a JSON line of per-kernel numbers (launches: the e2e paths', the
-     families', the session and spec phases'), then the contract line
+  11. serve: the serving engine (runtime/batch_engine.py) on the e2e
+     phase's 7B q4_0 weights at 16 slots x 2048, bf16 cache: 20 requests
+     (batched, per-slot and lane admissions) through host ticks and chunk-16
+     ticks two in flight, every tick held against its eager twin (the first
+     few bit for bit, the caches too), 129 K2 a tick step and the admissions'
+     K1/K2/K3 counts by route, each request's greedy tokens against a single
+     session (partings only at near ties); tokens/s and ms a tick at
+     occupancy 1-16, a traced tick, time to first token; speculative ticks
+     at 4 slots (k = 7, chunk 4) behind a registered prefix; the int8
+     configuration at 8 slots, chunk 16 (129 K7 + 32 K4 a step); the memory
+     estimate against the card's peak; `server --parallel 4 --parallel-chunk
+     8` on a 2-layer 7B-width GGJT against the single-session server.
+  12. a JSON line of per-kernel numbers (launches: the e2e paths', the
+     families', the session, spec and serve phases'), then the contract line
      {"ok": true, "device": {...}}.
-``--phases kernels,e2e,graphs,ondevice,session,spec,families,q8chaos,cli`` runs a subset
+``--phases kernels,e2e,graphs,ondevice,session,spec,serve,families,q8chaos,cli`` runs a subset
 (for debugging: a subset prints no result lines; with no arguments every phase runs).  Phases that run only
 when named: ``sass`` (instruction counts of K7's and K3's kernels and of
 the decode GEMV's and K4's instances), ``gemv`` (check_gemv alone),
@@ -904,12 +916,12 @@ def sass_counts(build) -> None:
 
 
 # (B, T, H, G, D, timed) of K3's checks: timed at T=512 and 2048 (B=1, H=32,
-# D=128), checked at T=128, with GQA 32/8 and at head width 256 (T=200: the
-# ragged edge)
+# D=128), checked at T=128, with GQA 32/8, at head width 256 (T=200: the
+# ragged edge) and at the serving engine's batched admission of 4 prompts
 FLASH_CASES = ((1, 512, 32, 32, 128, True), (1, 2048, 32, 32, 128, True),
                (1, 128, 32, 32, 128, False), (1, 512, 32, 8, 128, False),
                (1, 2048, 32, 8, 128, False), (2, 256, 16, 4, 256, False),
-               (1, 200, 16, 16, 256, False))
+               (1, 200, 16, 16, 256, False), (4, 512, 32, 32, 128, False))
 # the families' prefills: GPT-NeoX's 48 heads of 128 at 512 and 128 tokens,
 # Bonsai's 16 heads over one KV head
 FAMILY_FLASH = ((1, 512, 48, 48, 128, True), (1, 128, 48, 48, 128, False),
@@ -1076,7 +1088,7 @@ def check_mha(torch, timer, rec: dict, ab: bool = False, cases=None) -> bool:
     timed = [(c, t, s) for c in ("int8", "bf16", "f8") for t in (1, 8) for s in (256, 2048)]
     only = [("f32", 2, 8, 32, 32, 128, 256, 200), ("int8", 1, 1, 32, 8, 128, 2048, 1900),
             ("bf16", 1, 8, 32, 8, 64, 512, 400), ("int8", 1, 16, 16, 4, 256, 256, 100),
-            ("int8", 2, 1, 32, 32, 128, 1024, 700)]
+            ("int8", 2, 1, 32, 32, 128, 1024, 700), ("int8", 8, 1, 32, 32, 128, 2048, 1500)]
     if cases is None:
         cases = [(c, 1, t, 32, 32, 128, s, s - t - 40, True) for c, t, s in timed]
         cases += [] if ab else [(*o, False) for o in only]
@@ -1305,9 +1317,10 @@ def end_to_end(torch, counters, ftype="q4_0", n_prompt=512, n_decode=64, *,
 
 def bench_instruments(torch, cfg, params, label="q4_0", passes=5, n_tok=64):
     """bench.py's instruments: prefill-512 (median of passes groups of 4)
-    and decode ms/token at kv_window 256 (median of passes of n_tok tokens;
-    default 5 of each, 64 tokens), eager (transformer.forward) and profiled;
-    then the same through the Context's replayed step (graph_instruments).
+    and decode ms/token at kv_window 256, eager (transformer.forward; median
+    of at most 3 passes of 16 tokens) and profiled; then the same through the
+    Context's replayed step (graph_instruments; median of passes of n_tok
+    tokens, default 5 of 64).
     The eager prefill takes K3 where a Context would (use_flash_prefill)."""
     from llama_cpp_q_4_0_tpu_torch.models import transformer
     from llama_cpp_q_4_0_tpu_torch.ops.flash_prefill import flash_prefill
@@ -1327,7 +1340,10 @@ def bench_instruments(torch, cfg, params, label="q4_0", passes=5, n_tok=64):
                                 kv_window=512, attention_fn=attn)
         torch.cuda.synchronize()
         pre.append((time.perf_counter() - t0) / 4 * 1e3)
-    med, dec = decode_ms(torch, cfg, params, ck, cv, 65, 256, n_tok=n_tok, passes=passes)
+    # the eager step (~60 ms a token) is only the replayed step's reference
+    # point: at most 3 passes of 16 tokens, to keep the whole run in its time
+    med, dec = decode_ms(torch, cfg, params, ck, cv, 65, 256, n_tok=min(n_tok, 16),
+                         passes=min(passes, 3))
     print(f"bench: {label} prefill_512_ms median={statistics.median(pre):.3f} "
           f"min={min(pre):.3f} runs={[round(v, 3) for v in pre]}", flush=True)
     print(f"bench: {label} decode_ms_per_token (kv_window 256) "
@@ -1340,7 +1356,7 @@ def bench_instruments(torch, cfg, params, label="q4_0", passes=5, n_tok=64):
     return statistics.median(pre), med
 
 
-def decode_ms(torch, cfg, params, ck, cv, n_past: int, window: int, n_tok=32, passes=3):
+def decode_ms(torch, cfg, params, ck, cv, n_past: int, window: int, n_tok=16, passes=3):
     """Median decode ms/token (host clock, synchronised) of passes of n_tok
     one-token forwards from slot n_past on, attention over kv_window."""
     from llama_cpp_q_4_0_tpu_torch.models import transformer
@@ -2947,9 +2963,9 @@ def families_phase(torch, counters, launches: dict, recs: dict) -> bool:
         configuration; a generate_ondevice run (chunks against eager
         twins), Context.embed and eval_embd, the bench and trace lines;
       Falcon-7B widths (n_embd 4544, 71 heads of 64 over one KV head, n_ff
-        18176, vocab 65024), 32 layers: every matmul outside the kernels'
+        18176, vocab 65024), 16 layers: every matmul outside the kernels'
         gate, so the bf16 product and no matmul kernel; plain prefill
-        attention (head width 64); 32 K4 a token in the int8 configuration
+        attention (head width 64); 16 K4 a token in the int8 configuration
         (rep 71), a generate_ondevice run there; bench and trace lines;
       Bonsai, 2 layers at widths inside the gate (n_embd 2048, 16 heads of
         128, one KV head): graph runs, and against the CPU (default and
@@ -3021,17 +3037,21 @@ def families_phase(torch, counters, launches: dict, recs: dict) -> bool:
     print(f"families: gptneox done {time.perf_counter() - t0:.1f} s", flush=True)
 
     # Falcon: off the kernels' gate, K4 at rep 71 in the int8 configuration
-    cfg, params = build_falcon(device="cuda", seed=0)
-    built("Falcon (Falcon-7B widths, 32 layers)", cfg)
+    # 16 of Falcon-7B's 32 layers, to keep the whole run in its time (every
+    # matmul takes the same off-gate product at any depth)
+    cfg, params = build_falcon(n_layer=16, device="cuda", seed=0)
+    built("Falcon (Falcon-7B widths, 16 layers)", cfg)
     model_bounds("Falcon-4544 q4_0", params, cfg.n_layer, heads=(71, 1, 64))
     totals = {}
     ok &= graph_run(torch, counters, cfg, params, "falcon", 512, 64, torch.bfloat16, {},
                     want_prefill={}, totals=totals)
     with env(**INT8):
         ok &= graph_run(torch, counters, cfg, params, "falcon int8-config", 128, 16,
-                        torch.int8, {"mha_decode": 32}, want_prefill={}, totals=totals)
+                        torch.int8, {"mha_decode": cfg.n_layer}, want_prefill={},
+                        totals=totals)
         good, _ = ondevice_run(torch, counters, cfg, params, "falcon int8-config", GREEDY_DS,
-                               128, 16, 8, torch.int8, {"mha_decode": 32}, ("mha_decode",))
+                               128, 16, 8, torch.int8, {"mha_decode": cfg.n_layer},
+                               ("mha_decode",))
         ok &= good
     _add(launches, totals)
     torch.cuda.empty_cache()
@@ -4180,9 +4200,648 @@ def spec_phase(torch, counters, card, built, seed: int, launches: dict) -> bool:
     return ok
 
 
+# ------------------------------------------------------------------ serve
+
+SERVE_SLOTS, SERVE_CTX, SERVE_N = 16, 2048, 64
+# the launches of one [n_slots, 1] tick forward (4 matmuls a layer and the
+# head at b = n_slots; a verify round of 4 slots x 8 rows is b = 32), and a
+# decode step in the int8 configuration
+SERVE_TICK = {"qmm_q4_0_kfold": 129}
+SERVE_TICK_INT8 = {"qmm_q8x": 129, "mha_decode": 32}
+SERVE_CHECKED = 3  # calls of each kind a run holds against their eager twins
+# the int8 pass's prompt lengths: 4 short, and 4 long of three lane chunks
+SERVE_INT8_LENS = ((150, 400), (1100, 1500))
+
+
+def serve_prompts(seed: int, n_vocab: int):
+    """20 prompts from seed, in the order of one burst: the first 16 fill
+    the slots, 8 short ones (32-256 tokens: one batched [8, 256] admission,
+    MAX_PALLAS_ROWS rows) between 8 long ones (520-900: two chunks each of
+    the chunked lane, one prompt at a time on a bf16 cache; 900 + 64 tokens
+    keep a chunked tick's window at 1024, where the default attention over
+    16 rows costs half its 2048 figure); 4 short ones (257-479) wait behind
+    them and admit as slots free."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 16)
+    short, long_ = rng.integers(32, 257, 8), rng.integers(520, 901, 8)
+    lens = [int(x) for pair in zip(short, long_) for x in pair]
+    lens += [int(x) for x in rng.integers(257, 480, 4)]
+    return [[1] + rng.integers(3, n_vocab, n_tok - 1).tolist() for n_tok in lens]
+
+
+def serve_reference(cfg, params, prompts, n: int, cache_dtype):
+    """Each prompt's greedy tokens through a single-session Context (n_ctx
+    2048, EOS ends it, as in the engine) with the logits of every step."""
+    import numpy as np
+
+    from llama_cpp_q_4_0_tpu_torch.runtime.context import Context
+
+    ctx = Context(cfg, params, n_ctx=SERVE_CTX, device="cuda", cache_dtype=cache_dtype)
+    out = []
+    for prompt in prompts:
+        ctx.reset()
+        logits = ctx.eval([prompt])[0, -1]
+        toks, rows = [], []
+        for _ in range(n):
+            rows.append(logits)
+            t = int(np.argmax(logits))
+            if t == 2:
+                break
+            toks.append(t)
+            logits = ctx.eval([[t]])[0, -1]
+        out.append((toks, rows))
+    del ctx
+    return out
+
+
+def serve_checks(torch, counters, eng, log):
+    """Wrap the engine: every tick (the Context's "tick" step), chunk and
+    speculative round it runs, up to SERVE_CHECKED of each, also runs its
+    eager twin on a copy of the caches from the same inputs (the results
+    and the caches after must equal bit for bit); every call's launches are
+    counted alone (the twin's apart) by kind, and every admission forward's
+    by route (log["route"]: batched, slot, prefix or lane) against the
+    count its shape predicts: 4 matmuls a layer at the call's rows and the
+    head at its batch's, each K1 above 32 rows and K2 at 32 or fewer (K7 up
+    to 128 rows under QMM_Q8X=1), and K3 a layer where the flash prefill is
+    taken.
+    Returns the function that takes the wrappers off."""
+    import numpy as np
+
+    from llama_cpp_q_4_0_tpu_torch.models import transformer
+    from llama_cpp_q_4_0_tpu_torch.runtime import device_sample, device_spec
+
+    ctx = eng.ctx
+    real = {"tick": ctx._run, "chunk": ctx.decode_chunk, "spec": ctx.spec_chunk}
+
+    def eager(kind, twins, a, kw):
+        ck, cv = twins
+        if kind == "tick":
+            call = a[0]
+            return [transformer.forward(
+                ctx.cfg, call.params, torch.from_numpy(call.x).cuda(),
+                torch.from_numpy(np.asarray(call.n_past)).cuda(), ck, cv,
+                last_only=True, kv_window=call.kv_window)]
+        if kind == "chunk":
+            kw = {k: v for k, v in kw.items() if k != "to_host"}
+            toks, _, _, key, recent, mu = device_sample.decode_chunk(
+                ctx.cfg, ctx.params, *a[:2], ck, cv, a[2], **kw)
+            return [toks, key, recent, mu]
+        out = device_spec.spec_chunk(ctx.cfg, ctx.params, *a[:2], ck, cv, *a[2:], **kw)
+        return [out[0], out[1], *out[4:]]
+
+    def wrap(kind):
+        def checked(*a, **kw):
+            check = log["checked"][kind] < SERVE_CHECKED
+            twins = ((_clone_caches(ctx.cache_k), _clone_caches(ctx.cache_v)) if check
+                     else None)
+            torch.cuda.synchronize()
+            _zero(counters)
+            got = real[kind](*a, **kw)
+            torch.cuda.synchronize()
+            launched = {k: v for k, v in _read(counters).items() if v}
+            _add(log["path"], launched)
+            steps = kw.get("n_steps", 1)
+            per = {k: v // steps for k, v in launched.items()}
+            log["per_step"][kind].append(per if all(v % steps == 0 for v in launched.values())
+                                         else launched)
+            if check:
+                got_l = [got] if kind == "tick" else list(got)
+                _zero(counters)
+                want = eager(kind, twins, a, kw)
+                torch.cuda.synchronize()
+                same = all(torch.equal(torch.as_tensor(g).cuda(), w)
+                           for g, w in zip(got_l, want))
+                same &= all(torch.equal(x, y) for x, y in zip(
+                    _flat_cache(ctx.cache_k + ctx.cache_v), _flat_cache(twins[0] + twins[1])))
+                log["checked"][kind] += 1
+                log["equal"][kind] += same
+                del twins
+            _zero(counters)
+            return got
+        return checked
+
+    ctx._run, ctx.decode_chunk, ctx.spec_chunk = wrap("tick"), wrap("chunk"), wrap("spec")
+    real_fwd = eng._forward
+
+    def fwd(params, toks, n_past, ck, cv, *, kv_window, last, attention_fn=None):
+        torch.cuda.synchronize()
+        _zero(counters)
+        out = real_fwd(params, toks, n_past, ck, cv, kv_window=kv_window, last=last,
+                       attention_fn=attention_fn)
+        torch.cuda.synchronize()
+        got = {k: v for k, v in _read(counters).items() if v}
+        _add(log["path"], got)
+        m, t = toks.shape
+        q8x = os.environ.get("QMM_Q8X") == "1"  # K7 up to 128 rows (QMM_Q8X_MAX_B)
+
+        def kernel(rows):
+            if q8x and rows <= 128:
+                return "qmm_q8x"
+            return "qmm_q4_0" if rows > 32 else "qmm_q4_0_kfold"
+
+        want, n_layer = {}, eng.cfg.n_layer
+        for k, n in ((kernel(m * t), 4 * n_layer), (kernel(m), 1),
+                     ("flash_prefill", n_layer if attention_fn is not None else 0)):
+            if n:
+                want[k] = want.get(k, 0) + n
+        name = "prefix" if log["route"] == "slot" and n_past else log["route"]
+        log["admits"].setdefault(name, []).append((m, t, got == want))
+        _zero(counters)
+        return out
+
+    def routed(name, fn):
+        def call(*a, **kw):
+            before, log["route"] = log["route"], name
+            try:
+                return fn(*a, **kw)
+            finally:
+                log["route"] = before
+        return call
+
+    eng._forward = fwd
+    eng._admit_batched = routed("batched", eng._admit_batched)
+    eng._admit_one = routed("slot", eng._admit_one)
+    eng._continue_prefill = routed("lane", eng._continue_prefill)
+    return lambda: [delattr(o, n) for o, n in ((ctx, "_run"), (ctx, "decode_chunk"),
+                                               (ctx, "spec_chunk"), (eng, "_forward"),
+                                               (eng, "_admit_batched"), (eng, "_admit_one"),
+                                               (eng, "_continue_prefill"))]
+
+
+def _serve_log():
+    kinds = ("tick", "chunk", "spec")
+    return {"checked": dict.fromkeys(kinds, 0), "equal": dict.fromkeys(kinds, 0),
+            "per_step": {k: [] for k in kinds}, "admits": {}, "path": {}, "route": None,
+            "ttft": {}}
+
+
+def serve_submit(eng, prompts, n):
+    """Every prompt as a greedy request (EOS ends it), submitted as one
+    burst before the engine starts (so that the admissions' routes follow
+    from the prompts alone), then read; the engine is stopped after.
+    Returns (tokens by request, the seconds from the start to each first
+    token)."""
+    from llama_cpp_q_4_0_tpu_torch.runtime.batch_engine import Request
+    from llama_cpp_q_4_0_tpu_torch.runtime.sampling import SamplingParams
+
+    greedy = SamplingParams(temp=-1.0, top_k=0, repeat_penalty=1.0, repeat_last_n=0)
+    reqs = [eng.submit(Request(list(p), n_predict=n, sampling=greedy)) for p in prompts]
+    t0 = time.perf_counter()
+    eng.start()
+    outs, ttft = [], []
+    try:
+        for r in reqs:
+            out, first = [], None
+            for t in r.tokens(timeout=300):
+                first = first or time.perf_counter()
+                out.append(t)
+            outs.append(out)
+            ttft.append((first or time.perf_counter()) - t0)
+    finally:
+        eng.stop()
+    return outs, ttft
+
+
+def serve_parting(refs, outs, limit: float):
+    """Each request's tokens against its single session's: (equal, near-tie
+    partings, unexplained).  A parting at token p is a near tie when the
+    single session's top-2 logit margin there is at most limit."""
+    import numpy as np
+
+    same = near = bad = 0
+    notes = []
+    for i, ((ref, rows), got) in enumerate(zip(refs, outs)):
+        p = next((j for j, (a, b) in enumerate(zip(ref, got)) if a != b), None)
+        if p is None and len(ref) == len(got):
+            same += 1
+            continue
+        if p is None:
+            p = min(len(ref), len(got))
+        top = np.sort(rows[p])[::-1] if p < len(rows) else None
+        margin = float(top[0] - top[1]) if top is not None else float("inf")
+        if margin <= limit:
+            near += 1
+        else:
+            bad += 1
+        notes.append(f"request {i} parts at token {p} (margin {margin:.5f}"
+                     f"{' <=' if margin <= limit else ' >'} {limit:.5f})")
+    return same, near, bad, notes
+
+
+def serve_mode(torch, counters, card, eng, label, prompts, refs, limit, want_step, kind,
+               n=SERVE_N):
+    """One checked run of the engine over one burst of prompts: the ticks'
+    eager twins and launches a step (want_step), the admissions' launches
+    by route, each request's tokens against its single session (refs;
+    partings must be near ties, margin <= limit; with limit None the limit
+    is the agreement of the engine's own host-sampled logits with the
+    single session's, measured in this run), the caches never rebound, no
+    request open after stop.  Returns (ok, limit, log); log["ttft"] holds
+    the seconds to each request's first token by admission route."""
+    import numpy as np
+
+    log = _serve_log()
+    off = serve_checks(torch, counters, eng, log)
+    route_of, emitted = {}, {}
+    real_activate, real_emit = eng._activate, eng._emit
+
+    def activate(slot, req, prompt, row_logits):
+        pre = eng._prefix
+        route_of[req.id] = ("prefix" if pre is not None and prompt[:len(pre[0])] == pre[0]
+                            else log["route"])
+        return real_activate(slot, req, prompt, row_logits)
+
+    def emit(slot, row_logits):
+        emitted.setdefault(slot.req.id, []).append(np.asarray(row_logits))
+        return real_emit(slot, row_logits)
+
+    eng._activate = activate
+    if limit is None:
+        eng._emit = emit
+    ptrs = [t.data_ptr() for t in _flat_cache(eng.cache_k + eng.cache_v)]
+    t0 = time.perf_counter()
+    try:
+        outs, ttft = serve_submit(eng, prompts, n)
+    finally:
+        off()
+        del eng._activate
+        eng.__dict__.pop("_emit", None)
+    secs = time.perf_counter() - t0
+    scale = None
+    if limit is None:
+        limit, scale = serve_agreement(refs, [emitted.get(i, []) for i in range(len(prompts))])
+    same_ptrs = ptrs == [t.data_ptr() for t in _flat_cache(eng.cache_k + eng.cache_v)]
+    same, near, bad, notes = serve_parting(refs, outs, limit)
+    steps = log["per_step"][kind]
+    steps_ok = bool(steps) and all(s == want_step for s in steps)
+    twins_ok = log["checked"][kind] > 0 and log["equal"] == log["checked"]
+    admits_ok = all(ok for v in log["admits"].values() for *_, ok in v)
+    open_after = eng.n_active + len(eng._pending)
+    ok = (twins_ok and steps_ok and admits_ok and bad == 0 and same_ptrs and open_after == 0
+          and all(len(o) > 0 for o in outs) and (scale is None or limit <= 0.05 * scale))
+    for i, r in route_of.items():
+        log["ttft"].setdefault(r, []).append(ttft[i])
+    st = eng.stats()
+    routes = {k: f"{len(v)} at {sorted({(m, t) for m, t, _ in v})[:4]}"
+              for k, v in log["admits"].items()}
+    agree = (f"; the engine's logits within {limit:.5f} of the single session's where the "
+             f"tokens agree (logits up to {scale:.3f}): the agreement limit"
+             if scale is not None else f"; near ties: margin <= {limit:.5f}")
+    print(f"serve: {label}: {len(prompts)} requests in {secs:.1f} s ({st['n_ticks']} ticks, "
+          f"{st['n_tokens_out']} tokens); calls held against the eager twin {log['checked']}, "
+          f"equal {log['equal']}; {kind} launches a step {json.dumps(steps[-1] if steps else {})} "
+          f"at every one of {len(steps)} (want {json.dumps(want_step)}: {steps_ok}); admission "
+          f"forwards by route {routes}, launches as predicted {admits_ok}{agree}; against the "
+          f"single session: {same} equal, {near} near-tie partings, {bad} unexplained"
+          f"{'; ' + '; '.join(notes[:4]) if notes else ''}; caches never rebound {same_ptrs}; "
+          f"open after stop {open_after} {'ok' if ok else 'MISMATCH'} [{card}]", flush=True)
+    for r, v in sorted(log["ttft"].items()):
+        print(f"serve: {label} time to first token, {r} admissions, one burst of "
+              f"{len(prompts)}: median {statistics.median(v) * 1e3:.1f} ms, min "
+              f"{min(v) * 1e3:.1f}, max {max(v) * 1e3:.1f} over {len(v)} [{card}]", flush=True)
+    return ok, limit, log
+
+
+def serve_occupancy(torch, eng, label, card, n_vocab, profile_at=None, levels=(1, 4, 8, 16)):
+    """Tokens/s summed over the slots and ms a tick at each occupancy of
+    levels on a fresh engine eng (a chunked tick's window follows every slot's
+    last position, the idle ones' too, as in the JAX engine): k requests of
+    128-token prompts (window 256), SERVE_N greedy tokens each, timed from
+    the moment every request has its first token to the last token.
+    At profile_at the same window runs under torch.profiler (the device's
+    busy time a tick and its idle share, the top kernels)."""
+    import numpy as np
+
+    from llama_cpp_q_4_0_tpu_torch.runtime.batch_engine import Request
+    from llama_cpp_q_4_0_tpu_torch.runtime.sampling import SamplingParams
+
+    greedy = SamplingParams(temp=-1.0, top_k=0, repeat_penalty=1.0, repeat_last_n=0)
+    rng = np.random.default_rng(5)
+    if profile_at:  # the profiler's first session in a process may record no device time
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+            torch.ones(1, device="cuda").add_(1)
+            torch.cuda.synchronize()
+    eng.start()
+    try:
+        for k in levels:
+            step_ms = None
+            for traced in ((False, True) if k == profile_at else (False,)):
+                # the traced pass is short (8 host ticks, 2 chunked ones): the
+                # profiler's own cost grows with the kernels it records; it
+                # stops once the engine is idle again
+                n_pred = SERVE_N if not traced else 9 if eng.chunk == 1 else 2 * eng.chunk + 1
+                reqs = [eng.submit(Request([1] + rng.integers(3, n_vocab, 127).tolist(),
+                                           n_predict=n_pred, sampling=greedy))
+                        for _ in range(k)]
+                firsts = [r.out.get(timeout=300) for r in reqs]  # None: done at once
+                n0, t0 = eng.n_ticks, time.perf_counter()
+                if traced:
+                    from torch.profiler import ProfilerActivity, profile
+
+                    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+                    prof.__enter__()
+                outs = [[] if f is None else list(r.tokens(timeout=300))
+                        for r, f in zip(reqs, firsts)]
+                while eng._inflight or eng.n_active:  # the engine idle again
+                    time.sleep(0.01)
+                torch.cuda.synchronize()
+                if traced:
+                    prof.__exit__(None, None, None)
+                secs = time.perf_counter() - t0
+                ticks = max(1, eng.n_ticks - n0)
+                toks = sum(len(o) + (len(f) - 1 if isinstance(f, list) else 0)
+                           for o, f in zip(outs, firsts))
+                if not traced:
+                    step_ms = secs * 1e3 / ticks / eng.chunk
+                    print(f"serve: {label} occupancy {k}: {toks / secs:.1f} tokens/s summed "
+                          f"over the slots, {secs * 1e3 / ticks:.3f} ms a tick ({ticks} ticks, "
+                          f"{toks} tokens after the first, {secs:.3f} s) [{card}]", flush=True)
+                    continue
+                rows = _kernel_rows(prof, 1)
+                # K2 launches 4 a layer and 1 for the head a step
+                steps = (sum(n for _, n, key in rows if "PackedGemv" in key)
+                         / (4 * eng.cfg.n_layer + 1))
+                if not rows or not steps:
+                    print(f"trace: serve {label}: the profiler recorded no kernel time "
+                          f"(not measured)", flush=True)
+                    continue
+                busy = sum(r[0] for r in rows) / steps
+                print(f"trace: serve {label} occupancy {k}: device busy {busy:.3f} ms a step "
+                      f"of {step_ms:.3f} ms unprofiled (idle {100 * (1 - busy / step_ms):.1f}%),"
+                      f" {sum(r[1] for r in rows) / steps:.0f} kernels a step ({steps:.1f} "
+                      f"steps profiled) [{card}]", flush=True)
+                for ms, n, key in rows[:6]:
+                    print(f"trace:   {ms / steps:8.4f} ms/step  x{n / steps:<6.1f} {key[:90]}",
+                          flush=True)
+    finally:
+        eng.stop()
+
+
+def serve_agreement(refs, outs_logits):
+    """The largest |engine - single session| logit difference over the
+    steps where a request's tokens still agree, and the largest logit
+    magnitude there: the engine path's agreement with the single session."""
+    import numpy as np
+
+    diff = scale = 0.0
+    for (ref, rows), got in zip(refs, outs_logits):
+        for j, (r, g) in enumerate(zip(rows, got)):
+            if j >= len(ref) or g.argmax() != ref[j]:
+                break
+            diff = max(diff, float(np.abs(r - g).max()))
+            scale = max(scale, float(np.abs(r).max()))
+    return diff, scale
+
+
+def serve_server(torch, counters, card, seed) -> bool:
+    """`server --parallel 4 --parallel-chunk 8` on a 2-layer 7B-width q4_0
+    GGJT (cli/server.py's start_server, on localhost): concurrent streaming
+    /completion posts and streaming /v1/chat/completions, then /stats; each
+    /completion's pieces against the single-session server's on the same
+    file (without --parallel).  A difference must start at a near tie of
+    the single session's greedy run: a top-2 margin within this model's
+    agreement limit at b = 4, measured by a checked host-tick engine run of
+    the same prompts on the single-session server's weights (serve_mode)."""
+    import http.client
+    import threading
+
+    import numpy as np
+
+    from llama_cpp_q_4_0_tpu_torch.cli import server
+    from llama_cpp_q_4_0_tpu_torch.kernels.build import BUILD_DIR
+    from llama_cpp_q_4_0_tpu_torch.runtime.batch_engine import BatchEngine
+
+    tmp = os.path.join(BUILD_DIR, "smoke-serve")
+    os.makedirs(tmp, exist_ok=True)
+    path = os.path.join(tmp, "llama7b-width-2layer-q4_0.ggjt")
+    servers = []
+    try:
+        write_ggjt_7b_width(path, "q4_0")
+
+        def up(*extra):
+            args = server.build_parser().parse_args(
+                ["-m", path, "-c", "512", "--port", "0", "--device", "cuda", *extra])
+            httpd, eng, lm = server.start_server(args)
+            threading.Thread(target=httpd.serve_forever, daemon=True).start()
+            servers.append((httpd, eng))
+            return httpd.server_address[1], eng, lm
+
+        def post(port, route, body):
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+            conn.request("POST" if body is not None else "GET", route,
+                         None if body is None else json.dumps(body))
+            r = conn.getresponse()
+            raw = r.read().decode()
+            conn.close()
+            if "event-stream" in (r.getheader("Content-Type") or ""):
+                return r.status, [json.loads(x[6:]) for x in raw.split("\n")
+                                  if x.startswith("data: ") and x[6:] != "[DONE]"]
+            return r.status, json.loads(raw)
+
+        # prompts of 20-60 words (the file's vocabulary is bytes: 80-240
+        # tokens, past 32, so that the single session's prefill and the
+        # engine's admissions both take K1); greedy without the default
+        # repeat penalty, so that a token is an argmax
+        rng = np.random.default_rng(seed + 17)
+        words = ["the", "cat", "sat", "on", "a", "mat", "and", "then", "it", "ran", "far"]
+        prompts = [" ".join(rng.choice(words, int(rng.integers(20, 60)))) for _ in range(6)]
+        greedy = {"n_predict": 16, "temperature": -1.0, "repeat_penalty": 1.0, "stream": True}
+        single_port, _, lm = up()
+        want = {p: post(single_port, "/completion", {"prompt": p, **greedy}) for p in prompts}
+        toks = [lm.tokenizer.tokenize(p, bos=True) for p in prompts]
+        refs = serve_reference(lm.cfg, lm.ctx.params, toks, 16, torch.bfloat16)
+        eng = BatchEngine(lm.cfg, lm.ctx.params, n_slots=4, n_ctx=512)
+        good, limit, _ = serve_mode(torch, counters, card, eng, "2-layer 7B-width host ticks, 4 "
+                                    "slots (the server check's agreement limit)", toks, refs,
+                                    None, {"qmm_q4_0_kfold": 9}, "tick", n=16)
+        del eng
+        port, eng, _ = up("--parallel", "4", "--parallel-chunk", "8")
+        got, chats = {}, []
+
+        def one(p):
+            got[p] = post(port, "/completion", {"prompt": p, **greedy})
+
+        def chat(i):
+            chats.append(post(port, "/v1/chat/completions", {
+                "messages": [{"role": "user", "content": prompts[i]}], "max_tokens": 8,
+                "temperature": -1.0, "stream": True}))
+
+        _zero(counters)
+        t0 = time.perf_counter()
+        threads = ([threading.Thread(target=one, args=(p,)) for p in prompts]
+                   + [threading.Thread(target=chat, args=(i,)) for i in range(2)])
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(300)
+        secs = time.perf_counter() - t0
+        launched = {k: v for k, v in _read(counters).items() if v}
+        st, stats = post(port, "/stats", None)
+        same = near = 0
+        notes = []
+        for p, (ref, rows) in zip(prompts, refs):
+            a = [e["content"] for e in want[p][1] if not e["stop"]]
+            b = [e["content"] for e in got[p][1] if not e["stop"]]
+            if a == b:
+                same += 1
+                continue
+            j = next(i for i, (x, y) in enumerate(zip(a + [None], b + [None])) if x != y)
+            top = np.sort(rows[j])[::-1] if j < len(rows) else None
+            margin = float(top[0] - top[1]) if top is not None else float("inf")
+            near += margin <= limit
+            notes.append(f"parts at token {j} (margin {margin:.5f})")
+        chats_ok = len(chats) == 2 and all(s == 200 and ev[-1]["choices"][0]["finish_reason"]
+                                           for s, ev in chats)
+        ok = (good and all(got[p][0] == 200 for p in prompts) and chats_ok and st == 200
+              and stats["n_requests_done"] == len(prompts) + 2 and stats["mode"] == "chunked"
+              and launched.get("qmm_q4_0_kfold", 0) > 0 and same + near == len(prompts))
+        print(f"serve: server --parallel 4 --parallel-chunk 8 on a 2-layer 7B-width q4_0 GGJT: "
+              f"{len(prompts)} streaming /completion and 2 streaming /v1/chat/completions posts "
+              f"at once in {secs:.2f} s; /stats {json.dumps(stats)}; greedy pieces equal to the "
+              f"single-session server's for {same} of {len(prompts)}, {near} part at a near tie "
+              f"(margin <= {limit:.5f}){'; ' + '; '.join(notes) if notes else ''}; launches "
+              f"{json.dumps(launched)} {'ok' if ok else 'MISMATCH'} [{card}]", flush=True)
+        return ok
+    finally:
+        for httpd, eng in servers:
+            httpd.shutdown()
+            httpd.server_close()
+            if eng is not None:
+                eng.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def serve_phase(torch, counters, card, built, seed: int, launches: dict) -> bool:
+    """The serving engine on 7B q4_0 at full depth (the e2e phase's weights)
+    at 16 slots x 2048 with a bf16 cache: the 20 requests of
+    serve_prompts(seed) (batched, per-slot and lane admissions) with 64
+    greedy tokens through host ticks and through chunk-16 ticks two in
+    flight, each request against its single session; tokens/s and ms a tick
+    at occupancy 1-16 with a traced tick; speculative ticks at 4 slots (k =
+    7, chunk 4) over patterned prompts behind a registered prefix; the int8
+    configuration (QMM_Q8X=1, FUSED_ATTN=1, q8 cache) at 8 slots, chunk 16,
+    with a lane cohort of 4; the engine's memory estimate against the card's
+    peak; `server --parallel`.  The path's launches (not the twins') are
+    added to launches."""
+    import numpy as np
+
+    from llama_cpp_q_4_0_tpu_torch.runtime import batch_engine as be
+    from llama_cpp_q_4_0_tpu_torch.runtime.device_sample import DeviceSampling
+    from llama_cpp_q_4_0_tpu_torch.synth import build_llama
+
+    t0 = time.perf_counter()
+    cfg, params = built or build_llama(device="cuda", seed=0, ftype="q4_0")
+    prompts = serve_prompts(seed, cfg.n_vocab)
+    refs = serve_reference(cfg, params, prompts, SERVE_N, torch.bfloat16)
+    print(f"time: serve references {time.perf_counter() - t0:.1f} s", flush=True)
+    ok, path = True, {}
+
+    def engine(**kw):
+        torch.cuda.empty_cache()
+        return be.BatchEngine(cfg, params, n_ctx=SERVE_CTX, **kw)
+
+    # host ticks, 16 slots: the agreement limit at b = 16 comes from this run
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    eng = engine(n_slots=SERVE_SLOTS, cache_dtype=torch.bfloat16)
+    weights, kv = be.estimate_engine_hbm(eng.params, cfg, SERVE_SLOTS, SERVE_CTX,
+                                         torch.bfloat16)
+    good, limit, log = serve_mode(torch, counters, card, eng, "host ticks, 16 slots",
+                                  prompts, refs, None, SERVE_TICK, "tick")
+    ok &= good and {"batched", "lane"} <= set(log["admits"])
+    _add(path, log["path"])
+    peak = torch.cuda.max_memory_allocated() - base
+    print(f"serve: estimate_engine_hbm weights {weights / 2**30:.3f} GiB + KV {kv / 2**30:.3f} "
+          f"GiB = {(weights + kv) / 2**30:.3f} GiB; torch.cuda.max_memory_allocated above the "
+          f"weights {peak / 2**30:.3f} GiB (the KV, the graphs' pool, the twins' cache copies, "
+          f"the admissions' staging) [{card}]", flush=True)
+    print(f"graphs: serve host {graph_summary(eng.ctx)}", flush=True)
+    del eng
+    eng = engine(n_slots=SERVE_SLOTS, cache_dtype=torch.bfloat16)
+    serve_occupancy(torch, eng, "host ticks", card, cfg.n_vocab, profile_at=16)
+    del eng
+    print(f"time: serve host {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # chunk-16 ticks, two in flight
+    chunked = dict(n_slots=SERVE_SLOTS, chunk=16, cache_dtype=torch.bfloat16,
+                   per_request_sampling=True, device_sampling=DeviceSampling(temp=-1.0))
+    eng = engine(**chunked)
+    good, _, log = serve_mode(torch, counters, card, eng, "chunk 16, two in flight",
+                              prompts, refs, limit, SERVE_TICK, "chunk")
+    ok &= good
+    _add(path, log["path"])
+    print(f"graphs: serve chunked {graph_summary(eng.ctx)}", flush=True)
+    del eng
+    eng = engine(**chunked)
+    serve_occupancy(torch, eng, "chunk 16", card, cfg.n_vocab, profile_at=16, levels=(1, 16))
+    del eng
+    print(f"time: serve chunked {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # speculative ticks: 4 slots, k = 7, chunk 4, patterned prompts behind a
+    # registered prefix (a verify is [4, 8]: K2 at b = 32)
+    pre = spec_prompt(seed, cfg.n_vocab, 128)
+    sprompts = [pre + spec_prompt(seed + 1 + i, cfg.n_vocab, 384) for i in range(4)]
+    srefs = serve_reference(cfg, params, sprompts, SERVE_N, torch.bfloat16)
+    eng = engine(n_slots=4, chunk=4, spec_draft=7, cache_dtype=torch.bfloat16,
+                 device_sampling=DeviceSampling(temp=-1.0))
+    eng.register_prefix(pre)
+    good, _, log = serve_mode(torch, counters, card, eng, "speculative, 4 slots, k 7, chunk 4",
+                              sprompts, srefs, limit, SERVE_TICK, "spec")
+    st = eng.stats()
+    ok &= good and "prefix" in log["admits"] and st["spec_rounds"] > 0
+    _add(path, log["path"])
+    t1 = time.perf_counter()
+    n0, k0 = eng.n_ticks, eng.n_tokens_out
+    serve_submit(eng, sprompts, SERVE_N)
+    secs = time.perf_counter() - t1
+    st = eng.stats()
+    print(f"serve: speculative ticks: {st['spec_rounds']} slot-rounds, "
+          f"{1 + st['spec_accepted'] / max(1, st['spec_rounds']):.3f} tokens a verify, "
+          f"acceptance {st['spec_acceptance']:.3f} ({st['spec_accepted']}/{st['spec_drafted']}); "
+          f"unchecked again: {(eng.n_tokens_out - k0) / secs:.1f} tokens/s summed over 4 slots "
+          f"({eng.n_tokens_out - k0} tokens in {secs:.3f} s, prefix admissions included, "
+          f"{eng.n_ticks - n0} ticks) [{card}]", flush=True)
+    del eng
+    print(f"time: serve spec {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # the int8 configuration: 8 slots, chunk 16, q8 cache; 4 short prompts
+    # and 4 long ones of three lane chunks (one cohort)
+    rng = np.random.default_rng(seed + 18)
+    iprompts = [[1] + rng.integers(3, cfg.n_vocab, int(n) - 1).tolist()
+                for n in [*rng.integers(*SERVE_INT8_LENS[0], 4),
+                          *rng.integers(*SERVE_INT8_LENS[1], 4)]]
+    with env(**INT8):
+        irefs = serve_reference(cfg, params, iprompts, 32, torch.int8)
+        eng = engine(n_slots=8, chunk=16, cache_dtype=torch.int8, per_request_sampling=True,
+                     device_sampling=DeviceSampling(temp=-1.0))
+        good, _, log = serve_mode(torch, counters, card, eng,
+                                  "int8 configuration (QMM_Q8X=1 FUSED_ATTN=1, q8 cache), "
+                                  f"8 slots, chunk 16, lane width {eng.lane_width}", iprompts,
+                                  irefs, limit, SERVE_TICK_INT8, "chunk", n=32)
+    ok &= good and log["admits"].get("lane", [(0, 0, 0)])[0][0] > 1
+    _add(path, log["path"])
+    del eng
+    torch.cuda.empty_cache()
+    print(f"time: serve int8 {time.perf_counter() - t0:.1f} s", flush=True)
+
+    ok &= serve_server(torch, counters, card, seed)
+    kernels = ("qmm_q4_0", "qmm_q4_0_kfold", "flash_prefill", "qmm_q8x", "mha_decode")
+    ok &= all(path.get(k, 0) > 0 for k in kernels)
+    _add(launches, {k: path.get(k, 0) for k in kernels})
+    print(f"serve: the path's launches (the runs', their twins apart) {json.dumps(path)}; every "
+          f"kernel of the path launched {all(path.get(k, 0) > 0 for k in kernels)}; phase "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return ok
+
+
 # the phases of the full run, in their order
-FULL_RUN = ("kernels", "e2e", "graphs", "ondevice", "session", "spec", "families", "q8chaos",
-            "cli")
+FULL_RUN = ("kernels", "e2e", "graphs", "ondevice", "session", "spec", "serve", "families",
+            "q8chaos", "cli")
 
 
 def main(argv=None) -> int:
@@ -4191,12 +4850,13 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(FULL_RUN),
                     help="comma-separated subset of kernels,e2e,graphs,ondevice,session,spec,"
-                         "families,"
+                         "serve,families,"
                          "q8chaos,cli,sass,k7k3,"
                          "k7repeat,int8prefill,planes,tiles,attn,gemv,busy,splits; the result "
                          "lines print only for the default " + ",".join(FULL_RUN))
     ap.add_argument("--seed", type=int, default=0,
-                    help="seed of the session and spec phases' token streams and adapters")
+                    help="seed of the session, spec and serve phases' token streams and "
+                         "adapters")
     opts = ap.parse_args(argv)
     phases = set(opts.phases.split(","))
     full = phases == set(FULL_RUN)
@@ -4274,7 +4934,10 @@ def main(argv=None) -> int:
         # checked at b=33 (the ragged row), 64 and 2048 (the smallest and
         # largest prefill buckets), on both group sizes (OTHER_FORMS)
         ok = check_qmm(torch, timer, "qmm_q4_0_kfold", 1, recs["qmm_q4_0_kfold"])
-        ok &= check_qmm(torch, timer, "qmm_q4_0_kfold", 8, None)
+        # b = 8 (a verify), 16 (a serving tick at 16 slots) and 32 (a
+        # speculative tick of 4 slots x 8 rows)
+        for b in (8, 16, 32):
+            ok &= check_qmm(torch, timer, "qmm_q4_0_kfold", b, None)
         ok &= check_flash(torch, timer, recs["flash_prefill"])
         for name in ("qmm_q4_0", "qmm_packed_bias", "qmm_int8", "qmm_int8_bias"):
             if name != "qmm_q4_0":
@@ -4471,6 +5134,13 @@ def main(argv=None) -> int:
                         "plain chunk's off a near-tie, the caches rebound, the adapted bases "
                         "touched, or LoRA / embd-input card against CPU")
         elapsed("spec")
+    if "serve" in phases:
+        if not serve_phase(torch, counters, card, q4, opts.seed, launches):
+            return fail("the serving engine: a replayed tick, chunk or round differing from its "
+                        "eager twin, a launch count, a request's greedy tokens parting from its "
+                        "single session off a near tie, the caches rebound, a request left open, "
+                        "or the server")
+        elapsed("serve")
     del q4
     torch.cuda.empty_cache()
     if "families" in phases:

@@ -14,6 +14,7 @@ TOOLS = {
                   "embedding"),
     "save-load-state": ("state determinism self-test", "save_load_state"),
     "convert-lora": ("PEFT LoRA adapter dir -> ggla file", "convert_lora"),
+    "server": ("HTTP completion API, --parallel N for continuous batching", "server"),
 }
 
 

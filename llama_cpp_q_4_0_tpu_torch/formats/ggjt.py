@@ -83,15 +83,16 @@ class GGJTFile:
         return self.tensor_bytes(name).view(dt)
 
     def tensor_f32(self, name: str) -> np.ndarray:
-        """A float (f32 or f16) tensor as float32, in numpy shape."""
+        """A tensor as float32 in numpy shape, dequantized on the host."""
+        from ..quant.registry import dequantize
+
         t = self.tensors[name]
         raw = self.tensor_bytes(name)
         if t.qtype == GGMLType.F32:
             return np.array(raw.view("<f4").reshape(t.shape), dtype=np.float32)
         if t.qtype == GGMLType.F16:
             return raw.view("<f2").reshape(t.shape).astype(np.float32)
-        raise NotImplementedError(f"{name}: dequantizing {t.qtype.name} on the "
-                                  "host is not ported yet")
+        return dequantize(self.tensor_blocks(name), t.qtype).reshape(t.shape)
 
 
 def _read_header(f, arch: str):

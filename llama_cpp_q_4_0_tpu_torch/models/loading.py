@@ -1,7 +1,8 @@
 """GGJT file -> device parameters for llama, gptneox, falcon and bonsai.
 
-q4_0 weights take the direct repack of ``quant/q4_0.py``; every other
-quantized type (q4_1, q5_0, q5_1, q8_0, q2_K..q6_K) goes through the planar
+q4_0 weights whose K is a multiple of 64 take the direct repack of
+``quant/q4_0.py`` (the JAX ``_q4_0_native``); other q4_0 shapes and every
+other quantized type (q4_1, q5_0, q5_1, q8_0, q2_K..q6_K) goes through the planar
 repack and ``QTensor.from_planar``, as in the JAX package's loader.  llama's
 wq/wk stay in their on-disk permuted layout because rope(neox=False)
 implements the matching adjacent-pair rotation.
@@ -40,7 +41,7 @@ def load_tensor(gf: GGJTFile, name: str, device: torch.device,
         arr = torch.from_numpy(gf.tensor_f32(name))
         dt = torch.float32 if len(t.shape) == 1 else dense_dtype
         return arr.to(device=device, dtype=dt)
-    if t.qtype == GGMLType.Q4_0 and len(t.shape) == 2:
+    if t.qtype == GGMLType.Q4_0 and len(t.shape) == 2 and t.shape[1] % 64 == 0:
         n, k = t.shape
         packed, scales = pack_q4_0(gf.tensor_bytes(name), n, k)
         return QTensor(levels_t=torch.from_numpy(packed).to(device),

@@ -273,7 +273,8 @@ def forward(cfg: ModelConfig, params: TransformerParams, tokens: torch.Tensor,
     kv_window restricts attention to the first kv_window cache slots (the
     caller guarantees n_past + T <= kv_window).  last_index keeps one row (the
     real last token of a bucket-padded prompt) before the output norm and
-    head.  attention_fn(q, k, v, scale) replaces the cache-window attention
+    head; a [B] int64 tensor keeps each row's own (the serving engine's
+    batched admissions).  attention_fn(q, k, v, scale) replaces the cache-window attention
     over this call's fresh, cache-round-tripped K/V; valid only when
     n_past == 0 and the call covers the whole sequence."""
     b, t = tokens.shape[:2]
@@ -323,7 +324,11 @@ def forward(cfg: ModelConfig, params: TransformerParams, tokens: torch.Tensor,
             x = x + _ffn(cfg, blk, _norm(cfg, x, blk.ffn_norm_w, blk.ffn_norm_b))
 
     if last_index is not None:
-        x = x.index_select(1, _device_int(last_index, dev).reshape(1))
+        li = _device_int(last_index, dev)
+        if li.dim():
+            x = x.gather(1, li.reshape(b, 1, 1).expand(b, 1, x.shape[2]))
+        else:
+            x = x.index_select(1, li.reshape(1))
     elif last_only:
         x = x[:, -1:]
     x = _norm(cfg, x, params.out_norm_w, params.out_norm_b)

@@ -49,6 +49,10 @@ from .qmm import (bf16_f32, qmm_int8, qmm_int8_bias, qmm_packed,
                   ieee_div, roundf)
 from .qtensor import QTensor
 
+# the most x rows the serving engine flattens into one batched admission
+# (its [M_pad, T_pad] prompt matrix), as in the JAX package
+MAX_PALLAS_ROWS = 2048
+
 
 def use_q8x(b: int, w: QTensor) -> bool:
     """The JAX ``QMM_Q8X`` test: a packed weight without a bias, at most

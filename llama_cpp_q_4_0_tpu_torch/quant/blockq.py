@@ -1,12 +1,14 @@
 """The legacy 32-element block formats (q4_0, q4_1, q5_0, q5_1, q8_0, q8_1):
-the fp16 scale widening and q5 high bits the planar repack needs, and the
-quantizers.
+the fp16 scale widening and q5 high bits the planar repack needs, the
+quantizers and the dequantizers.
 
 The quantizers are vectorised numpy that reproduce the reference's scalar
 ``quantize_row_*_reference`` (ggml.c:918-1316) byte for byte: fp16 scale
 rounding, C-cast truncation and ``roundf`` half away from zero.  Each takes
 float32 rows (..., k), k a multiple of 32, and returns the structured blocks
-(..., k/32) of ``types.py``.  The JAX package's ``quant/blockq.py``.
+(..., k/32) of ``types.py``; each dequantizer is its inverse, in the float32
+order of the reference's ``dequantize_row_*``.  The JAX package's
+``quant/blockq.py``.
 """
 
 from __future__ import annotations
@@ -155,3 +157,56 @@ def quantize_q8_1(x: np.ndarray) -> np.ndarray:
     out["qs"] = q
     out["s"] = (q.sum(axis=-1, dtype=np.int32).astype(F32) * d).astype(F32)
     return out.reshape(*lead, -1)
+
+
+def _unblock(y: np.ndarray, blocks: np.ndarray) -> np.ndarray:
+    """Flat (nb, qk) values back to the blocks' leading shape and a row."""
+    if blocks.ndim == 1:
+        return y.reshape(-1)
+    return y.reshape(*blocks.shape[:-1], -1)
+
+
+def dequantize_q4_0(blocks: np.ndarray) -> np.ndarray:
+    b = blocks.reshape(-1)
+    d = f16_to_f32(b["d"])[:, None]
+    lo = (b["qs"] & 0x0F).astype(np.int32) - 8
+    hi = (b["qs"] >> 4).astype(np.int32) - 8
+    return _unblock(np.concatenate([lo, hi], axis=-1).astype(F32) * d, blocks)
+
+
+def dequantize_q4_1(blocks: np.ndarray) -> np.ndarray:
+    b = blocks.reshape(-1)
+    d = f16_to_f32(b["d"])[:, None]
+    m = f16_to_f32(b["m"])[:, None]
+    q = np.concatenate([(b["qs"] & 0x0F).astype(F32), (b["qs"] >> 4).astype(F32)], axis=-1)
+    return _unblock(q * d + m, blocks)
+
+
+def _q5_levels(b: np.ndarray) -> np.ndarray:
+    bits = _qh_bits(b["qh"])
+    lo = (b["qs"] & 0x0F).astype(np.int32) | (bits[:, :16] << 4)
+    hi = (b["qs"] >> 4).astype(np.int32) | (bits[:, 16:] << 4)
+    return np.concatenate([lo, hi], axis=-1)
+
+
+def dequantize_q5_0(blocks: np.ndarray) -> np.ndarray:
+    b = blocks.reshape(-1)
+    d = f16_to_f32(b["d"])[:, None]
+    return _unblock((_q5_levels(b) - 16).astype(F32) * d, blocks)
+
+
+def dequantize_q5_1(blocks: np.ndarray) -> np.ndarray:
+    b = blocks.reshape(-1)
+    d = f16_to_f32(b["d"])[:, None]
+    m = f16_to_f32(b["m"])[:, None]
+    return _unblock(_q5_levels(b).astype(F32) * d + m, blocks)
+
+
+def dequantize_q8_0(blocks: np.ndarray) -> np.ndarray:
+    b = blocks.reshape(-1)
+    return _unblock(b["qs"].astype(F32) * f16_to_f32(b["d"])[:, None], blocks)
+
+
+def dequantize_q8_1(blocks: np.ndarray) -> np.ndarray:
+    b = blocks.reshape(-1)
+    return _unblock(b["qs"].astype(F32) * b["d"].astype(F32)[:, None], blocks)

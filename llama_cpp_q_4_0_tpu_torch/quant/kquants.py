@@ -1,6 +1,6 @@
 """The k-quant super-blocks (QK_K = 256): the unpack helpers of the 2-bit and
 nibble-pair level layouts and the packed 6-bit scale codes, and the
-quantizers q2_K..q6_K and q8_K.
+quantizers and dequantizers of q2_K..q6_K and q8_K.
 
 The quantizers are the JAX package's ``quant/kquants.py``: the reference's
 per-group scalar loops (k_quants.c) vectorised across groups with per-group
@@ -532,3 +532,86 @@ def quantize_q8_K(x: np.ndarray) -> np.ndarray:
     with np.errstate(divide="ignore", invalid="ignore"):
         out["d"] = np.where(zero, F32(0.0), (F32(1.0) / iscale).astype(F32))
     return out.reshape(*x.shape[:-1], -1) if x.ndim > 1 else out
+
+
+def _unblock(y: np.ndarray, blocks: np.ndarray) -> np.ndarray:
+    y = y.reshape(-1, QK_K)
+    return y.reshape(-1) if blocks.ndim == 1 else y.reshape(*blocks.shape[:-1], -1)
+
+
+def dequantize_q2_K(blocks: np.ndarray) -> np.ndarray:
+    """y = d * sc * q - dmin * m per 16-group (k_quants.c:380)."""
+    b = blocks.reshape(-1)
+    nb = b.shape[0]
+    d = f16_to_f32(b["d"])[:, None]
+    dmin = f16_to_f32(b["dmin"])[:, None]
+    sc = (b["scales"] & 0xF).astype(F32)
+    mn = (b["scales"] >> 4).astype(F32)
+    L = _unpack2(b["qs"]).reshape(nb, 16, 16).astype(F32)
+    return _unblock((d * sc)[:, :, None] * L - (dmin * mn)[:, :, None], blocks)
+
+
+def _q3_levels(b: np.ndarray) -> np.ndarray:
+    """(nb, 256) signed q3_K levels: the 2-bit value less 4 where the
+    element's hmask bit is clear."""
+    nb = b.shape[0]
+    shifts = np.arange(8, dtype=np.uint8)[None, :, None]
+    bits = ((b["hmask"][:, None, :] >> shifts) & 1).reshape(nb, QK_K).astype(np.int32)
+    return _unpack2(b["qs"]) - np.where(bits == 1, 0, 4)
+
+
+def dequantize_q3_K(blocks: np.ndarray) -> np.ndarray:
+    """y = d * (scale - 32) * q per 16-group (k_quants.c:536)."""
+    b = blocks.reshape(-1)
+    nb = b.shape[0]
+    d = f16_to_f32(b["d"])[:, None]
+    sc = _q3_unpack_scales(b["scales"]).astype(F32)
+    q = _q3_levels(b).reshape(nb, 16, 16).astype(F32)
+    return _unblock((d * sc)[:, :, None] * q, blocks)
+
+
+def dequantize_q4_K(blocks: np.ndarray) -> np.ndarray:
+    """y = d * sc * q - dmin * m per 32-group (k_quants.c:747)."""
+    b = blocks.reshape(-1)
+    nb = b.shape[0]
+    d = f16_to_f32(b["d"])[:, None]
+    dmin = f16_to_f32(b["dmin"])[:, None]
+    sc, m = unpack_scale_min_k4(b["scales"])
+    L = _unpack_nibble_pairs(b["qs"]).reshape(nb, 8, 32).astype(F32)
+    return _unblock((d * sc.astype(F32))[:, :, None] * L
+                    - (dmin * m.astype(F32))[:, :, None], blocks)
+
+
+def dequantize_q5_K(blocks: np.ndarray) -> np.ndarray:
+    """q4_K's form with a fifth bit from qh: bit 2 * seg for the low
+    nibbles of segment seg, 2 * seg + 1 for its high ones (k_quants.c:982)."""
+    b = blocks.reshape(-1)
+    nb = b.shape[0]
+    d = f16_to_f32(b["d"])[:, None]
+    dmin = f16_to_f32(b["dmin"])[:, None]
+    sc, m = unpack_scale_min_k4(b["scales"])
+    shifts = np.arange(8, dtype=np.uint8)[None, :, None]
+    hi = ((b["qh"][:, None, :] >> shifts) & 1).reshape(nb, QK_K).astype(np.int32)
+    L = (_unpack_nibble_pairs(b["qs"]) + 16 * hi).reshape(nb, 8, 32).astype(F32)
+    return _unblock((d * sc.astype(F32))[:, :, None] * L
+                    - (dmin * m.astype(F32))[:, :, None], blocks)
+
+
+def dequantize_q6_K(blocks: np.ndarray) -> np.ndarray:
+    """y = d * scale * (q - 32) per 16-group; the low 4 bits from ql, the
+    top 2 from qh (k_quants.c:1130)."""
+    b = blocks.reshape(-1)
+    nb = b.shape[0]
+    d = f16_to_f32(b["d"])[:, None]
+    ql = b["ql"].reshape(nb, 2, 1, 2, 32)  # half, nibble, part of ql, j
+    qh = b["qh"].reshape(nb, 2, 1, 1, 32)
+    low = np.concatenate([ql & 0xF, ql >> 4], axis=2)  # half, nibble, part, j
+    shifts = (2 * np.arange(4, dtype=np.uint8)).reshape(1, 1, 2, 2, 1)
+    q = (low.astype(np.int32) | (((qh >> shifts) & 3).astype(np.int32) << 4)) - 32
+    s = np.repeat(b["scales"].astype(F32), 16, axis=1).reshape(nb, 2, 2, 2, 32)
+    return _unblock(d[:, :, None, None, None] * s * q.astype(F32), blocks)
+
+
+def dequantize_q8_K(blocks: np.ndarray) -> np.ndarray:
+    b = blocks.reshape(-1)
+    return _unblock(b["qs"].astype(F32) * b["d"].astype(F32)[:, None], blocks)

@@ -176,10 +176,11 @@ class StepCall:
     [B, T] int64, or embeddings [B, T, E] f32), n_past, the kept row of a
     bucket-padded prompt (None unless slice_last), the params view and the
     step's static arguments.  ``transformer.forward`` of these, eagerly, is
-    the step's reference."""
-    kind: str  # "eval", "eval_embd" or "embed"
+    the step's reference.  A "tick" (the serving engine's batched decode
+    step) takes n_past as a [B] int64 array, a position per row."""
+    kind: str  # "eval", "eval_embd", "embed" or "tick"
     x: np.ndarray
-    n_past: int
+    n_past: int | np.ndarray
     last_index: int | None
     params: TransformerParams
     view: str  # "decode" (Context.params) or "prefill" (_params_prefill)
@@ -206,26 +207,36 @@ class _Graph:
 class _Step(_Graph):
     """The static inputs of one key, and on the card its graph.  The input,
     n_past and last_index live at fixed addresses and are written before
-    each call: the input through a pinned staging tensor (an asynchronous
-    copy), the scalars by fills on the device."""
+    each call: the input (and a per-row n_past) through pinned staging
+    tensors (asynchronous copies), the scalars by fills on the device."""
 
-    def __init__(self, x: np.ndarray, device: torch.device):
+    def __init__(self, call: StepCall, device: torch.device):
         super().__init__()
+        x = call.x
         dtype = torch.from_numpy(x).dtype
         self.x = torch.zeros(x.shape, dtype=dtype, device=device)
-        self.n_past = torch.zeros((), dtype=torch.int64, device=device)
+        self.n_past = torch.zeros(np.shape(call.n_past), dtype=torch.int64, device=device)
         self.last_index = torch.zeros((), dtype=torch.int64, device=device)
-        self.staging = (torch.empty(x.shape, dtype=dtype, pin_memory=True)
-                        if device.type == "cuda" else None)
+        pinned = device.type == "cuda"
+        self.staging = torch.empty(x.shape, dtype=dtype, pin_memory=pinned)
+        self.staging_n_past = torch.empty(self.n_past.shape, dtype=torch.int64,
+                                          pin_memory=pinned)
+        # the last copy out of the staging tensors, which must be done before
+        # they are written again
+        self.copied = torch.cuda.Event() if pinned else None
 
     def load(self, call: StepCall):
-        host = torch.from_numpy(call.x)
-        if self.staging is None:
-            self.x.copy_(host)
+        if self.copied is not None:
+            self.copied.synchronize()
+        self.staging.copy_(torch.from_numpy(call.x))
+        self.x.copy_(self.staging, non_blocking=True)
+        if self.n_past.dim():
+            self.staging_n_past.copy_(torch.from_numpy(np.asarray(call.n_past, np.int64)))
+            self.n_past.copy_(self.staging_n_past, non_blocking=True)
         else:
-            self.staging.copy_(host)
-            self.x.copy_(self.staging, non_blocking=True)
-        self.n_past.fill_(call.n_past)
+            self.n_past.fill_(call.n_past)
+        if self.copied is not None:
+            self.copied.record()
         self.last_index.fill_(call.last_index or 0)
 
 
@@ -260,16 +271,19 @@ class Context:
 
     def __init__(self, cfg: ModelConfig, params: TransformerParams, *,
                  batch: int = 1, n_ctx: int | None = None,
-                 cache_dtype=torch.bfloat16, device=None):
+                 cache_dtype=torch.bfloat16, device=None, views=None):
         """device defaults to cuda and raises without CUDA unless "cpu" is
-        asked for; params must already lie on it (models.loading)."""
+        asked for; params must already lie on it (models.loading).  views:
+        the (decode, prefill) params views when the caller has made them
+        already (the serving engine); params is then not read."""
         self.device = resolve_device(device)
         self.cfg = cfg
-        # cast before the fold, so that both views share the cast planes and
-        # the folded bias takes their dtype (JAX context.py)
-        params = maybe_cast_scales_f16(params)
-        self._params_prefill = params
-        self.params = maybe_fold_zero_points(params)
+        if views is None:
+            # cast before the fold, so that both views share the cast planes
+            # and the folded bias takes their dtype (JAX context.py)
+            params = maybe_cast_scales_f16(params)
+            views = (maybe_fold_zero_points(params), params)
+        self.params, self._params_prefill = views
         self.n_ctx = n_ctx or cfg.n_ctx
         self.batch = batch
         # captured by address in every graph: written in place, never
@@ -319,7 +333,7 @@ class Context:
         self.last_call = call
         st = self._steps.get(call.key)
         if st is None:
-            st = self._steps[call.key] = _Step(call.x, self.device)
+            st = self._steps[call.key] = _Step(call, self.device)
         st.load(call)
         if self.device.type != "cuda":  # the caller asked for the CPU
             return self._step(call, st)
@@ -376,14 +390,16 @@ class Context:
     @torch.no_grad()
     def decode_chunk(self, tok, n_past, key, *, n_steps: int,
                      ds: "device_sample.DeviceSampling", kv_window: int | None = None,
-                     recent=None, mu=None, sv=None):
+                     recent=None, mu=None, sv=None, to_host: bool = True):
         """``device_sample.decode_chunk`` on this Context's params (the
         decode view) and caches: n_steps tokens from tok [B] (a device
         tensor) at n_past (an int, or a [B] int64 tensor, a position per
         row), sampled on the device.  ctx.n_past is left to the caller, as
         the JAX ``generate_ondevice`` advances it.  Returns (tokens [B,
         n_steps] as a host array, key, recent, mu); the last three are
-        device tensors of their own.
+        device tensors of their own.  With to_host=False the tokens stay on
+        the device too, in a tensor of their own: nothing waits for the
+        chunk (the serving engine's pipelined ticks).
 
         On the card the chunk is n_steps replays of one captured step (the
         first call of a key runs its first step eagerly, then captures), and
@@ -398,9 +414,9 @@ class Context:
             toks, _, _, key, recent, mu = device_sample.decode_chunk(
                 self.cfg, self.params, tok, n_past, self.cache_k, self.cache_v, key,
                 n_steps=n_steps, ds=ds, kv_window=kv_window, recent=recent, mu=mu, sv=sv)
-            out = (toks.numpy(), key, recent, mu)
+            out = (toks.numpy() if to_host else toks, key, recent, mu)
         else:
-            out = self._chunk(carry, sv, n_steps, ds, kv_window)
+            out = self._chunk(carry, sv, n_steps, ds, kv_window, to_host)
         self.timings.t_eval_ms += (time.perf_counter() - t0) * 1e3
         self.timings.n_eval += n_steps
         return out
@@ -419,7 +435,7 @@ class Context:
         st.replays += left
         add_launches(LAUNCH_COUNTERS, st.launches, left)
 
-    def _chunk(self, carry, sv, n_steps, ds, kv_window):
+    def _chunk(self, carry, sv, n_steps, ds, kv_window, to_host=True):
         """A chunk on the card: the key's graph replayed n_steps times."""
         key = chunk_key(n_steps, kv_window, ds, sv, carry[3].shape[1], carry[1].dim() == 1)
         state = dict(zip(("tok", "n_past", "key", "recent", "mu"), carry))
@@ -445,7 +461,8 @@ class Context:
 
         self.last_chunk = ch
         self._rounds(ch, step, n_steps)
-        return (ch.toks.cpu().numpy(), ch.key.clone(), ch.recent.clone(), ch.mu.clone())
+        toks = ch.toks.cpu().numpy() if to_host else ch.toks.clone()
+        return (toks, ch.key.clone(), ch.recent.clone(), ch.mu.clone())
 
     @torch.no_grad()
     def verify(self, tokens, n_past: int, key, recent=None, *,

@@ -60,7 +60,8 @@ def test_port_imports_no_jax_and_no_jax_package():
               "cli.console", "cli.perplexity", "cli.save_load_state",
               "quant.registry", "convert", "synth", "runtime.speculative",
               "runtime.device_spec", "runtime.embd_input", "runtime.mm_adapters",
-              "ops.lowrank", "models.lora", "formats.ggla", "cli.convert_lora"):
+              "ops.lowrank", "models.lora", "formats.ggla", "cli.convert_lora",
+              "runtime.batch_engine", "cli.server"):
         assert f"llama_cpp_q_4_0_tpu_torch.{m}" in out["mods"], m
     if not out["cuda"]:
         # entry points refuse to run on the CPU unless asked to

@@ -305,11 +305,13 @@ def test_convert_peft_dir_bytes_equal_jax(tmp_path):
 
 # ------------------------------------------------------------------- the CLI
 
-@pytest.mark.parametrize("extra", [[], ["--lora-unmerged"], ["--lora-base", "F32"]],
-                         ids=["merged", "unmerged", "lora_base"])
+@pytest.mark.parametrize("extra", [[], ["--lora-unmerged"], ["--lora-base", "F32"],
+                                   ["--lora-base", "Q4_0"]],
+                         ids=["merged", "unmerged", "lora_base", "lora_base_q4_0"])
 def test_main_lora_prints_the_jax_text(files, extra, tmp_path, capsysbinary):
-    """`main --lora` merged, unmerged and over an f32 --lora-base, greedy, 4
-    tokens, an f32 cache, on the q4_0 file: the JAX main's stdout."""
+    """`main --lora` merged, unmerged and over an f32 or a q4_0 --lora-base
+    (dequantized on the host), greedy, 4 tokens, an f32 cache, on the q4_0
+    file: the JAX main's stdout."""
     import llama_cpp_q_4_0_tpu.cli.main as jax_main
 
     ad = str(tmp_path / "a.ggla")
@@ -318,7 +320,7 @@ def test_main_lora_prints_the_jax_text(files, extra, tmp_path, capsysbinary):
     targets = ("attention.wo", "feed_forward.w2")
     jggla.write_ggla(ad, 4, 8, _tensors(targets if "--lora-unmerged" in extra
                                         else QKV + targets, seed=5))
-    extra = [files["F32"] if a == "F32" else a for a in extra]
+    extra = [files.get(a, a) for a in extra]
     args = ["-m", files["Q4_0"], "-p", "hello", "-n", "4", "-c", "64", "-s", "1",
             "--temp", "-1", "--ignore-eos", "--memory-f32", "--lora", ad, *extra]
     assert jax_main.main(args) == 0

@@ -63,11 +63,11 @@ def models(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def weak(tmp_path_factory):
-    """A weak draft model as tests/test_device_spec.py's (other random
-    weights, one layer, the same vocabulary), at n_embd 64: the port's q4_0
-    layout needs rows of whole 64-value pairs of groups."""
+    """The weak draft model of tests/test_device_spec.py (other random
+    weights, one layer, n_embd 32, the same vocabulary): its q4_0 rows of
+    one 32-group pair take the planar repack, as in JAX."""
     p = str(tmp_path_factory.mktemp("weak") / "w.bin")
-    make_llama_ggjt(p, n_vocab=V, n_embd=64, n_head=2, n_layer=1, seed=99)
+    make_llama_ggjt(p, n_vocab=V, n_embd=32, n_head=2, n_layer=1, seed=99)
     return _load(p)
 
 
