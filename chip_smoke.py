@@ -161,6 +161,24 @@ Phases (each prints its own lines; any failure exits non-zero):
      and 2048, int8 and bf16 caches) against its plain version; `main --arch
      bonsai` and `embedding` on a Bonsai file of formats/fixtures.py, card
      against CPU.
+  8b. rwkv: RWKV v4 (models/rwkv.py, RwkvContext, runtime/rwkv_engine.py) at
+     RWKV-4-Pile-7B widths (32 layers, n_embd 4096, FFN 16384, n_vocab 50277,
+     synthetic q4_0): K1, K2 and K7 at its shapes against their plain
+     versions (K = 16384 included); 512 + 64 and the int8 configuration
+     128 + 16 through RwkvContext, every step a replayed graph against its
+     eager twin bit for bit (logits and the five state tensors), 224 K1 a
+     prefill and 224 K2 (K7) a token, the state never rebound, bound, bench
+     and trace lines; wkv_scan against wkv_step on the same k and v at T =
+     32 (JAX's gate), the whole forward's two routes held at a fixed gate
+     (RWKV_ROUTE_GATE of each quantity's scale) at 32 layers and at 8; a
+     2-layer model at those widths against the CPU; on the model's first 8
+     layers, generate_ondevice_spec_rwkv (k 7, on the patterned prompt and
+     on one seeded so that drafts are accepted) with every chunk against
+     the eager chunk, and RwkvBatchEngine at 8 slots, every token held
+     against the plain decode fed the same tokens (the argmax, or a near tie
+     within twice the gate); `main --arch rwkv` (with and without --draft)
+     card against CPU and `server --parallel 4` on a 2-layer file, its
+     answers equal to the single-session server's.
   9. q8chaos (printed, not gated): the 2-layer q8_0 model of the e2e phase,
      each op of a 128-token prefill and a decode step on the card and on the
      CPU's f32 plain path, against an f64 forward of the same weights.
@@ -182,9 +200,9 @@ Phases (each prints its own lines; any failure exits non-zero):
      estimate against the card's peak; `server --parallel 4 --parallel-chunk
      8` on a 2-layer 7B-width GGJT against the single-session server.
   12. a JSON line of per-kernel numbers (launches: the e2e paths', the
-     families', the session, spec and serve phases'), then the contract line
+     families', the session, spec, serve and rwkv phases'), then the contract line
      {"ok": true, "device": {...}}.
-``--phases kernels,e2e,graphs,ondevice,session,spec,serve,families,q8chaos,cli`` runs a subset
+``--phases kernels,e2e,graphs,ondevice,session,spec,serve,families,rwkv,q8chaos,cli`` runs a subset
 (for debugging: a subset prints no result lines; with no arguments every phase runs).  Phases that run only
 when named: ``sass`` (instruction counts of K7's and K3's kernels and of
 the decode GEMV's and K4's instances), ``gemv`` (check_gemv alone),
@@ -195,8 +213,11 @@ at every K split count), ``k7k3``
 (K3's and K7's tile checks and times alone), ``k7repeat`` (K7's repeated
 tile launches alone), ``int8prefill`` (the int8 configuration's
 prefill-128 instrument), ``planes`` (the 2-byte plane forms' kernel
-checks alone) and ``tiles`` (TILE_AB: the matmul kernels' f32-plane times
-and the decode forms' at b=1 and 8 on f32 and 2-byte planes, alone); a copy
+checks alone), ``tiles`` (TILE_AB: the matmul kernels' f32-plane times
+and the decode forms' at b=1 and 8 on f32 and 2-byte planes, alone),
+``rwkvfaults`` (the RWKV route gaps under faults patched into the parallel
+route, and the spec check under a rollback fault) and ``traceparse``
+(trace_decode's device-only profile against a host and device one); a copy
 of this script placed beside
 an older checkout's package measures that one.  Run without CUDA, or
 without the port beside it, it exits non-zero and prints no result.
@@ -424,23 +445,27 @@ def model_bounds(label, params, n_layer, t=512, heads=(32, 32, 128)):
     weights (their planes' bytes a value and bias planes included): every
     layer matmul and the head at b=1 per decode token; the layer matmuls at
     b=t, the head at b=1 and K3's bound in every layer for one prefill
-    (heads: the query heads, KV heads and head width).  Returns the decode
-    bound in ms."""
+    (heads: the query heads, KV heads and head width; None for RWKV, which
+    has no attention: its RwkvParams' layers and head are read the same
+    way).  Returns the decode bound in ms."""
+    import dataclasses
+
     from llama_cpp_q_4_0_tpu_torch.ops.qtensor import QTensor
 
     def mm(w):  # qmm_bound's (n, k, fmt, peak, es, bias)
         return (w.n_out, w.n_in, w.qtype.name, PEAK_BF16, w.gscale_t.element_size(),
                 w.gbias_t is not None)
 
-    layer = [mm(getattr(blk, f)) for blk in params.blocks
-             for f in ("wqkv", "wq", "wk", "wv", "wo", "w_gateup", "w_gate",
-                       "w_up", "w_down") if isinstance(getattr(blk, f), QTensor)]
-    head = mm(params.output)
+    blocks, head = ((params.layers, params.head) if heads is None
+                    else (params.blocks, params.output))
+    layer = [mm(getattr(blk, f.name)) for blk in blocks for f in dataclasses.fields(blk)
+             if isinstance(getattr(blk, f.name), QTensor)]
+    head = mm(head)
     dec_bytes = sum(qmm_bytes(1, n, k, f, es, bias)
                     for n, k, f, _, es, bias in layer + [head])
     dec_ms = sum(qmm_bound(1, *a)[0] for a in layer + [head])
     pre_ms = (sum(qmm_bound(t, *a)[0] for a in layer) + qmm_bound(1, *head)[0]
-              + n_layer * flash_bound(1, t, *heads)[0])
+              + (n_layer * flash_bound(1, t, *heads)[0] if heads else 0.0))
     print(f"bound: {label} decode token {dec_bytes} bytes through "
           f"{len(layer) + 1} matmuls, {dec_ms:.4f} ms; prefill-{t} "
           f"{pre_ms:.4f} ms", flush=True)
@@ -1468,14 +1493,15 @@ def trace_decode(torch, cfg, params, ck, cv, step_ms: float | None, label: str,
     """torch.profiler over 8 decode steps from slot n_past on at kv_window
     window: the device-busy time per step (sum of kernel times) against the
     unprofiled step time (when step_ms is given), and the kernels that take
-    it."""
+    it.  The device activity alone is recorded: the eager steps' host
+    operators, which only the parse would read, took seconds a trace."""
     from torch.profiler import ProfilerActivity, profile
 
     from llama_cpp_q_4_0_tpu_torch.models import transformer
 
     tok = torch.zeros((1, 1), dtype=torch.int64, device="cuda")
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for i in range(8):
             transformer.forward(cfg, params, tok, n_past + i, ck, cv,
                                 last_only=True, kv_window=window)
@@ -1495,18 +1521,23 @@ def trace_decode(torch, cfg, params, ck, cv, step_ms: float | None, label: str,
 
 def _kernel_rows(prof, n: int):
     """(ms a call, kernels a call, name) of each kernel under the profiler,
-    over n calls; operator rows would count their kernels twice."""
+    over n calls; operator rows would count their kernels twice.  The device
+    events are summed under key_averages()'s key, without its sums over the
+    host operators (each of which walks its children: seconds a trace)."""
     from torch.autograd import DeviceType
 
-    rows = []
-    for ev in prof.key_averages():
+    sums = {}
+    for ev in prof.events():
         if getattr(ev, "device_type", None) != DeviceType.CUDA:
             continue
         dev = getattr(ev, "self_device_time_total", None)
         if dev is None:
             dev = getattr(ev, "self_cuda_time_total", 0)
-        rows.append((dev / 1e3 / n, ev.count // n, ev.key))
-    return sorted(rows, reverse=True)
+        key = (ev.key, ev.node_id, ev.is_legacy, getattr(ev, "is_user_annotation", False))
+        t, c = sums.get(key, (0, 0))
+        sums[key] = (t + dev, c + ev.count)
+    return sorted(((t / 1e3 / n, c // n, key[0]) for key, (t, c) in sums.items()),
+                  reverse=True)
 
 
 def graph_summary(ctx) -> str:
@@ -2951,21 +2982,28 @@ def family_kernels(torch, recs: dict) -> bool:
     return ok
 
 
+# the depth of the GPT-NeoX and Falcon paths: StableLM-Base-Alpha-7B's
+# whole 16 layers, and 16 of Falcon-7B's 32 (every Falcon matmul takes the
+# same off-gate product at any depth)
+FAMILY_LAYERS = 16
+
+
 def families_phase(torch, counters, launches: dict, recs: dict) -> bool:
     """The GPT-NeoX, Falcon and Bonsai families on the card, synthetic q4_0
     weights built from seed 0, every Context step a replayed graph held
     against its eager twin bit for bit (graph_run), each model 512 + 64 on a
     bf16 cache and 128 + 16 in the int8 configuration (q8 cache):
       GPT-NeoX at StableLM-Base-Alpha-7B widths (n_embd 6144, 48 heads of
-        128, n_rot 32, n_ff 24576, vocab 50688), 16 layers: 65 K2 a decode
-        token, 64 K1 + 16 K3 + 1 K2 a 512-token prefill; 65 K7 + 16 K4 a
-        token and 65 K7 + 16 K3 a 128-token prefill in the int8
+        128, n_rot 32, n_ff 24576, vocab 50688), FAMILY_LAYERS layers: 4 K2
+        a layer and the head's a decode token, 4 K1 + 1 K3 a layer + 1 K2 a
+        512-token prefill; 4 K7 + 1 K4 a layer and the head's K7 a token and
+        4 K7 + 1 K3 a layer and the head's K7 a 128-token prefill in the int8
         configuration; a generate_ondevice run (chunks against eager
         twins), Context.embed and eval_embd, the bench and trace lines;
       Falcon-7B widths (n_embd 4544, 71 heads of 64 over one KV head, n_ff
-        18176, vocab 65024), 16 layers: every matmul outside the kernels'
-        gate, so the bf16 product and no matmul kernel; plain prefill
-        attention (head width 64); 16 K4 a token in the int8 configuration
+        18176, vocab 65024), FAMILY_LAYERS layers: every matmul outside the
+        kernels' gate, so the bf16 product and no matmul kernel; plain prefill
+        attention (head width 64); a K4 a layer a token in the int8 configuration
         (rep 71), a generate_ondevice run there; bench and trace lines;
       Bonsai, 2 layers at widths inside the gate (n_embd 2048, 16 heads of
         128, one KV head): graph runs, and against the CPU (default and
@@ -2994,22 +3032,23 @@ def families_phase(torch, counters, launches: dict, recs: dict) -> bool:
               f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card)", flush=True)
 
     # GPT-NeoX: the slice's kernel path
-    cfg, params = build_gptneox(device="cuda", seed=0)
-    built("GPT-NeoX (StableLM-Base-Alpha-7B widths, 16 layers)", cfg)
+    cfg, params = build_gptneox(n_layer=FAMILY_LAYERS, device="cuda", seed=0)
+    built(f"GPT-NeoX (StableLM-Base-Alpha-7B widths, {FAMILY_LAYERS} layers)", cfg)
+    n = cfg.n_layer
     model_bounds("GPT-NeoX-6144 q4_0", params, cfg.n_layer, heads=(48, 48, 128))
     totals = {}
     ok &= graph_run(torch, counters, cfg, params, "gptneox", 512, 64, torch.bfloat16,
-                    {"qmm_q4_0_kfold": 65},
-                    want_prefill={"qmm_q4_0": 64, "flash_prefill": 16, "qmm_q4_0_kfold": 1},
+                    {"qmm_q4_0_kfold": 4 * n + 1},
+                    want_prefill={"qmm_q4_0": 4 * n, "flash_prefill": n, "qmm_q4_0_kfold": 1},
                     totals=totals)
     with env(**INT8):
         ok &= graph_run(torch, counters, cfg, params, "gptneox int8-config", 128, 16,
-                        torch.int8, {"qmm_q8x": 65, "mha_decode": 16},
-                        want_prefill={"qmm_q8x": 65, "flash_prefill": 16}, totals=totals)
+                        torch.int8, {"qmm_q8x": 4 * n + 1, "mha_decode": n},
+                        want_prefill={"qmm_q8x": 4 * n + 1, "flash_prefill": n}, totals=totals)
     _add(launches, totals)
     torch.cuda.empty_cache()
     good, _ = ondevice_run(torch, counters, cfg, params, "gptneox greedy", GREEDY_DS, 512, 64,
-                           16, torch.bfloat16, {"qmm_q4_0_kfold": 65},
+                           16, torch.bfloat16, {"qmm_q4_0_kfold": 4 * n + 1},
                            PATH_KERNELS["q4_0"])
     ok &= good
     ok &= graph_embed(torch, cfg, params)
@@ -3037,10 +3076,9 @@ def families_phase(torch, counters, launches: dict, recs: dict) -> bool:
     print(f"families: gptneox done {time.perf_counter() - t0:.1f} s", flush=True)
 
     # Falcon: off the kernels' gate, K4 at rep 71 in the int8 configuration
-    # 16 of Falcon-7B's 32 layers, to keep the whole run in its time (every
-    # matmul takes the same off-gate product at any depth)
-    cfg, params = build_falcon(n_layer=16, device="cuda", seed=0)
-    built("Falcon (Falcon-7B widths, 16 layers)", cfg)
+    # (every matmul takes the same off-gate product at any depth)
+    cfg, params = build_falcon(n_layer=FAMILY_LAYERS, device="cuda", seed=0)
+    built(f"Falcon (Falcon-7B widths, {FAMILY_LAYERS} layers)", cfg)
     model_bounds("Falcon-4544 q4_0", params, cfg.n_layer, heads=(71, 1, 64))
     totals = {}
     ok &= graph_run(torch, counters, cfg, params, "falcon", 512, 64, torch.bfloat16, {},
@@ -4840,8 +4878,862 @@ def serve_phase(torch, counters, card, built, seed: int, launches: dict) -> bool
 
 
 # the phases of the full run, in their order
+# -------------------------------------------------------------------- rwkv
+
+# RWKV-4-Pile-7B's matmuls (L32-D4096, FFN 4 x 4096): the time mix's key,
+# value, receptance and output and the channel mix's receptance (4096 x 4096:
+# the row stands for the five), its key (16384 x 4096) and value (4096 x
+# 16384, K = 16384); the 50277-entry head lies off the kernels' gate (N %
+# 128) and takes the bf16 product, no kernel, as the JAX dispatch routes it
+RWKV_SHAPES = [("att", 4096, 4096), ("ff_key", 16384, 4096), ("ff_value", 4096, 16384)]
+for _name, _wrapper in (("qmm_q4_0", "qmm_packed"), ("qmm_q4_0_kfold", "qmm_packed_kfold"),
+                        ("qmm_q8x", "qmm_packed_q8x")):
+    KERNEL_SHAPES[f"{_name}/rwkv"] = (_wrapper, "Q4_0", RWKV_SHAPES)
+RWKV_GEMV = {"qmm_q4_0_kfold/rwkv": "qmm_q4_0_kfold/f16", "qmm_q8x/rwkv": "qmm_q8x/f16"}
+RWKV_PER_LAYER = 7  # matmuls a layer, each one launch at any row count
+RWKV_SPEC_LAYERS = 8  # the depth of the rwkv phase's spec and engine runs
+# The RWKV forward's two routes, parallel and sequential (rwkv_routes), are
+# held to a fixed share of each quantity's own scale, the logits and each of
+# the five state tensors: K2's rows at 32 rows and at 1 agree to ~3e-7 of
+# their scale, not bit for bit, and the bf16 chain of a random-weight model
+# carries such a difference through activations rounded to other bf16 values
+# (the readings, and the faults the gates catch: PERF.md, PR 17).  A spec
+# or engine token is held against the plain decode fed the same tokens
+# (rwkv_held): the plain top logit may lead the chosen token's by at most
+# twice the logits' gate of the row's scale, a near tie of the two routes
+RWKV_ROUTE_GATE = {"logits": 0.06, "state": 0.2}
+
+
+def routes_held(gaps: dict) -> bool:
+    return all(g <= RWKV_ROUTE_GATE["logits" if k == "logits" else "state"]
+               for k, g in gaps.items())
+GREEDY_SP = dict(temp=-1.0, top_k=0, repeat_penalty=1.0, repeat_last_n=0)
+
+
+def rwkv_kernels(torch, recs: dict) -> bool:
+    """K1, K2 and K7 at RWKV-4-Pile-7B's shapes (RWKV_SHAPES), each against
+    its plain version: K1 timed at b=512 (the prefill) and checked at b=48
+    (the engine's 8-slot verify of 6 rows); K2 and K7 timed at b=1 and
+    through check_gemv at every row of GEMV_ROWS (graph replays, K = 16384);
+    K7's tile checked at b=128 (the int8 configuration's prefill).  recs
+    keep each kernel's largest error."""
+    timer = Timer(torch)
+    ok = True
+    for name, b, timed in (("qmm_q4_0/rwkv", 512, True), ("qmm_q4_0/rwkv", 48, False),
+                           ("qmm_q4_0_kfold/rwkv", 1, True), ("qmm_q8x/rwkv", 1, True),
+                           ("qmm_q8x/rwkv", 128, False)):
+        rec = {}
+        ok &= check_qmm(torch, timer, name, b, rec, time_it=timed)
+        kernel = name.split("/")[0]
+        recs[kernel]["max_abs_err"] = max(recs[kernel].get("max_abs_err", 0.0),
+                                          rec["max_abs_err"])
+        torch.cuda.empty_cache()
+    ok &= check_gemv(torch, RWKV_GEMV, ())
+    return ok
+
+
+def rwkv_twin(torch, counters, ctx, log):
+    """Wrap ctx.eval (an RwkvContext on the card): each call's logits and new
+    state against rwkv.forward of the call's inputs (ctx.last_call) on a twin
+    state, eagerly, bit for bit; the twin takes the context's state at the
+    first call.  The launches of each call are counted alone into
+    log["calls"] (the twin's apart).  Returns the function that takes the
+    wrapper off."""
+    import numpy as np
+
+    from llama_cpp_q_4_0_tpu_torch.models import rwkv
+
+    real = ctx.eval
+
+    def checked(tokens, *, logits_all=False):
+        if log["twin"] is None:
+            log["twin"] = {k: v.clone() for k, v in ctx.state.items()}
+        twin = log["twin"]
+        captured = len(ctx.graphs())
+        _zero(counters)
+        got = real(tokens, logits_all=logits_all)
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in _read(counters).items() if v}
+        call = ctx.last_call
+        want, new = rwkv.forward(ctx.cfg, call.params, torch.from_numpy(call.x).cuda(), twin,
+                                 valid=torch.from_numpy(call.valid).cuda(),
+                                 last_only=call.last_only)
+        t = np.atleast_2d(tokens).shape[1]
+        want = want.float().cpu().numpy()
+        if want.shape[1] > 1:
+            want = want[:, :t] if logits_all else want[:, t - 1:t]
+        for k, v in twin.items():
+            v.copy_(new[k])
+        torch.cuda.synchronize()
+        _zero(counters)
+        log["steps"] += 1
+        log["equal"] += bool(np.array_equal(got, want)) and all(
+            torch.equal(ctx.state[k], twin[k]) for k in twin)
+        log["replayed"] += len(ctx.graphs()) == captured
+        log["calls"].append((t, launched))
+        log["twin_tokens"].append(int(np.argmax(want[0, -1])))
+        log["rows"].append(got[0, -1])
+        return got
+
+    ctx.eval = checked
+    return lambda: delattr(ctx, "eval")
+
+
+def rwkv_graph_run(torch, counters, card, cfg, params, label, n_prompt, n_decode, want_prefill,
+                   want_token, totals, seed, instruments=False):
+    """A prompt of n_prompt tokens (from seed) and n_decode greedy tokens
+    through RwkvContext and generate on the card, every step a replayed
+    graph held against its eager twin bit for bit (logits and the five state
+    tensors); the prompt runs twice (the first call of its key runs eagerly
+    and captures), so that the checked prefill is a replay.  The launches of
+    the replayed prefill must equal want_prefill, of every replayed decode
+    token want_token; the state tensors' addresses never change.  totals
+    gains the run's own launches.  instruments: the replayed and eager
+    prefill and decode times, profiled replayed steps (busy, idle)."""
+    import numpy as np
+
+    from llama_cpp_q_4_0_tpu_torch.models import rwkv
+    from llama_cpp_q_4_0_tpu_torch.runtime.context import RwkvContext
+    from llama_cpp_q_4_0_tpu_torch.runtime.generate import GenerateParams, generate
+    from llama_cpp_q_4_0_tpu_torch.runtime.sampling import SamplingParams
+
+    ctx = RwkvContext(cfg, params, device="cuda")
+    ptrs = [t.data_ptr() for t in ctx.state.values()]
+    prompt = np.random.default_rng(seed).integers(3, cfg.n_vocab, n_prompt).tolist()
+    t0 = time.perf_counter()
+    ctx.eval([prompt])  # eager, then captured
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    ctx.reset()
+    log = {"twin": None, "steps": 0, "equal": 0, "replayed": 0, "calls": [], "twin_tokens": [],
+           "rows": []}
+    off = rwkv_twin(torch, counters, ctx, log)
+    t0 = time.perf_counter()
+    toks = list(generate(ctx, prompt, GenerateParams(
+        n_predict=n_decode, ignore_eos=True, sampling=SamplingParams(**GREEDY_SP))))
+    seconds = time.perf_counter() - t0
+    off()
+    rows = log["rows"]
+    prefill = log["calls"][0][1]
+    decode = [c for t, c in log["calls"][1:]]
+    for _, c in log["calls"]:
+        _add(totals, c)
+    same_toks = toks == log["twin_tokens"][:n_decode]
+    token_ok = all(c == want_token for c in decode[1:])  # the first decode call captures
+    ok = (log["equal"] == log["steps"] == n_decode + 1 and log["replayed"] == n_decode
+          and prefill == want_prefill and token_ok and same_toks
+          and [t.data_ptr() for t in ctx.state.values()] == ptrs
+          and all(np.isfinite(r).all() for r in rows))
+    print(f"rwkv: {label} {n_prompt} + {n_decode} through RwkvContext + generate ({seconds:.1f} s "
+          f"with the eager twin; the first prefill, eager and captured, {first_ms:.1f} ms): "
+          f"{log['steps']} steps, {log['replayed']} replayed; logits and state equal to the "
+          f"eager forward bit for bit at {log['equal']} of {log['steps']}; greedy tokens "
+          f"identical {same_toks}; state tensors never rebound "
+          f"{[t.data_ptr() for t in ctx.state.values()] == ptrs}; the replayed prefill "
+          f"{json.dumps(prefill)} (want {json.dumps(want_prefill)}); a replayed decode token "
+          f"{json.dumps(decode[-1] if decode else {})} (want {json.dumps(want_token)}) at "
+          f"{sum(c == want_token for c in decode[1:])} of {len(decode) - 1} "
+          f"{'ok' if ok else 'MISMATCH'} [{card}]", flush=True)
+    if instruments:
+        def prefill_once():
+            ctx.reset()
+            ctx.eval([prompt])
+
+        runs = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            prefill_once()
+            runs.append((time.perf_counter() - t0) * 1e3)
+        twin = rwkv.init_state(cfg, 1, "cuda")
+        x = torch.tensor([prompt], device="cuda")
+        eager = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg, _ = rwkv.forward(cfg, ctx._params_prefill, x, twin, last_only=True)
+            lg.float().cpu()
+            eager.append((time.perf_counter() - t0) * 1e3)
+        tok = [[toks[-1]]]
+
+        def step():
+            ctx.eval(tok)
+
+        step()
+        dec = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            for _ in range(32):
+                step()
+            dec.append((time.perf_counter() - t0) / 32 * 1e3)
+        x1 = torch.tensor(tok, device="cuda")
+        eager_dec = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(8):
+                lg, twin = rwkv.forward(cfg, ctx.params, x1, twin, last_only=True)
+                lg.float().cpu()
+            eager_dec.append((time.perf_counter() - t0) / 8 * 1e3)
+        med = statistics.median(dec)
+        print(f"bench: {label} replayed prefill_{n_prompt}_ms median="
+              f"{statistics.median(runs):.3f} min={min(runs):.3f} runs="
+              f"{[round(v, 3) for v in runs]} (eager median {statistics.median(eager):.3f}); "
+              f"replayed decode_ms_per_token median={med:.3f} min={min(dec):.3f} runs="
+              f"{[round(v, 3) for v in dec]} (eager median {statistics.median(eager_dec):.3f}) "
+              f"[{card}]", flush=True)
+        trace_replayed(torch, step, 8, med, f"{label} decode step")
+        trace_replayed(torch, prefill_once, 1, statistics.median(runs),
+                       f"{label} prefill-{n_prompt}")
+    print(f"graphs: {label} {graph_summary(ctx)}", flush=True)
+    return ok
+
+
+def rwkv_plain(cfg, params, prompt, n: int, eos: int | None = None):
+    """Greedy tokens of prompt through a plain RwkvContext (replayed steps)
+    and the logits row each was chosen from; eos (when given) ends it."""
+    import numpy as np
+
+    from llama_cpp_q_4_0_tpu_torch.runtime.context import RwkvContext
+
+    ctx = RwkvContext(cfg, params, device="cuda")
+    logits = ctx.eval([prompt])[0, -1]
+    toks, rows = [], []
+    for _ in range(n):
+        rows.append(logits)
+        t = int(np.argmax(logits))
+        if t == eos:
+            break
+        toks.append(t)
+        logits = ctx.eval([[t]])[0, -1]
+    return toks, rows
+
+
+def rwkv_routes(torch, cfg, params, seed):
+    """The whole forward of 32 tokens from seed by both routes, from the
+    state a 16-token sequential warm-up leaves (so that every state tensor
+    enters): parallel (K2 at 32 rows, and on two copies of the row, 64 rows:
+    K1, as the engine's rounds take it) against sequential (K2 at 1 row).
+    Returns ({"logits" and each state tensor: the largest difference of
+    either parallel run over the sequential route's largest magnitude}, all
+    logits finite)."""
+    import numpy as np
+
+    from llama_cpp_q_4_0_tpu_torch.models import rwkv
+
+    toks = torch.tensor(np.random.default_rng(seed + 19).integers(3, cfg.n_vocab, (1, 48)),
+                        device="cuda")
+    _, warm = rwkv.forward(cfg, params, toks[:, :16], rwkv.init_state(cfg, 1, "cuda"),
+                           parallel=False)
+    x = toks[:, 16:]
+    ls, ss = rwkv.forward(cfg, params, x, warm, parallel=False)
+    lp, sp = rwkv.forward(cfg, params, x, warm, parallel=True)
+    l2, s2 = rwkv.forward(cfg, params, x.expand(2, -1),
+                          {k: v.expand(-1, 2, -1).contiguous() for k, v in warm.items()},
+                          parallel=True)
+
+    def rel(want, *got):
+        return max(float((g - want).abs().max()) for g in got) / float(want.abs().max())
+
+    gaps = {"logits": rel(ls, lp, l2[:1])}
+    gaps.update({k: rel(ss[k], sp[k], s2[k][:, :1]) for k in ss})
+    return gaps, all(bool(torch.isfinite(t).all()) for t in (ls, lp, l2))
+
+
+def route_note(gaps: dict) -> str:
+    return (f"{json.dumps({k: float(f'{v:.3e}') for k, v in gaps.items()})} of each one's "
+            f"scale (gates {json.dumps(RWKV_ROUTE_GATE)})")
+
+
+def rwkv_par_vs_seq(torch, cfg, params, seed) -> bool:
+    """The parallel prefill against the sequential scan at T = 32, where
+    both take K2 (32 rows, and 1).  Held at tests/test_rwkv.py's gate (rtol
+    2e-4, atol 2e-5), layer by layer: the WKV recurrence as wkv_scan (the
+    two associative scans) against wkv_step token by token on the same k
+    and v (the parallel route's), its output at every position and the
+    state after the last.  Held at RWKV_ROUTE_GATE: the whole forward of
+    each route, logits and state (rwkv_routes).  Printed: K2 on the same
+    rows at b = 32 against b = 1."""
+    import numpy as np
+
+    from llama_cpp_q_4_0_tpu_torch.models import rwkv
+    from llama_cpp_q_4_0_tpu_torch.ops.layers import layer_norm
+
+    gaps, finite = rwkv_routes(torch, cfg, params, seed)
+    routes_ok = routes_held(gaps)
+    toks = torch.tensor(np.random.default_rng(seed + 19).integers(3, cfg.n_vocab, (1, 32)),
+                        device="cuda")
+    st0 = rwkv.init_state(cfg, 1, "cuda")
+    x = layer_norm(params.wte.rows(toks), params.ln_pre_g, params.ln_pre_b, cfg.norm_eps)
+    worst, rows_rel, fails = 0.0, 0.0, []
+    for i, lay in enumerate(params.layers):
+        st = {k: st0[k][i] for k in rwkv.STATE_KEYS}
+        cur = layer_norm(x, lay.ln1_g, lay.ln1_b, cfg.norm_eps)
+        xk = rwkv._mix(cur, rwkv._shift1(cur, st["attn_prev"]), lay.att_time_mix_k)
+        xv = rwkv._mix(cur, rwkv._shift1(cur, st["attn_prev"]), lay.att_time_mix_v)
+        k, v = rwkv._mm(xk, lay.att_key), rwkv._mm(xv, lay.att_value)
+        k1 = torch.cat([rwkv._mm(xk[:, t], lay.att_key)[:, None] for t in range(32)], dim=1)
+        rows_rel = max(rows_rel, float((k - k1).abs().max() / k.abs().max()))
+        wkv, m_full, y_full = rwkv.wkv_scan(lay, k, v, st)
+        outs, wst = [], st
+        for t in range(32):
+            o, wst = rwkv.wkv_step(lay, k[:, t], v[:, t], wst)
+            outs.append(o)
+        e = cfg.n_embd
+        for name, a, b in (("wkv", wkv, torch.stack(outs, dim=1)),
+                           ("num", y_full[:, -1, :e], wst["num"]),
+                           ("den", y_full[:, -1, e:], wst["den"]),
+                           ("maxv", m_full[:, -1], wst["maxv"])):
+            a, b = a.double(), b.double()
+            worst = max(worst, float(((a - b).abs() / (2e-5 + 2e-4 * b.abs())).max()))
+            if not bool(((a - b).abs() <= 2e-5 + 2e-4 * b.abs()).all()):
+                fails.append(f"layer {i} {name}")
+        xo, _ = rwkv._layer_parallel(cfg, lay, st, x, None)
+        x = xo * (0.5 if cfg.rescale_every and (i + 1) % cfg.rescale_every == 0 else 1.0)
+    ok = not fails and finite and routes_ok
+    print(f"rwkv: parallel vs sequential at T=32 ({cfg.n_layer} layers, K2 both): wkv_scan "
+          f"against wkv_step on the same k and v, every layer: output and state within rtol "
+          f"2e-4 atol 2e-5 (largest difference {worst:.3f} of the limit)"
+          f"{'; outside: ' + ', '.join(fails[:6]) if fails else ''}; the whole forward's "
+          f"two routes after a 16-token warm-up (K2 at 32 rows and K1 at 64 against K2 at 1), "
+          f"largest difference {route_note(gaps)} {'held' if routes_ok else 'OVER THE GATE'}; "
+          f"K2 at b = 32 against b = 1 on the same rows {rows_rel:.3e} of k's scale (largest "
+          f"over the layers) {'ok' if ok else 'MISMATCH'}", flush=True)
+    return ok
+
+
+def rwkv_vs_cpu(torch, counters, seed) -> bool:
+    """RWKV-4-Pile-7B widths at 2 layers (n_vocab 50277): a 128-token prompt
+    (K1) and a decode step (K2) through RwkvContext on the card against the
+    plain versions on the CPU from the same weights, the card's greedy
+    tokens fed to both; every logit within 2e-2 of the CPU's scale (bf16
+    activations summed in another order, as two_layer_vs_cpu holds the
+    families); 14 K1 launches for the prefill and 14 K2 a token, none for the
+    head."""
+    import dataclasses
+
+    import numpy as np
+
+    from llama_cpp_q_4_0_tpu_torch.runtime.context import RwkvContext
+    from llama_cpp_q_4_0_tpu_torch.synth import build_rwkv
+
+    cfg, params = build_rwkv(n_layer=2, device="cuda", seed=seed + 1)
+
+    def to_cpu(v):
+        return v.to("cpu") if v is not None else None
+
+    cpu = dataclasses.replace(
+        params, **{f: to_cpu(getattr(params, f)) for f in ("wte", "ln_pre_g", "ln_pre_b",
+                                                           "ln_out_g", "ln_out_b", "head")},
+        layers=tuple(dataclasses.replace(lay, **{f.name: to_cpu(getattr(lay, f.name))
+                                                 for f in dataclasses.fields(lay)})
+                     for lay in params.layers))
+    prompt = np.random.default_rng(seed + 20).integers(3, cfg.n_vocab, 128).tolist()
+    outs, launched, toks = {}, [], []
+    t0 = time.perf_counter()
+    for dev, p in (("cuda", params), ("cpu", cpu)):
+        ctx = RwkvContext(cfg, p, device=dev)
+        _zero(counters)
+        outs[dev] = [ctx.eval([prompt])]
+        if dev == "cuda":
+            launched.append({k: v for k, v in _read(counters).items() if v})
+        for i in range(1):
+            if dev == "cuda":
+                toks.append(int(np.argmax(outs[dev][-1][0, -1])))
+                _zero(counters)
+            outs[dev].append(ctx.eval([[toks[i]]]))
+            if dev == "cuda":
+                launched.append({k: v for k, v in _read(counters).items() if v})
+    ok = launched[0] == {"qmm_q4_0": 2 * RWKV_PER_LAYER} and all(
+        c == {"qmm_q4_0_kfold": 2 * RWKV_PER_LAYER} for c in launched[1:])
+    errs = []
+    for g, r in zip(outs["cuda"], outs["cpu"]):
+        err, tol = float(np.abs(g - r).max()), 2e-2 * float(np.abs(r).max())
+        errs.append(f"{err:.3e} (tol {tol:.3e})")
+        ok &= err <= tol and bool(np.isfinite(g).all())
+    print(f"rwkv: 2-layer RWKV-4-Pile-7B-width (n_vocab {cfg.n_vocab}) card vs CPU plain: "
+          f"prefill-128 and a decode step max_abs_err {', '.join(errs)}; card launches "
+          f"{json.dumps(launched)} ({time.perf_counter() - t0:.1f} s) "
+          f"{'ok' if ok else 'MISMATCH'}", flush=True)
+    return ok
+
+
+def rwkv_forced(cfg, params, prompt, toks):
+    """The plain decode fed prompt, then toks one at a time (RwkvContext:
+    the parallel prefill, then replayed steps): the logits row before each
+    of toks and the one after the last (len(toks) + 1 rows), and the
+    context, whose state follows the last of toks."""
+    from llama_cpp_q_4_0_tpu_torch.runtime.context import RwkvContext
+
+    ctx = RwkvContext(cfg, params, device="cuda")
+    rows = [ctx.eval([prompt])[0, -1]]
+    for t in toks:
+        rows.append(ctx.eval([[t]])[0, -1])
+    return rows, ctx
+
+
+def rwkv_held(rows, got, eos=None, n_predict=None):
+    """got against the plain decode fed the same tokens (rows of
+    rwkv_forced(prompt, got)): each token the plain argmax, or a near tie:
+    the plain top logit leads it by at most twice the logits' gate of the
+    row's largest magnitude.  A run that ended before n_predict ended at
+    eos, held the same way.  Returns (ok, tokens that are the plain argmax,
+    tokens held, the largest lead as a share of its limit and where)."""
+    import numpy as np
+
+    picks = list(got)
+    if eos is not None and len(got) < n_predict:
+        picks.append(eos)
+    ok, same, worst, note = True, 0, 0.0, "none"
+    for j, t in enumerate(picks):
+        row = rows[j]
+        lead = float(row.max() - row[t])
+        limit = 2 * RWKV_ROUTE_GATE["logits"] * float(np.abs(row).max())
+        same += int(np.argmax(row)) == t
+        ok &= lead <= limit
+        if lead / limit > worst:
+            worst, note = lead / limit, f"token {j} (lead {lead:.5f}, limit {limit:.5f})"
+    return ok, same, len(picks), f"{worst:.3f} at {note}"
+
+
+def rwkv_spec(torch, counters, card, cfg, params, totals, seed) -> bool:
+    """generate_ondevice_spec_rwkv (k = 7, n_steps 8) twice: on the
+    512-token patterned prompt of spec_prompt(seed), 128 greedy tokens; and,
+    so that drafts are accepted and rounds emit 2 to k+1 tokens (the state
+    gathered at emit_n - 1 > 0), on that prompt, its plain greedy
+    continuation with every fifth token changed and its last 256 tokens
+    again, 64 greedy tokens: the recurrence forgets what came before those
+    256, so the run continues as the plain decode of the prompt did, and
+    prompt lookup finds that continuation in the history up to each changed
+    token.  Each run: every chunk (one captured round replayed 8 times)
+    against device_spec's eager rwkv_spec_chunk on a twin state bit for bit
+    (outputs and state), 7 K2 launches a layer a replayed round (the T = 8
+    verify); every emitted token held against the plain decode fed the same
+    tokens (rwkv_held) and the state after the run against that decode's at
+    the state gate of RWKV_ROUTE_GATE; the tokens a verify and how many
+    rounds emitted how many tokens; the seeded run must accept drafts
+    (rounds of 2 to k tokens, at least 1.5 tokens a verify).  The first run
+    again, unchecked: ms per emitted token."""
+    from llama_cpp_q_4_0_tpu_torch.runtime import device_spec
+    from llama_cpp_q_4_0_tpu_torch.runtime.context import RwkvContext
+    from llama_cpp_q_4_0_tpu_torch.runtime.device_sample import DeviceSampling
+    from llama_cpp_q_4_0_tpu_torch.runtime.speculative import SpecParams, SpecStats
+
+    k = 7
+    prompt = spec_prompt(seed, cfg.n_vocab)
+    cont, _ = rwkv_plain(cfg, params, prompt, 64)
+    seeded = [(t + 1) % cfg.n_vocab if i % 5 == 4 else t for i, t in enumerate(cont)]
+    runs = (("the 512-token patterned prompt", prompt, 128, False),
+            ("the prompt + its continuation, every fifth token changed, + its last 256 "
+             "tokens", prompt + seeded + prompt[-256:], 64, True))
+    ctx = RwkvContext(cfg, params, device="cuda")
+    ptrs = [t.data_ptr() for t in ctx.state.values()]
+    real = ctx.spec_chunk
+    spec = SpecParams(n_draft=k)
+    ds = DeviceSampling(temp=-1.0)
+    want_round = {"qmm_q4_0_kfold": RWKV_PER_LAYER * cfg.n_layer}
+    ok = True
+    for label, p, n, accepting in runs:
+        ctx.reset()
+        log = {"calls": 0, "equal": 0, "rounds": [], "ns": [], "hist": None}
+
+        def checked(hist, n_hist, key, done, sv=None, log=log, **kw):
+            twin = {name: v.clone() for name, v in ctx.state.items()}
+            _zero(counters)
+            got = real(hist, n_hist, key, done, sv, **kw)
+            torch.cuda.synchronize()
+            launched = {name: v for name, v in _read(counters).items() if v}
+            _add(totals, launched)
+            want = device_spec.rwkv_spec_chunk(cfg, ctx.params, hist, n_hist, twin, key, done,
+                                               sv, **kw)
+            torch.cuda.synchronize()
+            _zero(counters)
+            log["calls"] += 1
+            log["equal"] += all(torch.equal(g, w) for g, w in zip(got, (*want[:2], *want[3:]))) \
+                and all(torch.equal(ctx.state[name], twin[name]) for name in twin)
+            log["rounds"].append({name: v / kw["n_steps"] for name, v in launched.items()})
+            log["ns"] += got[6].flatten().tolist()
+            log["hist"] = (got[0][0, :int(got[1][0])].tolist())
+            return got
+
+        ctx.spec_chunk = checked
+        stats = SpecStats()
+        got = device_spec.generate_ondevice_spec_rwkv(ctx, p, n, sampling=ds, spec=spec,
+                                                      n_steps=8, ignore_eos=True, stats=stats)
+        del ctx.spec_chunk
+        emitted = log["hist"][len(p):]
+        rows, plain = rwkv_forced(cfg, params, p, emitted[:-1])
+        held, same, n_held, worst = rwkv_held(rows, emitted)
+        st_gap = {name: float((ctx.state[name] - t).abs().max() / t.abs().max())
+                  for name, t in plain.state.items()}
+        counts = {c: log["ns"].count(c) for c in range(1, k + 2) if c in log["ns"]}
+        partial = sum(v for c, v in counts.items() if 1 < c <= k)
+        good = (held and log["hist"][:len(p)] == p and emitted[:n] == got and len(got) == n
+                and log["equal"] == log["calls"] > 0
+                and all(r == want_round for r in log["rounds"][1:])  # the first captures
+                and routes_held(st_gap)
+                and [t.data_ptr() for t in ctx.state.values()] == ptrs)
+        if accepting:
+            good &= partial > 0 and stats.tokens_per_step >= 1.5
+        ok &= good
+        print(f"rwkv: generate_ondevice_spec_rwkv k={k} n_steps=8 on {label}, {len(got)} greedy "
+              f"tokens: {log['calls']} chunks equal to the eager rwkv_spec_chunk bit for bit at "
+              f"{log['equal']}; a replayed round {json.dumps(log['rounds'][-1])} (want "
+              f"{json.dumps(want_round)}); {stats.tokens_per_step:.2f} tokens a verify, rounds "
+              f"by tokens emitted {json.dumps(counts)}; against the plain decode fed the same "
+              f"{len(emitted)} tokens: the plain argmax at {same} of {n_held}, largest lead "
+              f"{worst} of its near-tie limit; state after the run {route_note(st_gap)} "
+              f"{'ok' if good else 'MISMATCH'} [{card}]", flush=True)
+    ctx.reset()
+    stats2 = SpecStats()
+    out2, total, outside = timed_run([ctx], lambda: device_spec.generate_ondevice_spec_rwkv(
+        ctx, prompt, 128, sampling=ds, spec=spec, n_steps=8, ignore_eos=True, stats=stats2))
+    print(f"bench: rwkv spec k={k} on the patterned prompt, unchecked: "
+          f"{outside * 1e3 / max(1, len(out2) - 1):.3f} ms per emitted token after the prefill "
+          f"({total:.2f} s in all), {stats2.tokens_per_step:.2f} tokens a verify, "
+          f"{stats2.n_verify} verifies [{card}]", flush=True)
+    print(f"graphs: rwkv spec {graph_summary(ctx)}", flush=True)
+    return ok
+
+
+def rwkv_engine(torch, counters, card, cfg, params, totals, seed) -> bool:
+    """RwkvBatchEngine at 8 slots (k = 5, chunk 4, history 512) on the
+    weights: a burst of 12 requests from seed (prompts of 32-256 tokens, 64
+    greedy tokens each; the last 4 wait for slots), every token of every
+    request held against the plain decode fed the same tokens (rwkv_held;
+    an EOS ends a request); the engine's state, history, lengths and frozen
+    rows never rebound; tokens/s summed over the requests and ms a tick,
+    the launches of the run."""
+    import numpy as np
+
+    from llama_cpp_q_4_0_tpu_torch.runtime.batch_engine import Request
+    from llama_cpp_q_4_0_tpu_torch.runtime.rwkv_engine import RwkvBatchEngine
+    from llama_cpp_q_4_0_tpu_torch.runtime.sampling import SamplingParams
+    from llama_cpp_q_4_0_tpu_torch.runtime.tokenizer import TOKEN_EOS
+
+    rng = np.random.default_rng(seed + 18)
+    prompts = [rng.integers(3, cfg.n_vocab, int(n)).tolist() for n in rng.integers(32, 257, 12)]
+    eng = RwkvBatchEngine(cfg, params, n_slots=8, n_ctx=512, chunk=4, spec_draft=5,
+                          device="cuda")
+    ptrs = [t.data_ptr() for t in (*eng._state.values(), eng._hist, eng._n_hist, eng._done)]
+    eng.start()
+    try:
+        # the first burst warms the graphs up (captures) and is checked too
+        outs = []
+        for run in range(2):
+            _zero(counters)
+            t0 = time.perf_counter()
+            ticks0 = eng.n_ticks
+            reqs = [eng.submit(Request(prompt_tokens=p, n_predict=64,
+                                       sampling=SamplingParams(**GREEDY_SP))) for p in prompts]
+            outs.append([list(r.tokens()) for r in reqs])
+            secs = time.perf_counter() - t0
+            launched = {k: v for k, v in _read(counters).items() if v}
+            ticks = eng.n_ticks - ticks0
+            if run:
+                _add(totals, launched)
+    finally:
+        eng.stop()
+    t0 = time.perf_counter()
+    good = equal = same = n_held = 0
+    worst = []
+    for p, got in zip(prompts, outs[1]):
+        rows, _ = rwkv_forced(cfg, params, p, got)
+        held, s, n, w = rwkv_held(rows, got, eos=TOKEN_EOS, n_predict=64)
+        good += held
+        equal += s == n
+        same += s
+        n_held += n
+        worst.append(w)
+    ref_s = time.perf_counter() - t0
+    n_tok = sum(map(len, outs[1]))
+    st = eng.stats()
+    ok = (good == len(prompts) and outs[0] == outs[1]
+          and [t.data_ptr() for t in (*eng._state.values(), eng._hist, eng._n_hist,
+                                      eng._done)] == ptrs
+          and launched.get("qmm_q4_0", 0) > 0 and eng._error is None)
+    print(f"rwkv: RwkvBatchEngine 8 slots k=5 chunk 4, 12 requests (prompts 32-256, 64 greedy "
+          f"tokens): against the plain decode fed each request's tokens, {equal} of "
+          f"{len(prompts)} requests the plain argmax at every token (its single session), "
+          f"{good} within near ties; the plain argmax at {same} of {n_held} tokens; largest "
+          f"leads of their limits {'; '.join(worst)}; the second burst equal to the "
+          f"first {outs[0] == outs[1]}; {n_tok} tokens in {secs:.2f} s = {n_tok / secs:.1f} "
+          f"tokens/s summed, {secs * 1e3 / max(1, ticks):.2f} ms a tick ({ticks} ticks, "
+          f"admissions included), acceptance {st['spec_acceptance']:.3f}; launches "
+          f"{json.dumps(launched)}; plain decodes {ref_s:.1f} s; tensors never rebound "
+          f"{'ok' if ok else 'MISMATCH'} [{card}]", flush=True)
+    return ok
+
+
+def rwkv_cli(counters, card, seed) -> bool:
+    """The port's make_rwkv_ggjt file at 2 layers (n_embd 256, inside the
+    kernels' gate; q4_0, a 512-entry vocabulary): `main --arch rwkv` with
+    and without --draft 3, card against CPU (the same text, K2 launched on
+    the card); `server --parallel 4` (RwkvBatchEngine) answering 4
+    concurrent greedy /completion posts, each against the single-session
+    server on the same file."""
+    import http.client
+    import threading
+
+    from llama_cpp_q_4_0_tpu_torch.cli import main as main_mod
+    from llama_cpp_q_4_0_tpu_torch.cli import server
+    from llama_cpp_q_4_0_tpu_torch.formats.fixtures import make_rwkv_ggjt
+    from llama_cpp_q_4_0_tpu_torch.kernels.build import BUILD_DIR
+    from llama_cpp_q_4_0_tpu_torch.runtime.rwkv_engine import RwkvBatchEngine
+
+    tmp = os.path.join(BUILD_DIR, "smoke-rwkv")
+    os.makedirs(tmp, exist_ok=True)
+    path = os.path.join(tmp, "rwkv-256.ggjt")
+    servers = []
+    try:
+        make_rwkv_ggjt(path, n_embd=256, n_layer=2, n_vocab=512, seed=seed + 4)
+        ok = True
+        for extra in ([], ["--draft", "3"]):
+            runs = {}
+            for dev in ("cuda", "cpu"):
+                _zero(counters)
+                rc, text = _tool_output(main_mod, ["-m", path, "--arch", "rwkv", "-p",
+                                                   "Hello world", "-n", "12", "--temp", "-1",
+                                                   "--ignore-eos", "-c", "64", *extra,
+                                                   "--device", dev])
+                runs[dev] = (rc, text, {k: v for k, v in _read(counters).items() if v})
+            (rc, text, launched), (crc, ctext, _) = runs["cuda"], runs["cpu"]
+            good = (rc == crc == 0 and text == ctext and text.startswith(b"Hello world")
+                    and launched.get("qmm_q4_0_kfold", 0) > 0)
+            ok &= good
+            print(f"rwkv: main --arch rwkv {' '.join(extra)} on the card {text!r}, on the CPU "
+                  f"{ctext!r} (equal {text == ctext}; card launches {json.dumps(launched)}) "
+                  f"{'ok' if good else 'MISMATCH'}", flush=True)
+
+        def up(*extra):
+            args = server.build_parser().parse_args(
+                ["-m", path, "-c", "256", "--port", "0", "--device", "cuda", *extra])
+            httpd, eng, lm = server.start_server(args)
+            threading.Thread(target=httpd.serve_forever, daemon=True).start()
+            servers.append((httpd, eng))
+            return httpd.server_address[1], eng
+
+        def post(port, route, body):
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+            conn.request("POST" if body is not None else "GET", route,
+                         None if body is None else json.dumps(body))
+            r = conn.getresponse()
+            out = (r.status, json.loads(r.read()))
+            conn.close()
+            return out
+
+        prompts = [f"request {i} about the cat that sat" for i in range(4)]
+        greedy = {"n_predict": 8, "temperature": -1.0, "repeat_penalty": 1.0}
+        single, _ = up()
+        want = {p: post(single, "/completion", {"prompt": p, **greedy}) for p in prompts}
+        port, eng = up("--parallel", "4")
+        got = {}
+        threads = [threading.Thread(target=lambda p=p: got.__setitem__(
+            p, post(port, "/completion", {"prompt": p, **greedy}))) for p in prompts]
+        _zero(counters)
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(300)
+        secs = time.perf_counter() - t0
+        launched = {k: v for k, v in _read(counters).items() if v}
+        st, stats = post(port, "/stats", None)
+        same = sum(got.get(p, (0, {}))[1].get("content") == want[p][1]["content"]
+                   for p in prompts)
+        good = (isinstance(eng, RwkvBatchEngine) and st == 200 and stats["arch"] == "rwkv"
+                and stats["n_requests_done"] == len(prompts) and same == len(prompts)
+                and all(got[p][0] == want[p][0] == 200 for p in prompts)
+                and launched.get("qmm_q4_0_kfold", 0) > 0)
+        ok &= good
+        print(f"rwkv: server --parallel 4 on the file: {len(prompts)} /completion posts at once "
+              f"in {secs:.2f} s, {same} of {len(prompts)} answers equal to the single-session "
+              f"server's; /stats {json.dumps(stats)}; launches {json.dumps(launched)} "
+              f"{'ok' if good else 'MISMATCH'} [{card}]", flush=True)
+        return ok
+    finally:
+        for httpd, eng in servers:
+            httpd.shutdown()
+            httpd.server_close()
+            if eng is not None:
+                eng.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def rwkv_phase(torch, counters, card, seed: int, launches: dict, recs: dict) -> bool:
+    """RWKV v4 on the card: K1, K2 and K7 at RWKV-4-Pile-7B's shapes
+    (rwkv_kernels); build_rwkv at RWKV-4-Pile-7B widths (32 layers, n_embd
+    4096, FFN 16384, n_vocab 50277, q4_0): 512 + 64 through RwkvContext,
+    every step a replayed graph against its eager twin bit for bit (224 K1 a
+    prefill, 224 K2 a decode token, nothing for the off-gate head), the
+    bound and bench lines, a profiled replayed step; the int8 configuration
+    (QMM_Q8X=1) 128 + 16 (224 K7 a prefill and a token); the associative
+    scans against the sequential recurrence at T = 32 and the whole
+    forward's two routes (rwkv_par_vs_seq); a 2-layer model at those widths
+    against the CPU (rwkv_vs_cpu); generate_ondevice_spec_rwkv (rwkv_spec)
+    and RwkvBatchEngine (rwkv_engine) on the first RWKV_SPEC_LAYERS layers,
+    whose two routes are held too;
+    `main --arch rwkv` and `server --parallel 4` (rwkv_cli).  launches
+    gains the runs' own launches, recs the kernels' largest errors."""
+    import dataclasses
+
+    from llama_cpp_q_4_0_tpu_torch.synth import build_rwkv
+
+    t0 = time.perf_counter()
+    ok = rwkv_kernels(torch, recs)
+    print(f"rwkv: kernel checks done {time.perf_counter() - t0:.1f} s", flush=True)
+    cfg, params = build_rwkv(device="cuda", seed=seed)
+    torch.cuda.synchronize()
+    print(f"rwkv: synthetic RWKV-4-Pile-7B widths q4_0 built on the card (n_layer={cfg.n_layer} "
+          f"n_embd={cfg.n_embd} n_ff={4 * cfg.n_embd} n_vocab={cfg.n_vocab} rescale_every="
+          f"{cfg.rescale_every}; {torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card) "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    model_bounds("RWKV-4-Pile-7B q4_0", params, cfg.n_layer, heads=None)
+    per = {"qmm_q4_0": RWKV_PER_LAYER * cfg.n_layer}
+    totals = {}
+    ok &= rwkv_graph_run(torch, counters, card, cfg, params, "rwkv", 512, 64, per,
+                         {"qmm_q4_0_kfold": RWKV_PER_LAYER * cfg.n_layer}, totals, seed,
+                         instruments=True)
+    with env(QMM_Q8X="1"):
+        ok &= rwkv_graph_run(torch, counters, card, cfg, params, "rwkv int8-config", 128, 16,
+                             {"qmm_q8x": RWKV_PER_LAYER * cfg.n_layer},
+                             {"qmm_q8x": RWKV_PER_LAYER * cfg.n_layer}, totals, seed)
+    torch.cuda.empty_cache()
+    print(f"rwkv: graph runs done {time.perf_counter() - t0:.1f} s", flush=True)
+    ok &= rwkv_par_vs_seq(torch, cfg, params, seed)
+    # the spec and engine runs take the model's first RWKV_SPEC_LAYERS layers,
+    # to keep the whole run in its time; their two routes are held as the
+    # whole model's (the spec verify and the engine's rounds take other row
+    # counts than the plain decode)
+    cfg_s = dataclasses.replace(cfg, n_layer=RWKV_SPEC_LAYERS)
+    params_s = dataclasses.replace(params, layers=params.layers[:RWKV_SPEC_LAYERS])
+    gaps, finite = rwkv_routes(torch, cfg_s, params_s, seed)
+    good = finite and routes_held(gaps)
+    ok &= good
+    print(f"rwkv: the first {RWKV_SPEC_LAYERS} layers for spec and the engine; their two "
+          f"routes after a 16-token warm-up (K2 at 32 rows and K1 at 64 against K2 at 1) part "
+          f"by {route_note(gaps)} {'ok' if good else 'MISMATCH'}", flush=True)
+    ok &= rwkv_spec(torch, counters, card, cfg_s, params_s, totals, seed)
+    torch.cuda.empty_cache()
+    print(f"rwkv: spec done {time.perf_counter() - t0:.1f} s", flush=True)
+    ok &= rwkv_engine(torch, counters, card, cfg_s, params_s, totals, seed)
+    del params
+    torch.cuda.empty_cache()
+    print(f"rwkv: engine done {time.perf_counter() - t0:.1f} s", flush=True)
+    ok &= rwkv_vs_cpu(torch, counters, seed)
+    torch.cuda.empty_cache()
+    ok &= rwkv_cli(counters, card, seed)
+    _add(launches, totals)
+    print(f"rwkv: launches of the phase's runs {json.dumps(totals)}; phase "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return ok
+
+
+def rwkv_faults_phase(torch, counters, seed: int) -> None:
+    """What the RWKV gates can see (printed, not held): rwkv_routes at 8 and
+    32 layers with the parallel route sound and with faults patched into it
+    for the call (models.rwkv.wkv_scan and _shift1 are read by the parallel
+    route alone): time_first dropped or off by 1%, time_decay off by 1% or
+    0.1%, the WKV output rounded to bf16, the carried num/den/max one
+    position stale, the first position shifted onto itself; then rwkv_spec
+    at 8 layers with a rollback that always keeps the last verify
+    position's state, which its checks must refuse."""
+    import dataclasses
+    import inspect
+
+    from llama_cpp_q_4_0_tpu_torch.models import rwkv
+    from llama_cpp_q_4_0_tpu_torch.runtime import device_spec
+    from llama_cpp_q_4_0_tpu_torch.synth import build_rwkv
+
+    cfg, params = build_rwkv(device="cuda", seed=seed)
+    cfg8 = dataclasses.replace(cfg, n_layer=RWKV_SPEC_LAYERS)
+    p8 = dataclasses.replace(params, layers=params.layers[:RWKV_SPEC_LAYERS])
+    scan, shift = rwkv.wkv_scan, rwkv._shift1
+
+    def scaled(**mult):
+        def f(lay, k, v, st, valid=None):
+            return scan(dataclasses.replace(lay, **{n: getattr(lay, n) * m
+                                                    for n, m in mult.items()}), k, v, st, valid)
+        return f
+
+    def wkv_bf16(lay, k, v, st, valid=None):
+        w, m, y = scan(lay, k, v, st, valid)
+        return w.bfloat16().float(), m, y
+
+    def stale(lay, k, v, st, valid=None):
+        w, m, y = scan(lay, k, v, st, valid)
+        idx = torch.arange(m.shape[1], device=m.device)
+        idx[-1] = max(0, m.shape[1] - 2)
+        return w, m[:, idx], y[:, idx]
+
+    def self_shift(seq, init):
+        return torch.cat([seq[:, :1], seq[:, :-1]], dim=1)
+
+    faults = {"sound": {}, "time_first dropped": {"wkv_scan": scaled(att_time_first=0.0)},
+              "time_first x1.01": {"wkv_scan": scaled(att_time_first=1.01)},
+              "time_decay x1.01": {"wkv_scan": scaled(att_time_decay=1.01)},
+              "time_decay x1.001": {"wkv_scan": scaled(att_time_decay=1.001)},
+              "wkv output rounded to bf16": {"wkv_scan": wkv_bf16},
+              "carried num/den/max one position stale": {"wkv_scan": stale},
+              "first position shifted onto itself": {"_shift1": self_shift}}
+    for name, patch in faults.items():
+        for attr, fn in patch.items():
+            setattr(rwkv, attr, fn)
+        try:
+            for c, p in ((cfg8, p8), (cfg, params)):
+                gaps, _ = rwkv_routes(torch, c, p, seed)
+                print(f"rwkvfaults: {name}, {c.n_layer} layers: {route_note(gaps)} "
+                      f"{'held' if routes_held(gaps) else 'over the gate'}", flush=True)
+        finally:
+            rwkv.wkv_scan, rwkv._shift1 = scan, shift
+    src = inspect.getsource(device_spec.rwkv_spec_round)
+    bad = src.replace("at = (emit_n - 1).clamp(min=0)", "at = (emit_n * 0 + k)")
+    assert bad != src
+    ns = {}
+    exec(compile(bad, "rwkv_spec_round, rollback fault", "exec"), vars(device_spec), ns)
+    good = device_spec.rwkv_spec_round
+    device_spec.rwkv_spec_round = ns["rwkv_spec_round"]
+    try:
+        passed = rwkv_spec(torch, counters, "rollback fault", cfg8, p8, {}, seed)
+    finally:
+        device_spec.rwkv_spec_round = good
+    print(f"rwkvfaults: rwkv_spec under the rollback fault passes its checks {passed} "
+          f"(want False)", flush=True)
+
+
+def trace_parse_phase(torch) -> bool:
+    """trace_decode's profile (the device activity alone) against one of
+    the host and device activities, twice each, on 8 eager decode steps of
+    a 4-layer LLaMA-7B-width model: the same kernels and counts a step (held),
+    the busy time and the seconds each profile takes with its parse."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from llama_cpp_q_4_0_tpu_torch.models import transformer
+    from llama_cpp_q_4_0_tpu_torch.synth import build_llama
+
+    cfg, params = build_llama(n_layer=4, device="cuda", seed=0)
+    ck, cv = transformer_cache(torch, cfg, torch.bfloat16)
+    tok = torch.zeros((1, 1), dtype=torch.int64, device="cuda")
+    out = {}
+    for name, acts in (("device", [ProfilerActivity.CUDA]),
+                       ("host and device", [ProfilerActivity.CPU, ProfilerActivity.CUDA])) * 2:
+        t0 = time.perf_counter()
+        with profile(activities=acts) as prof:
+            for i in range(8):
+                transformer.forward(cfg, params, tok, 65 + i, ck, cv, last_only=True,
+                                    kv_window=256)
+            torch.cuda.synchronize()
+        rows = out[name] = _kernel_rows(prof, 8)
+        print(f"traceparse: {name} activity: {len(rows)} kernels, {sum(r[1] for r in rows)} a "
+              f"step, busy {sum(r[0] for r in rows):.4f} ms, {time.perf_counter() - t0:.2f} s "
+              f"with the parse", flush=True)
+    same = (sorted((k, n) for _, n, k in out["device"])
+            == sorted((k, n) for _, n, k in out["host and device"]))
+    print(f"traceparse: the same kernels and counts a step {same}", flush=True)
+    return same
+
+
 FULL_RUN = ("kernels", "e2e", "graphs", "ondevice", "session", "spec", "serve", "families",
-            "q8chaos", "cli")
+            "rwkv", "q8chaos", "cli")
 
 
 def main(argv=None) -> int:
@@ -4850,13 +5742,13 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(FULL_RUN),
                     help="comma-separated subset of kernels,e2e,graphs,ondevice,session,spec,"
-                         "serve,families,"
-                         "q8chaos,cli,sass,k7k3,"
+                         "serve,families,rwkv,"
+                         "q8chaos,cli,sass,k7k3,rwkvfaults,traceparse,"
                          "k7repeat,int8prefill,planes,tiles,attn,gemv,busy,splits; the result "
                          "lines print only for the default " + ",".join(FULL_RUN))
     ap.add_argument("--seed", type=int, default=0,
-                    help="seed of the session, spec and serve phases' token streams and "
-                         "adapters")
+                    help="seed of the session, spec, serve and rwkv phases' token streams, "
+                         "adapters and RWKV weights")
     opts = ap.parse_args(argv)
     phases = set(opts.phases.split(","))
     full = phases == set(FULL_RUN)
@@ -5149,6 +6041,17 @@ def main(argv=None) -> int:
                         "its eager twin, a launch count, K4 at 71 heads over one, GPT-NeoX "
                         "or Bonsai against the CPU, or the CLI on a Bonsai file")
         elapsed("families")
+    if "rwkv" in phases:
+        if not rwkv_phase(torch, counters, card, opts.seed, launches, recs):
+            return fail("RWKV: a kernel at its shapes, a replayed step or chunk against its "
+                        "eager twin, a launch count, the state rebound, the parallel prefill "
+                        "against the sequential scan, the 2-layer model against the CPU, spec or "
+                        "engine tokens parting from the plain decode off a near tie, or the CLI")
+        elapsed("rwkv")
+    if "rwkvfaults" in phases:
+        rwkv_faults_phase(torch, counters, opts.seed)
+    if "traceparse" in phases and not trace_parse_phase(torch):
+        return fail("a device-only profile recorded other kernels than a host and device one")
     if "q8chaos" in phases:
         q8chaos_phase(torch)
         elapsed("q8chaos")

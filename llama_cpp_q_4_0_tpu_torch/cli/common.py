@@ -12,10 +12,10 @@ import torch
 from ..formats.ggjt import detect_arch, read_ggjt
 from ..models.config import ModelConfig
 from ..models.fuse import fuse_projections
-from ..models.loading import config_from_ggjt, load_transformer
+from ..models.loading import config_from_ggjt, load_rwkv, load_transformer
 from ..models.lora import apply_lora
 from ..quant.types import LlamaFType
-from ..runtime.context import Context
+from ..runtime.context import Context, RwkvContext
 from ..runtime.sampling import SamplingParams
 from ..runtime.tokenizer import Tokenizer, Vocab
 
@@ -34,8 +34,8 @@ def ftype_name(ftype: int) -> str:
 def add_model_args(p: argparse.ArgumentParser):
     p.add_argument("-m", "--model", required=True, help="model path (ggjt v3)")
     p.add_argument("--arch", default=None,
-                   help="llama|gptneox|falcon|bonsai (default: detect; a bonsai file "
-                        "reads as falcon unless named; rwkv is not ported)")
+                   help="llama|gptneox|falcon|rwkv|bonsai (default: detect; a bonsai "
+                        "file reads as falcon unless named)")
     p.add_argument("-c", "--ctx-size", "--n-ctx", type=int, default=512,
                    dest="n_ctx")
     p.add_argument("-b", "--batch-size", type=int, default=512, dest="n_batch")
@@ -103,7 +103,7 @@ def sampling_from_args(args) -> SamplingParams:
 @dataclass
 class LoadedModel:
     cfg: ModelConfig
-    ctx: Context
+    ctx: Context | RwkvContext
     tokenizer: Tokenizer
     arch: str
     t_load_ms: float
@@ -123,30 +123,32 @@ def cache_dtype(args):
 
 def load_model(args, *, logits_all: bool = False) -> LoadedModel:
     """File -> params (with the --lora adapter, merged or not) -> context on
-    the requested device: llama, gptneox, falcon or bonsai (RWKV is not
-    ported).  logits_all is accepted as the
-    JAX ``load_model`` accepts it: a Context returns every row on request."""
+    the requested device: llama, gptneox, falcon and bonsai take a Context,
+    rwkv an RwkvContext (which has no KV cache: the cache flags and --lora
+    do not apply).  logits_all is accepted as the JAX ``load_model`` accepts
+    it: a context returns every row on request."""
     t0 = time.perf_counter()
     arch = args.arch or detect_arch(args.model)
-    if arch == "rwkv":
-        raise NotImplementedError(f"{arch} models are not ported yet")
     gf = read_ggjt(args.model, arch)
     cfg = config_from_ggjt(gf, n_ctx=args.n_ctx)
     tokenizer = Tokenizer(Vocab.from_ggjt(gf))
-    want_lora = bool(getattr(args, "lora", None))
-    # LoRA targets are named per projection: load unfused, apply, then fuse
-    # what still fuses
-    params = load_transformer(gf, cfg, device=args.device, fuse=not want_lora)
-    if want_lora:
-        base_weights = None
-        if args.lora_base:
-            bgf = read_ggjt(args.lora_base, arch)
-            base_weights = {n: bgf.tensor_f32(n) for n in bgf.tensors}
-        params = apply_lora(params, args.lora, base_weights=base_weights,
-                            merge=not getattr(args, "lora_unmerged", False))
-        params = fuse_projections(cfg, params)
-    ctx = Context(cfg, params, n_ctx=args.n_ctx, cache_dtype=cache_dtype(args),
-                  device=args.device)
+    if arch == "rwkv":
+        ctx = RwkvContext(cfg, load_rwkv(gf, cfg, device=args.device), device=args.device)
+    else:
+        want_lora = bool(getattr(args, "lora", None))
+        # LoRA targets are named per projection: load unfused, apply, then
+        # fuse what still fuses
+        params = load_transformer(gf, cfg, device=args.device, fuse=not want_lora)
+        if want_lora:
+            base_weights = None
+            if args.lora_base:
+                bgf = read_ggjt(args.lora_base, arch)
+                base_weights = {n: bgf.tensor_f32(n) for n in bgf.tensors}
+            params = apply_lora(params, args.lora, base_weights=base_weights,
+                                merge=not getattr(args, "lora_unmerged", False))
+            params = fuse_projections(cfg, params)
+        ctx = Context(cfg, params, n_ctx=args.n_ctx, cache_dtype=cache_dtype(args),
+                      device=args.device)
     t_load = (time.perf_counter() - t0) * 1e3
     ctx.timings.t_load_ms = t_load
     print(f"{arch}: loaded {args.model} | ftype={ftype_name(gf.ftype)} "

@@ -11,6 +11,8 @@ speculatively, K drafts a verify: prompt-lookup drafts through the host loop
 (runtime/speculative.py), or with ``--ondevice-sampling`` the whole
 draft-verify loop on the device (runtime/device_spec.py); ``--draft-model``
 drafts with a small model of the same vocabulary instead, in either loop.
+An RWKV model's prompt takes no BOS, and its ``--draft K`` always runs the
+device loop over the recurrent state (``generate_ondevice_spec_rwkv``).
 The speculative run prints its stats line on stderr."""
 
 from __future__ import annotations
@@ -21,7 +23,9 @@ import os
 import sys
 
 from ..runtime.device_sample import DeviceSampling, generate_ondevice
-from ..runtime.device_spec import generate_ondevice_spec, generate_ondevice_spec_draft
+from ..runtime.context import RwkvContext
+from ..runtime.device_spec import (generate_ondevice_spec, generate_ondevice_spec_draft,
+                                   generate_ondevice_spec_rwkv)
 from ..runtime.generate import GenerateParams, generate
 from ..runtime.session import load_session, save_session, session_prefix_match
 from ..runtime.speculative import (DraftModelDrafter, SpecParams, SpecStats,
@@ -113,15 +117,22 @@ def _draft_context(args):
 
 
 def _speculative(args, ctx, prompt_tokens, ds):
-    """--draft K, one of the JAX main's three loops: the host loop (prompt
+    """--draft K, one of the JAX main's four loops: the host loop (prompt
     lookup or a DraftModelDrafter), or with --ondevice-sampling the device
-    loop of prompt-lookup rounds or of draft-model rounds.  Returns (tokens,
-    SpecStats)."""
+    loop of prompt-lookup rounds or of draft-model rounds; an RWKV context
+    always takes the device loop of prompt-lookup rounds (its state cannot
+    rewind for the host loop).  Returns (tokens, SpecStats)."""
     stats = SpecStats()
     spec = SpecParams(n_draft=args.draft)
     common = dict(sampling=ds, seed=max(0, args.seed), ignore_eos=args.ignore_eos,
                   stats=stats)
-    if args.ondevice_sampling and not args.draft_model:
+    if isinstance(ctx, RwkvContext):
+        if args.draft_model:
+            print("warning: --draft-model is not supported for rwkv; using prompt-lookup "
+                  "drafting", file=sys.stderr)
+        out = generate_ondevice_spec_rwkv(ctx, prompt_tokens, args.n_predict, spec=spec,
+                                          **common)
+    elif args.ondevice_sampling and not args.draft_model:
         out = generate_ondevice_spec(ctx, prompt_tokens, args.n_predict, spec=spec,
                                      n_keep=args.n_keep, **common)
     elif args.ondevice_sampling:
@@ -161,8 +172,10 @@ def run(args) -> int:
     if args.oasst:
         prompt_tokens = frame_oasst(prompt)
     else:
-        # an empty prompt tokenizes to nothing; start from a bare BOS
-        prompt_tokens = tok.tokenize(prompt, bos=True) or [TOKEN_BOS]
+        # RWKV prompts take no BOS; an empty prompt tokenizes to nothing, and
+        # the transformers then start from a bare BOS
+        rwkv = lm.arch == "rwkv"
+        prompt_tokens = tok.tokenize(prompt, bos=not rwkv) or ([] if rwkv else [TOKEN_BOS])
     if args.verbose_prompt:
         for t in prompt_tokens:
             print(f"{t:6d} -> '{tok.token_text(t).decode(errors='replace')}'",

@@ -16,8 +16,9 @@ usage counts; GET /health, and GET /stats with an engine.
 Without --parallel one Context serves the requests one at a time under a
 lock, reusing the prompt prefix it holds (server.cpp loadPrompt).  With
 --parallel N a continuous-batching engine (runtime/batch_engine.py) serves
-them concurrently.  The JAX package's ``cli/server.py``; RWKV is not ported
-(``load_model`` raises for it)."""
+them concurrently; an RWKV model's is ``RwkvBatchEngine``
+(runtime/rwkv_engine.py, speculative ticks only, no prefix cache).  The JAX
+package's ``cli/server.py``."""
 
 from __future__ import annotations
 
@@ -173,7 +174,10 @@ class ServerState:
         n_match = session_prefix_match(self.last_tokens, prompt_tokens)
         if n_match and n_match <= ctx.n_past and n_match == len(prompt_tokens):
             n_match -= 1  # must eval at least one token for fresh logits
-        if n_match and n_match <= ctx.n_past:
+        # a KV cache rewinds to any prefix it holds; a recurrent (RWKV) state
+        # is only ever the state after all n_past tokens
+        fits = n_match <= ctx.n_past if hasattr(ctx, "cache_k") else n_match == ctx.n_past
+        if n_match and fits:
             ctx.n_past = n_match
         else:
             ctx.reset()
@@ -488,7 +492,21 @@ def start_server(args):
     model)."""
     lm = load_model(args)
     engine = None
-    if getattr(args, "parallel", 1) > 1:
+    if getattr(args, "parallel", 1) > 1 and lm.arch == "rwkv":
+        from ..runtime.rwkv_engine import RwkvBatchEngine
+
+        engine = RwkvBatchEngine(
+            lm.cfg, lm.ctx.params, n_slots=args.parallel, n_ctx=args.n_ctx,
+            chunk=max(getattr(args, "parallel_chunk", 1), 4),
+            spec_draft=getattr(args, "parallel_draft", 0) or 5,
+            per_request_sampling=not getattr(args, "parallel_uniform_sampling", False),
+            device=lm.ctx.device)
+        if getattr(args, "system_prompt", None):
+            print("warning: --system-prompt prefix cache is not supported for rwkv serving",
+                  file=sys.stderr)
+        engine.start()
+        print(f"continuous batching (rwkv): {args.parallel} slots", file=sys.stderr)
+    elif getattr(args, "parallel", 1) > 1:
         from ..runtime.batch_engine import BatchEngine
 
         # --cache-type sets the serving cache; by default ("auto") bf16 when

@@ -1,4 +1,5 @@
-"""Parameters handed over as numpy arrays -> the port's TransformerParams.
+"""Parameters handed over as numpy arrays -> the port's TransformerParams or
+RwkvParams.
 
 The tests use this to give the JAX package and the port the same weights: the
 test extracts each JAX leaf into plain numpy (this module imports nothing of
@@ -15,6 +16,9 @@ a symmetric format, ``pack_zero`` None for unpacked int8 levels), or a dict
 describing a LowRankPatched weight (an unmerged LoRA adapter), {"base": leaf,
 "a": [r, K], "b": [N, r], "scale": float}.  float16 planes (the JAX params
 after ``cast_scales_f16``) stay float16; any other plane becomes float32.
+
+An RWKV tree mirrors RwkvParams the same way: {"wte", "ln_pre_g", "ln_pre_b",
+"layers": [{field: leaf, ...}, ...], "ln_out_g", "ln_out_b", "head"}.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ import numpy as np
 import torch
 
 from . import resolve_device
+from .models.rwkv import RwkvLayer, RwkvParams
 from .models.transformer import Block, TransformerParams
 from .ops.lowrank import LowRankPatched
 from .ops.qtensor import QTensor
@@ -75,3 +80,11 @@ def params_from_numpy(tree: dict, device=None) -> TransformerParams:
         out_norm_w=_leaf(tree["out_norm_w"], dev),
         out_norm_b=_leaf(tree.get("out_norm_b"), dev),
         output=_leaf(tree["output"], dev))
+
+
+def rwkv_params_from_numpy(tree: dict, device=None) -> RwkvParams:
+    dev = resolve_device(device)
+    top = {k: _leaf(tree[k], dev) for k in ("wte", "ln_pre_g", "ln_pre_b", "ln_out_g",
+                                            "ln_out_b", "head")}
+    return RwkvParams(layers=tuple(RwkvLayer(**{k: _leaf(v, dev) for k, v in lay.items()})
+                                   for lay in tree["layers"]), **top)

@@ -1,6 +1,6 @@
 """Small random-weight GGJT model files for tests and smoke runs.
 
-Structurally valid files of the llama, gptneox, falcon and bonsai families,
+Structurally valid files of the llama, gptneox, falcon, bonsai and rwkv families,
 written with this package's ``GGJTWriter`` and quantizers
 (``quant/registry.quantize``): for the same arguments and seed, byte for byte
 the files of the JAX package's ``formats/fixtures.py``.  Every 2-D weight is
@@ -138,4 +138,47 @@ def make_falcon_like_ggjt(path: str, arch: str = "falcon", *, n_vocab: int = 512
                 _emit(w, p + ".post_attn_layernorm.bias", r(n_embd, scale=0.01), qtype)
             _emit(w, p + ".mlp.dense_h_to_4h.weight", r(4 * n_embd, n_embd), qtype)
             _emit(w, p + ".mlp.dense_4h_to_h.weight", r(n_embd, 4 * n_embd), qtype)
+    return cfg
+
+
+def make_rwkv_ggjt(path: str, *, n_vocab: int = 512, n_embd: int = 64, n_layer: int = 2,
+                   rescale_every: int = 6, qtype: GGMLType = GGMLType.Q4_0, ftype: int = 2,
+                   seed: int = 0) -> ModelConfig:
+    """An RWKV v4 file: mix coefficients uniform in (0.1, 0.9), time_decay
+    stored as -exp(decay) as the reference's converter writes it."""
+    rng = np.random.default_rng(seed)
+    r = _normal(rng)
+    hp = {"n_vocab": n_vocab, "n_ctx": 1024, "n_embd": n_embd, "n_layer": n_layer,
+          "rescale_every": rescale_every}
+    cfg = ModelConfig.rwkv(n_vocab, n_embd, n_layer, rescale_every)
+
+    def u(n):
+        return rng.uniform(0.1, 0.9, n).astype(np.float32)
+
+    with GGJTWriter(path, "rwkv", hp, ftype, _fake_vocab(n_vocab)) as w:
+        _emit(w, "rwkv.embeddings.weight", r(n_vocab, n_embd, scale=0.1), qtype)
+        _emit(w, "rwkv.blocks.0.pre_ln.weight", np.ones(n_embd), qtype)
+        _emit(w, "rwkv.blocks.0.pre_ln.bias", r(n_embd, scale=0.01), qtype)
+        _emit(w, "rwkv.ln_out.weight", np.ones(n_embd), qtype)
+        _emit(w, "rwkv.ln_out.bias", r(n_embd, scale=0.01), qtype)
+        _emit(w, "head.weight", r(n_vocab, n_embd, scale=0.1), qtype)
+        for i in range(n_layer):
+            p = f"rwkv.blocks.{i}"
+            _emit(w, p + ".ln1.weight", np.ones(n_embd), qtype)
+            _emit(w, p + ".ln1.bias", r(n_embd, scale=0.01), qtype)
+            _emit(w, p + ".ln2.weight", np.ones(n_embd), qtype)
+            _emit(w, p + ".ln2.bias", r(n_embd, scale=0.01), qtype)
+            _emit(w, p + ".attention.time_mix_key", u(n_embd), qtype)
+            _emit(w, p + ".attention.time_mix_value", u(n_embd), qtype)
+            _emit(w, p + ".attention.time_mix_receptance", u(n_embd), qtype)
+            _emit(w, p + ".attention.time_first", r(n_embd, scale=0.3), qtype)
+            _emit(w, p + ".attention.time_decay",
+                  (-np.exp(r(n_embd, scale=0.5))).astype(np.float32), qtype)
+            for nm in ("key", "value", "receptance", "output"):
+                _emit(w, p + f".attention.{nm}.weight", r(n_embd, n_embd), qtype)
+            _emit(w, p + ".feed_forward.time_mix_key", u(n_embd), qtype)
+            _emit(w, p + ".feed_forward.time_mix_receptance", u(n_embd), qtype)
+            _emit(w, p + ".feed_forward.key.weight", r(4 * n_embd, n_embd), qtype)
+            _emit(w, p + ".feed_forward.receptance.weight", r(n_embd, n_embd), qtype)
+            _emit(w, p + ".feed_forward.value.weight", r(n_embd, 4 * n_embd), qtype)
     return cfg

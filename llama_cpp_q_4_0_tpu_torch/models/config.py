@@ -1,5 +1,5 @@
-"""Model configuration of the decoder-only families: the hparams of the
-reference's llama, gptneox, falcon and bonsai (RWKV is not ported)."""
+"""Model configuration of the five families: the hparams of the reference's
+llama, gptneox, falcon, bonsai and RWKV v4."""
 
 from __future__ import annotations
 
@@ -13,7 +13,7 @@ def llama_n_ff(n_embd: int, n_mult: int) -> int:
 
 @dataclass(frozen=True)
 class ModelConfig:
-    arch: str  # llama | gptneox | falcon | bonsai
+    arch: str  # llama | gptneox | falcon | rwkv | bonsai
     n_vocab: int
     n_embd: int
     n_layer: int
@@ -32,6 +32,7 @@ class ModelConfig:
     ffn_gated: bool = True  # llama SwiGLU (w1/w2/w3) vs a plain 2-matmul MLP
     qkv_fused: bool = False  # gptneox/falcon/bonsai store one c_attn tensor
     qkv_bias: bool = False  # gptneox: biases everywhere
+    rescale_every: int = 0  # rwkv: x is halved after every this many layers
     rope_full_cache: bool = False  # neox family: the reference ropes the whole cache
     # matmul arithmetic: bfloat16 | float32 | ref_int8 (the reference's
     # q8-activation integer dots, ops/qmatmul.py q_matmul_ref_int8)
@@ -80,6 +81,14 @@ class ModelConfig:
             norm="layernorm", norm_eps=1e-5, act="gelu", ffn_gated=False,
             qkv_fused=True, qkv_bias=False, rope_full_cache=True,
             ffn_norm_shared=True, **kw,
+        )
+
+    @staticmethod
+    def rwkv(n_vocab, n_embd, n_layer, rescale_every=6, n_ctx=1024, **kw) -> "ModelConfig":
+        return ModelConfig(
+            arch="rwkv", n_vocab=n_vocab, n_embd=n_embd, n_layer=n_layer,
+            n_ctx=n_ctx, norm="layernorm", norm_eps=1e-5,
+            rescale_every=rescale_every, ffn_gated=False, **kw,
         )
 
     @staticmethod

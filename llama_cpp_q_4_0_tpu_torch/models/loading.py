@@ -1,4 +1,4 @@
-"""GGJT file -> device parameters for llama, gptneox, falcon and bonsai.
+"""GGJT file -> device parameters for llama, gptneox, falcon, bonsai and rwkv.
 
 q4_0 weights whose K is a multiple of 64 take the direct repack of
 ``quant/q4_0.py`` (the JAX ``_q4_0_native``); other q4_0 shapes and every
@@ -15,8 +15,8 @@ takes the pack zero of its own levels):
   gptneox       per-head interleave [q_h | k_h | v_h] x n_head
   falcon/bonsai [Q rows 0..E | K rows E..E+D | V rows E+D..E+2D] (one KV head)
 
-and ``fuse_projections`` joins them again at ``kv_heads`` width.  RWKV is not
-ported."""
+and ``fuse_projections`` joins them again at ``kv_heads`` width.  RWKV v4
+files load into ``RwkvParams`` (``load_rwkv``), their tensors one to one."""
 
 from __future__ import annotations
 
@@ -105,15 +105,20 @@ def config_from_ggjt(gf: GGJTFile, n_ctx: int = 2048, **kw) -> ModelConfig:
         make = ModelConfig.falcon if gf.arch == "falcon" else ModelConfig.bonsai
         return make(hp["n_vocab"], hp["n_embd"], hp["n_head"], hp["n_layer"],
                     hp.get("parallel_attn", 1), n_ctx=n_ctx, **kw)
-    raise NotImplementedError(f"{gf.arch} models are not ported yet")
+    if gf.arch == "rwkv":
+        return ModelConfig.rwkv(hp["n_vocab"], hp["n_embd"], hp["n_layer"],
+                                hp.get("rescale_every", 6), n_ctx=n_ctx, **kw)
+    raise ValueError(f"unknown architecture {gf.arch}")
 
 
 def load_transformer(gf: GGJTFile, cfg: ModelConfig, *, device=None,
                      fuse: bool = True) -> TransformerParams:
     """Load a llama, gptneox, falcon or bonsai GGJT file onto ``device``
-    (default cuda; raises without CUDA unless device="cpu")."""
+    (default cuda; raises without CUDA unless device="cpu").  An RWKV file
+    takes ``load_rwkv``."""
     if cfg.arch not in ("llama", "gptneox", "falcon", "bonsai"):
-        raise NotImplementedError(f"{cfg.arch} models are not ported yet")
+        raise ValueError(f"{cfg.arch} is not a transformer family: load it with "
+                         "load_rwkv")
     dev = resolve_device(device)
     dense = torch.float32 if cfg.compute_dtype == "float32" else torch.bfloat16
 
@@ -198,3 +203,40 @@ def _load_family(gf: GGJTFile, cfg: ModelConfig, lt, dev, dense) -> TransformerP
         tok_embeddings=lt(emb), blocks=tuple(blocks),
         out_norm_w=lt(fnorm + ".weight"), out_norm_b=lt(fnorm + ".bias"),
         output=lt(out))
+
+
+def load_rwkv(gf: GGJTFile, cfg: ModelConfig, *, device=None):
+    """An RWKV v4 GGJT file -> RwkvParams on ``device`` (default cuda; raises
+    without CUDA unless device="cpu"), with rwkv.cpp's tensor names."""
+    from .rwkv import RwkvLayer, RwkvParams
+
+    dev = resolve_device(device)
+    dense = torch.float32 if cfg.compute_dtype == "float32" else torch.bfloat16
+
+    def lt(name):
+        return load_tensor(gf, name, dev, dense)
+
+    layers = []
+    for i in range(cfg.n_layer):
+        p = f"rwkv.blocks.{i}"
+        att, ff = p + ".attention.", p + ".feed_forward."
+        layers.append(RwkvLayer(
+            ln1_g=lt(p + ".ln1.weight"), ln1_b=lt(p + ".ln1.bias"),
+            ln2_g=lt(p + ".ln2.weight"), ln2_b=lt(p + ".ln2.bias"),
+            att_time_mix_k=lt(att + "time_mix_key"),
+            att_time_mix_v=lt(att + "time_mix_value"),
+            att_time_mix_r=lt(att + "time_mix_receptance"),
+            att_time_first=lt(att + "time_first"),
+            att_time_decay=lt(att + "time_decay"),
+            att_key=lt(att + "key.weight"), att_value=lt(att + "value.weight"),
+            att_receptance=lt(att + "receptance.weight"),
+            att_output=lt(att + "output.weight"),
+            ff_time_mix_k=lt(ff + "time_mix_key"),
+            ff_time_mix_r=lt(ff + "time_mix_receptance"),
+            ff_key=lt(ff + "key.weight"), ff_receptance=lt(ff + "receptance.weight"),
+            ff_value=lt(ff + "value.weight")))
+    return RwkvParams(
+        wte=lt("rwkv.embeddings.weight"), ln_pre_g=lt("rwkv.blocks.0.pre_ln.weight"),
+        ln_pre_b=lt("rwkv.blocks.0.pre_ln.bias"), layers=tuple(layers),
+        ln_out_g=lt("rwkv.ln_out.weight"), ln_out_b=lt("rwkv.ln_out.bias"),
+        head=lt("head.weight"))

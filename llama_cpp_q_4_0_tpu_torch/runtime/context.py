@@ -50,7 +50,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..models import transformer
+from ..models import rwkv, transformer
 from ..models.config import ModelConfig
 from ..models.transformer import TransformerParams, init_cache
 from ..ops.flash_prefill import flash_prefill
@@ -266,7 +266,95 @@ def _sv_shapes(sv):
                                          for name, t in sv.present().items())
 
 
-class Context:
+class _Captures:
+    """The graphs of a context on the card: each key's step captured once
+    into one shared memory pool (``_pool``) and replayed (``_steps``)."""
+
+    def _capture(self, st: _Graph, fn):
+        """Capture fn (a step) on a side stream into the shared pool.
+        Capture runs no kernel, so the caches keep what the eager call
+        wrote."""
+        with torch.cuda.device(self.device):
+            if self._pool is None:
+                self._pool = torch.cuda.graph_pool_handle()
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            reserved = torch.cuda.memory_stats()["reserved_bytes.all.current"]
+            t0 = time.perf_counter()
+            graph = torch.cuda.CUDAGraph()
+
+            def capture():
+                with torch.cuda.graph(graph, pool=self._pool):
+                    return fn()
+
+            st.out, st.launches = record_launches(LAUNCH_COUNTERS, capture)
+            st.capture_ms = (time.perf_counter() - t0) * 1e3
+            st.pool_bytes = (torch.cuda.memory_stats()["reserved_bytes.all.current"]
+                             - reserved)
+            st.graph = graph
+
+    def graphs(self) -> list[dict]:
+        """Each captured step: its key, capture ms, the bytes its capture
+        added to the card's reserved memory (the shared pool's growth) and
+        its replays so far."""
+        return [{"key": key, "capture_ms": st.capture_ms,
+                 "pool_bytes": st.pool_bytes, "replays": st.replays}
+                for key, st in self._steps.items() if st.graph is not None]
+
+    def _rounds(self, st: _Graph, fn, n: int):
+        """n calls of fn (a step that writes its results into st's static
+        tensors) on the card: the first call of a key runs eagerly (the
+        warm-up) and is captured; every other call is a replay."""
+        left = n
+        if st.graph is None:
+            fn()
+            self._capture(st, fn)
+            left -= 1
+        for _ in range(left):
+            st.graph.replay()
+        st.replays += left
+        add_launches(LAUNCH_COUNTERS, st.launches, left)
+
+    def _spec_rounds(self, gkey, hist, n_hist, key, done, sv, *, k: int, n_steps: int,
+                     round_fn):
+        """n_steps speculative rounds on the card: one round captured under
+        gkey and replayed.  round_fn(carry, sv, h) is the round
+        (``device_spec.spec_round`` or ``rwkv_spec_round`` on the context's
+        caches or state): carry is (hist [B, H + k + 1], n_hist, key, done,
+        eosed), read from and written back to the key's static tensors.
+        Returns device tensors (hist, n_hist, key, done, eosed, emit_toks
+        [n_steps, B, k+1], emit_ns [n_steps, B])."""
+        from . import device_spec
+
+        b, h = hist.shape
+        carry = dict(hist=device_spec.pad_hist(hist, k), m=n_hist.to(torch.int64), key=key,
+                     done=done, eosed=torch.zeros_like(done))
+        st = self._steps.get(gkey)
+        if st is None:
+            st = self._steps[gkey] = _Carry(
+                sv, **carry, step=torch.zeros((), dtype=torch.int64, device=self.device),
+                toks=torch.zeros((n_steps, b, k + 1), dtype=torch.int64, device=self.device),
+                ns=torch.zeros((n_steps, b), dtype=torch.int64, device=self.device))
+        else:
+            st.load(sv, **carry)
+            st.step.zero_()
+        names = tuple(carry)
+
+        def step():
+            new, (emit, emit_n) = round_fn(tuple(getattr(st, n) for n in names), st.sv, h)
+            for n, src in zip(names, new):
+                getattr(st, n).copy_(src)
+            st.toks.index_copy_(0, st.step.reshape(1), emit[None])
+            st.ns.index_copy_(0, st.step.reshape(1), emit_n[None])
+            st.step.add_(1)
+
+        self.last_chunk = st
+        self._rounds(st, step, n_steps)
+        return (st.hist[:, :h].clone(), st.m.clone(), st.key.clone(), st.done.clone(),
+                st.eosed.clone(), st.toks.clone(), st.ns.clone())
+
+
+class Context(_Captures):
     """One generation run over a loaded model: KV cache, n_past, timings."""
 
     def __init__(self, cfg: ModelConfig, params: TransformerParams, *,
@@ -356,37 +444,6 @@ class Context:
                           slice_last=call.last_index is not None,
                           attention_fn=call.attention_fn)
 
-    def _capture(self, st: _Graph, fn):
-        """Capture fn (a step) on a side stream into the shared pool.
-        Capture runs no kernel, so the caches keep what the eager call
-        wrote."""
-        with torch.cuda.device(self.device):
-            if self._pool is None:
-                self._pool = torch.cuda.graph_pool_handle()
-            torch.cuda.synchronize()
-            torch.cuda.empty_cache()
-            reserved = torch.cuda.memory_stats()["reserved_bytes.all.current"]
-            t0 = time.perf_counter()
-            graph = torch.cuda.CUDAGraph()
-
-            def capture():
-                with torch.cuda.graph(graph, pool=self._pool):
-                    return fn()
-
-            st.out, st.launches = record_launches(LAUNCH_COUNTERS, capture)
-            st.capture_ms = (time.perf_counter() - t0) * 1e3
-            st.pool_bytes = (torch.cuda.memory_stats()["reserved_bytes.all.current"]
-                             - reserved)
-            st.graph = graph
-
-    def graphs(self) -> list[dict]:
-        """Each captured step: its key, capture ms, the bytes its capture
-        added to the card's reserved memory (the shared pool's growth) and
-        its replays so far."""
-        return [{"key": key, "capture_ms": st.capture_ms,
-                 "pool_bytes": st.pool_bytes, "replays": st.replays}
-                for key, st in self._steps.items() if st.graph is not None]
-
     @torch.no_grad()
     def decode_chunk(self, tok, n_past, key, *, n_steps: int,
                      ds: "device_sample.DeviceSampling", kv_window: int | None = None,
@@ -420,20 +477,6 @@ class Context:
         self.timings.t_eval_ms += (time.perf_counter() - t0) * 1e3
         self.timings.n_eval += n_steps
         return out
-
-    def _rounds(self, st: _Graph, fn, n: int):
-        """n calls of fn (a step that writes its results into st's static
-        tensors) on the card: the first call of a key runs eagerly (the
-        warm-up) and is captured; every other call is a replay."""
-        left = n
-        if st.graph is None:
-            fn()
-            self._capture(st, fn)
-            left -= 1
-        for _ in range(left):
-            st.graph.replay()
-        st.replays += left
-        add_launches(LAUNCH_COUNTERS, st.launches, left)
 
     def _chunk(self, carry, sv, n_steps, ds, kv_window, to_host=True):
         """A chunk on the card: the key's graph replayed n_steps times."""
@@ -543,35 +586,14 @@ class Context:
                 sv, n_steps=n_steps, **static)
             out = (hist, n_hist, key, done, eosed, toks, ns)
         else:
-            b, h = hist.shape
             gkey = step_key("spec", k + 1, kv_window, False, False, None, "decode") + (
-                n_steps, ds, _sv_shapes(sv), h, k, max_ngram, min_ngram, eos, ignore_eos)
-            state = dict(hist=device_spec.pad_hist(hist, k), m=n_hist.to(torch.int64),
-                         key=key, done=done, eosed=torch.zeros_like(done))
-            st = self._steps.get(gkey)
-            if st is None:
-                st = self._steps[gkey] = _Carry(
-                    sv, **state, step=torch.zeros((), dtype=torch.int64, device=self.device),
-                    toks=torch.zeros((n_steps, b, k + 1), dtype=torch.int64, device=self.device),
-                    ns=torch.zeros((n_steps, b), dtype=torch.int64, device=self.device))
-            else:
-                st.load(sv, **state)
-                st.step.zero_()
-
-            def step():
-                new, (emit, emit_n) = device_spec.spec_round(
-                    self.cfg, self.params, (st.hist, st.m, st.key, st.done, st.eosed),
-                    self.cache_k, self.cache_v, st.sv, h=h, **static)
-                for dst, src in zip((st.hist, st.m, st.key, st.done, st.eosed), new):
-                    dst.copy_(src)
-                st.toks.index_copy_(0, st.step.reshape(1), emit[None])
-                st.ns.index_copy_(0, st.step.reshape(1), emit_n[None])
-                st.step.add_(1)
-
-            self.last_chunk = st
-            self._rounds(st, step, n_steps)
-            out = (st.hist[:, :h].clone(), st.m.clone(), st.key.clone(), st.done.clone(),
-                   st.eosed.clone(), st.toks.clone(), st.ns.clone())
+                n_steps, ds, _sv_shapes(sv), hist.shape[1], k, max_ngram, min_ngram, eos,
+                ignore_eos)
+            out = self._spec_rounds(
+                gkey, hist, n_hist, key, done, sv, k=k, n_steps=n_steps,
+                round_fn=lambda carry, sv_, h: device_spec.spec_round(
+                    self.cfg, self.params, carry, self.cache_k, self.cache_v, sv_, h=h,
+                    **static))
         self.timings.t_eval_ms += (time.perf_counter() - t0) * 1e3
         self.timings.n_eval += n_steps
         return out
@@ -703,3 +725,217 @@ class Context:
         self.n_past += t
         self._logits = logits[:, :t].float().cpu().numpy()
         return emb[:, t - 1].float().cpu().numpy()
+
+
+# the routing switches an RWKV step reads (ops/qmatmul.py use_q8x and
+# use_kfold): it has no attention
+RWKV_SWITCHES = SWITCHES[:4]
+
+
+def rwkv_step_key(t: int, last_only: bool, view: str) -> tuple:
+    """The graph key of an RWKV step: the padded T, last_only, the params
+    view and the routing switches as the environment holds them now, in
+    step_key's places (a recurrence has no kv_window).  The tokens and the
+    valid mask are inputs, not keys."""
+    return ("rwkv", t, None, last_only, view,
+            tuple(os.environ.get(n) for n in RWKV_SWITCHES))
+
+
+@dataclass
+class RwkvCall:
+    """One RWKV step as RwkvContext runs it: the padded tokens [B, T] int64,
+    the valid mask [B, T], the params view and last_only.
+    ``rwkv.forward`` of these, eagerly, on the state before the step is the
+    step's reference."""
+    x: np.ndarray
+    valid: np.ndarray
+    params: object
+    view: str  # "decode" (RwkvContext.params) or "prefill" (_params_prefill)
+    last_only: bool
+    key: tuple = field(init=False)  # taken when the call is made
+
+    def __post_init__(self):
+        self.key = rwkv_step_key(self.x.shape[1], self.last_only, self.view)
+
+
+class _RwkvStep(_Graph):
+    """The static tokens and valid mask of one RWKV key (written through
+    pinned staging tensors before each call), and on the card its graph."""
+
+    def __init__(self, call: RwkvCall, device: torch.device):
+        super().__init__()
+        pinned = device.type == "cuda"
+        self.x = torch.zeros(call.x.shape, dtype=torch.int64, device=device)
+        self.valid = torch.zeros(call.valid.shape, dtype=torch.bool, device=device)
+        self.staging = torch.empty(call.x.shape, dtype=torch.int64, pin_memory=pinned)
+        self.staging_valid = torch.empty(call.valid.shape, dtype=torch.bool, pin_memory=pinned)
+        self.copied = torch.cuda.Event() if pinned else None
+
+    def load(self, call: RwkvCall):
+        if self.copied is not None:
+            self.copied.synchronize()
+        self.staging.copy_(torch.from_numpy(call.x))
+        self.staging_valid.copy_(torch.from_numpy(call.valid))
+        self.x.copy_(self.staging, non_blocking=True)
+        self.valid.copy_(self.staging_valid, non_blocking=True)
+        if self.copied is not None:
+            self.copied.record()
+
+
+class RwkvContext(_Captures):
+    """The recurrent counterpart of Context (the reference's rwkv_context):
+    the RWKV state takes the KV cache's place.  A recurrence has no context
+    limit, so n_ctx and n_past are kept only for Context's interface.
+
+    As the JAX ``RwkvContext``: prompts are padded to the bucket of their
+    length with a valid mask (a padded step carries the state through), and
+    calls of at most 32 padded tokens take the folded params view, larger
+    ones the raw prefill view.  On the card every ``eval`` is one CUDA graph
+    per key (``rwkv_step_key``), captured on its first call after an eager
+    run, with the tokens and the mask as static inputs; the five state
+    tensors are held by address, so each step writes its new state into them
+    with ``copy_`` and ``reset`` / ``set_state`` write into them too.  On the
+    CPU, which the caller must ask for, the same step runs eagerly."""
+
+    def __init__(self, cfg: ModelConfig, params, *, batch: int = 1, n_ctx: int | None = None,
+                 device=None, views=None):
+        """device defaults to cuda and raises without CUDA unless "cpu" is
+        asked for; params must already lie on it (models.loading.load_rwkv).
+        views: the (decode, prefill) params views when the caller has made
+        them already (the serving engine); params is then not read."""
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        if views is None:
+            params = maybe_cast_scales_f16(params)
+            views = (maybe_fold_zero_points(params), params)
+        self.params, self._params_prefill = views
+        self.batch = batch
+        self.n_ctx = n_ctx or 1 << 30
+        # captured by address in every graph: written in place, never rebound
+        self.state = rwkv.init_state(cfg, batch, self.device)
+        self.n_past = 0
+        self.timings = Timings()
+        self._logits = None
+        self._steps: dict[tuple, _Graph] = {}
+        self._pool = None
+        self.last_call: RwkvCall | None = None
+        self.last_chunk: _Carry | None = None
+
+    def reset(self):
+        for k, t in self.state.items():
+            t.fill_(-1e30 if k == "maxv" else 0.0)
+        self.n_past = 0
+
+    def _run(self, call: RwkvCall):
+        """The step's logits on the device (on the card the graph's static
+        output, valid until the next call)."""
+        self.last_call = call
+        st = self._steps.get(call.key)
+        if st is None:
+            st = self._steps[call.key] = _RwkvStep(call, self.device)
+        st.load(call)
+        if self.device.type != "cuda":  # the caller asked for the CPU
+            return self._step(call, st)
+        if st.graph is None:
+            out = self._step(call, st)  # eager: the warm-up, and this call's result
+            self._capture(st, lambda: self._step(call, st))
+            return out
+        st.graph.replay()
+        st.replays += 1
+        add_launches(LAUNCH_COUNTERS, st.launches)
+        return st.out
+
+    def _step(self, call: RwkvCall, st: _RwkvStep):
+        logits, new = rwkv.forward(self.cfg, call.params, st.x, self.state, valid=st.valid,
+                                   last_only=call.last_only)
+        for k, t in self.state.items():
+            t.copy_(new[k])
+        return logits
+
+    @torch.no_grad()
+    def eval(self, tokens, *, logits_all: bool = False) -> np.ndarray:
+        """Evaluate tokens (list or [B, T] array) after the current state.
+        Returns host f32 logits: [B, T, V] if logits_all else [B, 1, V]."""
+        tokens = np.atleast_2d(np.asarray(tokens, dtype=np.int64))
+        b, t = tokens.shape
+        if b != self.batch:
+            raise ValueError(f"batch {b} != context batch {self.batch}")
+        t0 = time.perf_counter()
+        bt = _bucket(t)
+        padded = np.zeros((b, bt), dtype=np.int64)
+        padded[:, :t] = tokens
+        valid = np.zeros((b, bt), dtype=bool)
+        valid[:, :t] = True
+        params, view = ((self.params, "decode") if bt <= 32
+                        else (self._params_prefill, "prefill"))
+        logits = self._run(RwkvCall(padded, valid, params, view,
+                                    last_only=not (logits_all or bt != t)))
+        logits = logits.float().cpu().numpy()
+        if logits.shape[1] > 1:
+            logits = logits[:, :t] if logits_all else logits[:, t - 1:t]
+        dt = (time.perf_counter() - t0) * 1e3
+        if t > 1:
+            self.timings.t_prompt_ms += dt
+            self.timings.n_prompt += t
+        else:
+            self.timings.t_eval_ms += dt
+            self.timings.n_eval += 1
+        self.n_past += t
+        self._logits = logits
+        return logits
+
+    @property
+    def logits(self) -> np.ndarray:
+        return self._logits
+
+    def get_state(self) -> dict:
+        """The five state tensors as host arrays (rwkv.h's state accessor,
+        for sessions)."""
+        return {k: t.cpu().numpy() for k, t in self.state.items()}
+
+    def set_state(self, st: dict) -> None:
+        """Write a get_state dict into the state tensors in place."""
+        for k, t in self.state.items():
+            src = torch.from_numpy(np.asarray(st[k], dtype=np.float32))
+            if tuple(src.shape) != tuple(t.shape):
+                raise ValueError(f"state {k} has shape {tuple(src.shape)}, the "
+                                 f"context's {tuple(t.shape)}")
+            t.copy_(src)
+
+    @torch.no_grad()
+    def spec_chunk(self, hist, n_hist, key, done, sv=None, *, k: int, n_steps: int,
+                   ds: "device_sample.DeviceSampling", max_ngram: int, min_ngram: int,
+                   eos: int, ignore_eos: bool):
+        """``device_spec.rwkv_spec_chunk`` on this context's params (the
+        decode view) and state (written in place): n_steps prompt-lookup
+        draft-verify rounds from the device histories hist [B, H] with
+        lengths n_hist [B] and frozen rows done [B].  Returns device tensors
+        (hist, n_hist, key, done, eosed, emit_toks [n_steps, B, k+1], emit_ns
+        [n_steps, B]); ctx.n_past is left to the caller.
+
+        On the card one round (``device_spec.rwkv_spec_round``: the T = k+1
+        verify with every position's state, the accepted prefix's state
+        gathered) is one graph, keyed by k, n_steps, the sampling, the
+        history width and the lookup's settings, replayed n_steps times over
+        static carry tensors.  On the CPU it is the eager loop."""
+        from . import device_spec
+
+        static = dict(k=k, ds=ds, max_ngram=max_ngram, min_ngram=min_ngram, eos=eos,
+                      ignore_eos=ignore_eos)
+        t0 = time.perf_counter()
+        if self.device.type != "cuda":  # the caller asked for the CPU
+            hist, n_hist, _, key, done, eosed, toks, ns = device_spec.rwkv_spec_chunk(
+                self.cfg, self.params, hist, n_hist, self.state, key, done, sv,
+                n_steps=n_steps, **static)
+            out = (hist, n_hist, key, done, eosed, toks, ns)
+        else:
+            gkey = rwkv_step_key(k + 1, False, "decode") + (
+                "spec", n_steps, ds, _sv_shapes(sv), hist.shape[1], k, max_ngram, min_ngram,
+                eos, ignore_eos)
+            out = self._spec_rounds(
+                gkey, hist, n_hist, key, done, sv, k=k, n_steps=n_steps,
+                round_fn=lambda carry, sv_, h: device_spec.rwkv_spec_round(
+                    self.cfg, self.params, carry, self.state, sv_, h=h, **static))
+        self.timings.t_eval_ms += (time.perf_counter() - t0) * 1e3
+        self.timings.n_eval += n_steps
+        return out

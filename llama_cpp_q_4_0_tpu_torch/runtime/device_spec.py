@@ -24,8 +24,13 @@ lookup reads, where the JAX function writes out of range with
 Exactness: drafts are point masses, so "sample every position, accept the
 matching prefix, the first mismatch is the residual sample" is the exact
 leapfrog rule (runtime/speculative.py); greedy output is token for token the
-plain decode loop's.  RWKV's recurrent form (``rwkv_spec_chunk``) waits for
-the RWKV port and raises.
+plain decode loop's.
+
+RWKV's recurrent form (``rwkv_spec_round`` / ``rwkv_spec_chunk``, the JAX
+``rwkv_spec_chunk``) verifies with one T = k+1 parallel forward that keeps
+the state after every position, and rolls back by gathering the state at the
+last emitted position; ``RwkvContext.spec_chunk`` replays its round as a
+graph, the state written in place.
 """
 
 from __future__ import annotations
@@ -33,8 +38,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..models import transformer
-from .context import Context, _bucket
+from ..models import rwkv, transformer
+from .context import Context, RwkvContext, _bucket
 from .device_sample import (VEC_WINDOW, DeviceSampling, _recent_push, _sample_logits,
                             first_sample, make_recent, prng_key, split_key)
 from .speculative import SpecParams, SpecStats, _verify_sample
@@ -104,6 +109,38 @@ def pad_hist(hist, k: int):
     return out
 
 
+def _verify_tokens(buf, m, *, k: int, max_ngram: int, min_ngram: int):
+    """(the verify's input [B, k+1]: each row's last token and its k
+    drafts, the drafts [B, k])."""
+    last = buf.gather(1, (m - 1)[:, None])[:, 0]
+    drafts = _lookup_drafts(buf, m, k=k, max_ngram=max_ngram, min_ngram=min_ngram)
+    return torch.cat([last[:, None], drafts], dim=1), drafts
+
+
+def _recent(cfg, buf, m, ds: DeviceSampling, sv):
+    """The verify's recent window: the newest tokens of the history, the
+    last one included (n_vocab pads); None without penalties or sv."""
+    if not (ds.penalized or sv is not None):
+        return None
+    h = buf.shape[1]
+    win = VEC_WINDOW if sv is not None else ds.repeat_last_n
+    idx = m[:, None] + torch.arange(-win, 0, device=buf.device)
+    return torch.where(idx >= 0, buf.gather(1, idx.clamp(0, h - 1)), cfg.n_vocab)
+
+
+def _advance(hist, m, key, done, eosed, emit, emit_n, hit, *, h: int, k: int):
+    """A round's carry after its acceptance: the emitted tokens written at
+    the history's frontier (a frozen row writes at H.., past every column a
+    lookup reads), the lengths moved on, the EOS and full rows frozen."""
+    rows = torch.arange(hist.shape[0], device=hist.device)
+    eosed = eosed | (hit & ~done)
+    col = torch.where(done, h, m)[:, None] + torch.arange(k + 1, device=hist.device)
+    hist = hist.index_put((rows[:, None], col), emit)
+    m = m + emit_n
+    done = done | hit | (m + k + 1 > h)  # no room for another verify
+    return (hist, m, key, done, eosed), (emit, emit_n)
+
+
 def spec_round(cfg, params, state, cache_k, cache_v, sv=None, *, h: int, k: int,
                ds: DeviceSampling, kv_window: int, max_ngram: int, min_ngram: int,
                eos: int, ignore_eos: bool):
@@ -112,32 +149,16 @@ def spec_round(cfg, params, state, cache_k, cache_v, sv=None, *, h: int, k: int,
     eosed [B]); the caches are written in place.  Returns the next state
     and (emit [B, k+1], emit_n [B])."""
     hist, m, key, done, eosed = state
-    b = hist.shape[0]
-    rows = torch.arange(b, device=hist.device)
     buf = hist[:, :h]
-    last = buf.gather(1, (m - 1)[:, None])[:, 0]
-    drafts = _lookup_drafts(buf, m, k=k, max_ngram=max_ngram, min_ngram=min_ngram)
-    toks = torch.cat([last[:, None], drafts], dim=1)  # [B, k+1]
+    toks, drafts = _verify_tokens(buf, m, k=k, max_ngram=max_ngram, min_ngram=min_ngram)
     logits = transformer.forward(cfg, params, toks, m - 1, cache_k, cache_v,
                                  last_only=False, kv_window=kv_window)
     key, sub = split_key(key)
-    rec = None
-    if ds.penalized or sv is not None:
-        # the recent window: the newest tokens of the history, `last` included
-        win = VEC_WINDOW if sv is not None else ds.repeat_last_n
-        idx = m[:, None] + torch.arange(-win, 0, device=hist.device)
-        rec = torch.where(idx >= 0, buf.gather(1, idx.clamp(0, h - 1)), cfg.n_vocab)
-    ids = _verify_sample(logits, toks, sub, ds, rec, sv, base_pos=m - 1)
+    ids = _verify_sample(logits, toks, sub, ds, _recent(cfg, buf, m, ds, sv), sv,
+                         base_pos=m - 1)
     _, _, emit, emit_n, hit = _accept(ids, drafts, done, k=k, eos=eos,
                                       ignore_eos=ignore_eos)
-    eosed = eosed | (hit & ~done)
-    # the emitted tokens go to the history's frontier; a frozen row writes
-    # at H.., past every column a lookup reads
-    col = torch.where(done, h, m)[:, None] + torch.arange(k + 1, device=hist.device)
-    hist = hist.index_put((rows[:, None], col), emit)
-    m = m + emit_n
-    done = done | hit | (m + k + 1 > h)  # no room for another verify
-    return (hist, m, key, done, eosed), (emit, emit_n)
+    return _advance(hist, m, key, done, eosed, emit, emit_n, hit, h=h, k=k)
 
 
 @torch.no_grad()
@@ -166,15 +187,101 @@ def spec_chunk(cfg, params, hist, n_hist, cache_k, cache_v, key, done, sv=None, 
             torch.stack(ns))
 
 
-def rwkv_spec_chunk(*args, **kw):
-    """The JAX ``rwkv_spec_chunk`` (spec_chunk over RWKV's recurrent state)
-    waits for the RWKV port (ROADMAP queue 1, item 9)."""
-    raise NotImplementedError("rwkv models are not ported yet")
+def rwkv_spec_round(cfg, params, carry, rstate: dict, sv=None, *, h: int, k: int,
+                    ds: DeviceSampling, max_ngram: int, min_ngram: int, eos: int,
+                    ignore_eos: bool):
+    """One round of the JAX ``rwkv_spec_chunk``'s scan: carry (hist [B, H +
+    k + 1] (pad_hist), m [B], key, done [B], eosed [B]) as spec_round's;
+    rstate: the RWKV state, 5 x [L, B, E], written in place.  The verify is
+    the T = k+1 parallel forward with the state after every position; the
+    next round's state is the one after the last emitted token (index
+    emit_n - 1, so an EOS cut leaves no draft in it), and a row that emits
+    nothing (frozen, or EOS first) keeps its own.  Returns the next carry
+    and (emit [B, k+1], emit_n [B])."""
+    hist, m, key, done, eosed = carry
+    buf = hist[:, :h]
+    toks, drafts = _verify_tokens(buf, m, k=k, max_ngram=max_ngram, min_ngram=min_ngram)
+    logits, st_all = rwkv.forward(cfg, params, toks, rstate, all_states=True)
+    key, sub = split_key(key)
+    ids = _verify_sample(logits, toks, sub, ds, _recent(cfg, buf, m, ds, sv), sv,
+                         base_pos=m - 1)
+    _, _, emit, emit_n, hit = _accept(ids, drafts, done, k=k, eos=eos, ignore_eos=ignore_eos)
+    adv = ((~done) & (emit_n > 0))[None, :, None]
+    n_layer, b, _, e = st_all["num"].shape
+    at = (emit_n - 1).clamp(min=0)[None, :, None, None].expand(n_layer, b, 1, e)
+    for name, t in rstate.items():
+        t.copy_(torch.where(adv, st_all[name].gather(2, at)[:, :, 0], t))
+    return _advance(hist, m, key, done, eosed, emit, emit_n, hit, h=h, k=k)
 
 
-def generate_ondevice_spec_rwkv(*args, **kw):
-    """The JAX ``generate_ondevice_spec_rwkv`` waits for the RWKV port."""
-    raise NotImplementedError("rwkv models are not ported yet")
+@torch.no_grad()
+def rwkv_spec_chunk(cfg, params, hist, n_hist, state: dict, key, done, sv=None, *, k: int,
+                    n_steps: int, ds: DeviceSampling, max_ngram: int, min_ngram: int, eos: int,
+                    ignore_eos: bool):
+    """n_steps RWKV draft-verify rounds, eagerly (the JAX
+    ``rwkv_spec_chunk``; on the card ``RwkvContext.spec_chunk`` replays the
+    round as a graph).  state: 5 x [L, B, E], written in place; the other
+    operands as spec_chunk's.  Returns (hist, n_hist, state, key, done,
+    eosed, emit_toks [n_steps, B, k+1], emit_ns [n_steps, B])."""
+    h = hist.shape[1]
+    carry = (pad_hist(hist, k), n_hist.to(torch.int64), key, done, torch.zeros_like(done))
+    emits, ns = [], []
+    for _ in range(n_steps):
+        carry, (emit, emit_n) = rwkv_spec_round(
+            cfg, params, carry, state, sv, h=h, k=k, ds=ds, max_ngram=max_ngram,
+            min_ngram=min_ngram, eos=eos, ignore_eos=ignore_eos)
+        emits.append(emit)
+        ns.append(emit_n)
+    hist_p, m, key, done, eosed = carry
+    return (hist_p[:, :h], m, state, key, done, eosed, torch.stack(emits),
+            torch.stack(ns))
+
+
+def generate_ondevice_spec_rwkv(ctx: RwkvContext, prompt_tokens: list[int], n_predict: int,
+                                *, sampling: DeviceSampling | None = None,
+                                spec: SpecParams | None = None, n_steps: int = 8,
+                                seed: int = 0, eos_token: int = TOKEN_EOS,
+                                ignore_eos: bool = False,
+                                stats: SpecStats | None = None) -> list[int]:
+    """generate_ondevice_spec for an RwkvContext: the parallel prefill, then
+    chunks of n_steps draft-verify rounds over the recurrent state on the
+    device, one host copy a chunk.  A recurrence has no context limit: the
+    history is sized to fit the run."""
+    ds = sampling or DeviceSampling(temp=-1.0)
+    sp = spec or SpecParams()
+    k = sp.n_draft
+    stats = stats if stats is not None else SpecStats()
+    dev = ctx.device
+
+    logits = ctx.eval(np.asarray([prompt_tokens], np.int64))
+    key = prng_key(seed, dev)
+    key, sub = split_key(key)
+    first = first_sample(logits[0, -1], list(prompt_tokens), ds, sub, ctx.cfg.n_vocab)
+    if first == eos_token and not ignore_eos:
+        return []
+    out = [first]
+    stats.n_tokens += 1
+
+    n0 = len(prompt_tokens) + 1
+    h = _bucket(min(n0 + n_predict + n_steps * (k + 1) + 2, ctx.n_ctx))
+    buf = np.zeros((1, h), np.int64)
+    buf[0, :n0] = list(prompt_tokens) + [first]
+    hist = torch.from_numpy(buf).to(dev)
+    n_hist = torch.full((1,), n0, dtype=torch.int64, device=dev)
+    done = torch.zeros((1,), dtype=torch.bool, device=dev)
+    start = n0
+    while len(out) < n_predict and start + k + 1 <= h:
+        hist, n_hist, key, done, eosed, emit_toks, emit_ns = ctx.spec_chunk(
+            hist, n_hist, key, done, k=k, n_steps=n_steps, ds=ds, max_ngram=sp.max_ngram,
+            min_ngram=sp.min_ngram, eos=eos_token, ignore_eos=ignore_eos)
+        toks_h, ns_h, n_row, done_row, eosed_row = _host(emit_toks, emit_ns, n_hist, done,
+                                                         eosed)
+        start = int(n_row[0])
+        ctx.n_past = start - 1
+        _tally(stats, out, k, toks_h, ns_h)
+        if eosed_row[0] or done_row[0]:
+            break
+    return out[:n_predict]
 
 
 def draft_round(cfg_t, params_t, cfg_d, params_d, state, ck_t, cv_t, ck_d, cv_d, *,

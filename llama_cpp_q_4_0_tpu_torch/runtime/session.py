@@ -15,8 +15,10 @@ The reference's three checkpoint mechanisms, as the JAX package's
 
 A Context's CUDA graphs hold its cache tensors by address
 (runtime/context.py), so every restore and the shift write into the existing
-tensors (the QuantKV levels and scales included) and never rebind them.
-The recurrent (RWKV) state is not ported: it raises.
+tensors (the QuantKV levels and scales included) and never rebind them.  An
+RwkvContext's state blob holds its five recurrent tensors (the ``s_`` keys)
+in place of the caches, restored into the state tensors in place; the KV
+shift and GGSN files are a transformer Context's only.
 """
 
 from __future__ import annotations
@@ -59,7 +61,7 @@ def _rng_state_from_json(s: str):
 
 def _caches(ctx):
     if not hasattr(ctx, "cache_k"):
-        raise NotImplementedError("recurrent (rwkv) state is not ported")
+        raise TypeError("a recurrent (RWKV) context has no KV cache")
     return ctx.cache_k, ctx.cache_v
 
 
@@ -70,16 +72,19 @@ def get_state(ctx) -> dict:
     payload: the K/V caches, n_past and the last logits; the sampler's RNG
     is passed separately).  A float cache is stored as f32 (npz has neither
     bf16 nor e4m3; the upcast is exact), a QuantKV cache as its levels and
-    scales verbatim."""
-    cache_k, cache_v = _caches(ctx)
+    scales verbatim; an RWKV context's state as its ``s_`` arrays."""
     state = {"n_past": ctx.n_past}
-    for i, (k, v) in enumerate(zip(cache_k, cache_v)):
-        for name, c in ((f"k{i}", k), (f"v{i}", v)):
-            if isinstance(c, QuantKV):
-                state[name] = c.data.cpu().numpy()
-                state[name + "_s"] = c.scale.cpu().numpy()
-            else:
-                state[name] = c.float().cpu().numpy()
+    if hasattr(ctx, "cache_k"):
+        for i, (k, v) in enumerate(zip(ctx.cache_k, ctx.cache_v)):
+            for name, c in ((f"k{i}", k), (f"v{i}", v)):
+                if isinstance(c, QuantKV):
+                    state[name] = c.data.cpu().numpy()
+                    state[name + "_s"] = c.scale.cpu().numpy()
+                else:
+                    state[name] = c.float().cpu().numpy()
+    else:  # recurrent (rwkv)
+        for name, arr in ctx.get_state().items():
+            state["s_" + name] = arr
     if ctx.logits is not None:
         state["logits"] = np.asarray(ctx.logits)
     return state
@@ -113,11 +118,15 @@ def _restore(state: dict, name: str, cur) -> None:
 
 
 def set_state(ctx, state: dict) -> None:
-    """Restore a get_state dict into ctx, writing into its caches in place."""
-    cache_k, cache_v = _caches(ctx)
-    for i in range(len(cache_k)):
-        _restore(state, f"k{i}", cache_k[i])
-        _restore(state, f"v{i}", cache_v[i])
+    """Restore a get_state dict into ctx, writing into its caches (or its
+    recurrent state) in place."""
+    if hasattr(ctx, "cache_k"):
+        cache_k, cache_v = _caches(ctx)
+        for i in range(len(cache_k)):
+            _restore(state, f"k{i}", cache_k[i])
+            _restore(state, f"v{i}", cache_v[i])
+    else:
+        ctx.set_state({k[2:]: v for k, v in state.items() if k.startswith("s_")})
     ctx.n_past = int(state["n_past"])
     if "logits" in state:
         ctx._logits = state["logits"]

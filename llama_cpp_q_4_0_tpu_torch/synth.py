@@ -1,6 +1,7 @@
 """Synthetic weights built on the device from a torch.Generator: LLaMA
-(``build_llama``) and the GPT-NeoX, Falcon and Bonsai families
-(``build_gptneox``, ``build_falcon``, ``build_bonsai``).
+(``build_llama``), the GPT-NeoX, Falcon and Bonsai families
+(``build_gptneox``, ``build_falcon``, ``build_bonsai``) and RWKV v4
+(``build_rwkv``).
 
 Random levels and group scales (and, for the affine k-quants, group biases)
 in the loader's layouts: padding rows and planes zero, projections fused
@@ -21,7 +22,9 @@ shapes and formats.
 
 The families take one block format for every 2-D weight (q4_0 by default),
 norm weights of one, and small random f32 biases where the family has them
-(norms; GPT-NeoX's projections).
+(norms; GPT-NeoX's projections).  RWKV takes the same, and the 1-D
+parameters the fixture file draws: mix coefficients uniform in (0.1, 0.9),
+time_first N(0, 0.3^2) and time_decay stored as -exp(N(0, 0.5^2)).
 
 q3_K weights are packed symmetric nibbles (levels -4..3 stored as 0..7, pack
 zero 4) over 16-groups with no bias, the layout the loader gives them.  The
@@ -38,6 +41,7 @@ import torch
 from . import resolve_device
 from .models.config import ModelConfig
 from .models.fuse import fuse_projections
+from .models.rwkv import RwkvLayer, RwkvParams
 from .models.transformer import Block, TransformerParams
 from .ops.qtensor import _F16_EXACT_QTYPES, QTensor
 from .quant.q4_0 import PACK_ZERO, k2_padded
@@ -227,3 +231,44 @@ def build_bonsai(n_layer: int = 2, n_embd: int = 2048, n_head: int = 16,
     dev = resolve_device(device)
     cfg = ModelConfig.bonsai(n_vocab, n_embd, n_head, n_layer, n_ctx=n_ctx)
     return _family(cfg, ftype, dev, seed)
+
+
+def build_rwkv(n_layer: int = 32, n_embd: int = 4096, n_vocab: int = 50277,
+               rescale_every: int = 6, *, device=None, seed: int = 0, ftype: str = "q4_0"):
+    """(cfg, params) of an RWKV v4 (default: RWKV-4-Pile-7B's widths, L32-D4096,
+    FFN 4 x 4096).  The head keeps its 50277 rows, off the kernels' gate, as a
+    real file's head is."""
+    if ftype not in FTYPES or ftype.endswith("_K_M"):
+        raise NotImplementedError(f"no synthetic {ftype} rwkv")
+    base = FTYPES[ftype]
+    dev = resolve_device(device)
+    cfg = ModelConfig.rwkv(n_vocab, n_embd, n_layer, rescale_every)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    e = n_embd
+
+    def q(n, k):
+        return synth_qtensor(gen, n, k, dev, base)
+
+    def ones():
+        return torch.ones((e,), dtype=torch.float32, device=dev)
+
+    def normal(scale):
+        return scale * torch.randn((e,), generator=gen, device=dev)
+
+    def mix():
+        return _uniform(gen, (e,), 0.1, 0.9, dev)
+
+    def layer():
+        return RwkvLayer(
+            ln1_g=ones(), ln1_b=normal(0.01), ln2_g=ones(), ln2_b=normal(0.01),
+            att_time_mix_k=mix(), att_time_mix_v=mix(), att_time_mix_r=mix(),
+            att_time_first=normal(0.3), att_time_decay=-torch.exp(normal(0.5)),
+            att_key=q(e, e), att_value=q(e, e), att_receptance=q(e, e), att_output=q(e, e),
+            ff_time_mix_k=mix(), ff_time_mix_r=mix(), ff_key=q(4 * e, e),
+            ff_receptance=q(e, e), ff_value=q(e, 4 * e))
+
+    layers = tuple(layer() for _ in range(n_layer))
+    return cfg, RwkvParams(wte=q(n_vocab, e), ln_pre_g=ones(), ln_pre_b=normal(0.01),
+                           layers=layers, ln_out_g=ones(), ln_out_b=normal(0.01),
+                           head=q(n_vocab, e))

@@ -182,8 +182,7 @@ def test_config_equals_jax(variant):
     arch, path = variant
     want = dataclasses.asdict(jax_config(jax_read_ggjt(path, arch), n_ctx=128))
     got = dataclasses.asdict(config_from_ggjt(read_ggjt(path, arch), n_ctx=128))
-    assert want.pop("rescale_every") == 0  # RWKV's, not ported
-    assert got == want
+    assert got == want and got["rescale_every"] == 0
 
 
 @pytest.mark.parametrize("fused", [True, False], ids=["fused", "split"])

@@ -22,15 +22,21 @@ leaked = sorted(m for m in sys.modules
 
 import torch
 from llama_cpp_q_4_0_tpu_torch.models.config import ModelConfig
-from llama_cpp_q_4_0_tpu_torch.runtime.context import Context
-from llama_cpp_q_4_0_tpu_torch.synth import build_llama
+from llama_cpp_q_4_0_tpu_torch.runtime.context import Context, RwkvContext
+from llama_cpp_q_4_0_tpu_torch.runtime.rwkv_engine import RwkvBatchEngine
+from llama_cpp_q_4_0_tpu_torch.synth import build_llama, build_rwkv
 
 raised = {}
 cfg = ModelConfig.llama(n_vocab=64, n_embd=64, n_head=4, n_layer=1, n_rot=16)
+rcfg = ModelConfig.rwkv(n_vocab=64, n_embd=64, n_layer=1)
 for name, fn in (("Context", lambda: Context(cfg, None)),
                  ("build_llama", lambda: build_llama(n_layer=1, n_embd=64,
                                                      n_head=4, n_ff=128,
-                                                     n_vocab=64))):
+                                                     n_vocab=64)),
+                 ("RwkvContext", lambda: RwkvContext(rcfg, None)),
+                 ("RwkvBatchEngine", lambda: RwkvBatchEngine(rcfg, None, n_slots=1)),
+                 ("build_rwkv", lambda: build_rwkv(n_layer=1, n_embd=64, n_vocab=64)),
+                 ("load", lambda: port.load(sys.argv[1]))):
     try:
         fn()
         raised[name] = None
@@ -41,18 +47,23 @@ print(json.dumps({"mods": mods, "leaked": leaked, "raised": raised,
 """
 
 
-def _probe():
-    r = subprocess.run([sys.executable, "-c", PROBE], capture_output=True,
+def _probe(tmp_path):
+    # an RWKV file for load(), written by the port's generator
+    from llama_cpp_q_4_0_tpu_torch.formats.fixtures import make_rwkv_ggjt
+
+    path = str(tmp_path / "rwkv.ggjt")
+    make_rwkv_ggjt(path, n_vocab=64, n_layer=1)
+    r = subprocess.run([sys.executable, "-c", PROBE, path], capture_output=True,
                        text=True, cwd=ROOT, timeout=300,
                        env={**os.environ, "OMP_NUM_THREADS": "1"})
     assert r.returncode == 0, r.stderr
     return json.loads(r.stdout.strip().splitlines()[-1])
 
 
-def test_port_imports_no_jax_and_no_jax_package():
+def test_port_imports_no_jax_and_no_jax_package(tmp_path):
     """Every module of the port, kernel modules included, imports without
     jax, without the JAX package and without nvcc or a card."""
-    out = _probe()
+    out = _probe(tmp_path)
     assert out["leaked"] == []
     for m in ("ops.qmm", "ops.flash_prefill", "ops.mha_decode", "ops.stream",
               "kernels.build", "runtime.context", "runtime.device_sample", "cli.main",
@@ -61,7 +72,7 @@ def test_port_imports_no_jax_and_no_jax_package():
               "quant.registry", "convert", "synth", "runtime.speculative",
               "runtime.device_spec", "runtime.embd_input", "runtime.mm_adapters",
               "ops.lowrank", "models.lora", "formats.ggla", "cli.convert_lora",
-              "runtime.batch_engine", "cli.server"):
+              "runtime.batch_engine", "cli.server", "models.rwkv", "runtime.rwkv_engine"):
         assert f"llama_cpp_q_4_0_tpu_torch.{m}" in out["mods"], m
     if not out["cuda"]:
         # entry points refuse to run on the CPU unless asked to

@@ -215,26 +215,29 @@ def test_cache_clamp_near_n_ctx(path):
 
 
 def test_other_families_raise(tmp_path):
-    """RWKV, the one family the port does not run, raises at the config,
-    at the loader and in the CLI (gptneox, falcon and bonsai run:
-    tests/test_torch_families.py)."""
+    """RWKV, the one family load_transformer refuses, loads through its own
+    path: config_from_ggjt and the CLI's load_model take the file (an
+    RwkvContext), load_transformer still refuses an rwkv config
+    (tests/test_torch_rwkv.py holds the RWKV path against JAX)."""
     import argparse
 
     from llama_cpp_q_4_0_tpu.formats.fixtures import make_rwkv_ggjt
     from llama_cpp_q_4_0_tpu_torch.cli.common import load_model
     from llama_cpp_q_4_0_tpu_torch.models.config import ModelConfig
+    from llama_cpp_q_4_0_tpu_torch.runtime.context import RwkvContext
 
     p = str(tmp_path / "rwkv.ggjt")
     make_rwkv_ggjt(p)
     gf = read_ggjt(p, "rwkv")
-    with pytest.raises(NotImplementedError):
-        config_from_ggjt(gf)
-    with pytest.raises(NotImplementedError):
+    cfg = config_from_ggjt(gf)
+    assert (cfg.arch, cfg.n_embd, cfg.n_layer, cfg.rescale_every) == ("rwkv", 64, 2, 6)
+    with pytest.raises(ValueError, match="load_rwkv"):
         load_transformer(gf, ModelConfig(arch="rwkv", n_vocab=512, n_embd=64, n_layer=2),
                          device="cpu")
-    with pytest.raises(NotImplementedError):
-        load_model(argparse.Namespace(model=p, arch=None, n_ctx=64, cache_type="f32",
-                                      device="cpu"))
+    lm = load_model(argparse.Namespace(model=p, arch=None, n_ctx=64, cache_type="f32",
+                                       device="cpu"))
+    assert lm.arch == "rwkv" and isinstance(lm.ctx, RwkvContext)
+    assert np.isfinite(lm.ctx.eval([[1, 5, 9]])).all()
 
 
 # ------------------------------------------------------------ k-quant files

@@ -161,13 +161,35 @@ def test_state_size_matches_jax(models):
     assert ts.get_state_size(tctx) == js.get_state_size(jctx)
 
 
-def test_recurrent_state_raises():
-    class Recurrent:
-        n_past = 0
-        logits = None
+def test_recurrent_state_raises(tmp_path):
+    """An RwkvContext's state blob (its five recurrent tensors, the s_ keys)
+    round-trips: set_state into a fresh context continues bit for bit,
+    written into the state tensors in place; only the KV shift, which a
+    recurrence has no cache for, raises."""
+    from llama_cpp_q_4_0_tpu_torch.formats.fixtures import make_rwkv_ggjt
+    from llama_cpp_q_4_0_tpu_torch.models.loading import load_rwkv
+    from llama_cpp_q_4_0_tpu_torch.runtime.context import RwkvContext
 
-    with pytest.raises(NotImplementedError):
-        ts.get_state(Recurrent())
+    p = str(tmp_path / "rwkv.ggjt")
+    make_rwkv_ggjt(p, n_layer=2)
+    gf = read_ggjt(p, "rwkv")
+    cfg = config_from_ggjt(gf)
+    params = load_rwkv(gf, cfg, device="cpu")
+    a = RwkvContext(cfg, params, device="cpu")
+    a.eval(np.asarray([PROMPT]))
+    blob = ts.state_from_bytes(ts.state_to_bytes(ts.get_state(a)))
+    assert sorted(k for k in blob if k.startswith("s_")) == [
+        "s_attn_prev", "s_den", "s_ff_prev", "s_maxv", "s_num"]
+    b = RwkvContext(cfg, params, device="cpu")
+    ptrs = [t.data_ptr() for t in b.state.values()]
+    ts.set_state(b, blob)
+    assert [t.data_ptr() for t in b.state.values()] == ptrs and b.n_past == len(PROMPT)
+    np.testing.assert_array_equal(b.logits, a.logits)
+    assert _greedy(a) == _greedy(b)
+    for k in a.state:
+        assert torch.equal(a.state[k], b.state[k]), k
+    with pytest.raises(TypeError):
+        ts.shift_kv_cache(b, 1, 2)
 
 
 # ------------------------------------------------------------- session files

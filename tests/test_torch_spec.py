@@ -366,10 +366,40 @@ def test_spec_chunk_rows_match_jax_with_a_frozen_row(models):
     assert _ptrs(tc) == ptrs and tc.n_past == 10  # n_past is the caller's
 
 
-def test_rwkv_spec_paths_raise():
-    for fn in (tdsp.rwkv_spec_chunk, tdsp.generate_ondevice_spec_rwkv):
-        with pytest.raises(NotImplementedError, match="rwkv"):
-            fn(None, [1], 4)
+def test_rwkv_spec_paths_raise(tmp_path):
+    """The RWKV speculative paths run (tests/test_torch_rwkv_spec.py holds
+    them against JAX): generate_ondevice_spec_rwkv's greedy tokens are the
+    plain decode's, and rwkv_spec_chunk writes the state it is given in
+    place."""
+    from llama_cpp_q_4_0_tpu_torch.formats.fixtures import make_rwkv_ggjt
+    from llama_cpp_q_4_0_tpu_torch.models.loading import load_rwkv
+    from llama_cpp_q_4_0_tpu_torch.runtime.context import RwkvContext
+
+    p = str(tmp_path / "rwkv.ggjt")
+    make_rwkv_ggjt(p, n_vocab=V, n_layer=2)
+    gf = read_ggjt(p, "rwkv")
+    cfg = config_from_ggjt(gf)
+    params = load_rwkv(gf, cfg, device="cpu")
+    prompt = [7, 9, 23, 7, 9, 23, 7, 9]
+    greedy = SamplingParams(temp=-1.0, top_k=0, repeat_penalty=1.0, repeat_last_n=0)
+    want = list(generate(RwkvContext(cfg, params, device="cpu"), prompt,
+                         GenerateParams(n_predict=12, sampling=greedy, ignore_eos=True),
+                         eos_token=-1))
+    got = tdsp.generate_ondevice_spec_rwkv(RwkvContext(cfg, params, device="cpu"), prompt, 12,
+                                           spec=tsp.SpecParams(n_draft=3), n_steps=2,
+                                           ignore_eos=True)
+    assert got == want
+    ctx = RwkvContext(cfg, params, device="cpu")
+    ctx.eval(np.asarray([prompt[:-1]]))
+    ptrs = [t.data_ptr() for t in ctx.state.values()]
+    hist = torch.zeros((1, 32), dtype=torch.int64)
+    hist[0, :len(prompt)] = torch.tensor(prompt)
+    out = tdsp.rwkv_spec_chunk(cfg, ctx.params, hist, torch.tensor([len(prompt)]),
+                               ctx.state, prng_key(0, "cpu"), torch.tensor([False]), k=3,
+                               n_steps=2, ds=TDS(temp=-1.0), max_ngram=3, min_ngram=1,
+                               eos=2, ignore_eos=True)
+    assert out[2] is ctx.state and [t.data_ptr() for t in ctx.state.values()] == ptrs
+    assert out[1].item() == len(prompt) + int(out[7].sum()) and out[7].min() >= 1
 
 
 # ------------------------------------------------------------------ the CLI
