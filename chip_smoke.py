@@ -150,11 +150,11 @@ Phases (each prints its own lines; any failure exits non-zero):
   8. families: the GPT-NeoX, Falcon and Bonsai families (synthetic q4_0,
      every step a replayed graph held against its eager twin bit for bit,
      512 + 64 on a bf16 cache and 128 + 16 in the int8 configuration): GPT-NeoX
-     at StableLM-Base-Alpha-7B widths, 16 layers (65 K2 a token, 64 K1 + 16
-     K3 a 512-prefill; 65 K7 + 16 K4 a token in the int8 configuration;
+     at StableLM-Base-Alpha-7B widths, 8 layers (33 K2 a token, 32 K1 + 8
+     K3 a 512-prefill; 33 K7 + 8 K4 a token in the int8 configuration;
      checked), with a generate_ondevice run, Context.embed and eval_embd and
-     the bench and trace lines; Falcon-7B widths, 16 layers, every matmul off
-     the kernels' gate (the bf16 product, no matmul kernel; 16 K4 a token at
+     the bench and trace lines; Falcon-7B widths, 8 layers, every matmul off
+     the kernels' gate (the bf16 product, no matmul kernel; 8 K4 a token at
      71 query heads over one KV head in the int8 configuration, also through
      generate_ondevice), bench and trace lines; a 2-layer Bonsai inside the
      gate, replayed and against the CPU; K4 at H=71, G=1, D=64 (T=1 and 8, S=256
@@ -199,10 +199,22 @@ Phases (each prints its own lines; any failure exits non-zero):
      configuration at 8 slots, chunk 16 (129 K7 + 32 K4 a step); the memory
      estimate against the card's peak; `server --parallel 4 --parallel-chunk
      8` on a 2-layer 7B-width GGJT against the single-session server.
+  11b. qkk64: files of the reference's -DGGML_QKK_64 build (64-element
+     k-quant super-blocks): a 7B-width Q4_K_M-64 file of 8 layers from random
+     blocks, read with no hint; one tensor of each type and shape packed on
+     the card and on the CPU, equal bit for bit; 512 + 64 greedy tokens
+     through Context's replayed graphs against eager twins (32 K5 + 9 K6 a
+     token, + 8 K3 a prefill, checked), bounds and bench lines; 2-layer
+     Q3_K_M-64 and Q5_K_M-64 files against the CPU (q5_K-64 on K6, never
+     K6b); the host tools: a 2-layer 7B-width f32 file `quantize`d to q4_0,
+     a 192-wide one `quantize --qkk64 q4_k`, `update` of ggml and ggmf v1
+     copies, `main` on the card with each result, `verify-checksums`
+     passing and failing on a flipped byte; the host quantize rate of one
+     4096 x 4096 q4_K-64 tensor.
   12. a JSON line of per-kernel numbers (launches: the e2e paths', the
      families', the session, spec, serve and rwkv phases'), then the contract line
      {"ok": true, "device": {...}}.
-``--phases kernels,e2e,graphs,ondevice,session,spec,serve,families,rwkv,q8chaos,cli`` runs a subset
+``--phases kernels,e2e,graphs,ondevice,session,spec,serve,families,rwkv,q8chaos,cli,qkk64`` runs a subset
 (for debugging: a subset prints no result lines; with no arguments every phase runs).  Phases that run only
 when named: ``sass`` (instruction counts of K7's and K3's kernels and of
 the decode GEMV's and K4's instances), ``gemv`` (check_gemv alone),
@@ -1868,7 +1880,7 @@ def busy_phase(torch) -> None:
 
 def two_layer_vs_cpu(torch, counters, ftype="q4_0", *, int8=False, want_per_token=None,
                      planes=None, gate_cpu=True, build=None, frac=None, probe=False,
-                     **widths):
+                     built=None, **widths):
     """7B width, 2 layers: prefill 128 (prefill kernels, flash, decode-form
     head) and decode steps on the card against the plain versions on the
     CPU from the same weights, the card's greedy tokens fed to both; the
@@ -1889,7 +1901,9 @@ def two_layer_vs_cpu(torch, counters, ftype="q4_0", *, int8=False, want_per_toke
     runs with every layer's attention-norm weight moved by 1e-6 of its value
     (seeded), and that run's departure from the CPU's prints beside the
     card's: how far the model itself carries a difference of an ulp or so.
-    Returns (ok, the card's launches of the run)."""
+    built: the (cfg, params) of a model loaded on the card (a file's)
+    instead of a synthetic one.  Returns (ok, the card's launches of the
+    run)."""
     import dataclasses
 
     import numpy as np
@@ -1900,8 +1914,8 @@ def two_layer_vs_cpu(torch, counters, ftype="q4_0", *, int8=False, want_per_toke
 
     label = f"{ftype}{' int8 config' if int8 else ''}{f' {planes} planes' if planes else ''}" \
         + "".join(f" {k}={v}" for k, v in widths.items())
-    cfg, params = (build or build_llama)(n_layer=2, device="cuda", seed=1, ftype=ftype,
-                                         **widths)
+    cfg, params = built or (build or build_llama)(n_layer=2, device="cuda", seed=1,
+                                                  ftype=ftype, **widths)
     if build is not None:
         label = f"{cfg.arch} {label}"
     f32 = params  # synth's block-format planes are fp16 values already
@@ -2090,96 +2104,88 @@ def _params_to(params, device):
         output=mv(params.output))
 
 
-def write_ggjt_7b_width(path: str, ftype: str = "q4_0"):
-    """GGJT file at 7B width, 2 layers: random block bytes with small finite
-    fp16 scales, f32 norms of one, a 32000-entry vocab.  q4_0: every 2-D
-    weight q4_0.  Q4_K_M: q4_K blocks, q6_K for the output head and for wv
-    and w2 of layer 1 (use_more_bits(1, 2)).  Q3_K_M: q3_K blocks for the
-    token embeddings, wq, wk, w1 and w3, q4_K for wv, wo and w2, q6_K for the
-    output head."""
+# the f16 fields of random blocks: (low, high) of each block type's scales,
+# by super-block build; the 64 build's 4-bit codes (q3_K, q4_K) take four
+# times the 256 build's 6-bit ones' d, so that both give weights of one scale
+BLOCK_SCALES = {("Q4_0", 256): (0.005, 0.015), ("Q3_K", 256): (0.5e-4, 1.5e-4),
+                ("Q4_K", 256): (0.5e-4, 1.5e-4), ("Q3_K", 64): (2e-4, 6e-4),
+                ("Q4_K", 64): (2e-4, 6e-4), ("Q5_K", 64): (2.5e-5, 7.5e-5),
+                ("Q6_K", 256): (2.5e-5, 7.5e-5), ("Q6_K", 64): (2.5e-5, 7.5e-5)}
+
+
+def random_blocks(rng, qtype, n: int, k: int, qk_k: int = 256):
+    """[n, k] weight of random block bytes: random levels and scale codes,
+    small finite fp16 scales (BLOCK_SCALES), int8 scales (q5_K-64, q6_K) in
+    1..63."""
+    import numpy as np
+
+    from llama_cpp_q_4_0_tpu_torch.quant.types import type_traits
+
+    tr = type_traits(qtype, qk_k)
+    nb = n * k // tr.block_size
+    blk = np.frombuffer(bytearray(rng.bytes(nb * tr.type_size)), tr.block_dtype)
+    lo, hi = BLOCK_SCALES[(qtype.name, qk_k)]
+    for name in ("d", "dmin"):
+        if name in blk.dtype.names:
+            blk[name] = rng.uniform(lo, hi, blk[name].shape).astype(np.float16)
+    if "scales" in blk.dtype.names and blk.dtype["scales"].base == np.int8:
+        blk["scales"] = rng.integers(1, 64, blk["scales"].shape, dtype=np.int8)
+    return blk
+
+
+def write_ggjt_7b_width(path: str, ftype: str = "q4_0", n_layer: int = 2, qk_k: int = 256,
+                        seed: int = 3):
+    """GGJT file at 7B width (n_embd 4096, 32 heads, n_ff 11008, a
+    32000-entry vocab) of n_layer layers: random block bytes (random_blocks)
+    of the type quantize_model's policy gives each 2-D weight under ftype
+    (q4_0, Q4_K_M, Q3_K_M, Q5_K_M), in k-quant super-blocks of qk_k, f32
+    norms of one.  2 layers of Q4_K_M: q4_K, q6_K for the output head and for
+    wv and w2 of layer 1 (use_more_bits(1, 2)); Q3_K_M: q3_K for the token
+    embeddings, wq, wk, w1 and w3, q4_K for wv, wo and w2, q6_K for the
+    head."""
     import numpy as np
 
     from llama_cpp_q_4_0_tpu_torch.formats.ggjt import GGJTWriter
-    from llama_cpp_q_4_0_tpu_torch.quant.types import (BLOCK_Q3_K, BLOCK_Q4_0,
-                                                       BLOCK_Q4_K, BLOCK_Q6_K,
-                                                       GGMLType, LlamaFType)
+    from llama_cpp_q_4_0_tpu_torch.formats.quantize import TypePolicy
+    from llama_cpp_q_4_0_tpu_torch.quant.types import GGMLType, LlamaFType
 
-    n_vocab, e, n_ff, n_head, n_layer = 32000, 4096, 11008, 32, 2
-    rng = np.random.default_rng(3)
-
-    def q3_k(n, k):
-        blk = np.empty(n * k // 256, BLOCK_Q3_K)
-        blk["d"] = rng.uniform(0.5e-4, 1.5e-4, blk.shape).astype(np.float16)
-        blk["hmask"] = rng.integers(0, 256, (blk.shape[0], 32), dtype=np.uint8)
-        blk["qs"] = rng.integers(0, 256, (blk.shape[0], 64), dtype=np.uint8)
-        blk["scales"] = rng.integers(0, 256, (blk.shape[0], 12), dtype=np.uint8)
-        return blk
-
-    def q4_k(n, k):
-        blk = np.empty(n * k // 256, BLOCK_Q4_K)
-        blk["d"] = rng.uniform(0.5e-4, 1.5e-4, blk.shape).astype(np.float16)
-        blk["dmin"] = rng.uniform(0.5e-4, 1.5e-4, blk.shape).astype(np.float16)
-        blk["scales"] = rng.integers(0, 256, (blk.shape[0], 12), dtype=np.uint8)
-        blk["qs"] = rng.integers(0, 256, (blk.shape[0], 128), dtype=np.uint8)
-        return blk
-
-    def q6_k(n, k):
-        blk = np.empty(n * k // 256, BLOCK_Q6_K)
-        blk["d"] = rng.uniform(2.5e-5, 7.5e-5, blk.shape).astype(np.float16)
-        blk["scales"] = rng.integers(1, 64, (blk.shape[0], 16), dtype=np.int8)
-        blk["ql"] = rng.integers(0, 256, (blk.shape[0], 128), dtype=np.uint8)
-        blk["qh"] = rng.integers(0, 256, (blk.shape[0], 64), dtype=np.uint8)
-        return blk
+    n_vocab, e, n_ff, n_head = 32000, 4096, 11008, 32
+    rng = np.random.default_rng(seed)
     vocab = [(b"<unk>", 0.0), (b"<s>", 0.0), (b"</s>", 0.0)]
     vocab += [(bytes([i]) if 32 <= i < 127 else f"<0x{i:02X}>".encode(), 0.0)
               for i in range(256)]
     vocab += [(f" tok{i}".encode(), -float(i)) for i in range(len(vocab), n_vocab)]
     hp = {"n_vocab": n_vocab, "n_embd": e, "n_mult": 256, "n_head": n_head,
           "n_layer": n_layer, "n_rot": e // n_head}
-
-    def q4(n, k):
-        blk = np.empty(n * k // 32, BLOCK_Q4_0)
-        blk["d"] = rng.uniform(0.005, 0.015, blk.shape).astype(np.float16)
-        blk["qs"] = rng.integers(0, 256, (blk.shape[0], 16), dtype=np.uint8)
-        return blk
-
-    def qtype_of(name):
-        if ftype == "q4_0":
-            return GGMLType.Q4_0
-        if name == "output.weight":
-            return GGMLType.Q6_K
-        if ftype == "Q4_K_M":
-            return (GGMLType.Q6_K if name in ("layers.1.attention.wv.weight",
-                                              "layers.1.feed_forward.w2.weight")
-                    else GGMLType.Q4_K)
-        return (GGMLType.Q4_K if any(f in name for f in ("attention.wv", "attention.wo",
-                                                        "feed_forward.w2"))
-                else GGMLType.Q3_K)
-
-    blocks = {GGMLType.Q4_0: q4, GGMLType.Q3_K: q3_k, GGMLType.Q4_K: q4_k,
-              GGMLType.Q6_K: q6_k}
-    file_type = {"q4_0": LlamaFType.MOSTLY_Q4_0, "Q4_K_M": LlamaFType.MOSTLY_Q4_K_M,
-                 "Q3_K_M": LlamaFType.MOSTLY_Q3_K_M}[ftype]
-    with GGJTWriter(path, "llama", hp, int(file_type), vocab) as w:
-        def emit(name, n, k):
-            qt = qtype_of(name)
-            w.write_tensor(name, qt, (k, n), blocks[qt](n, k))
+    shapes = {"tok_embeddings.weight": (n_vocab, e), "output.weight": (n_vocab, e)}
+    for i in range(n_layer):
+        p = f"layers.{i}."
+        shapes.update({p + f"attention.{nm}.weight": (e, e) for nm in ("wq", "wk", "wv", "wo")})
+        shapes.update({p + "feed_forward.w1.weight": (n_ff, e),
+                       p + "feed_forward.w2.weight": (e, n_ff),
+                       p + "feed_forward.w3.weight": (n_ff, e)})
+    file_type = LlamaFType[f"MOSTLY_{ftype.upper()}"]
+    policy = TypePolicy(file_type, list(shapes), qk_k)
+    with GGJTWriter(path, "llama", hp, int(file_type), vocab, qk_k=qk_k) as w:
+        def emit(name):
+            n, k = shapes[name]
+            qt = policy(name, (k, n))
+            w.write_tensor(name, qt, (k, n), random_blocks(rng, qt, n, k, qk_k))
 
         def ones(name):
             w.write_tensor(name, GGMLType.F32, (e,), np.ones(e, np.float32))
 
-        emit("tok_embeddings.weight", n_vocab, e)
+        emit("tok_embeddings.weight")
         ones("norm.weight")
-        emit("output.weight", n_vocab, e)
+        emit("output.weight")
         for i in range(n_layer):
             p = f"layers.{i}."
             ones(p + "attention_norm.weight")
             for nm in ("wq", "wk", "wv", "wo"):
-                emit(p + f"attention.{nm}.weight", e, e)
+                emit(p + f"attention.{nm}.weight")
             ones(p + "ffn_norm.weight")
-            emit(p + "feed_forward.w1.weight", n_ff, e)
-            emit(p + "feed_forward.w2.weight", e, n_ff)
-            emit(p + "feed_forward.w3.weight", n_ff, e)
+            for nm in ("w1", "w2", "w3"):
+                emit(p + f"feed_forward.{nm}.weight")
 
 
 def cli_phase(ftype: str, prompts, counters=None) -> bool:
@@ -2982,10 +2988,11 @@ def family_kernels(torch, recs: dict) -> bool:
     return ok
 
 
-# the depth of the GPT-NeoX and Falcon paths: StableLM-Base-Alpha-7B's
-# whole 16 layers, and 16 of Falcon-7B's 32 (every Falcon matmul takes the
-# same off-gate product at any depth)
-FAMILY_LAYERS = 16
+# the depth of the GPT-NeoX and Falcon paths: 8 of StableLM-Base-Alpha-7B's
+# 16 layers and of Falcon-7B's 32 (every layer runs the same kernels, and
+# every Falcon matmul the same off-gate product, at any depth), cut from 16
+# to make room for the qkk64 phase in the run's time limit
+FAMILY_LAYERS = 8
 
 
 def families_phase(torch, counters, launches: dict, recs: dict) -> bool:
@@ -5732,8 +5739,237 @@ def trace_parse_phase(torch) -> bool:
     return same
 
 
+QKK64_LAYERS = RWKV_SPEC_LAYERS  # the depth of the 7B-width QK_K = 64 Q4_K_M run
+
+
+def _same_qtensor(torch, a, b) -> bool:
+    """Two QTensors' layouts and arrays equal bit for bit (a on any device)."""
+    if (a.pack_zero, a.gsize, a.shape) != (b.pack_zero, b.gsize, b.shape):
+        return False
+    pairs = [(a.levels_t, b.levels_t), (a.gscale_t, b.gscale_t), (a.gbias_t, b.gbias_t)]
+    return all((x is None and y is None) or (x is not None and y is not None and x.dtype == y.dtype
+                                             and torch.equal(x.cpu(), y.cpu()))
+               for x, y in pairs)
+
+
+def qkk64_7b(torch, counters, tmp: str, seed: int) -> bool:
+    """A QK_K = 64 Q4_K_M file at 7B width, QKK64_LAYERS layers, written from
+    random 64-element blocks: read with no hint, one tensor of each type and
+    shape packed on the card and on the CPU (equal bit for bit), the model
+    loaded on the card, a 512-token prefill and 64 greedy tokens through
+    Context's replayed graphs against eager twins (graph_run) with the
+    launches exact (every matmul a kernel: K5 on q4_K-64, K6 on q6_K-64, K3
+    in every layer of the prefill), its bounds and bench lines."""
+    from llama_cpp_q_4_0_tpu_torch.formats.ggjt import read_ggjt
+    from llama_cpp_q_4_0_tpu_torch.formats.quantize import use_more_bits
+    from llama_cpp_q_4_0_tpu_torch.models.loading import (config_from_ggjt, load_tensor,
+                                                          load_transformer)
+
+    n_layer = QKK64_LAYERS
+    path = os.path.join(tmp, f"llama7b-width-{n_layer}layer-Q4_K_M-qkk64.ggjt")
+    t0 = time.perf_counter()
+    write_ggjt_7b_width(path, "Q4_K_M", n_layer=n_layer, qk_k=64, seed=seed)
+    t1 = time.perf_counter()
+    gf = read_ggjt(path)
+    types = sorted({t.qtype.name for t in gf.tensors.values() if len(t.ne) == 2})
+    print(f"qkk64: wrote {path} ({os.path.getsize(path) / 2**20:.1f} MiB, {n_layer} layers) in "
+          f"{t1 - t0:.1f} s; read with no hint in {time.perf_counter() - t1:.2f} s: "
+          f"qk_k={gf.qk_k}, weights {types}", flush=True)
+    ok = gf.qk_k == 64 and types == ["Q4_K", "Q6_K"]
+    firsts = {}
+    for name, t in gf.tensors.items():
+        if len(t.ne) == 2:
+            firsts.setdefault((t.qtype.name, t.shape), name)
+    for (qt, shape), name in firsts.items():
+        t0 = time.perf_counter()
+        card = load_tensor(gf, name, torch.device("cuda"))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        same = _same_qtensor(torch, card, load_tensor(gf, name, torch.device("cpu")))
+        ok &= same
+        print(f"qkk64: {name} ({qt}-64 {list(shape)}) packed on the card in "
+              f"{(t1 - t0) * 1e3:.1f} ms: pack zero {card.pack_zero}, gsize {card.gsize}, "
+              f"bias {card.gbias_t is not None}; levels, planes and pack zero equal to the "
+              f"CPU's bit for bit: {same}", flush=True)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cfg = config_from_ggjt(gf, n_ctx=2048)
+    params = load_transformer(gf, cfg, device="cuda")
+    torch.cuda.synchronize()
+    print(f"qkk64: load_transformer {(time.perf_counter() - t0) * 1e3:.1f} ms "
+          f"({torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card)", flush=True)
+    label = f"LLaMA-7B-width {n_layer}-layer Q4_K_M QK_K=64"
+    model_bounds(label, params, n_layer)
+    # q4_K-64 (K5): wq, wk, wo and gate/up of every layer, wv and w2 besides
+    # in the layers use_more_bits leaves at q4_K (wqkv fused there); q6_K-64
+    # (K6): wv and w2 of the others and the head
+    n_up = sum(use_more_bits(i, n_layer) for i in range(n_layer))
+    per_token = {"qmm_packed_bias": 4 * n_layer, "qmm_int8": 2 * n_up + 1}
+    totals = {}
+    ok &= graph_run(torch, counters, cfg, params, label, 512, 64, torch.bfloat16, per_token,
+                    {**per_token, "flash_prefill": n_layer}, totals)
+    print(f"qkk64: {label} launches of the run {json.dumps(totals)}", flush=True)
+    bench_instruments(torch, cfg, params, label, passes=3, n_tok=32)
+    del params
+    torch.cuda.empty_cache()
+    os.remove(path)
+    return ok
+
+
+# the launches of a decode token of the 2-layer QK_K = 64 files: Q3_K_M K2
+# on q3_K-64 (wq, wk, gate/up), K5 on q4_K-64 (wv, wo, w2), K6 for the q6_K
+# head; Q5_K_M K6 on the symmetric q5_K-64 (layer 0: wqkv, wo, gate/up, w2;
+# layer 1: wq, wk, wo, gate/up) and on q6_K-64 (layer 1's wv and w2, the
+# head), never K6b
+QKK64_2L = {"Q3_K_M": {"qmm_q4_0_kfold": 6, "qmm_packed_bias": 6, "qmm_int8": 1},
+            "Q5_K_M": {"qmm_int8": 11}}
+
+
+def qkk64_two_layer(torch, counters, tmp: str, seed: int) -> bool:
+    """2-layer 7B-width QK_K = 64 Q3_K_M and Q5_K_M files on the card against
+    the port's CPU run (two_layer_vs_cpu's gate), decode launches exact."""
+    from llama_cpp_q_4_0_tpu_torch.formats.ggjt import read_ggjt
+    from llama_cpp_q_4_0_tpu_torch.models.loading import config_from_ggjt, load_transformer
+
+    ok = True
+    for ftype, want in QKK64_2L.items():
+        path = os.path.join(tmp, f"llama7b-width-2layer-{ftype}-qkk64.ggjt")
+        write_ggjt_7b_width(path, ftype, qk_k=64, seed=seed + 1)
+        gf = read_ggjt(path)
+        cfg = config_from_ggjt(gf, n_ctx=256)
+        good, launched = two_layer_vs_cpu(torch, counters, f"{ftype} QK_K=64", want_per_token=want,
+                                          built=(cfg, load_transformer(gf, cfg, device="cuda")))
+        ok &= good and gf.qk_k == 64 and "qmm_int8_bias" not in launched
+        os.remove(path)
+        torch.cuda.empty_cache()
+    return ok
+
+
+def qkk64_tools(torch, counters, tmp: str, seed: int) -> bool:
+    """The file tools on this machine's host and `main` on the card: a
+    2-layer 7B-width f32 file `quantize`d to q4_0, a 192-wide f32 file
+    `quantize --qkk64 q4_k` (rows of multiples of 64, not of 256), `update`
+    of the q4_0 file written again as an unversioned ggml and a ggmf v1
+    file (the ggmf one's result equal to the q4_0 file byte for byte),
+    `main` on the card with each result, `verify-checksums` passing and then
+    failing (rc 1) on a flipped byte; the host quantize rate of one
+    4096 x 4096 q4_K-64 tensor."""
+    import numpy as np
+
+    from llama_cpp_q_4_0_tpu_torch.cli import main as main_cli
+    from llama_cpp_q_4_0_tpu_torch.cli import quantize as quantize_cli
+    from llama_cpp_q_4_0_tpu_torch.cli import update as update_cli
+    from llama_cpp_q_4_0_tpu_torch.cli import verify_checksums as verify_cli
+    from llama_cpp_q_4_0_tpu_torch.formats.fixtures import make_llama_ggjt, write_legacy_ggml
+    from llama_cpp_q_4_0_tpu_torch.formats.ggjt import read_ggjt
+    from llama_cpp_q_4_0_tpu_torch.quant.registry import quantize
+    from llama_cpp_q_4_0_tpu_torch.quant.types import GGMLType
+
+    def tool(mod, argv, what):
+        t0 = time.perf_counter()
+        rc, out, _ = _tool_run(mod, argv)
+        lines = out.decode().strip().splitlines()
+        print(f"qkk64: {what}: rc={rc} in {time.perf_counter() - t0:.1f} s; "
+              f"{' | '.join(ln.strip() for ln in lines[-4:])}", flush=True)
+        return rc
+
+    def main_on_card(path, kernel):
+        _zero(counters)
+        t0 = time.perf_counter()
+        print(f"qkk64: main -m {os.path.basename(path)} -p 'Hello': ", end="", flush=True)
+        rc = main_cli.main(["-m", path, "-p", "Hello", "-n", "16", "--temp", "0", "-c", "256",
+                            "--device", "cuda"])
+        launched = {k: v for k, v in _read(counters).items() if v}
+        good = rc == 0 and (kernel is None or launched.get(kernel, 0) > 0)
+        print(f"\nqkk64: main rc={rc} in {time.perf_counter() - t0:.1f} s; launches "
+              f"{json.dumps(launched)} {'ok' if good else 'FAILED'}", flush=True)
+        return good
+
+    f32, q4 = os.path.join(tmp, "llama7b-width-2layer-f32.ggjt"), os.path.join(tmp, "q4_0.ggjt")
+    t0 = time.perf_counter()
+    make_llama_ggjt(f32, n_vocab=32000, n_embd=4096, n_mult=256, n_head=32, n_layer=2,
+                    qtype=GGMLType.F32, seed=seed)
+    n_w = sum(int(np.prod(t.ne)) for t in read_ggjt(f32).tensors.values() if len(t.ne) == 2)
+    print(f"qkk64: wrote {f32} ({os.path.getsize(f32) / 2**30:.2f} GiB, {n_w} weights) in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    ok = tool(quantize_cli, [f32, q4, "q4_0"], "quantize f32 -> q4_0") == 0
+    dt = time.perf_counter() - t0
+    print(f"qkk64: quantize q4_0 host rate {n_w / dt / 1e6:.1f} M weights/s ({dt:.1f} s "
+          f"with the file reads and writes)", flush=True)
+    os.remove(f32)
+    ok &= main_on_card(q4, "qmm_q4_0_kfold")
+
+    f192, q192 = os.path.join(tmp, "f32-192.ggjt"), os.path.join(tmp, "q4_k-qkk64-192.ggjt")
+    make_llama_ggjt(f192, n_vocab=512, n_embd=192, n_mult=192, n_head=3, n_layer=2,
+                    qtype=GGMLType.F32, seed=seed + 9)
+    ok &= tool(quantize_cli, [f192, q192, "q4_k", "--qkk64"], "quantize --qkk64 q4_k") == 0
+    gf = read_ggjt(q192)
+    ok &= gf.qk_k == 64 and gf.tensors["output.weight"].qtype == GGMLType.Q6_K
+    ok &= main_on_card(q192, None)  # every matmul off the kernels' gate at width 192
+
+    src = read_ggjt(q4)
+    updated = {}
+    for magic in ("ggml", "ggmf"):
+        legacy, updated[magic] = (os.path.join(tmp, f"q4_0.{magic}"),
+                                  os.path.join(tmp, f"q4_0-{magic}-updated.ggjt"))
+        write_legacy_ggml(legacy, src, magic=magic)
+        ok &= tool(update_cli, [legacy, updated[magic]], f"update ({magic})") == 0
+        os.remove(legacy)
+    with open(q4, "rb") as a, open(updated["ggmf"], "rb") as b:
+        same = a.read() == b.read()
+    up = read_ggjt(updated["ggml"])
+    same_tensors = all(np.array_equal(up.tensor_bytes(n), src.tensor_bytes(n)) for n in src.tensors)
+    print(f"qkk64: update of the ggmf v1 file equal to the q4_0 file byte for byte: {same}; "
+          f"the ggml file's tensors equal: {same_tensors}", flush=True)
+    ok &= same and same_tensors and main_on_card(updated["ggml"], "qmm_q4_0_kfold")
+    del src, up
+
+    sums = os.path.join(tmp, "SHA256SUMS")
+    files = (q4, q192, updated["ggml"])
+    with open(sums, "w") as f:
+        for path in files:
+            f.write(f"{verify_cli.sha256_file(path)}  {os.path.basename(path)}\n")
+    ok &= tool(verify_cli, [sums], "verify-checksums") == 0
+    with open(q192, "r+b") as f:
+        f.seek(os.path.getsize(q192) // 2)
+        byte = f.read(1)
+        f.seek(-1, 1)
+        f.write(bytes([byte[0] ^ 0xFF]))
+    ok &= tool(verify_cli, [sums], "verify-checksums, one byte flipped") == 1
+
+    w = (np.random.default_rng(seed).standard_normal((4096, 4096)) * 0.02).astype(np.float32)
+    t0 = time.perf_counter()
+    quantize(w, GGMLType.Q4_K, 64)
+    dt = time.perf_counter() - t0
+    print(f"qkk64: host quantize of one 4096 x 4096 q4_K-64 tensor {dt:.2f} s, "
+          f"{w.size / dt / 1e6:.2f} M weights/s", flush=True)
+    return ok
+
+
+def qkk64_phase(torch, counters, seed: int) -> bool:
+    """qkk64_7b, qkk64_two_layer and qkk64_tools, their files in a scratch
+    directory of the build tree removed after."""
+    from llama_cpp_q_4_0_tpu_torch.kernels.build import BUILD_DIR
+
+    tmp = os.path.join(BUILD_DIR, "smoke-qkk64")
+    os.makedirs(tmp, exist_ok=True)
+    try:
+        t0 = time.perf_counter()
+        ok = qkk64_7b(torch, counters, tmp, seed)
+        t1 = time.perf_counter()
+        ok &= qkk64_two_layer(torch, counters, tmp, seed)
+        t2 = time.perf_counter()
+        ok &= qkk64_tools(torch, counters, tmp, seed)
+        print(f"qkk64: {QKK64_LAYERS}-layer run {t1 - t0:.1f} s, 2-layer files {t2 - t1:.1f} s, "
+              f"tools {time.perf_counter() - t2:.1f} s", flush=True)
+        return ok
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 FULL_RUN = ("kernels", "e2e", "graphs", "ondevice", "session", "spec", "serve", "families",
-            "rwkv", "q8chaos", "cli")
+            "rwkv", "q8chaos", "cli", "qkk64")
 
 
 def main(argv=None) -> int:
@@ -5743,7 +5979,7 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", default=",".join(FULL_RUN),
                     help="comma-separated subset of kernels,e2e,graphs,ondevice,session,spec,"
                          "serve,families,rwkv,"
-                         "q8chaos,cli,sass,k7k3,rwkvfaults,traceparse,"
+                         "q8chaos,cli,qkk64,sass,k7k3,rwkvfaults,traceparse,"
                          "k7repeat,int8prefill,planes,tiles,attn,gemv,busy,splits; the result "
                          "lines print only for the default " + ",".join(FULL_RUN))
     ap.add_argument("--seed", type=int, default=0,
@@ -6068,6 +6304,13 @@ def main(argv=None) -> int:
             return fail("the main CLI failed on the Q3_K_M file")
     if "cli" in phases:
         elapsed("cli")
+    if "qkk64" in phases:
+        if not qkk64_phase(torch, counters, opts.seed):
+            return fail("QK_K = 64 files: a tensor packed on the card differing from the CPU's, "
+                        "a replayed step against its eager twin, a launch count, a 2-layer "
+                        "file against the CPU, or a tool (quantize, update, verify-checksums, "
+                        "main on their files)")
+        elapsed("qkk64")
     if not full:
         print("partial run: no result lines", flush=True)
         return 0

@@ -15,6 +15,11 @@ TOOLS = {
     "save-load-state": ("state determinism self-test", "save_load_state"),
     "convert-lora": ("PEFT LoRA adapter dir -> ggla file", "convert_lora"),
     "server": ("HTTP completion API, --parallel N for continuous batching", "server"),
+    "quantize": ("requantize a model file (examples/quantize)", "quantize"),
+    "quantize-stats": ("per-layer quant error stats (examples/quantize-stats)",
+                       "quantize_stats"),
+    "update": ("rewrite old ggml/ggmf file as current ggjt", "update"),
+    "verify-checksums": ("SHA256 model integrity check", "verify_checksums"),
 }
 
 

@@ -33,7 +33,7 @@ def _emit(w: GGJTWriter, name: str, arr: np.ndarray, qtype: GGMLType):
     if arr.ndim == 2 and qtype == GGMLType.F16:
         w.write_tensor(name, GGMLType.F16, ne, arr.astype(np.float16))
     elif arr.ndim == 2 and qtype != GGMLType.F32:
-        w.write_tensor(name, qtype, ne, quantize(arr, qtype))
+        w.write_tensor(name, qtype, ne, quantize(arr, qtype, w.qk_k))
     else:
         w.write_tensor(name, GGMLType.F32, ne, arr)
 
@@ -48,7 +48,10 @@ def _normal(rng):
 def make_llama_ggjt(path: str, *, n_vocab: int = 512, n_embd: int = 64,
                     n_mult: int = 32, n_head: int = 4, n_layer: int = 2,
                     qtype: GGMLType = GGMLType.Q4_0, ftype: int | None = None,
-                    seed: int = 0, vocab: list | None = None) -> ModelConfig:
+                    seed: int = 0, vocab: list | None = None,
+                    qk_k: int = 256) -> ModelConfig:
+    """A llama file; qk_k 64 writes k-quant weights in 64-element
+    super-blocks (rows need only be multiples of 64)."""
     if ftype is None:
         ftype = {GGMLType.F32: 0, GGMLType.F16: 1}.get(qtype, int(LlamaFType.MOSTLY_Q4_0))
     r = _normal(np.random.default_rng(seed))
@@ -56,7 +59,8 @@ def make_llama_ggjt(path: str, *, n_vocab: int = 512, n_embd: int = 64,
                             n_head=n_head, n_layer=n_layer, n_rot=n_embd // n_head)
     hp = {"n_vocab": n_vocab, "n_embd": n_embd, "n_mult": n_mult,
           "n_head": n_head, "n_layer": n_layer, "n_rot": n_embd // n_head}
-    with GGJTWriter(path, "llama", hp, ftype, vocab or _fake_vocab(n_vocab)) as w:
+    with GGJTWriter(path, "llama", hp, ftype, vocab or _fake_vocab(n_vocab),
+                    qk_k=qk_k) as w:
         _emit(w, "tok_embeddings.weight", r(n_vocab, n_embd, scale=0.1), qtype)
         _emit(w, "norm.weight", np.ones(n_embd), qtype)
         _emit(w, "output.weight", r(n_vocab, n_embd, scale=0.1), qtype)
@@ -182,3 +186,32 @@ def make_rwkv_ggjt(path: str, *, n_vocab: int = 512, n_embd: int = 64, n_layer: 
             _emit(w, p + ".feed_forward.receptance.weight", r(n_embd, n_embd), qtype)
             _emit(w, p + ".feed_forward.value.weight", r(n_embd, 4 * n_embd), qtype)
     return cfg
+
+
+def write_legacy_ggml(path: str, gf, magic: str = "ggml"):
+    """Write a read file again in one of the containers before ggjt: "ggml"
+    (unversioned, no vocab scores) or "ggmf" (version 1, scores); neither
+    aligns its tensor data.  The inputs of the ``update`` tool."""
+    import struct
+
+    from .ggjt import HEADER_FIELDS, MAGIC_GGMF, MAGIC_GGML
+
+    fields = HEADER_FIELDS[gf.arch]
+    with open(path, "wb") as f:
+        if magic == "ggml":
+            f.write(struct.pack("<I", MAGIC_GGML))
+        elif magic == "ggmf":
+            f.write(struct.pack("<II", MAGIC_GGMF, 1))
+        else:
+            raise ValueError(f"magic is ggml or ggmf, not {magic}")
+        f.write(struct.pack(f"<{len(fields)}I", *[gf.hparams[k] for k in fields]))
+        f.write(struct.pack("<I", gf.ftype))
+        for word, score in gf.vocab:
+            f.write(struct.pack("<I", len(word)) + word)
+            if magic == "ggmf" and gf.arch != "rwkv":
+                f.write(struct.pack("<f", score))
+        for name, t in gf.tensors.items():
+            nb = name.encode("utf-8")
+            f.write(struct.pack(f"<3I{len(t.ne)}I", len(t.ne), len(nb), int(t.qtype), *t.ne))
+            f.write(nb)
+            f.write(gf.tensor_bytes(name))

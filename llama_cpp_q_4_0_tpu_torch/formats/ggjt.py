@@ -13,6 +13,10 @@ Vocab: n_vocab x {u32 len, bytes, f32 score}.  Tensors: {u32 n_dims, u32
 name_len, u32 type, u32 ne[n_dims], name, pad-to-32, data}; ne[0] is the
 fastest-varying (K) dim, so a 2-D tensor's numpy shape is (ne[1], ne[0]).
 Tensor data is exposed as zero-copy np.memmap views.
+
+The container does not say which k-quant super-block build (QK_K = 256 or
+64) wrote it, but the two builds' blocks have other byte sizes: ``read_ggjt``
+parses as 256 and, where that derails, as 64.
 """
 
 from __future__ import annotations
@@ -23,7 +27,7 @@ from pathlib import Path
 
 import numpy as np
 
-from ..quant.types import K_QUANTS, GGMLType, row_size_bytes, type_traits
+from ..quant.types import GGMLType, row_size_bytes, type_traits
 
 MAGIC_GGML = 0x67676D6C  # 'ggml' — legacy, unversioned, no vocab scores
 MAGIC_GGMF = 0x67676D66  # 'ggmf' v1
@@ -67,6 +71,7 @@ class GGJTFile:
     vocab: list[tuple[bytes, float]]
     tensors: dict[str, TensorEntry]
     _mmap: np.memmap = field(repr=False, default=None)
+    qk_k: int = 256  # the k-quant super-block build that wrote the file
 
     def tensor_bytes(self, name: str) -> np.ndarray:
         """Zero-copy uint8 view of a tensor's raw block data."""
@@ -76,7 +81,7 @@ class GGJTFile:
     def tensor_blocks(self, name: str) -> np.ndarray:
         """Structured block-dtype view of a quantized tensor (zero-copy)."""
         t = self.tensors[name]
-        dt = type_traits(t.qtype).block_dtype
+        dt = type_traits(t.qtype, self.qk_k).block_dtype
         if dt is None:
             raise NotImplementedError(f"{name}: {t.qtype.name} blocks are not "
                                       "read by the port")
@@ -92,7 +97,7 @@ class GGJTFile:
             return np.array(raw.view("<f4").reshape(t.shape), dtype=np.float32)
         if t.qtype == GGMLType.F16:
             return raw.view("<f2").reshape(t.shape).astype(np.float32)
-        return dequantize(self.tensor_blocks(name), t.qtype).reshape(t.shape)
+        return dequantize(self.tensor_blocks(name), t.qtype, self.qk_k).reshape(t.shape)
 
 
 def _read_header(f, arch: str):
@@ -102,8 +107,25 @@ def _read_header(f, arch: str):
     return dict(zip(fields, vals)), ftype
 
 
-def read_ggjt(path: str | Path, arch: str = "llama") -> GGJTFile:
-    """Parse a ggml/ggmf/ggjt file (k-quant tensors in their QK_K=256 form)."""
+def read_ggjt(path: str | Path, arch: str = "llama", qk_k: int | None = None) -> GGJTFile:
+    """Parse a ggml/ggmf/ggjt file whose k-quant tensors are in the QK_K =
+    qk_k build.  qk_k None: parse as 256 and, where that fails (a 64-build
+    file read as 256 meets a divisibility error, a garbage tensor header or a
+    final offset off the file's end, with probability ~1), as 64; where
+    neither parses the file is corrupt or of another family, and the 256
+    error is raised."""
+    if qk_k is not None:
+        return _read_ggjt(path, arch, qk_k)
+    try:
+        return _read_ggjt(path, arch, 256)
+    except (ValueError, struct.error, UnicodeDecodeError) as e256:
+        try:
+            return _read_ggjt(path, arch, 64)
+        except (ValueError, struct.error, UnicodeDecodeError):
+            raise e256 from None
+
+
+def _read_ggjt(path: str | Path, arch: str, qk_k: int) -> GGJTFile:
     path = str(path)
     with open(path, "rb") as f:
         (magic,) = struct.unpack("<I", f.read(4))
@@ -134,41 +156,26 @@ def read_ggjt(path: str | Path, arch: str = "llama") -> GGJTFile:
 
         file_size = Path(path).stat().st_size
         tensors: dict[str, TensorEntry] = {}
-        try:
-            _read_tensors(f, file_version, file_size, tensors)
-        except (ValueError, struct.error, UnicodeDecodeError) as e:
-            # the container carries no QK_K marker: 64-element k-quant
-            # super-blocks have other byte sizes and derail the offsets
-            if any(t.qtype in K_QUANTS for t in tensors.values()):
-                raise NotImplementedError(
-                    f"{path}: its k-quant tensors do not parse as QK_K=256 "
-                    f"blocks ({e}); files written with 64-element super-blocks "
-                    "(GGML_QKK_64) are not ported") from e
-            raise
+        while f.tell() < file_size:
+            hdr = f.read(12)
+            if len(hdr) < 12:
+                raise ValueError("truncated tensor header (wrong QK_K?)")
+            n_dims, name_len, ttype = struct.unpack("<3I", hdr)
+            if not (1 <= n_dims <= 4) or name_len > 4096:
+                raise ValueError("implausible tensor header (wrong QK_K?)")
+            ne = struct.unpack(f"<{n_dims}I", f.read(4 * n_dims))
+            name = f.read(name_len).decode("utf-8")
+            qtype = GGMLType(ttype)
+            if file_version >= FILE_VERSION_GGJT_V1:
+                f.seek(-f.tell() & 31, 1)  # align to 32
+            size = row_size_bytes(qtype, int(np.prod(ne)), qk_k)
+            tensors[name] = TensorEntry(name, qtype, tuple(ne), f.tell(), size)
+            f.seek(size, 1)
+        if f.tell() != file_size:
+            raise ValueError("tensor data overruns file (wrong QK_K?)")
 
     mm = np.memmap(path, dtype=np.uint8, mode="r")
-    return GGJTFile(path, file_version, arch, hparams, ftype, vocab, tensors, mm)
-
-
-def _read_tensors(f, file_version: int, file_size: int, tensors: dict):
-    while f.tell() < file_size:
-        hdr = f.read(12)
-        if len(hdr) < 12:
-            raise ValueError("truncated tensor header")
-        n_dims, name_len, ttype = struct.unpack("<3I", hdr)
-        if not (1 <= n_dims <= 4) or name_len > 4096:
-            raise ValueError("implausible tensor header")
-        ne = struct.unpack(f"<{n_dims}I", f.read(4 * n_dims))
-        name = f.read(name_len).decode("utf-8")
-        qtype = GGMLType(ttype)
-        if file_version >= FILE_VERSION_GGJT_V1:
-            f.seek(-f.tell() & 31, 1)  # align to 32
-        size = row_size_bytes(qtype, int(np.prod(ne)))
-        off = f.tell()
-        tensors[name] = TensorEntry(name, qtype, tuple(ne), off, size)
-        f.seek(size, 1)
-    if f.tell() != file_size:
-        raise ValueError("tensor data overruns file")
+    return GGJTFile(path, file_version, arch, hparams, ftype, vocab, tensors, mm, qk_k=qk_k)
 
 
 def detect_arch(path: str | Path) -> str:
@@ -196,11 +203,12 @@ class GGJTWriter:
 
     def __init__(self, path: str | Path, arch: str, hparams: dict[str, int],
                  ftype: int, vocab: list[tuple[bytes, float]],
-                 version: int | None = None):
+                 version: int | None = None, qk_k: int = 256):
         if version is None:
             version = 3 if arch == "llama" else 1
         self.f = open(path, "wb")
         self.arch = arch
+        self.qk_k = qk_k  # the k-quant super-block build of the tensors written
         self.f.write(struct.pack("<II", MAGIC_GGJT, version))
         fields = HEADER_FIELDS[arch]
         self.f.write(struct.pack(f"<{len(fields)}I", *[hparams[k] for k in fields]))
@@ -217,7 +225,7 @@ class GGJTWriter:
                      data):
         """``data``: any C-contiguous buffer (bytes, numpy array)."""
         size = memoryview(data).nbytes
-        if size != row_size_bytes(qtype, int(np.prod(ne))):
+        if size != row_size_bytes(qtype, int(np.prod(ne)), self.qk_k):
             raise ValueError(f"{name}: {size} bytes for {qtype.name} {ne}")
         nb = name.encode("utf-8")
         self.f.write(struct.pack("<3I", len(ne), len(nb), int(qtype)))

@@ -2,8 +2,9 @@
 
 q4_0 weights whose K is a multiple of 64 take the direct repack of
 ``quant/q4_0.py`` (the JAX ``_q4_0_native``); other q4_0 shapes and every
-other quantized type (q4_1, q5_0, q5_1, q8_0, q2_K..q6_K) goes through the planar
-repack and ``QTensor.from_planar``, as in the JAX package's loader.  llama's
+other quantized type (q4_1, q5_0, q5_1, q8_0, q2_K..q6_K, the k-quants in
+either super-block build the file was read in) goes through the planar repack
+and ``QTensor.from_planar``, as in the JAX package's loader.  llama's
 wq/wk stay in their on-disk permuted layout because rope(neox=False)
 implements the matching adjacent-pair rotation.
 
@@ -51,8 +52,8 @@ def load_tensor(gf: GGJTFile, name: str, device: torch.device,
     if len(t.shape) != 2 or t.qtype not in PLANAR_TYPES:
         raise NotImplementedError(f"{name}: {len(t.shape)}-D {t.qtype.name} "
                                   "tensors are not ported")
-    return QTensor.from_planar(pack_planar(gf.tensor_blocks(name), t.qtype, t.shape),
-                               device)
+    return QTensor.from_planar(pack_planar(gf.tensor_blocks(name), t.qtype, t.shape,
+                                           gf.qk_k), device)
 
 
 def _load_rows(gf: GGJTFile, name: str, row_groups: list, device: torch.device,
@@ -67,9 +68,9 @@ def _load_rows(gf: GGJTFile, name: str, row_groups: list, device: torch.device,
     if len(t.shape) != 2 or t.qtype not in PLANAR_TYPES:
         raise NotImplementedError(f"{name}: {len(t.shape)}-D {t.qtype.name} "
                                   "tensors are not ported")
-    blocks = gf.tensor_blocks(name).reshape(n, k // type_traits(t.qtype).block_size)
-    return [QTensor.from_planar(pack_planar(blocks[g], t.qtype, (len(g), k)), device)
-            for g in row_groups]
+    blocks = gf.tensor_blocks(name).reshape(n, k // type_traits(t.qtype, gf.qk_k).block_size)
+    return [QTensor.from_planar(pack_planar(blocks[g], t.qtype, (len(g), k), gf.qk_k),
+                                device) for g in row_groups]
 
 
 def _split_1d(gf: GGJTFile, name: str, row_groups: list, device: torch.device) -> list:

@@ -210,3 +210,54 @@ def dequantize_q8_0(blocks: np.ndarray) -> np.ndarray:
 def dequantize_q8_1(blocks: np.ndarray) -> np.ndarray:
     b = blocks.reshape(-1)
     return _unblock(b["qs"].astype(F32) * b["d"].astype(F32)[:, None], blocks)
+
+
+# dot products of weight blocks with q8 activation blocks: the scalar paths
+# of ggml_vec_dot_* (ggml.c:2339-3608), integer dots a block, the per-block
+# terms summed in float32 in block order
+
+
+def _seqsum_f32(terms: np.ndarray) -> np.float32:
+    acc = F32(0.0)
+    for t in terms.astype(F32):
+        acc = F32(acc + t)
+    return acc
+
+
+def _nibbles(xb: np.ndarray, offset: int) -> np.ndarray:
+    return np.concatenate([(xb["qs"] & 0x0F).astype(np.int32),
+                           (xb["qs"] >> 4).astype(np.int32)], axis=-1) - offset
+
+
+def _sumi(qx: np.ndarray, yb: np.ndarray) -> np.ndarray:
+    return (qx * yb["qs"].astype(np.int32)).sum(axis=-1)
+
+
+def vec_dot_q4_0_q8_0(xb: np.ndarray, yb: np.ndarray) -> float:
+    terms = _sumi(_nibbles(xb, 8), yb).astype(F32) * f16_to_f32(xb["d"]) \
+        * f16_to_f32(yb["d"])
+    return float(_seqsum_f32(terms))
+
+
+def vec_dot_q4_1_q8_1(xb: np.ndarray, yb: np.ndarray) -> float:
+    terms = (f16_to_f32(xb["d"]) * yb["d"]) * _sumi(_nibbles(xb, 0), yb).astype(F32) \
+        + f16_to_f32(xb["m"]) * yb["s"]
+    return float(_seqsum_f32(terms))
+
+
+def vec_dot_q5_0_q8_0(xb: np.ndarray, yb: np.ndarray) -> float:
+    terms = (f16_to_f32(xb["d"]) * f16_to_f32(yb["d"])) \
+        * _sumi(_q5_levels(xb) - 16, yb).astype(F32)
+    return float(_seqsum_f32(terms))
+
+
+def vec_dot_q5_1_q8_1(xb: np.ndarray, yb: np.ndarray) -> float:
+    terms = (f16_to_f32(xb["d"]) * yb["d"]) * _sumi(_q5_levels(xb), yb).astype(F32) \
+        + f16_to_f32(xb["m"]) * yb["s"]
+    return float(_seqsum_f32(terms))
+
+
+def vec_dot_q8_0_q8_0(xb: np.ndarray, yb: np.ndarray) -> float:
+    terms = _sumi(xb["qs"].astype(np.int32), yb).astype(F32) * f16_to_f32(xb["d"]) \
+        * f16_to_f32(yb["d"])
+    return float(_seqsum_f32(terms))

@@ -7,7 +7,8 @@ per-group scalar loops (k_quants.c) vectorised across groups with per-group
 active masks, inner sums taken element by element in float32 to keep the C
 order.  Like it, ``make_qkx1_quants`` starts L at zero where the reference
 reads uninitialised stack memory (k_quants.c:243-247), which only moves the
-early exit of degenerate groups.  QK_K = 64 super-blocks are not written.
+early exit of degenerate groups.  The QK_K = 64 super-blocks are in
+``kquants64.py``.
 """
 
 from __future__ import annotations
@@ -155,12 +156,15 @@ def _greedy_refine(x, w, L, sumlx, suml2, nmax, niter=5):
     return L, sumlx, suml2
 
 
-def make_qx_quants(x: np.ndarray, nmax: int):
+def make_qx_quants(x: np.ndarray, nmax: int, rmse_type: int = 1):
     """Symmetric x ~ scale * (L - nmax), L in [0, 2*nmax-1], with the weight
-    x^2 (rmse_type 1, the only variant the reference's model quantization
-    uses; k_quants.c:57-156).  Returns (scale (G,), L (G, n) int32 with the
+    x^2 (k_quants.c:57-156).  Only rmse_type 1 is implemented, the only
+    variant the reference's model quantization uses (q6_K; q5_K and q6_K at
+    QK_K = 64); another raises.  Returns (scale (G,), L (G, n) int32 with the
     +nmax offset applied).
     """
+    if rmse_type != 1:
+        raise NotImplementedError(f"make_qx_quants: rmse_type {rmse_type} (only 1)")
     G, n = x.shape
     amax_idx = np.argmax(np.abs(x), axis=1)
     mx = x[np.arange(G), amax_idx].astype(F32)
@@ -582,34 +586,47 @@ def dequantize_q4_K(blocks: np.ndarray) -> np.ndarray:
                     - (dmin * m.astype(F32))[:, :, None], blocks)
 
 
+def _q5_levels(b: np.ndarray) -> np.ndarray:
+    """(nb, 256) q5_K levels: the nibble pairs with a fifth bit from qh, bit
+    2 * seg for the low nibbles of segment seg, 2 * seg + 1 for its high
+    ones."""
+    nb = b.shape[0]
+    shifts = np.arange(8, dtype=np.uint8)[None, :, None]
+    hi = ((b["qh"][:, None, :] >> shifts) & 1).reshape(nb, QK_K).astype(np.int32)
+    return _unpack_nibble_pairs(b["qs"]) + 16 * hi
+
+
 def dequantize_q5_K(blocks: np.ndarray) -> np.ndarray:
-    """q4_K's form with a fifth bit from qh: bit 2 * seg for the low
-    nibbles of segment seg, 2 * seg + 1 for its high ones (k_quants.c:982)."""
+    """q4_K's form with the fifth bit (k_quants.c:982)."""
     b = blocks.reshape(-1)
     nb = b.shape[0]
     d = f16_to_f32(b["d"])[:, None]
     dmin = f16_to_f32(b["dmin"])[:, None]
     sc, m = unpack_scale_min_k4(b["scales"])
-    shifts = np.arange(8, dtype=np.uint8)[None, :, None]
-    hi = ((b["qh"][:, None, :] >> shifts) & 1).reshape(nb, QK_K).astype(np.int32)
-    L = (_unpack_nibble_pairs(b["qs"]) + 16 * hi).reshape(nb, 8, 32).astype(F32)
+    L = _q5_levels(b).reshape(nb, 8, 32).astype(F32)
     return _unblock((d * sc.astype(F32))[:, :, None] * L
                     - (dmin * m.astype(F32))[:, :, None], blocks)
 
 
-def dequantize_q6_K(blocks: np.ndarray) -> np.ndarray:
-    """y = d * scale * (q - 32) per 16-group; the low 4 bits from ql, the
-    top 2 from qh (k_quants.c:1130)."""
-    b = blocks.reshape(-1)
+def _q6_levels(b: np.ndarray) -> np.ndarray:
+    """(nb, 256) signed q6_K levels (q - 32): the low 4 bits from ql, the top
+    2 from qh."""
     nb = b.shape[0]
-    d = f16_to_f32(b["d"])[:, None]
     ql = b["ql"].reshape(nb, 2, 1, 2, 32)  # half, nibble, part of ql, j
     qh = b["qh"].reshape(nb, 2, 1, 1, 32)
     low = np.concatenate([ql & 0xF, ql >> 4], axis=2)  # half, nibble, part, j
     shifts = (2 * np.arange(4, dtype=np.uint8)).reshape(1, 1, 2, 2, 1)
     q = (low.astype(np.int32) | (((qh >> shifts) & 3).astype(np.int32) << 4)) - 32
-    s = np.repeat(b["scales"].astype(F32), 16, axis=1).reshape(nb, 2, 2, 2, 32)
-    return _unblock(d[:, :, None, None, None] * s * q.astype(F32), blocks)
+    return q.reshape(nb, QK_K)
+
+
+def dequantize_q6_K(blocks: np.ndarray) -> np.ndarray:
+    """y = d * scale * (q - 32) per 16-group (k_quants.c:1130)."""
+    b = blocks.reshape(-1)
+    nb = b.shape[0]
+    d = f16_to_f32(b["d"])[:, None]
+    s = np.repeat(b["scales"].astype(F32), 16, axis=1)
+    return _unblock(d * s * _q6_levels(b).astype(F32), blocks)
 
 
 def dequantize_q8_K(blocks: np.ndarray) -> np.ndarray:

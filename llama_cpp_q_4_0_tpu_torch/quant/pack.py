@@ -7,8 +7,9 @@
 so that W[n, k] = levels[n, k] * gscale[n, k // gsize] + gbias[n, k // gsize].
 Scale products (d * sc, -(dmin * m)) are taken in float32 as the reference
 dequantizers take them.  Array for array the same as the JAX package's
-``quant/pack.py`` (QK_K = 256 formats), with each planner working on all
-blocks at once.  ``quantize_planar`` quantizes a float32 weight first.
+``quant/pack.py``, the k-quants in both super-block builds (``qk_k`` 256 or
+64), with each planner working on all blocks at once.  ``quantize_planar``
+quantizes a float32 weight first.
 ``ops/qtensor.py`` turns a PlanarQuant into the device layout.
 """
 
@@ -18,8 +19,8 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from . import blockq, kquants
-from .types import QK_K, GGMLType, type_traits
+from . import blockq, kquants, kquants64
+from .types import GGMLType, type_traits
 
 F32 = np.float32
 
@@ -77,61 +78,48 @@ def _plan_q8_0(b):
     return b["qs"].copy(), _f16(b, "d"), None, 32
 
 
-def _plan_q2_K(b):
-    L = kquants._unpack2(b["qs"]).astype(np.int8)
+def _q2_planes(b, L):
+    """q2_K's 16-groups: 4-bit scale and min codes times d and dmin."""
     sc = (b["scales"] & 0xF).astype(F32)
     mn = (b["scales"] >> 4).astype(F32)
     d = _f16(b, "d")[:, None]
     dmin = _f16(b, "dmin")[:, None]
-    return L, d * sc, -(dmin * mn), 16
+    return L.astype(np.int8), d * sc, -(dmin * mn), 16
+
+
+def _int8_scaled(b, q):
+    """Symmetric 16-groups: the levels times d times each group's int8
+    scale (q6_K; q5_K at QK_K = 64)."""
+    return q.astype(np.int8), _f16(b, "d")[:, None] * b["scales"].astype(F32), None, 16
+
+
+def _plan_q2_K(b):
+    return _q2_planes(b, kquants._unpack2(b["qs"]))
 
 
 def _plan_q3_K(b):
-    nb = b.shape[0]
-    L = kquants._unpack2(b["qs"])
-    # bit `bit` of hmask byte j is the high bit of element 32 * bit + j
-    shifts = np.arange(8, dtype=np.uint8)[None, :, None]
-    bits = ((b["hmask"][:, None, :] >> shifts) & 1).reshape(nb, QK_K)
-    q = (L - np.where(bits == 1, 0, 4)).astype(np.int8)
     sc = kquants._q3_unpack_scales(b["scales"]).astype(F32)
-    return q, _f16(b, "d")[:, None] * sc, None, 16
+    return kquants._q3_levels(b).astype(np.int8), _f16(b, "d")[:, None] * sc, None, 16
+
+
+def _affine_32(b, L):
+    """q4_K / q5_K's 32-groups: 6-bit scale and min codes times d and dmin."""
+    sc, mn = kquants.unpack_scale_min_k4(b["scales"])
+    d = _f16(b, "d")[:, None]
+    dmin = _f16(b, "dmin")[:, None]
+    return L.astype(np.int8), d * sc.astype(F32), -(dmin * mn.astype(F32)), 32
 
 
 def _plan_q4_K(b):
-    L = kquants._unpack_nibble_pairs(b["qs"]).astype(np.int8)
-    sc, mn = kquants.unpack_scale_min_k4(b["scales"])
-    d = _f16(b, "d")[:, None]
-    dmin = _f16(b, "dmin")[:, None]
-    return L, d * sc.astype(F32), -(dmin * mn.astype(F32)), 32
+    return _affine_32(b, kquants._unpack_nibble_pairs(b["qs"]))
 
 
 def _plan_q5_K(b):
-    nb = b.shape[0]
-    byte = b["qs"].reshape(nb, 4, 32)
-    qh = b["qh"][:, None, :]
-    seg = np.arange(4, dtype=np.uint8)[None, :, None]
-    hi1 = (qh >> (2 * seg)) & 1
-    hi2 = (qh >> (2 * seg + 1)) & 1
-    # element seg*64 + j: low nibble + 16 * bit 2*seg of qh[j]; seg*64 + 32 + j:
-    # high nibble + 16 * bit 2*seg + 1
-    L = np.stack([(byte & 0xF) + 16 * hi1, (byte >> 4) + 16 * hi2], axis=2)
-    sc, mn = kquants.unpack_scale_min_k4(b["scales"])
-    d = _f16(b, "d")[:, None]
-    dmin = _f16(b, "dmin")[:, None]
-    return (L.reshape(nb, QK_K).astype(np.int8), d * sc.astype(F32),
-            -(dmin * mn.astype(F32)), 32)
+    return _affine_32(b, kquants._q5_levels(b))
 
 
 def _plan_q6_K(b):
-    nb = b.shape[0]
-    ql = b["ql"].reshape(nb, 2, 1, 2, 32)  # [half, -, a, j]: ql[half*64 + a*32 + j]
-    qh = b["qh"].reshape(nb, 2, 1, 32)
-    # part p = 2 * nibble + a of each 128-element half: element
-    # half*128 + p*32 + j, with high bits 2p of qh[half*32 + j]
-    low = np.concatenate([ql & 0xF, ql >> 4], axis=2).reshape(nb, 2, 4, 32)
-    hb = (qh >> (2 * np.arange(4, dtype=np.uint8))[None, None, :, None]) & 3
-    q = ((low | (hb << 4)).astype(np.int16) - 32).astype(np.int8)
-    return q.reshape(nb, QK_K), _f16(b, "d")[:, None] * b["scales"].astype(F32), None, 16
+    return _int8_scaled(b, kquants._q6_levels(b))
 
 
 _PLANNERS = {
@@ -148,21 +136,62 @@ _PLANNERS = {
 }
 
 
+# the QK_K = 64 super-blocks, into the same schema: q2_K and q4_K affine
+# (16- and 32-groups), q3_K, q5_K and q6_K symmetric over 16-groups
+
+
+def _plan_q2_K64(b):
+    return _q2_planes(b, kquants64._unpack2_64(b["qs"]))
+
+
+def _plan_q3_K64(b):
+    sc = kquants64._q3_scales_64(b["scales"]).astype(F32)
+    return kquants64._q3_levels_64(b).astype(np.int8), _f16(b, "d")[:, None] * sc, None, 16
+
+
+def _plan_q4_K64(b):
+    q = b["qs"]
+    L = np.concatenate([q & 0xF, q >> 4], axis=-1).astype(np.int8)
+    sd = (b["scales"] & 0xF).astype(F32)
+    sm = (b["scales"] >> 4).astype(F32)
+    dall = blockq.f16_to_f32(b["d"][:, 0])[:, None]
+    mall = blockq.f16_to_f32(b["d"][:, 1])[:, None]
+    return L, dall * sd, -(mall * sm), 32
+
+
+def _plan_q5_K64(b):
+    return _int8_scaled(b, kquants64._q5_levels_64(b))
+
+
+def _plan_q6_K64(b):
+    return _int8_scaled(b, kquants64._q6_levels_64(b))
+
+
+_PLANNERS_64 = {
+    GGMLType.Q2_K: _plan_q2_K64,
+    GGMLType.Q3_K: _plan_q3_K64,
+    GGMLType.Q4_K: _plan_q4_K64,
+    GGMLType.Q5_K: _plan_q5_K64,
+    GGMLType.Q6_K: _plan_q6_K64,
+}
+
 PLANAR_TYPES = frozenset(_PLANNERS)
 
 
-def pack_planar(blocks: np.ndarray, qtype: GGMLType,
-                shape: tuple[int, int]) -> PlanarQuant:
-    """Blocks of a [N, K] row-major weight -> planar layout."""
+def pack_planar(blocks: np.ndarray, qtype: GGMLType, shape: tuple[int, int],
+                qk_k: int = 256) -> PlanarQuant:
+    """Blocks of a [N, K] row-major weight -> planar layout; qk_k is the
+    k-quant super-block build that wrote them."""
     if qtype not in PLANAR_TYPES:
         raise NotImplementedError(f"{qtype.name} weights are not ported")
     n, k = shape
-    tr = type_traits(qtype)
+    tr = type_traits(qtype, qk_k)
     flat = blocks.reshape(-1)
     nbr = k // tr.block_size
     if k % tr.block_size or flat.shape[0] != n * nbr:
         raise ValueError(f"{flat.shape[0]} {tr.name} blocks do not hold [{n}, {k}]")
-    levels, gscale_b, gbias_b, gsize = _PLANNERS[qtype](flat)
+    planner = _PLANNERS_64.get(qtype) if qk_k == 64 else None
+    levels, gscale_b, gbias_b, gsize = (planner or _PLANNERS[qtype])(flat)
     groups = nbr * (tr.block_size // gsize)
     gscale = np.ascontiguousarray(gscale_b.reshape(n, groups), dtype=F32)
     gbias = None
@@ -172,9 +201,9 @@ def pack_planar(blocks: np.ndarray, qtype: GGMLType,
                        np.ascontiguousarray(levels.reshape(n, k)), gscale, gbias)
 
 
-def quantize_planar(w: np.ndarray, qtype: GGMLType) -> PlanarQuant:
+def quantize_planar(w: np.ndarray, qtype: GGMLType, qk_k: int = 256) -> PlanarQuant:
     """float32 [N, K] weight -> blocks of qtype -> planar layout."""
     from .registry import quantize
 
     n, k = w.shape
-    return pack_planar(quantize(w, qtype), qtype, (n, k))
+    return pack_planar(quantize(w, qtype, qk_k), qtype, (n, k), qk_k)

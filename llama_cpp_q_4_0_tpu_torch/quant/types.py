@@ -1,12 +1,16 @@
 """ggml tensor types and block sizes (ggml.h ``enum ggml_type``, llama.h
-``enum llama_ftype``) — the subset the port reads.
+``enum llama_ftype``).
 
 Every type keeps its block byte size so a model file can be walked whatever it
 holds.  The block layouts (numpy structured dtypes, byte-compatible with the C
-structs) are those of the formats the port loads: q4_0, q4_1, q5_0, q5_1,
-q8_0 and the k-quants q2_K..q6_K in their default QK_K = 256 build, plus
-the activation formats q8_1 and q8_K that the quantizers write.  Files
-written with 64-element k-quant super-blocks (GGML_QKK_64) are not read.
+structs) are those of the formats the port reads and writes: q4_0, q4_1,
+q5_0, q5_1, q8_0, the k-quants q2_K..q6_K and the activation formats q8_1
+and q8_K.  The k-quants come in both of the reference's compile-time
+super-block sizes (k_quants.h:10-16): QK_K = 256, the default build, and
+QK_K = 64 (``-DGGML_QKK_64``), whose q3_K, q4_K and q5_K change layout and not
+only size.  ``type_traits(t, qk_k)`` and ``row_size_bytes(..., qk_k)`` pick
+the variant; a file does not say which one wrote it (formats/ggjt.py finds
+out).
 """
 
 from __future__ import annotations
@@ -66,13 +70,30 @@ BLOCK_Q6_K = np.dtype([("ql", "u1", (QK_K // 2,)), ("qh", "u1", (QK_K // 4,)),
 BLOCK_Q8_K = np.dtype([("d", "<f4"), ("qs", "i1", (QK_K,)),
                        ("bsums", "<i2", (QK_K // 16,))])
 
+# the GGML_QKK_64 super-blocks: 2-byte 4-bit scales (q3), two fp16 scales and
+# 4-bit codes (q4), symmetric int8 scales with no mins (q5)
+BLOCK_Q2_K64 = np.dtype([("scales", "u1", (4,)), ("qs", "u1", (16,)), ("d", "<f2"),
+                         ("dmin", "<f2")])
+BLOCK_Q3_K64 = np.dtype([("hmask", "u1", (8,)), ("qs", "u1", (16,)),
+                         ("scales", "u1", (2,)), ("d", "<f2")])
+BLOCK_Q4_K64 = np.dtype([("d", "<f2", (2,)), ("scales", "u1", (2,)), ("qs", "u1", (32,))])
+BLOCK_Q5_K64 = np.dtype([("d", "<f2"), ("scales", "i1", (4,)), ("qh", "u1", (8,)),
+                         ("qs", "u1", (32,))])
+BLOCK_Q6_K64 = np.dtype([("ql", "u1", (32,)), ("qh", "u1", (16,)), ("scales", "i1", (4,)),
+                         ("d", "<f2")])
+BLOCK_Q8_K64 = np.dtype([("d", "<f4"), ("qs", "i1", (64,)), ("bsums", "<i2", (4,))])
+
 
 @dataclass(frozen=True)
 class TypeTraits:
     name: str
     block_size: int  # elements per block
     type_size: int  # bytes per block
-    block_dtype: np.dtype | None = None  # the block layout, where the port reads it
+    block_dtype: np.dtype | None = None  # the block layout of a quantized type
+
+    @property
+    def is_quantized(self) -> bool:
+        return self.block_dtype is not None
 
 
 TYPE_TRAITS: dict[GGMLType, TypeTraits] = {
@@ -95,23 +116,41 @@ TYPE_TRAITS: dict[GGMLType, TypeTraits] = {
     GGMLType.I32: TypeTraits("i32", 1, 4),
 }
 
+# the QK_K = 64 build: the k-quant rows take 64-element super-blocks, every
+# other type is the default build's
+TYPE_TRAITS_64: dict[GGMLType, TypeTraits] = {
+    **TYPE_TRAITS,
+    GGMLType.Q2_K: TypeTraits("q2_K", 64, 24, BLOCK_Q2_K64),
+    GGMLType.Q3_K: TypeTraits("q3_K", 64, 28, BLOCK_Q3_K64),
+    GGMLType.Q4_K: TypeTraits("q4_K", 64, 38, BLOCK_Q4_K64),
+    GGMLType.Q5_K: TypeTraits("q5_K", 64, 46, BLOCK_Q5_K64),
+    GGMLType.Q6_K: TypeTraits("q6_K", 64, 54, BLOCK_Q6_K64),
+    GGMLType.Q8_K: TypeTraits("q8_K", 64, 76, BLOCK_Q8_K64),
+}
 
-for _t in TYPE_TRAITS.values():
+for _t in (*TYPE_TRAITS.values(), *TYPE_TRAITS_64.values()):
     assert _t.block_dtype is None or _t.block_dtype.itemsize == _t.type_size, _t
 
 K_QUANTS = (GGMLType.Q2_K, GGMLType.Q3_K, GGMLType.Q4_K, GGMLType.Q5_K,
             GGMLType.Q6_K, GGMLType.Q8_K)
 
 
-def type_traits(t: GGMLType) -> TypeTraits:
-    return TYPE_TRAITS[t]
+def type_traits(t: GGMLType, qk_k: int = 256) -> TypeTraits:
+    """A type's block size and layout in the QK_K = qk_k build (256 or 64)."""
+    if qk_k not in (256, 64):
+        raise ValueError(f"QK_K is 256 or 64, not {qk_k}")
+    return (TYPE_TRAITS if qk_k == 256 else TYPE_TRAITS_64)[t]
 
 
-def row_size_bytes(t: GGMLType, n_elements: int) -> int:
-    tr = type_traits(t)
+def is_quantized(t: GGMLType) -> bool:
+    return TYPE_TRAITS[t].is_quantized
+
+
+def row_size_bytes(t: GGMLType, n_elements: int, qk_k: int = 256) -> int:
+    tr = type_traits(t, qk_k)
     if n_elements % tr.block_size != 0:
         raise ValueError(f"{tr.name}: {n_elements} elements not divisible by "
-                         f"block size {tr.block_size}")
+                         f"block size {tr.block_size} (QK_K={qk_k})")
     return n_elements // tr.block_size * tr.type_size
 
 
@@ -135,3 +174,26 @@ class LlamaFType(enum.IntEnum):
     MOSTLY_Q5_K_S = 16
     MOSTLY_Q5_K_M = 17
     MOSTLY_Q6_K = 18
+
+
+# the type each file type quantizes its 2-D weights to, before the k-quant
+# layer policy of formats/quantize.py
+FTYPE_BASE_TYPE: dict[LlamaFType, GGMLType] = {
+    LlamaFType.ALL_F32: GGMLType.F32,
+    LlamaFType.MOSTLY_F16: GGMLType.F16,
+    LlamaFType.MOSTLY_Q4_0: GGMLType.Q4_0,
+    LlamaFType.MOSTLY_Q4_1: GGMLType.Q4_1,
+    LlamaFType.MOSTLY_Q4_1_SOME_F16: GGMLType.Q4_1,
+    LlamaFType.MOSTLY_Q8_0: GGMLType.Q8_0,
+    LlamaFType.MOSTLY_Q5_0: GGMLType.Q5_0,
+    LlamaFType.MOSTLY_Q5_1: GGMLType.Q5_1,
+    LlamaFType.MOSTLY_Q2_K: GGMLType.Q2_K,
+    LlamaFType.MOSTLY_Q3_K_S: GGMLType.Q3_K,
+    LlamaFType.MOSTLY_Q3_K_M: GGMLType.Q3_K,
+    LlamaFType.MOSTLY_Q3_K_L: GGMLType.Q3_K,
+    LlamaFType.MOSTLY_Q4_K_S: GGMLType.Q4_K,
+    LlamaFType.MOSTLY_Q4_K_M: GGMLType.Q4_K,
+    LlamaFType.MOSTLY_Q5_K_S: GGMLType.Q5_K,
+    LlamaFType.MOSTLY_Q5_K_M: GGMLType.Q5_K,
+    LlamaFType.MOSTLY_Q6_K: GGMLType.Q6_K,
+}

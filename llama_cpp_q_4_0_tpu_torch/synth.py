@@ -39,6 +39,7 @@ import dataclasses
 import torch
 
 from . import resolve_device
+from .formats.quantize import use_more_bits
 from .models.config import ModelConfig
 from .models.fuse import fuse_projections
 from .models.rwkv import RwkvLayer, RwkvParams
@@ -50,12 +51,6 @@ from .quant.types import GGMLType
 FTYPES = {"q4_0": GGMLType.Q4_0, "q4_1": GGMLType.Q4_1, "q5_0": GGMLType.Q5_0,
           "q5_1": GGMLType.Q5_1, "q8_0": GGMLType.Q8_0, "q3_K_M": GGMLType.Q3_K,
           "q4_K_M": GGMLType.Q4_K, "q5_K_M": GGMLType.Q5_K}
-
-
-def use_more_bits(i_layer: int, num_layers: int) -> bool:
-    """The layers whose wv and w2 a _M k-quant mix stores in q6_K."""
-    return (i_layer < num_layers // 8 or i_layer >= 7 * num_layers // 8
-            or (i_layer - num_layers // 8) % 3 == 2)
 
 
 def _uniform(gen, shape, lo, hi, device):

@@ -72,7 +72,9 @@ def test_port_imports_no_jax_and_no_jax_package(tmp_path):
               "quant.registry", "convert", "synth", "runtime.speculative",
               "runtime.device_spec", "runtime.embd_input", "runtime.mm_adapters",
               "ops.lowrank", "models.lora", "formats.ggla", "cli.convert_lora",
-              "runtime.batch_engine", "cli.server", "models.rwkv", "runtime.rwkv_engine"):
+              "runtime.batch_engine", "cli.server", "models.rwkv", "runtime.rwkv_engine",
+              "quant.kquants64", "formats.quantize", "formats.update", "cli.quantize",
+              "cli.quantize_stats", "cli.update", "cli.verify_checksums"):
         assert f"llama_cpp_q_4_0_tpu_torch.{m}" in out["mods"], m
     if not out["cuda"]:
         # entry points refuse to run on the CPU unless asked to

@@ -11,7 +11,6 @@ from llama_cpp_q_4_0_tpu.quant.pack import pack_planar as jax_pack_planar
 from llama_cpp_q_4_0_tpu.quant.registry import quantize
 from llama_cpp_q_4_0_tpu_torch.quant.registry import quantize as port_quantize
 from llama_cpp_q_4_0_tpu.quant.types import GGMLType as JaxGGMLType
-from llama_cpp_q_4_0_tpu_torch.formats.ggjt import read_ggjt
 from llama_cpp_q_4_0_tpu_torch.ops.qtensor import QTensor
 from llama_cpp_q_4_0_tpu_torch.quant.pack import pack_planar
 from llama_cpp_q_4_0_tpu_torch.quant.types import GGMLType, type_traits
@@ -68,18 +67,6 @@ def test_repack_equals_jax(name, n, k):
     _same(jq.dequantize_t(), q.dequantize_t().numpy(), "dequantize_t")
     idx = np.array([[0, 5, n - 1], [3, 3, 1]], np.int32)
     _same(jq.rows(idx), q.rows(torch.from_numpy(idx).long()).numpy(), "rows")
-
-
-def test_qkk64_file_raises(tmp_path):
-    """A file with 64-element k-quant super-blocks does not parse as QK_K=256:
-    the reader says so instead of misreading it."""
-    from llama_cpp_q_4_0_tpu.formats.fixtures import make_llama_ggjt
-
-    path = str(tmp_path / "qkk64.ggjt")
-    make_llama_ggjt(path, n_embd=64, n_mult=64, n_vocab=64,
-                    qtype=JaxGGMLType.Q4_K, qk_k=64)
-    with pytest.raises(NotImplementedError, match="QKK_64"):
-        read_ggjt(path)
 
 
 QUANTIZED = FORMATS + ["Q8_1", "Q8_K"]

@@ -34,7 +34,7 @@ from llama_cpp_q_4_0_tpu_torch.runtime.context import Context
 
 torch.set_num_threads(1)
 
-TYPES = sorted(registry.DEQUANTIZERS, key=int)
+TYPES = sorted(registry.QUANT_FNS, key=int)
 
 
 @pytest.fixture(scope="module")
