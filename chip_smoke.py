@@ -60,8 +60,8 @@ Phases (each prints its own lines; any failure exits non-zero):
      checked (per decode token 96 K2 + 96 K5 + 1 K6, per prefill 96 K1 + 96
      K5 tile launches and 32 K3), and again in the int8 configuration (a
      128-token prefill through K7's tile and 16 decode steps, 96 K7 + 32 K4
-     per token); LLaMA-7B Q5_K_M (the path of K6b), a 128-token prefill and
-     16 decode steps.  2-layer models at the same width (q4_0, Q4_K_M,
+     per token); LLaMA-7B Q5_K_M at 8 layers (the path of K6b), a
+     128-token prefill and 16 decode steps.  2-layer models at the same width (q4_0, Q4_K_M,
      Q3_K_M) held against the plain versions on the CPU, and a 2-layer
      Q3_K_M with a 32001-entry vocabulary and n_ff 8640, whose head and w2
      lie outside the kernels' gate and take the bf16 product (checked: no
@@ -93,13 +93,14 @@ Phases (each prints its own lines; any failure exits non-zero):
      caches equal after the run, each replay's launches equal to the eager
      step's (129 K2; 129 K7 + 32 K4 a token); a replayed Context.embed and
      Context.eval_embd against their eager twins.
-  5. ondevice: on-device decode (runtime/device_sample.py) on LLaMA-7B q4_0,
-     each chunk a run of replays of one captured decode-and-sample graph:
-     generate_ondevice greedy and sampled (temp 0.8, top-k 40, top-p 0.95,
-     repeat penalty 1.1) 512 + 64 at chunk 16 and the int8 configuration
-     128 + 16 at chunk 8, every chunk's tokens, key, recent window, mu and
-     n_past equal to the eager decode_chunk on a twin cache bit for bit, the
-     caches after the run too, launches a token (129 K2; 129 K7 + 32 K4),
+  5. ondevice: on-device decode (runtime/device_sample.py) on LLaMA-7B
+     q4_0's first 8 layers, each chunk a run of replays of one captured
+     decode-and-sample graph: generate_ondevice greedy and sampled (temp 0.8,
+     top-k 40, top-p 0.95, repeat penalty 1.1) 512 + 64 at chunk 16 and the
+     int8 configuration 128 + 16 at chunk 8, every chunk's tokens, key,
+     recent window, mu and n_past equal to the eager decode_chunk on a twin
+     cache bit for bit, the caches after the run too, launches a token (33
+     K2; 33 K7 + 8 K4),
      the same key giving the same tokens, the path's launches read after a
      run from 0; greedy agreement with the host loop printed; a B=2 chunk at
      n_past [100, 140] with a greedy SamplingVec banning a token in one row
@@ -126,8 +127,8 @@ Phases (each prints its own lines; any failure exits non-zero):
      its perplexity; the tools on a 2-layer 7B-width GGJT: main
      --prompt-cache (zip, .ggsn) twice, main -i card vs CPU, main -f --n-keep
      with context swaps, perplexity (host and --on-device), save-load-state.
-  7. spec: speculative decoding and LoRA on 7B q4_0 (the e2e phase's weights,
-     n_ctx 1024, bf16 cache; a 512-token prompt of a 64-token pattern from
+  7. spec: speculative decoding and LoRA on 7B q4_0's first 8 layers (the
+     e2e phase's weights, n_ctx 1024, bf16 cache; a 512-token prompt of a 64-token pattern from
      --seed, 128 greedy tokens): the plain on-device chunk (the reference
      tokens) and the replayed step, then the host loop generate_speculative,
      generate_ondevice_spec (k 7, n_steps 8), generate_ondevice_spec_draft
@@ -135,14 +136,14 @@ Phases (each prints its own lines; any failure exits non-zero):
      and with a 2-layer model of other weights (32 tokens; every draft
      rejected); every verify or round against its eager twin on twin caches
      bit for bit, the caches after the run equal and never rebound, each
-     verify round's launches exact (129 K2 at 8 rows; 1,161 a self-draft
-     round, 201 a 2-layer-draft round), the greedy tokens equal to the plain
+     verify round's launches exact (33 K2 at 8 rows; 297 a self-draft
+     round, 105 a 2-layer-draft round), the greedy tokens equal to the plain
      chunk's or parting at a near-tie (the plain logits' top-2 margin below
      the largest verify-decode difference there), ms per emitted token and
      tokens per verify, a verify round and a decode step under the profiler;
-     the int8 configuration 128 + 64 through generate_ondevice_spec (129 K7 +
-     32 K4 a round); an unmerged rank-16 adapter on wq, wk, wv and wo of the
-     32 blocks (replayed decode ms/token with it and without, 193 K2 a token,
+     the int8 configuration 128 + 64 through generate_ondevice_spec (33 K7 +
+     8 K4 a round); an unmerged rank-16 adapter on wq, wk, wv and wo of the
+     8 blocks (replayed decode ms/token with it and without, 49 K2 a token,
      the bases untouched); on the tools phase's 2-layer 7B-width GGJT `main
      --lora` merged and --lora-unmerged, card against CPU (the CPU runs in
      child processes meanwhile), and EmbdInput over the adapter card against
@@ -150,11 +151,11 @@ Phases (each prints its own lines; any failure exits non-zero):
   8. families: the GPT-NeoX, Falcon and Bonsai families (synthetic q4_0,
      every step a replayed graph held against its eager twin bit for bit,
      512 + 64 on a bf16 cache and 128 + 16 in the int8 configuration): GPT-NeoX
-     at StableLM-Base-Alpha-7B widths, 8 layers (33 K2 a token, 32 K1 + 8
-     K3 a 512-prefill; 33 K7 + 8 K4 a token in the int8 configuration;
+     at StableLM-Base-Alpha-7B widths, 4 layers (17 K2 a token, 16 K1 + 4
+     K3 a 512-prefill; 17 K7 + 4 K4 a token in the int8 configuration;
      checked), with a generate_ondevice run, Context.embed and eval_embd and
-     the bench and trace lines; Falcon-7B widths, 8 layers, every matmul off
-     the kernels' gate (the bf16 product, no matmul kernel; 8 K4 a token at
+     the bench and trace lines; Falcon-7B widths, 4 layers, every matmul off
+     the kernels' gate (the bf16 product, no matmul kernel; 4 K4 a token at
      71 query heads over one KV head in the int8 configuration, also through
      generate_ondevice), bench and trace lines; a 2-layer Bonsai inside the
      gate, replayed and against the CPU; K4 at H=71, G=1, D=64 (T=1 and 8, S=256
@@ -170,8 +171,8 @@ Phases (each prints its own lines; any failure exits non-zero):
      prefill and 224 K2 (K7) a token, the state never rebound, bound, bench
      and trace lines; wkv_scan against wkv_step on the same k and v at T =
      32 (JAX's gate), the whole forward's two routes held at a fixed gate
-     (RWKV_ROUTE_GATE of each quantity's scale) at 32 layers and at 8; a
-     2-layer model at those widths against the CPU; on the model's first 8
+     (RWKV_ROUTE_GATE of each quantity's scale) at 32 layers and at 2; a
+     2-layer model at those widths against the CPU; on the model's first 2
      layers, generate_ondevice_spec_rwkv (k 7, on the patterned prompt and
      on one seeded so that drafts are accepted) with every chunk against
      the eager chunk, and RwkvBatchEngine at 8 slots, every token held
@@ -187,34 +188,55 @@ Phases (each prints its own lines; any failure exits non-zero):
      the int8 configuration, and the `embedding` tool), Q4_K_M and Q3_K_M
      from random k-quant blocks; `benchmark-matmult` (default, QMM_Q8X=1,
      --vdot, --stream, --stream-sweep).
-  11. serve: the serving engine (runtime/batch_engine.py) on the e2e
-     phase's 7B q4_0 weights at 16 slots x 2048, bf16 cache: 20 requests
+  11. serve: the serving engine (runtime/batch_engine.py) on the first 4
+     layers of the e2e phase's 7B q4_0 weights at 16 slots x 2048, bf16
+     cache: 20 requests
      (batched, per-slot and lane admissions) through host ticks and chunk-16
      ticks two in flight, every tick held against its eager twin (the first
-     few bit for bit, the caches too), 129 K2 a tick step and the admissions'
+     few bit for bit, the caches too), 17 K2 a tick step and the admissions'
      K1/K2/K3 counts by route, each request's greedy tokens against a single
      session (partings only at near ties); tokens/s and ms a tick at
      occupancy 1-16, a traced tick, time to first token; speculative ticks
      at 4 slots (k = 7, chunk 4) behind a registered prefix; the int8
-     configuration at 8 slots, chunk 16 (129 K7 + 32 K4 a step); the memory
+     configuration at 8 slots, chunk 16 (17 K7 + 4 K4 a step); the memory
      estimate against the card's peak; `server --parallel 4 --parallel-chunk
      8` on a 2-layer 7B-width GGJT against the single-session server.
   11b. qkk64: files of the reference's -DGGML_QKK_64 build (64-element
-     k-quant super-blocks): a 7B-width Q4_K_M-64 file of 8 layers from random
+     k-quant super-blocks): a 7B-width Q4_K_M-64 file of 4 layers from random
      blocks, read with no hint; one tensor of each type and shape packed on
      the card and on the CPU, equal bit for bit; 512 + 64 greedy tokens
-     through Context's replayed graphs against eager twins (32 K5 + 9 K6 a
-     token, + 8 K3 a prefill, checked), bounds and bench lines; 2-layer
+     through Context's replayed graphs against eager twins (4 K5 a layer and
+     a K6 for each q6_K tensor a token, + 1 K3 a layer a prefill, checked),
+     bounds and bench lines; 2-layer
      Q3_K_M-64 and Q5_K_M-64 files against the CPU (q5_K-64 on K6, never
      K6b); the host tools: a 2-layer 7B-width f32 file `quantize`d to q4_0,
      a 192-wide one `quantize --qkk64 q4_k`, `update` of ggml and ggmf v1
      copies, `main` on the card with each result, `verify-checksums`
      passing and failing on a flipped byte; the host quantize rate of one
      4096 x 4096 q4_K-64 tensor.
+  11c. train: training at LLaMA-7B width (n_embd 4096, 32 heads, n_ff 11008,
+     the 32000-entry vocabulary, 2 layers) on a corpus from --seed: the
+     `train` CLI in this process, 8 Adam steps at -c 512 -b 4 (ms a step,
+     tokens/s, peak memory; a finite, falling loss; the exported f32 model
+     and the greedy sample), 4 steps with --use-remat (first loss within
+     2e-4; what the forward keeps for the backward under half of the same
+     stacked step's without remat, the forward's peak below the plain
+     run's; the bytes the dense products save, Bf16Product against the
+     plain cast chain, printed); 2 L-BFGS steps (memory 6: evaluations a step, peak memory in
+     parameter-sized buffers); -c 64 -b 1 card against this machine's CPU
+     from the same params and windows (the first loss within 2e-4, the
+     gradients' gaps printed); the remat run's checkpoint at step 4 resumed
+     for 4 steps against 8 uninterrupted, bit for bit; the
+     chain quantize q4_0 -> `main -n 16` (8 K1 + 2 K3 + 145 K2, checked and
+     added to the totals) and the q4_0 file against the CPU; rwkv_opt at
+     RWKV-4-Pile-169M shapes (dense f32): 16 L-BFGS iterations lower the
+     error, the context's tensors keep their addresses, the next replayed
+     step equals the eager forward of the new weights and state bit for bit,
+     error_before against the CPU.
   12. a JSON line of per-kernel numbers (launches: the e2e paths', the
-     families', the session, spec, serve and rwkv phases'), then the contract line
+     families', the session, spec, serve, rwkv and train phases'), then the contract line
      {"ok": true, "device": {...}}.
-``--phases kernels,e2e,graphs,ondevice,session,spec,serve,families,rwkv,q8chaos,cli,qkk64`` runs a subset
+``--phases kernels,e2e,graphs,ondevice,session,spec,serve,families,rwkv,q8chaos,cli,qkk64,train`` runs a subset
 (for debugging: a subset prints no result lines; with no arguments every phase runs).  Phases that run only
 when named: ``sass`` (instruction counts of K7's and K3's kernels and of
 the decode GEMV's and K4's instances), ``gemv`` (check_gemv alone),
@@ -1293,8 +1315,9 @@ PATH_KERNELS = {"q4_0": ("qmm_q4_0", "qmm_q4_0_kfold", "flash_prefill"),
 
 
 def end_to_end(torch, counters, ftype="q4_0", n_prompt=512, n_decode=64, *,
-               path=None, cache_dtype=None, built=None):
-    """Full-depth 7B in file type ftype: a Context prefill of n_prompt tokens
+               path=None, cache_dtype=None, built=None, n_layer=32):
+    """7B widths in file type ftype (full depth unless n_layer says
+    otherwise): a Context prefill of n_prompt tokens
     and n_decode greedy decode steps through generate, the launch counts set
     to 0 just before and read just after; then one more decode step counted
     alone (the launches per token).  path names the run (default ftype) and
@@ -1311,7 +1334,7 @@ def end_to_end(torch, counters, ftype="q4_0", n_prompt=512, n_decode=64, *,
 
     path = path or ftype
     t0 = time.perf_counter()
-    cfg, params = built or build_llama(device="cuda", seed=0, ftype=ftype)
+    cfg, params = built or build_llama(n_layer=n_layer, device="cuda", seed=0, ftype=ftype)
     torch.cuda.synchronize()
     if not built:
         print(f"e2e: synthetic LLaMA-7B {ftype} built on the card in "
@@ -2151,10 +2174,7 @@ def write_ggjt_7b_width(path: str, ftype: str = "q4_0", n_layer: int = 2, qk_k: 
 
     n_vocab, e, n_ff, n_head = 32000, 4096, 11008, 32
     rng = np.random.default_rng(seed)
-    vocab = [(b"<unk>", 0.0), (b"<s>", 0.0), (b"</s>", 0.0)]
-    vocab += [(bytes([i]) if 32 <= i < 127 else f"<0x{i:02X}>".encode(), 0.0)
-              for i in range(256)]
-    vocab += [(f" tok{i}".encode(), -float(i)) for i in range(len(vocab), n_vocab)]
+    vocab = vocab_7b(n_vocab)
     hp = {"n_vocab": n_vocab, "n_embd": e, "n_mult": 256, "n_head": n_head,
           "n_layer": n_layer, "n_rot": e // n_head}
     shapes = {"tok_embeddings.weight": (n_vocab, e), "output.weight": (n_vocab, e)}
@@ -2866,25 +2886,26 @@ def ondevice_bench(torch, card, cfg, params):
 
 
 def ondevice_phase(torch, counters, card, built=None) -> bool:
-    """On-device decode on LLaMA-7B q4_0 (32 layers, built from seed 0
-    unless built gives the weights): greedy B=1 512 + 64 chunk 16 (129 K2 a
-    token; agreement with the host loop printed), sampled (temp 0.8, top-k
-    40, top-p 0.95, repeat penalty 1.1) 512 + 64, the int8 configuration
-    128 + 16 chunk 8 on a q8 cache (129 K7 + 32 K4 a token), the per-row
+    """On-device decode on LLaMA-7B q4_0's first DEEP_LAYERS layers (built
+    from seed 0 unless built gives the weights): greedy B=1 512 + 64 chunk
+    16 (4 K2 a layer + 1 a token; agreement with the host loop printed),
+    sampled (temp 0.8, top-k 40, top-p 0.95, repeat penalty 1.1) 512 + 64,
+    the int8 configuration 128 + 16 chunk 8 on a q8 cache (4 K7 a layer + 1
+    and a K4 a layer a token), the per-row
     B=2 chunk, the out-of-range insert, and the bench and trace lines."""
     from llama_cpp_q_4_0_tpu_torch.synth import build_llama
 
     t0 = time.perf_counter()
-    cfg, params = built or build_llama(device="cuda", seed=0, ftype="q4_0")
+    cfg, params = first_layers(*(built or build_llama(device="cuda", seed=0, ftype="q4_0")),
+                               DEEP_LAYERS)
     ok, _ = ondevice_run(torch, counters, cfg, params, "q4_0 greedy", GREEDY_DS, 512, 64, 16,
-                         torch.bfloat16, {"qmm_q4_0_kfold": 129}, PATH_KERNELS["q4_0"],
-                         host=True)
+                         torch.bfloat16, step_launches(cfg), PATH_KERNELS["q4_0"], host=True)
     ok2, _ = ondevice_run(torch, counters, cfg, params, "q4_0 sampled", SAMPLED_DS, 512, 64, 16,
-                          torch.bfloat16, {"qmm_q4_0_kfold": 129}, PATH_KERNELS["q4_0"], seed=7)
+                          torch.bfloat16, step_launches(cfg), PATH_KERNELS["q4_0"], seed=7)
     ok &= ok2
     with env(**INT8):
         ok3, _ = ondevice_run(torch, counters, cfg, params, "q4_0 int8-config", GREEDY_DS, 128,
-                              16, 8, torch.int8, {"qmm_q8x": 129, "mha_decode": 32},
+                              16, 8, torch.int8, step_launches(cfg, int8=True),
                               PATH_KERNELS["q4_0_int8_f16"])
     ok &= ok3
     ok &= ondevice_rows(torch, cfg, params)
@@ -2988,11 +3009,12 @@ def family_kernels(torch, recs: dict) -> bool:
     return ok
 
 
-# the depth of the GPT-NeoX and Falcon paths: 8 of StableLM-Base-Alpha-7B's
+# the depth of the GPT-NeoX and Falcon paths: 4 of StableLM-Base-Alpha-7B's
 # 16 layers and of Falcon-7B's 32 (every layer runs the same kernels, and
 # every Falcon matmul the same off-gate product, at any depth), cut from 16
-# to make room for the qkk64 phase in the run's time limit
-FAMILY_LAYERS = 8
+# to 8 for the qkk64 phase and to 4 for the train phase, to keep the run in
+# its time limit
+FAMILY_LAYERS = 4
 
 
 def families_phase(torch, counters, launches: dict, recs: dict) -> bool:
@@ -3632,10 +3654,28 @@ def transformer_cache(torch, cfg, dtype):
 # ------------------------------------------------------------------- spec
 
 SPEC_K, SPEC_STEPS = 7, 8  # drafts a verify (T = 8 rows), rounds a chunk
-# the launches of one verify forward of 7B q4_0 (4 matmuls a layer and the
-# head, each at k+1 rows), and in the int8 configuration
-SPEC_VERIFY = {"qmm_q4_0_kfold": 129}
-SPEC_VERIFY_INT8 = {"qmm_q8x": 129, "mha_decode": 32}
+# the spec and ondevice phases take the first DEEP_LAYERS blocks of the 7B
+# q4_0 weights (cut from 32 to make room for the train phase: every layer
+# runs the same kernels, so no check changed; the launch counts follow the
+# depth)
+DEEP_LAYERS = 8
+
+
+def first_layers(cfg, params, n: int):
+    """(cfg, params) of a model's first n blocks (views of its weights)."""
+    import dataclasses
+
+    return (dataclasses.replace(cfg, n_layer=n),
+            dataclasses.replace(params, blocks=params.blocks[:n]))
+
+
+def step_launches(cfg, int8: bool = False) -> dict:
+    """The launches of one decode step or verify forward of a q4_0 LLaMA (4
+    matmuls a layer and the head, each at 32 rows or fewer), and in the
+    int8 configuration (K7 for each, K4 a layer)."""
+    if int8:
+        return {"qmm_q8x": 4 * cfg.n_layer + 1, "mha_decode": cfg.n_layer}
+    return {"qmm_q4_0_kfold": 4 * cfg.n_layer + 1}
 
 
 def spec_prompt(seed: int, n_vocab: int, n: int = 512):
@@ -3964,7 +4004,8 @@ def spec_runs(torch, counters, card, cfg, params, prompt, n, cache_dtype, want, 
                                                         n_draft=SPEC_K, n_steps=SPEC_STEPS,
                                                         ignore_eos=True, stats=st)
 
-    small = {"qmm_q4_0_kfold": 129 + (SPEC_K + 1) * 9}  # 8 steps of a 2-layer draft, a verify
+    # 8 steps of a 2-layer draft (9 matmuls each), then a verify
+    small = {"qmm_q4_0_kfold": 4 * cfg.n_layer + 1 + (SPEC_K + 1) * 9}
     # name: (label, the Context method checked, its eager twin, a round's launches, the
     # draft model, the loop, the tokens it generates)
     table = {
@@ -4037,10 +4078,10 @@ def lora_tensors(seed: int, n_layer: int, e: int = 4096, r: int = 16):
 
 
 def spec_lora_7b(torch, counters, card, cfg, params, seed) -> bool:
-    """The unmerged adapter (lora_tensors, 32 blocks) on the 32-layer
-    synthetic model: the replayed decode step's ms/token with the adapter
+    """The unmerged adapter (lora_tensors, a block each) on the synthetic
+    model's blocks: the replayed decode step's ms/token with the adapter
     and without it (kv_window 256, n_past 128), the adapted step's launches
-    (each of wq, wk, wv unfused: 193 K2 a token), and the bases untouched
+    (each of wq, wk, wv unfused: 6 K2 a layer + 1 a token), and the bases untouched
     (the same tensors, data_ptr and bytes)."""
     import statistics
 
@@ -4076,7 +4117,7 @@ def spec_lora_7b(torch, counters, card, cfg, params, seed) -> bool:
     ok = (untouched and ms["with"][1] == {"qmm_q4_0_kfold": 6 * cfg.n_layer + 1}
           and ms["without"][1] == {"qmm_q4_0_kfold": 4 * cfg.n_layer + 1})
     print(f"bench: spec lora 7B q4_0 replayed decode_ms_per_token (kv_window 256, n_past 128-191) "
-          f"with an unmerged rank-16 adapter on wq, wk, wv, wo of 32 blocks "
+          f"with an unmerged rank-16 adapter on wq, wk, wv, wo of {cfg.n_layer} blocks "
           f"{ms['with'][0]:.3f} (launches a token {json.dumps(ms['with'][1])}), without "
           f"{ms['without'][0]:.3f} ({json.dumps(ms['without'][1])}); the bases untouched (the "
           f"same tensors, data_ptr and bytes) {untouched} {'ok' if ok else 'MISMATCH'} [{card}]",
@@ -4201,30 +4242,34 @@ def spec_lora_2layer(torch, counters, seed, tmp) -> bool:
 
 
 def spec_phase(torch, counters, card, built, seed: int, launches: dict) -> bool:
-    """Speculative decoding and LoRA on 7B q4_0 at full depth (the e2e
-    phase's weights; built from seed 0 alone), n_ctx 1024, bf16 cache: the
+    """Speculative decoding and LoRA on 7B q4_0's first DEEP_LAYERS layers
+    (the e2e phase's weights; built from seed 0 alone), n_ctx 1024, bf16
+    cache: the
     prompt of spec_prompt(seed), 128 greedy tokens through the host loop,
     generate_ondevice_spec, and generate_ondevice_spec_draft with the target
     as its own draft, with its first 2 blocks and with a 2-layer model of
     other weights as the draft (spec_runs);
     the int8 configuration (QMM_Q8X=1, FUSED_ATTN=1, q8 cache) 128 + 64
-    through generate_ondevice_spec (129 K7 + 32 K4 a verify round); the
-    unmerged adapter on the 32-layer model (spec_lora_7b) and the 2-layer
+    through generate_ondevice_spec (4 K7 a layer + 1 and a K4 a layer a
+    verify round); the unmerged adapter on that model (spec_lora_7b) and the
+    2-layer
     GGJT's LoRA and embd-input card vs CPU (spec_lora_2layer).  The path's
     launches (the runs', not their twins') are added to launches."""
     from llama_cpp_q_4_0_tpu_torch.kernels.build import BUILD_DIR
     from llama_cpp_q_4_0_tpu_torch.synth import build_llama
 
     t0 = time.perf_counter()
-    cfg, params = built or build_llama(device="cuda", seed=0, ftype="q4_0")
+    cfg, params = first_layers(*(built or build_llama(device="cuda", seed=0, ftype="q4_0")),
+                               DEEP_LAYERS)
     prompt = spec_prompt(seed, cfg.n_vocab)
     ok, path = spec_runs(torch, counters, card, cfg, params, prompt, 128, torch.bfloat16,
-                         SPEC_VERIFY, ("host", "ondevice", "self_draft", "draft_2layer",
-                                       "draft_other"), "q4_0")
+                         step_launches(cfg), ("host", "ondevice", "self_draft",
+                                              "draft_2layer", "draft_other"), "q4_0")
     print(f"time: spec q4_0 {time.perf_counter() - t0:.1f} s", flush=True)
     with env(**INT8):
         ok8, path8 = spec_runs(torch, counters, card, cfg, params, prompt[:128], 64, torch.int8,
-                               SPEC_VERIFY_INT8, ("ondevice",), "q4_0 int8-config")
+                               step_launches(cfg, int8=True), ("ondevice",),
+                               "q4_0 int8-config")
     ok &= ok8
     _add(path, path8)
     print(f"time: spec int8 {time.perf_counter() - t0:.1f} s", flush=True)
@@ -4248,11 +4293,16 @@ def spec_phase(torch, counters, card, built, seed: int, launches: dict) -> bool:
 # ------------------------------------------------------------------ serve
 
 SERVE_SLOTS, SERVE_CTX, SERVE_N = 16, 2048, 64
+# the serving runs take the first SERVE_LAYERS blocks of the 7B q4_0 weights
+# (cut from 32 to 4 to make room for the train phase: every
+# layer runs the same K2 a tick, so no check changed, and the launch counts
+# follow the depth)
+SERVE_LAYERS = 4
 # the launches of one [n_slots, 1] tick forward (4 matmuls a layer and the
 # head at b = n_slots; a verify round of 4 slots x 8 rows is b = 32), and a
 # decode step in the int8 configuration
-SERVE_TICK = {"qmm_q4_0_kfold": 129}
-SERVE_TICK_INT8 = {"qmm_q8x": 129, "mha_decode": 32}
+SERVE_TICK = {"qmm_q4_0_kfold": 4 * SERVE_LAYERS + 1}
+SERVE_TICK_INT8 = {"qmm_q8x": 4 * SERVE_LAYERS + 1, "mha_decode": SERVE_LAYERS}
 SERVE_CHECKED = 3  # calls of each kind a run holds against their eager twins
 # the int8 pass's prompt lengths: 4 short, and 4 long of three lane chunks
 SERVE_INT8_LENS = ((150, 400), (1100, 1500))
@@ -4761,8 +4811,8 @@ def serve_server(torch, counters, card, seed) -> bool:
 
 
 def serve_phase(torch, counters, card, built, seed: int, launches: dict) -> bool:
-    """The serving engine on 7B q4_0 at full depth (the e2e phase's weights)
-    at 16 slots x 2048 with a bf16 cache: the 20 requests of
+    """The serving engine on 7B q4_0's first SERVE_LAYERS layers (the e2e
+    phase's weights) at 16 slots x 2048 with a bf16 cache: the 20 requests of
     serve_prompts(seed) (batched, per-slot and lane admissions) with 64
     greedy tokens through host ticks and through chunk-16 ticks two in
     flight, each request against its single session; tokens/s and ms a tick
@@ -4779,7 +4829,8 @@ def serve_phase(torch, counters, card, built, seed: int, launches: dict) -> bool
     from llama_cpp_q_4_0_tpu_torch.synth import build_llama
 
     t0 = time.perf_counter()
-    cfg, params = built or build_llama(device="cuda", seed=0, ftype="q4_0")
+    cfg, params = first_layers(*(built or build_llama(device="cuda", seed=0, ftype="q4_0")),
+                               SERVE_LAYERS)
     prompts = serve_prompts(seed, cfg.n_vocab)
     refs = serve_reference(cfg, params, prompts, SERVE_N, torch.bfloat16)
     print(f"time: serve references {time.perf_counter() - t0:.1f} s", flush=True)
@@ -4898,7 +4949,9 @@ for _name, _wrapper in (("qmm_q4_0", "qmm_packed"), ("qmm_q4_0_kfold", "qmm_pack
     KERNEL_SHAPES[f"{_name}/rwkv"] = (_wrapper, "Q4_0", RWKV_SHAPES)
 RWKV_GEMV = {"qmm_q4_0_kfold/rwkv": "qmm_q4_0_kfold/f16", "qmm_q8x/rwkv": "qmm_q8x/f16"}
 RWKV_PER_LAYER = 7  # matmuls a layer, each one launch at any row count
-RWKV_SPEC_LAYERS = 8  # the depth of the rwkv phase's spec and engine runs
+# the depth of the rwkv phase's spec and engine runs (8 until the train
+# phase needed the time; the launch counts follow it)
+RWKV_SPEC_LAYERS = 2
 # The RWKV forward's two routes, parallel and sequential (rwkv_routes), are
 # held to a fixed share of each quantity's own scale, the logits and each of
 # the five state tensors: K2's rows at 32 rows and at 1 agree to ~3e-7 of
@@ -5636,13 +5689,14 @@ def rwkv_phase(torch, counters, card, seed: int, launches: dict, recs: dict) -> 
 
 
 def rwkv_faults_phase(torch, counters, seed: int) -> None:
-    """What the RWKV gates can see (printed, not held): rwkv_routes at 8 and
-    32 layers with the parallel route sound and with faults patched into it
-    for the call (models.rwkv.wkv_scan and _shift1 are read by the parallel
-    route alone): time_first dropped or off by 1%, time_decay off by 1% or
-    0.1%, the WKV output rounded to bf16, the carried num/den/max one
-    position stale, the first position shifted onto itself; then rwkv_spec
-    at 8 layers with a rollback that always keeps the last verify
+    """What the RWKV gates can see (printed, not held): rwkv_routes at
+    RWKV_SPEC_LAYERS and 32 layers with the parallel route sound and with
+    faults patched into it for the call (models.rwkv.wkv_scan and _shift1
+    are read by the parallel route alone): time_first dropped or off by 1%,
+    time_decay off by 1% or 0.1%, the WKV output rounded to bf16, the
+    carried num/den/max one position stale, the first position shifted
+    onto itself; then rwkv_spec at RWKV_SPEC_LAYERS with a rollback that
+    always keeps the last verify
     position's state, which its checks must refuse."""
     import dataclasses
     import inspect
@@ -5739,7 +5793,7 @@ def trace_parse_phase(torch) -> bool:
     return same
 
 
-QKK64_LAYERS = RWKV_SPEC_LAYERS  # the depth of the 7B-width QK_K = 64 Q4_K_M run
+QKK64_LAYERS = 4  # the depth of the 7B-width QK_K = 64 Q4_K_M run (cut from 8)
 
 
 def _same_qtensor(torch, a, b) -> bool:
@@ -5968,8 +6022,567 @@ def qkk64_phase(torch, counters, seed: int) -> bool:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ----------------------------------------------------------------- training
+
+TRAIN_WIDTH = ["--embd", "4096", "--head", "32", "--layer", "2", "--mult", "256"]
+TRAIN_BATCH = ["-c", "512", "-b", "4"]  # 2,048 tokens a step
+# main on the exported 2-layer model's q4_0 file: a 100-token prompt padded
+# to 128 (8 K1: wqkv, wo, w_gateup and w_down of two layers above 32 rows;
+# 2 K3), then the head's last row and 16 decode steps of 9 matmuls (K2)
+TRAIN_MAIN_LAUNCHES = {"qmm_q4_0": 8, "flash_prefill": 2, "qmm_q4_0_kfold": 1 + 9 * 16}
+RWKV_169M = dict(n_layer=12, n_embd=768, n_vocab=50277, rescale_every=6)
+
+
+def vocab_7b(n_vocab: int = 32000):
+    """The 32000-entry vocabulary of write_ggjt_7b_width."""
+    vocab = [(b"<unk>", 0.0), (b"<s>", 0.0), (b"</s>", 0.0)]
+    vocab += [(bytes([i]) if 32 <= i < 127 else f"<0x{i:02X}>".encode(), 0.0)
+              for i in range(256)]
+    return vocab + [(f" tok{i}".encode(), -float(i)) for i in range(len(vocab), n_vocab)]
+
+
+def train_files(tmp: str, seed: int):
+    """A vocab-only GGJT (the 7B vocabulary, no tensors; the trainer reads
+    only its vocab) and a corpus of 6,000 random words from seed (~52,000
+    tokens)."""
+    import numpy as np
+
+    from llama_cpp_q_4_0_tpu_torch.formats.ggjt import GGJTWriter
+    from llama_cpp_q_4_0_tpu_torch.quant.types import LlamaFType
+
+    vocab = vocab_7b()
+    path = os.path.join(tmp, "vocab-7b.ggjt")
+    hp = {"n_vocab": len(vocab), "n_embd": 4096, "n_mult": 256, "n_head": 32, "n_layer": 0,
+          "n_rot": 128}
+    with GGJTWriter(path, "llama", hp, int(LlamaFType.ALL_F32), vocab):
+        pass
+    rng = np.random.default_rng(seed)
+    letters = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz", dtype=np.uint8)
+    words = [bytes(rng.choice(letters, size=int(n))).decode()
+             for n in rng.integers(2, 9, 6000)]
+    corpus = os.path.join(tmp, "corpus.txt")
+    with open(corpus, "w") as f:
+        f.write(" ".join(words))
+    return path, corpus
+
+
+class StepTimes:
+    """Wraps the trainer's step builders, save_checkpoint (the CLI takes them
+    from the training package at call time) and value_and_grad: each step's wall
+    time, synchronised before and after, its loss, the device memory
+    allocated at its start and its peak, the peak inside the loss's forward
+    and backward alone (the step's own peak is Adam's update at this size),
+    and, above what was allocated when the loss began, the bytes still
+    allocated when its forward returns (what it keeps for the backward:
+    what remat cuts) and the forward's peak."""
+
+    def __init__(self, torch):
+        self.torch, self.rows, self.peaks, self.fb_peak, self.last_fb = torch, [], [], 0, 0
+        self.kept, self.fwd_peak = 0, 0
+        self.save_s = float("nan")
+
+    def __enter__(self):
+        from llama_cpp_q_4_0_tpu_torch import training
+        from llama_cpp_q_4_0_tpu_torch.training import stacked, train
+
+        self.saved = (training.make_train_step, stacked.make_stacked_train_step,
+                      train.value_and_grad, training.save_checkpoint)
+        training.make_train_step = self._wrap(self.saved[0])
+        stacked.make_stacked_train_step = self._wrap(self.saved[1])
+        train.value_and_grad = self._measured(self.saved[2])
+        training.save_checkpoint = self._timed_save(self.saved[3])
+        return self
+
+    def __exit__(self, *exc):
+        from llama_cpp_q_4_0_tpu_torch import training
+        from llama_cpp_q_4_0_tpu_torch.training import stacked, train
+
+        (training.make_train_step, stacked.make_stacked_train_step,
+         train.value_and_grad, training.save_checkpoint) = self.saved
+
+    def _timed_save(self, save):
+        def timed(*a, **kw):
+            t0 = time.perf_counter()
+            save(*a, **kw)
+            self.save_s = time.perf_counter() - t0
+        return timed
+
+    def _measured(self, value_and_grad):
+        torch = self.torch
+
+        def measured(fn, params):
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+
+            def forward(p):
+                loss = fn(p)
+                self.kept = max(self.kept, torch.cuda.memory_allocated() - base)
+                self.fwd_peak = max(self.fwd_peak, torch.cuda.max_memory_allocated() - base)
+                return loss
+            out = value_and_grad(forward, params)
+            self.last_fb = torch.cuda.max_memory_allocated()
+            self.fb_peak = max(self.fb_peak, self.last_fb)
+            return out
+        return measured
+
+    def _wrap(self, make):
+        torch = self.torch
+
+        def made(*a, **kw):
+            step = make(*a, **kw)
+
+            def timed(*args):
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                t0 = time.perf_counter()
+                out = step(*args)
+                loss = float(out[2])
+                torch.cuda.synchronize()
+                self.rows.append(((time.perf_counter() - t0) * 1e3, loss))
+                # the forward and backward reset the peak: the step's is the
+                # larger of theirs and the rest of the step's
+                self.peaks.append((base, max(self.last_fb, torch.cuda.max_memory_allocated())))
+                return out
+            return timed
+        return made
+
+
+def train_cli_run(torch, argv, label: str, tokens_a_step: int):
+    """The train CLI in this process, timed a step: (rc, stdout, step rows,
+    its StepTimes, ms a step, the checkpoint's save s)."""
+    from llama_cpp_q_4_0_tpu_torch.cli import train as train_cli
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with StepTimes(torch) as st:
+        rc, out = _tool_output(train_cli, argv)
+    ms = [m for m, _ in st.rows]
+    later = statistics.median(ms[1:]) if len(ms) > 1 else ms[0]
+    print(f"train: {label}: rc={rc}, {len(ms)} steps in {time.perf_counter() - t0:.1f} s of "
+          f"command; first step {ms[0]:.1f} ms, median of the others {later:.1f} ms a step "
+          f"({' '.join(f'{m:.1f}' for m in ms[1:])}), {tokens_a_step / later * 1e3:.0f} "
+          f"tokens/s; losses {' '.join(f'{l:.4f}' for _, l in st.rows)}; "
+          f"max_memory_allocated in a step {max(b for _, b in st.peaks) / 2**30:.2f} GiB, in "
+          f"its forward and backward {st.fb_peak / 2**30:.2f}; the forward's peak "
+          f"{st.fwd_peak / 2**30:.2f} and what it keeps for the backward {st.kept / 2**30:.2f} "
+          f"above the loss's start (allocated at each step's start / its peak, GiB: "
+          f"{' '.join(f'{a / 2**30:.2f}/{b / 2**30:.2f}' for a, b in st.peaks)}); checkpoint "
+          f"saved in {st.save_s:.1f} s", flush=True)
+    return rc, out.decode(), st.rows, st, later, st.save_s
+
+
+def _param_count(params) -> int:
+    from llama_cpp_q_4_0_tpu_torch.training.tree import leaves
+
+    return sum(t.numel() for t in leaves(params))
+
+
+def train_windows(data, n_ctx: int, n_batch: int, seed: int, n: int):
+    """The CLI's windows: default_rng(seed), one draw of n_batch starts a
+    step (get_example_targets)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        starts = rng.integers(0, len(data) - n_ctx - 1, size=n_batch)
+        out.append((np.stack([data[s:s + n_ctx] for s in starts]),
+                    np.stack([data[s + 1:s + n_ctx + 1] for s in starts])))
+    return out
+
+
+def train_stacked_kept(torch, cfg, data, seed: int):
+    """One stacked step without remat (--use-scan's), on the CLI's init
+    and first window: its StepTimes (what the forward keeps, its peak)."""
+    from llama_cpp_q_4_0_tpu_torch.training import OptParams, init_transformer, make_optimizer
+    from llama_cpp_q_4_0_tpu_torch.training import stacked
+
+    (x, y), = train_windows(data, 512, 4, seed, 1)
+    torch.cuda.empty_cache()
+    with StepTimes(torch) as st:
+        p = stacked.stack_params(init_transformer(
+            cfg, torch.Generator(device="cuda").manual_seed(seed)))
+        tx = make_optimizer(OptParams(kind="adam", grad_clip=1.0))
+        s = tx.init(p)
+        step = stacked.make_stacked_train_step(cfg, tx, remat=False)
+        step(p, s, torch.from_numpy(x).long().cuda(), torch.from_numpy(y).long().cuda())
+    del p, s, step
+    torch.cuda.empty_cache()
+    return st
+
+
+def train_saved_bytes(torch, cfg, data, seed: int) -> str:
+    """The bytes lm_loss's forward saves for the backward at -c 512 -b 4
+    (distinct storages, through saved_tensors_hooks) with the dense
+    products as ops/qmatmul.py's Bf16Product and as autograd of the plain
+    cast chain bf16_f32(x) @ bf16_f32(w).T, the same gradients bit for bit
+    (tests/test_torch_training.py)."""
+    from llama_cpp_q_4_0_tpu_torch.ops import qmatmul
+    from llama_cpp_q_4_0_tpu_torch.training import init_transformer
+    from llama_cpp_q_4_0_tpu_torch.training.train import lm_loss
+    from llama_cpp_q_4_0_tpu_torch.training.tree import tree_map
+
+    class CastChain:
+        @staticmethod
+        def apply(x2, w):
+            return qmatmul.bf16_f32(x2) @ qmatmul.bf16_f32(w).T
+
+    params = tree_map(lambda t: t.requires_grad_(True), init_transformer(
+        cfg, torch.Generator(device="cuda").manual_seed(seed)))
+    (x, y), = train_windows(data, 512, 4, seed, 1)
+    x, y = torch.from_numpy(x).long().cuda(), torch.from_numpy(y).long().cuda()
+    got, product = {}, qmatmul.Bf16Product
+    for name, fn in (("Bf16Product", product), ("the cast chain", CastChain)):
+        seen = {}
+
+        def pack(t):
+            seen[t.untyped_storage().data_ptr()] = t.untyped_storage().nbytes()
+            return t.detach()  # t itself, an output kept, would close a cycle through its node
+
+        qmatmul.Bf16Product = fn
+        try:
+            with torch.enable_grad(), torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+                loss = lm_loss(cfg, params, x, y)
+        finally:
+            qmatmul.Bf16Product = product
+        got[name] = sum(seen.values())
+        del loss, seen
+    del params
+    torch.cuda.empty_cache()
+    return (f"saved for the backward (lm_loss at -c 512 -b 4): {got['Bf16Product'] / 2**30:.3f} "
+            f"GiB through Bf16Product, {got['the cast chain'] / 2**30:.3f} through autograd of "
+            f"the cast chain")
+
+
+def train_lbfgs(torch, cfg, data, seed: int, card: str) -> bool:
+    """Two steps of the trainer's --lbfgs optimizer (optax.lbfgs, memory 6,
+    chained after clip_by_global_norm(1.0)) on the CLI's first windows."""
+    from llama_cpp_q_4_0_tpu_torch.training import (OptParams, init_transformer,
+                                                    make_optimizer, make_train_step)
+
+    params = init_transformer(cfg, torch.Generator(device="cuda").manual_seed(seed))
+    n_bytes = 4 * _param_count(params)
+    tx = make_optimizer(OptParams(kind="lbfgs", grad_clip=1.0))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = tx.init(params)
+    step = make_train_step(cfg, tx)
+    ok, losses = True, []
+    for x, y in train_windows(data, 512, 4, seed, 2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, loss = step(params, state, torch.from_numpy(x).long().cuda(),
+                                   torch.from_numpy(y).long().cuda())
+        losses.append(float(loss))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        ls = state[1][2]
+        n_ls = int(ls.info.num_linesearch_steps)
+        print(f"train: lbfgs step {len(losses)}: loss {losses[-1]:.4f}, {1 + n_ls} evaluations "
+              f"(1 + {n_ls} line-search steps, step size {float(ls.learning_rate):.6g}, "
+              f"decrease error {float(ls.info.decrease_error):.3g}), {ms:.1f} ms", flush=True)
+        ok &= math.isfinite(losses[-1]) and n_ls >= 1
+    peak = torch.cuda.max_memory_allocated()
+    print(f"train: lbfgs max_memory_allocated {peak / 2**30:.2f} GiB = "
+          f"{peak / n_bytes:.1f} parameter-sized buffers of {n_bytes / 2**30:.2f} GiB "
+          f"({n_bytes // 4:,} parameters; {card})", flush=True)
+    del params, state, step
+    torch.cuda.empty_cache()
+    return ok
+
+
+def train_card_vs_cpu(torch, cfg, data, seed: int) -> bool:
+    """-c 64 -b 1 from the same initial params (built once on the card,
+    copied) and windows: the loss and every leaf's gradient at step 1 on
+    the card and on this machine's CPU, the Adam update, and step 2's loss
+    on each.  The first loss held within 2e-4 relative; the gradients' gaps
+    and step 2's losses printed."""
+    from llama_cpp_q_4_0_tpu_torch.training import OptParams, init_transformer, make_optimizer
+    from llama_cpp_q_4_0_tpu_torch.training.train import apply_updates, lm_loss, value_and_grad
+    from llama_cpp_q_4_0_tpu_torch.training.tree import flatten_with_path, tree_map
+
+    card = init_transformer(cfg, torch.Generator(device="cuda").manual_seed(seed + 1))
+    cpu = tree_map(lambda t: t.cpu(), card)
+    wins = train_windows(data, 64, 1, seed, 2)
+    runs = {}
+    for dev, params in (("cuda", card), ("cpu", cpu)):
+        t0 = time.perf_counter()
+        (x, y), (x2, y2) = ((torch.from_numpy(a).long().to(dev) for a in w) for w in wins)
+        tx = make_optimizer(OptParams(kind="adam", grad_clip=1.0))
+        state = tx.init(params)
+        # step 1 written out (make_train_step's body), to keep its gradient;
+        # step 2's loss is its forward (its backward and update change no
+        # number compared here)
+        loss, grads = value_and_grad(lambda p: lm_loss(cfg, p, x, y), params)
+        updates, state = tx.update(grads, state, params)
+        p = apply_updates(params, updates)
+        grads, updates, state = tree_map(lambda g: g.cpu(), grads), None, None
+        with torch.no_grad():
+            lo = lm_loss(cfg, p, x2, y2)
+        runs[dev] = (float(loss), grads, [float(loss), float(lo)], time.perf_counter() - t0)
+        del p
+    (lc, gc, sc, tc), (lh, gh, sh, th) = runs["cuda"], runs["cpu"]
+    rel = abs(lc - lh) / abs(lh)
+    gaps = []
+    for (name, a), (_, b) in zip(flatten_with_path(gc, "params"), flatten_with_path(gh, "params")):
+        gaps.append((float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30), name))
+    gaps.sort(reverse=True)
+    finite = all(bool(torch.isfinite(g).all()) for _, g in flatten_with_path(gc))
+    ok = rel <= 2e-4 and finite and all(math.isfinite(v) for v in sc + sh)
+    print(f"train: card vs CPU (-c 64 -b 1, same params and windows): first loss {lc:.6f} / "
+          f"{lh:.6f} (rel {rel:.2e}, limit 2e-4); losses of steps 1 and 2 (Adam) card {sc} CPU "
+          f"{sh}; largest "
+          f"gradient gaps (max |card - CPU| / the leaf's max |CPU|): "
+          + ", ".join(f"{n} {g:.2e}" for g, n in gaps[:4])
+          + f"; smallest {gaps[-1][1]} {gaps[-1][0]:.2e}; card {tc:.1f} s, CPU {th:.1f} s "
+          f"{'ok' if ok else 'MISMATCH'}", flush=True)
+    del card, cpu
+    torch.cuda.empty_cache()
+    return ok
+
+
+def train_resume(torch, cfg, data, seed: int, path: str, save_s: float) -> bool:
+    """The --use-remat CLI run's checkpoint at step 4 (its save timed in
+    the run, save_s) loaded into fresh like trees and resumed for 4 more
+    stacked remat steps on the CLI's next windows, against 8 uninterrupted
+    steps from the CLI's init and windows: the final params bit for bit."""
+    from llama_cpp_q_4_0_tpu_torch.training import (OptParams, init_transformer,
+                                                    load_checkpoint, make_optimizer)
+    from llama_cpp_q_4_0_tpu_torch.training.stacked import make_stacked_train_step, stack_params
+    from llama_cpp_q_4_0_tpu_torch.training.tree import flatten_with_path
+
+    wins = [tuple(torch.from_numpy(a).long().cuda() for a in w)
+            for w in train_windows(data, 512, 4, seed, 8)]
+    tx = make_optimizer(OptParams(kind="adam", grad_clip=1.0))
+    step = make_stacked_train_step(cfg, tx, remat=True)
+
+    def fresh():
+        return stack_params(init_transformer(
+            cfg, torch.Generator(device="cuda").manual_seed(seed)))
+
+    p = fresh()
+    s = tx.init(p)
+    for x, y in wins:
+        p, s, _ = step(p, s, x, y)
+    want = [(k, t.cpu()) for k, t in flatten_with_path(p, "params")]
+    del p, s
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    like = fresh()
+    _, p, s, at = load_checkpoint(path, like, tx.init(like))
+    del like
+    secs = time.perf_counter() - t0
+    size = os.path.getsize(path)
+    os.remove(path)
+    for x, y in wins[4:]:
+        p, s, _ = step(p, s, x, y)
+    got = [t.cpu() for _, t in flatten_with_path(p, "params")]
+    diff = [k for (k, a), b in zip(want, got) if not torch.equal(a, b)]
+    ok = at == 4 and not diff
+    print(f"train: the CLI's checkpoint at step 4 ({size / 2**30:.2f} GiB; saved by the CLI "
+          f"in {save_s:.1f} s, loaded in {secs:.1f} s) and 4 more steps against 8 "
+          f"uninterrupted: {'bit for bit' if not diff else 'leaves differ: ' + ', '.join(diff)} "
+          f"{'ok' if ok else 'MISMATCH'}", flush=True)
+    del p, s
+    torch.cuda.empty_cache()
+    return ok
+
+
+def train_chain(torch, counters, model_f32: str, tmp: str, launches: dict) -> bool:
+    """The user's chain on the exported model: the port's `quantize ...
+    q4_0`, then `main -n 16` on the card, its K1/K2/K3 launches exact
+    (TRAIN_MAIN_LAUNCHES) and added to the JSON line's totals; then the
+    q4_0 file loaded on the card against the CPU (two_layer_vs_cpu's gate,
+    2e-2 of the logit scale)."""
+    import numpy as np
+
+    from llama_cpp_q_4_0_tpu_torch.cli import main as main_cli
+    from llama_cpp_q_4_0_tpu_torch.cli import quantize as quantize_cli
+    from llama_cpp_q_4_0_tpu_torch.formats.ggjt import read_ggjt
+    from llama_cpp_q_4_0_tpu_torch.models.loading import config_from_ggjt, load_transformer
+
+    q4 = os.path.join(tmp, "trained-q4_0.ggjt")
+    t0 = time.perf_counter()
+    rc, _ = _tool_output(quantize_cli, [model_f32, q4, "q4_0"])
+    t1 = time.perf_counter()
+    os.remove(model_f32)
+    prompt = "".join(chr(c) for c in np.random.default_rng(5).integers(97, 123, 98))
+    _zero(counters)
+    rc2, text = _tool_output(main_cli, ["-m", q4, "-p", prompt, "-n", "16", "--temp", "0",
+                                        "--ignore-eos", "-c", "256", "--device", "cuda"])
+    torch.cuda.synchronize()
+    got = {k: v for k, v in _read(counters).items() if v}
+    t2 = time.perf_counter()
+    ok = rc == rc2 == 0 and got == TRAIN_MAIN_LAUNCHES
+    print(f"train: quantize q4_0 rc={rc} in {t1 - t0:.1f} s; main -n 16 rc={rc2} in "
+          f"{t2 - t1:.1f} s, launches {json.dumps(got)} (want "
+          f"{json.dumps(TRAIN_MAIN_LAUNCHES)}); text {text[-60:]!r} {'ok' if ok else 'MISMATCH'}",
+          flush=True)
+    if ok:
+        _add(launches, got)
+    gf = read_ggjt(q4)
+    cfg = config_from_ggjt(gf, n_ctx=256)
+    built = (cfg, load_transformer(gf, cfg, device="cuda"))
+    ok &= two_layer_vs_cpu(torch, counters, "q4_0", built=built)[0]
+    del built
+    os.remove(q4)
+    torch.cuda.empty_cache()
+    return ok
+
+
+def train_rwkv_opt(torch, seed: int) -> bool:
+    """rwkv_opt on an RwkvContext at RWKV-4-Pile-169M's published shapes
+    (12 layers, n_embd 768, n_vocab 50277; dense f32 from the seed): a
+    16-token prompt and one token (its T = 1 graph captured), then 16
+    L-BFGS iterations (history 10).  The error falls; the params and state
+    tensors keep their addresses; the next step, a replay, equals an eager
+    rwkv.forward of the new weights on the new state bit for bit;
+    error_before against the port on this machine's CPU (the same prompt,
+    rwkv_opt with no iteration), within 2e-2 of the larger error."""
+    import numpy as np
+
+    from llama_cpp_q_4_0_tpu_torch.models import rwkv
+    from llama_cpp_q_4_0_tpu_torch.runtime.context import RwkvContext
+    from llama_cpp_q_4_0_tpu_torch.synth import build_rwkv
+    from llama_cpp_q_4_0_tpu_torch.training.rwkv_opt import rwkv_opt
+    from llama_cpp_q_4_0_tpu_torch.training.tree import leaves, tree_map
+
+    cfg, params = build_rwkv(**RWKV_169M, device="cuda", seed=seed, ftype="f32")
+    cpu_params = tree_map(lambda t: t.cpu(), params)
+    toks = np.random.default_rng(seed).integers(3, cfg.n_vocab, 20).tolist()
+    prompt, first, token, actual, nxt = toks[:16], toks[16], toks[17], toks[18], toks[19]
+
+    def ptrs(ctx):
+        views = leaves(ctx.params) + leaves(ctx._params_prefill)
+        return [t.data_ptr() for t in views + list(ctx.state.values())]
+
+    ctx = RwkvContext(cfg, params, device="cuda")
+    ctx.eval([prompt])
+    ctx.eval([[first]])
+    before_ptrs = ptrs(ctx)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    err0, err1 = rwkv_opt(ctx, token, actual, n_iter=16)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    same = ptrs(ctx) == before_ptrs
+    state = {k: t.clone() for k, t in ctx.state.items()}
+    st = ctx._steps[ctx.last_call.key]
+    replays = st.replays
+    logits = ctx.eval([[nxt]])
+    call = ctx.last_call
+    replayed = st.replays == replays + 1
+    want, new = rwkv.forward(cfg, call.params, torch.from_numpy(call.x).cuda(), state,
+                             valid=torch.from_numpy(call.valid).cuda(),
+                             last_only=call.last_only)
+    eq = np.array_equal(logits, want.float().cpu().numpy()) and all(
+        torch.equal(t, new[k]) for k, t in ctx.state.items())
+    del ctx, params
+    torch.cuda.empty_cache()
+    cpu = RwkvContext(cfg, cpu_params, device="cpu")
+    cpu.eval([prompt])
+    cpu.eval([[first]])
+    c0, _ = rwkv_opt(cpu, token, actual, n_iter=0)
+    gap = abs(err0 - c0)
+    ok = (math.isfinite(err1) and err1 < err0 and same and replayed and eq
+          and gap <= 2e-2 * max(err0, c0))
+    print(f"train: rwkv_opt at RWKV-4-Pile-169M shapes, 16 iterations: error {err0:.6g} -> "
+          f"{err1:.6g} in {secs:.1f} s (max_memory_allocated {peak / 2**30:.2f} GiB); "
+          f"addresses kept {same}; next step replayed {replayed}, equal to the eager forward "
+          f"of the new weights and state {eq}; error_before on the CPU {c0:.6g} (gap "
+          f"{gap:.3g}, limit {2e-2 * max(err0, c0):.3g}) {'ok' if ok else 'MISMATCH'}",
+          flush=True)
+    return ok
+
+
+def train_phase(torch, counters, card: str, seed: int, launches: dict) -> bool:
+    """Training at LLaMA-7B width (n_embd 4096, 32 heads, --mult 256: n_ff
+    11008; the 32000-entry vocabulary; 2 layers) on a corpus from the seed:
+    Adam through the `train` CLI (8 steps at -c 512 -b 4, exporting the f32
+    model), 4 steps with --use-remat (its first loss within 2e-4 of the
+    plain run's, what its forward keeps for the backward under half of a
+    stacked step's without remat, its forward's peak below the plain
+    run's), two L-BFGS steps, card against CPU, the remat run's checkpoint
+    at step 4 resumed for 4 steps bit for bit against 8 uninterrupted, the
+    chain export -> quantize -> main, and rwkv_opt at RWKV-4-Pile-169M
+    shapes."""
+    import numpy as np
+
+    from llama_cpp_q_4_0_tpu_torch.kernels.build import BUILD_DIR
+    from llama_cpp_q_4_0_tpu_torch.models.config import ModelConfig
+    from llama_cpp_q_4_0_tpu_torch.runtime.tokenizer import Tokenizer, Vocab
+
+    tmp = os.path.join(BUILD_DIR, "smoke-train")
+    os.makedirs(tmp, exist_ok=True)
+    try:
+        t_start = time.perf_counter()
+        vocab_path, corpus = train_files(tmp, seed)
+        tok = Tokenizer(Vocab([w for w, _ in vocab_7b()], [s for _, s in vocab_7b()]))
+        with open(corpus, "rb") as f:
+            data = np.asarray(tok.tokenize(f.read(), bos=True), dtype=np.int32)
+        cfg = ModelConfig.llama(n_vocab=32000, n_embd=4096, n_mult=256, n_head=32, n_layer=2,
+                                n_rot=128, n_ctx=512)
+        base = ["--vocab-model", vocab_path, "--train-data", corpus, *TRAIN_WIDTH,
+                *TRAIN_BATCH, "--seed", str(seed), "--device", "cuda"]
+        model_f32 = os.path.join(tmp, "trained-f32.ggjt")
+        rc, out, rows, plain, ms, _ = train_cli_run(
+            torch, base + ["-n", "8", "--checkpoint-out", os.path.join(tmp, "plain.ckpt"),
+                           "--model-out", model_f32, "--predict", "4"], "adam", 2048)
+        losses = [l for _, l in rows]
+        ok = (rc == 0 and len(rows) == 8 and all(math.isfinite(l) for l in losses)
+              and losses[-1] < losses[0] and "final loss" in out and "sample:" in out)
+        print(f"train: adam at LLaMA-7B width, 2 layers (n_ff {cfg.n_ff}): {ms:.1f} ms a step, "
+              f"{2048 / ms * 1e3:.0f} tokens/s ({card}); the CLI printed "
+              f"{[l for l in out.splitlines() if l.startswith(('sample:', 'final'))]} "
+              f"{'ok' if ok else 'MISMATCH'}", flush=True)
+        os.remove(os.path.join(tmp, "plain.ckpt"))
+        # 4 remat steps: their checkpoint is the resume check's save at step 4
+        remat_ckpt = os.path.join(tmp, "remat.ckpt")
+        rc2, _, rrows, remat, _, save_s = train_cli_run(
+            torch, base + ["-n", "4", "--checkpoint-out", remat_ckpt, "--predict", "0",
+                           "--use-remat"], "adam --use-remat", 2048)
+        scan = train_stacked_kept(torch, cfg, data, seed)
+        rel = abs(rrows[0][1] - rows[0][1]) / abs(rows[0][1])
+        # remat against the same stacked step without it: what the forward
+        # keeps for the backward, held under half (a remat that does nothing
+        # keeps as much); and the forward's peak below the plain run's
+        good = (rc2 == 0 and rel <= 2e-4 and len(rrows) == 4 and remat.kept < scan.kept / 2
+                and remat.fwd_peak < plain.fwd_peak)
+        ok &= good
+        print(f"train: --use-remat first loss {rrows[0][1]:.6f} vs {rows[0][1]:.6f} (rel "
+              f"{rel:.2e}, limit 2e-4); kept after the forward {remat.kept / 2**30:.2f} GiB vs "
+              f"{scan.kept / 2**30:.2f} for the stacked step without remat (limit half) and "
+              f"{plain.kept / 2**30:.2f} for the plain run; the forward's peak "
+              f"{remat.fwd_peak / 2**30:.2f} vs {scan.fwd_peak / 2**30:.2f} and "
+              f"{plain.fwd_peak / 2**30:.2f} (held below the plain run's); forward and backward "
+              f"peak {remat.fb_peak / 2**30:.2f} vs {scan.fb_peak / 2**30:.2f} and "
+              f"{plain.fb_peak / 2**30:.2f} GiB {'ok' if good else 'MISMATCH'}", flush=True)
+        print(f"train: {train_saved_bytes(torch, cfg, data, seed)}", flush=True)
+        t_adam = time.perf_counter()
+        ok &= train_lbfgs(torch, cfg, data, seed, card)
+        t_lbfgs = time.perf_counter()
+        ok &= train_card_vs_cpu(torch, cfg, data, seed)
+        t_cpu = time.perf_counter()
+        ok &= train_resume(torch, cfg, data, seed, remat_ckpt, save_s)
+        t_resume = time.perf_counter()
+        ok &= train_chain(torch, counters, model_f32, tmp, launches)
+        t_chain = time.perf_counter()
+        ok &= train_rwkv_opt(torch, seed)
+        print(f"train: phase {time.perf_counter() - t_start:.1f} s (adam CLI runs "
+              f"{t_adam - t_start:.1f}, lbfgs {t_lbfgs - t_adam:.1f}, card vs CPU "
+              f"{t_cpu - t_lbfgs:.1f}, resume {t_resume - t_cpu:.1f}, chain "
+              f"{t_chain - t_resume:.1f}, rwkv_opt {time.perf_counter() - t_chain:.1f})",
+              flush=True)
+        return ok
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+
 FULL_RUN = ("kernels", "e2e", "graphs", "ondevice", "session", "spec", "serve", "families",
-            "rwkv", "q8chaos", "cli", "qkk64")
+            "rwkv", "q8chaos", "cli", "qkk64", "train")
 
 
 def main(argv=None) -> int:
@@ -5979,7 +6592,7 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", default=",".join(FULL_RUN),
                     help="comma-separated subset of kernels,e2e,graphs,ondevice,session,spec,"
                          "serve,families,rwkv,"
-                         "q8chaos,cli,qkk64,sass,k7k3,rwkvfaults,traceparse,"
+                         "q8chaos,cli,qkk64,train,sass,k7k3,rwkvfaults,traceparse,"
                          "k7repeat,int8prefill,planes,tiles,attn,gemv,busy,splits; the result "
                          "lines print only for the default " + ",".join(FULL_RUN))
     ap.add_argument("--seed", type=int, default=0,
@@ -6192,9 +6805,10 @@ def main(argv=None) -> int:
         int8_instruments(torch, cfg, params)
         del params
         torch.cuda.empty_cache()
-        # the path of K6b: Q5_K_M (q5_K everywhere but the q6_K head, wv, w2)
+        # the path of K6b: Q5_K_M (q5_K everywhere but the q6_K head, wv, w2),
+        # its first 8 layers (cut from 32: every layer runs the same K6b)
         ok, path_launches, _, cfg, params, _ = end_to_end(
-            torch, counters, "q5_K_M", n_prompt=128, n_decode=16)
+            torch, counters, "q5_K_M", n_prompt=128, n_decode=16, n_layer=8)
         if not ok:
             return fail("q5_K_M end-to-end run: non-finite logits or a kernel "
                         "of the path never launched")
@@ -6311,6 +6925,14 @@ def main(argv=None) -> int:
                         "file against the CPU, or a tool (quantize, update, verify-checksums, "
                         "main on their files)")
         elapsed("qkk64")
+    if "train" in phases:
+        if not train_phase(torch, counters, card, opts.seed, launches):
+            return fail("training: an Adam, remat or L-BFGS run (a non-finite or rising loss, "
+                        "remat's first loss, what its forward keeps or its peak), card against "
+                        "CPU, the resumed checkpoint, the export -> quantize -> main chain (its "
+                        "launches or the CPU gate) or rwkv_opt (error, addresses, the replayed "
+                        "step)")
+        elapsed("train")
     if not full:
         print("partial run: no result lines", flush=True)
         return 0

@@ -20,6 +20,7 @@ TOOLS = {
                        "quantize_stats"),
     "update": ("rewrite old ggml/ggmf file as current ggjt", "update"),
     "verify-checksums": ("SHA256 model integrity check", "verify_checksums"),
+    "train": ("train a model from scratch (examples/train-text-from-scratch)", "train"),
 }
 
 

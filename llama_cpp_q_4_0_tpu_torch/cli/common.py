@@ -14,10 +14,11 @@ from ..models.config import ModelConfig
 from ..models.fuse import fuse_projections
 from ..models.loading import config_from_ggjt, load_rwkv, load_transformer
 from ..models.lora import apply_lora
-from ..quant.types import LlamaFType
+from ..quant.types import FTYPE_BASE_TYPE, LlamaFType
 from ..runtime.context import Context, RwkvContext
 from ..runtime.sampling import SamplingParams
 from ..runtime.tokenizer import Tokenizer, Vocab
+from ..utils.memory import estimate
 
 CACHE_TYPES = {"bf16": torch.bfloat16, "f32": torch.float32,
                "f16": torch.float16, "f8": torch.float8_e4m3fn, "q8": torch.int8}
@@ -155,5 +156,13 @@ def load_model(args, *, logits_all: bool = False) -> LoadedModel:
           f"n_vocab={cfg.n_vocab} "
           f"n_embd={cfg.n_embd} n_layer={cfg.n_layer} n_ctx={args.n_ctx} "
           f"device={ctx.device}", file=sys.stderr)
+    if arch != "rwkv":  # the MEM_REQ banner (llama.cpp:81-130), the JAX main's line
+        try:
+            base = FTYPE_BASE_TYPE.get(LlamaFType(gf.ftype), None)
+            if base is not None:
+                print("mem estimate: " + estimate(cfg, base, n_ctx=args.n_ctx).report(),
+                      file=sys.stderr)
+        except ValueError:
+            pass
     return LoadedModel(cfg, ctx, tokenizer, arch, t_load, hparams=dict(gf.hparams),
                        ftype=gf.ftype)

@@ -21,6 +21,11 @@ takes them traced: nothing in the forward then reads a value on the host, so
 at its own position (continuous batching, the JAX forward's per-row form).
 The NeoX family's "rope the whole cache from position 0" is the same as
 roping K at insert, since a cache slot is its position.
+
+The forward carries gradients: ``training/train.py`` differentiates this same
+function through an f32 cache (the in-place insert is an ``index_copy_``,
+which autograd follows).  Inference takes none, since loaded and synthetic
+params never require grad and the Context methods run under ``no_grad``.
 """
 
 from __future__ import annotations
@@ -257,7 +262,6 @@ def _roundtrip(cache, val: torch.Tensor) -> torch.Tensor:
     return to_cache(val, cache.dtype).float().contiguous()
 
 
-@torch.no_grad()
 def forward(cfg: ModelConfig, params: TransformerParams, tokens: torch.Tensor,
             n_past, cache_k: list, cache_v: list, *,
             last_only: bool = False, with_embedding: bool = False,

@@ -89,6 +89,35 @@ def dequant_matmul(x2: torch.Tensor, w: QTensor,
     return out
 
 
+class Bf16Product(torch.autograd.Function):
+    """The dense bf16 product ``bf16(x) @ bf16(w).T`` with f32 sums, and the
+    gradient JAX's transpose of ``dot_general(bf16, bf16,
+    preferred_element_type=f32)`` gives it: each cotangent is the f32 product
+    of the f32 output cotangent and the other bf16-rounded operand, rounded
+    to bf16 and widened back to f32 (the convert of the forward's cast).
+    PyTorch's backward of the cast chain ``bf16_f32(x) @ bf16_f32(w).T``
+    rounds them the same way; the Function states the rule and saves the
+    operands' 2-byte copies, not their f32 widenings.  Its forward is that
+    chain bit for bit, so inference and training share it."""
+
+    @staticmethod
+    def forward(ctx, x2, w):
+        xb, wb = x2.to(torch.bfloat16), w.to(torch.bfloat16)
+        ctx.save_for_backward(xb, wb)
+        ctx.dtypes = (x2.dtype, w.dtype)
+        return xb.float() @ wb.float().T
+
+    @staticmethod
+    def backward(ctx, g):
+        xb, wb = ctx.saved_tensors
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = (g @ wb.float()).to(torch.bfloat16).to(ctx.dtypes[0])
+        if ctx.needs_input_grad[1]:
+            dw = (g.T @ xb.float()).to(torch.bfloat16).to(ctx.dtypes[1])
+        return dx, dw
+
+
 def q_matmul(x: torch.Tensor, w, *, compute_dtype=torch.bfloat16) -> torch.Tensor:
     """x [..., K] @ W[N, K]^T -> [..., N] float32."""
     if compute_dtype not in (torch.bfloat16, torch.float32):
@@ -105,7 +134,7 @@ def q_matmul(x: torch.Tensor, w, *, compute_dtype=torch.bfloat16) -> torch.Tenso
         if compute_dtype == torch.float32:
             out = x2.float() @ w.float().T
         else:
-            out = bf16_f32(x2) @ bf16_f32(w).T
+            out = Bf16Product.apply(x2, w)
         return out.reshape(*lead, w.shape[0])
     n = w.shape[0]
     if compute_dtype == torch.float32:

@@ -232,10 +232,11 @@ def build_rwkv(n_layer: int = 32, n_embd: int = 4096, n_vocab: int = 50277,
                rescale_every: int = 6, *, device=None, seed: int = 0, ftype: str = "q4_0"):
     """(cfg, params) of an RWKV v4 (default: RWKV-4-Pile-7B's widths, L32-D4096,
     FFN 4 x 4096).  The head keeps its 50277 rows, off the kernels' gate, as a
-    real file's head is."""
-    if ftype not in FTYPES or ftype.endswith("_K_M"):
+    real file's head is.  ftype "f32": dense f32 matrices of N(0, 0.04) (about
+    the q4_0 levels' spread), the weights rwkv_opt trains."""
+    if ftype != "f32" and (ftype not in FTYPES or ftype.endswith("_K_M")):
         raise NotImplementedError(f"no synthetic {ftype} rwkv")
-    base = FTYPES[ftype]
+    base = FTYPES.get(ftype)
     dev = resolve_device(device)
     cfg = ModelConfig.rwkv(n_vocab, n_embd, n_layer, rescale_every)
     gen = torch.Generator(device=dev)
@@ -243,6 +244,8 @@ def build_rwkv(n_layer: int = 32, n_embd: int = 4096, n_vocab: int = 50277,
     e = n_embd
 
     def q(n, k):
+        if base is None:
+            return 0.04 * torch.randn((n, k), generator=gen, device=dev)
         return synth_qtensor(gen, n, k, dev, base)
 
     def ones():

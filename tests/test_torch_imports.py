@@ -17,6 +17,7 @@ for m in mods:
     importlib.import_module(m)
 leaked = sorted(m for m in sys.modules
                 if m == "jax" or m.startswith("jax.")
+                or m == "optax" or m.startswith("optax.")
                 or m == "llama_cpp_q_4_0_tpu"
                 or m.startswith("llama_cpp_q_4_0_tpu."))
 
@@ -25,6 +26,7 @@ from llama_cpp_q_4_0_tpu_torch.models.config import ModelConfig
 from llama_cpp_q_4_0_tpu_torch.runtime.context import Context, RwkvContext
 from llama_cpp_q_4_0_tpu_torch.runtime.rwkv_engine import RwkvBatchEngine
 from llama_cpp_q_4_0_tpu_torch.synth import build_llama, build_rwkv
+from llama_cpp_q_4_0_tpu_torch.cli import train as train_cli
 
 raised = {}
 cfg = ModelConfig.llama(n_vocab=64, n_embd=64, n_head=4, n_layer=1, n_rot=16)
@@ -36,7 +38,9 @@ for name, fn in (("Context", lambda: Context(cfg, None)),
                  ("RwkvContext", lambda: RwkvContext(rcfg, None)),
                  ("RwkvBatchEngine", lambda: RwkvBatchEngine(rcfg, None, n_slots=1)),
                  ("build_rwkv", lambda: build_rwkv(n_layer=1, n_embd=64, n_vocab=64)),
-                 ("load", lambda: port.load(sys.argv[1]))):
+                 ("load", lambda: port.load(sys.argv[1])),
+                 ("train", lambda: train_cli.main(["--vocab-model", sys.argv[1],
+                                                   "--train-data", sys.argv[1]]))):
     try:
         fn()
         raised[name] = None
@@ -62,7 +66,8 @@ def _probe(tmp_path):
 
 def test_port_imports_no_jax_and_no_jax_package(tmp_path):
     """Every module of the port, kernel modules included, imports without
-    jax, without the JAX package and without nvcc or a card."""
+    jax, optax (the card's machine has neither), the JAX package, nvcc or a
+    card."""
     out = _probe(tmp_path)
     assert out["leaked"] == []
     for m in ("ops.qmm", "ops.flash_prefill", "ops.mha_decode", "ops.stream",
@@ -74,7 +79,10 @@ def test_port_imports_no_jax_and_no_jax_package(tmp_path):
               "ops.lowrank", "models.lora", "formats.ggla", "cli.convert_lora",
               "runtime.batch_engine", "cli.server", "models.rwkv", "runtime.rwkv_engine",
               "quant.kquants64", "formats.quantize", "formats.update", "cli.quantize",
-              "cli.quantize_stats", "cli.update", "cli.verify_checksums"):
+              "cli.quantize_stats", "cli.update", "cli.verify_checksums",
+              "training", "training.model", "training.train", "training.checkpoint",
+              "training.stacked", "training.rwkv_opt", "training.tree", "formats.export",
+              "utils.memory", "cli.train"):
         assert f"llama_cpp_q_4_0_tpu_torch.{m}" in out["mods"], m
     if not out["cuda"]:
         # entry points refuse to run on the CPU unless asked to
