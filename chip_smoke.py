@@ -86,13 +86,13 @@ Phases (each prints its own lines; any failure exits non-zero):
      prefill-512 and decode ms/token (windows 256, and 2048 in the int8
      configuration) beside the eager figures, with a profiled replayed step
      (device busy, host step, idle share).
-  4. graphs: LLaMA-7B q4_0, 512 + 64 greedy tokens through Context +
-     generate on a bf16 cache, and the int8 configuration 128 + 16 on a q8
-     cache: every step's logits equal to an eager transformer.forward of the
-     same inputs on a twin cache bit for bit, the same greedy tokens, the
-     caches equal after the run, each replay's launches equal to the eager
-     step's (129 K2; 129 K7 + 32 K4 a token); a replayed Context.embed and
-     Context.eval_embd against their eager twins.
+  4. graphs: LLaMA-7B q4_0's first 8 layers, 512 + 64 greedy tokens through
+     Context + generate on a bf16 cache, and the int8 configuration 128 + 16
+     on a q8 cache: every step's logits equal to an eager
+     transformer.forward of the same inputs on a twin cache bit for bit, the
+     same greedy tokens, the caches equal after the run, each replay's
+     launches equal to the eager step's (33 K2; 33 K7 + 8 K4 a token); a
+     replayed Context.embed and Context.eval_embd against their eager twins.
   5. ondevice: on-device decode (runtime/device_sample.py) on LLaMA-7B
      q4_0's first 8 layers, each chunk a run of replays of one captured
      decode-and-sample graph: generate_ondevice greedy and sampled (temp 0.8,
@@ -109,8 +109,8 @@ Phases (each prints its own lines; any failure exits non-zero):
      insert equal to the CPU's bit for bit); bench lines of on-device against
      host-loop ms/token (greedy, sampled; with Timings.t_sample_ms) and the
      profiler over one chunk of each.
-  6. session: the session slice on 7B q4_0 (the e2e phase's weights, n_ctx
-     1024): perplexity of 4 x 512 token ids drawn from --seed, through the
+  6. session: the session slice on 7B q4_0's first 8 layers (the e2e
+     phase's weights, n_ctx 1024): perplexity of 4 x 512 token ids drawn from --seed, through the
      host loop at -b 512 and -b 256, under FLASH_PREFILL=0 and through the
      on-device loop (one graph a chunk), each with ms a chunk and K1/K3
      launches a chunk checked, the on-device value held to the host one on
@@ -123,7 +123,7 @@ Phases (each prints its own lines; any failure exits non-zero):
      to the saved one cast through f16); shift_kv_cache(32, 256) against a
      fresh eval of the surviving prompt (layer 0, bf16 and f32 caches) and 16
      more tokens; the f8 cache through generate with and without FUSED_ATTN=1
-     (129 K2, + 32 K4 a token, checked), replayed ms/token beside bf16 and
+     (33 K2, + 8 K4 a token, checked), replayed ms/token beside bf16 and
      its perplexity; the tools on a 2-layer 7B-width GGJT: main
      --prompt-cache (zip, .ggsn) twice, main -i card vs CPU, main -f --n-keep
      with context swaps, perplexity (host and --on-device), save-load-state.
@@ -233,10 +233,22 @@ Phases (each prints its own lines; any failure exits non-zero):
      error, the context's tensors keep their addresses, the next replayed
      step equals the eager forward of the new weights and state bit for bit,
      error_before against the CPU.
+  11d. parallel: the sharded serving path (parallel/, Context(mesh=...),
+     BatchEngine(tp_mesh=...)) as gloo worlds of processes that share the
+     card (the world's ranks all on cuda:0, so no speedup is claimed), 7B
+     q4_0 at 8 layers: a tp 2 Context, a 128-token prefill (48 K1 + 1 K2 + 8
+     K3 a rank) and 16 decode tokens (49 K2 a rank a token); an sp 2 x tp 2
+     Context, a 512-token ring prefill (48 K1 + 1 K2 a rank) and 16 decode
+     tokens over the context split in two; each fed the single-device
+     Context's greedy tokens, every step's logits held to it at PAR_GATE of
+     its logit scale and their argmax to its tokens (or a near tie), every
+     rank's logits equal bit for bit; BatchEngine(tp_mesh=tp 2) on the first
+     2 layers, 4 greedy requests against single sessions, its launches
+     exact; the backend, the routes of the collectives and ms a token.
   12. a JSON line of per-kernel numbers (launches: the e2e paths', the
      families', the session, spec, serve, rwkv and train phases'), then the contract line
      {"ok": true, "device": {...}}.
-``--phases kernels,e2e,graphs,ondevice,session,spec,serve,families,rwkv,q8chaos,cli,qkk64,train`` runs a subset
+``--phases kernels,e2e,graphs,ondevice,session,spec,serve,families,rwkv,q8chaos,cli,qkk64,train,parallel`` runs a subset
 (for debugging: a subset prints no result lines; with no arguments every phase runs).  Phases that run only
 when named: ``sass`` (instruction counts of K7's and K3's kernels and of
 the decode GEMV's and K4's instances), ``gemv`` (check_gemv alone),
@@ -1805,19 +1817,22 @@ def graph_embed(torch, cfg, params) -> bool:
 
 
 def graphs_phase(torch, counters, built=None) -> bool:
-    """The compiled step on the card, LLaMA-7B q4_0 (32 layers, built from
-    seed 0 unless built gives the weights): 512 + 64 on a bf16 cache (129 K2
-    a replayed token), the int8 configuration 128 + 16 on a q8 cache (129 K7
-    + 32 K4), and Context.embed and eval_embd (graph_run, graph_embed)."""
+    """The compiled step on the card, LLaMA-7B q4_0's first DEEP_LAYERS
+    layers (of the weights built gives, else built from seed 0; cut from 32:
+    every layer replays the same kernels, and the launch counts follow the
+    depth): 512 + 64 on a bf16 cache (33 K2 a replayed token), the int8
+    configuration 128 + 16 on a q8 cache (33 K7 + 8 K4), and Context.embed
+    and eval_embd (graph_run, graph_embed)."""
     from llama_cpp_q_4_0_tpu_torch.synth import build_llama
 
-    cfg, params = built or build_llama(device="cuda", seed=0, ftype="q4_0")
+    cfg, params = first_layers(*(built or build_llama(n_layer=DEEP_LAYERS, device="cuda",
+                                                      seed=0, ftype="q4_0")), DEEP_LAYERS)
     ok = graph_run(torch, counters, cfg, params, "q4_0", 512, 64, torch.bfloat16,
-                   {"qmm_q4_0_kfold": 129})
+                   step_launches(cfg))
     torch.cuda.empty_cache()
     with env(**INT8):
         ok &= graph_run(torch, counters, cfg, params, "q4_0 int8-config", 128, 16, torch.int8,
-                        {"qmm_q8x": 129, "mha_decode": 32})
+                        step_launches(cfg, int8=True))
     torch.cuda.empty_cache()
     ok &= graph_embed(torch, cfg, params)
     torch.cuda.empty_cache()
@@ -3234,10 +3249,15 @@ def bf16_ulps(torch, got, want) -> int:
 # 0; -b 256 runs two pieces (2 x 129 K1), the second at n_past 256 through the
 # cache-window attention; the on-device loop's forward takes no
 # attention_fn (JAX's _chunk_nll), so no K3
-PPL_LAUNCHES = {"b512": {"qmm_q4_0": 129, "flash_prefill": 32},
-                "b256": {"qmm_q4_0": 258, "flash_prefill": 32},
-                "b512_noflash": {"qmm_q4_0": 129},
-                "ondevice": {"qmm_q4_0": 129}}
+def ppl_launches(n_layer: int) -> dict:
+    """The launches a 512-token perplexity chunk of a q4_0 LLaMA: K1 for the
+    4 matmuls a layer and the head (twice at -b 256), K3 a layer in the
+    first piece when flash prefill is on."""
+    k1 = 4 * n_layer + 1
+    return {"b512": {"qmm_q4_0": k1, "flash_prefill": n_layer},
+            "b256": {"qmm_q4_0": 2 * k1, "flash_prefill": n_layer},
+            "b512_noflash": {"qmm_q4_0": k1},
+            "ondevice": {"qmm_q4_0": k1}}
 
 
 def session_ppl(torch, counters, card, cfg, params, stream, launches: dict):
@@ -3273,13 +3293,15 @@ def session_ppl(torch, counters, card, cfg, params, stream, launches: dict):
             ms = (time.perf_counter() - t0) * 1e3 / n_chunk
             _add(launches, _read(counters))
             launched = {k: v / n_chunk for k, v in _read(counters).items() if v}
-        good = launched == PPL_LAUNCHES[name] and np.isfinite(res.ppl)
+        want = ppl_launches(cfg.n_layer)[name]
+        good = launched == want and np.isfinite(res.ppl)
         ok &= good
         ppl[name] = res.ppl
-        print(f"session: 7B q4_0 perplexity {name} over {n_chunk} chunks of 512: ppl "
+        print(f"session: 7B q4_0 ({cfg.n_layer} layers) perplexity {name} over {n_chunk} "
+              f"chunks of 512: ppl "
               f"{res.ppl!r} (chunks {[round(c, 4) for c in res.chunk_ppls]}), {ms:.2f} ms a "
               f"chunk (host clock, replayed), launches a chunk {json.dumps(launched)} (want "
-              f"{json.dumps(PPL_LAUNCHES[name])}) {'ok' if good else 'MISMATCH'} [{card}]",
+              f"{json.dumps(want)}) {'ok' if good else 'MISMATCH'} [{card}]",
               flush=True)
     d = abs(np.log(ppl["ondevice"]) - np.log(ppl["b512_noflash"]))
     ok &= bool(d <= 1e-4)
@@ -3388,7 +3410,8 @@ def session_state(torch, card, cfg, params, prompt, tmp) -> bool:
     save_session(zpath, a, tokens)
     t_zip = (time.perf_counter() - t0) * 1e3
     t0 = time.perf_counter()
-    save_session(gpath, a, tokens, hparams=LLAMA7B_HPARAMS, ftype=2)
+    save_session(gpath, a, tokens, hparams={**LLAMA7B_HPARAMS, "n_layer": cfg.n_layer},
+                 ftype=2)
     t_ggsn = (time.perf_counter() - t0) * 1e3
     check("set_state into the same Context (graphs captured) continues bit for bit",
           _same_run(_greedy(a, 32), ref) and same_ptrs,
@@ -3454,10 +3477,11 @@ def session_state(torch, card, cfg, params, prompt, tmp) -> bool:
     return ok
 
 
-# the f8 cache's runs: K2 for all 129 matmuls a decode token; under
-# FUSED_ATTN=1 also K4 over the e4m3 window in each of 32 layers
-F8_PER_TOKEN = {"q4_0_f8": {"qmm_q4_0_kfold": 129},
-                "q4_0_f8_fused": {"qmm_q4_0_kfold": 129, "mha_decode": 32}}
+def f8_per_token(cfg) -> dict:
+    """The f8 cache's runs: K2 for every matmul of a decode token; under
+    FUSED_ATTN=1 also K4 over the e4m3 window in each layer."""
+    return {"q4_0_f8": step_launches(cfg),
+            "q4_0_f8_fused": {**step_launches(cfg), "mha_decode": cfg.n_layer}}
 
 
 def session_f8(torch, counters, card, cfg, params, stream, ppl_bf16, launches: dict) -> bool:
@@ -3479,10 +3503,10 @@ def session_f8(torch, counters, card, cfg, params, stream, ppl_bf16, launches: d
                 torch, counters, "q4_0", n_prompt=512, n_decode=32, path=path,
                 cache_dtype=torch.float8_e4m3fn, built=(cfg, params))
         _add(launches, launched)
-        good &= per_token == F8_PER_TOKEN[path]
+        good &= per_token == f8_per_token(cfg)[path]
         ok &= good
         print(f"session: {path} decode launches a token {json.dumps(per_token)} (want "
-              f"{json.dumps(F8_PER_TOKEN[path])}); tokens {toks[path]} "
+              f"{json.dumps(f8_per_token(cfg)[path])}); tokens {toks[path]} "
               f"{'ok' if good else 'MISMATCH'} [{card}]", flush=True)
     same = next((i for i, (x, y) in enumerate(zip(toks["q4_0_f8"], toks["q4_0_f8_fused"]))
                  if x != y), len(toks["q4_0_f8"]))
@@ -3540,20 +3564,40 @@ def session_cli(counters, card, tmp) -> bool:
     (write_ggjt_7b_width): `main --prompt-cache` twice on a zip and on a
     .ggsn path (the second run prints `session: reused`), `main -i -n 2`
     with two lines on stdin (on the card and on the CPU, --memory-f32, the
-    same text; the CPU's plain path takes ~2.6 s a forward at this width),
+    same text; the CPU's plain path takes ~2.6-4 s a forward at this width,
+    so the CPU's run is a child process started first, beside the card's),
     `main -f --n-keep 8 -c 64 -n 80` (80 tokens through context swaps),
     `perplexity -f PAPERS.md -c 128 -b 64` and `--on-device` (--memory-f32:
     held to each other within 1e-4 in ln ppl, the printed line as JAX's
     tests check it), and `save-load-state`."""
+    path = os.path.join(tmp, "llama7b-width-2layer-q4_0.ggjt")
+    write_ggjt_7b_width(path, "q4_0")
+    base = ["-m", path, "--temp", "0", "-s", "1"]
+    interactive = [*base, "-p", "Hello", "-n", "2", "-c", "256", "-i", "--memory-f32"]
+    stdin = "Tell me more\nAnd then\n"
+    lines = os.path.join(tmp, "stdin.txt")
+    with open(lines, "w") as fh:
+        fh.write(stdin)
+    with open(lines) as fh:
+        cpu = subprocess.Popen([sys.executable, "-m", "llama_cpp_q_4_0_tpu_torch", "main",
+                                *interactive, "--device", "cpu"], cwd=ROOT, stdin=fh,
+                               stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+    try:
+        return _session_cli_runs(counters, card, tmp, path, base, interactive, stdin, cpu)
+    finally:
+        if cpu.poll() is None:
+            cpu.kill()
+            cpu.communicate()
+
+
+def _session_cli_runs(counters, card, tmp, path, base, interactive, stdin, cpu) -> bool:
+    """session_cli's runs; the CPU's `main -i` is read from the child cpu."""
     import numpy as np
 
     from llama_cpp_q_4_0_tpu_torch.cli import main as main_mod
     from llama_cpp_q_4_0_tpu_torch.cli import perplexity as ppl_mod
     from llama_cpp_q_4_0_tpu_torch.cli import save_load_state as sls_mod
 
-    path = os.path.join(tmp, "llama7b-width-2layer-q4_0.ggjt")
-    write_ggjt_7b_width(path, "q4_0")
-    base = ["-m", path, "--temp", "0", "-s", "1"]
     ok = True
 
     def check(label, good, extra=""):
@@ -3569,14 +3613,13 @@ def session_cli(counters, card, tmp) -> bool:
         check(f"main --prompt-cache {suffix} twice",
               runs[0][0] == runs[1][0] == 0 and reused and "session: reused" not in runs[0][2],
               f": {reused}; texts {runs[0][1]!r}, {runs[1][1]!r}")
-    text = {}
-    for dev in ("cuda", "cpu"):
-        _zero(counters)
-        rc, out, _ = _tool_run(main_mod, [*base, "-p", "Hello", "-n", "2", "-c", "256", "-i",
-                                          "--memory-f32", "--device", dev],
-                               stdin="Tell me more\nAnd then\n")
-        text[dev] = (rc, out, {k: v for k, v in _read(counters).items() if v})
-    check("main -i, two lines on stdin, card vs CPU",
+    _zero(counters)
+    rc, out, _ = _tool_run(main_mod, [*interactive, "--device", "cuda"], stdin=stdin)
+    text = {"cuda": (rc, out, {k: v for k, v in _read(counters).items() if v})}
+    out, err = cpu.communicate(timeout=600)
+    sys.stderr.write(err.decode(errors="replace"))
+    text["cpu"] = (cpu.returncode, out, {})
+    check("main -i, two lines on stdin, card vs CPU (the CPU's a child process)",
           text["cuda"][0] == text["cpu"][0] == 0 and text["cuda"][1] == text["cpu"][1]
           and text["cuda"][1].count(b"\n> ") == 3
           and text["cuda"][2].get("qmm_q4_0_kfold", 0) > 0,
@@ -3609,7 +3652,9 @@ def session_cli(counters, card, tmp) -> bool:
 
 
 def session_phase(torch, counters, card, built, seed: int, launches: dict) -> bool:
-    """The session slice on 7B q4_0 at full depth (the e2e phase's weights):
+    """The session slice on 7B q4_0's first DEEP_LAYERS layers (the e2e
+    phase's weights; cut from 32: every layer runs the same kernels, and the
+    launch counts follow the depth):
     perplexity three ways and like-for-like (session_ppl), the 2-layer model
     card vs CPU (session_ppl_vs_cpu), state round trips, sessions and the KV
     shift (session_state), the f8 cache (session_f8) and the tools
@@ -3621,7 +3666,8 @@ def session_phase(torch, counters, card, built, seed: int, launches: dict) -> bo
     from llama_cpp_q_4_0_tpu_torch.synth import build_llama
 
     t0 = time.perf_counter()
-    cfg, params = built or build_llama(device="cuda", seed=0, ftype="q4_0")
+    cfg, params = first_layers(*(built or build_llama(n_layer=DEEP_LAYERS, device="cuda",
+                                                      seed=0, ftype="q4_0")), DEEP_LAYERS)
     rng = np.random.default_rng(seed)
     stream = rng.integers(3, cfg.n_vocab, 4 * 512)
     prompt = [1] + rng.integers(3, cfg.n_vocab, 511).tolist()
@@ -6581,8 +6627,283 @@ def train_phase(torch, counters, card: str, seed: int, launches: dict) -> bool:
 
 
 
+# ---------------------------------------------------------------- parallel
+
+# The sharded path runs as one gloo world of PAR_RANKS processes on the one
+# card: NCCL refuses two ranks on one device.  Compute stays on the card; the
+# ranks share its SMs and memory, so their times show no speedup.  Each job
+# runs on the first ranks of the world its mesh needs (the others build the
+# mesh and wait).
+PAR_RANKS = 4
+PAR_MESHES = {"tp2": {"tp": 2}, "sp2tp2": {"sp": 2, "tp": 2}}
+PAR_PREFILL = {"tp2": 128, "sp2tp2": 512}  # the sp ring splits 512 tokens in two
+PAR_DECODE = 16
+PAR_ENGINE_LAYERS, PAR_ENGINE_N, PAR_ENGINE_PROMPT = 2, 16, 100
+# the logits' largest gap from the single-device Context, as a fraction of
+# its logit scale (the families phase's card-against-CPU limit): the row
+# split sums a layer's products in two halves, and bf16 roundings downstream
+# of that may flip
+PAR_GATE = 2e-2
+
+
+def par_want(cfg, job: str):
+    """A rank's launches on the sharded path, (a prefill, a decode token):
+    each rank runs 6 of the 7 matmuls of a layer on a kernel (wq, wk, wv,
+    w_gate, w_up column shards; wo's row shard at K 2048) and w_down's row
+    shard (K 5504, off the gate) on the bf16 product; the head's vocabulary
+    shard takes K2 on the last row.  The tp-only prefill takes K3 on the
+    local heads; the sp ring is plain torch."""
+    n = 6 * cfg.n_layer
+    prefill = {"qmm_q4_0": n, "qmm_q4_0_kfold": 1}
+    if job == "tp2":
+        prefill["flash_prefill"] = cfg.n_layer
+    return prefill, {"qmm_q4_0_kfold": n + 1}
+
+
+def par_engine_want(n_layer: int, ticks: int) -> dict:
+    """BatchEngine(tp_mesh=tp 2) over 4 requests of PAR_ENGINE_PROMPT tokens:
+    one batched [4, 128] admission (K1 for the 6 kernel matmuls a layer and
+    the head, which the JAX engine's contract runs on every row) and K2 for
+    those of every host tick."""
+    n = 6 * n_layer + 1
+    return {"qmm_q4_0": n, "qmm_q4_0_kfold": n * ticks}
+
+
+def par_reference(torch, cfg, params, prompt, n_decode):
+    """The single-device Context's greedy run (replayed graphs): the tokens,
+    the prefill's and every decode step's last logits, and ms a token."""
+    import numpy as np
+
+    from llama_cpp_q_4_0_tpu_torch.runtime.context import Context
+
+    ctx = Context(cfg, params, n_ctx=2048, device="cuda")
+    rows, toks, ms = [ctx.eval([prompt])[0, -1]], [], []
+    for _ in range(n_decode):
+        toks.append(int(np.argmax(rows[-1])))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rows.append(ctx.eval([[toks[-1]]])[0, -1])
+        ms.append((time.perf_counter() - t0) * 1e3)
+    del ctx
+    return toks, np.stack(rows), statistics.median(ms[1:])
+
+
+def parallel_rank(torch, opts) -> int:
+    """One rank of the world the parallel phase spawns (chip_smoke.py --rank
+    R --world N --init URL --out DIR): joins the gloo group, builds the same
+    seeded weights and runs each job of PAR_MESHES whose mesh holds it: the
+    Context fed the reference's tokens (and for tp2 the engine); writes its
+    logits, launches and times under DIR.  Any error exits non-zero."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from llama_cpp_q_4_0_tpu_torch.ops import flash_prefill as fp
+    from llama_cpp_q_4_0_tpu_torch.ops import mha_decode as md
+    from llama_cpp_q_4_0_tpu_torch.ops import qmm
+    from llama_cpp_q_4_0_tpu_torch.parallel import distributed, make_mesh
+    from llama_cpp_q_4_0_tpu_torch.parallel.mesh import routes_taken
+    from llama_cpp_q_4_0_tpu_torch.runtime.batch_engine import BatchEngine
+    from llama_cpp_q_4_0_tpu_torch.runtime.context import Context
+    from llama_cpp_q_4_0_tpu_torch.synth import build_llama
+
+    counters = [qmm.launches, fp.launches, md.launches]
+    distributed.initialize(opts.init, opts.world, opts.rank, backend="gloo")
+    with open(os.path.join(opts.out, "ref.json")) as f:
+        ref = json.load(f)
+    out = {}
+    try:
+        with torch.no_grad():
+            cfg, params = build_llama(n_layer=DEEP_LAYERS, device="cuda", seed=0)
+            for name, axes in PAR_MESHES.items():
+                mesh = make_mesh(**axes)
+                if mesh.coords is None:
+                    continue
+                res = out[name] = {"backend": dist.get_backend(), "world": mesh.size}
+                job = ref[name]
+                ctx = Context(cfg, params, n_ctx=2048, mesh=mesh)
+                _zero(counters)
+                t0 = time.perf_counter()
+                rows = [ctx.eval([job["prompt"]])[0, -1]]
+                torch.cuda.synchronize()
+                res["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+                res["prefill"] = {k: v for k, v in _read(counters).items() if v}
+                res["decode"], ms = [], []
+                for tok in job["tokens"]:
+                    _zero(counters)
+                    t0 = time.perf_counter()
+                    rows.append(ctx.eval([[tok]])[0, -1])
+                    torch.cuda.synchronize()
+                    ms.append((time.perf_counter() - t0) * 1e3)
+                    res["decode"].append({k: v for k, v in _read(counters).items() if v})
+                res["decode_ms"] = ms
+                res["cache"] = list(ctx.cache_k[0].shape)
+                np.save(os.path.join(opts.out, f"{name}-{opts.rank}.npy"), np.stack(rows))
+                del ctx
+                if name == "tp2":
+                    cfg2, params2 = first_layers(cfg, params, PAR_ENGINE_LAYERS)
+                    eng = BatchEngine(cfg2, params2, n_slots=4, n_ctx=SERVE_CTX, tp_mesh=mesh)
+                    _zero(counters)
+                    t0 = time.perf_counter()
+                    outs, _ = serve_submit(eng, ref["engine"], PAR_ENGINE_N)
+                    res["engine"] = {"tokens": outs, "ticks": eng.n_ticks,
+                                     "s": time.perf_counter() - t0,
+                                     "launches": {k: v for k, v in _read(counters).items() if v}}
+                res["routes"] = dict(routes_taken)
+    finally:
+        with open(os.path.join(opts.out, f"rank-{opts.rank}.json"), "w") as f:
+            json.dump(out, f)
+        dist.destroy_process_group()
+    return 0
+
+
+def par_world(out: str, timeout: float = 600.0):
+    """The world: PAR_RANKS processes of this script, every one on cuda:0;
+    the first to fail stops the rest.  Returns (ok, each rank's output)."""
+    init = "file://" + os.path.join(out, "store")
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--rank", str(r),
+                               "--world", str(PAR_RANKS), "--init", init, "--out", out],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(PAR_RANKS)]
+    deadline = time.monotonic() + timeout
+    try:
+        while any(p.poll() is None for p in procs) and time.monotonic() < deadline:
+            if any(p.returncode for p in procs if p.returncode is not None):
+                break
+            time.sleep(0.1)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+        outs = [p.communicate()[0] for p in procs]
+    return all(p.returncode == 0 for p in procs), outs
+
+
+def par_check(cfg, job, want_toks, want_rows, ranks, out) -> tuple[bool, str]:
+    """A world's Context run against the single-device one: every rank's
+    logits equal bit for bit, the largest gap of a step's logits as a
+    fraction of that step's reference scale under PAR_GATE, each step's
+    argmax the reference token or a near tie (the reference's top-2 margin
+    under PAR_GATE of its scale), each rank's launches exact."""
+    import numpy as np
+
+    rows = [np.load(os.path.join(out, f"{job}-{r}.npy")) for r in range(len(ranks))]
+    same = all(np.array_equal(rows[0], x) for x in rows[1:])
+    scale = np.abs(want_rows).max(axis=1)
+    gaps = np.abs(rows[0] - want_rows).max(axis=1) / scale
+    argmax = rows[0].argmax(axis=1)[:len(want_toks)]
+    equal = near = bad = 0
+    for i, (a, w) in enumerate(zip(argmax.tolist(), want_toks)):
+        top = np.sort(want_rows[i])[::-1]
+        if a == w:
+            equal += 1
+        elif top[0] - top[1] <= PAR_GATE * scale[i]:
+            near += 1
+        else:
+            bad += 1
+    pre, dec = par_want(cfg, job)
+    launches_ok = all(r["prefill"] == pre and all(d == dec for d in r["decode"])
+                      for r in ranks)
+    ok = same and bool(gaps.max() <= PAR_GATE) and bad == 0 and launches_ok
+    note = (f"{job}: ranks' logits equal bit for bit {same}; largest logit gap "
+            f"{gaps.max():.3e} of the scale (gate {PAR_GATE}; prefill {gaps[0]:.3e}); "
+            f"argmax equal at {equal} of {len(want_toks)} steps, {near} near ties, {bad} "
+            f"unexplained; launches a rank: prefill "
+            f"{json.dumps([r['prefill'] for r in ranks])} (want {json.dumps(pre)}), a decode "
+            f"token {json.dumps(ranks[0]['decode'][0])} at every step of every rank "
+            f"{launches_ok} (want {json.dumps(dec)}); cache a rank {ranks[0]['cache']}")
+    return ok, note
+
+
+def parallel_phase(torch, card: str, seed: int) -> bool:
+    """The sharded serving path (parallel/) on the card: single-device
+    references in this process, then one world of PAR_RANKS processes on
+    cuda:0 under gloo running the tp 2 jobs (Context, BatchEngine(tp_mesh))
+    and the sp 2 x tp 2 Context (PAR_MESHES), every check in par_check and
+    the engine's against single sessions.  Fails if any rank fails."""
+    import numpy as np
+
+    from llama_cpp_q_4_0_tpu_torch.kernels.build import BUILD_DIR
+    from llama_cpp_q_4_0_tpu_torch.synth import build_llama
+
+    t0 = time.perf_counter()
+    cfg, params = build_llama(n_layer=DEEP_LAYERS, device="cuda", seed=0)
+    rng = np.random.default_rng(seed + 20)
+    prompt = [1] + rng.integers(3, cfg.n_vocab, PAR_PREFILL["sp2tp2"] - 1).tolist()
+    refs, ref_json = {}, {}
+    for job, n in PAR_PREFILL.items():
+        toks, rows, ms = par_reference(torch, cfg, params, prompt[:n], PAR_DECODE)
+        refs[job] = (toks, rows, ms)
+        ref_json[job] = {"prompt": prompt[:n], "tokens": toks}
+    cfg2, params2 = first_layers(cfg, params, PAR_ENGINE_LAYERS)
+    prompts = [[1] + rng.integers(3, cfg.n_vocab, PAR_ENGINE_PROMPT - 1).tolist()
+               for _ in range(4)]
+    ref_json["engine"] = prompts
+    eng_ref = serve_reference(cfg2, params2, prompts, PAR_ENGINE_N, torch.bfloat16)
+    del params, params2
+    torch.cuda.empty_cache()
+    out = os.path.join(BUILD_DIR, "smoke-parallel")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    ok = True
+    try:
+        with open(os.path.join(out, "ref.json"), "w") as f:
+            json.dump(ref_json, f)
+        print(f"parallel: references on one device {time.perf_counter() - t0:.1f} s", flush=True)
+        t1 = time.perf_counter()
+        good, outs = par_world(out)
+        if not good:
+            print("parallel: the world FAILED:\n" + "\n".join(o[-3000:] for o in outs),
+                  flush=True)
+            return False
+        print(f"parallel: a world of {PAR_RANKS} processes on cuda:0, "
+              f"{time.perf_counter() - t1:.1f} s with their start", flush=True)
+        results = []
+        for r in range(PAR_RANKS):
+            with open(os.path.join(out, f"rank-{r}.json")) as f:
+                results.append(json.load(f))
+        for job in PAR_MESHES:
+            ranks = [res[job] for res in results if job in res]
+            toks, rows, ms_one = refs[job]
+            good, note = par_check(cfg, job, toks, rows, ranks, out)
+            ok &= good
+            r0 = ranks[0]
+            print(f"parallel: {job} mesh: backend {r0['backend']}, mesh size {r0['world']}, "
+                  f"ranks that ran it {len(ranks)}, routes of the collectives of CUDA tensors "
+                  f"{json.dumps(r0['routes'])}", flush=True)
+            print(f"parallel: {note} {'ok' if good else 'MISMATCH'}", flush=True)
+            print(f"parallel: {job} 7B q4_0 {cfg.n_layer} layers, {PAR_PREFILL[job]}-token "
+                  f"prefill {statistics.median(r['prefill_ms'] for r in ranks):.1f} ms, decode "
+                  f"{statistics.median(statistics.median(r['decode_ms'][1:]) for r in ranks):.2f} "
+                  f"ms/token (eager, {len(ranks)} ranks that share one card, gloo; "
+                  f"not a multi-GPU figure) against {ms_one:.2f} ms/token for the single-device "
+                  f"Context's replayed graphs [{card}]", flush=True)
+            if job == "tp2":
+                limit = PAR_GATE * max(float(np.abs(rr).max()) for _, rows_ in eng_ref
+                                       for rr in rows_)
+                want = par_engine_want(PAR_ENGINE_LAYERS, ranks[0]["engine"]["ticks"])
+                agree = all(r["engine"]["tokens"] == ranks[0]["engine"]["tokens"]
+                            for r in ranks)
+                same, near, bad, notes = serve_parting(eng_ref, ranks[0]["engine"]["tokens"],
+                                                       limit)
+                launched = all(r["engine"]["launches"] == want for r in ranks)
+                good = agree and bad == 0 and launched
+                ok &= good
+                print(f"parallel: BatchEngine(tp_mesh=tp 2), {PAR_ENGINE_LAYERS} layers, 4 "
+                      f"greedy requests of {PAR_ENGINE_PROMPT} + {PAR_ENGINE_N}: ranks agree "
+                      f"{agree}; against single sessions {same} equal, {near} near-tie "
+                      f"partings, {bad} unexplained {notes}; launches a rank "
+                      f"{json.dumps([r['engine']['launches'] for r in ranks])} (want "
+                      f"{json.dumps(want)}, {ranks[0]['engine']['ticks']} ticks); "
+                      f"{ranks[0]['engine']['s']:.2f} s (ranks that share one card) "
+                      f"{'ok' if good else 'MISMATCH'} [{card}]", flush=True)
+        return ok
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+
+
+
 FULL_RUN = ("kernels", "e2e", "graphs", "ondevice", "session", "spec", "serve", "families",
-            "rwkv", "q8chaos", "cli", "qkk64", "train")
+            "rwkv", "q8chaos", "cli", "qkk64", "train", "parallel")
 
 
 def main(argv=None) -> int:
@@ -6592,12 +6913,15 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", default=",".join(FULL_RUN),
                     help="comma-separated subset of kernels,e2e,graphs,ondevice,session,spec,"
                          "serve,families,rwkv,"
-                         "q8chaos,cli,qkk64,train,sass,k7k3,rwkvfaults,traceparse,"
+                         "q8chaos,cli,qkk64,train,parallel,sass,k7k3,rwkvfaults,traceparse,"
                          "k7repeat,int8prefill,planes,tiles,attn,gemv,busy,splits; the result "
                          "lines print only for the default " + ",".join(FULL_RUN))
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the session, spec, serve and rwkv phases' token streams, "
                          "adapters and RWKV weights")
+    for flag, kind in (("--rank", int), ("--world", int), ("--init", str),
+                       ("--out", str)):  # one rank of the parallel phase's world
+        ap.add_argument(flag, type=kind, default=None, help=argparse.SUPPRESS)
     opts = ap.parse_args(argv)
     phases = set(opts.phases.split(","))
     full = phases == set(FULL_RUN)
@@ -6608,6 +6932,8 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         return fail("CUDA is not available: this smoke run needs the card")
     sys.path.insert(0, ROOT)
+    if opts.rank is not None:
+        return parallel_rank(torch, opts)
     try:
         from llama_cpp_q_4_0_tpu_torch.kernels import build
         from llama_cpp_q_4_0_tpu_torch.ops import flash_prefill as fp
@@ -6933,6 +7259,12 @@ def main(argv=None) -> int:
                         "launches or the CPU gate) or rwkv_opt (error, addresses, the replayed "
                         "step)")
         elapsed("train")
+    if "parallel" in phases:
+        if not parallel_phase(torch, card, opts.seed):
+            return fail("the sharded path: a rank failed, the ranks' logits differ, a logit gap "
+                        "over PAR_GATE, an argmax off the single-device token off a near tie, "
+                        "a rank's launch count, or the tp engine's tokens or launches")
+        elapsed("parallel")
     if not full:
         print("partial run: no result lines", flush=True)
         return 0

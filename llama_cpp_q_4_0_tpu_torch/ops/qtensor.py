@@ -146,6 +146,57 @@ class QTensor:
             return None
         return (self._panels(self.gbias_t) if self.packed else self.gbias_t).float()
 
+    def repack_row_shards(self, tp: int) -> "QTensor":
+        """The JAX ``QTensor.repack_row_shards``: the layout of a row-parallel
+        weight over tp ranks.  Each rank's contiguous K/tp slice is packed
+        split-half on its own (its K/tp/2 packed rows padded to 256) and the
+        shards are stacked, so rank s takes levels rows [s*K2P_l,
+        (s+1)*K2P_l) and scale planes [2s, 2s+2).  Levels uint8 [tp*K2P_l,
+        N], f32 planes [tp*2, K2P_l/gsize, N]; ``shape`` is the local (N,
+        K/tp)."""
+        lv = self.levels_full()  # [K, N] int8
+        gs = self.gscale_full()
+        gb = self.gbias_full()
+        k, n = lv.shape
+        if k % tp:
+            raise ValueError(f"K {k} does not split over {tp} ranks")
+        kl = k // tp
+        if kl % 2 or (kl // 2) % self.gsize:
+            raise ValueError(f"a K/tp slice of {kl} is not two panels of whole {self.gsize}-groups")
+        lo, hi = int(lv.min()), int(lv.max())
+        if hi - lo > 15:
+            raise ValueError("levels exceed 4 bits; cannot pack")
+        zero = -lo
+        k2 = kl // 2
+        k2p = -(-k2 // 256) * 256
+        g2, g2p, gl = k2 // self.gsize, k2p // self.gsize, kl // self.gsize
+        dev = lv.device
+        levels = torch.zeros((tp * k2p, n), dtype=torch.uint8, device=dev)
+        scales = torch.zeros((tp * 2, g2p, n), dtype=torch.float32, device=dev)
+        bias = None if gb is None else torch.zeros_like(scales)
+        for s in range(tp):
+            sl = lv[s * kl:(s + 1) * kl].to(torch.int16)
+            levels[s * k2p:s * k2p + k2] = (((sl[k2:] + zero) << 4)
+                                            | (sl[:k2] + zero)).to(torch.uint8)
+            for src, dst in ((gs, scales), (gb, bias)):
+                if src is not None:
+                    sg = src[s * gl:(s + 1) * gl]
+                    dst[2 * s, :g2] = sg[:g2]
+                    dst[2 * s + 1, :g2] = sg[g2:]
+        return QTensor(levels_t=levels, gscale_t=scales, gsize=self.gsize, qtype=self.qtype,
+                       shape=(n, kl), pack_zero=zero, gbias_t=bias)
+
+    def unpack(self) -> "QTensor":
+        """The JAX ``QTensor.unpack``: the int8 [K, N] twin of a packed tensor,
+        its planes in logical group order and their own dtype (a contiguous
+        K slice of packed rows is not a contiguous set of k: the split-half
+        pairing joins k and k + K/2)."""
+        if not self.packed:
+            return self
+        return QTensor(levels_t=self.levels_full(), gscale_t=self._panels(self.gscale_t),
+                       gsize=self.gsize, qtype=self.qtype, shape=self.shape, pack_zero=None,
+                       gbias_t=None if self.gbias_t is None else self._panels(self.gbias_t))
+
     def fold_zero(self) -> "QTensor":
         """The JAX ``QTensor.fold_zero``: a packed tensor's symmetric pack zero
         becomes the affine bias plane gbias = d * -zero (computed in f32, stored

@@ -25,11 +25,17 @@ the slot's row views; a batched admission gathers its slots' rows into a
 staging cache and writes the real rows back (``index_copy_``); the lane and
 the prefix cache keep row caches of their own and are copied into the slots'
 rows.  ``ENGINE_TRACE=1`` prints each tick's issue and harvest times.
+
+A sharded engine (``mesh``, ``tp_mesh``: one process a rank, parallel/)
+runs every tick and admission eagerly through the sharded forward, on
+caches that hold this rank's slice; its ranks agree each loop on what to
+admit, stop and cancel, and emit rank 0's host draws.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import itertools
 import os
 import queue
@@ -199,21 +205,77 @@ class BatchEngine:
         n_slots when n_ctx >= 1024, else 8) and while any slot samples with
         mirostat, the ticks fall back to plain chunked ones.
 
-        forward_fn: a forward with transformer.forward's contract, run
-        eagerly for every forward of the engine.  mesh and tp_mesh (the
-        sharded engines) are not ported.  hbm_limit_bytes: the device memory
-        the plan is held to (default: the card's total).  device defaults
-        to cuda and raises without CUDA unless "cpu" is asked for."""
-        if mesh is not None or tp_mesh is not None:
-            raise NotImplementedError("sharded engines (mesh, tp_mesh) are not ported")
-        if forward_fn is not None and spec_draft > 0:
-            raise NotImplementedError("speculative ticks take the default forward")
-        self.device = resolve_device(device)
+        forward_fn: a forward with transformer.forward's arguments (cfg,
+        params, tokens, n_past, cache_k, cache_v, last_only=, kv_window=),
+        run eagerly for every forward of the engine, the speculative verify
+        included; admissions take each row's logits from its every position,
+        as the JAX engine does.
+
+        tp_mesh (parallel.make_mesh): every forward runs through
+        parallel/tp.py's tp_forward (``spec_forward(tp_mesh)``) on the
+        params of ``prepare_tp_params``, the KV cache split over the heads.
+        mesh: the slots split over dp, the cache's context over sp (an
+        admission's whole prompt rides the sp ring) and the weights over tp
+        (parallel/tp.py ``mesh_forward``).  Each rank of the mesh is a
+        process running its own engine with the same arguments, the same
+        prefixes registered and the same requests submitted in the same
+        order; the engines agree at every loop on stopping, on the requests
+        to admit and on cancellations (one all-reduce), and each host draw
+        is rank 0's, broadcast, so every rank emits the same tokens.  A
+        sharded engine runs every step eagerly (gloo's collectives are host
+        calls) and skips the memory plan and the lane's capacity rule.
+
+        hbm_limit_bytes: the device memory the plan is held to (default: the
+        card's total).  device defaults to cuda and raises without CUDA
+        unless "cpu" is asked for; a sharded engine runs on its mesh's
+        device."""
+        sharded = mesh if mesh is not None else tp_mesh
+        self.mesh = mesh
+        self._admit_fwd = transformer.forward  # takes last_index
+        if sharded is not None:
+            from ..parallel.mesh import Mesh
+            from ..parallel.shard import cache_spec, kv_sharded, replicate
+            from ..parallel.tp import mesh_forward, prepare_tp_params, spec_forward
+
+            if mesh is not None and tp_mesh is not None:
+                raise ValueError("pass mesh (the whole split) or tp_mesh (tp alone), not both")
+            if forward_fn is not None:
+                raise ValueError("a sharded engine runs its own forward: pass no forward_fn")
+            if not isinstance(sharded, Mesh):
+                raise TypeError(f"a mesh is a parallel.mesh.Mesh, not {type(sharded).__name__}")
+            self.device = sharded.device
+            if tp_mesh is not None:
+                params = prepare_tp_params(params, tp_mesh, cfg)
+                forward_fn = spec_forward(tp_mesh)
+                self._admit_fwd = None
+                heads = "tp" if kv_sharded(cfg, tp_mesh.shape["tp"]) else None
+                self._spec = (None, None, heads, None)
+                self._rows_spec = self._spec
+            else:
+                if n_slots % mesh.shape["dp"]:
+                    raise ValueError(f"{n_slots} slots do not split over dp={mesh.shape['dp']}")
+                params = (prepare_tp_params(params, mesh, cfg) if mesh.shape["tp"] > 1
+                          else replicate(params, mesh))
+                sp_cache = mesh.shape["sp"] > 1
+                forward_fn = functools.partial(mesh_forward, mesh=mesh, dp_rows=True,
+                                               sp_cache=sp_cache)
+                self._admit_fwd = functools.partial(mesh_forward, mesh=mesh, dp_rows=False,
+                                                    sp_cache=sp_cache)
+                self._spec = cache_spec(cfg, mesh)
+                # admissions' staging and row caches: every row on every dp
+                # rank, the context and the heads split as the main caches
+                self._rows_spec = (None, *self._spec[1:])
+            params_prefill = params  # one raw view
+        else:
+            self.device = resolve_device(device)
+            if forward_fn is not None:
+                self._admit_fwd = None
+            params_prefill = maybe_cast_scales_f16(params)  # the admissions' raw view
+            params = maybe_fold_zero_points(params_prefill)  # the ticks' view
+        self._sharded = sharded
         self.forward_fn = forward_fn
         self._fwd = forward_fn or transformer.forward
         self.cfg = cfg
-        params_prefill = maybe_cast_scales_f16(params)  # the admissions' raw view
-        params = maybe_fold_zero_points(params_prefill)  # the ticks' view
         self.n_slots = n_slots
         self.n_ctx = n_ctx or cfg.n_ctx
         self.chunk = chunk
@@ -237,7 +299,7 @@ class BatchEngine:
             self._n_hist = torch.ones((n_slots,), dtype=torch.int64, device=self.device)
             self._done = torch.ones((n_slots,), dtype=torch.bool, device=self.device)
         limit = hbm_limit_bytes
-        if limit is None and self.device.type == "cuda":
+        if limit is None and self.device.type == "cuda" and sharded is None:
             limit = torch.cuda.mem_get_info(self.device)[1]
         if cache_dtype == "auto":
             # bf16 when it fits the plan, the scaled-int8 cache when only that
@@ -273,12 +335,19 @@ class BatchEngine:
                     f"cache_dtype=torch.int8 (--cache-type q8), fewer slots, or a "
                     f"smaller n_ctx.")
         self.cache_dtype = cache_dtype
-        # the ticks' graphs live in this Context; its caches are the engine's
-        self.ctx = Context(cfg, None, batch=n_slots, n_ctx=self.n_ctx,
-                           cache_dtype=cache_dtype, device=self.device,
-                           views=(params, params_prefill))
         self.params, self.params_prefill = params, params_prefill
-        self.cache_k, self.cache_v = self.ctx.cache_k, self.ctx.cache_v
+        if sharded is not None:
+            from ..parallel.shard import local_cache
+
+            self.ctx = None  # every step eager
+            self.cache_k, self.cache_v = local_cache(cfg, n_slots, self.n_ctx, cache_dtype,
+                                                     sharded, self._spec)
+        else:
+            # the ticks' graphs live in this Context; its caches are the engine's
+            self.ctx = Context(cfg, None, batch=n_slots, n_ctx=self.n_ctx,
+                               cache_dtype=cache_dtype, device=self.device,
+                               views=(params, params_prefill))
+            self.cache_k, self.cache_v = self.ctx.cache_k, self.ctx.cache_v
         self.slots = [_Slot(i) for i in range(n_slots)]
         # the chunked pipeline: ticks issued ahead of their harvest, the
         # sample-to-input feedback kept on the device
@@ -294,8 +363,9 @@ class BatchEngine:
         # (2-byte and up) caches keep width 1 on the card, int8 cohorts are
         # clamped to the free memory; the CPU keeps cohorts.  LANE_WIDTH
         # overrides either way.
-        self.lane_width = 1 if forward_fn else int(os.environ.get("LANE_WIDTH", "4"))
-        if self.lane_width > 1 and not os.environ.get("LANE_WIDTH"):
+        self.lane_width = (1 if self._admit_fwd is None
+                           else int(os.environ.get("LANE_WIDTH", "4")))
+        if self.lane_width > 1 and not os.environ.get("LANE_WIDTH") and sharded is None:
             if _itemsize(cache_dtype) > 1:
                 if self.device.type == "cuda":
                     self.lane_width = 1
@@ -320,8 +390,69 @@ class BatchEngine:
         self._thread: threading.Thread | None = None
         self._stop = threading.Event()
         self._error: BaseException | None = None  # why the engine thread died
+        self._cancel_seen: set[int] = set()  # a sharded engine's agreed cancellations
 
     # ------------------------------------------------------------- forwards
+
+    def _new_cache(self, batch: int, n_ctx: int):
+        """Row caches of the engine's layout (a sharded engine's: this
+        rank's slice, every row)."""
+        if self._sharded is None:
+            return init_cache(self.cfg, batch, n_ctx, _cache_dtype(self.cache_k), self.device)
+        from ..parallel.shard import local_cache
+
+        return local_cache(self.cfg, batch, n_ctx, _cache_dtype(self.cache_k), self._sharded,
+                           self._rows_spec)
+
+    def _local_slots(self, slots: list[int]):
+        """(index into slots, local cache row) of the slots whose rows this
+        rank holds: all of them unless the mesh splits the slots over dp."""
+        if self.mesh is None or self.mesh.shape["dp"] == 1:
+            return list(range(len(slots))), list(slots)
+        n = self.n_slots // self.mesh.shape["dp"]
+        lo = self.mesh.coords["dp"] * n
+        pairs = [(i, s - lo) for i, s in enumerate(slots) if lo <= s < lo + n]
+        return [i for i, _ in pairs], [r for _, r in pairs]
+
+    def _is_cancelled(self, req: Request) -> bool:
+        """A sharded engine acts on cancellations its ranks agreed on."""
+        if self._sharded is None:
+            return req.cancelled
+        return req.id in self._cancel_seen
+
+    def _agree(self) -> bool:
+        """A sharded engine's ranks agree (one all-reduce of host ints, MIN):
+        on stopping (any rank), on how many pending requests to consider
+        (those every rank has), and on cancellations (any rank's).  Returns
+        whether to stop; the pending requests beyond the agreed count are
+        held back until the next loop."""
+        from ..parallel.mesh import all_reduce
+
+        flags = [0 if self._stop.is_set() else 1, len(self._pending)]
+        flags += [0 if s.req is not None and s.req.cancelled else 1 for s in self.slots]
+        v = all_reduce(torch.tensor(flags, dtype=torch.int64), self._sharded, None,
+                       torch.distributed.ReduceOp.MIN).tolist()
+        for s, keep in zip(self.slots, v[2:]):
+            if not keep and s.req is not None:
+                self._cancel_seen.add(s.req.id)
+        self._held = self._pending[v[1]:]
+        del self._pending[v[1]:]
+        return not v[0]
+
+    def _draw(self, slot: _Slot, row_logits: np.ndarray) -> int:
+        """The slot's next token from its sampler: in a sharded engine rank
+        0's draw, broadcast with rank 0's mirostat mu after it, so that every
+        rank's host state (read again when a window seeds the device mu)
+        stays the same."""
+        if self._sharded is None:
+            return slot.sampler.sample(row_logits, slot.last_tokens)
+        from ..parallel.mesh import broadcast
+
+        tok = slot.sampler.sample(row_logits, slot.last_tokens) if self._sharded.rank == 0 else 0
+        got = broadcast(torch.tensor([tok, slot.sampler.mirostat_mu], dtype=torch.float64),
+                        self._sharded).tolist()
+        slot.sampler.mirostat_mu = got[1]
+        return int(got[0])
 
     def _host_ints(self, a) -> torch.Tensor:
         """Host ints as an int64 tensor on the device, copied without
@@ -332,9 +463,14 @@ class BatchEngine:
         return t.pin_memory().to(self.device, non_blocking=True)
 
     def _attn_fn(self, pad: int):
-        """attention_fn of an n_past == 0 admission: the flash prefill
-        kernel where it is eligible (custom forwards own their attention)."""
-        if self.forward_fn is None and use_flash_prefill(pad, self.cfg.head_dim, self.device):
+        """attention_fn of an n_past == 0 admission: on a mesh whose sp
+        splits the prompt, the sp ring; else the flash prefill kernel where
+        it is eligible (custom forwards own their attention)."""
+        if self.mesh is not None and self.mesh.shape["sp"] > 1 and pad % self.mesh.shape["sp"] == 0:
+            from ..parallel.ring_attention import ring_prefill_fn
+
+            return ring_prefill_fn(self.mesh)
+        if self._admit_fwd is not None and use_flash_prefill(pad, self.cfg.head_dim, self.device):
             return flash_prefill
         return None
 
@@ -342,18 +478,37 @@ class BatchEngine:
                  attention_fn=None) -> torch.Tensor:
         """An eager admission forward over caches ck, cv (views or row
         caches, written in place): the logits of each row's token last[i]
-        (its last real one), [B, V] on the device."""
+        (its last real one), [B, V] on the device.  A custom forward
+        (forward_fn, tp_mesh) gives every position's logits, as the JAX
+        engine asks of it, and each row's is taken from them."""
         kw = dict(kv_window=kv_window)
         if attention_fn is not None:
             kw["attention_fn"] = attention_fn
+        last = self._host_ints(last)
+        if self._admit_fwd is not None:
+            return self._admit_fwd(self.cfg, params, self._host_ints(toks), n_past, ck, cv,
+                                   last_index=last, **kw)[:, 0]
         logits = self._fwd(self.cfg, params, self._host_ints(toks), n_past, ck, cv,
-                           last_index=self._host_ints(last), **kw)
-        return logits[:, 0]
+                           last_only=False, **kw)
+        return logits.gather(1, last.reshape(-1, 1, 1).expand(-1, 1, logits.shape[2]))[:, 0]
 
     def _slot_prefill(self, slot: int, toks: np.ndarray, n_real: int, *, kv_window: int,
-                      n_past: int = 0, attention_fn=None) -> np.ndarray:
+                      n_past: int = 0, attention_fn=None, base=None) -> np.ndarray:
         """A [1, T_pad] prefill of one slot, on its row views of the caches;
-        the logits of its last real token [V]."""
+        the logits of its last real token [V].  On a mesh the prefill runs
+        on a staging row cache (a copy of base, the prefix's row caches,
+        when given) written into the slot's row where this rank holds it."""
+        if self.mesh is not None:
+            rk, rv = self._new_cache(1, self.n_ctx)
+            if base is not None:
+                for dst, src in zip((*rk, *rv), (*base[0], *base[1])):
+                    for d, s_ in zip(_parts(dst), _parts(src)):
+                        d.copy_(s_)
+            logits = self._forward(self.params_prefill, toks, n_past, rk, rv,
+                                   kv_window=kv_window, last=[n_real - 1],
+                                   attention_fn=attention_fn)
+            self._put_rows(rk, rv, [slot])
+            return logits[0].float().cpu().numpy()
         sl = slice(slot, slot + 1)
         logits = self._forward(self.params_prefill, toks, n_past, _rows(self.cache_k, sl),
                                _rows(self.cache_v, sl), kv_window=kv_window,
@@ -362,8 +517,12 @@ class BatchEngine:
 
     def _gather_rows(self, slots: list[int], m: int, w: int):
         """A staging [m, w] cache holding the first w positions of the given
-        slots' rows (and zeros below them)."""
-        rk, rv = init_cache(self.cfg, m, w, _cache_dtype(self.cache_k), self.device)
+        slots' rows (and zeros below them).  On a mesh a zeroed [m, n_ctx]
+        cache of the rows' layout: an admission writes every position it
+        attends to."""
+        if self.mesh is not None:
+            return self._new_cache(m, self.n_ctx)
+        rk, rv = self._new_cache(m, w)
         idx = self._host_ints(slots)
         for big, rows in zip((*self.cache_k, *self.cache_v), (*rk, *rv)):
             for src, dst in zip(_parts(big), _parts(rows)):
@@ -372,12 +531,17 @@ class BatchEngine:
 
     def _put_rows(self, rk, rv, slots: list[int]):
         """Write the first len(slots) rows of row caches rk, rv into those
-        slots of the caches, in place, over their first w positions."""
-        idx = self._host_ints(slots)
+        slots of the caches, in place, over their first w positions (on a
+        mesh, the slots whose rows this rank holds)."""
+        picks, local = self._local_slots(slots)
+        if not picks:
+            return
+        idx = self._host_ints(local)
+        pick = self._host_ints(picks)
         for big, rows in zip((*self.cache_k, *self.cache_v), (*rk, *rv)):
             for dst, src in zip(_parts(big), _parts(rows)):
                 w = src.shape[1]
-                dst.narrow(1, 0, w).index_copy_(0, idx, src[: len(slots)])
+                dst.narrow(1, 0, w).index_copy_(0, idx, src.index_select(0, pick))
 
     # --------------------------------------------------------------- public
 
@@ -388,8 +552,7 @@ class BatchEngine:
         --prompt-cache, main.cpp:157-230).  Costs one [1, S] row cache."""
         tokens = list(tokens)
         assert 0 < len(tokens) < self.n_ctx - 2
-        row_k, row_v = init_cache(self.cfg, 1, self.n_ctx, _cache_dtype(self.cache_k),
-                                  self.device)
+        row_k, row_v = self._new_cache(1, self.n_ctx)
         pad = min(_bucket(len(tokens)), self.n_ctx)
         toks = np.zeros((1, pad), np.int64)
         toks[0, : len(tokens)] = tokens
@@ -533,8 +696,7 @@ class BatchEngine:
         chunk count) into a detached [K, S] row cache, so that ticks for
         the other slots go on; the rows go into their slots when it
         completes.  entries: [(slot, req, prompt), ...]."""
-        row_k, row_v = init_cache(self.cfg, len(entries), self.n_ctx,
-                                  _cache_dtype(self.cache_k), self.device)
+        row_k, row_v = self._new_cache(len(entries), self.n_ctx)
         for slot, req, _ in entries:
             slot.req = req
             slot.ready = False
@@ -548,7 +710,7 @@ class BatchEngine:
         out of its own attention)."""
         st = self._prefill_state
         entries = st["entries"]
-        if all(req.cancelled for _, req, _ in entries):
+        if all(self._is_cancelled(req) for _, req, _ in entries):
             for slot, req, _ in entries:
                 req.out.put(None)
                 slot.req = None
@@ -576,7 +738,7 @@ class BatchEngine:
             for i, (slot, req, prompt) in enumerate(entries):
                 slot.req = None  # _activate sets it again
                 slot.ready = True
-                if req.cancelled:
+                if self._is_cancelled(req):
                     req.out.put(None)
                     continue
                 self._activate(slot, req, prompt, logits[i])
@@ -596,18 +758,19 @@ class BatchEngine:
         if pre is not None and len(prompt) > len(pre[0]) and prompt[: len(pre[0])] == pre[0]:
             # copy the cached prefix rows, then prefill only the rest
             ptoks, row_k, row_v = pre
-            sl = slice(slot.idx, slot.idx + 1)
-            for dst, src in zip((*_rows(self.cache_k, sl), *_rows(self.cache_v, sl)),
-                                (*row_k, *row_v)):
-                for d, s in zip(_parts(dst), _parts(src)):
-                    d.copy_(s)
+            if self.mesh is None:
+                sl = slice(slot.idx, slot.idx + 1)
+                for dst, src in zip((*_rows(self.cache_k, sl), *_rows(self.cache_v, sl)),
+                                    (*row_k, *row_v)):
+                    for d, s in zip(_parts(dst), _parts(src)):
+                        d.copy_(s)
             rem = prompt[len(ptoks):]
             pad = min(_bucket(len(rem)), self.n_ctx - len(ptoks))
             toks = np.zeros((1, pad), np.int64)
             toks[0, : len(rem)] = rem
             logits = self._slot_prefill(slot.idx, toks, len(rem),
                                         kv_window=min(_bucket(len(ptoks) + pad), self.n_ctx),
-                                        n_past=len(ptoks))
+                                        n_past=len(ptoks), base=(row_k, row_v))
         else:
             pad = min(_bucket(len(prompt)), self.n_ctx)
             toks = np.zeros((1, pad), np.int64)
@@ -659,7 +822,7 @@ class BatchEngine:
 
     def _reap_cancelled(self) -> None:
         for s in self.slots:
-            if s.req is not None and s.req.cancelled:
+            if s.req is not None and self._is_cancelled(s.req):
                 s.req.out.put(None)
                 s.req = None
                 s.sampler = None
@@ -669,12 +832,12 @@ class BatchEngine:
     def _emit(self, slot: _Slot, row_logits: np.ndarray):
         """Sample one token for the slot on the host; finish it where due."""
         req = slot.req
-        if req.cancelled:
+        if self._is_cancelled(req):
             req.out.put(None)
             slot.req = None
             slot.sampler = None
             return
-        tok = slot.sampler.sample(row_logits, slot.last_tokens)
+        tok = self._draw(slot, row_logits)
         done = False
         if tok == TOKEN_EOS:
             done = True
@@ -882,11 +1045,20 @@ class BatchEngine:
         start += len(self._inflight) * self.chunk * (k + 1)
         window = min(_bucket(start - 1 + self.chunk * (k + 1) + 1), self.n_ctx)
         sv = self._make_sv() if self.per_request_sampling else None
-        (self._hist, self._n_hist, self._key, self._done, _eosed, emit_toks,
-         emit_ns) = self.ctx.spec_chunk(
-            self._hist, self._n_hist, self._key, self._done, sv, k=k, n_steps=self.chunk,
-            ds=self.device_sampling, kv_window=window, max_ngram=self.spec.max_ngram,
-            min_ngram=self.spec.min_ngram, eos=TOKEN_EOS, ignore_eos=False)
+        static = dict(k=k, n_steps=self.chunk, ds=self.device_sampling, kv_window=window,
+                      max_ngram=self.spec.max_ngram, min_ngram=self.spec.min_ngram,
+                      eos=TOKEN_EOS, ignore_eos=False)
+        if self.forward_fn is not None:
+            from .device_spec import spec_chunk
+
+            (self._hist, self._n_hist, _, _, self._key, self._done, _eosed, emit_toks,
+             emit_ns) = spec_chunk(self.cfg, self.params, self._hist, self._n_hist,
+                                   self.cache_k, self.cache_v, self._key, self._done, sv,
+                                   forward_fn=self.forward_fn, **static)
+        else:
+            (self._hist, self._n_hist, self._key, self._done, _eosed, emit_toks,
+             emit_ns) = self.ctx.spec_chunk(self._hist, self._n_hist, self._key, self._done,
+                                            sv, **static)
         self.n_ticks += 1
         self._inflight.append({
             "kind": "spec",
@@ -998,16 +1170,22 @@ class BatchEngine:
                 pass
 
     def _run_loop(self):
-        while not self._stop.is_set():
+        while True:
             self._drain_inbox(block=(self.n_active == 0 and not self._pending
                                      and not self._inflight))
-            if self._stop.is_set():
+            self._held = []
+            if self._sharded is not None:
+                if self._agree():
+                    self._pending += self._held
+                    break
+            elif self._stop.is_set():
                 break
             if self._pending and any(s.free for s in self.slots):
                 # an admission writes the caches: drain the pipeline first
                 self._flush_inflight()
                 self._admit()
                 self._flush_inflight()  # resync _sched_n_past after it
+            self._pending += self._held
             self._reap_cancelled()
             if self._prefill_state is not None:
                 # one chunk a loop; ticks go on in between (the chunk writes a

@@ -359,13 +359,39 @@ class Context(_Captures):
 
     def __init__(self, cfg: ModelConfig, params: TransformerParams, *,
                  batch: int = 1, n_ctx: int | None = None,
-                 cache_dtype=torch.bfloat16, device=None, views=None):
+                 cache_dtype=torch.bfloat16, device=None, views=None, mesh=None):
         """device defaults to cuda and raises without CUDA unless "cpu" is
         asked for; params must already lie on it (models.loading).  views:
         the (decode, prefill) params views when the caller has made them
-        already (the serving engine); params is then not read."""
-        self.device = resolve_device(device)
+        already (the serving engine); params is then not read.
+
+        mesh (parallel.make_mesh, over a torch.distributed world): a session
+        across ranks, each rank a process that makes this Context with the
+        same arguments and makes the same calls.  The params shard over tp
+        (parallel/tp.py ``prepare_tp_params``) when tp > 1 and are
+        replicated otherwise, in one raw view (no f16 cast, no zero fold);
+        each rank's device is the mesh's.  The KV cache shards per
+        ``parallel.shard.cache_spec``: the batch over dp, the context over
+        sp (the context then grows with the ranks), the heads over tp.  A
+        whole-prompt prefill on an sp mesh rides ring attention, each sp
+        rank running its T/sp tokens through the layers; a decode step
+        attends on each rank to the slots it holds and merges the partials
+        (parallel/tp.py ``mesh_forward``).  A mesh step runs eagerly, not as
+        a captured graph: gloo's collectives are host calls.  decode_chunk,
+        verify, spec_chunk and draft_spec_chunk are not carried over a mesh
+        and raise."""
+        self.mesh = mesh
         self.cfg = cfg
+        if mesh is not None:
+            from ..parallel.shard import replicate
+            from ..parallel.tp import prepare_tp_params
+
+            self.device = mesh.device
+            params = (prepare_tp_params(params, mesh, cfg) if mesh.shape["tp"] > 1
+                      else replicate(params, mesh))
+            views = (params, params)
+        else:
+            self.device = resolve_device(device)
         if views is None:
             # cast before the fold, so that both views share the cast planes
             # and the folded bias takes their dtype (JAX context.py)
@@ -376,8 +402,13 @@ class Context(_Captures):
         self.batch = batch
         # captured by address in every graph: written in place, never
         # reassigned
-        self.cache_k, self.cache_v = init_cache(cfg, batch, self.n_ctx,
-                                                cache_dtype, self.device)
+        if mesh is not None:
+            from ..parallel.shard import local_cache
+
+            self.cache_k, self.cache_v = local_cache(cfg, batch, self.n_ctx, cache_dtype, mesh)
+        else:
+            self.cache_k, self.cache_v = init_cache(cfg, batch, self.n_ctx,
+                                                    cache_dtype, self.device)
         self.n_past = 0
         self.timings = Timings()
         self._logits = None
@@ -419,6 +450,8 @@ class Context(_Captures):
         every graph shares one memory pool, so callers copy them to the host
         before the next replay (each public method does)."""
         self.last_call = call
+        if self.mesh is not None:
+            return self._mesh_step(call)
         st = self._steps.get(call.key)
         if st is None:
             st = self._steps[call.key] = _Step(call, self.device)
@@ -445,6 +478,27 @@ class Context(_Captures):
                           attention_fn=call.attention_fn)
 
     @torch.no_grad()
+    def _mesh_step(self, call: StepCall):
+        """A step over the mesh, eagerly (parallel/tp.py mesh_forward)."""
+        from ..parallel.tp import mesh_forward
+
+        x = torch.from_numpy(np.ascontiguousarray(call.x)).to(self.device)
+        n_past = (call.n_past if np.ndim(call.n_past) == 0
+                  else torch.from_numpy(np.asarray(call.n_past, np.int64)).to(self.device))
+        kw = dict(dp_rows=True, sp_cache=self.mesh.shape["sp"] > 1)
+        if call.kind == "embed":
+            return mesh_forward(self.cfg, call.params, x, n_past, self.cache_k, self.cache_v,
+                                self.mesh, with_embedding=True, **kw)
+        return mesh_forward(self.cfg, call.params, x, n_past, self.cache_k, self.cache_v,
+                            self.mesh, last_only=call.last_only, kv_window=call.kv_window,
+                            last_index=call.last_index, attention_fn=call.attention_fn, **kw)
+
+    def _no_mesh(self, method: str) -> None:
+        if self.mesh is not None:
+            raise NotImplementedError(f"Context.{method} over a mesh ({self.mesh.shape}) is "
+                                      "not ported: it runs on a single-device Context")
+
+    @torch.no_grad()
     def decode_chunk(self, tok, n_past, key, *, n_steps: int,
                      ds: "device_sample.DeviceSampling", kv_window: int | None = None,
                      recent=None, mu=None, sv=None, to_host: bool = True):
@@ -462,6 +516,7 @@ class Context(_Captures):
         first call of a key runs its first step eagerly, then captures), and
         the tokens are copied to the host once.  On the CPU it is the eager
         loop."""
+        self._no_mesh("decode_chunk")
         carry = device_sample.chunk_carry(tok, n_past, key, recent, mu, ds, sv)
         if carry[1].dim() == 0 and int(n_past) + n_steps > self.n_ctx:
             raise ValueError("context overflow")
@@ -520,6 +575,7 @@ class Context(_Captures):
         On the card one graph per key (T, kv_window, ds, the window's
         width), replayed with the tokens, n_past, key and window as static
         inputs; the ids are the call's one copy to the host."""
+        self._no_mesh("verify")
         from .speculative import verify_step
 
         x = torch.from_numpy(np.atleast_2d(np.asarray(tokens, dtype=np.int64))).to(self.device)
@@ -575,6 +631,7 @@ class Context(_Captures):
         by the verify's T and kv_window, n_steps, the sampling and the
         lookup's settings, replayed n_steps times over static carry tensors;
         the caches are written in place.  On the CPU it is the eager loop."""
+        self._no_mesh("spec_chunk")
         from . import device_spec
 
         static = dict(k=k, ds=ds, kv_window=kv_window, max_ngram=max_ngram,
@@ -614,6 +671,7 @@ class Context(_Captures):
         and the target's verify) is one graph in this Context's pool over
         both Contexts' caches, keyed as spec_chunk's and by the draft
         Context, replayed n_steps times."""
+        self._no_mesh("draft_spec_chunk")
         from . import device_spec
 
         static = dict(k=k, ds=ds, kv_window=kv_window, eos=eos, ignore_eos=ignore_eos)
@@ -667,7 +725,12 @@ class Context(_Captures):
         bt = padded.shape[1]
         t0 = time.perf_counter()
         attn_fn = None
-        if (self.n_past == 0 and t > 1
+        sp = self.mesh.shape["sp"] if self.mesh is not None else 1
+        if sp > 1 and self.n_past == 0 and t > 1 and bt % sp == 0:
+            from ..parallel.ring_attention import ring_prefill_fn
+
+            attn_fn = ring_prefill_fn(self.mesh)
+        elif (self.n_past == 0 and t > 1
                 and use_flash_prefill(bt, self.cfg.head_dim, self.device)):
             attn_fn = flash_prefill
         slice_last = not logits_all and bt != t

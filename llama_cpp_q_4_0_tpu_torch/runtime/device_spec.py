@@ -141,18 +141,26 @@ def _advance(hist, m, key, done, eosed, emit, emit_n, hit, *, h: int, k: int):
     return (hist, m, key, done, eosed), (emit, emit_n)
 
 
+def _default_forward(cfg, params, toks, n_past, ck, cv, *, last_only, kv_window):
+    return transformer.forward(cfg, params, toks, n_past, ck, cv, last_only=last_only,
+                               kv_window=kv_window)
+
+
 def spec_round(cfg, params, state, cache_k, cache_v, sv=None, *, h: int, k: int,
                ds: DeviceSampling, kv_window: int, max_ngram: int, min_ngram: int,
-               eos: int, ignore_eos: bool):
+               eos: int, ignore_eos: bool, forward_fn=None):
     """One draft-verify round (the JAX ``spec_chunk``'s scan body).  state:
     (hist [B, H + k + 1] (pad_hist), m [B] valid lengths, key, done [B],
-    eosed [B]); the caches are written in place.  Returns the next state
-    and (emit [B, k+1], emit_n [B])."""
+    eosed [B]); the caches are written in place.  forward_fn: the verify's
+    forward, with transformer.forward's arguments (cfg, params, tokens,
+    n_past, cache_k, cache_v, last_only=, kv_window=), as the JAX one's; e.g.
+    parallel.tp.spec_forward(mesh).  Returns the next state and (emit [B,
+    k+1], emit_n [B])."""
     hist, m, key, done, eosed = state
     buf = hist[:, :h]
     toks, drafts = _verify_tokens(buf, m, k=k, max_ngram=max_ngram, min_ngram=min_ngram)
-    logits = transformer.forward(cfg, params, toks, m - 1, cache_k, cache_v,
-                                 last_only=False, kv_window=kv_window)
+    logits = (forward_fn or _default_forward)(cfg, params, toks, m - 1, cache_k, cache_v,
+                                              last_only=False, kv_window=kv_window)
     key, sub = split_key(key)
     ids = _verify_sample(logits, toks, sub, ds, _recent(cfg, buf, m, ds, sv), sv,
                          base_pos=m - 1)
@@ -164,11 +172,12 @@ def spec_round(cfg, params, state, cache_k, cache_v, sv=None, *, h: int, k: int,
 @torch.no_grad()
 def spec_chunk(cfg, params, hist, n_hist, cache_k, cache_v, key, done, sv=None, *, k: int,
                n_steps: int, ds: DeviceSampling, kv_window: int, max_ngram: int,
-               min_ngram: int, eos: int, ignore_eos: bool):
+               min_ngram: int, eos: int, ignore_eos: bool, forward_fn=None):
     """n_steps draft-verify rounds, eagerly (the JAX ``spec_chunk``; on the
     card ``Context.spec_chunk`` replays the round as a graph).  hist [B, H]
     token histories (prompt and output; the last token is not yet in the KV
-    cache), n_hist [B] their lengths, done [B] frozen rows.  Returns (hist,
+    cache), n_hist [B] their lengths, done [B] frozen rows.  forward_fn: the
+    verify's forward (spec_round's; default transformer.forward).  Returns (hist,
     n_hist, cache_k, cache_v, key, done, eosed, emit_toks [n_steps, B, k+1],
     emit_ns [n_steps, B]); eosed tells an EOS freeze from a context-capacity
     one (after which the host may swap the context and go on)."""
@@ -179,7 +188,8 @@ def spec_chunk(cfg, params, hist, n_hist, cache_k, cache_v, key, done, sv=None, 
     for _ in range(n_steps):
         state, (emit, emit_n) = spec_round(
             cfg, params, state, cache_k, cache_v, sv, h=h, k=k, ds=ds, kv_window=kv_window,
-            max_ngram=max_ngram, min_ngram=min_ngram, eos=eos, ignore_eos=ignore_eos)
+            max_ngram=max_ngram, min_ngram=min_ngram, eos=eos, ignore_eos=ignore_eos,
+            forward_fn=forward_fn)
         emits.append(emit)
         ns.append(emit_n)
     hist_p, m, key, done, eosed = state

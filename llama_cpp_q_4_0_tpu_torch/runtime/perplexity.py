@@ -150,6 +150,7 @@ def perplexity_ondevice(
     caches of its own, of the Context's cache dtype (q8 and f8 included), so
     that the quality of each cache type is measurable; n_batch is ignored,
     as in JAX (the whole chunk is one forward)."""
+    ctx._no_mesh("perplexity_ondevice")
     tokens = np.asarray(tokens, dtype=np.int32)
     n_chunk = len(tokens) // n_ctx
     lo = min(512, n_ctx // 2)

@@ -62,6 +62,9 @@ def _rng_state_from_json(s: str):
 def _caches(ctx):
     if not hasattr(ctx, "cache_k"):
         raise TypeError("a recurrent (RWKV) context has no KV cache")
+    if getattr(ctx, "mesh", None) is not None:
+        raise NotImplementedError(f"session state over a mesh ({ctx.mesh.shape}) is not "
+                                  "ported: each rank holds a slice of the cache")
     return ctx.cache_k, ctx.cache_v
 
 
@@ -75,6 +78,7 @@ def get_state(ctx) -> dict:
     scales verbatim; an RWKV context's state as its ``s_`` arrays."""
     state = {"n_past": ctx.n_past}
     if hasattr(ctx, "cache_k"):
+        _caches(ctx)  # refuses a mesh's slices
         for i, (k, v) in enumerate(zip(ctx.cache_k, ctx.cache_v)):
             for name, c in ((f"k{i}", k), (f"v{i}", v)):
                 if isinstance(c, QuantKV):

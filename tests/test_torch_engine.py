@@ -436,7 +436,8 @@ def test_device_is_required_unless_cpu(model):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             tbe.BatchEngine(tcfg, tp, n_slots=2, n_ctx=64)
-    with pytest.raises(NotImplementedError):
+    # a sharded engine takes a parallel.mesh.Mesh (tests/test_torch_tp.py)
+    with pytest.raises(TypeError):
         tbe.BatchEngine(tcfg, tp, n_slots=2, n_ctx=64, device="cpu", mesh=object())
 
 
@@ -492,20 +493,64 @@ def test_device_ticks_per_request_sampling(model, kw):
 
 def test_mirostat_request_rides_chunked_ticks(model):
     """A mirostat request in a speculative engine takes chunked ticks; a
-    greedy neighbour still gives JAX's tokens."""
+    greedy neighbour still gives JAX's tokens.  The mode read at the end
+    is chunked only if both requests end in the same tick, so both are
+    submitted before the engine starts (admitted together: submitted after
+    it, the first could be admitted a tick ahead under load) and the mirostat
+    request draws from a fixed seed (an unseeded one sometimes drew EOS
+    early, which left the greedy one to speculative ticks)."""
+    reqs = {}
+
+    def before(side, eng):
+        reqs[side.jax] = [
+            eng.submit(side.req([3, 5, 7, 11], 8, side.sp(temp=0.9, mirostat=2,
+                                                          mirostat_tau=4.0,
+                                                          mirostat_eta=0.2), seed=1)),
+            eng.submit(side.req([13, 17, 19], 8))]
+
     def scenario(side, eng):
-        r1 = eng.submit(side.req([3, 5, 7, 11], 8, side.sp(temp=0.9, mirostat=2,
-                                                           mirostat_tau=4.0,
-                                                           mirostat_eta=0.2)))
-        r2 = eng.submit(side.req([13, 17, 19], 8))
-        out = [drain(r1), drain(r2)]
+        out = [drain(r) for r in reqs[side.jax]]
         assert eng.stats()["mode"] == "chunked"
         return out
 
-    kw = dict(n_slots=2, chunk=3, spec_draft=3, per_request_sampling=True, ds=dict(temp=-1.0))
+    kw = dict(n_slots=2, chunk=3, spec_draft=3, per_request_sampling=True, ds=dict(temp=-1.0),
+              before_start=before)
     want, _, _ = run(JAX, model, scenario, **kw)
     got, _, _ = run(PORT, model, scenario, **kw)
     assert got[1] == want[1]
+    assert len(got[0]) > 0 and all(0 <= t < 256 for t in got[0])
+
+
+def test_mirostat_request_admitted_while_running_takes_no_spec_tick(model):
+    """A mirostat request submitted to a running speculative engine: no tick
+    issued while it is active is speculative, some are chunked, and the
+    greedy neighbour still gives JAX's tokens.  Read at each issue, so it
+    holds whichever tick each request is admitted or ends in."""
+    issued = []
+
+    def watch(eng):
+        for kind in ("spec", "chunked"):
+            issue = getattr(eng, f"_issue_{kind}")
+
+            def wrapped(issue=issue, kind=kind):
+                issued.append((kind, eng._mirostat_active()))
+                return issue()
+
+            setattr(eng, f"_issue_{kind}", wrapped)
+
+    def scenario(side, eng):
+        r1 = eng.submit(side.req([3, 5, 7, 11], 8, side.sp(temp=0.9, mirostat=2,
+                                                           mirostat_tau=4.0,
+                                                           mirostat_eta=0.2), seed=1))
+        r2 = eng.submit(side.req([13, 17, 19], 8))
+        return [drain(r1), drain(r2)]
+
+    kw = dict(n_slots=2, chunk=3, spec_draft=3, per_request_sampling=True, ds=dict(temp=-1.0))
+    want, _, _ = run(JAX, model, scenario, **kw)
+    got, _, _ = run(PORT, model, scenario, setup=watch, **kw)
+    assert got[1] == want[1]
+    assert ("spec", True) not in issued, issued
+    assert ("chunked", True) in issued, issued
     assert len(got[0]) > 0 and all(0 <= t < 256 for t in got[0])
 
 
