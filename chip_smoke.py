@@ -244,7 +244,21 @@ Phases (each prints its own lines; any failure exits non-zero):
      its logit scale and their argmax to its tokens (or a near tie), every
      rank's logits equal bit for bit; BatchEngine(tp_mesh=tp 2) on the first
      2 layers, 4 greedy requests against single sessions, its launches
-     exact; the backend, the routes of the collectives and ms a token.
+     exact; the backend, the routes of the collectives and ms a token.  On
+     both meshes, on the first 2 layers (par_paths): generate_ondevice (32
+     greedy tokens in chunks of 8 after the job's prefill, 13 K2 a token a
+     rank), generate_ondevice_spec (a 256-token prompt of a 32-token
+     pattern from --seed, k = 4, 32 tokens, 13 K2 a verify round) and
+     generate_ondevice_spec_draft (a 1-layer draft on the mesh's device, 5
+     K2 a draft step), get_state -> set_state into a second mesh Context
+     (the next step bit for bit, the blob within PAR_GATE of the
+     single-device Context's), shift_kv_cache (n_keep 4, n_discard 200 at
+     n_past 300 of 512: across the sp blocks on sp2tp2) then 8 steps,
+     perplexity_ondevice over 2 chunks of 512 ids, and on sp2tp2
+     BatchEngine(mesh) with chunk=2, spec_draft=3 (4 requests of 100 + 16);
+     each held to the single-device Context on the same weights (tokens
+     equal or parted at a near tie), every rank's results equal, each
+     rank's launches exact; ms a token or a call.
   12. a JSON line of per-kernel numbers (launches: the e2e paths', the
      families', the session, spec, serve, rwkv and train phases'), then the contract line
      {"ok": true, "device": {...}}.
@@ -1535,10 +1549,16 @@ def int8_prefill_128(torch, cfg, params, ck, cv, counters=None):
           f"launches of one call {json.dumps(launched)}", flush=True)
 
 
+# decode steps a trace profiles: the parse of a trace takes ~0.6 s a step of
+# ~2,700 kernels on the card's host, and the kernels of a step repeat, so 2
+# steps give the per-step sums (8 cost ~45 s of the run)
+TRACE_STEPS = 2
+
+
 def trace_decode(torch, cfg, params, ck, cv, step_ms: float | None, label: str,
                  window: int = 256, n_past: int = 65):
-    """torch.profiler over 8 decode steps from slot n_past on at kv_window
-    window: the device-busy time per step (sum of kernel times) against the
+    """torch.profiler over TRACE_STEPS decode steps from slot n_past on at
+    kv_window window: the device-busy time per step (sum of kernel times) against the
     unprofiled step time (when step_ms is given), and the kernels that take
     it.  The device activity alone is recorded: the eager steps' host
     operators, which only the parse would read, took seconds a trace."""
@@ -1549,11 +1569,11 @@ def trace_decode(torch, cfg, params, ck, cv, step_ms: float | None, label: str,
     tok = torch.zeros((1, 1), dtype=torch.int64, device="cuda")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for i in range(8):
+        for i in range(TRACE_STEPS):
             transformer.forward(cfg, params, tok, n_past + i, ck, cv,
                                 last_only=True, kv_window=window)
         torch.cuda.synchronize()
-    rows = _kernel_rows(prof, 8)
+    rows = _kernel_rows(prof, TRACE_STEPS)
     if not rows:
         print("trace: the profiler recorded no kernel time (not measured)")
         return
@@ -1677,7 +1697,8 @@ def graph_instruments(torch, cfg, params, label, eager_prefill, eager_decode: di
               f"runs={[round(v, 3) for v in runs]} (eager median {eager_decode[window]:.3f})",
               flush=True)
         ctx.n_past = n_past
-        trace_replayed(torch, step, 8, med, f"{label} decode step (kv_window {window})")
+        trace_replayed(torch, step, TRACE_STEPS, med,
+                       f"{label} decode step (kv_window {window})")
     print(f"graphs: {label} {graph_summary(ctx)}", flush=True)
 
 
@@ -5187,7 +5208,7 @@ def rwkv_graph_run(torch, counters, card, cfg, params, label, n_prompt, n_decode
               f"replayed decode_ms_per_token median={med:.3f} min={min(dec):.3f} runs="
               f"{[round(v, 3) for v in dec]} (eager median {statistics.median(eager_dec):.3f}) "
               f"[{card}]", flush=True)
-        trace_replayed(torch, step, 8, med, f"{label} decode step")
+        trace_replayed(torch, step, TRACE_STEPS, med, f"{label} decode step")
         trace_replayed(torch, prefill_once, 1, statistics.median(runs),
                        f"{label} prefill-{n_prompt}")
     print(f"graphs: {label} {graph_summary(ctx)}", flush=True)
@@ -6669,6 +6690,338 @@ def par_engine_want(n_layer: int, ticks: int) -> dict:
     return {"qmm_q4_0": n, "qmm_q4_0_kfold": n * ticks}
 
 
+# the rest of the sharded serving path, on the first PAR_ENGINE_LAYERS blocks
+# of the same weights, on tp2 and sp2tp2: generate_ondevice (PAR_GEN tokens
+# in chunks of PAR_CHUNK after the job's prefill), generate_ondevice_spec
+# (PAR_SPEC_PROMPT tokens of a PAR_PATTERN-token pattern, k = PAR_K, PAR_GEN
+# tokens, PAR_ROUNDS rounds a chunk), generate_ondevice_spec_draft (a
+# 1-layer draft on the mesh's device), the state blob into a second mesh
+# Context, the shift (PAR_SHIFT_PROMPT tokens in a PAR_SHIFT_CTX context,
+# n_keep and n_discard PAR_SHIFT: n_keep + n_discard in sp rank 0's block,
+# n_past in rank 1's), perplexity_ondevice over PAR_PPL_CHUNKS chunks of
+# PAR_PPL_CTX ids and, on sp2tp2, BatchEngine(mesh) with speculative ticks
+PAR_GEN, PAR_CHUNK, PAR_K, PAR_ROUNDS = 32, 8, 4, 4
+PAR_SPEC_PROMPT, PAR_PATTERN = 256, 32
+PAR_SHIFT_CTX, PAR_SHIFT_PROMPT, PAR_SHIFT, PAR_SHIFT_STEPS = 512, 300, (4, 200), 8
+PAR_PPL_CTX, PAR_PPL_CHUNKS = 512, 2
+PAR_ENGINE_CHUNK, PAR_ENGINE_DRAFT = 2, 3
+
+
+def par_paths_want(job: str, rounds: dict, engine: dict | None = None) -> dict:
+    """A rank's launches on each path of par_paths at PAR_ENGINE_LAYERS
+    layers: a chunk token or a verify round (T = k + 1 rows) is 6 K2 a layer
+    and the head's, 13 at 2 layers; the draft's steps take the single-device
+    1-layer model's 4 fused matmuls and the head (5 K2 a step, k + 1 steps a
+    round) and its prefill 4 K1 + 1 K2 + 1 K3; a perplexity chunk keeps
+    every row (13 K1, and K3 a layer at tp 2: the ring is plain torch).
+    rounds: the spec and draft runs' rounds; engine: its admissions and
+    verify rounds."""
+    n = PAR_ENGINE_LAYERS
+    step = 6 * n + 1
+
+    def add(*ds):
+        out = {}
+        for d in ds:
+            for k, v in d.items():
+                out[k] = out.get(k, 0) + v
+        return {k: v for k, v in out.items() if v}
+
+    pre = {"qmm_q4_0": 6 * n, "qmm_q4_0_kfold": 1, "flash_prefill": n if job == "tp2" else 0}
+    draft_pre = {"qmm_q4_0": 4, "qmm_q4_0_kfold": 1, "flash_prefill": 1}
+    ppl = {"qmm_q4_0": step, "flash_prefill": n if job == "tp2" else 0}
+    want = {
+        "ondevice": add(pre, {"qmm_q4_0_kfold": PAR_GEN * step}),
+        "spec": add(pre, {"qmm_q4_0_kfold": rounds["spec"] * step}),
+        "draft": add(pre, draft_pre,
+                     {"qmm_q4_0_kfold": rounds["draft"] * ((PAR_K + 1) * 5 + step)}),
+        "state": add(pre, {"qmm_q4_0_kfold": 2 * step}),
+        "shift": add(pre, {"qmm_q4_0_kfold": PAR_SHIFT_STEPS * step}),
+        "ppl": add(*[ppl] * PAR_PPL_CHUNKS)}
+    if engine is not None:
+        want["engine"] = add({"qmm_q4_0": (step - 1) * engine["admissions"],
+                              "qmm_q4_0_kfold": engine["admissions"] + step * engine["rounds"]})
+    return want
+
+
+def par_pattern(seed: int, n_vocab: int) -> list:
+    """The speculative paths' prompt: BOS and a PAR_PATTERN-token pattern
+    from seed, repeated to PAR_SPEC_PROMPT tokens."""
+    import numpy as np
+
+    pattern = np.random.default_rng(seed + 21).integers(3, n_vocab, PAR_PATTERN).tolist()
+    return ([1] + pattern * (PAR_SPEC_PROMPT // PAR_PATTERN + 1))[:PAR_SPEC_PROMPT]
+
+
+def par_ppl_ids(seed: int, n_vocab: int) -> list:
+    import numpy as np
+
+    return np.random.default_rng(seed + 22).integers(
+        3, n_vocab, PAR_PPL_CHUNKS * PAR_PPL_CTX).tolist()
+
+
+def par_paths_reference(torch, cfg, params, prompts: dict, seed: int) -> dict:
+    """The single-device Context's runs the sharded paths are held to, on
+    the same 2-layer weights (replayed graphs): each job's greedy tokens
+    with the logits of every step (generate_ondevice's, and the speculative
+    paths', which are exact for greedy), the state blob's first n_past
+    slots after each job's prefill, the shift's steps and perplexity."""
+    import numpy as np
+
+    from llama_cpp_q_4_0_tpu_torch.runtime import perplexity, session
+    from llama_cpp_q_4_0_tpu_torch.runtime.context import Context
+
+    ref = {"ondevice": {}, "state": {}}
+    for job, prompt in prompts.items():
+        ref["ondevice"][job] = par_reference(torch, cfg, params, prompt, PAR_GEN)
+        ctx = Context(cfg, params, n_ctx=2048, device="cuda")
+        ctx.eval([prompt])
+        blob = session.get_state(ctx)
+        ref["state"][job] = {k: np.asarray(v)[:, :len(prompt)] for k, v in blob.items()
+                             if k[0] in "kv"}
+        del ctx, blob
+    ref["spec"] = par_reference(torch, cfg, params, par_pattern(seed, cfg.n_vocab), PAR_GEN)
+    ctx = Context(cfg, params, n_ctx=PAR_SHIFT_CTX, device="cuda")
+    prompt = prompts["sp2tp2"][:PAR_SHIFT_PROMPT]
+    tok = int(np.argmax(ctx.eval([prompt])[0, -1]))
+    session.shift_kv_cache(ctx, *PAR_SHIFT)
+    toks, rows = [tok], []
+    for _ in range(PAR_SHIFT_STEPS):
+        rows.append(ctx.eval([[toks[-1]]])[0, -1])
+        toks.append(int(np.argmax(rows[-1])))
+    ref["shift"] = (toks[1:], np.stack(rows))
+    t0 = time.perf_counter()
+    res = perplexity.perplexity_ondevice(ctx, par_ppl_ids(seed, cfg.n_vocab), n_ctx=PAR_PPL_CTX)
+    ref["ppl"] = (res.ppl, res.chunk_ppls, (time.perf_counter() - t0) * 1e3 / PAR_PPL_CHUNKS)
+    del ctx
+    return ref
+
+
+def par_paths(torch, cfg, params, mesh, job: str, ref: dict, counters, out: str) -> dict:
+    """This rank's runs of the rest of the sharded serving path on the
+    job's mesh (the constants above), each between a reset and a read of
+    the launch counts: tokens, launches, ms, and the rows of the shift's
+    steps and (rank 0) the state blob's first slots as files under out."""
+    import hashlib
+
+    import numpy as np
+
+    from llama_cpp_q_4_0_tpu_torch.runtime import perplexity, session
+    from llama_cpp_q_4_0_tpu_torch.runtime.batch_engine import BatchEngine
+    from llama_cpp_q_4_0_tpu_torch.runtime.context import Context
+    from llama_cpp_q_4_0_tpu_torch.runtime.device_sample import (DeviceSampling,
+                                                                 generate_ondevice)
+    from llama_cpp_q_4_0_tpu_torch.runtime.device_spec import (generate_ondevice_spec,
+                                                               generate_ondevice_spec_draft)
+    from llama_cpp_q_4_0_tpu_torch.runtime.speculative import SpecParams, SpecStats
+
+    greedy = DeviceSampling(temp=-1.0)
+    prompt = ref[job]["prompt"]
+    res = {}
+
+    def run(name, fn):
+        torch.cuda.synchronize()
+        _zero(counters)
+        t0 = time.perf_counter()
+        got = fn()
+        torch.cuda.synchronize()
+        got["s"] = time.perf_counter() - t0
+        got["launches"] = {k: v for k, v in _read(counters).items() if v}
+        res[name] = got
+
+    def ondevice():
+        ctx = Context(cfg, params, n_ctx=2048, mesh=mesh)
+        toks = generate_ondevice(ctx, prompt, PAR_GEN, sampling=greedy, chunk=PAR_CHUNK,
+                                 eos_token=-1)
+        return {"tokens": toks, "prefill_ms": ctx.timings.t_prompt_ms,
+                "ms_token": ctx.timings.t_eval_ms / ctx.timings.n_eval}
+
+    def spec():
+        ctx = Context(cfg, params, n_ctx=2048, mesh=mesh)
+        stats = SpecStats()
+        toks = generate_ondevice_spec(ctx, ref["pattern"], PAR_GEN, sampling=greedy,
+                                      spec=SpecParams(n_draft=PAR_K), n_steps=PAR_ROUNDS,
+                                      ignore_eos=True, stats=stats)
+        return {"tokens": toks, "rounds": ctx.timings.n_eval,
+                "ms_token": ctx.timings.t_eval_ms / len(toks),
+                "tokens_a_verify": stats.tokens_per_step}
+
+    def draft():
+        ctx = Context(cfg, params, n_ctx=2048, mesh=mesh)
+        dctx = Context(*first_layers(cfg, params, 1), n_ctx=2048, device=mesh.device)
+        stats = SpecStats()
+        toks = generate_ondevice_spec_draft(ctx, dctx, ref["pattern"], PAR_GEN,
+                                            sampling=greedy, n_draft=PAR_K,
+                                            n_steps=PAR_ROUNDS, ignore_eos=True, stats=stats)
+        return {"tokens": toks, "rounds": ctx.timings.n_eval,
+                "ms_token": ctx.timings.t_eval_ms / len(toks),
+                "tokens_a_verify": stats.tokens_per_step}
+
+    def state():
+        a = Context(cfg, params, n_ctx=2048, mesh=mesh)
+        tok = int(np.argmax(a.eval([prompt])[0, -1]))
+        t0 = time.perf_counter()
+        blob = session.get_state(a)
+        t1 = time.perf_counter()
+        b = Context(cfg, params, n_ctx=2048, mesh=mesh)
+        at = [c.data_ptr() for c in (*b.cache_k, *b.cache_v)]
+        session.set_state(b, blob)
+        t2 = time.perf_counter()
+        sha = hashlib.sha256()
+        for k in sorted(blob):
+            sha.update(np.ascontiguousarray(blob[k]).tobytes())
+        if mesh.rank == 0:
+            np.savez(os.path.join(out, f"{job}-state.npz"),
+                     **{k: np.asarray(v)[:, :len(prompt)] for k, v in blob.items()
+                        if k[0] in "kv"})
+        same = bool(np.array_equal(a.eval([[tok]]), b.eval([[tok]])))
+        return {"next_equal": same, "in_place": at == [c.data_ptr() for c in
+                                                        (*b.cache_k, *b.cache_v)],
+                "sha": sha.hexdigest(), "get_ms": (t1 - t0) * 1e3, "set_ms": (t2 - t1) * 1e3,
+                "bytes": sum(np.asarray(v).nbytes for v in blob.values())}
+
+    def shift():
+        ctx = Context(cfg, params, n_ctx=PAR_SHIFT_CTX, mesh=mesh)
+        toks = [int(np.argmax(ctx.eval([ref["sp2tp2"]["prompt"][:PAR_SHIFT_PROMPT]])[0, -1]))]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        session.shift_kv_cache(ctx, *PAR_SHIFT)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        rows = []
+        for _ in range(PAR_SHIFT_STEPS):
+            rows.append(ctx.eval([[toks[-1]]])[0, -1])
+            toks.append(int(np.argmax(rows[-1])))
+        np.save(os.path.join(out, f"{job}-shift-{mesh.rank}.npy"), np.stack(rows))
+        return {"tokens": toks[1:], "shift_ms": ms}
+
+    def ppl():
+        ctx = Context(cfg, params, n_ctx=2048, mesh=mesh)
+        r = perplexity.perplexity_ondevice(ctx, ref["ppl_ids"], n_ctx=PAR_PPL_CTX)
+        return {"ppl": r.ppl, "chunk_ppls": r.chunk_ppls}
+
+    def engine():
+        eng = BatchEngine(cfg, params, n_slots=4, n_ctx=SERVE_CTX, mesh=mesh,
+                          chunk=PAR_ENGINE_CHUNK, spec_draft=PAR_ENGINE_DRAFT,
+                          device_sampling=greedy)
+        adm = []
+        real = eng._forward
+
+        def admit(*a, **kw):
+            adm.append(1)
+            return real(*a, **kw)
+
+        eng._forward = admit
+        outs, _ = serve_submit(eng, ref["engine"], PAR_ENGINE_N)
+        return {"tokens": outs, "ticks": eng.n_ticks, "admissions": len(adm),
+                "rounds": eng.n_ticks * PAR_ENGINE_CHUNK, "mode": eng._mode}
+
+    for name, fn in (("ondevice", ondevice), ("spec", spec), ("draft", draft),
+                     ("state", state), ("shift", shift), ("ppl", ppl)):
+        run(name, fn)
+    if job == "sp2tp2":
+        run("engine", engine)
+    return res
+
+
+def par_paths_check(job: str, ranks: list, ref: dict, eng_ref, out: str, card: str) -> bool:
+    """par_paths' results of every rank of the job's world against the
+    single-device runs (par_paths_reference) and one another: the same
+    tokens on every rank and the reference's, or parted at a near tie (the
+    reference's top-2 margin under PAR_GATE of its logit scale, serve_parting);
+    each rank's launches exactly par_paths_want's; the state blob within
+    PAR_GATE of the single-device blob and the next step bit for bit; the
+    shift's logits within PAR_GATE; ln ppl within PAR_GATE.  Prints a
+    parallel: line a path."""
+    import numpy as np
+
+    r0 = ranks[0]
+    rounds = {k: r0[k]["rounds"] for k in ("spec", "draft")}
+    want = par_paths_want(job, rounds, r0.get("engine"))
+    ok = True
+
+    def tokens(name, refs, limit, extra=""):
+        agree = all(r[name]["tokens"] == r0[name]["tokens"] for r in ranks)
+        outs = r0[name]["tokens"] if name == "engine" else [r0[name]["tokens"]]
+        same, near, bad, notes = serve_parting(refs, outs, limit)
+        launched = all(r[name]["launches"] == want[name] for r in ranks)
+        good = agree and bad == 0 and launched and all(
+            r[name].get("rounds") == r0[name].get("rounds") for r in ranks)
+        print(f"parallel: {job} {name}: ranks agree {agree}; against the single-device "
+              f"Context {same} equal, {near} near-tie partings, {bad} unexplained {notes}; "
+              f"launches a rank {json.dumps(r0[name]['launches'])} at every rank {launched} "
+              f"(want {json.dumps(want[name])}){extra}; {r0[name]['s']:.2f} s (ranks that "
+              f"share one card) {'ok' if good else 'MISMATCH'} [{card}]", flush=True)
+        return good
+
+    def limit(rows):
+        return PAR_GATE * float(np.abs(np.asarray(rows)).max())
+
+    toks, rows, ms_one = ref["ondevice"][job]
+    ok &= tokens("ondevice", [(toks, rows)], limit(rows),
+                 f"; {r0['ondevice']['ms_token']:.2f} ms a chunk token (chunks of {PAR_CHUNK}, "
+                 f"eager) against {ms_one:.2f} for the single-device Context's replayed steps; "
+                 f"prefill {r0['ondevice']['prefill_ms']:.1f} ms")
+    stoks, srows, _ = ref["spec"]
+    for name in ("spec", "draft"):
+        ok &= tokens(name, [(stoks, srows)], limit(srows),
+                     f"; {r0[name]['rounds']} rounds of k = {PAR_K}, "
+                     f"{r0[name]['tokens_a_verify']:.2f} tokens a verify, "
+                     f"{r0[name]['ms_token']:.2f} ms an emitted token"
+                     + (" (a 1-layer draft on the mesh's device)" if name == "draft" else ""))
+    st = [r["state"] for r in ranks]
+    blob = np.load(os.path.join(out, f"{job}-state.npz"))
+    gaps = {k: float(np.abs(blob[k] - v).max() / max(1e-30, np.abs(v).max()))
+            for k, v in ref["state"][job].items()}
+    good = (all(x["next_equal"] and x["in_place"] and x["sha"] == st[0]["sha"] for x in st)
+            and max(gaps.values()) <= PAR_GATE
+            and all(r["state"]["launches"] == want["state"] for r in ranks))
+    ok &= good
+    print(f"parallel: {job} state: get_state -> set_state into a second mesh Context, the next "
+          f"step's logits equal bit for bit {all(x['next_equal'] for x in st)}, written in "
+          f"place {all(x['in_place'] for x in st)}, the same blob on every rank "
+          f"{all(x['sha'] == st[0]['sha'] for x in st)}; largest gap from the single-device "
+          f"blob {max(gaps.values()):.3e} of its scale (gate {PAR_GATE}); launches a rank "
+          f"{json.dumps(st[0]['launches'])} (want {json.dumps(want['state'])}); get_state "
+          f"{st[0]['get_ms']:.1f} ms, set_state {st[0]['set_ms']:.1f} ms for "
+          f"{st[0]['bytes'] / 2**20:.1f} MiB {'ok' if good else 'MISMATCH'} [{card}]", flush=True)
+    stoks, srows = ref["shift"]
+    rows = [np.load(os.path.join(out, f"{job}-shift-{r}.npy")) for r in range(len(ranks))]
+    same_rows = all(np.array_equal(rows[0], x) for x in rows[1:])
+    part = next((i for i, (a, b) in enumerate(zip(r0["shift"]["tokens"], stoks)) if a != b),
+                len(stoks))
+    scale = np.abs(srows).max(axis=1)
+    gap = float((np.abs(rows[0][:part + 1] - srows[:part + 1]).max(axis=1)
+                 / scale[:part + 1]).max())
+    good_rows = same_rows and gap <= PAR_GATE
+    ok &= good_rows & tokens(
+        "shift", [(stoks, srows)], limit(srows),
+        f"; n_keep {PAR_SHIFT[0]}, n_discard {PAR_SHIFT[1]} at n_past {PAR_SHIFT_PROMPT} of "
+        f"{PAR_SHIFT_CTX}; ranks' logits equal bit for bit {same_rows}, largest logit gap "
+        f"{gap:.3e} of the scale up to the first parting (gate {PAR_GATE}); the shift "
+        f"{r0['shift']['shift_ms']:.1f} ms")
+    ppl, chunk_ppls, ms_one = ref["ppl"]
+    d = abs(math.log(r0["ppl"]["ppl"]) - math.log(ppl))
+    equal = all(r["ppl"]["ppl"] == r0["ppl"]["ppl"] for r in ranks)
+    good = (d <= PAR_GATE and equal
+            and all(r["ppl"]["launches"] == want["ppl"] for r in ranks))
+    ok &= good
+    print(f"parallel: {job} perplexity_ondevice, {PAR_PPL_CHUNKS} chunks of {PAR_PPL_CTX}: "
+          f"ppl {r0['ppl']['ppl']:.4f} against {ppl:.4f} on one device (|d ln ppl| {d:.3e}, "
+          f"gate {PAR_GATE}), every rank's equal {equal}; launches a rank "
+          f"{json.dumps(r0['ppl']['launches'])} (want {json.dumps(want['ppl'])}); "
+          f"{r0['ppl']['s'] * 1e3 / PAR_PPL_CHUNKS:.1f} ms a chunk (eager, ranks that share one "
+          f"card) against {ms_one:.1f} on one device {'ok' if good else 'MISMATCH'} [{card}]",
+          flush=True)
+    if "engine" in r0:
+        lim = PAR_GATE * max(float(np.abs(rr).max()) for _, rows_ in eng_ref for rr in rows_)
+        ok &= tokens("engine", eng_ref, lim,
+                     f"; BatchEngine(mesh) chunk={PAR_ENGINE_CHUNK}, spec_draft="
+                     f"{PAR_ENGINE_DRAFT}, 4 greedy requests of {PAR_ENGINE_PROMPT} + "
+                     f"{PAR_ENGINE_N}: {r0['engine']['ticks']} ticks ({r0['engine']['mode']}), "
+                     f"{r0['engine']['admissions']} admissions")
+    return ok
+
+
 def par_reference(torch, cfg, params, prompt, n_decode):
     """The single-device Context's greedy run (replayed graphs): the tokens,
     the prefill's and every decode step's last logits, and ms a token."""
@@ -6692,8 +7045,10 @@ def parallel_rank(torch, opts) -> int:
     """One rank of the world the parallel phase spawns (chip_smoke.py --rank
     R --world N --init URL --out DIR): joins the gloo group, builds the same
     seeded weights and runs each job of PAR_MESHES whose mesh holds it: the
-    Context fed the reference's tokens (and for tp2 the engine); writes its
-    logits, launches and times under DIR.  Any error exits non-zero."""
+    Context fed the reference's tokens, the rest of the serving path on the
+    first PAR_ENGINE_LAYERS layers (par_paths) and for tp2 the engine;
+    writes its logits, launches and times under DIR.  Any error exits
+    non-zero."""
     import numpy as np
     import torch.distributed as dist
 
@@ -6714,6 +7069,7 @@ def parallel_rank(torch, opts) -> int:
     try:
         with torch.no_grad():
             cfg, params = build_llama(n_layer=DEEP_LAYERS, device="cuda", seed=0)
+            cfg2, params2 = first_layers(cfg, params, PAR_ENGINE_LAYERS)
             for name, axes in PAR_MESHES.items():
                 mesh = make_mesh(**axes)
                 if mesh.coords is None:
@@ -6739,8 +7095,9 @@ def parallel_rank(torch, opts) -> int:
                 res["cache"] = list(ctx.cache_k[0].shape)
                 np.save(os.path.join(opts.out, f"{name}-{opts.rank}.npy"), np.stack(rows))
                 del ctx
+                res["paths"] = par_paths(torch, cfg2, params2, mesh, name, ref, counters,
+                                         opts.out)
                 if name == "tp2":
-                    cfg2, params2 = first_layers(cfg, params, PAR_ENGINE_LAYERS)
                     eng = BatchEngine(cfg2, params2, n_slots=4, n_ctx=SERVE_CTX, tp_mesh=mesh)
                     _zero(counters)
                     t0 = time.perf_counter()
@@ -6818,8 +7175,9 @@ def parallel_phase(torch, card: str, seed: int) -> bool:
     """The sharded serving path (parallel/) on the card: single-device
     references in this process, then one world of PAR_RANKS processes on
     cuda:0 under gloo running the tp 2 jobs (Context, BatchEngine(tp_mesh))
-    and the sp 2 x tp 2 Context (PAR_MESHES), every check in par_check and
-    the engine's against single sessions.  Fails if any rank fails."""
+    and the sp 2 x tp 2 Context (PAR_MESHES), with the rest of the path on
+    each (par_paths), every check in par_check, par_paths_check and the
+    engine's against single sessions.  Fails if any rank fails."""
     import numpy as np
 
     from llama_cpp_q_4_0_tpu_torch.kernels.build import BUILD_DIR
@@ -6839,6 +7197,10 @@ def parallel_phase(torch, card: str, seed: int) -> bool:
                for _ in range(4)]
     ref_json["engine"] = prompts
     eng_ref = serve_reference(cfg2, params2, prompts, PAR_ENGINE_N, torch.bfloat16)
+    ref_json["pattern"] = par_pattern(seed, cfg.n_vocab)
+    ref_json["ppl_ids"] = par_ppl_ids(seed, cfg.n_vocab)
+    paths_ref = par_paths_reference(torch, cfg2, params2,
+                                    {job: ref_json[job]["prompt"] for job in PAR_PREFILL}, seed)
     del params, params2
     torch.cuda.empty_cache()
     out = os.path.join(BUILD_DIR, "smoke-parallel")
@@ -6896,6 +7258,8 @@ def parallel_phase(torch, card: str, seed: int) -> bool:
                       f"{json.dumps(want)}, {ranks[0]['engine']['ticks']} ticks); "
                       f"{ranks[0]['engine']['s']:.2f} s (ranks that share one card) "
                       f"{'ok' if good else 'MISMATCH'} [{card}]", flush=True)
+            ok &= par_paths_check(job, [r["paths"] for r in ranks], paths_ref, eng_ref, out,
+                                  card)
         return ok
     finally:
         shutil.rmtree(out, ignore_errors=True)
@@ -6914,7 +7278,10 @@ def main(argv=None) -> int:
                     help="comma-separated subset of kernels,e2e,graphs,ondevice,session,spec,"
                          "serve,families,rwkv,"
                          "q8chaos,cli,qkk64,train,parallel,sass,k7k3,rwkvfaults,traceparse,"
-                         "k7repeat,int8prefill,planes,tiles,attn,gemv,busy,splits; the result "
+                         "k7repeat,int8prefill,planes,tiles,attn,gemv,busy,splits (parallel: "
+                         "the sharded serving path, Context(mesh) with its chunks, "
+                         "speculation, state, shift and perplexity, and the mesh engines, in "
+                         "one gloo world of 4 processes on the card); the result "
                          "lines print only for the default " + ",".join(FULL_RUN))
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the session, spec, serve and rwkv phases' token streams, "

@@ -77,7 +77,10 @@ def save_session_ggsn(path: str, ctx, tokens: list[int], hparams: dict,
 
     hparams: the model file's header dict (GGJTFile.hparams, LLaMA); the
     session's n_ctx field is ctx.n_ctx, so load the file into a context made
-    with the same -c."""
+    with the same -c.  Over a mesh every rank calls it (each layer is
+    gathered whole) and the primary rank writes the file."""
+    from ..runtime.session import _writes_files, whole_layer
+
     assert ctx.batch == 1, "GGSN sessions are single-stream"
     cfg = ctx.cfg
     missing = [f for f in HPARAM_FIELDS
@@ -97,6 +100,14 @@ def save_session_ggsn(path: str, ctx, tokens: list[int], hparams: dict,
               if ctx.logits is None
               else np.asarray(ctx.logits)[0, -1].astype(np.float32))
 
+    k = v = None
+    if ntok:
+        k = np.stack([_cache_rows(whole_layer(ctx, ctx.cache_k[l]), ntok)
+                      for l in range(L)])  # [L, ntok, E]
+        v = np.stack([_cache_rows(whole_layer(ctx, ctx.cache_v[l]), ntok).T
+                      for l in range(L)])  # [L, E, ntok]
+    if not _writes_files(ctx):
+        return
     with open(path, "wb") as f:
         f.write(struct.pack("<II", MAGIC, VERSION))
         f.write(pack_hparams(hparams, s, ftype))
@@ -111,10 +122,6 @@ def save_session_ggsn(path: str, ctx, tokens: list[int], hparams: dict,
         kv_bytes = 2 * L * s * e * elt + 2 * _MB
         f.write(struct.pack("<Qi", kv_bytes, ntok))
         if ntok:
-            k = np.stack([_cache_rows(ctx.cache_k[l], ntok)
-                          for l in range(L)])  # [L, ntok, E]
-            v = np.stack([_cache_rows(ctx.cache_v[l], ntok).T
-                          for l in range(L)])  # [L, E, ntok]
             f.write(k.astype(kv_dtype).tobytes())
             f.write(v.astype(kv_dtype).tobytes())
 
@@ -177,7 +184,20 @@ def load_session_ggsn(path: str, ctx) -> list[int]:
             k = k.astype(np.float32).reshape(L, ntok, e)
             v = v.astype(np.float32).reshape(L, e, ntok)
 
-    if ntok:
+    if ntok and getattr(ctx, "mesh", None) is not None:
+        # a mesh Context's ranks each write their slice of the whole layers
+        # (the slots past ntok zeroed: no step reads them before writing)
+        from ..runtime.session import set_state
+
+        whole = np.zeros((L, s, e), np.float32)
+        state = {"n_past": int(ntok)}
+        for name, rows in (("k", k), ("v", v.transpose(0, 2, 1))):
+            whole[:, :ntok] = rows
+            for l in range(L):
+                state[f"{name}{l}"] = whole[l].reshape(1, s, cfg.kv_heads,
+                                                       cfg.head_dim).copy()
+        set_state(ctx, state)
+    elif ntok:
         for l in range(L):
             _put(ctx.cache_k[l], k[l], cfg.kv_heads, cfg.head_dim)
             _put(ctx.cache_v[l], v[l].T, cfg.kv_heads, cfg.head_dim)

@@ -59,9 +59,13 @@ def is_primary() -> bool:
     return not dist.is_initialized() or dist.get_rank() == 0
 
 
-def sync_hosts(name: str = "barrier") -> None:
-    """A barrier over every rank (checkpoint writes wait on it).  name labels
-    the call, as the JAX one's; a single process returns at once."""
+def sync_hosts(name: str = "barrier", mesh: Mesh | None = None) -> None:
+    """A barrier over every rank (checkpoint writes wait on it), or over the
+    ranks of mesh (a session file its primary rank wrote).  name labels the
+    call, as the JAX one's; a single process returns at once."""
     del name
-    if dist.is_initialized() and dist.get_world_size() > 1:
+    if mesh is not None:
+        if mesh.size > 1:
+            dist.barrier(group=mesh.groups[None])
+    elif dist.is_initialized() and dist.get_world_size() > 1:
         dist.barrier()

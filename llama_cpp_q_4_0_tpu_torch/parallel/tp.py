@@ -24,10 +24,14 @@ rank's rows of the batch and the logits are gathered over dp; with
 ``sp_cache`` they hold its sp rank's block of context slots: the K/V insert
 writes only the slots this rank owns, and the attention of each rank over
 its own slots in the window merges across sp as ``ring_attention._merge``
-does.  A ring attention_fn (``ring_prefill_fn``) splits a whole-prompt
-prefill's tokens over sp; its K/V blocks travel only on the ring, and each
-rank writes the slots it owns of every block as the block passes.  ``tp_forward`` is the JAX function: tp alone,
-the caches whole over dp and sp.  The sharded step runs eagerly: gloo's
+does (the f16-table softmax of ``cfg.act_f16_table`` instead all-reduces
+each row's max over sp before its exps, ``_sp_table_attention``).  A ring
+attention_fn (``ring_prefill_fn``) splits a whole-prompt prefill's tokens
+over sp; its K/V blocks travel only on the ring, and each rank writes the
+slots it owns of every block as the block passes (under the f16 table the
+prompt stays whole and takes the two-pass form over the split cache).
+``tp_forward`` is the JAX function: tp alone, the caches whole over dp and
+sp.  The sharded step runs eagerly: gloo's
 collectives are host calls, which a CUDA graph cannot hold.
 """
 
@@ -39,17 +43,18 @@ import math
 import os
 
 import torch
+import torch.distributed as dist
 
 from ..models.config import ModelConfig
 from ..models.fuse import defuse_projections
 from ..models.transformer import (Block, TransformerParams, _act, _cache_insert,
                                   _cache_insert_rows, _device_int, _embed, _insert_slots,
-                                  _kv_view, _mm, _norm, _roundtrip, _row_slots)
+                                  _kv_view, _mm, _norm, _qkv, _roundtrip, _row_slots)
 from ..ops.kvcache import QuantKV, quantize_kv, raw, to_cache
 from ..ops.layers import attention, rope
 from ..ops.qmm import bf16_f32
 from ..ops.qtensor import QTensor
-from .mesh import Mesh, all_gather, axis_index, psum
+from .mesh import Mesh, all_gather, all_reduce, axis_index, psum
 from .ring_attention import RingPrefill, _finish, _merge, _partial, ring_self_attention
 from .shard import _put, block_dim, kv_sharded, put_weight, weight_specs
 
@@ -92,6 +97,18 @@ def param_specs(cfg: ModelConfig, params: TransformerParams,
         output=_wspec(params.output, "col"))
 
 
+def _split_groups(w: QTensor, g: int, cfg: ModelConfig) -> QTensor:
+    """An unpacked QTensor with groups of g rows (g divides its gsize): each
+    scale (and bias) row repeated gsize/g times, the levels as they are."""
+    if cfg.compute_dtype == "ref_int8":
+        raise ValueError(f"a {w.gsize}-group weight of K {w.shape[1]} does not split into "
+                         "whole groups over tp, which ref_int8's q8 activations need")
+    f = w.gsize // g
+    return dataclasses.replace(
+        w, gsize=g, gscale_t=w.gscale_t.repeat_interleave(f, 0),
+        gbias_t=None if w.gbias_t is None else w.gbias_t.repeat_interleave(f, 0))
+
+
 def prepare_tp_params(params: TransformerParams, mesh: Mesh,
                       cfg: ModelConfig) -> TransformerParams:
     """This rank's params for the tp forward.  Fused projections are split
@@ -99,7 +116,12 @@ def prepare_tp_params(params: TransformerParams, mesh: Mesh,
     Column weights keep their packing; a row weight is repacked per shard
     where K % tp == 0 and (K/tp/2) % gsize == 0 (each rank streams 4-bit
     levels of its own contiguous K range), and unpacked otherwise; MQA's KV
-    projections are replicated."""
+    projections are replicated.  An unpacked row shard of less than whole
+    groups (K/tp % gsize != 0, a narrow model over a wide tp, which JAX's
+    GSPMD splits anyway) takes groups of gcd(gsize, K/tp), each group's
+    scale repeated for its parts: the same dequantized values, so the same
+    products in bf16 or f32 compute (ref_int8's q8 activation groups would
+    change, and it refuses)."""
     tp = mesh.shape["tp"]
     kv_split = kv_sharded(cfg, tp)
     params = defuse_projections(cfg, params)
@@ -115,6 +137,8 @@ def prepare_tp_params(params: TransformerParams, mesh: Mesh,
                     gscale_t=_put(rs.gscale_t, mesh, _SHARD_MAJOR),
                     gbias_t=_put(rs.gbias_t, mesh, _SHARD_MAJOR))
             w = w.unpack()
+            if w.shape[1] % tp == 0 and kl % w.gsize:
+                w = _split_groups(w, math.gcd(w.gsize, kl), cfg)
         return put_weight(w, mesh, dim)
 
     return TransformerParams(
@@ -208,11 +232,42 @@ def _parts(c):
     return (c.data, c.scale) if isinstance(c, QuantKV) else (c, None)
 
 
+def _sp_table_attention(q, k, v, valid, scale: float, mesh: Mesh, scales=(None, None)):
+    """ggml's table softmax (ops/layers.py ``_softmax_ref_f16``) over a
+    context split across sp, on the exact f32 chain as the single-device
+    parity mode.  The table rounds s - max to f16 before its exp, so each
+    row needs its global max first, which a merge of streaming partials
+    cannot give: the max of each rank's slots is all-reduced (MAX) over sp,
+    each rank takes the table exps of its own slots, their sum is
+    all-reduced, and each rank's probabilities times its V are summed over
+    sp.  q [B, Tq, H, D]; k, v this rank's [B, Tk, H_kv, D] slots; valid
+    [B, Tq, Tk]; scales a QuantKV block's (k, v) scales [B, Tk, H_kv]."""
+    b, tq, h, d = q.shape
+    g = k.shape[2]
+    qg = q.float().reshape(b, tq, g, h // g, d)
+    s = torch.einsum("btgrd,bsgd->bgrts", qg, k.float()) * scale
+    ks, vs = scales
+    if ks is not None:
+        s = s * ks.permute(0, 2, 1)[:, :, None, None, :]
+    valid = valid[:, None, None]
+    s = s.masked_fill(~valid, float("-inf"))
+    m = (s.amax(dim=-1, keepdim=True) if s.shape[-1]
+         else torch.full((*s.shape[:-1], 1), float("-inf"), device=s.device))
+    m = all_reduce(m, mesh, "sp", dist.ReduceOp.MAX)
+    e = torch.exp((s - m).to(torch.float16).float()).to(torch.float16).float()
+    e = torch.where(valid, e, torch.zeros((), device=e.device))
+    probs = e / psum(e.sum(dim=-1, keepdim=True), mesh, "sp")
+    if vs is not None:
+        probs = probs * vs.permute(0, 2, 1)[:, :, None, None, :]
+    o = torch.einsum("bgrts,bsgd->btgrd", probs, v.float()).reshape(b, tq, h, d)
+    return psum(o, mesh, "sp")
+
+
 def _sp_attention(q, k_cache, v_cache, pos, start, t_all: int, w: int, mesh: Mesh,
-                  scale: float, low: bool):
+                  scale: float, low: bool, f16_table: bool = False):
     """Attention over a context split across sp: each rank over its own
     slots inside the window, the partials gathered and merged in rank
-    order."""
+    order (the f16-table softmax: ``_sp_table_attention``)."""
     s_l = k_cache.shape[1]
     lo = axis_index(mesh, "sp") * s_l
     wl = max(0, min(w - lo, s_l))
@@ -221,6 +276,8 @@ def _sp_attention(q, k_cache, v_cache, pos, start, t_all: int, w: int, mesh: Mes
     valid = ((kv_pos[None, None, :] < start[:, :, None] + t_all)
              & (kv_pos[None, None, :] <= pos[:, :, None]))
     (kd, ks), (vd, vs) = (_parts(_kv_view(c, wl)) for c in (k_cache, v_cache))
+    if f16_table:
+        return _sp_table_attention(q, kd, vd, valid, scale, mesh, scales=(ks, vs))
     part = _partial(q, kd, vd, valid, scale, scales=(ks, vs), rnd=bf16_f32 if low else None)
     m_all, l_all, o_all = (all_gather(x, mesh, "sp", tiled=False) for x in part)
     m, l, o = m_all[0], l_all[0], o_all[0]
@@ -264,6 +321,12 @@ def mesh_forward(cfg: ModelConfig, params: TransformerParams, tokens: torch.Tens
                 last_index = last_index.to(dev)[rows]
     b, t_all = tokens.shape[:2]
     ring = isinstance(attention_fn, RingPrefill) and mesh.shape[attention_fn.ring_axis] > 1
+    if ring and cfg.act_f16_table:
+        # the table softmax needs each row's global max before its exps,
+        # which the ring's streaming merge cannot give: the prompt stays
+        # whole on every rank and attends over the split cache in the
+        # two-pass form (_sp_table_attention)
+        ring, attention_fn = False, None
     if ring and not sp_cache:
         raise ValueError("a ring prefill needs a cache split over sp")
     t0, t = 0, t_all
@@ -289,8 +352,6 @@ def mesh_forward(cfg: ModelConfig, params: TransformerParams, tokens: torch.Tens
     c0 = cache_k[0]
     low = ((c0.data if isinstance(c0, QuantKV) else c0).dtype != torch.float32
            and os.environ.get("ATTN_MXU", "1") != "0")
-    if sp_cache and cfg.act_f16_table:
-        raise NotImplementedError("the f16-table softmax over a cache split across sp")
 
     if tokens.dim() == 3:  # raw input embeddings
         x = tokens.float()
@@ -307,9 +368,12 @@ def mesh_forward(cfg: ModelConfig, params: TransformerParams, tokens: torch.Tens
 
     for layer, blk in enumerate(params.blocks):
         h = _norm(cfg, x, blk.attn_norm_w, blk.attn_norm_b)
-        q = _mm(h, blk.wq, cfg, blk.bq).reshape(b, t, h_q, hd)
-        k = _mm(h, blk.wk, cfg, blk.bk).reshape(b, t, h_kv, hd)
-        v = _mm(h, blk.wv, cfg, blk.bv).reshape(b, t, h_kv, hd)
+        if blk.wqkv is not None:  # a replicated (tp 1) fused QKV, as the loader fuses it
+            q, k, v = _qkv(cfg, blk, h, b, t)
+        else:
+            q = _mm(h, blk.wq, cfg, blk.bq).reshape(b, t, h_q, hd)
+            k = _mm(h, blk.wk, cfg, blk.bk).reshape(b, t, h_kv, hd)
+            v = _mm(h, blk.wv, cfg, blk.bv).reshape(b, t, h_kv, hd)
         if cfg.n_rot > 0:
             q = rope(q, pos, cfg.n_rot, neox=cfg.rope_neox, base=cfg.rope_base)
             k = rope(k, pos, cfg.n_rot, neox=cfg.rope_neox, base=cfg.rope_base)
@@ -334,7 +398,7 @@ def mesh_forward(cfg: ModelConfig, params: TransformerParams, tokens: torch.Tens
                                  _roundtrip(cache_v[layer], v), scale)
             elif sp_cache:
                 a = _sp_attention(q, cache_k[layer], cache_v[layer], pos, start, t_all, w,
-                                  mesh, scale, low)
+                                  mesh, scale, low, cfg.act_f16_table)
             else:
                 a = attention(q, _kv_view(cache_k[layer], w), _kv_view(cache_v[layer], w),
                               pos, kv_mask, scale, ref_f16_softmax=cfg.act_f16_table)
@@ -344,7 +408,11 @@ def mesh_forward(cfg: ModelConfig, params: TransformerParams, tokens: torch.Tens
             attn_out = attn_out + blk.bo.float()
 
         def ffn(h_in):
-            if cfg.ffn_gated:
+            if cfg.ffn_gated and blk.w_gateup is not None:  # fused, tp 1
+                gu = _mm(h_in, blk.w_gateup, cfg)
+                f = gu.shape[-1] // 2
+                inner = _act(cfg, gu[..., :f]) * gu[..., f:]
+            elif cfg.ffn_gated:
                 inner = _act(cfg, _mm(h_in, blk.w_gate, cfg)) * _mm(h_in, blk.w_up, cfg)
             else:
                 inner = _act(cfg, _mm(h_in, blk.w_up, cfg, blk.b_up))

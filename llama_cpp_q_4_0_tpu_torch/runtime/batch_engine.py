@@ -29,7 +29,9 @@ rows.  ``ENGINE_TRACE=1`` prints each tick's issue and harvest times.
 A sharded engine (``mesh``, ``tp_mesh``: one process a rank, parallel/)
 runs every tick and admission eagerly through the sharded forward, on
 caches that hold this rank's slice; its ranks agree each loop on what to
-admit, stop and cancel, and emit rank 0's host draws.
+admit, stop and cancel, and emit rank 0's host draws.  A mesh engine takes a
+``forward_fn`` too, called as ``mesh_forward`` is; a ``tp_mesh`` engine
+refuses one, as the JAX engine does.
 """
 
 from __future__ import annotations
@@ -209,7 +211,12 @@ class BatchEngine:
         params, tokens, n_past, cache_k, cache_v, last_only=, kv_window=),
         run eagerly for every forward of the engine, the speculative verify
         included; admissions take each row's logits from its every position,
-        as the JAX engine does.
+        as the JAX engine does.  With a mesh it is called as
+        parallel/tp.py's ``mesh_forward`` is, on this rank's params and
+        caches: with the keywords mesh=, dp_rows= (True for the ticks, whose
+        caches hold this dp rank's slots; False for the admissions, whose
+        staging caches hold every row), sp_cache= and, for an admission
+        whose prompt rides the sp ring, attention_fn=.
 
         tp_mesh (parallel.make_mesh): every forward runs through
         parallel/tp.py's tp_forward (``spec_forward(tp_mesh)``) on the
@@ -232,6 +239,7 @@ class BatchEngine:
         sharded = mesh if mesh is not None else tp_mesh
         self.mesh = mesh
         self._admit_fwd = transformer.forward  # takes last_index
+        self._admit_every = None  # a custom forward's admissions (default self._fwd)
         if sharded is not None:
             from ..parallel.mesh import Mesh
             from ..parallel.shard import cache_spec, kv_sharded, replicate
@@ -239,8 +247,8 @@ class BatchEngine:
 
             if mesh is not None and tp_mesh is not None:
                 raise ValueError("pass mesh (the whole split) or tp_mesh (tp alone), not both")
-            if forward_fn is not None:
-                raise ValueError("a sharded engine runs its own forward: pass no forward_fn")
+            if tp_mesh is not None and forward_fn is not None:
+                raise ValueError("pass tp_mesh or forward_fn, not both")
             if not isinstance(sharded, Mesh):
                 raise TypeError(f"a mesh is a parallel.mesh.Mesh, not {type(sharded).__name__}")
             self.device = sharded.device
@@ -257,10 +265,19 @@ class BatchEngine:
                 params = (prepare_tp_params(params, mesh, cfg) if mesh.shape["tp"] > 1
                           else replicate(params, mesh))
                 sp_cache = mesh.shape["sp"] > 1
-                forward_fn = functools.partial(mesh_forward, mesh=mesh, dp_rows=True,
-                                               sp_cache=sp_cache)
-                self._admit_fwd = functools.partial(mesh_forward, mesh=mesh, dp_rows=False,
-                                                    sp_cache=sp_cache)
+                if forward_fn is None:
+                    forward_fn = functools.partial(mesh_forward, mesh=mesh, dp_rows=True,
+                                                   sp_cache=sp_cache)
+                    self._admit_fwd = functools.partial(mesh_forward, mesh=mesh,
+                                                        dp_rows=False, sp_cache=sp_cache)
+                else:
+                    # the caller's forward: every position's logits, as a
+                    # custom forward's admissions take them
+                    self._admit_every = functools.partial(forward_fn, mesh=mesh,
+                                                          dp_rows=False, sp_cache=sp_cache)
+                    forward_fn = functools.partial(forward_fn, mesh=mesh, dp_rows=True,
+                                                   sp_cache=sp_cache)
+                    self._admit_fwd = None
                 self._spec = cache_spec(cfg, mesh)
                 # admissions' staging and row caches: every row on every dp
                 # rank, the context and the heads split as the main caches
@@ -488,8 +505,8 @@ class BatchEngine:
         if self._admit_fwd is not None:
             return self._admit_fwd(self.cfg, params, self._host_ints(toks), n_past, ck, cv,
                                    last_index=last, **kw)[:, 0]
-        logits = self._fwd(self.cfg, params, self._host_ints(toks), n_past, ck, cv,
-                           last_only=False, **kw)
+        logits = (self._admit_every or self._fwd)(self.cfg, params, self._host_ints(toks),
+                                                  n_past, ck, cv, last_only=False, **kw)
         return logits.gather(1, last.reshape(-1, 1, 1).expand(-1, 1, logits.shape[2]))[:, 0]
 
     def _slot_prefill(self, slot: int, toks: np.ndarray, n_real: int, *, kv_window: int,

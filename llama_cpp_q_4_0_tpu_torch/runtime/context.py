@@ -38,10 +38,15 @@ The speculative steps are built the same way: ``verify`` (the JAX
 graph per key, and ``spec_chunk`` / ``draft_spec_chunk`` (the JAX
 ``device_spec`` scans) capture one draft-verify round and replay it n_steps
 times, the draft model's forwards and caches inside the target's graph.
+
+A Context over a mesh (``mesh=``) runs every one of these eagerly, each
+forward through ``parallel/tp.py::mesh_forward`` on this rank's shards:
+gloo's collectives are host calls, which a CUDA graph cannot hold.
 """
 
 from __future__ import annotations
 
+import functools
 import os
 import time
 from dataclasses import dataclass, field
@@ -377,9 +382,19 @@ class Context(_Captures):
         rank running its T/sp tokens through the layers; a decode step
         attends on each rank to the slots it holds and merges the partials
         (parallel/tp.py ``mesh_forward``).  A mesh step runs eagerly, not as
-        a captured graph: gloo's collectives are host calls.  decode_chunk,
-        verify, spec_chunk and draft_spec_chunk are not carried over a mesh
-        and raise."""
+        a captured graph: gloo's collectives are host calls.  Every method
+        runs over a mesh: eval, eval_embd and embed, and decode_chunk,
+        verify, spec_chunk and draft_spec_chunk as their eager loops with
+        ``mesh_forward`` as the forward (``_forward_fn``); the session
+        functions and perplexity_ondevice of runtime/ take a mesh Context
+        too.
+
+        Sampling over a mesh: every rank draws from the same key, and every
+        rank's logits are the same bits (the tp and dp all-gathers hand each
+        rank the same bytes, and the sp partials merge in rank order on
+        each), so every rank draws the same tokens, the same penalty window
+        and the same mirostat mu, at any temperature; nothing is
+        broadcast."""
         self.mesh = mesh
         self.cfg = cfg
         if mesh is not None:
@@ -493,10 +508,40 @@ class Context(_Captures):
                             self.mesh, last_only=call.last_only, kv_window=call.kv_window,
                             last_index=call.last_index, attention_fn=call.attention_fn, **kw)
 
-    def _no_mesh(self, method: str) -> None:
-        if self.mesh is not None:
-            raise NotImplementedError(f"Context.{method} over a mesh ({self.mesh.shape}) is "
-                                      "not ported: it runs on a single-device Context")
+    @property
+    def _eager(self) -> bool:
+        """Whether the loops run eagerly: on the CPU (which the caller asked
+        for) and over a mesh (gloo's collectives are host calls)."""
+        return self.device.type != "cuda" or self.mesh is not None
+
+    def _forward_fn(self):
+        """The forward of this Context's eager loops: ``mesh_forward`` on
+        this rank's params and caches over a mesh (the caches hold its dp
+        rows and its sp block of slots), None (transformer.forward)
+        without one."""
+        if self.mesh is None:
+            return None
+        from ..parallel.tp import mesh_forward
+
+        return functools.partial(mesh_forward, mesh=self.mesh, dp_rows=True,
+                                 sp_cache=self.mesh.shape["sp"] > 1)
+
+    def _draft_forward_fn(self, draft: "Context"):
+        """The draft's forward in draft_spec_chunk.  Over a mesh the draft
+        is a Context on the same mesh (its own sharded forward) or a
+        single-device Context on the mesh's device, which every rank runs
+        whole; any other placement is refused."""
+        if draft.mesh is None:
+            if self.mesh is not None and draft.device != self.device:
+                raise ValueError(f"the draft Context is on {draft.device}; a draft of a mesh "
+                                 f"Context runs on the mesh's device {self.device} or on the "
+                                 "mesh itself")
+            return None
+        if draft.mesh is not self.mesh:
+            raise ValueError(f"the draft Context is on the mesh {draft.mesh.shape}; the "
+                             f"target is on {None if self.mesh is None else self.mesh.shape}: "
+                             "a sharded draft must share the target's mesh")
+        return draft._forward_fn()
 
     @torch.no_grad()
     def decode_chunk(self, tok, n_past, key, *, n_steps: int,
@@ -514,19 +559,19 @@ class Context(_Captures):
 
         On the card the chunk is n_steps replays of one captured step (the
         first call of a key runs its first step eagerly, then captures), and
-        the tokens are copied to the host once.  On the CPU it is the eager
-        loop."""
-        self._no_mesh("decode_chunk")
+        the tokens are copied to the host once.  On the CPU and over a mesh
+        it is the eager loop."""
         carry = device_sample.chunk_carry(tok, n_past, key, recent, mu, ds, sv)
         if carry[1].dim() == 0 and int(n_past) + n_steps > self.n_ctx:
             raise ValueError("context overflow")
         t0 = time.perf_counter()
-        if self.device.type != "cuda":  # the caller asked for the CPU
+        if self._eager:
             tok, n_past, key, recent, mu = carry
             toks, _, _, key, recent, mu = device_sample.decode_chunk(
                 self.cfg, self.params, tok, n_past, self.cache_k, self.cache_v, key,
-                n_steps=n_steps, ds=ds, kv_window=kv_window, recent=recent, mu=mu, sv=sv)
-            out = (toks.numpy() if to_host else toks, key, recent, mu)
+                n_steps=n_steps, ds=ds, kv_window=kv_window, recent=recent, mu=mu, sv=sv,
+                forward_fn=self._forward_fn())
+            out = (toks.cpu().numpy() if to_host else toks, key, recent, mu)
         else:
             out = self._chunk(carry, sv, n_steps, ds, kv_window, to_host)
         self.timings.t_eval_ms += (time.perf_counter() - t0) * 1e3
@@ -574,8 +619,8 @@ class Context(_Captures):
 
         On the card one graph per key (T, kv_window, ds, the window's
         width), replayed with the tokens, n_past, key and window as static
-        inputs; the ids are the call's one copy to the host."""
-        self._no_mesh("verify")
+        inputs; the ids are the call's one copy to the host.  On the CPU
+        and over a mesh it runs eagerly."""
         from .speculative import verify_step
 
         x = torch.from_numpy(np.atleast_2d(np.asarray(tokens, dtype=np.int64))).to(self.device)
@@ -585,9 +630,10 @@ class Context(_Captures):
         if ds.penalized and recent is None:
             raise ValueError("ds has penalties: pass `recent` (make_recent)")
         t0 = time.perf_counter()
-        if self.device.type != "cuda":  # the caller asked for the CPU
+        if self._eager:
             ids, key = verify_step(self.cfg, self.params, x, n_past, self.cache_k, self.cache_v,
-                                   key, recent, ds=ds, kv_window=kv_window)
+                                   key, recent, ds=ds, kv_window=kv_window,
+                                   forward_fn=self._forward_fn())
         else:
             if recent is None:
                 recent = torch.zeros((b, 1), dtype=torch.int64, device=self.device)  # unused
@@ -630,17 +676,17 @@ class Context(_Captures):
         On the card a round is one graph (``device_spec.spec_round``), keyed
         by the verify's T and kv_window, n_steps, the sampling and the
         lookup's settings, replayed n_steps times over static carry tensors;
-        the caches are written in place.  On the CPU it is the eager loop."""
-        self._no_mesh("spec_chunk")
+        the caches are written in place.  On the CPU and over a mesh it is
+        the eager loop."""
         from . import device_spec
 
         static = dict(k=k, ds=ds, kv_window=kv_window, max_ngram=max_ngram,
                       min_ngram=min_ngram, eos=eos, ignore_eos=ignore_eos)
         t0 = time.perf_counter()
-        if self.device.type != "cuda":  # the caller asked for the CPU
+        if self._eager:
             hist, n_hist, _, _, key, done, eosed, toks, ns = device_spec.spec_chunk(
                 self.cfg, self.params, hist, n_hist, self.cache_k, self.cache_v, key, done,
-                sv, n_steps=n_steps, **static)
+                sv, n_steps=n_steps, forward_fn=self._forward_fn(), **static)
             out = (hist, n_hist, key, done, eosed, toks, ns)
         else:
             gkey = step_key("spec", k + 1, kv_window, False, False, None, "decode") + (
@@ -670,17 +716,22 @@ class Context(_Captures):
         On the card a round (``device_spec.draft_round``: k+1 draft forwards
         and the target's verify) is one graph in this Context's pool over
         both Contexts' caches, keyed as spec_chunk's and by the draft
-        Context, replayed n_steps times."""
-        self._no_mesh("draft_spec_chunk")
+        Context, replayed n_steps times.  On the CPU and over a mesh it is
+        the eager loop; a mesh Context's draft is a Context on the same
+        mesh or a single-device Context on the mesh's device, which every
+        rank runs whole (``_draft_forward_fn``)."""
         from . import device_spec
 
-        static = dict(k=k, ds=ds, kv_window=kv_window, eos=eos, ignore_eos=ignore_eos)
+        draft_fn = self._draft_forward_fn(draft)
+        static = dict(k=k, ds=ds, kv_window=kv_window, eos=eos, ignore_eos=ignore_eos,
+                      cap=min(self.n_ctx, draft.n_ctx))
         t0 = time.perf_counter()
-        if self.device.type != "cuda":  # the caller asked for the CPU
+        if self._eager:
             tok, n_past, _, _, _, _, key, done, recent, toks, ns = device_spec.draft_spec_chunk(
                 self.cfg, self.params, draft.cfg, draft.params, tok, n_past, self.cache_k,
                 self.cache_v, draft.cache_k, draft.cache_v, key, done, recent,
-                n_steps=n_steps, **static)
+                n_steps=n_steps, forward_fn=self._forward_fn(), draft_forward_fn=draft_fn,
+                **static)
             out = (tok, n_past, key, done, recent, toks, ns)
         else:
             b = tok.shape[0]

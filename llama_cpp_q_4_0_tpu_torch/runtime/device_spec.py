@@ -14,7 +14,8 @@ host sees the sampled ids once every ``n_steps`` rounds.
 as the reference of the graphs: on the card ``Context.spec_chunk`` and
 ``Context.draft_spec_chunk`` capture one round as one CUDA graph and replay
 it ``n_steps`` times, the caches written in place (never rebound), the carry
-in static tensors.
+in static tensors.  A Context over a mesh runs the eager loops, with its
+``mesh_forward`` as the forward (``forward_fn``, ``draft_forward_fn``).
 
 The history buffer of a chunk is [B, H + k + 1], H the caller's width: a
 frozen row's round writes its emitted tokens at columns H..H+k, which no
@@ -295,26 +296,34 @@ def generate_ondevice_spec_rwkv(ctx: RwkvContext, prompt_tokens: list[int], n_pr
 
 
 def draft_round(cfg_t, params_t, cfg_d, params_d, state, ck_t, cv_t, ck_d, cv_d, *,
-                k: int, ds: DeviceSampling, kv_window: int, eos: int, ignore_eos: bool):
+                k: int, ds: DeviceSampling, kv_window: int, eos: int, ignore_eos: bool,
+                cap: int | None = None, forward_fn=None, draft_forward_fn=None):
     """One draft-model round (the JAX ``draft_spec_chunk``'s scan body): k+1
     greedy T=1 steps of the draft model, then one T=k+1 verify of the
     target.  Both models insert at one shared frontier n_past.  state:
     (tok [B], n_past [B], key, done [B], recent [B, N]); every cache is
-    written in place.  Returns the next state and (emit, emit_n)."""
+    written in place.  cap: the slots both caches hold (default their
+    smaller dim 1; a cache split over sp holds a block of them).
+    forward_fn, draft_forward_fn: the target's and the draft's forwards,
+    with transformer.forward's arguments (default transformer.forward).
+    Returns the next state and (emit, emit_n)."""
     tok, n_p, key, done, rec = state
     greedy = DeviceSampling(temp=-1.0)
-    cap = min(ck_t[0].shape[1], ck_d[0].shape[1])
+    if cap is None:
+        cap = min(ck_t[0].shape[1], ck_d[0].shape[1])
+    fwd_t = forward_fn or transformer.forward
+    fwd_d = draft_forward_fn or transformer.forward
     dtok, np_, drafts = tok, n_p, []
     for _ in range(k + 1):
-        logits = transformer.forward(cfg_d, params_d, dtok[:, None], np_, ck_d, cv_d,
-                                     last_only=True, kv_window=kv_window)
+        logits = fwd_d(cfg_d, params_d, dtok[:, None], np_, ck_d, cv_d,
+                       last_only=True, kv_window=kv_window)
         dtok = _sample_logits(logits[:, -1], key, greedy)
         np_ = np_ + 1
         drafts.append(dtok)
     drafts = torch.stack(drafts[:k], dim=1)  # [B, k]
     toks = torch.cat([tok[:, None], drafts], dim=1)
-    logits = transformer.forward(cfg_t, params_t, toks, n_p, ck_t, cv_t, last_only=False,
-                                 kv_window=kv_window)
+    logits = fwd_t(cfg_t, params_t, toks, n_p, ck_t, cv_t, last_only=False,
+                   kv_window=kv_window)
     key, sub = split_key(key)
     ids = _verify_sample(logits, toks, sub, ds, rec)
     a, bonus, emit, emit_n, hit = _accept(ids, drafts, done, k=k, eos=eos,
@@ -333,21 +342,24 @@ def draft_round(cfg_t, params_t, cfg_d, params_d, state, ck_t, cv_t, ck_d, cv_d,
 @torch.no_grad()
 def draft_spec_chunk(cfg_t, params_t, cfg_d, params_d, tok, n_past, ck_t, cv_t, ck_d, cv_d,
                      key, done, recent, *, k: int, n_steps: int, ds: DeviceSampling,
-                     kv_window: int, eos: int, ignore_eos: bool):
+                     kv_window: int, eos: int, ignore_eos: bool, cap: int | None = None,
+                     forward_fn=None, draft_forward_fn=None):
     """n_steps draft-model rounds, eagerly (the JAX ``draft_spec_chunk``;
     on the card ``Context.draft_spec_chunk`` replays the round as a graph
     over both Contexts' caches).  tok, n_past, done: [B]; recent: [B, N]
     penalty window including tok (any [B, 1] when ds has no penalties).
     The k+1st draft step makes every proposed draft resident in the draft
-    cache on full acceptance (speculative.DraftModelDrafter).  Returns (tok,
-    n_past, ck_t, cv_t, ck_d, cv_d, key, done, recent, emit_toks [n_steps,
-    B, k+1], emit_ns [n_steps, B])."""
+    cache on full acceptance (speculative.DraftModelDrafter).  cap,
+    forward_fn, draft_forward_fn: draft_round's.  Returns (tok, n_past,
+    ck_t, cv_t, ck_d, cv_d, key, done, recent, emit_toks [n_steps, B, k+1],
+    emit_ns [n_steps, B])."""
     state = (tok, n_past.to(torch.int64), key, done, recent)
     emits, ns = [], []
     for _ in range(n_steps):
         state, (emit, emit_n) = draft_round(
             cfg_t, params_t, cfg_d, params_d, state, ck_t, cv_t, ck_d, cv_d, k=k, ds=ds,
-            kv_window=kv_window, eos=eos, ignore_eos=ignore_eos)
+            kv_window=kv_window, eos=eos, ignore_eos=ignore_eos, cap=cap,
+            forward_fn=forward_fn, draft_forward_fn=draft_forward_fn)
         emits.append(emit)
         ns.append(emit_n)
     tok, n_past, key, done, recent = state

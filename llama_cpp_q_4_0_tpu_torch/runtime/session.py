@@ -19,6 +19,17 @@ tensors (the QuantKV levels and scales included) and never rebind them.  An
 RwkvContext's state blob holds its five recurrent tensors (the ``s_`` keys)
 in place of the caches, restored into the state tensors in place; the KV
 shift and GGSN files are a transformer Context's only.
+
+A Context over a mesh keeps a slice of each cache on every rank
+(``parallel.shard.cache_spec``: rows over dp, context slots over sp, heads
+over tp).  Its blob is the layout-free one: ``get_state`` gathers the slices
+into the whole [B, S, H_kv, D] arrays on every rank (a collective: every
+rank of the mesh calls it), so a mesh Context's blob loads into a
+single-device Context and the reverse; ``set_state`` writes each rank's
+slice of a blob into its caches in place.  Only the primary rank writes a
+session file, and the mesh's ranks meet at a barrier before any of them
+reads one.  The shift gathers each layer over sp, shifts the whole context
+and keeps this rank's block, so slots move across the ranks' blocks.
 """
 
 from __future__ import annotations
@@ -62,10 +73,63 @@ def _rng_state_from_json(s: str):
 def _caches(ctx):
     if not hasattr(ctx, "cache_k"):
         raise TypeError("a recurrent (RWKV) context has no KV cache")
-    if getattr(ctx, "mesh", None) is not None:
-        raise NotImplementedError(f"session state over a mesh ({ctx.mesh.shape}) is not "
-                                  "ported: each rank holds a slice of the cache")
     return ctx.cache_k, ctx.cache_v
+
+
+def _mesh(ctx):
+    return getattr(ctx, "mesh", None)
+
+
+def _gather(x: torch.Tensor, ctx, axes=("dp", "sp", "tp")) -> torch.Tensor:
+    """A cache tensor of a mesh Context ([B, S, H_kv, D] levels or values,
+    [B, S, H_kv] scales) gathered from every rank's slice along the named
+    axes of ``cache_spec``, in each axis's rank order."""
+    from ..parallel.mesh import all_gather
+    from ..parallel.shard import cache_spec
+
+    for dim, axis in enumerate(cache_spec(ctx.cfg, ctx.mesh)[:x.dim()]):
+        if axis in axes:
+            x = all_gather(x, ctx.mesh, axis, dim=dim)
+    return x
+
+
+def whole_layer(ctx, c, axes=("dp", "sp", "tp")):
+    """One cache layer whole, as the Context stores it (a QuantKV's levels
+    and scales, else the values in the cache's dtype): the layer itself
+    without a mesh; over a mesh every rank's slice gathered along axes (a
+    collective)."""
+    if _mesh(ctx) is None:
+        return c
+    if isinstance(c, QuantKV):
+        return QuantKV(_gather(c.data, ctx, axes), _gather(c.scale, ctx, axes))
+    return _gather(raw(c), ctx, axes).view(c.dtype)
+
+
+def _local(ctx, x: torch.Tensor) -> torch.Tensor:
+    """This rank's slice of a whole cache tensor (levels or values [B, S,
+    H_kv, D], scales [B, S, H_kv]): the tensor itself without a mesh."""
+    mesh = _mesh(ctx)
+    if mesh is None:
+        return x
+    from ..parallel.shard import cache_spec, local_slice
+
+    return local_slice(x, mesh, cache_spec(ctx.cfg, mesh)[:x.dim()])
+
+
+def _barrier(ctx) -> None:
+    """A mesh Context's ranks meet (a file one wrote is there for all)."""
+    if _mesh(ctx) is not None:
+        from ..parallel.distributed import sync_hosts
+
+        sync_hosts("session", mesh=ctx.mesh)
+
+
+def _writes_files(ctx) -> bool:
+    """Whether this process writes ctx's session files: every process for
+    a single-device Context, the primary rank for a mesh's."""
+    from ..parallel.distributed import is_primary
+
+    return _mesh(ctx) is None or is_primary()
 
 
 # ---------------------------------------------------------------- state blob
@@ -75,12 +139,14 @@ def get_state(ctx) -> dict:
     payload: the K/V caches, n_past and the last logits; the sampler's RNG
     is passed separately).  A float cache is stored as f32 (npz has neither
     bf16 nor e4m3; the upcast is exact), a QuantKV cache as its levels and
-    scales verbatim; an RWKV context's state as its ``s_`` arrays."""
+    scales verbatim; an RWKV context's state as its ``s_`` arrays.  A mesh
+    Context's caches are gathered whole (``whole_layer``), the same blob
+    on every rank."""
     state = {"n_past": ctx.n_past}
     if hasattr(ctx, "cache_k"):
-        _caches(ctx)  # refuses a mesh's slices
-        for i, (k, v) in enumerate(zip(ctx.cache_k, ctx.cache_v)):
+        for i, (k, v) in enumerate(zip(*_caches(ctx))):
             for name, c in ((f"k{i}", k), (f"v{i}", v)):
+                c = whole_layer(ctx, c)
                 if isinstance(c, QuantKV):
                     state[name] = c.data.cpu().numpy()
                     state[name + "_s"] = c.scale.cpu().numpy()
@@ -101,15 +167,25 @@ def _copy_in(dst: torch.Tensor, src: torch.Tensor, name: str) -> None:
     raw(dst).copy_(raw(src.to(dst.device)))
 
 
-def _restore(state: dict, name: str, cur) -> None:
+def _restore(ctx, state: dict, name: str, cur) -> None:
     """One cache layer from the state, written into cur in place: levels and
     scales as saved, an f32 array quantized into a QuantKV, a q8 one
-    dequantized into a float cache, as the JAX ``set_state`` converts."""
+    dequantized into a float cache, as the JAX ``set_state`` converts.  A
+    mesh Context's rank takes its slice of the whole arrays first (each
+    conversion acts on one slot and head at a time)."""
     arr = torch.from_numpy(np.array(state[name]))
     scale = state.get(name + "_s")
+    scale = None if scale is None else torch.from_numpy(np.asarray(scale, np.float32))
+    if _mesh(ctx) is not None:
+        whole = (ctx.batch, ctx.n_ctx, ctx.cfg.kv_heads, ctx.cfg.head_dim)
+        if tuple(arr.shape) != whole:
+            raise ValueError(f"state {name} has shape {tuple(arr.shape)}, the "
+                             f"context's whole cache {whole}")
+        arr = _local(ctx, arr)
+        scale = None if scale is None else _local(ctx, scale)
     if isinstance(cur, QuantKV):
         if scale is not None:
-            q, sc = arr.to(torch.int8), torch.from_numpy(np.asarray(scale, np.float32))
+            q, sc = arr.to(torch.int8), scale
         else:
             q, sc = quantize_kv(arr.float().to(cur.data.device))
         _copy_in(cur.data, q, name)
@@ -117,18 +193,18 @@ def _restore(state: dict, name: str, cur) -> None:
         return
     val = arr.float()
     if scale is not None:  # a q8 blob into a float cache: dequantize
-        val = val * torch.from_numpy(np.asarray(scale, np.float32))[..., None]
+        val = val * scale[..., None]
     _copy_in(cur, to_cache(val, cur.dtype), name)
 
 
 def set_state(ctx, state: dict) -> None:
     """Restore a get_state dict into ctx, writing into its caches (or its
-    recurrent state) in place."""
+    recurrent state) in place; a mesh Context's rank writes its slice."""
     if hasattr(ctx, "cache_k"):
         cache_k, cache_v = _caches(ctx)
         for i in range(len(cache_k)):
-            _restore(state, f"k{i}", cache_k[i])
-            _restore(state, f"v{i}", cache_v[i])
+            _restore(ctx, state, f"k{i}", cache_k[i])
+            _restore(ctx, state, f"v{i}", cache_v[i])
     else:
         ctx.set_state({k[2:]: v for k, v in state.items() if k.startswith("s_")})
     ctx.n_past = int(state["n_past"])
@@ -160,7 +236,9 @@ def save_session(path: str, ctx, tokens: list[int], *, rng=None,
 
     A path ending in .ggsn writes the reference's binary GGSN v1 format
     instead (formats/ggsn.py; needs the model file's hparams dict), which
-    the reference binary loads."""
+    the reference binary loads.  Over a mesh every rank calls it (the
+    state's gather is a collective), the primary rank writes the file, and
+    the ranks return together once it is written."""
     if path.endswith(".ggsn"):
         from ..formats.ggsn import save_session_ggsn
 
@@ -168,6 +246,7 @@ def save_session(path: str, ctx, tokens: list[int], *, rng=None,
             raise ValueError("GGSN save needs the model hparams "
                              "(GGJTFile.hparams)")
         save_session_ggsn(path, ctx, tokens, hparams, ftype)
+        _barrier(ctx)
         return
     meta = {
         "magic": SESSION_MAGIC,
@@ -175,18 +254,23 @@ def save_session(path: str, ctx, tokens: list[int], *, rng=None,
         "tokens": [int(t) for t in tokens],
         "has_rng": rng is not None,
     }
-    with zipfile.ZipFile(path, "w") as z:
-        z.writestr("meta.json", json.dumps(meta))
-        z.writestr("state.npz", state_to_bytes(get_state(ctx)))
-        if rng is not None:
-            z.writestr("rng.json", _rng_state_to_json(rng.bit_generator.state))
+    blob = state_to_bytes(get_state(ctx))
+    if _writes_files(ctx):
+        with zipfile.ZipFile(path, "w") as z:
+            z.writestr("meta.json", json.dumps(meta))
+            z.writestr("state.npz", blob)
+            if rng is not None:
+                z.writestr("rng.json", _rng_state_to_json(rng.bit_generator.state))
+    _barrier(ctx)
 
 
 def load_session(path: str, ctx, *, rng=None) -> list[int]:
     """Restores ctx state in place and returns the session's token list.
-    GGSN v1 files (the reference's, or a .ggsn save) are detected by magic."""
+    GGSN v1 files (the reference's, or a .ggsn save) are detected by magic.
+    Over a mesh every rank reads the file, after the ranks meet."""
     from ..formats.ggsn import is_ggsn, load_session_ggsn
 
+    _barrier(ctx)
     if is_ggsn(path):
         return load_session_ggsn(path, ctx)
     with zipfile.ZipFile(path) as z:
@@ -246,14 +330,30 @@ def shift_layer(cfg, k, v, n_keep: int, n_discard: int):
     return to_cache(kf, k.dtype), _take(v, src)
 
 
+def _own_block(ctx, c):
+    """This sp rank's block of context slots of a layer gathered over sp."""
+    if isinstance(c, QuantKV):
+        return QuantKV(_own_block(ctx, c.data), _own_block(ctx, c.scale))
+    s_l = c.shape[1] // ctx.mesh.shape["sp"]
+    return c.narrow(1, ctx.mesh.coords["sp"] * s_l, s_l)
+
+
 def shift_kv_cache(ctx, n_keep: int, n_discard: int) -> None:
     """Drop tokens [n_keep, n_keep + n_discard) from the cache; the positions
     of the surviving tokens are rewritten exactly.  Each layer is computed
-    into a temporary and copied back into the cache tensors in place."""
+    into a temporary and copied back into the cache tensors in place.  Over
+    a mesh whose sp splits the context, each layer is gathered over sp (a
+    collective), shifted whole and this rank's block kept."""
     assert n_keep + n_discard <= ctx.n_past
     cache_k, cache_v = _caches(ctx)
+    split = _mesh(ctx) is not None and ctx.mesh.shape["sp"] > 1
     for k, v in zip(cache_k, cache_v):
-        nk, nv = shift_layer(ctx.cfg, k, v, n_keep, n_discard)
+        if split:
+            nk, nv = shift_layer(ctx.cfg, whole_layer(ctx, k, ("sp",)),
+                                 whole_layer(ctx, v, ("sp",)), n_keep, n_discard)
+            nk, nv = _own_block(ctx, nk), _own_block(ctx, nv)
+        else:
+            nk, nv = shift_layer(ctx.cfg, k, v, n_keep, n_discard)
         for dst, new in ((k, nk), (v, nv)):
             if isinstance(dst, QuantKV):
                 dst.data.copy_(new.data)

@@ -166,13 +166,16 @@ def _verify_sample(logits, toks, sub, ds: DeviceSampling, rec, sv=None, base_pos
 
 
 def verify_step(cfg, params, tokens, n_past, cache_k, cache_v, key, recent, *,
-                ds: DeviceSampling, kv_window: int):
+                ds: DeviceSampling, kv_window: int, forward_fn=None):
     """The JAX ``_verify``: forward tokens [B, T] = [last, d_1..d_{T-1}] at
     n_past (writing the caches in place), sample every position on the
     device.  Returns (ids [B, T], the carried key).  ``Context.verify``
-    captures exactly this in its graph."""
-    logits = transformer.forward(cfg, params, tokens, n_past, cache_k, cache_v,
-                                 last_only=False, kv_window=kv_window)
+    captures exactly this in its graph.  forward_fn: the forward, with
+    transformer.forward's arguments (default transformer.forward; a mesh
+    Context's ``mesh_forward``)."""
+    fwd = forward_fn or transformer.forward
+    logits = fwd(cfg, params, tokens, n_past, cache_k, cache_v, last_only=False,
+                 kv_window=kv_window)
     key, sub = split_key(key)
     return _verify_sample(logits, tokens, sub, ds, recent), key
 

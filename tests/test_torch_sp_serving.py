@@ -8,7 +8,10 @@ JAX ``Context(mesh)`` and engine on the virtual 8-device mesh
   equal; the scaled-int8 cache at sp 4 at 2e-3; each rank's cache holds
   S/sp slots;
 - BatchEngine(mesh) at sp 4 and at dp 2 x sp 2 x tp 2 (all eight
-  processes): the greedy tokens equal, on every rank.
+  processes): the greedy tokens equal, on every rank;
+- every Context method (and session and on-device perplexity function) that
+  JAX runs over a mesh, called on each mesh Context: none refuses
+  (tests/test_torch_mesh_serving.py holds their results to JAX's).
 
 A mesh of fewer ranks than the world leaves the others idle: they build it
 (new_group is collective) and skip its work."""
@@ -86,21 +89,28 @@ def _port_drive(ctx, prompt, steps):
     return {"logits": outs, "tokens": toks}
 
 
-def _refused(ctx) -> list[str]:
-    """The Context methods (and session / perplexity functions) that a mesh
-    does not carry yet: each must raise NotImplementedError."""
+def _refused(ctx, draft) -> list[str]:
+    """The Context methods (and session and on-device perplexity functions)
+    that JAX runs over a mesh, each called on this mesh Context (draft: a
+    second one on its mesh): the names of those that raise
+    NotImplementedError, which none does since the port carries them all."""
+    from llama_cpp_q_4_0_tpu_torch.runtime.device_sample import DeviceSampling, prng_key
     from llama_cpp_q_4_0_tpu_torch.runtime.perplexity import perplexity_ondevice
     from llama_cpp_q_4_0_tpu_torch.runtime.session import get_state, set_state
 
-    calls = {"decode_chunk": lambda: ctx.decode_chunk(None, 0, None, n_steps=1, ds=None),
-             "verify": lambda: ctx.verify([[1]], 0, None, ds=None, kv_window=8),
-             "spec_chunk": lambda: ctx.spec_chunk(None, None, None, None, k=1, n_steps=1,
-                                                  ds=None, kv_window=8, max_ngram=1,
+    ds, key, n = DeviceSampling(temp=-1.0), prng_key(0, "cpu"), ctx.n_past
+    tok, no = torch.tensor([1]), torch.zeros(1, dtype=torch.bool)
+    hist = torch.ones((1, 64), dtype=torch.int64)
+    calls = {"decode_chunk": lambda: ctx.decode_chunk(tok, n, key, n_steps=1, ds=ds),
+             "verify": lambda: ctx.verify([[1, 2]], n, key, ds=ds, kv_window=64),
+             "spec_chunk": lambda: ctx.spec_chunk(hist, torch.tensor([n + 1]), key, no, k=1,
+                                                  n_steps=1, ds=ds, kv_window=64, max_ngram=1,
                                                   min_ngram=1, eos=2, ignore_eos=False),
              "draft_spec_chunk": lambda: ctx.draft_spec_chunk(
-                 None, None, None, None, None, None, k=1, n_steps=1, ds=None, kv_window=8,
-                 eos=2, ignore_eos=False),
-             "get_state": lambda: get_state(ctx), "set_state": lambda: set_state(ctx, {}),
+                 draft, tok, torch.tensor([n]), key, no, torch.zeros((1, 1), dtype=torch.int64),
+                 k=1, n_steps=1, ds=ds, kv_window=64, eos=2, ignore_eos=False),
+             "get_state": lambda: get_state(ctx),
+             "set_state": lambda: set_state(ctx, get_state(ctx)),
              "perplexity_ondevice": lambda: perplexity_ondevice(ctx, [1] * 16, n_ctx=8)}
     out = []
     for name, fn in calls.items():
@@ -128,7 +138,8 @@ def port_world(rank: int, out: str) -> None:
         got[case] = _port_drive(ctx, _prompt(case), 4)
         c = ctx.cache_k[0]
         got[case]["cache_shape"] = tuple((c.data if dt == torch.int8 else c).shape)
-        got[case]["refused"] = _refused(ctx)
+        got[case]["refused"] = _refused(ctx, Context(cfg, params, n_ctx=64, cache_dtype=dt,
+                                                     mesh=mesh))
     cfg, params = port_model(out, "model_engine")
     mesh = make_mesh(sp=4, device="cpu")
     if mesh.coords is not None:
@@ -184,12 +195,12 @@ def test_engine_mesh_matches_jax(world, case):
 
 def test_unported_mesh_methods_raise(world):
     """Every Context method (and session or on-device perplexity function)
-    that JAX runs over a mesh and the port does not carry yet raises
-    NotImplementedError, on every rank of every mesh."""
+    that JAX runs over a mesh runs over the port's: called on every rank of
+    every mesh (the scaled-int8 cache's too), none raises
+    NotImplementedError (tests/test_torch_mesh_serving.py holds their
+    results to JAX's)."""
     _, got = world
-    want = ["decode_chunk", "verify", "spec_chunk", "draft_spec_chunk", "get_state",
-            "set_state", "perplexity_ondevice"]
     for g in got:
         for case in CONTEXTS:
             if case in g:
-                assert g[case]["refused"] == want, (case, g[case]["refused"])
+                assert g[case]["refused"] == [], (case, g[case]["refused"])
