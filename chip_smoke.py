@@ -258,7 +258,24 @@ Phases (each prints its own lines; any failure exits non-zero):
      BatchEngine(mesh) with chunk=2, spec_draft=3 (4 requests of 100 + 16);
      each held to the single-device Context on the same weights (tokens
      equal or parted at a near tie), every rank's results equal, each
-     rank's launches exact; ms a token or a call.
+     rank's launches exact; ms a token or a call.  Then, the serving
+     weights freed, sharded training in the same world (par_train_rank,
+     PAR_TRAIN): LLaMA-7B width at 2 layers, f32 params of init_transformer
+     and a 4 x 512 batch from --seed, bf16 compute, Adam at PAR_TRAIN_LR;
+     make_train_step(mesh=) at tp 2 and at sp 2 x tp 2 (the gradient at the
+     start, then two steps), pp_loss with its gradients at pp 2 (one layer a
+     stage, 4 microbatches of one row), and the tp 2 job's
+     save_checkpoint(mesh=) loaded on one device.  Each is held to one
+     device's make_train_step and stacked_lm_loss on the same weights and
+     batch, computed first in this process (par_train_reference): both
+     steps' losses and the pp loss within PAR_LOSS_GATE (2e-5, JAX's
+     pipeline gate) and the same bits on every rank; layer 0's wq (column)
+     and w_down (row) gradients gathered whole and every leaf's gradient
+     norm within PAR_GRAD_RTOL / PAR_GRAD_ATOL (1e-2 / 3e-4); no K1-K8
+     launch (PAR_TRAIN_WANT: the training products are torch.matmul); the
+     checkpoint's arrays equal the gathered params and Adam state bit for
+     bit; ms a step or a pp loss+grad (ranks that share the card) and each
+     rank's peak memory.
   12. a JSON line of per-kernel numbers (launches: the e2e paths', the
      families', the session, spec, serve, rwkv and train phases'), then the contract line
      {"ok": true, "device": {...}}.
@@ -1937,9 +1954,80 @@ def busy_phase(torch) -> None:
         torch.cuda.empty_cache()
 
 
+def cpu_runs(job) -> dict:
+    """two_layer_vs_cpu's CPU runs: each (label, params, switches) of
+    job["runs"] as a Context on the CPU under its switches, the prompt, then
+    the card's greedy tokens; their logits, and their seconds under
+    "seconds".  job: the dict itself, or the path of a torch.save of it (a
+    CpuWorker's job, removed once read)."""
+    import torch
+
+    from llama_cpp_q_4_0_tpu_torch.runtime.context import Context
+
+    t0 = time.perf_counter()
+    if isinstance(job, str):
+        path, job = job, torch.load(job, weights_only=False)
+        os.remove(path)
+        torch.set_num_threads(job["threads"])
+    outs = {}
+    for run, p, sw in job["runs"]:
+        with env(**sw):
+            ctx = Context(job["cfg"], p, n_ctx=256, device="cpu", cache_dtype=job["cache_dtype"])
+            outs[run] = [ctx.eval(job["prompt"])]
+            for tok in job["toks"]:
+                outs[run].append(ctx.eval([[tok]]))
+    outs["seconds"] = time.perf_counter() - t0
+    return outs
+
+
+class CpuWorker:
+    """One process that runs two_layer_vs_cpu's CPU runs (cpu_runs), in the
+    order given, on all but two of the host's cores, while this process
+    goes on with the card; a job goes to it through a file under the build
+    directory.  A process of its own, since the runs set switches in the
+    environment.  ``join()`` waits for every job and stops it."""
+
+    def __init__(self):
+        import concurrent.futures
+        import multiprocessing
+
+        from llama_cpp_q_4_0_tpu_torch.kernels.build import BUILD_DIR
+
+        self.dir = os.path.join(BUILD_DIR, "smoke-cpu-jobs")
+        os.makedirs(self.dir, exist_ok=True)
+        self.threads = max(1, (os.cpu_count() or 4) - 2)
+        self.pool = concurrent.futures.ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn"))
+        self.n = 0
+
+    def submit(self, torch, job: dict):
+        self.n += 1
+        path = os.path.join(self.dir, f"job-{self.n}.pt")
+        torch.save({**job, "threads": self.threads}, path)
+        return self.pool.submit(cpu_runs, path)
+
+    def join(self) -> None:
+        self.pool.shutdown(wait=True)
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
+class Later:
+    """A check whose CPU half runs in a CpuWorker: ``result()`` waits for
+    it, prints its lines and returns the check's ok; ``card_s`` and
+    ``cpu_s`` (once read) are each half's seconds."""
+
+    def __init__(self, future, finish, card_s: float):
+        self.future, self.finish, self.card_s, self.cpu_s = future, finish, card_s, math.nan
+
+    def result(self) -> bool:
+        outs = self.future.result()
+        self.cpu_s = outs["seconds"]
+        return self.finish(outs)
+
+
 def two_layer_vs_cpu(torch, counters, ftype="q4_0", *, int8=False, want_per_token=None,
                      planes=None, gate_cpu=True, build=None, frac=None, probe=False,
-                     built=None, **widths):
+                     built=None, worker=None, **widths):
     """7B width, 2 layers: prefill 128 (prefill kernels, flash, decode-form
     head) and decode steps on the card against the plain versions on the
     CPU from the same weights, the card's greedy tokens fed to both; the
@@ -1961,8 +2049,9 @@ def two_layer_vs_cpu(torch, counters, ftype="q4_0", *, int8=False, want_per_toke
     (seeded), and that run's departure from the CPU's prints beside the
     card's: how far the model itself carries a difference of an ulp or so.
     built: the (cfg, params) of a model loaded on the card (a file's)
-    instead of a synthetic one.  Returns (ok, the card's launches of the
-    run)."""
+    instead of a synthetic one.  worker: a CpuWorker; the CPU runs go to it
+    and the first value returned is a Later, whose result() holds them.
+    Returns (ok, the card's launches of the run)."""
     import dataclasses
 
     import numpy as np
@@ -1971,6 +2060,7 @@ def two_layer_vs_cpu(torch, counters, ftype="q4_0", *, int8=False, want_per_toke
     from llama_cpp_q_4_0_tpu_torch.runtime.context import Context
     from llama_cpp_q_4_0_tpu_torch.synth import build_llama
 
+    t_card = time.perf_counter()
     label = f"{ftype}{' int8 config' if int8 else ''}{f' {planes} planes' if planes else ''}" \
         + "".join(f" {k}={v}" for k, v in widths.items())
     cfg, params = built or (build or build_llama)(n_layer=2, device="cuda", seed=1,
@@ -1986,24 +2076,23 @@ def two_layer_vs_cpu(torch, counters, ftype="q4_0", *, int8=False, want_per_toke
     steps = 3 if int8 else 1
     ok, outs, toks = True, {}, []
     switches = INT8 if int8 else {}
-    runs = [("cuda", params, {**switches, **({"QMM_F16_SCALES": "1"} if planes == "f16"
-                                             else {})})]
-    runs.append(("cpu", cpu, runs[0][2]))
+    card_sw = {**switches, **({"QMM_F16_SCALES": "1"} if planes == "f16" else {})}
+    cpu_side = [("cpu", cpu, card_sw)]
     if probe:
         gen = torch.Generator().manual_seed(3)
         moved = tuple(dataclasses.replace(blk, attn_norm_w=blk.attn_norm_w * (
             1 + 1e-6 * torch.randn(blk.attn_norm_w.shape, generator=gen)))
             for blk in cpu.blocks)
-        runs.append(("cpu moved", dataclasses.replace(cpu, blocks=moved), runs[0][2]))
+        cpu_side.append(("cpu moved", dataclasses.replace(cpu, blocks=moved), card_sw))
+    runs = [("cuda", params, card_sw)]
     if planes:
         runs.append(("cuda f32 planes", f32, switches))
+    cache_dtype = torch.float32 if int8 else torch.bfloat16
     for run, p, sw in runs:
-        dev = run.split()[0]
         with env(**sw):
             if run == "cuda":
                 _zero(counters)
-            ctx = Context(cfg, p, n_ctx=256, device=dev,
-                          cache_dtype=torch.float32 if int8 else torch.bfloat16)
+            ctx = Context(cfg, p, n_ctx=256, device="cuda", cache_dtype=cache_dtype)
             outs[run] = [ctx.eval(prompt)]
             for i in range(steps):
                 if run == "cuda":
@@ -2037,23 +2126,35 @@ def two_layer_vs_cpu(torch, counters, ftype="q4_0", *, int8=False, want_per_toke
     # (1e-3); int8 on a k-quant mix keeps K5 and K6's bf16 products (2e-2)
     if frac is None:
         frac = 1e-3 if int8 and ftype == "q4_0" else 2e-2
-    for i, (g, r) in enumerate(zip(outs["cuda"], outs["cpu"])):
-        err = float(np.abs(g - r).max())
-        tol = frac * float(np.abs(r).max())
-        good = err <= tol and np.isfinite(g).all()
-        if gate_cpu:
-            ok &= bool(good)
-            verdict = "ok" if good else "MISMATCH"
-        else:
-            ok &= bool(np.isfinite(g).all())
-            verdict = f"printed, not held: {Q8_0_CHAOS}"
-        width = "" if build else "7B-width "
-        moved = (f"; the CPU with its norm weights moved by 1e-6 vs the CPU: "
-                 f"{float(np.abs(outs['cpu moved'][i] - r).max()):.3e}" if probe else "")
-        print(f"e2e: 2-layer {width}{label} {'prefill-128' if i == 0 else 'decode'} "
-              f"card vs CPU plain: max_abs_err={err:.3e} (tol {tol:.3e}){moved} {verdict}",
-              flush=True)
-    return ok, launched
+
+    def finish(cpu_outs) -> bool:
+        good_all = ok
+        for i, (g, r) in enumerate(zip(outs["cuda"], cpu_outs["cpu"])):
+            err = float(np.abs(g - r).max())
+            tol = frac * float(np.abs(r).max())
+            good = err <= tol and np.isfinite(g).all()
+            if gate_cpu:
+                good_all &= bool(good)
+                verdict = "ok" if good else "MISMATCH"
+            else:
+                good_all &= bool(np.isfinite(g).all())
+                verdict = f"printed, not held: {Q8_0_CHAOS}"
+            width = "" if build else "7B-width "
+            moved = (f"; the CPU with its norm weights moved by 1e-6 vs the CPU: "
+                     f"{float(np.abs(cpu_outs['cpu moved'][i] - r).max()):.3e}" if probe else "")
+            print(f"e2e: 2-layer {width}{label} {'prefill-128' if i == 0 else 'decode'} "
+                  f"card vs CPU plain: max_abs_err={err:.3e} (tol {tol:.3e}){moved} {verdict}",
+                  flush=True)
+        return good_all
+
+    job = {"cfg": cfg, "runs": cpu_side, "prompt": prompt, "toks": toks,
+           "cache_dtype": cache_dtype}
+    del params, f32, ctx
+    if worker is not None:
+        later = Later(worker.submit(torch, job), finish, time.perf_counter() - t_card)
+        del job, cpu, cpu_side
+        return later, launched
+    return finish(cpu_runs(job)), launched
 
 
 def q4_0_planes(torch, counters, cfg, params, toks32, launches) -> str | None:
@@ -6177,7 +6278,7 @@ class StepTimes:
     def _measured(self, value_and_grad):
         torch = self.torch
 
-        def measured(fn, params):
+        def measured(fn, params, *mesh):
             torch.cuda.reset_peak_memory_stats()
             base = torch.cuda.memory_allocated()
 
@@ -6186,7 +6287,7 @@ class StepTimes:
                 self.kept = max(self.kept, torch.cuda.memory_allocated() - base)
                 self.fwd_peak = max(self.fwd_peak, torch.cuda.max_memory_allocated() - base)
                 return loss
-            out = value_and_grad(forward, params)
+            out = value_and_grad(forward, params, *mesh)
             self.last_fb = torch.cuda.max_memory_allocated()
             self.fb_peak = max(self.fb_peak, self.last_fb)
             return out
@@ -6706,6 +6807,28 @@ PAR_SHIFT_CTX, PAR_SHIFT_PROMPT, PAR_SHIFT, PAR_SHIFT_STEPS = 512, 300, (4, 200)
 PAR_PPL_CTX, PAR_PPL_CHUNKS = 512, 2
 PAR_ENGINE_CHUNK, PAR_ENGINE_DRAFT = 2, 3
 
+# sharded training, after the serving jobs in the same world, their
+# weights freed: LLaMA-7B width at PAR_TRAIN_LAYERS layers, f32 params of
+# init_transformer and a [PAR_TRAIN_B, PAR_TRAIN_T] batch from --seed, Adam
+# at PAR_TRAIN_LR, bf16 compute: two steps of make_train_step(mesh=) on each
+# mesh of PAR_TRAIN, pp_loss with its gradients at pp 2 (one layer a stage,
+# PAR_TRAIN_M microbatches of one row), and the tp 2 job's
+# save_checkpoint(mesh=) loaded back on one device
+PAR_TRAIN = {"tp2": {"tp": 2}, "sp2tp2": {"sp": 2, "tp": 2}}
+PAR_TRAIN_LAYERS, PAR_TRAIN_B, PAR_TRAIN_T, PAR_TRAIN_M = 2, 4, 512, 4
+# Adam's first step moves every element by +-lr; at 1e-3 (5% of the 0.02
+# init scale, every element at once) it took this model's loss from 11.23 to
+# 0.08, where an element whose bf16 gradient is near zero and flips sign
+# between two summation orders (2 lr) parted the sharded and the single-device
+# second losses by 1e-3 relative (on the H100).  A warmup's first step is this
+# small
+PAR_TRAIN_LR = 1e-5
+PAR_LOSS_GATE = 2e-5  # losses, relative: JAX's pipeline gate (tests/test_pipeline.py)
+PAR_GRAD_RTOL, PAR_GRAD_ATOL = 1e-2, 3e-4  # gradients: tests/test_pipeline.py's
+# the dense products of training are torch.matmul (ops/qmatmul.py Bf16Product):
+# the training path launches none of K1-K8
+PAR_TRAIN_WANT: dict = {}
+
 
 def par_paths_want(job: str, rounds: dict, engine: dict | None = None) -> dict:
     """A rank's launches on each path of par_paths at PAR_ENGINE_LAYERS
@@ -7046,15 +7169,16 @@ def parallel_rank(torch, opts) -> int:
     R --world N --init URL --out DIR): joins the gloo group, builds the same
     seeded weights and runs each job of PAR_MESHES whose mesh holds it: the
     Context fed the reference's tokens, the rest of the serving path on the
-    first PAR_ENGINE_LAYERS layers (par_paths) and for tp2 the engine;
-    writes its logits, launches and times under DIR.  Any error exits
-    non-zero."""
+    first PAR_ENGINE_LAYERS layers (par_paths) and for tp2 the engine; then
+    the training jobs (par_train_rank); writes its logits, launches and
+    times under DIR.  Any error exits non-zero."""
     import numpy as np
     import torch.distributed as dist
 
     from llama_cpp_q_4_0_tpu_torch.ops import flash_prefill as fp
     from llama_cpp_q_4_0_tpu_torch.ops import mha_decode as md
     from llama_cpp_q_4_0_tpu_torch.ops import qmm
+    from llama_cpp_q_4_0_tpu_torch.ops import stream as st
     from llama_cpp_q_4_0_tpu_torch.parallel import distributed, make_mesh
     from llama_cpp_q_4_0_tpu_torch.parallel.mesh import routes_taken
     from llama_cpp_q_4_0_tpu_torch.runtime.batch_engine import BatchEngine
@@ -7106,11 +7230,301 @@ def parallel_rank(torch, opts) -> int:
                                      "s": time.perf_counter() - t0,
                                      "launches": {k: v for k, v in _read(counters).items() if v}}
                 res["routes"] = dict(routes_taken)
+            params = params2 = eng = None
+            torch.cuda.empty_cache()
+            out["train"] = par_train_rank(torch, opts, ref["train"], counters + [st.launches])
     finally:
         with open(os.path.join(opts.out, f"rank-{opts.rank}.json"), "w") as f:
             json.dump(out, f)
         dist.destroy_process_group()
     return 0
+
+
+def par_train_model(torch, seed: int):
+    """(cfg, whole f32 params on the card, tokens, targets) of the training
+    jobs: LLaMA-7B width at PAR_TRAIN_LAYERS layers, init_transformer from a
+    seeded card generator (every rank draws the same), the batch from
+    numpy's seeded generator."""
+    import numpy as np
+
+    from llama_cpp_q_4_0_tpu_torch.models.config import ModelConfig
+    from llama_cpp_q_4_0_tpu_torch.training import init_transformer
+
+    cfg = ModelConfig.llama(n_vocab=32000, n_embd=4096, n_mult=256, n_head=32,
+                            n_layer=PAR_TRAIN_LAYERS, n_rot=128, n_ctx=PAR_TRAIN_T)
+    params = init_transformer(cfg, torch.Generator(device="cuda").manual_seed(seed + 23))
+    ids = np.random.default_rng(seed + 23).integers(0, cfg.n_vocab,
+                                                    (PAR_TRAIN_B, PAR_TRAIN_T + 1))
+    ids = torch.from_numpy(ids).long().cuda()
+    return cfg, params, ids[:, :-1].contiguous(), ids[:, 1:].contiguous()
+
+
+def _grad_gap(torch, got, want) -> tuple[float, float, float]:
+    """(max |got - want|, the largest excess over rtol |want| + atol, the
+    share of the elements whose sign differs)."""
+    d = (got.double() - want.double()).abs()
+    flips = float((torch.sign(got) * torch.sign(want) < 0).double().mean())
+    return float(d.max()), float((d - PAR_GRAD_RTOL * want.double().abs()
+                                  - PAR_GRAD_ATOL).max()), flips
+
+
+def par_train_reference(torch, seed: int, out: str) -> dict:
+    """One device's runs the training jobs are held to, on the same weights
+    and batch: two make_train_step steps (their losses, ms a step, peak),
+    the first step's gradient (layer 0's wq and w_down saved whole under
+    out, every leaf's norm) and stacked_lm_loss with its gradient (the
+    pipeline's reference)."""
+    from llama_cpp_q_4_0_tpu_torch.training import OptParams, make_optimizer, make_train_step
+    from llama_cpp_q_4_0_tpu_torch.training.stacked import stack_params, stacked_lm_loss
+    from llama_cpp_q_4_0_tpu_torch.training.train import lm_loss, value_and_grad
+    from llama_cpp_q_4_0_tpu_torch.training.tree import flatten_with_path
+
+    def norms(grads):
+        return {k: float(g.double().norm()) for k, g in flatten_with_path(grads)}
+
+    cfg, params, x, y = par_train_model(torch, seed)
+    ref = {"seed": seed}
+    _, g = value_and_grad(lambda p: lm_loss(cfg, p, x, y), params)
+    ref["norms"] = norms(g)
+    saved = {"wq": g.blocks[0].wq.cpu(), "w_down": g.blocks[0].w_down.cpu()}
+    del g
+    tx = make_optimizer(OptParams(kind="adam", lr=PAR_TRAIN_LR))
+    step, p, s = make_train_step(cfg, tx), params, tx.init(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms = [], []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        p, s, loss = step(p, s, x, y)
+        losses.append(float(loss))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    ref.update(losses=losses, ms=ms[-1], peak=torch.cuda.max_memory_allocated() / 2**30)
+    del p, s, step
+    sp = stack_params(params)
+    del params
+    t0 = time.perf_counter()
+    loss, g = value_and_grad(lambda q: stacked_lm_loss(cfg, q, x, y), sp)
+    torch.cuda.synchronize()
+    ref.update(pp_loss=float(loss), pp_ms=(time.perf_counter() - t0) * 1e3,
+               pp_norms=norms(g))
+    saved.update(pp_wq=g.blocks[0].wq[0].cpu(), pp_w_down=g.blocks[0].w_down[0].cpu())
+    torch.save(saved, os.path.join(out, "train-ref.pt"))
+    del g, sp, saved
+    torch.cuda.empty_cache()
+    return ref
+
+
+def par_train_rank(torch, opts, ref: dict, counters) -> dict:
+    """This rank's training jobs (PAR_TRAIN, then pp 2): every number the
+    parent checks, computed here against the reference's saved tensors;
+    each job's launches, ms and this rank's peak memory."""
+    import dataclasses
+
+    from llama_cpp_q_4_0_tpu_torch.parallel import (make_mesh, make_pp_mesh, shard_tokens,
+                                                    shard_transformer)
+    from llama_cpp_q_4_0_tpu_torch.parallel import pipeline
+    from llama_cpp_q_4_0_tpu_torch.parallel.mesh import psum
+    from llama_cpp_q_4_0_tpu_torch.parallel.shard import gather_leaf, gather_params, leaf_spec
+    from llama_cpp_q_4_0_tpu_torch.training import (OptParams, load_checkpoint, make_optimizer,
+                                                    make_train_step, save_checkpoint)
+    from llama_cpp_q_4_0_tpu_torch.training import train
+    from llama_cpp_q_4_0_tpu_torch.training.stacked import stack_params
+    from llama_cpp_q_4_0_tpu_torch.training.train import lm_loss, value_and_grad
+    from llama_cpp_q_4_0_tpu_torch.training.tree import flatten_with_path, tree_map
+
+    vg = value_and_grad
+    cfg, whole, x, y = par_train_model(torch, ref["seed"])
+    want = torch.load(os.path.join(opts.out, "train-ref.pt"), map_location="cuda")
+    tx = make_optimizer(OptParams(kind="adam", lr=PAR_TRAIN_LR))
+    res = {}
+
+    def norm_gaps(grads, mesh, axis, want_norms):
+        """(the worst excess of a whole leaf's gradient norm over the
+        gradient gate, that leaf): local squares summed over the axis where
+        the leaf is split."""
+        worst = (-math.inf, "")
+        for k, g in flatten_with_path(grads):
+            sq = (g.double() ** 2).sum()
+            split = ("tp" in leaf_spec(k, g)) if axis == "tp" else (k.startswith(".blocks"))
+            if split:
+                sq = psum(sq, mesh, axis)
+            n, w = float(sq.sqrt()), want_norms[k]
+            worst = max(worst, (abs(n - w) - PAR_GRAD_RTOL * w - PAR_GRAD_ATOL, k))
+        return worst
+
+    for name, axes in PAR_TRAIN.items():
+        mesh = make_mesh(**axes)
+        if mesh.coords is None:
+            continue
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated() / 2**30
+        p = shard_transformer(whole, mesh)
+        s = tx.init(p)
+        tt, ty = (shard_tokens(t, mesh, sequence_parallel=True) for t in (x, y))
+        _zero(counters)
+        step = make_train_step(cfg, tx, mesh=mesh)
+        losses, ms, job, seen = [], [], {}, {}
+
+        def keep(fn, params, *on):  # the first step's gradient, as the step takes it
+            out = vg(fn, params, *on)
+            seen.setdefault("g", out[1])
+            return out
+
+        for i in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            train.value_and_grad = keep if i == 0 else vg
+            try:
+                p, s, loss = step(p, s, tt, ty)
+            finally:
+                train.value_and_grad = vg
+            losses.append(float(loss))
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if i == 0:
+                g = seen.pop("g")
+                leaf = {k: getattr(g.blocks[0], k) for k in ("wq", "w_down")}
+                job["grads"] = {k: _grad_gap(torch, gather_leaf(
+                    v, leaf_spec(f".blocks[0].{k}", v), mesh), want[k]) for k, v in leaf.items()}
+                job["norms"] = norm_gaps(g, mesh, "tp", ref["norms"])
+                del g, leaf
+                # the second loss's params, gathered, through one device's forward
+                one = gather_params(p, mesh)
+                if mesh.rank == 0:
+                    job["p1_one_device"] = float(lm_loss(cfg, one, x, y))
+                one = None
+        job.update(losses=[v.hex() for v in losses], ms=ms,
+                   launches={k: v for k, v in _read(counters).items() if v},
+                   peak=torch.cuda.max_memory_allocated() / 2**30, base=base)
+        if name == "tp2":
+            path = os.path.join(opts.out, "train-tp2.ckpt")
+            t0 = time.perf_counter()
+            save_checkpoint(path, cfg, p, s, step=2, mesh=mesh)
+            job["save_s"] = time.perf_counter() - t0
+            items = flatten_with_path(p, "params") + flatten_with_path(s, "opt")
+            loaded = like = lp = ls = None
+            if mesh.rank == 0:  # one device: like trees of the whole model, no data
+                t0 = time.perf_counter()
+                like = tree_map(lambda t: torch.empty(0, device="cuda"), whole)
+                _, lp, ls, at = load_checkpoint(path, like, tx.init(like))
+                job["load_s"] = time.perf_counter() - t0
+                loaded = dict(flatten_with_path(lp, "params") + flatten_with_path(ls, "opt"))
+                job["step"] = at
+                job["bytes"] = os.path.getsize(path)
+            differ = []
+            for k, v in items:  # every rank of the mesh gathers, rank 0 compares
+                got = gather_leaf(v, leaf_spec(k, v), mesh)
+                if loaded is not None and not torch.equal(loaded[k].to(got.device), got):
+                    differ.append(k)
+            job["differ"] = differ if loaded is not None else None
+            job["leaves"] = len(items)
+            if loaded is not None:
+                os.remove(path)
+            items = loaded = like = lp = ls = got = v = None
+        res[name] = job
+        del p, s, step
+        torch.cuda.empty_cache()
+    mesh = make_pp_mesh(2)
+    if mesh.coords is not None:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated() / 2**30
+        local = pipeline.shard_stages(stack_params(whole), mesh)
+        toks = x.reshape(PAR_TRAIN_M, PAR_TRAIN_B // PAR_TRAIN_M, PAR_TRAIN_T)
+        tgts = y.reshape(toks.shape)
+        _zero(counters)
+        ms = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, g = value_and_grad(
+                lambda q: pipeline.pp_loss(cfg, q, toks, tgts, mesh), local)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        job = {"losses": [float(loss).hex()], "ms": ms,
+               "launches": {k: v for k, v in _read(counters).items() if v},
+               "norms": norm_gaps(g, mesh, "pp", ref["pp_norms"]),
+               "stage": mesh.coords["pp"]}
+        if mesh.coords["pp"] == 0:  # layer 0 is stage 0's
+            job["grads"] = {k: _grad_gap(torch, getattr(g.blocks[0], k)[0], want["pp_" + k])
+                            for k in ("wq", "w_down")}
+        job.update(peak=torch.cuda.max_memory_allocated() / 2**30, base=base)
+        res["pp2"] = job
+        del local, g
+    del whole, want
+    torch.cuda.empty_cache()
+    return res
+
+
+def par_train_check(results: list, ref: dict, card: str) -> bool:
+    """The training jobs of every rank against the single-device reference:
+    the losses (and the pp loss) within PAR_LOSS_GATE relative and the same
+    bits on every rank; layer 0's wq and w_down gradients gathered whole
+    and every leaf's gradient norm within PAR_GRAD_RTOL / PAR_GRAD_ATOL;
+    no K1-K8 launch (PAR_TRAIN_WANT); the checkpoint loaded on one device
+    equal to the gathered params and state bit for bit.  Prints a
+    parallel: line a job."""
+    ok = True
+    for name in (*PAR_TRAIN, "pp2"):
+        ranks = [r["train"][name] for r in results if name in r.get("train", {})]
+        if not ranks:
+            print(f"parallel: train {name}: no rank ran it MISMATCH", flush=True)
+            ok = False
+            continue
+        r0 = ranks[0]
+        losses = [float.fromhex(v) for v in r0["losses"]]
+        wants = [ref["pp_loss"]] if name == "pp2" else ref["losses"]
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses, wants)]
+        same = all(r["losses"] == r0["losses"] for r in ranks)
+        held = [r["grads"] for r in ranks if "grads" in r]
+        grads_ok = bool(held) and all(v[1] <= 0 for g in held for v in g.values())
+        grads = held[0].items() if held else []
+        norms_ok = all(r["norms"][0] <= 0 for r in ranks)
+        launched = all(r["launches"] == PAR_TRAIN_WANT for r in ranks)
+        good = max(rel) <= PAR_LOSS_GATE and same and grads_ok and norms_ok and launched
+        unit = "a pp loss+grad" if name == "pp2" else "a step (the second)"
+        one = ref["pp_ms"] if name == "pp2" else ref["ms"]
+        print(f"parallel: train {name} LLaMA-7B width, {PAR_TRAIN_LAYERS} layers, f32 params, "
+              f"bf16 compute, B {PAR_TRAIN_B} x T {PAR_TRAIN_T}"
+              + (f" as {PAR_TRAIN_M} microbatches, one layer a stage" if name == "pp2" else
+                 f", Adam lr {PAR_TRAIN_LR}")
+              + f": losses {losses} against one device's {wants} (rel "
+              f"{max(rel):.2e}, gate {PAR_LOSS_GATE}), the same bits on all {len(ranks)} ranks "
+              f"{same}"
+              + (f"; the second loss's params (the sharded first step's) through one device's "
+                 f"forward {r0['p1_one_device']} (rel to the sharded second loss "
+                 f"{abs(r0['p1_one_device'] - losses[1]) / abs(losses[1]):.2e}, printed)"
+                 if "p1_one_device" in r0 else "")
+              + "; layer 0's gradient gathered whole, max |d| "
+              + ", ".join(f"{k} {v[0]:.3e} (excess over rtol {PAR_GRAD_RTOL} / atol "
+                          f"{PAR_GRAD_ATOL}: {v[1]:.2e}; signs opposite one device's at "
+                          f"{v[2]:.2e} of the elements)" for k, v in grads)
+              + f"; every leaf's gradient norm within the gate {norms_ok} (worst excess "
+              f"{max(r['norms'][0] for r in ranks):.2e} at {max(r['norms'] for r in ranks)[1]}); "
+              f"launches K1-K8 {json.dumps(r0['launches'])} (want {json.dumps(PAR_TRAIN_WANT)}) "
+              f"{launched}; {statistics.median(r['ms'][-1] for r in ranks):.1f} ms {unit} (eager, "
+              f"{len(ranks)} ranks that share one card, gloo; not a multi-GPU figure) against "
+              f"{one:.1f} on one device; peak a rank "
+              + ", ".join(f"{r['peak']:.2f}" for r in ranks)
+              + " GiB, of it held before the job "
+              + ", ".join(f"{r['base']:.2f}" for r in ranks)
+              + f" (the whole params every job starts from, the reference's tensors; one "
+              f"device's step {ref['peak']:.2f}) {'ok' if good else 'MISMATCH'} [{card}]",
+              flush=True)
+        ok &= good
+        if name == "tp2":
+            c = r0
+            good = c.get("differ") == [] and c.get("step") == 2
+            print(f"parallel: train tp2 save_checkpoint(mesh=) {c.get('bytes', 0) / 2**30:.2f} GiB "
+                  f"({c['leaves']} leaves: params and Adam's state gathered, written by the "
+                  f"primary rank) in {c['save_s']:.1f} s, loaded on one device in "
+                  f"{c.get('load_s', math.nan):.1f} s: step {c.get('step')}, every array equal "
+                  f"to the gathered tensors bit for bit "
+                  f"{c.get('differ') == []}"
+                  + ("" if good else f" (differ: {c.get('differ')})")
+                  + f" {'ok' if good else 'MISMATCH'} [{card}]", flush=True)
+            ok &= good
+    return ok
 
 
 def par_world(out: str, timeout: float = 600.0):
@@ -7177,7 +7591,9 @@ def parallel_phase(torch, card: str, seed: int) -> bool:
     cuda:0 under gloo running the tp 2 jobs (Context, BatchEngine(tp_mesh))
     and the sp 2 x tp 2 Context (PAR_MESHES), with the rest of the path on
     each (par_paths), every check in par_check, par_paths_check and the
-    engine's against single sessions.  Fails if any rank fails."""
+    engine's against single sessions; then the training jobs
+    (par_train_rank) against one device's (par_train_reference), checked by
+    par_train_check.  Fails if any rank fails."""
     import numpy as np
 
     from llama_cpp_q_4_0_tpu_torch.kernels.build import BUILD_DIR
@@ -7208,6 +7624,10 @@ def parallel_phase(torch, card: str, seed: int) -> bool:
     os.makedirs(out)
     ok = True
     try:
+        t1 = time.perf_counter()
+        train_ref = ref_json["train"] = par_train_reference(torch, seed, out)
+        print(f"parallel: training references on one device {time.perf_counter() - t1:.1f} s",
+              flush=True)
         with open(os.path.join(out, "ref.json"), "w") as f:
             json.dump(ref_json, f)
         print(f"parallel: references on one device {time.perf_counter() - t0:.1f} s", flush=True)
@@ -7260,6 +7680,7 @@ def parallel_phase(torch, card: str, seed: int) -> bool:
                       f"{'ok' if good else 'MISMATCH'} [{card}]", flush=True)
             ok &= par_paths_check(job, [r["paths"] for r in ranks], paths_ref, eng_ref, out,
                                   card)
+        ok &= par_train_check(results, train_ref, card)
         return ok
     finally:
         shutil.rmtree(out, ignore_errors=True)
@@ -7280,7 +7701,8 @@ def main(argv=None) -> int:
                          "q8chaos,cli,qkk64,train,parallel,sass,k7k3,rwkvfaults,traceparse,"
                          "k7repeat,int8prefill,planes,tiles,attn,gemv,busy,splits (parallel: "
                          "the sharded serving path, Context(mesh) with its chunks, "
-                         "speculation, state, shift and perplexity, and the mesh engines, in "
+                         "speculation, state, shift and perplexity, and the mesh engines, "
+                         "then sharded training (tp 2, sp 2 x tp 2, pp 2, a checkpoint), in "
                          "one gloo world of 4 processes on the card); the result "
                          "lines print only for the default " + ",".join(FULL_RUN))
     ap.add_argument("--seed", type=int, default=0,
@@ -7415,9 +7837,13 @@ def main(argv=None) -> int:
         del timer
         torch.cuda.empty_cache()
 
+    last = [t0]
+
     def elapsed(phase):
-        print(f"time: {phase} done {time.perf_counter() - t0:.1f} s after the build began",
-              flush=True)
+        now = time.perf_counter()
+        print(f"time: {phase} done {now - t0:.1f} s after the build began, the phase "
+              f"{now - last[0]:.1f} s", flush=True)
+        last[0] = now
 
     if "kernels" in phases:
         elapsed("kernels")
@@ -7425,6 +7851,50 @@ def main(argv=None) -> int:
     launches = {}
     q4 = None  # the q4_0 weights, taken again by its 2-byte, int8 and graph runs
     if "e2e" in phases:
+        # the 2-layer models against the CPU first: their card halves take
+        # seconds, their CPU halves (more than a minute) run in a worker
+        # process beside the 32-layer paths below, whose timings therefore
+        # share the host with it; each check is held at the end of the phase
+        worker, held, t_batch = CpuWorker(), [], time.perf_counter()
+        for ftype in ("q4_0", "q4_K_M", "q3_K_M"):
+            held.append((two_layer_vs_cpu(torch, counters, ftype, worker=worker)[0],
+                         f"2-layer {ftype} model on the card disagrees with the CPU plain "
+                         "path"))
+            torch.cuda.empty_cache()
+        held.append((two_layer_vs_cpu(torch, counters, "q4_0", int8=True, worker=worker)[0],
+                     "2-layer q4_0 int8 configuration on the card disagrees with the CPU, or "
+                     "K7/K4 never launched"))
+        torch.cuda.empty_cache()
+        # shapes outside the kernels' gate, routed as the JAX dispatch does: a
+        # 32001-entry head and w2 at K = 8640 take the bf16 product, no kernel
+        # (per decode token 3 K2 + 2 K5 a layer)
+        held.append((two_layer_vs_cpu(
+            torch, counters, "q3_K_M", n_vocab=32001, n_ff=8640, worker=worker,
+            want_per_token={"qmm_q4_0_kfold": 6, "qmm_packed_bias": 4})[0],
+            "2-layer q3_K_M model with a 32001-entry vocabulary and n_ff 8640 disagrees with "
+            "the CPU or launched a kernel off the gate"))
+        torch.cuda.empty_cache()
+        # the block formats on f16 planes (QMM_F16_SCALES=1): q4_1 through K5,
+        # q5_0 and q8_0 through K6, q5_1 through K6b; the bf16 forms of K7
+        # (Q3_K_M in the int8 configuration) and K6b (Q5_K_M)
+        for ftype, planes, int8, form, kernel in (
+                ("q4_1", "f16", False, None, None),
+                ("q5_0", "f16", False, "qmm_int8/f16", "qmm_int8"),
+                ("q8_0", "f16", False, None, None),
+                ("q5_1", "f16", False, "qmm_int8_bias/f16", "qmm_int8_bias"),
+                ("q3_K_M", "bf16", True, "qmm_q8x/bf16", "qmm_q8x"),
+                ("q5_K_M", "bf16", False, "qmm_int8_bias/bf16", "qmm_int8_bias")):
+            later, launched = two_layer_vs_cpu(torch, counters, ftype, int8=int8,
+                                               planes=planes, gate_cpu=ftype != "q8_0",
+                                               worker=worker)
+            msg = (f"2-layer {ftype} model on {planes} planes disagrees with the CPU, or "
+                   f"{kernel} never launched")
+            if kernel and not launched.get(kernel):
+                return fail(msg)
+            held.append((later, msg))
+            if form:
+                launches[form] = launched[kernel]
+            torch.cuda.empty_cache()
         for ftype in ("q4_0", "q4_K_M"):
             ok, path_launches, per_token, cfg, params, toks = end_to_end(
                 torch, counters, ftype)
@@ -7508,41 +7978,16 @@ def main(argv=None) -> int:
         launches["qmm_int8_bias"] = path_launches["qmm_int8_bias"]
         del params
         torch.cuda.empty_cache()
-        for ftype in ("q4_0", "q4_K_M", "q3_K_M"):
-            if not two_layer_vs_cpu(torch, counters, ftype)[0]:
-                return fail(f"2-layer {ftype} model on the card disagrees with "
-                            "the CPU plain path")
-            torch.cuda.empty_cache()
-        if not two_layer_vs_cpu(torch, counters, "q4_0", int8=True)[0]:
-            return fail("2-layer q4_0 int8 configuration on the card disagrees with "
-                        "the CPU, or K7/K4 never launched")
-        torch.cuda.empty_cache()
-        # shapes outside the kernels' gate, routed as the JAX dispatch does: a
-        # 32001-entry head and w2 at K = 8640 take the bf16 product, no kernel
-        # (per decode token 3 K2 + 2 K5 a layer)
-        if not two_layer_vs_cpu(torch, counters, "q3_K_M", n_vocab=32001, n_ff=8640,
-                                want_per_token={"qmm_q4_0_kfold": 6, "qmm_packed_bias": 4})[0]:
-            return fail("2-layer q3_K_M model with a 32001-entry vocabulary and n_ff "
-                        "8640 disagrees with the CPU or launched a kernel off the gate")
-        torch.cuda.empty_cache()
-        # the block formats on f16 planes (QMM_F16_SCALES=1): q4_1 through K5,
-        # q5_0 and q8_0 through K6, q5_1 through K6b; the bf16 forms of K7
-        # (Q3_K_M in the int8 configuration) and K6b (Q5_K_M)
-        for ftype, planes, int8, form, kernel in (
-                ("q4_1", "f16", False, None, None),
-                ("q5_0", "f16", False, "qmm_int8/f16", "qmm_int8"),
-                ("q8_0", "f16", False, None, None),
-                ("q5_1", "f16", False, "qmm_int8_bias/f16", "qmm_int8_bias"),
-                ("q3_K_M", "bf16", True, "qmm_q8x/bf16", "qmm_q8x"),
-                ("q5_K_M", "bf16", False, "qmm_int8_bias/bf16", "qmm_int8_bias")):
-            ok, launched = two_layer_vs_cpu(torch, counters, ftype, int8=int8, planes=planes,
-                                            gate_cpu=ftype != "q8_0")
-            if not ok or (kernel and not launched.get(kernel)):
-                return fail(f"2-layer {ftype} model on {planes} planes disagrees with the "
-                            f"CPU, or {kernel} never launched")
-            if form:
-                launches[form] = launched[kernel]
-            torch.cuda.empty_cache()
+        for later, msg in held:
+            if not later.result():
+                return fail(msg)
+        worker.join()
+        card_s = sum(later.card_s for later, _ in held)
+        cpu_s = sum(later.cpu_s for later, _ in held)
+        print(f"e2e: the {len(held)} 2-layer checks against the CPU: card halves {card_s:.1f} s, "
+              f"CPU halves {cpu_s:.1f} s in a worker process ({worker.threads} threads) beside "
+              f"the 32-layer paths, {time.perf_counter() - t_batch:.1f} s from the first to the "
+              f"last held", flush=True)
     if "e2e" in phases:
         elapsed("e2e")
     if "graphs" in phases:
@@ -7630,7 +8075,8 @@ def main(argv=None) -> int:
         if not parallel_phase(torch, card, opts.seed):
             return fail("the sharded path: a rank failed, the ranks' logits differ, a logit gap "
                         "over PAR_GATE, an argmax off the single-device token off a near tie, "
-                        "a rank's launch count, or the tp engine's tokens or launches")
+                        "a rank's launch count, the tp engine's tokens or launches, or a "
+                        "training job's loss, gradient, launches or checkpoint")
         elapsed("parallel")
     if not full:
         print("partial run: no result lines", flush=True)

@@ -13,6 +13,15 @@ mesh lays the world's ranks out as JAX lays its devices out
 
 ``psum`` is an ``all_reduce``, ``all_gather`` gathers along one tensor
 dimension (JAX's ``tiled=True``), ``ppermute`` is ``batch_isend_irecv``.
+The serving path calls them under ``no_grad``.  Training differentiates
+through their autograd forms, each with its JAX transpose as its backward:
+``reduce_from`` (psum; the cotangent as it is), ``copy_to`` (the identity;
+psum of the cotangent: Megatron's "f" before a column-parallel product),
+``gather_from`` (all_gather; this rank's slice of the cotangent, psum'd
+first where the ranks' results differ) and ``ppermute_ad`` (the cotangent
+sent back along the inverse permutation).  A mesh may also name its own
+axes: ``make_pp_mesh`` builds JAX's 1-axis ``("pp",)`` mesh of
+parallel/pipeline.py.
 Under gloo (one card shared by several processes: NCCL refuses two ranks on
 one device) a CUDA tensor goes to gloo as it is for the operations gloo
 implements on CUDA tensors and through a host copy for the rest, by the
@@ -48,28 +57,33 @@ class Mesh:
     ``MESH_AXES`` order), ``devices`` (the ranks as a [dp, sp, tp] array, the
     JAX mesh's device grid), this rank's ``coords`` (None for a rank beyond
     the mesh), one process group per axis, and ``device``, where this rank
-    computes.  Every rank of the world builds it, with the same sizes, in
-    the same order (``dist.new_group`` is collective)."""
+    computes.  axes: {name: size} in place of (dp, sp, tp), for a mesh of
+    other named axes (``make_pp_mesh``).  Every rank of the world builds it,
+    with the same sizes, in the same order (``dist.new_group`` is
+    collective)."""
 
-    def __init__(self, dp: int = 1, sp: int = 1, tp: int = 1, *, device=None):
+    def __init__(self, dp: int = 1, sp: int = 1, tp: int = 1, *, device=None,
+                 axes: dict | None = None):
         if not dist.is_initialized():
             raise RuntimeError("torch.distributed is not initialized: call "
                                "parallel.distributed.initialize first")
         world, rank = dist.get_world_size(), dist.get_rank()
-        n = dp * sp * tp
+        sizes = {"dp": dp, "sp": sp, "tp": tp} if axes is None else dict(axes)
+        n = math.prod(sizes.values())
         if n > world:
-            raise ValueError(f"a {dp}x{sp}x{tp} mesh needs {n} ranks; the world has {world}")
-        self.shape = {"dp": dp, "sp": sp, "tp": tp}
-        self.axis_names = MESH_AXES
-        self.devices = np.arange(n).reshape(dp, sp, tp)
+            raise ValueError(f"a {'x'.join(map(str, sizes.values()))} mesh needs {n} ranks; "
+                             f"the world has {world}")
+        self.shape = sizes
+        self.axis_names = tuple(sizes)
+        self.devices = np.arange(n).reshape(tuple(sizes.values()))
         self.rank = rank
         self.coords = None
         if rank < n:
-            self.coords = dict(zip(MESH_AXES, (int(c) for c in
-                                               np.argwhere(self.devices == rank)[0])))
+            self.coords = dict(zip(self.axis_names, (int(c) for c in
+                                                     np.argwhere(self.devices == rank)[0])))
         self.groups: dict = {}
         self.ranks: dict = {}
-        for i, ax in enumerate(MESH_AXES):
+        for i, ax in enumerate(self.axis_names):
             lines = np.moveaxis(self.devices, i, -1).reshape(-1, self.devices.shape[i])
             for line in lines.tolist():
                 g = dist.new_group(line)
@@ -95,6 +109,12 @@ def make_mesh(dp: int = 1, sp: int = 1, tp: int = 1, *, device=None) -> Mesh:
     [dp, sp, tp].  device: this rank's device (default ``cuda:(rank %
     device_count)``; "cpu" runs the rank on the host)."""
     return Mesh(dp, sp, tp, device=device)
+
+
+def make_pp_mesh(pp: int, *, device=None) -> Mesh:
+    """The JAX pipeline's ``Mesh(devices[:pp], ("pp",))``: the first pp ranks
+    of the world on one axis, "pp", stage s on rank s."""
+    return Mesh(axes={"pp": pp}, device=device)
 
 
 def auto_mesh(n_devices: int | None = None, *, device=None) -> Mesh:
@@ -233,3 +253,128 @@ def ppermute(x: torch.Tensor, mesh: Mesh, axis: str, perm, *, async_op: bool = F
     hop = _Hop(works, out, x.device)
     return hop if async_op else hop.wait()
 
+
+# -- the autograd forms -------------------------------------------------------
+
+BUCKET = 1 << 26  # elements a host call of psum_flat sums at most (256 MiB of f32)
+
+
+def psum_flat(ts: list, mesh: Mesh, axes) -> list:
+    """Every tensor of ts summed over the ranks of each axis of axes (one
+    name or a tuple, in order), few tensors to a call: they are flattened
+    into buffers of one dtype and at most BUCKET elements (a larger tensor
+    alone), each summed with one all_reduce an axis.  Returns new tensors
+    of ts's shapes, in ts's order."""
+    axes = tuple(a for a in ((axes,) if isinstance(axes, str) else axes)
+                 if axis_size(mesh, a) > 1)
+    out = list(ts)
+    if not axes:
+        return out
+    buckets: list = []
+    for i, t in enumerate(ts):
+        last = buckets[-1] if buckets else None
+        if (last is None or ts[last[0]].dtype != t.dtype or ts[last[0]].device != t.device
+                or sum(ts[j].numel() for j in last) + t.numel() > BUCKET):
+            buckets.append([i])
+        else:
+            last.append(i)
+    for idx in buckets:
+        flat = torch.cat([ts[j].reshape(-1) for j in idx])
+        for ax in axes:
+            flat = all_reduce(flat, mesh, ax)
+        for j, part in zip(idx, flat.split([ts[j].numel() for j in idx])):
+            out[j] = part.view(ts[j].shape)
+    return out
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        return all_reduce(x, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mesh, axis, *xs):
+        ctx.mesh, ctx.axis = mesh, axis
+        return tuple(x.view_as(x) for x in xs)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        return (None, None, *psum_flat(list(gs), ctx.mesh, ctx.axis))
+
+
+class _GatherFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim, same):
+        ctx.mesh, ctx.axis, ctx.dim, ctx.same = mesh, axis, dim, same
+        ctx.n = x.shape[dim]
+        return all_gather(x, mesh, axis, dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        if not ctx.same:
+            g = all_reduce(g, ctx.mesh, ctx.axis)
+        g = g.narrow(ctx.dim, axis_index(ctx.mesh, ctx.axis) * ctx.n, ctx.n)
+        return g.contiguous(), None, None, None, None
+
+
+class _Permute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, perm):
+        ctx.mesh, ctx.axis, ctx.perm = mesh, axis, perm
+        return ppermute(x, mesh, axis, perm)
+
+    @staticmethod
+    def backward(ctx, g):
+        inverse = [(d, s) for s, d in ctx.perm]
+        return ppermute(g, ctx.mesh, ctx.axis, inverse), None, None, None
+
+
+def reduce_from(x: torch.Tensor, mesh: Mesh, axis) -> torch.Tensor:
+    """psum over axis whose cotangent passes as it is: the output of a
+    row-parallel product, or a loss summed over ranks (every rank goes on
+    with the same sum, so each holds the whole cotangent)."""
+    if axis_size(mesh, axis) == 1:
+        return x
+    return _ReduceFrom.apply(x, mesh, axis)
+
+
+def copy_to(x: torch.Tensor, mesh: Mesh, axis) -> torch.Tensor:
+    """The identity, whose cotangent is psum'd over axis: a replicated value
+    that each rank of axis uses for a part of its own (Megatron's "f"
+    before a column-parallel product)."""
+    if axis_size(mesh, axis) == 1:
+        return x
+    return _CopyTo.apply(mesh, axis, x)[0]
+
+
+def copy_to_many(xs: list, mesh: Mesh, axis) -> list:
+    """copy_to of several tensors as one node: their cotangents are psum'd
+    together (psum_flat), once every one of them is complete."""
+    if axis_size(mesh, axis) == 1:
+        return list(xs)
+    return list(_CopyTo.apply(mesh, axis, *xs))
+
+
+def gather_from(x: torch.Tensor, mesh: Mesh, axis, dim: int, *, same: bool) -> torch.Tensor:
+    """all_gather along dim.  same: every rank of axis goes on to compute the
+    same value from the result (the tp head's logits), so its cotangent is
+    already whole and this rank takes its slice; otherwise (sp's K/V in
+    attention, each rank's queries its own) the cotangents are psum'd over
+    axis before the slice."""
+    if axis_size(mesh, axis) == 1:
+        return x
+    return _GatherFrom.apply(x, mesh, axis, dim, same)
+
+
+def ppermute_ad(x: torch.Tensor, mesh: Mesh, axis: str, perm) -> torch.Tensor:
+    """ppermute whose backward sends the cotangent back along the inverse
+    permutation (a rank that sent nothing gets zeros).  Every rank of axis
+    must run the backward of every hop, in the same order: keep what each
+    hop delivers in the loss's graph on every rank."""
+    return _Permute.apply(x, mesh, axis, perm)

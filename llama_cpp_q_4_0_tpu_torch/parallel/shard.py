@@ -16,11 +16,18 @@ A QTensor's levels [K, N] (packed [K2P, N]) and its scale planes [K/g, N]
 (packed [2, G, N], split on the axis after the leading one) take the same
 split, so every rank holds whole quant groups; its ``shape`` stays global,
 as the JAX one's, and ``parallel/tp.py::_localize`` makes it local.
+
+The way back is ``gather_params``: the whole tensors, in JAX's layout, of
+dense params or of an optimizer state of them, on every rank (tests,
+checkpoints and the card's comparisons).  A leaf's spec follows from its
+JAX path (``leaf_spec``), so a state's moments and L-BFGS memories take
+their params' split.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import re
 from typing import Any
 
 import torch
@@ -29,7 +36,8 @@ from ..models.config import ModelConfig
 from ..models.transformer import Block, TransformerParams
 from ..ops.kvcache import F8, QuantKV
 from ..ops.qtensor import QTensor
-from .mesh import Mesh
+from ..training.tree import map_with_path
+from .mesh import Mesh, all_gather
 
 
 def local_slice(x: torch.Tensor, mesh: Mesh, spec: tuple) -> torch.Tensor:
@@ -178,3 +186,59 @@ def replicate(x, mesh: Mesh):
     if isinstance(x, (list, tuple)):
         return type(x)(replicate(v, mesh) for v in x)
     return x
+
+
+# L-BFGS's memories hold m parameter-shaped differences on a leading axis
+_MEMORY = ("diff_params_memory", "diff_updates_memory")
+
+
+def leaf_spec(path: str, leaf: torch.Tensor) -> tuple:
+    """The spec of a dense leaf as shard_transformer places it, from its
+    JAX path (``.blocks[0].wq``, ``[0].mu.output``,
+    ``[0].diff_params_memory.blocks[1].w_down``): the rule of the path's
+    last field (weight_specs: the embedding and head "col", BLOCK_COL and
+    BLOCK_ROW, the rest replicated), after a None for the memory axis of an
+    L-BFGS memory.  Any other leaf (counts, step sizes, the memory's
+    weights) is replicated."""
+    names = re.findall(r"\.(\w+)", path)
+    lead = int(any(n in _MEMORY for n in names))
+    field = names[-1] if names else ""
+    dim = "col" if field in ("tok_embeddings", "output") else block_dim(field)
+    nd = leaf.dim() - lead
+    if nd == 2:
+        spec = {"col": ("tp", None), "row": (None, "tp"), "rep": (None, None)}[dim]
+    elif nd == 1:
+        spec = ("tp",) if dim == "col" else (None,)
+    else:
+        spec = (None,) * nd
+    return (None,) * lead + spec
+
+
+def gather_leaf(x: torch.Tensor, spec: tuple, mesh: Mesh) -> torch.Tensor:
+    """The whole tensor of this rank's block x under spec: every split
+    dimension all-gathered over its axis (a collective: every rank of the
+    axis calls it)."""
+    with torch.no_grad():
+        for dim, axis in enumerate(spec):
+            if axis is not None and mesh.shape[axis] > 1:
+                x = all_gather(x, mesh, axis, dim=dim)
+    return x
+
+
+def gather_params(tree, mesh: Mesh):
+    """The inverse of shard_transformer for dense params, stacked or not, and
+    of shard_tree for an optimizer state of them: every leaf whole, in JAX's
+    layout, on every rank of the mesh (all of which must call it)."""
+    return map_with_path(lambda path, x: gather_leaf(x, leaf_spec(path, x), mesh), tree)
+
+
+def shard_tree(tree, mesh: Mesh):
+    """This rank's slices of whole dense params or an optimizer state of
+    them, by leaf_spec: what shard_transformer keeps of params, and tx.init
+    of those local params of a state (a checkpoint loaded whole goes back
+    onto a mesh through it).  Host scalars (counts, step sizes) stay as they
+    are."""
+    def put(path, x):
+        spec = leaf_spec(path, x)
+        return local_slice(x, mesh, spec) if x.dim() else x
+    return map_with_path(put, tree)

@@ -25,12 +25,33 @@ from .tree import flatten_with_path, map_with_path
 
 
 def save_checkpoint(path: str, cfg: ModelConfig, params, opt_state=None, step: int = 0,
-                    extra: dict | None = None) -> None:
+                    extra: dict | None = None, *, mesh=None) -> None:
+    """mesh: params and opt_state are this rank's slices
+    (training/train.py's step over a mesh); every rank of the mesh calls
+    it, each leaf is gathered whole (parallel/shard.py ``gather_params``,
+    one leaf at a time) and the primary rank writes the file JAX writes from
+    sharded arrays; the ranks leave together (``sync_hosts``)."""
     items = flatten_with_path(params, "params")
     if opt_state is not None:
         items += flatten_with_path(opt_state, "opt")
     meta = {"config": dataclasses.asdict(cfg), "step": step,
             "has_opt": opt_state is not None, "extra": extra or {}}
+    if mesh is None:
+        _write(path, meta, items)
+        return
+    from ..parallel.distributed import is_primary, sync_hosts
+    from ..parallel.shard import gather_leaf, leaf_spec
+
+    whole = ((key, gather_leaf(leaf, leaf_spec(key, leaf), mesh)) for key, leaf in items)
+    if is_primary():
+        _write(path, meta, whole)
+    else:
+        for _ in whole:
+            pass
+    sync_hosts("checkpoint", mesh=mesh)
+
+
+def _write(path: str, meta: dict, items) -> None:
     with zipfile.ZipFile(path, "w") as z:
         z.writestr("meta.json", json.dumps(meta))
         # np.savez's layout (one stored .npy entry per key), streamed

@@ -83,12 +83,20 @@ def stacked_forward(cfg: ModelConfig, params: TransformerParams, tokens: torch.T
 
 
 def stacked_lm_loss(cfg: ModelConfig, params, tokens, targets, *,
-                    remat: bool = False) -> torch.Tensor:
+                    remat: bool = False, mesh=None) -> torch.Tensor:
+    """mesh: params are this rank's slices of the stacked params
+    (shard_transformer keeps their [L, N, K] blocks whole, as JAX's) and
+    tokens/targets its block (parallel/mesh_train.py)."""
+    if mesh is not None:
+        from ..parallel.mesh_train import mesh_lm_loss
+
+        return mesh_lm_loss(cfg, params, tokens, targets, mesh, stacked=True, remat=remat)
     return cross_entropy_loss(stacked_forward(cfg, params, tokens, remat=remat), targets)
 
 
 def make_stacked_train_step(cfg: ModelConfig, tx: Transform, *,
-                            remat: bool = True) -> Callable:
+                            remat: bool = True, mesh=None) -> Callable:
     """The stacked train step: make_train_step over stacked_lm_loss, with
-    remat-bounded activation memory."""
-    return make_train_step(cfg, tx, partial(stacked_lm_loss, cfg, remat=remat))
+    remat-bounded activation memory; mesh as make_train_step's."""
+    return make_train_step(cfg, tx, partial(stacked_lm_loss, cfg, remat=remat, mesh=mesh),
+                           mesh=mesh)

@@ -25,6 +25,16 @@ The line search decides on the host, in f32 as optax computes in f32: each
 evaluation of the loss brings its value and its slope along the direction
 to the host in one copy, so an L-BFGS step synchronises 1 + (its line-search
 steps) times; Adam's step synchronises only where the caller reads the loss.
+
+Over a (dp, sp, tp) mesh (``make_train_step(..., mesh=...)``, the JAX step
+on params placed by ``shard_transformer``) each rank holds its slices of
+the params and of a state laid out like them: the loss is
+parallel/mesh_train.py's, every gradient is summed over dp and sp in few
+host calls (``value_and_grad``), the global reductions (``tree_vdot``,
+``tree_sqnorm``, so the clip and L-BFGS) sum a tp-split leaf's parts over
+tp and count a replicated leaf once, and the line search decides on rank
+0's value and slope, broadcast, so every rank takes the same branch and
+their collectives pair up.  Adam is elementwise on the slices.
 """
 
 from __future__ import annotations
@@ -39,7 +49,7 @@ import torch
 from ..models import transformer
 from ..models.config import ModelConfig
 from ..models.transformer import TransformerParams, init_cache
-from .tree import leaves, tree_map
+from .tree import flatten_with_path, leaves, tree_map
 
 F32 = np.float32
 _INT32_MAX = 2**31 - 1
@@ -134,18 +144,41 @@ def _sum_in_order(parts: list) -> torch.Tensor:
     return total
 
 
-def tree_vdot(a, b) -> torch.Tensor:
+def _over_tp(parts: list, tree, mesh) -> list:
+    """parts (each leaf's f32 sum) with a tp-split leaf's summed over tp, in
+    one host call: the whole leaf's sum on every rank."""
+    if mesh is None or mesh.shape["tp"] == 1:
+        return parts
+    from ..parallel.mesh import psum
+    from ..parallel.shard import leaf_spec
+
+    split = [i for i, (path, x) in enumerate(flatten_with_path(tree))
+             if "tp" in leaf_spec(path, x)]
+    if split:
+        summed = psum(torch.stack([parts[i] for i in split]), mesh, "tp")
+        for j, i in enumerate(split):
+            parts[i] = summed[j]
+    return parts
+
+
+def tree_vdot(a, b, mesh=None) -> torch.Tensor:
     """optax.tree.vdot: each leaf's dot (f32 sums, rounded to the leaves'
-    promoted dtype, as XLA's bf16 dot), summed in leaf order."""
-    return _sum_in_order([torch.dot(x.reshape(-1).float(), y.reshape(-1).float()).to(_promote(x, y))
-                          for x, y in zip(leaves(a), leaves(b))])
+    promoted dtype, as XLA's bf16 dot), summed in leaf order.  mesh: a and
+    b are a rank's slices (the dot of the whole trees)."""
+    xs, ys = leaves(a), leaves(b)
+    parts = _over_tp([torch.dot(x.reshape(-1).float(), y.reshape(-1).float())
+                      for x, y in zip(xs, ys)], a, mesh)
+    return _sum_in_order([p.to(_promote(x, y)) for p, x, y in zip(parts, xs, ys)])
 
 
-def tree_sqnorm(a) -> torch.Tensor:
+def tree_sqnorm(a, mesh=None) -> torch.Tensor:
     """optax.tree.norm(squared=True): each leaf's squares in its dtype,
-    summed in f32 and rounded to it, then the leaves in order."""
-    return _sum_in_order([torch.dot(x.reshape(-1), x.reshape(-1)) if x.dtype == torch.float32
-                          else (x * x).float().sum().to(x.dtype) for x in leaves(a)])
+    summed in f32 and rounded to it, then the leaves in order.  mesh: a is
+    a rank's slices (the whole tree's norm)."""
+    xs = leaves(a)
+    parts = _over_tp([torch.dot(x.reshape(-1), x.reshape(-1)) if x.dtype == torch.float32
+                      else (x * x).float().sum() for x in xs], a, mesh)
+    return _sum_in_order([p.to(x.dtype) for p, x in zip(parts, xs)])
 
 
 def tree_add_scale(a, s: torch.Tensor, b):
@@ -154,16 +187,34 @@ def tree_add_scale(a, s: torch.Tensor, b):
     return tree_map(lambda x, y: x + _jmul(s, y), a, b)
 
 
-def value_and_grad(fn: Callable, params):
+def value_and_grad(fn: Callable, params, mesh=None):
     """(fn(params), d fn / d params) with the params' structure; a leaf the
-    loss does not reach gets zeros, as jax.grad gives it."""
+    loss does not reach gets zeros, as jax.grad gives it.  mesh: params are
+    a rank's slices and fn the mesh loss; each gradient is summed over dp
+    and sp (every leaf is replicated over both), flattened into few host
+    calls."""
     with torch.enable_grad():
         p = tree_map(lambda t: t.detach().requires_grad_(True), params)
         value = fn(p)
         flat = leaves(p)
         grads = torch.autograd.grad(value, flat, allow_unused=True)
-    it = iter(g if g is not None else torch.zeros_like(t) for g, t in zip(grads, flat))
+    grads = [g if g is not None else torch.zeros_like(t) for g, t in zip(grads, flat)]
+    if mesh is not None:
+        from ..parallel.mesh import psum_flat
+
+        grads = psum_flat(grads, mesh, ("dp", "sp"))
+    it = iter(grads)
     return value.detach(), tree_map(lambda _: next(it), p)
+
+
+def _agreed(t: torch.Tensor, mesh) -> torch.Tensor:
+    """t as rank 0 of the mesh holds it, on every rank (the host decisions
+    of the line search)."""
+    if mesh is None:
+        return t
+    from ..parallel.mesh import broadcast
+
+    return broadcast(t, mesh, None, 0)
 
 
 def apply_updates(params, updates):
@@ -177,8 +228,9 @@ def apply_updates(params, updates):
 class Transform:
     """optax.GradientTransformationExtraArgs: init(params) -> state,
     update(updates, state, params, **extra) -> (updates, state).  The extra
-    arguments (value, grad, value_fn) reach every transform; only the line
-    search reads them."""
+    arguments (value, grad, value_fn; mesh, where the trees are a rank's
+    slices) reach every transform; only the clip, L-BFGS and the line search
+    read them."""
 
     def init(self, params):
         return EmptyState()
@@ -226,7 +278,7 @@ class ClipByGlobalNorm(Transform):
         self.max_norm = max_norm
 
     def update(self, updates, state, params=None, **extra):
-        g_norm = torch.sqrt(tree_sqnorm(updates).float())
+        g_norm = torch.sqrt(tree_sqnorm(updates, extra.get("mesh")).float())
         trigger = g_norm < self.max_norm
         return tree_map(lambda t: torch.where(trigger, t, (t / g_norm.to(t.dtype)) * self.max_norm),
                         updates), state
@@ -291,6 +343,7 @@ class ScaleByLBFGS(Transform):
 
     def update(self, updates, state, params=None, **extra):
         m = self.m
+        mesh = extra.get("mesh")
         count = int(state.count)
         idx, prev = count % m, (count - 1) % m
         dpm, dum, rhos = state.diff_params_memory, state.diff_updates_memory, state.weights_memory
@@ -300,15 +353,15 @@ class ScaleByLBFGS(Transform):
                      state.updates)
             dp = tree_map(lambda mem: mem[prev], dpm)
             du = tree_map(lambda mem: mem[prev], dum)
-            vdot = tree_vdot(du, dp).float()
+            vdot = tree_vdot(du, dp, mesh).float()
             rhos[prev] = torch.where(vdot == 0.0, torch.zeros_like(vdot), 1.0 / vdot)
-            den = tree_sqnorm(du).float()
+            den = tree_sqnorm(du, mesh).float()
             identity_scale = torch.where(den > 0.0, vdot / den, torch.ones_like(den))
         else:  # the first step: nothing to remember, a capped 1 / ||u||
             tree_map(lambda mem: mem[prev].zero_(), dpm)
             tree_map(lambda mem: mem[prev].zero_(), dum)
             rhos[prev] = 0.0
-            norm = torch.sqrt(tree_sqnorm(updates).float())
+            norm = torch.sqrt(tree_sqnorm(updates, mesh).float())
             identity_scale = torch.minimum(torch.ones_like(norm), 1.0 / norm)
         # the slots written so far: those of steps 1..count
         filled = {(count - 1 - j) % m for j in range(min(count, m))}
@@ -319,13 +372,13 @@ class ScaleByLBFGS(Transform):
         vec = tree_map(torch.clone, updates)
         alphas = {}
         for i in reversed(order):
-            alpha = rhos[i] * tree_vdot(tree_map(lambda mem: mem[i], dpm), vec).float()
+            alpha = rhos[i] * tree_vdot(tree_map(lambda mem: mem[i], dpm), vec, mesh).float()
             tree_map(lambda v, mem: v.copy_(v.float() - alpha * mem[i].float()), vec, dum)
             alphas[i] = alpha
         vec = tree_map(lambda v: v.mul_(identity_scale) if v.dtype == torch.float32
                        else _jmul(identity_scale, v), vec)
         for i in order:
-            beta = rhos[i] * tree_vdot(tree_map(lambda mem: mem[i], dum), vec).float()
+            beta = rhos[i] * tree_vdot(tree_map(lambda mem: mem[i], dum), vec, mesh).float()
             tree_map(lambda v, mem: v.add_(_jmul(alphas[i] - beta, mem[i])), vec, dpm)
         return vec, state._replace(count=_host(min(count + 1, _INT32_MAX), torch.int32),
                                    params=params, updates=updates)
@@ -369,6 +422,7 @@ class ScaleByZoomLinesearch(Transform):
         return F32(np.inf) if np.isnan(err) else F32(err)
 
     def update(self, updates, state, params=None, *, value, grad, value_fn, **extra):
+        mesh = extra.get("mesh")
         first = leaves(params)[0]
         # optax keeps the step size and the value in the first param's dtype
         # between line-search steps (a bf16 RWKV embedding rounds them)
@@ -382,13 +436,14 @@ class ScaleByZoomLinesearch(Transform):
         def probe(stepsize):
             """(value, grad, slope) at params + stepsize * updates."""
             step = tree_add_scale(params, _dev(stepsize, first), updates)
-            v, g = value_and_grad(value_fn, step)
+            v, g = value_and_grad(value_fn, step, mesh)
             del step
-            v_h, s_h = torch.stack([v.float(), tree_vdot(g, updates).float()]).tolist()
+            v_h, s_h = _agreed(torch.stack([v.float(), tree_vdot(g, updates, mesh).float()]),
+                               mesh).tolist()
             return F32(v_h), g, F32(s_h)
 
-        value_init, slope_init = (F32(x) for x in torch.stack(
-            [value.float(), tree_vdot(updates, grad).float()]).tolist())
+        value_init, slope_init = (F32(x) for x in _agreed(torch.stack(
+            [value.float(), tree_vdot(updates, grad, mesh).float()]), mesh).tolist())
         st = dict(count=0, stepsize=F32(0), value=rnd(value_init), grad=grad, slope=slope_init,
                   decrease_error=F32(np.inf), curvature_error=F32(np.inf),
                   interval_found=False, done=False, failed=False,
@@ -551,9 +606,15 @@ def squared_error_loss(logits: torch.Tensor, targets_onehot: torch.Tensor) -> to
 
 
 def lm_loss(cfg: ModelConfig, params: TransformerParams, tokens: torch.Tensor,
-            targets: torch.Tensor) -> torch.Tensor:
+            targets: torch.Tensor, *, mesh=None) -> torch.Tensor:
     """Full-sequence causal LM loss. tokens/targets: [B, T] integer, on the
-    params' device; the forward writes an f32 cache of its own."""
+    params' device; the forward writes an f32 cache of its own.  mesh: the
+    params are this rank's slices and tokens/targets its [B/dp, T/sp] block
+    (parallel/mesh_train.py); the loss is the whole batch's."""
+    if mesh is not None:
+        from ..parallel.mesh_train import mesh_lm_loss
+
+        return mesh_lm_loss(cfg, params, tokens, targets, mesh)
     b, t = tokens.shape
     cache_k, cache_v = init_cache(cfg, b, t, dtype=torch.float32, device=tokens.device)
     logits = transformer.forward(cfg, params, tokens, 0, cache_k, cache_v, last_only=False)
@@ -561,20 +622,24 @@ def lm_loss(cfg: ModelConfig, params: TransformerParams, tokens: torch.Tensor,
 
 
 def make_train_step(cfg: ModelConfig, tx: Transform,
-                    loss_fn: Callable | None = None) -> Callable:
+                    loss_fn: Callable | None = None, *, mesh=None) -> Callable:
     """step(params, opt_state, tokens, targets) -> (params, opt_state,
     loss): the loss and its gradient, tx's update (the line search
     evaluating loss_fn again on the same batch) and the new params.  The
     state is updated in place (the JAX step donates it; its L-BFGS step
     does not, which the in-place memory makes moot) and the params returned
-    are new tensors."""
-    loss_fn = loss_fn or partial(lm_loss, cfg)
+    are new tensors.  mesh: JAX's step on sharded params: params and state
+    are this rank's slices (``shard_transformer``, ``tx.init`` of them),
+    tokens and targets its block (``shard_tokens(...,
+    sequence_parallel=True)``), loss_fn a loss over the mesh (default
+    ``lm_loss(..., mesh=mesh)``); every rank of the mesh calls it."""
+    loss_fn = loss_fn or partial(lm_loss, cfg, mesh=mesh)
 
     def step(params, opt_state, tokens, targets):
         fn = partial(_bound, loss_fn, tokens=tokens, targets=targets)
-        loss, grads = value_and_grad(fn, params)
+        loss, grads = value_and_grad(fn, params, mesh)
         updates, opt_state = tx.update(grads, opt_state, params, value=loss, grad=grads,
-                                       value_fn=fn)
+                                       value_fn=fn, mesh=mesh)
         return apply_updates(params, updates), opt_state, loss
 
     return step

@@ -84,7 +84,7 @@ def test_port_imports_no_jax_and_no_jax_package(tmp_path):
               "training.stacked", "training.rwkv_opt", "training.tree", "formats.export",
               "utils.memory", "cli.train", "parallel", "parallel.mesh",
               "parallel.distributed", "parallel.shard", "parallel.tp",
-              "parallel.ring_attention"):
+              "parallel.ring_attention", "parallel.pipeline", "parallel.mesh_train"):
         assert f"llama_cpp_q_4_0_tpu_torch.{m}" in out["mods"], m
     if not out["cuda"]:
         # entry points refuse to run on the CPU unless asked to

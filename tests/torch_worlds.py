@@ -11,7 +11,7 @@ crashed jaxlib, tests/test_tp.py), and hand their results over as files
 under out: the params as the numpy tree ``convert.params_from_numpy``
 takes, the outputs as ``.npz``.
 
-Run as a script: ``python tests/torch_worlds.py jax PATH FUNC OUT`` or
+Run as a script: ``python tests/torch_worlds.py jax PATH FUNC OUT [ARG...]`` or
 ``python tests/torch_worlds.py port PATH FUNC OUT RANK N INIT``.
 """
 
@@ -46,6 +46,27 @@ def run_jax(path: str, func: str, out: str, timeout: float = 600) -> None:
                        capture_output=True, text=True, timeout=timeout)
     if r.returncode:
         _fail(f"JAX reference {func} failed (rc {r.returncode})", [r.stdout, r.stderr])
+
+
+def run_jax_parallel(path: str, func: str, out: str, arg_lists, timeout: float = 600) -> None:
+    """func(out, *args) of the test module at path for each args of
+    arg_lists (strings), each in its own fresh JAX process, all started
+    together: XLA's compiles of independent references overlap."""
+    env = _env(XLA_FLAGS="--xla_force_host_platform_device_count=8")
+    procs = [subprocess.Popen([sys.executable, __file__, "jax", path, func, out, *args],
+                              cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for args in arg_lists]
+    deadline = time.monotonic() + timeout
+    try:
+        outs = [p.communicate(timeout=max(deadline - time.monotonic(), 1)) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for args, p, (o, e) in zip(arg_lists, procs, outs):
+        if p.returncode:
+            _fail(f"JAX reference {func}{tuple(args)} failed (rc {p.returncode})", [o, e])
 
 
 def run_world(n: int, path: str, func: str, out: str, timeout: float = 600) -> None:
@@ -136,7 +157,7 @@ def _main(argv) -> None:
         import jax
 
         jax.config.update("jax_platforms", "cpu")
-        getattr(_module(path), func)(out)
+        getattr(_module(path), func)(out, *argv[4:])
         return
     import torch
 
