@@ -276,10 +276,26 @@ Phases (each prints its own lines; any failure exits non-zero):
      checkpoint's arrays equal the gathered params and Adam state bit for
      bit; ms a step or a pp loss+grad (ranks that share the card) and each
      rank's peak memory.
-  12. a JSON line of per-kernel numbers (launches: the e2e paths', the
-     families', the session, spec, serve, rwkv and train phases'), then the contract line
-     {"ok": true, "device": {...}}.
-``--phases kernels,e2e,graphs,ondevice,session,spec,serve,families,rwkv,q8chaos,cli,qkk64,train,parallel`` runs a subset
+  12. convert: the HF converter and the native host path (native/) at
+     LLaMA-7B width, 2 layers: a bf16 safetensors checkpoint drawn from
+     --seed, convert_llama --outtype q4_0 (the C++ quantizer), `main -n 16`
+     on a 128-token prompt (the C++ repack at load and tokenizer): 8 K1, 2
+     K3 and 145 K2 launches, each native entry point called; one 11008 x
+     4096 matrix quantized and repacked by the C++ and numpy routes, the
+     same bits, both host rates.
+  13. export: one decode step exported with torch.export (runtime/export.py,
+     the kernels as custom ops in the graph) at LLaMA-7B width, 2 layers,
+     q4_0 from --seed, written, loaded and run 8 steps beside a Context on
+     the same weights from the same 128-token prefill: in the default
+     configuration 9 K2 a step, in the int8 configuration (QMM_Q8X=1
+     FUSED_ATTN=1, q8 cache) 9 K7 and 2 K4 a step, every argmax the
+     Context's, the largest logit gap printed; a profiling.trace of a
+     replayed step and the op histogram of the file that was loaded and
+     replayed.
+  14. a JSON line of per-kernel numbers (launches: the e2e paths', the
+     families', the session, spec, serve, rwkv, train, convert and export
+     phases'), then the contract line {"ok": true, "device": {...}}.
+``--phases kernels,e2e,graphs,ondevice,session,spec,serve,families,rwkv,q8chaos,cli,qkk64,train,convert,export,parallel`` runs a subset
 (for debugging: a subset prints no result lines; with no arguments every phase runs).  Phases that run only
 when named: ``sass`` (instruction counts of K7's and K3's kernels and of
 the decode GEMV's and K4's instances), ``gemv`` (check_gemv alone),
@@ -6118,7 +6134,7 @@ def qkk64_tools(torch, counters, tmp: str, seed: int) -> bool:
     ok = tool(quantize_cli, [f32, q4, "q4_0"], "quantize f32 -> q4_0") == 0
     dt = time.perf_counter() - t0
     print(f"qkk64: quantize q4_0 host rate {n_w / dt / 1e6:.1f} M weights/s ({dt:.1f} s "
-          f"with the file reads and writes)", flush=True)
+          f"with the file reads and writes; {quantizer()})", flush=True)
     os.remove(f32)
     ok &= main_on_card(q4, "qmm_q4_0_kfold")
 
@@ -6557,6 +6573,14 @@ def train_resume(torch, cfg, data, seed: int, path: str, save_s: float) -> bool:
     return ok
 
 
+def quantizer() -> str:
+    """Which q4_0 quantizer the host tools take: the C++ one (native/) when
+    it is built, else numpy."""
+    from llama_cpp_q_4_0_tpu_torch import native
+
+    return "the native quantizer" if native.available() else "the numpy quantizer"
+
+
 def train_chain(torch, counters, model_f32: str, tmp: str, launches: dict) -> bool:
     """The user's chain on the exported model: the port's `quantize ...
     q4_0`, then `main -n 16` on the card, its K1/K2/K3 launches exact
@@ -6583,7 +6607,8 @@ def train_chain(torch, counters, model_f32: str, tmp: str, launches: dict) -> bo
     got = {k: v for k, v in _read(counters).items() if v}
     t2 = time.perf_counter()
     ok = rc == rc2 == 0 and got == TRAIN_MAIN_LAUNCHES
-    print(f"train: quantize q4_0 rc={rc} in {t1 - t0:.1f} s; main -n 16 rc={rc2} in "
+    print(f"train: quantize q4_0 rc={rc} in {t1 - t0:.1f} s ({quantizer()}); main -n 16 "
+          f"rc={rc2} in "
           f"{t2 - t1:.1f} s, launches {json.dumps(got)} (want "
           f"{json.dumps(TRAIN_MAIN_LAUNCHES)}); text {text[-60:]!r} {'ok' if ok else 'MISMATCH'}",
           flush=True)
@@ -6747,6 +6772,240 @@ def train_phase(torch, counters, card: str, seed: int, launches: dict) -> bool:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
+
+
+# ---------------------------------------------------------------- convert, export
+
+CONVERT_WIDTH = dict(hidden_size=4096, num_attention_heads=32, num_hidden_layers=2,
+                     vocab_size=32000, intermediate_size=11008)
+# main -n 16 on the converted 2-layer file: a 128-token prompt (8 K1: wqkv,
+# wo, w_gateup and w_down of two layers; 2 K3), the head's last row and 16
+# decode steps of 9 matmuls (K2)
+CONVERT_MAIN_LAUNCHES = {"qmm_q4_0": 8, "flash_prefill": 2, "qmm_q4_0_kfold": 1 + 9 * 16}
+EXPORT_CTX = 256  # the exported steps' cache (K4 takes windows of 128 or more)
+EXPORT_PROMPT = 128  # tokens the Context prefills before the checked steps
+EXPORT_STEPS = 8
+# the launches of one exported 2-layer decode step
+EXPORT_PER_TOKEN = {"q4_0": {"qmm_q4_0_kfold": 9},
+                    "int8": {"qmm_q8x": 9, "mha_decode": 2}}
+
+
+def write_hf_checkpoint(torch, d: str, seed: int) -> int:
+    """A LLaMA-7B-width 2-layer HF checkpoint (config.json and one bf16
+    safetensors file of the names convert_llama reads), its weights drawn on
+    the card from seed.  Returns the count of weights."""
+    from safetensors.torch import save_file
+
+    e, ff, v = (CONVERT_WIDTH[k] for k in ("hidden_size", "intermediate_size", "vocab_size"))
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def r(*shape, s=0.02):
+        return (torch.randn(*shape, generator=g, device="cuda") * s).to(torch.bfloat16).cpu()
+
+    sd = {"model.embed_tokens.weight": r(v, e, s=1.0), "model.norm.weight": 1 + r(e),
+          "lm_head.weight": r(v, e)}
+    for i in range(CONVERT_WIDTH["num_hidden_layers"]):
+        p = f"model.layers.{i}."
+        sd[p + "input_layernorm.weight"] = 1 + r(e)
+        sd[p + "post_attention_layernorm.weight"] = 1 + r(e)
+        for nm in ("q_proj", "k_proj", "v_proj", "o_proj"):
+            sd[p + f"self_attn.{nm}.weight"] = r(e, e)
+        sd[p + "mlp.gate_proj.weight"] = r(ff, e)
+        sd[p + "mlp.down_proj.weight"] = r(e, ff)
+        sd[p + "mlp.up_proj.weight"] = r(ff, e)
+    os.makedirs(d, exist_ok=True)
+    with open(os.path.join(d, "config.json"), "w") as f:
+        json.dump({"model_type": "llama", **CONVERT_WIDTH}, f)
+    save_file(sd, os.path.join(d, "model.safetensors"))
+    return sum(t.numel() for t in sd.values() if t.dim() == 2)
+
+
+def native_routes(seed: int) -> bool:
+    """One 11008 x 4096 matrix quantized to q4_0 and repacked by both routes
+    (the C++ library and numpy): the same bits, each route's host rate."""
+    import numpy as np
+
+    from llama_cpp_q_4_0_tpu_torch import native
+    from llama_cpp_q_4_0_tpu_torch.quant import blockq
+    from llama_cpp_q_4_0_tpu_torch.quant.q4_0 import pack_q4_0
+
+    n, k = 11008, 4096
+    w = np.random.default_rng(seed).standard_normal((n, k)).astype(np.float32) * 0.02
+    t0 = time.perf_counter()
+    raw = native.quantize_q4_0(w)
+    t1 = time.perf_counter()
+    ref = blockq.quantize_q4_0(w).view(np.uint8).reshape(raw.shape)
+    t2 = time.perf_counter()
+    packed, scales = native.pack_q4_0(raw, n, k)
+    t3 = time.perf_counter()
+    ref_packed, ref_scales = pack_q4_0(raw, n, k)
+    t4 = time.perf_counter()
+    ok = (np.array_equal(raw, ref) and np.array_equal(packed, ref_packed)
+          and np.array_equal(scales, ref_scales))
+    m = n * k / 1e6
+    print(f"convert: one {n} x {k} matrix, native / numpy: quantize q4_0 {t1 - t0:.3f} / "
+          f"{t2 - t1:.3f} s ({m / (t1 - t0):.1f} / {m / (t2 - t1):.1f} M weights/s), repack "
+          f"{t3 - t2:.3f} / {t4 - t3:.3f} s ({m / (t3 - t2):.1f} / {m / (t4 - t3):.1f} M "
+          f"weights/s); bits {'equal' if ok else 'DIFFER'}", flush=True)
+    return ok
+
+
+def convert_phase(torch, counters, seed: int, launches: dict) -> bool:
+    """The HF converter and the native host path at LLaMA-7B width, 2 layers:
+    a bf16 safetensors checkpoint from the seed, `convert_llama(...,
+    outtype="q4_0")` (the native quantizer), `main -n 16` on a 128-token
+    prompt (the native repack at load, the native tokenizer) with its K1,
+    K3 and K2 launches exact (CONVERT_MAIN_LAUNCHES); the native library
+    built and each of its entry points called; one matrix through both
+    routes (native_routes)."""
+    import numpy as np
+
+    from llama_cpp_q_4_0_tpu_torch import native
+    from llama_cpp_q_4_0_tpu_torch.cli import main as main_cli
+    from llama_cpp_q_4_0_tpu_torch.formats.convert_hf import convert_llama
+    from llama_cpp_q_4_0_tpu_torch.formats.fixtures import _fake_vocab
+    from llama_cpp_q_4_0_tpu_torch.kernels.build import BUILD_DIR
+
+    tmp = os.path.join(BUILD_DIR, "smoke-convert")
+    shutil.rmtree(tmp, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        built = native.available()  # built at the start (its `build:` line), loaded here
+        t1 = time.perf_counter()
+        calls = dict(native.calls)
+        hf_dir = os.path.join(tmp, "hf")
+        n_w = write_hf_checkpoint(torch, hf_dir, seed)
+        t2 = time.perf_counter()
+        out = os.path.join(tmp, "llama7b-width-2layer-q4_0.ggjt")
+        convert_llama(hf_dir, out, outtype="q4_0", vocab=_fake_vocab(32000))
+        t3 = time.perf_counter()
+        print(f"convert: native library {'loaded' if built else 'MISSING'} in {t1 - t0:.3f} s; "
+              f"the bf16 checkpoint ({n_w} weights) written in {t2 - t1:.1f} s; convert_llama "
+              f"--outtype q4_0 in {t3 - t2:.1f} s ({n_w / (t3 - t2) / 1e6:.1f} M weights/s with "
+              f"the reads and writes), {os.path.getsize(out) / 2**20:.1f} MiB", flush=True)
+        prompt = "".join(chr(c) for c in np.random.default_rng(seed).integers(97, 123, 127))
+        _zero(counters)
+        rc, text = _tool_output(main_cli, ["-m", out, "-p", prompt, "-n", "16", "--temp", "0",
+                                           "--ignore-eos", "-c", "256", "--device", "cuda"])
+        torch.cuda.synchronize()
+        got = {k: v for k, v in _read(counters).items() if v}
+        t4 = time.perf_counter()
+        used = {k: native.calls[k] - calls[k] for k in calls}
+        ok = built and rc == 0 and got == CONVERT_MAIN_LAUNCHES and all(used.values())
+        print(f"convert: main -n 16 on a 128-token prompt rc={rc} in {t4 - t3:.1f} s, launches "
+              f"{json.dumps(got)} (want {json.dumps(CONVERT_MAIN_LAUNCHES)}); native calls "
+              f"{json.dumps(used)}; text {text[-60:]!r} {'ok' if ok else 'MISMATCH'}",
+              flush=True)
+        if ok:
+            _add(launches, got)
+        ok &= native_routes(seed)
+        print(f"convert: phase {time.perf_counter() - t0:.1f} s", flush=True)
+        return ok
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def export_run(torch, counters, label: str, cfg, params, tmp: str, seed: int,
+               cache_dtype) -> tuple[bool, dict]:
+    """Export the decode step of (cfg, params) on the card, load it, and run
+    EXPORT_STEPS steps beside a Context on the same weights: both start from
+    the Context's caches after an EXPORT_PROMPT-token prefill (copied into
+    the exported model's), so both attend over the whole 256-slot window.
+    Each step's argmax is the Context's, the largest logit gap is printed,
+    and the exported steps' launches are exact (EXPORT_PER_TOKEN)."""
+    import numpy as np
+
+    from llama_cpp_q_4_0_tpu_torch.runtime.context import Context
+    from llama_cpp_q_4_0_tpu_torch.runtime.export import export_decode, load_exported
+    from llama_cpp_q_4_0_tpu_torch.utils import profiling
+
+    path = os.path.join(tmp, f"{label}.ggtx")
+    t0 = time.perf_counter()
+    export_decode(cfg, params, path, n_ctx=EXPORT_CTX, device="cuda", cache_dtype=cache_dtype)
+    t1 = time.perf_counter()
+    m = load_exported(path)
+    t2 = time.perf_counter()
+    ctx = Context(cfg, params, n_ctx=EXPORT_CTX, cache_dtype=cache_dtype, device="cuda")
+    prompt = np.random.default_rng(seed).integers(3, cfg.n_vocab, EXPORT_PROMPT)
+    logits = ctx.eval(np.asarray([prompt]))
+    for src, dst in zip((*ctx.cache_k, *ctx.cache_v), (*m.cache_k, *m.cache_v)):
+        if isinstance(src, torch.Tensor):
+            dst.copy_(src)
+        else:
+            dst.data.copy_(src.data)
+            dst.scale.copy_(src.scale)
+    m.n_past = ctx.n_past
+    per_step, gaps, same, ms = [], [], True, []
+    for _ in range(EXPORT_STEPS):
+        tok = int(np.argmax(logits[0, -1]))
+        logits = ctx.eval(np.asarray([[tok]]))
+        torch.cuda.synchronize()
+        _zero(counters)
+        t = time.perf_counter()
+        got = m.step_tensor([[tok]])
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+        per_step.append({k: v for k, v in _read(counters).items() if v})
+        got = got.float().cpu().numpy()
+        gaps.append(float(np.abs(got - logits).max()))
+        same &= int(np.argmax(got[0, -1])) == int(np.argmax(logits[0, -1]))
+    want = EXPORT_PER_TOKEN[label]
+    ok = same and all(p == want for p in per_step)
+    print(f"export: {label} exported in {t1 - t0:.1f} s ({os.path.getsize(path) / 2**20:.1f} "
+          f"MiB), loaded in {t2 - t1:.1f} s; {EXPORT_STEPS} steps at n_past "
+          f"{EXPORT_PROMPT}-{EXPORT_PROMPT + EXPORT_STEPS - 1}: argmax "
+          f"{'equal' if same else 'DIFFERENT'} to Context.eval every step, largest logit gap "
+          f"{max(gaps):.3e}; launches a step {json.dumps(per_step[0])} (want "
+          f"{json.dumps(want)}, every step {'alike' if ok else 'NOT'}); eager exported step "
+          f"{sorted(ms)[len(ms) // 2]:.3f} ms/token (median) {'ok' if ok else 'MISMATCH'}",
+          flush=True)
+    with profiling.trace(os.path.join(tmp, "trace")) as prof:
+        ctx.eval(np.asarray([[int(np.argmax(logits[0, -1]))]]))  # a replayed decode step
+        torch.cuda.synchronize()
+    rows = _kernel_rows(prof, 1)[:4]
+    hist = profiling.op_histogram_from_program(m._exported)  # the file that was replayed
+    kernels = {k: v for k, v in hist.items() if k.startswith("llama_cpp_q4::")}
+    print(f"export: {label} profiling.trace of a replayed step: "
+          f"{len(os.listdir(os.path.join(tmp, 'trace')))} file(s); top kernels "
+          f"{[(name[:40], round(t, 4)) for t, _, name in rows]} ms; "
+          f"op_histogram {sum(hist.values())} nodes, kernel ops {json.dumps(kernels)}",
+          flush=True)
+    ok &= kernels == ({"llama_cpp_q4::qmm_packed_kfold": 9} if label == "q4_0" else
+                      {"llama_cpp_q4::qmm_packed_q8x": 9, "llama_cpp_q4::mha_decode": 2})
+    total = {k: sum(p.get(k, 0) for p in per_step) for k in want}
+    del ctx, m
+    torch.cuda.empty_cache()
+    return ok, total
+
+
+def export_phase(torch, counters, seed: int, launches: dict) -> bool:
+    """One decode step exported as a file and replayed (runtime/export.py) at
+    LLaMA-7B width, 2 layers, q4_0 weights from the seed: the default
+    configuration (bf16 cache, 9 K2 a step) and the int8 configuration
+    (QMM_Q8X=1 FUSED_ATTN=1, q8 cache: 9 K7 and 2 K4 a step), each through
+    export_run; a profiler trace of a replayed step and the exported graph's
+    op histogram."""
+    from llama_cpp_q_4_0_tpu_torch.kernels.build import BUILD_DIR
+    from llama_cpp_q_4_0_tpu_torch.synth import build_llama
+
+    tmp = os.path.join(BUILD_DIR, "smoke-export")
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    try:
+        t0 = time.perf_counter()
+        cfg, params = build_llama(n_layer=2, n_ctx=EXPORT_CTX, device="cuda", seed=seed,
+                                  ftype="q4_0")
+        ok, total = export_run(torch, counters, "q4_0", cfg, params, tmp, seed, torch.bfloat16)
+        with env(**INT8):
+            ok8, total8 = export_run(torch, counters, "int8", cfg, params, tmp, seed,
+                                     torch.int8)
+        if ok and ok8:
+            _add(launches, total)
+            _add(launches, total8)
+        print(f"export: phase {time.perf_counter() - t0:.1f} s", flush=True)
+        return ok and ok8
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 # ---------------------------------------------------------------- parallel
@@ -7688,7 +7947,7 @@ def parallel_phase(torch, card: str, seed: int) -> bool:
 
 
 FULL_RUN = ("kernels", "e2e", "graphs", "ondevice", "session", "spec", "serve", "families",
-            "rwkv", "q8chaos", "cli", "qkk64", "train", "parallel")
+            "rwkv", "q8chaos", "cli", "qkk64", "train", "convert", "export", "parallel")
 
 
 def main(argv=None) -> int:
@@ -7698,7 +7957,8 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", default=",".join(FULL_RUN),
                     help="comma-separated subset of kernels,e2e,graphs,ondevice,session,spec,"
                          "serve,families,rwkv,"
-                         "q8chaos,cli,qkk64,train,parallel,sass,k7k3,rwkvfaults,traceparse,"
+                         "q8chaos,cli,qkk64,train,convert,export,parallel,sass,k7k3,"
+                         "rwkvfaults,traceparse,"
                          "k7repeat,int8prefill,planes,tiles,attn,gemv,busy,splits (parallel: "
                          "the sharded serving path, Context(mesh) with its chunks, "
                          "speculation, state, shift and perplexity, and the mesh engines, "
@@ -7734,8 +7994,12 @@ def main(argv=None) -> int:
 
     card = card_line()
     print(f"card: {card}", flush=True)
+    secs = build.build_all(["ggjt_native"])  # the native host library, timed alone
+    print(f"build: native host library (g++) "
+          f"{'built in %.2f s' % secs['ggjt_native'] if secs else 'fresh, not rebuilt'}",
+          flush=True)
     t0 = time.perf_counter()
-    secs = build.build_all()
+    secs = build.build_all(build.CUDA_SOURCES)
     print(f"build: {json.dumps({k: round(v, 2) for k, v in secs.items()})} "
           f"total {time.perf_counter() - t0:.2f} s", flush=True)
     if "kernels" in phases:
@@ -8071,6 +8335,17 @@ def main(argv=None) -> int:
                         "launches or the CPU gate) or rwkv_opt (error, addresses, the replayed "
                         "step)")
         elapsed("train")
+    if "convert" in phases:
+        if not convert_phase(torch, counters, opts.seed, launches):
+            return fail("the HF converter or the native host path: the native library "
+                        "missing or an entry point never called, main's launches on the "
+                        "converted file, or the native and numpy routes' bits")
+        elapsed("convert")
+    if "export" in phases:
+        if not export_phase(torch, counters, opts.seed, launches):
+            return fail("the exported decode step: an argmax off Context.eval's, a launch "
+                        "count a step, or the kernel ops of its graph")
+        elapsed("export")
     if "parallel" in phases:
         if not parallel_phase(torch, card, opts.seed):
             return fail("the sharded path: a rank failed, the ranks' logits differ, a logit gap "

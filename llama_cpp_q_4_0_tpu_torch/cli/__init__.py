@@ -21,6 +21,9 @@ TOOLS = {
     "update": ("rewrite old ggml/ggmf file as current ggjt", "update"),
     "verify-checksums": ("SHA256 model integrity check", "verify_checksums"),
     "train": ("train a model from scratch (examples/train-text-from-scratch)", "train"),
+    "convert": ("convert a HF checkpoint to ggjt (convert.py)", "convert"),
+    "export-graph": ("AOT export / replay decode step (llama_eval_export)",
+                     "export_graph"),
 }
 
 

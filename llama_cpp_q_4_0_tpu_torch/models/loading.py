@@ -24,7 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .. import resolve_device
+from .. import native, resolve_device
 from ..formats.ggjt import GGJTFile
 from ..ops.qtensor import QTensor
 from ..quant.pack import PLANAR_TYPES, pack_planar
@@ -44,7 +44,9 @@ def load_tensor(gf: GGJTFile, name: str, device: torch.device,
         return arr.to(device=device, dtype=dt)
     if t.qtype == GGMLType.Q4_0 and len(t.shape) == 2 and t.shape[1] % 64 == 0:
         n, k = t.shape
-        packed, scales = pack_q4_0(gf.tensor_bytes(name), n, k)
+        raw = gf.tensor_bytes(name)
+        # the C++ repack (native/) when it is built, else numpy: the same bytes
+        packed, scales = native.pack_q4_0(raw, n, k) or pack_q4_0(raw, n, k)
         return QTensor(levels_t=torch.from_numpy(packed).to(device),
                        gscale_t=torch.from_numpy(scales).to(device),
                        gsize=32, qtype=GGMLType.Q4_0, shape=(n, k),

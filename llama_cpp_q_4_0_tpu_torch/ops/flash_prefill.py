@@ -7,7 +7,8 @@ over the call's fresh (cache-round-tripped) K/V with ``n_past == 0``, which
 equals the cache-window attention of that call.
 
 For a CPU tensor the wrapper runs the plain version; for a CUDA tensor it
-launches the kernel or raises.  The kernel computes both products in 3xTF32
+launches the kernel or raises; in a traced graph it is the custom op
+``llama_cpp_q4::flash_prefill`` (ops/library.py).  The kernel computes both products in 3xTF32
 on the tensor cores; ``flash_prefill_3xtf32_plain`` repeats that arithmetic
 in plain PyTorch (the tests hold it to f32 attention).
 """
@@ -84,6 +85,10 @@ _SIGNATURES = {
 def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   scale: float) -> torch.Tensor:
     """Causal attention over the prompt's own K/V -> f32 [B, T, H, D]."""
+    if torch.compiler.is_compiling():  # a traced graph holds the op (ops/library.py)
+        from . import library
+
+        return library.OPS["flash_prefill"](q, k, v, float(scale))
     if q.dim() != 4 or k.shape != v.shape or k.dim() != 4:
         raise ValueError(f"bad shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)}")

@@ -16,7 +16,8 @@ softmax state, merged in rank order inside the kernel.
 ``mha_decode_split_plain`` is that order in plain PyTorch.
 
 For a CPU tensor the wrapper runs the plain version; for a CUDA tensor it
-launches the kernel or raises.
+launches the kernel or raises; in a traced graph it is the custom op
+``llama_cpp_q4::mha_decode`` (ops/library.py).
 """
 
 from __future__ import annotations
@@ -177,6 +178,11 @@ def mha_decode(q: torch.Tensor, kd: torch.Tensor, ks: torch.Tensor | None,
     """Attention of T <= 16 query tokens over the cache window -> f32
     [B, T, H, D].  The window may be a strided ``cache[:, :w]`` view: the
     kernel takes its batch stride and copies nothing, and no scratch."""
+    if torch.compiler.is_compiling():  # a traced graph holds the op (ops/library.py)
+        from . import library
+
+        return library.OPS["mha_decode"](q, kd, ks, vd, vs, q_positions, kv_mask,
+                                         float(scale))
     b, t, h, d = q.shape
     s, g = kd.shape[1], kd.shape[2]
     if kd.shape != vd.shape or kd.shape[0] != b or kd.shape[3] != d or h % g:

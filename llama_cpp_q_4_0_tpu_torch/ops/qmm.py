@@ -36,7 +36,9 @@ plain version, which widens them first.
 
 For a CPU tensor each wrapper runs the plain PyTorch version; for a CUDA
 tensor it launches the kernel or raises.  ``launches`` counts the kernel
-launches of each wrapper.
+launches of each wrapper.  While a graph is traced (``torch.export``) each
+wrapper returns its custom op of ``ops/library.py`` instead, whose CUDA
+implementation is this launch.
 """
 
 from __future__ import annotations
@@ -469,6 +471,18 @@ def _tile_scratch(x: torch.Tensor, n: int, gsize: int, *, packed: bool,
     return plan, xa, partial
 
 
+def _tracing() -> bool:
+    """Whether a graph is being traced (torch.export): the wrappers then
+    return their custom op (ops/library.py), which the graph holds by name."""
+    return torch.compiler.is_compiling()
+
+
+def _op(name: str, *args):
+    from . import library
+
+    return library.OPS[name](*args)
+
+
 def _ptr(t: torch.Tensor | None):
     return None if t is None else t.data_ptr()
 
@@ -476,6 +490,8 @@ def _ptr(t: torch.Tensor | None):
 def qmm_packed(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor, *,
                zero: int = 8, gsize: int = 32) -> torch.Tensor:
     """K1, the prefill form (more than 32 rows): f32 [B, N]."""
+    if _tracing():
+        return _op("qmm_packed", x, packed, scales, zero, gsize)
     code = _check(x, packed, [scales], packed=True, gsize=gsize)
     if x.device.type == "cpu":
         return qmm_packed_plain(x, packed, scales, zero=zero, gsize=gsize)
@@ -496,6 +512,8 @@ def qmm_packed_kfold(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor
     """K2, the decode form, zero point folded: f32 [B, N].  The kernel takes
     up to 32 rows a launch; more rows (``QMM_KFOLD=1``) run as 32-row chunks,
     one launch each, since every row is computed alone."""
+    if _tracing():
+        return _op("qmm_packed_kfold", x, packed, scales, zero, gsize)
     code = _check(x, packed, [scales], packed=True, gsize=gsize)
     if x.device.type == "cpu":
         return qmm_packed_kfold_plain(x, packed, scales, zero=zero, gsize=gsize)
@@ -524,6 +542,8 @@ def _kfold(x, packed, scales, zero, gsize, code):
 def qmm_packed_bias(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
                     gbias: torch.Tensor, *, zero: int, gsize: int) -> torch.Tensor:
     """K5, the packed affine matmul at any row count: f32 [B, N]."""
+    if _tracing():
+        return _op("qmm_packed_bias", x, packed, scales, gbias, zero, gsize)
     code = _check(x, packed, [scales, gbias], packed=True, gsize=gsize)
     if x.device.type == "cpu":
         return qmm_packed_bias_plain(x, packed, scales, gbias, zero=zero, gsize=gsize)
@@ -569,6 +589,8 @@ def _int8(x, levels, scales, gbias, gsize, name, code):
 def qmm_int8(x: torch.Tensor, levels: torch.Tensor, scales: torch.Tensor, *,
              gsize: int) -> torch.Tensor:
     """K6, unpacked int8 levels at any row count: f32 [B, N]."""
+    if _tracing():
+        return _op("qmm_int8", x, levels, scales, gsize)
     code = _check(x, levels, [scales], packed=False, gsize=gsize)
     if x.device.type == "cpu":
         return qmm_int8_plain(x, levels, scales, gsize=gsize)
@@ -578,6 +600,8 @@ def qmm_int8(x: torch.Tensor, levels: torch.Tensor, scales: torch.Tensor, *,
 def qmm_int8_bias(x: torch.Tensor, levels: torch.Tensor, scales: torch.Tensor,
                   gbias: torch.Tensor, *, gsize: int) -> torch.Tensor:
     """K6b, unpacked int8 levels with the affine bias seed: f32 [B, N]."""
+    if _tracing():
+        return _op("qmm_int8_bias", x, levels, scales, gbias, gsize)
     code = _check(x, levels, [scales, gbias], packed=False, gsize=gsize)
     if x.device.type == "cpu":
         return qmm_int8_bias_plain(x, levels, scales, gbias, gsize=gsize)
@@ -588,6 +612,8 @@ def quantize_q8x(x: torch.Tensor, gsize: int = 32):
     """K7's activation quantizer as a pass of its own (q8x_quantize_kernel,
     whose device function K7's decode form runs inside it): (xq int8 [B, K],
     d f32 [B, K/gsize]), bit-identical to ``quantize_q8x_plain``."""
+    if _tracing():
+        return _op("quantize_q8x", x, gsize)
     if gsize not in (16, 32):
         raise NotImplementedError(f"{gsize}-groups: the kernels take 16 and 32")
     if x.dim() != 2 or x.dtype != torch.float32 or x.shape[1] % 64:
@@ -612,6 +638,8 @@ def qmm_packed_q8x(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor, 
     """K7 at any row count (the decode skeleton with the activations
     quantized inside it at 32 rows or fewer, the shared tile's q8 mode
     above): f32 [B, N]."""
+    if _tracing():
+        return _op("qmm_packed_q8x", x, packed, scales, zero, gsize)
     code = _check(x, packed, [scales], packed=True, gsize=gsize)
     if x.device.type == "cpu":
         return qmm_packed_q8x_plain(x, packed, scales, zero=zero, gsize=gsize)

@@ -18,7 +18,7 @@ from typing import Callable
 import numpy as np
 
 from . import blockq, kquants, kquants64
-from .types import K_QUANTS, GGMLType, type_traits
+from .types import BLOCK_Q4_0, K_QUANTS, GGMLType, type_traits
 
 F32 = np.float32
 
@@ -136,8 +136,18 @@ def _fns(t: GGMLType, qk_k: int):
 
 
 def quantize(x: np.ndarray, t: GGMLType, qk_k: int = 256) -> np.ndarray:
-    """Quantize float32 rows (..., k) to blocks of type t (..., k / block)."""
-    return _fns(t, qk_k)[0](x)
+    """Quantize float32 rows (..., k) to blocks of type t (..., k / block).
+    A 2-D q4_0 input with rows of whole 32-groups takes the C++ quantizer
+    (native/) when it is built, bit for bit the numpy one."""
+    fn = _fns(t, qk_k)[0]
+    if t == GGMLType.Q4_0 and getattr(x, "ndim", 0) == 2 and x.shape[1] % 32 == 0:
+        from .. import native
+
+        raw = native.quantize_q4_0(np.asarray(x, np.float32))
+        if raw is not None:
+            return raw.reshape(x.shape[0], -1).view(BLOCK_Q4_0).reshape(
+                x.shape[0], x.shape[1] // 32)
+    return fn(x)
 
 
 def dequantize(blocks: np.ndarray, t: GGMLType, qk_k: int = 256) -> np.ndarray:

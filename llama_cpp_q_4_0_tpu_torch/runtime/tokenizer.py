@@ -48,8 +48,16 @@ class Vocab:
 
 
 class Tokenizer:
-    def __init__(self, vocab: Vocab):
+    def __init__(self, vocab: Vocab, use_native: bool | None = None):
+        """use_native None or True: the C++ tokenizer (native/) when it is
+        built, which gives the same ids; False: always the Python one."""
         self.vocab = vocab
+        self._native = None
+        if use_native is not False:
+            from .. import native
+
+            if native.available():
+                self._native = native.NativeVocab(vocab.tokens, vocab.scores)
 
     def tokenize(self, text: str | bytes, bos: bool = False) -> list[int]:
         if isinstance(text, str):
@@ -58,6 +66,8 @@ class Tokenizer:
             # empty input returns NO tokens, not even BOS — the reference
             # early-returns before the bos push (llama.cpp:1788-1790)
             return []
+        if self._native is not None:
+            return self._native.tokenize(bytes(text), bos)
         out: list[int] = []
         if bos:
             out.append(TOKEN_BOS)

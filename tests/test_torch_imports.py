@@ -18,6 +18,7 @@ for m in mods:
 leaked = sorted(m for m in sys.modules
                 if m == "jax" or m.startswith("jax.")
                 or m == "optax" or m.startswith("optax.")
+                or m == "ml_dtypes" or m.startswith("ml_dtypes.")
                 or m == "llama_cpp_q_4_0_tpu"
                 or m.startswith("llama_cpp_q_4_0_tpu."))
 
@@ -66,8 +67,7 @@ def _probe(tmp_path):
 
 def test_port_imports_no_jax_and_no_jax_package(tmp_path):
     """Every module of the port, kernel modules included, imports without
-    jax, optax (the card's machine has neither), the JAX package, nvcc or a
-    card."""
+    jax, optax, ml_dtypes, the JAX package, nvcc or a card."""
     out = _probe(tmp_path)
     assert out["leaked"] == []
     for m in ("ops.qmm", "ops.flash_prefill", "ops.mha_decode", "ops.stream",
@@ -84,7 +84,9 @@ def test_port_imports_no_jax_and_no_jax_package(tmp_path):
               "training.stacked", "training.rwkv_opt", "training.tree", "formats.export",
               "utils.memory", "cli.train", "parallel", "parallel.mesh",
               "parallel.distributed", "parallel.shard", "parallel.tp",
-              "parallel.ring_attention", "parallel.pipeline", "parallel.mesh_train"):
+              "parallel.ring_attention", "parallel.pipeline", "parallel.mesh_train",
+              "native", "formats.convert_hf", "cli.convert", "utils.profiling",
+              "utils.compile_cache", "runtime.export", "cli.export_graph", "ops.library"):
         assert f"llama_cpp_q_4_0_tpu_torch.{m}" in out["mods"], m
     if not out["cuda"]:
         # entry points refuse to run on the CPU unless asked to
